@@ -1,28 +1,41 @@
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's two paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
-The main path is the Recommendation engine: ALS trains on ML-20M-shaped
-ratings (137,931 users x 27,027 items, 20M ratings, rank 64) through the
-hand-written CUDA Gauss-Jordan solve kernel, the trained model is served
-by the port's query server, and 64 ``POST /queries.json`` requests are
-checked against a float64 numpy top-10 of the same factors.
+The Recommendation path: ALS trains on ML-20M-shaped ratings (137,931
+users x 27,027 items, 20M ratings, rank 64) through the hand-written CUDA
+Gauss-Jordan solve kernel, the trained model is served by the port's
+query server, and 64 ``POST /queries.json`` requests are checked against
+a float64 numpy top-10 of the same factors.
+
+The Two-Tower path: the towers train on the JAX package bench's
+planted-preference pairs (1M pairs over 20,000 users x 10,000 items,
+dim 64, batch 8192, 10 epochs) through the hand-written CUDA fused
+in-batch softmax-CE kernels (forward and backward), and the trained towers
+answer 64 queries, checked against a float64 numpy top-10 with the seen
+filter.
 
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. device — the card's name, power limit and count; no CUDA device fails.
-2. build  — every kernel of the path built from ``predictionio_tpu_torch/ops/csrc``
-   (``nvcc -Xptxas -v``: register and shared-memory lines printed).
+2. build  — every kernel built from ``predictionio_tpu_torch/ops/csrc``, one
+   ``nvcc`` per source, all at once (``-Xptxas -v``: register and
+   shared-memory lines printed).
 3. kernel — each kernel held against its plain PyTorch version and the
-   library call on ALS-shaped SPD batches made on the card; times by CUDA
-   events; one ``{"kernels": [...]}`` line.
-4. train  — the launch counts are set to 0, ``ALSAlgorithm.train`` runs
-   on the card, then
-5. serve  — the query server answers 64 queries; the counts are read and
-   checked against the bucket plan; then one user half-sweep is held
+   library call at the shapes its path gives it, on inputs made on the
+   card; times by CUDA events.
+4. ALS    — the launch counts are set to 0, ``ALSAlgorithm.train`` runs on
+   the card, the query server answers 64 queries, and the counts are read
+   and checked against the bucket plan; then one user half-sweep is held
    against the same half-sweep with the plain solve, and one more sweep
    runs under torch.profiler: device time by kernel and busy share.
-6. the last line: ``{"ok": true, "device": {...}}``.
+5. Two-Tower — the counts are set to 0, ``TwoTowerAlgorithm.train`` runs
+   on the card and the counts are read and checked against the step plan;
+   the loss must fall below 0.8x its first value and recall@10 on held-out
+   pairs exceed 5x random; the query server answers 64 queries; one
+   steady training step runs under torch.profiler.
+6. a ``[summary]`` line, the ``{"kernels": [...]}`` line, the card's
+   ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Imports only the port, torch, numpy and the standard library.
 """
@@ -34,6 +47,7 @@ import subprocess
 import sys
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -48,7 +62,16 @@ from predictionio_tpu_torch.ops.als import (
     planned_solves,
     to_device_buckets,
 )
+from predictionio_tpu_torch.ops.fused_ce import (
+    fused_ce_bwd_cuda,
+    fused_ce_bwd_reference,
+    fused_ce_fwd_cuda,
+    fused_ce_fwd_reference,
+    fused_inbatch_ce,
+)
 from predictionio_tpu_torch.ops.solve import cholesky_solve, gj_solve_cuda, gj_solve_reference
+from predictionio_tpu_torch.ops.twotower import AdamState, TwoTowerConfig, inbatch_loss, l2_normalize, train_step
+from predictionio_tpu_torch.templates import twotower as tt
 from predictionio_tpu_torch.templates.recommendation.engine import (
     ALSAlgorithm,
     ALSAlgorithmParams,
@@ -56,12 +79,19 @@ from predictionio_tpu_torch.templates.recommendation.engine import (
     TrainingData,
 )
 from predictionio_tpu_torch.utils.movielens import ml20m_shaped
+from predictionio_tpu_torch.utils.synthetic import distinct_pairs, planted_pairs
 from predictionio_tpu_torch.workflow.serving import QueryServer
 
-#: H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and
-#: float32 (non-tensor-core) FLOP/s
+#: H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32
+#: (non-tensor-core) FLOP/s and dense bf16 tensor-core FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+
+#: exponentials per SM per clock on compute capability 9.0 (the MUFU's
+#: base-2 exponential; CUDA C++ Programming Guide, arithmetic instruction
+#: throughput table); times SMs and the max SM clock read on the card
+MUFU_PER_SM_PER_CLOCK = 16
 
 #: the main path: ML-20M's 20M ratings, the flagship 10 sweeps at rank 64
 #: (K % 8 == 0, so the kernel is on the path), 64 queries of top-10
@@ -79,13 +109,47 @@ MAX_RESIDUAL = 1e-4
 #: chunk of the ML-20M run, a hot group, and the K=128 / K=256 regimes
 SOLVE_SHAPES = ((32768, 64), (21840, 64), (2049, 64), (4096, 128), (64, 256))
 
-#: the kernels of the main path: wrapper, plain version, library call
+#: the Two-Tower path: the JAX package bench's configuration
+#: (bench.py::_bench_twotower at its accelerator scale)
+TT_NNZ = 1_000_000
+TT_DIM = 64
+TT_BATCH = 8192
+TT_EPOCHS = 10
+TT_INV_TEMP = 10.0  # temperature 0.1
+TT_RECALL_PROBE = 2048
+
+#: [B, D] fused-CE shapes: the main path, the JAX package's on-TPU test
+#: (tests/test_pallas_tpu.py), and twice the main path's batch
+FUSED_CE_SHAPES = ((8192, 64), (1024, 32), (16384, 64))
+
+#: fused CE kernel vs plain: row sums relative (largest and mean), gradient
+#: passes against max|plain|. The kernel and cuBLAS sum a logit's dot
+#: product in different orders, so a logit on a bf16 rounding boundary may
+#: round to the other neighbour and move its exponential by up to 6.5 %
+#: (tests/test_torch_gpu.py)
+FUSED_SUM_RTOL = 2e-3
+FUSED_SUM_MEAN_RTOL = 5e-5
+FUSED_GRAD_ATOL = 5e-3
+
+#: the kernels of both paths: wrapper, plain version, library call
 KERNELS = {
     "gj_solve": {
         "route": "cuda",
         "source": "predictionio_tpu_torch/ops/csrc/gj_solve.cu",
         "replaces": "predictionio_tpu/ops/solve.py:95",
         "wrapper": gj_solve_cuda,
+    },
+    "fused_ce_fwd": {
+        "route": "cuda",
+        "source": "predictionio_tpu_torch/ops/csrc/fused_ce.cu",
+        "replaces": "predictionio_tpu/ops/fused_ce.py:82",
+        "wrapper": fused_ce_fwd_cuda,
+    },
+    "fused_ce_bwd": {
+        "route": "cuda",
+        "source": "predictionio_tpu_torch/ops/csrc/fused_ce.cu",
+        "replaces": "predictionio_tpu/ops/fused_ce.py:111",
+        "wrapper": fused_ce_bwd_cuda,
     },
 }
 
@@ -104,21 +168,31 @@ def read_launch_counts() -> dict:
 
 
 # --------------------------------------------------------------- 1. device
+def _smi(query: str) -> str:
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()
+    return out[0] if out else ""
+
+
 def phase_device() -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this script runs on the card only")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()
+    max_sm_mhz = float(_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     info = {
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
-        "smi": smi[0] if smi else "",
+        "smi": _smi("name,power.limit"),
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
+        "sms": sms,
+        "max_sm_mhz": max_sm_mhz,
+        "exp_per_s": MUFU_PER_SM_PER_CLOCK * sms * max_sm_mhz * 1e6,
     }
-    log(f"[device] {info['kind']} x{info['count']}  torch {info['torch']}  cuda {info['cuda']}")
+    log(f"[device] {info['kind']} x{info['count']}  torch {info['torch']}  cuda {info['cuda']}  "
+        f"{sms} SMs, max SM clock {max_sm_mhz:g} MHz")
     log(info["smi"])  # nvidia-smi: name, power.limit
     return info
 
@@ -126,11 +200,14 @@ def phase_device() -> dict:
 # ---------------------------------------------------------------- 2. build
 def phase_build() -> None:
     t0 = time.perf_counter()
-    for name in KERNELS:
-        for line in _build.build(name).splitlines():
+    names = sorted(_build.SOURCES)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        outputs = list(pool.map(_build.build, names))
+    for name, out in zip(names, outputs):
+        for line in out.splitlines():
             if "ptxas" in line and ("registers" in line or "smem" in line or "spill" in line or "Compiling" in line):
                 log(f"[build] {name}: {line.strip()}")
-    log(f"[build] {sorted(KERNELS)} built in {time.perf_counter() - t0:.3f} s into {_build.BUILD_DIR}")
+    log(f"[build] {names} built in {time.perf_counter() - t0:.3f} s into {_build.BUILD_DIR}")
 
 
 # ---------------------------------------------------------------- 3. kernel
@@ -219,7 +296,112 @@ def phase_kernel(device) -> list:
     return rows
 
 
-# ----------------------------------------------------------------- 4. train
+def unit_towers(B: int, D: int, seed: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """L2-normalised random towers ``[B, D]`` made on the device."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ue = l2_normalize(torch.randn((B, D), generator=gen, device=device))
+    ie = l2_normalize(torch.randn((B, D), generator=gen, device=device))
+    return ue.contiguous(), ie.contiguous()
+
+
+def fused_ce_bound(B: int, D: int, backward: bool, exp_per_s: float) -> tuple[float, str, str]:
+    """Least time for one call of the TPU kernel's work (its CostEstimate:
+    2·B²·D FLOP forward, 6·B²·D backward, B² exponentials each), the
+    larger of FLOP over the bf16 tensor-core peak, exponentials over the
+    MUFU rate, and bytes (towers and sums read once, outputs written once)
+    over the memory rate. Returns (ms, "bytes"/"operations", the term)."""
+    nbytes = 4 * (2 * B * D + 2 * B + (2 * B * D if backward else 0))
+    terms = {
+        "bytes": nbytes / PEAK_BYTES_PER_S,
+        "flop": (6 if backward else 2) * B * B * D / PEAK_BF16_FLOPS,
+        "exp": B * B / exp_per_s,
+    }
+    term = max(terms, key=terms.get)
+    return terms[term] * 1e3, "bytes" if term == "bytes" else "operations", term
+
+
+def loss_and_grads(ue: torch.Tensor, ie: torch.Tensor, loss_fn) -> tuple[float, tuple]:
+    u = ue.clone().requires_grad_(True)
+    i = ie.clone().requires_grad_(True)
+    loss = loss_fn(u, i)
+    return float(loss.detach()), torch.autograd.grad(loss, (u, i))
+
+
+def phase_fused_kernel(device, exp_per_s: float) -> list:
+    """Both fused-CE kernels against their plain versions, and the fused
+    loss against the unfused path, at each of ``FUSED_CE_SHAPES``."""
+    T = TT_INV_TEMP
+    rows = []
+    for n, (B, D) in enumerate(FUSED_CE_SHAPES):
+        ue, ie = unit_towers(B, D, 200 + n, device)
+        rs, cs = fused_ce_fwd_cuda(ue, ie, T), fused_ce_fwd_cuda(ie, ue, T)
+        due, die = fused_ce_bwd_cuda(ue, ie, rs, cs, T), fused_ce_bwd_cuda(ie, ue, cs, rs, T)
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(t).all()) for t in (rs, cs, due, die)):
+            raise RuntimeError(f"fused_ce: non-finite output at [{B},{D}]")
+        sums = [(rs, fused_ce_fwd_reference(ue, ie, T)), (cs, fused_ce_fwd_reference(ie, ue, T))]
+        grads = [(due, fused_ce_bwd_reference(ue, ie, rs, cs, T)), (die, fused_ce_bwd_reference(ie, ue, cs, rs, T))]
+        sum_rel = max(float(((k - p).abs() / p.abs()).max()) for k, p in sums)
+        sum_mean_rel = max(float(((k - p).abs() / p.abs()).mean()) for k, p in sums)
+        grad_rel = max(float((k - p).abs().max() / p.abs().max()) for k, p in grads)
+        fwd_abs = max(float((k - p).abs().max()) for k, p in sums)
+        bwd_abs = max(float((k - p).abs().max()) for k, p in grads)
+        del sums, grads
+        # the loss and its gradients against the unfused path, at the JAX
+        # package's on-TPU bar (tests/test_pallas_tpu.py)
+        loss, g = loss_and_grads(ue, ie, lambda u, i: fused_inbatch_ce(u, i, T))
+        ref, g_ref = loss_and_grads(ue, ie, lambda u, i: inbatch_loss(u, i, T, "bfloat16", "off"))
+        loss_ok = abs(loss - ref) < 5e-3 * max(1.0, abs(ref))
+        grads_ok = all(
+            bool(torch.allclose(a, b, rtol=5e-2, atol=5e-3 * float(b.abs().max()))) for a, b in zip(g, g_ref)
+        )
+        off_err = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(g, g_ref))
+        del g, g_ref
+        torch.cuda.empty_cache()
+
+        reps = 20 if B <= 8192 else 10
+        fwd_ms = time_ms(lambda: (fused_ce_fwd_cuda(ue, ie, T), fused_ce_fwd_cuda(ie, ue, T)), reps)
+        bwd_ms = time_ms(lambda: (fused_ce_bwd_cuda(ue, ie, rs, cs, T), fused_ce_bwd_cuda(ie, ue, cs, rs, T)), reps)
+        fwd_plain_ms = time_ms(lambda: (fused_ce_fwd_reference(ue, ie, T), fused_ce_fwd_reference(ie, ue, T)), 3)
+        bwd_plain_ms = time_ms(
+            lambda: (fused_ce_bwd_reference(ue, ie, rs, cs, T), fused_ce_bwd_reference(ie, ue, cs, rs, T)), 3
+        )
+        # the library calls: the unfused loss (two logit products and two
+        # cross-entropies), and its backward by autograd
+        fwd_lib_ms = time_ms(lambda: inbatch_loss(ue, ie, T, "bfloat16", "off"), 5)
+        u, i = ue.clone().requires_grad_(True), ie.clone().requires_grad_(True)
+        lib_loss = inbatch_loss(u, i, T, "bfloat16", "off")
+        bwd_lib_ms = time_ms(lambda: torch.autograd.grad(lib_loss, (u, i), retain_graph=True), 5)
+        del lib_loss, u, i
+        torch.cuda.empty_cache()
+
+        row = {"shape": [B, D], "loss": loss, "loss_unfused": ref, "grad_err_vs_unfused": off_err,
+               "sum_mean_rel_err": sum_mean_rel}
+        for key, ms, plain_ms, lib_ms, err_abs, err_rel, backward in (
+            ("fwd", fwd_ms, fwd_plain_ms, fwd_lib_ms, fwd_abs, sum_rel, False),
+            ("bwd", bwd_ms, bwd_plain_ms, bwd_lib_ms, bwd_abs, grad_rel, True),
+        ):
+            bound_ms, bound_by, term = fused_ce_bound(B, D, backward, exp_per_s)
+            row[key] = {
+                "max_abs_err": err_abs, "max_rel_err": err_rel, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by, "bound_term": term,
+            }
+        log(f"[kernel] fused_ce {json.dumps(row)}")
+        if not (sum_rel <= FUSED_SUM_RTOL and sum_mean_rel <= FUSED_SUM_MEAN_RTOL and grad_rel <= FUSED_GRAD_ATOL
+                and loss_ok and grads_ok):
+            raise RuntimeError(
+                f"fused_ce disagrees at [{B},{D}]: sums rel err {sum_rel:.3g}, mean {sum_mean_rel:.3g} "
+                f"(limits {FUSED_SUM_RTOL:g}, {FUSED_SUM_MEAN_RTOL:g}), "
+                f"gradient passes {grad_rel:.3g} of max (limit {FUSED_GRAD_ATOL:g}), loss {loss} vs unfused "
+                f"{ref}, gradients within the on-TPU bar: {grads_ok}"
+            )
+        rows.append(row)
+        del ue, ie, rs, cs, due, die
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ----------------------------------------------------------------- 4. ALS train
 def train_rmse(U: torch.Tensor, V: torch.Tensor, r: torch.Tensor, c: torch.Tensor, v: torch.Tensor) -> float:
     se = torch.zeros((), dtype=torch.float64, device=U.device)
     step = 1 << 22
@@ -286,11 +468,17 @@ def phase_train(device, nnz: int, sweeps: int, rank: int) -> dict:
     }
 
 
-# ----------------------------------------------------------------- 5. serve
-def reference_top(U64: np.ndarray, V64: np.ndarray, uidx: int, k: int) -> tuple[np.ndarray, np.ndarray]:
+# ----------------------------------------------------------------- 4. ALS serve
+def reference_top(
+    U64: np.ndarray, V64: np.ndarray, uidx: int, k: int, exclude: np.ndarray | None = None
+) -> tuple[np.ndarray, np.ndarray]:
+    """The float64 top-k of one user, ties to the lower index, without the
+    items in ``exclude``; and all the user's scores."""
     scores = V64 @ U64[uidx]
-    order = np.lexsort((np.arange(scores.size), -scores))[:k]
-    return order, scores
+    order = np.lexsort((np.arange(scores.size), -scores))
+    if exclude is not None and exclude.size:
+        order = order[~np.isin(order, exclude)]
+    return order[:k], scores
 
 
 def check_ranking(got: list, ref: np.ndarray, scores: np.ndarray, rtol: float = 1e-5) -> bool:
@@ -304,12 +492,15 @@ def check_ranking(got: list, ref: np.ndarray, scores: np.ndarray, rtol: float = 
     return True
 
 
-def phase_serve(trained: dict, n_queries: int, k: int, card: str) -> dict:
-    algo, td = trained["algo"], trained["td"]
-    U64 = trained["model"].user_factors.astype(np.float64)
-    V64 = trained["model"].item_factors.astype(np.float64)
-    model = algo.prepare_model_for_serving(trained["model"])
-    rng = np.random.default_rng(11)
+def phase_serve(algo, model, td, U64: np.ndarray, V64: np.ndarray, n_queries: int, k: int, card: str,
+                seed: int = 11) -> dict:
+    """``n_queries`` single queries of top-``k`` over HTTP for distinct
+    random users (ids ``str(i)`` for index ``i``), each held against the
+    float64 numpy top-``k`` of ``U64``/``V64`` without the user's seen
+    items (``td.seen``, where the template filters them); then the same
+    queries through ``predict`` alone."""
+    seen = getattr(td, "seen", None)
+    rng = np.random.default_rng(seed)
     users = rng.choice(len(td.user_index), size=n_queries, replace=False)
     lat = []
     bad = []
@@ -328,7 +519,10 @@ def phase_serve(trained: dict, n_queries: int, k: int, card: str) -> dict:
             if status != 200:
                 raise RuntimeError(f"serve: status {status} for user {u}")
             got = [td.item_index[s["item"]] for s in payload["itemScores"]]
-            ref, scores = reference_top(U64, V64, int(u), k)
+            exclude = None
+            if seen is not None:
+                exclude = np.array([td.item_index[i] for i in seen.get(str(u), ())], dtype=np.int64)
+            ref, scores = reference_top(U64, V64, int(u), k, exclude)
             if not check_ranking(got, ref, scores):
                 bad.append((int(u), got, ref.tolist()))
     if bad:
@@ -338,14 +532,23 @@ def phase_serve(trained: dict, n_queries: int, k: int, card: str) -> dict:
     pred = []
     for u in users:
         t0 = time.perf_counter()
-        algo.predict(model, Query(user=str(u), num=k))
+        algo.predict(model, algo.query_class(user=str(u), num=k))
         pred.append((time.perf_counter() - t0) * 1e3)
     p50, p99 = np.percentile(lat, [50, 99])
     pp50, pp99 = np.percentile(pred, [50, 99])
-    log(f"[serve] {n_queries} POST /queries.json, all 200, top-{k} equal float64 numpy; "
-        f"p50 {p50:.3f} ms, p99 {p99:.3f} ms; predict alone p50 {pp50:.3f} ms, p99 {pp99:.3f} ms on {card}")
+    log(f"[serve] {type(algo).__name__}: {n_queries} POST /queries.json, all 200, top-{k} equal float64 numpy"
+        f"{' without seen items' if seen is not None else ''}; p50 {p50:.3f} ms, p99 {p99:.3f} ms; "
+        f"predict alone p50 {pp50:.3f} ms, p99 {pp99:.3f} ms on {card}")
     return {"p50_ms": float(p50), "p99_ms": float(p99),
-            "predict_p50_ms": float(pp50), "predict_p99_ms": float(pp99), "model": model}
+            "predict_p50_ms": float(pp50), "predict_p99_ms": float(pp99)}
+
+
+def phase_als_serve(trained: dict, n_queries: int, k: int, card: str) -> dict:
+    algo, td = trained["algo"], trained["td"]
+    U64 = trained["model"].user_factors.astype(np.float64)
+    V64 = trained["model"].item_factors.astype(np.float64)
+    model = algo.prepare_model_for_serving(trained["model"])
+    return dict(phase_serve(algo, model, td, U64, V64, n_queries, k, card), model=model)
 
 
 def phase_half_sweep(trained: dict, device, rank: int) -> tuple:
@@ -372,20 +575,16 @@ def phase_half_sweep(trained: dict, device, rank: int) -> tuple:
     return uf, vf, ub, ib
 
 
-def phase_profile(uf, vf, ub, ib, device) -> dict:
-    """Where one steady ALS sweep spends the card's time: one sweep under
-    torch.profiler after a warm-up sweep; device time by kernel, and the
-    device's busy share of the sweep's wall time."""
+def profile_once(fn, label: str) -> dict:
+    """Device time by kernel and the device's busy share of the wall time
+    of one call of ``fn`` (which ends in a synchronise) under
+    torch.profiler, after one warm-up call."""
     from torch.profiler import ProfilerActivity, profile
 
-    def sweep() -> None:
-        als_sweep(uf.clone(), vf.clone(), ub, ib, 0.01, False, 1.0)
-        torch.cuda.synchronize(device)
-
-    sweep()
+    fn()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sweep()
+        fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = []
     for evt in prof.key_averages():
@@ -397,15 +596,144 @@ def phase_profile(uf, vf, ub, ib, device) -> dict:
     kernels.sort(reverse=True)
     busy_ms = sum(ms for ms, _, _ in kernels)
     if not kernels:
-        log(f"[profile] sweep wall {wall_ms:.3f} ms; device time not measured (the profiler saw no CUDA kernels)")
-        return {"sweep_wall_ms": wall_ms, "busy_share": None}
+        log(f"[profile] {label} wall {wall_ms:.3f} ms; device time not measured (the profiler saw no CUDA kernels)")
+        return {"wall_ms": wall_ms, "busy_share": None}
     out = {
-        "sweep_wall_ms": wall_ms, "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
+        "what": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
         "top": [{"kernel": name[:90], "ms": ms, "calls": n, "share": ms / busy_ms}
                 for ms, n, name in kernels[:8]],
     }
     log(f"[profile] {json.dumps(out)}")
     return out
+
+
+def phase_profile(uf, vf, ub, ib, device) -> dict:
+    """Where one steady ALS sweep spends the card's time."""
+
+    def sweep() -> None:
+        als_sweep(uf.clone(), vf.clone(), ub, ib, 0.01, False, 1.0)
+        torch.cuda.synchronize(device)
+
+    return profile_once(sweep, "one steady ALS sweep")
+
+
+# ------------------------------------------------------------ 5. Two-Tower
+def tt_training_data(nnz: int):
+    """The bench's planted pairs, deduplicated as the Two-Tower DataSource
+    does, as a ``TrainingData`` (ids ``str(i)`` for every index) with each
+    user's seen items; and the held-out pairs."""
+    r_tr, c_tr, r_te, c_te, num_users, num_items = planted_pairs(nnz, seed=11)
+    rows, cols = distinct_pairs(r_tr, c_tr, num_items)
+    starts = np.flatnonzero(np.r_[True, rows[1:] != rows[:-1]])
+    item_ids = np.array([str(i) for i in range(num_items)], dtype=object)
+    seen = {
+        str(u): set(group)
+        for u, group in zip(rows[starts].tolist(), np.split(item_ids[cols], starts[1:]))
+    }
+    td = tt.TrainingData(
+        rows=rows, cols=cols,
+        user_index=BiMap.string_index(str(u) for u in range(num_users)),
+        item_index=BiMap.string_index(item_ids.tolist()),
+        seen=seen,
+    )
+    return td, r_te, c_te, num_items
+
+
+def recall_at_10(user_vecs: np.ndarray, item_vecs: np.ndarray, r_te, c_te, device) -> float:
+    """Share of the first ``TT_RECALL_PROBE`` held-out pairs whose item is in
+    the user's top-10 over all items (bench.py::_bench_twotower)."""
+    probe = min(TT_RECALL_PROBE, r_te.size)
+    pu = torch.as_tensor(r_te[:probe], device=device)
+    pi = torch.as_tensor(c_te[:probe], device=device)
+    uv = torch.as_tensor(user_vecs, device=device)
+    iv = torch.as_tensor(item_vecs, device=device)
+    top = torch.topk(uv[pu] @ iv.T, 10, dim=1).indices
+    return float((top == pi[:, None]).any(dim=1).float().mean())
+
+
+def phase_tt_train(device, nnz: int, dim: int, batch: int, epochs: int) -> dict:
+    t0 = time.perf_counter()
+    td, r_te, c_te, num_items = tt_training_data(nnz)
+    n = td.rows.size
+    log(f"[tt-train] data: {len(td.user_index)} users x {num_items} items, {nnz} pairs, {n} distinct "
+        f"({time.perf_counter() - t0:.3f} s)")
+    params = tt.TwoTowerParams(embedding_dim=dim, batch_size=batch, epochs=epochs,
+                               learning_rate=0.05, temperature=1.0 / TT_INV_TEMP, seed=2)
+    algo = tt.TwoTowerAlgorithm(params, device=device)
+    steps = epochs * -(-n // batch)
+    torch.cuda.reset_peak_memory_stats(device)
+    t1 = time.perf_counter()
+    model = algo.train(td)
+    torch.cuda.synchronize(device)
+    wall_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated(device)
+    if not (np.isfinite(model.user_vecs).all() and np.isfinite(model.item_vecs).all()):
+        raise RuntimeError("tt-train: non-finite towers")
+    if model.user_vecs.shape != (len(td.user_index), dim) or model.item_vecs.shape != (num_items, dim):
+        raise RuntimeError(f"tt-train: tower shapes {model.user_vecs.shape}, {model.item_vecs.shape}")
+    hist = model.loss_history
+    loss_first, loss_last = hist[0][1], hist[-1][1]
+    if not loss_last < 0.8 * loss_first:
+        raise RuntimeError(f"tt-train: loss did not fall below 0.8x its first value ({loss_first} -> {loss_last})")
+    recall = recall_at_10(model.user_vecs, model.item_vecs, r_te, c_te, device)
+    random_recall = 10.0 / num_items
+    if not recall > 5 * random_recall:
+        raise RuntimeError(f"tt-train: recall@10 {recall} is not above 5x random ({random_recall})")
+    train_s = model.timings["train_seconds"]
+    out = {
+        "pairs": n, "steps": steps, "train_s": train_s, "wall_s": wall_s,
+        "interactions_per_s": n * epochs / train_s, "steps_per_s": steps / train_s,
+        "loss_first": loss_first, "loss_last": loss_last, "recall_at_10": recall,
+        "random_recall_at_10": random_recall, "peak_gib": peak / 2**30, "timings": dict(model.timings),
+    }
+    log(f"[tt-train] {json.dumps(out)}")
+    return dict(out, algo=algo, model=model, td=td, params=params,
+                expected_launches={"fused_ce_fwd": 2 * steps, "fused_ce_bwd": 2 * steps})
+
+
+def phase_tt_serve(trained: dict, n_queries: int, k: int, card: str) -> dict:
+    algo, td = trained["algo"], trained["td"]
+    U64 = trained["model"].user_vecs.astype(np.float64)
+    V64 = trained["model"].item_vecs.astype(np.float64)
+    model = algo.prepare_model_for_serving(trained["model"])
+    return dict(phase_serve(algo, model, td, U64, V64, n_queries, k, card, seed=12), model=model)
+
+
+def phase_tt_profile(trained: dict, device) -> dict:
+    """Where one steady Two-Tower training step spends the card's time: a
+    step on a random batch of the pairs, from the trained towers."""
+    p, model, td = trained["params"], trained["model"], trained["td"]
+    cfg = TwoTowerConfig(dim=p.embedding_dim, batch_size=p.batch_size, learning_rate=p.learning_rate,
+                         temperature=p.temperature, seed=p.seed)
+    tables = [model.user_vecs.clone().requires_grad_(True), model.item_vecs.clone().requires_grad_(True)]
+    state = AdamState(tables)
+    gen = torch.Generator(device=device).manual_seed(3)
+    pick = torch.randint(0, td.rows.size, (p.batch_size,), generator=gen, device=device)
+    u_ids = torch.as_tensor(td.rows, device=device)[pick]
+    i_ids = torch.as_tensor(td.cols, device=device)[pick]
+
+    def step() -> None:
+        train_step(tables, state, u_ids, i_ids, cfg)
+        torch.cuda.synchronize(device)
+
+    return profile_once(step, "one steady Two-Tower training step")
+
+
+def check_launches(path: str, launches: dict, expected: dict) -> None:
+    log(f"[{path}] launches on the path: {json.dumps({k: launches[k] for k in expected})}, "
+        f"plan {json.dumps(expected)}")
+    for name, want in expected.items():
+        if launches[name] != want or launches[name] == 0:
+            raise RuntimeError(f"{path}: {name} launched {launches[name]} times, the plan says {want}")
+
+
+def kernel_row(name: str, launches: int, m: dict) -> dict:
+    spec = KERNELS[name]
+    return {
+        "name": name, "route": spec["route"], "source": spec["source"], "replaces": spec["replaces"],
+        "launches": launches, "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
+        "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+    }
 
 
 def main() -> int:
@@ -414,32 +742,32 @@ def main() -> int:
     device = torch.device("cuda", 0)
     phase_build()
     solve_rows = phase_kernel(device)
+    fused_rows = phase_fused_kernel(device, info["exp_per_s"])
 
+    # the Recommendation path
     reset_launch_counts()
     trained = phase_train(device, NNZ, SWEEPS, RANK)
-    served = phase_serve(trained, QUERIES, TOP_K, info["kind"])
-    launches = read_launch_counts()
-    log(f"[train] gj_solve launches on the main path: {launches['gj_solve']}, "
-        f"bucket plan implies {trained['expected_launches']}")
-    if launches["gj_solve"] != trained["expected_launches"] or launches["gj_solve"] == 0:
-        raise RuntimeError("gj_solve launch count does not match the bucket plan")
+    served = phase_als_serve(trained, QUERIES, TOP_K, info["kind"])
+    als_launches = read_launch_counts()
+    check_launches("train", als_launches, {"gj_solve": trained["expected_launches"]})
     trained["model"] = served["model"]
     profile = phase_profile(*phase_half_sweep(trained, device, RANK), device)
 
-    main_shape = solve_rows[0]
-    kernels = [{
-        "name": name,
-        "route": spec["route"],
-        "source": spec["source"],
-        "replaces": spec["replaces"],
-        "launches": launches[name],
-        "max_abs_err": main_shape["max_abs_err"],
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
-        "library_ms": main_shape["library_ms"],
-    } for name, spec in KERNELS.items()]
+    # the Two-Tower path
+    reset_launch_counts()
+    tt_trained = phase_tt_train(device, TT_NNZ, TT_DIM, TT_BATCH, TT_EPOCHS)
+    tt_launches = read_launch_counts()
+    check_launches("tt-train", tt_launches, tt_trained["expected_launches"])
+    tt_served = phase_tt_serve(tt_trained, QUERIES, TOP_K, info["kind"])
+    tt_trained["model"] = tt_served["model"]
+    tt_profile = phase_tt_profile(tt_trained, device)
+
+    main_fused = fused_rows[0]  # [8192, 64], the Two-Tower path's shape
+    kernels = [
+        kernel_row("gj_solve", als_launches["gj_solve"], solve_rows[0]),
+        kernel_row("fused_ce_fwd", tt_launches["fused_ce_fwd"], main_fused["fwd"]),
+        kernel_row("fused_ce_bwd", tt_launches["fused_ce_bwd"], main_fused["bwd"]),
+    ]
     summary = {
         "card": info["smi"], "nnz": NNZ, "rank": RANK, "sweeps": len(trained["sweeps"]),
         "rmse_first": trained["sweeps"][0]["rmse"], "rmse_last": trained["sweeps"][-1]["rmse"],
@@ -448,6 +776,16 @@ def main() -> int:
         "p50_ms": served["p50_ms"], "p99_ms": served["p99_ms"],
         "predict_p50_ms": served["predict_p50_ms"], "predict_p99_ms": served["predict_p99_ms"],
         "sweep_busy_share": profile["busy_share"],
+        "tt": {
+            "pairs": tt_trained["pairs"], "dim": TT_DIM, "batch": TT_BATCH, "epochs": TT_EPOCHS,
+            "steps": tt_trained["steps"], "train_s": tt_trained["train_s"],
+            "interactions_per_s": tt_trained["interactions_per_s"], "steps_per_s": tt_trained["steps_per_s"],
+            "loss_first": tt_trained["loss_first"], "loss_last": tt_trained["loss_last"],
+            "recall_at_10": tt_trained["recall_at_10"], "peak_gib": tt_trained["peak_gib"],
+            "p50_ms": tt_served["p50_ms"], "p99_ms": tt_served["p99_ms"],
+            "predict_p50_ms": tt_served["predict_p50_ms"], "predict_p99_ms": tt_served["predict_p99_ms"],
+            "step_busy_share": tt_profile["busy_share"],
+        },
         "wall_s": time.perf_counter() - t_start,
     }
     log(f"[summary] {json.dumps(summary)}")

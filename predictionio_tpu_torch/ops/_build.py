@@ -24,7 +24,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "load"]
 _CSRC = Path(__file__).resolve().parent / "csrc"
 
 #: kernel name -> its CUDA source
-SOURCES = {"gj_solve": _CSRC / "gj_solve.cu"}
+SOURCES = {"gj_solve": _CSRC / "gj_solve.cu", "fused_ce": _CSRC / "fused_ce.cu"}
 
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
