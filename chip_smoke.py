@@ -20,10 +20,15 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. device — the card's name, power limit and count; no CUDA device fails.
 2. build  — every kernel built from ``predictionio_tpu_torch/ops/csrc``, one
    ``nvcc`` per source, all at once (``-Xptxas -v``: register and
-   shared-memory lines printed).
+   shared-memory lines printed), and the count of tensor-core ``HMMA``
+   instructions in the built fused-CE library (``cuobjdump -sass``).
 3. kernel — each kernel held against its plain PyTorch version and the
    library call at the shapes its path gives it, on inputs made on the
-   card; times by CUDA events.
+   card; device times by CUDA events, the calls queued behind a spin
+   kernel so the host's pace is not counted. The fused-CE forward is one
+   call (both sums), the backward two (``d_ue``, then ``d_ie`` with the
+   towers swapped); each row adds the achieved tensor-core FLOP/s and
+   exponentials/s.
 4. ALS    — the launch counts are set to 0, ``ALSAlgorithm.train`` runs on
    the card, the query server answers 64 queries, and the counts are read
    and checked against the bucket plan; then one user half-sweep is held
@@ -205,9 +210,19 @@ def phase_build() -> None:
         outputs = list(pool.map(_build.build, names))
     for name, out in zip(names, outputs):
         for line in out.splitlines():
-            if "ptxas" in line and ("registers" in line or "smem" in line or "spill" in line or "Compiling" in line):
+            # "N bytes spill stores" stands on a line of its own, after the entry's name
+            if "spill" in line or ("ptxas" in line and ("registers" in line or "smem" in line or "Compiling" in line)):
                 log(f"[build] {name}: {line.strip()}")
     log(f"[build] {names} built in {time.perf_counter() - t0:.3f} s into {_build.BUILD_DIR}")
+    # the fused-CE kernels' products run on the tensor cores: count HMMA
+    sass = subprocess.run(
+        [_build.cuda_tool("cuobjdump"), "-sass", str(_build.lib_path("fused_ce"))],
+        capture_output=True, text=True, timeout=120, check=True,
+    ).stdout
+    hmma = sum(1 for line in sass.splitlines() if "HMMA" in line)
+    log(f"[build] fused_ce: {hmma} HMMA instructions in the built library (cuobjdump -sass)")
+    if hmma == 0:
+        raise RuntimeError("build: the fused-CE library has no tensor-core (HMMA) instruction")
 
 
 # ---------------------------------------------------------------- 3. kernel
@@ -234,11 +249,21 @@ def residual(A: torch.Tensor, x: torch.Tensor, b: torch.Tensor) -> float:
 
 def time_ms(fn, reps: int) -> float:
     """Mean device time of one call, by CUDA events over ``reps`` calls
-    after one warm-up call."""
+    after two warm-up calls. A spin kernel holds the card while the host
+    queues the calls, so the host's own time between calls is not counted:
+    at small shapes a call's host work outlasts its kernels, and a stall of
+    the host would otherwise land in the mean."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # cycles at the SM clock (at most 2 GHz): at least twice the host's
+    # time for the calls, and 5 ms
+    torch.cuda._sleep(int(min(2.0 * reps * once + 0.005, 2.0) * 2e9))
     start.record()
     for _ in range(reps):
         fn()
@@ -334,12 +359,12 @@ def phase_fused_kernel(device, exp_per_s: float) -> list:
     rows = []
     for n, (B, D) in enumerate(FUSED_CE_SHAPES):
         ue, ie = unit_towers(B, D, 200 + n, device)
-        rs, cs = fused_ce_fwd_cuda(ue, ie, T), fused_ce_fwd_cuda(ie, ue, T)
+        rs, cs = fused_ce_fwd_cuda(ue, ie, T)
         due, die = fused_ce_bwd_cuda(ue, ie, rs, cs, T), fused_ce_bwd_cuda(ie, ue, cs, rs, T)
         torch.cuda.synchronize()
         if not all(bool(torch.isfinite(t).all()) for t in (rs, cs, due, die)):
             raise RuntimeError(f"fused_ce: non-finite output at [{B},{D}]")
-        sums = [(rs, fused_ce_fwd_reference(ue, ie, T)), (cs, fused_ce_fwd_reference(ie, ue, T))]
+        sums = list(zip((rs, cs), fused_ce_fwd_reference(ue, ie, T)))
         grads = [(due, fused_ce_bwd_reference(ue, ie, rs, cs, T)), (die, fused_ce_bwd_reference(ie, ue, cs, rs, T))]
         sum_rel = max(float(((k - p).abs() / p.abs()).max()) for k, p in sums)
         sum_mean_rel = max(float(((k - p).abs() / p.abs()).mean()) for k, p in sums)
@@ -360,9 +385,9 @@ def phase_fused_kernel(device, exp_per_s: float) -> list:
         torch.cuda.empty_cache()
 
         reps = 20 if B <= 8192 else 10
-        fwd_ms = time_ms(lambda: (fused_ce_fwd_cuda(ue, ie, T), fused_ce_fwd_cuda(ie, ue, T)), reps)
+        fwd_ms = time_ms(lambda: fused_ce_fwd_cuda(ue, ie, T), reps)
         bwd_ms = time_ms(lambda: (fused_ce_bwd_cuda(ue, ie, rs, cs, T), fused_ce_bwd_cuda(ie, ue, cs, rs, T)), reps)
-        fwd_plain_ms = time_ms(lambda: (fused_ce_fwd_reference(ue, ie, T), fused_ce_fwd_reference(ie, ue, T)), 3)
+        fwd_plain_ms = time_ms(lambda: fused_ce_fwd_reference(ue, ie, T), 3)
         bwd_plain_ms = time_ms(
             lambda: (fused_ce_bwd_reference(ue, ie, rs, cs, T), fused_ce_bwd_reference(ie, ue, cs, rs, T)), 3
         )
@@ -377,14 +402,19 @@ def phase_fused_kernel(device, exp_per_s: float) -> list:
 
         row = {"shape": [B, D], "loss": loss, "loss_unfused": ref, "grad_err_vs_unfused": off_err,
                "sum_mean_rel_err": sum_mean_rel}
-        for key, ms, plain_ms, lib_ms, err_abs, err_rel, backward in (
-            ("fwd", fwd_ms, fwd_plain_ms, fwd_lib_ms, fwd_abs, sum_rel, False),
-            ("bwd", bwd_ms, bwd_plain_ms, bwd_lib_ms, bwd_abs, grad_rel, True),
+        # what the kernels execute: the logit product over D padded to 16
+        # (2·B²·Dp) once forward and in each of the two backward launches,
+        # which add dL·b (2·B²·Dp); B² exponentials a launch
+        dp = -(-D // 16) * 16
+        for key, ms, plain_ms, lib_ms, err_abs, err_rel, backward, flop, exps in (
+            ("fwd", fwd_ms, fwd_plain_ms, fwd_lib_ms, fwd_abs, sum_rel, False, 2 * B * B * dp, B * B),
+            ("bwd", bwd_ms, bwd_plain_ms, bwd_lib_ms, bwd_abs, grad_rel, True, 8 * B * B * dp, 2 * B * B),
         ):
             bound_ms, bound_by, term = fused_ce_bound(B, D, backward, exp_per_s)
             row[key] = {
                 "max_abs_err": err_abs, "max_rel_err": err_rel, "ms": ms, "plain_ms": plain_ms,
                 "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by, "bound_term": term,
+                "tc_tflops": flop / ms / 1e9, "exp_per_s": exps / ms * 1e3,
             }
         log(f"[kernel] fused_ce {json.dumps(row)}")
         if not (sum_rel <= FUSED_SUM_RTOL and sum_mean_rel <= FUSED_SUM_MEAN_RTOL and grad_rel <= FUSED_GRAD_ATOL
@@ -688,7 +718,7 @@ def phase_tt_train(device, nnz: int, dim: int, batch: int, epochs: int) -> dict:
     }
     log(f"[tt-train] {json.dumps(out)}")
     return dict(out, algo=algo, model=model, td=td, params=params,
-                expected_launches={"fused_ce_fwd": 2 * steps, "fused_ce_bwd": 2 * steps})
+                expected_launches={"fused_ce_fwd": steps, "fused_ce_bwd": 2 * steps})
 
 
 def phase_tt_serve(trained: dict, n_queries: int, k: int, card: str) -> dict:

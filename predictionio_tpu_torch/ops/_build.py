@@ -5,8 +5,9 @@ a shared library with a plain C interface under ``build/torch_kernels/``
 of the checkout (git-ignored), and loaded with ``ctypes``; the wrapper
 that owns a kernel declares its C signature. Nothing is built at import:
 the first call that needs a kernel builds it, so a fresh checkout builds
-inside its first run. A library is named by a hash of its source and
-flags, so an edited source is never served a stale build.
+inside its first run. A library is named by a hash of its source, every
+``csrc/*.cuh`` header and the flags, so an edited source or header is
+never served a stale build.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "build", "load"]
+__all__ = ["SOURCES", "BUILD_DIR", "build", "load", "lib_path", "cuda_tool"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 
@@ -37,19 +38,24 @@ _lock = threading.Lock()
 _loaded: dict = {}  # name -> ctypes.CDLL
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(tool: str) -> str:
+    """The path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
+    found = shutil.which(tool)
     if found:
         return found
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    candidate = os.path.join(home, "bin", "nvcc")
+    candidate = os.path.join(home, "bin", tool)
     if os.path.exists(candidate):
         return candidate
-    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
+    raise RuntimeError(f"{tool} not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """Where kernel ``name``'s library is (or will be) built."""
     digest = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(_NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
@@ -58,7 +64,7 @@ def build(name: str) -> str:
     """Compile kernel ``name`` unless it is built already. Returns nvcc's
     output (the ptxas register and shared-memory lines), "" when the
     library was there; raises with the compiler's output on failure."""
-    out = _lib_path(name)
+    out = lib_path(name)
     if out.exists():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -66,7 +72,7 @@ def build(name: str) -> str:
     # renamed atomically
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     proc = subprocess.run(
-        [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+        [cuda_tool("nvcc"), *_NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     if proc.returncode != 0:
@@ -84,5 +90,5 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
+            lib = _loaded[name] = ctypes.CDLL(str(lib_path(name)))
         return lib

@@ -20,14 +20,13 @@ bf16, no running max (the towers are L2-normalised, so a logit is at most
   plain version. A failed launch raises: nothing falls back.
 * :func:`fused_inbatch_ce` — the loss as a ``torch.autograd.Function``.
 
-The kernels are row-sum kernels. The TPU kernel sums the tile both ways
-in one pass and carries the column sums across its (sequential) grid; on
-the card blocks run concurrently, so the port uses the loss's symmetry
-instead: the column sums are the row sums with the towers swapped,
-``cs = fwd(ie, ue)``, and ``d_ie = bwd(ie, ue, cs, rs)``. Every block
-writes only rows it owns, so the result is deterministic and needs no
-atomics; the price is a second pass (2x the forward's work, 4/3x the
-backward's).
+The forward is one pass, as the TPU kernel is: it returns both the row
+sums ``rs`` and the column sums ``cs`` of the exponentiated logit tile,
+summed in a fixed order without atomics. The backward's ``d_ue`` and
+``d_ie`` come from two launches, the second with the towers swapped,
+``d_ie = bwd(ie, ue, cs, rs)``: a one-pass ``d_ie`` would need ``[B/128,
+B, D]`` partial sums (134 MB at B=8192, D=64). Two calls on the same
+input give bit-identical outputs.
 """
 
 from __future__ import annotations
@@ -59,13 +58,14 @@ ROW_BLOCK = 128
 #: ``MAX_INV_TEMP``)
 MAX_INV_TEMP = 60.0
 
-#: widest tower the CUDA kernels take: the backward keeps a block's
-#: ``[64, D]`` gradient rows in registers, 64 per thread at D=256
+#: widest tower the CUDA kernels take: the backward keeps a warp's
+#: ``[16, D]`` gradient rows in registers, 128 per thread at D=256
 MAX_KERNEL_D = 256
 
-#: rows of ``a`` a CUDA block owns and rows of ``b`` per column tile
-#: (``kRows`` / ``kCols`` in ops/csrc/fused_ce.cu)
-_KERNEL_TILE = 64
+#: rows of ``a`` a CUDA block owns and rows of ``b`` per forward column
+#: tile (``kRows`` / ``kCols`` in ops/csrc/fused_ce.cu)
+_KERNEL_ROWS = 128
+_KERNEL_COLS = 64
 
 #: most column splits a launch takes (partial sums summed in split order)
 _MAX_SPLITS = 16
@@ -105,10 +105,13 @@ def _exp_tile(a16: torch.Tensor, b16: torch.Tensor, inv_temp: float) -> torch.Te
     return torch.exp(logits.to(torch.bfloat16)).to(torch.float32)
 
 
-def fused_ce_fwd_reference(a: torch.Tensor, b: torch.Tensor, inv_temp: float) -> torch.Tensor:
-    """Row sums ``[B]`` of the exponentiated logit tile of ``a, b [B, D]``
-    — ``rs`` for ``(ue, ie)``, ``cs`` for ``(ie, ue)``."""
-    return _exp_tile(_bf16(a), _bf16(b), inv_temp).sum(dim=1)
+def fused_ce_fwd_reference(
+    a: torch.Tensor, b: torch.Tensor, inv_temp: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row and column sums ``([B], [B])`` of the exponentiated logit tile
+    of ``a, b [B, D]``: ``(rs, cs)`` for ``(ue, ie)``, from one tile."""
+    e = _exp_tile(_bf16(a), _bf16(b), inv_temp)
+    return e.sum(dim=1), e.sum(dim=0)
 
 
 def fused_ce_bwd_reference(
@@ -154,20 +157,27 @@ def _check_kernel_args(name: str, tensors: tuple, inv_temp: float) -> tuple[int,
     return B, D
 
 
+_lib = None  # the loaded library, its C signatures declared
+
+
 def _kernel_lib() -> ctypes.CDLL:
     """The built ``ops/csrc/fused_ce.cu`` with its C signatures declared."""
-    from predictionio_tpu_torch.ops import _build
+    global _lib
+    if _lib is None:
+        from predictionio_tpu_torch.ops import _build
 
-    lib = _build.load("fused_ce")
-    if lib.fused_ce_bwd_f32.argtypes is None:
+        lib = _build.load("fused_ce")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.fused_ce_capacity.argtypes = [i, i]
+        lib.fused_ce_workspace.argtypes = [i, i, i, i]
+        lib.fused_ce_workspace.restype = ctypes.c_size_t
+        lib.fused_ce_capacity.argtypes = [i, i, i]
         lib.fused_ce_capacity.restype = i
-        lib.fused_ce_fwd_f32.argtypes = [p, p, p, p, i, i, i, f, p]
-        lib.fused_ce_fwd_f32.restype = i
-        lib.fused_ce_bwd_f32.restype = i
-        lib.fused_ce_bwd_f32.argtypes = [p, p, p, p, p, p, i, i, i, f, f, p]  # last: marks the library bound
-    return lib
+        lib.fused_ce_fwd.argtypes = [p, p, p, p, i, i, i, f, i, p]
+        lib.fused_ce_fwd.restype = i
+        lib.fused_ce_bwd.argtypes = [p, p, p, p, p, p, i, i, i, f, f, i, p]
+        lib.fused_ce_bwd.restype = i
+        _lib = lib
+    return _lib
 
 
 def choose_splits(row_blocks: int, tiles: int, capacity: int) -> int:
@@ -184,42 +194,47 @@ def choose_splits(row_blocks: int, tiles: int, capacity: int) -> int:
     return next(s for s, cost in enumerate(costs, start=1) if cost <= 1.1 * best)
 
 
-_capacity: dict = {}  # (device index, D, backward) -> resident blocks on the card
+_plans: dict = {}  # (device index, B, D, backward) -> (column splits, workspace bytes)
+_workspaces: dict = {}  # (device index, stream) -> uint8 workspace tensor
 
 
-def _splits(lib: ctypes.CDLL, device: torch.device, B: int, D: int, backward: bool) -> int:
-    key = (device.index, D, backward)
-    cap = _capacity.get(key)
-    if cap is None:
-        cap = int(lib.fused_ce_capacity(D, int(backward)))
+def _launch_plan(lib: ctypes.CDLL, index: int, stream: int, B: int, D: int, backward: bool) -> tuple[int, int]:
+    """Column splits for one call, from the kernel's occupancy on the card,
+    and the address of a workspace of the bytes the call needs (bf16 copies
+    of the towers, partial-sum slabs). The workspace is kept per stream and
+    grown as needed: calls on one stream run in order, so no two kernels
+    use it at once."""
+    plan = _plans.get((index, B, D, backward))
+    if plan is None:
+        cap = int(lib.fused_ce_capacity(D, int(backward), index))
         if cap <= 0:
             raise RuntimeError(f"fused_ce occupancy query failed: cudaError {-cap} at D={D}")
-        _capacity[key] = cap
-    return choose_splits(B // _KERNEL_TILE, B // _KERNEL_TILE, cap)
+        splits = choose_splits(B // _KERNEL_ROWS, B // _KERNEL_COLS, cap)
+        plan = _plans[(index, B, D, backward)] = (splits, int(lib.fused_ce_workspace(B, D, splits, int(backward))))
+    splits, nbytes = plan
+    work = _workspaces.get((index, stream))
+    if work is None or work.numel() < nbytes:
+        work = _workspaces[(index, stream)] = torch.empty(nbytes, dtype=torch.uint8, device=torch.device("cuda", index))
+    return splits, work.data_ptr()
 
 
-def fused_ce_fwd_cuda(a: torch.Tensor, b: torch.Tensor, inv_temp: float) -> torch.Tensor:
-    """Row sums ``[B]`` by the hand-written CUDA forward kernel. A CPU
-    tensor takes :func:`fused_ce_fwd_reference`; a CUDA tensor launches
-    the kernel (and counts it) or raises."""
+def fused_ce_fwd_cuda(a: torch.Tensor, b: torch.Tensor, inv_temp: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row and column sums ``(rs, cs)`` by the hand-written CUDA forward
+    kernel, in one pass. A CPU tensor takes :func:`fused_ce_fwd_reference`;
+    a CUDA tensor launches the kernel (and counts it) or raises."""
     if a.device.type == "cpu":
         return fused_ce_fwd_reference(a, b, inv_temp)
     B, D = _check_kernel_args("fused_ce_fwd_cuda", (a, b), inv_temp)
     lib = _kernel_lib()
-    with torch.cuda.device(a.device):
-        splits = _splits(lib, a.device, B, D, backward=False)
-        out = torch.empty(B, dtype=torch.float32, device=a.device)
-        scratch = torch.empty(splits * B, dtype=torch.float32, device=a.device) if splits > 1 else None
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.fused_ce_fwd_f32(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            B, D, splits, inv_temp, stream,
-        )
+    index = a.device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    splits, work = _launch_plan(lib, index, stream, B, D, backward=False)
+    sums = torch.empty((2, B), dtype=torch.float32, device=a.device)
+    err = lib.fused_ce_fwd(a.data_ptr(), b.data_ptr(), sums.data_ptr(), work, B, D, splits, inv_temp, index, stream)
     if err != 0:
         raise RuntimeError(f"fused_ce forward kernel launch failed: cudaError {err} at B={B}, D={D}")
     fused_ce_fwd_cuda.launches += 1
-    return out
+    return sums.unbind(0)
 
 
 fused_ce_fwd_cuda.launches = 0
@@ -235,16 +250,14 @@ def fused_ce_bwd_cuda(
         return fused_ce_bwd_reference(a, b, r, s, inv_temp)
     B, D = _check_kernel_args("fused_ce_bwd_cuda", (a, b, r, s), inv_temp)
     lib = _kernel_lib()
-    with torch.cuda.device(a.device):
-        splits = _splits(lib, a.device, B, D, backward=True)
-        out = torch.empty((B, D), dtype=torch.float32, device=a.device)
-        scratch = torch.empty(splits * B * D, dtype=torch.float32, device=a.device) if splits > 1 else None
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.fused_ce_bwd_f32(
-            a.data_ptr(), b.data_ptr(), r.data_ptr(), s.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            B, D, splits, inv_temp, 0.5 * inv_temp / B, stream,
-        )
+    index = a.device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    splits, work = _launch_plan(lib, index, stream, B, D, backward=True)
+    out = torch.empty((B, D), dtype=torch.float32, device=a.device)
+    err = lib.fused_ce_bwd(
+        a.data_ptr(), b.data_ptr(), r.data_ptr(), s.data_ptr(), out.data_ptr(), work,
+        B, D, splits, inv_temp, 0.5 * inv_temp / B, index, stream,
+    )
     if err != 0:
         raise RuntimeError(f"fused_ce backward kernel launch failed: cudaError {err} at B={B}, D={D}")
     fused_ce_bwd_cuda.launches += 1
@@ -260,8 +273,8 @@ fused_ce_bwd_cuda.launches = 0
 
 
 class _FusedInbatchCE(torch.autograd.Function):
-    """Forward: both row-sum passes, then the loss closed outside the
-    kernels, ``0.5/B·(Σ log rs + Σ log cs − 2 Σ diag)``, with the positive
+    """Forward: one pass for both sums, then the loss closed outside the
+    kernel, ``0.5/B·(Σ log rs + Σ log cs − 2 Σ diag)``, with the positive
     logits ``diag`` the rowwise dot in f32. Backward: both gradient
     passes, then the positive pair's ``−(inv_temp/B)·(ie, ue)`` correction
     and the upstream gradient, also outside the kernels."""
@@ -270,8 +283,7 @@ class _FusedInbatchCE(torch.autograd.Function):
     def forward(ctx, ue, ie, inv_temp, mode):
         fwd = fused_ce_fwd_reference if mode == "interpret" else fused_ce_fwd_cuda
         ue, ie = ue.contiguous(), ie.contiguous()
-        rs = fwd(ue, ie, inv_temp)
-        cs = fwd(ie, ue, inv_temp)
+        rs, cs = fwd(ue, ie, inv_temp)
         B = ue.shape[0]
         diag = (ue * ie).sum(dim=1) * inv_temp
         loss = 0.5 * (rs.log().sum() + cs.log().sum() - 2.0 * diag.sum()) / B

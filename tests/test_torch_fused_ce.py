@@ -88,8 +88,7 @@ def test_plain_row_and_column_sums_match_jax_kernel(b, d):
     ue, ie = _towers(b, d)
     rs_j, cs_j = jax_fused_ce._fwd_call(jnp.asarray(ue), jnp.asarray(ie), INV_TEMP, True)
     u, i = torch.from_numpy(ue), torch.from_numpy(ie)
-    rs = torch_fused_ce.fused_ce_fwd_reference(u, i, INV_TEMP)
-    cs = torch_fused_ce.fused_ce_fwd_reference(i, u, INV_TEMP)
+    rs, cs = torch_fused_ce.fused_ce_fwd_reference(u, i, INV_TEMP)
     np.testing.assert_allclose(rs.numpy(), np.asarray(rs_j)[:, 0], rtol=5e-3)
     np.testing.assert_allclose(cs.numpy(), np.asarray(cs_j)[0], rtol=5e-3)
 
@@ -163,13 +162,17 @@ def test_fused_loss_agrees_with_the_off_path():
 
 
 def test_column_sums_are_the_swapped_row_sums():
-    """The identity the kernels rest on: ``fwd(ie, ue)`` sums the tile of
-    ``fwd(ue, ie)`` down its columns."""
+    """The loss's symmetry, which the backward's swapped launch rests on:
+    the column sums of ``fwd(ue, ie)`` are the row sums of ``fwd(ie, ue)``
+    and the tile summed down its columns."""
     ue, ie = _towers(256, 32, seed=4)
     u, i = torch.from_numpy(ue), torch.from_numpy(ie)
     tile = torch_fused_ce._exp_tile(torch_fused_ce._bf16(u), torch_fused_ce._bf16(i), INV_TEMP)
-    cs = torch_fused_ce.fused_ce_fwd_reference(i, u, INV_TEMP)
+    rs, cs = torch_fused_ce.fused_ce_fwd_reference(u, i, INV_TEMP)
+    rs_swapped, cs_swapped = torch_fused_ce.fused_ce_fwd_reference(i, u, INV_TEMP)
     np.testing.assert_allclose(cs.numpy(), tile.sum(dim=0).numpy(), rtol=1e-4)
+    np.testing.assert_allclose(cs.numpy(), rs_swapped.numpy(), rtol=1e-4)
+    np.testing.assert_allclose(rs.numpy(), cs_swapped.numpy(), rtol=1e-4)
 
 
 def test_unsupported_inputs_raise():

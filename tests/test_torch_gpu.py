@@ -17,8 +17,8 @@ fixed order.
 
 The fused-CE kernels against their plain versions on the same card: row
 sums at most 2e-3 relative and 5e-5 on average, gradient passes atol
-5e-3·max|ref|. The kernel sums each logit's dot product in one fmaf chain,
-cuBLAS in another order; a logit that lies on a bf16 rounding boundary
+5e-3·max|ref|. The kernel sums each logit's dot product on the tensor
+cores, cuBLAS in f32 in another order; a logit that lies on a bf16 rounding boundary
 then rounds to the other neighbour, which moves its exponential by up to
 exp(2^-4) - 1 = 6.5 % where |logit| < 16, and at D <= 32 one exponential can
 carry a good part of its row's sum (found: 1.1e-3 at [256,16], 2.3e-7 at
@@ -197,24 +197,37 @@ def _unit_towers(B: int, D: int, seed: int, device) -> tuple[torch.Tensor, torch
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,D", [(1024, 32), (256, 16), (384, 200)])
+@pytest.mark.parametrize("B,D", [(1024, 32), (256, 16), (384, 200), (128, 8), (256, 24)])
 def test_fused_ce_kernels_match_plain_on_card(cuda_device, B, D):
     ue, ie = _unit_towers(B, D, seed=B + D, device=cuda_device)
     f0, b0 = torch_fused_ce.fused_ce_fwd_cuda.launches, torch_fused_ce.fused_ce_bwd_cuda.launches
-    rs = torch_fused_ce.fused_ce_fwd_cuda(ue, ie, 10.0)
-    cs = torch_fused_ce.fused_ce_fwd_cuda(ie, ue, 10.0)
+    rs, cs = torch_fused_ce.fused_ce_fwd_cuda(ue, ie, 10.0)
     due = torch_fused_ce.fused_ce_bwd_cuda(ue, ie, rs, cs, 10.0)
     die = torch_fused_ce.fused_ce_bwd_cuda(ie, ue, cs, rs, 10.0)
     torch.cuda.synchronize()
-    assert torch_fused_ce.fused_ce_fwd_cuda.launches == f0 + 2
+    assert torch_fused_ce.fused_ce_fwd_cuda.launches == f0 + 1
     assert torch_fused_ce.fused_ce_bwd_cuda.launches == b0 + 2
-    for got, want in ((rs, torch_fused_ce.fused_ce_fwd_reference(ue, ie, 10.0)),
-                      (cs, torch_fused_ce.fused_ce_fwd_reference(ie, ue, 10.0))):
+    for got, want in zip((rs, cs), torch_fused_ce.fused_ce_fwd_reference(ue, ie, 10.0)):
         rel = (got - want).abs() / want.abs()
         assert float(rel.max()) <= 2e-3 and float(rel.mean()) <= 5e-5, (float(rel.max()), float(rel.mean()))
     for got, want in ((due, torch_fused_ce.fused_ce_bwd_reference(ue, ie, rs, cs, 10.0)),
                       (die, torch_fused_ce.fused_ce_bwd_reference(ie, ue, cs, rs, 10.0))):
         torch.testing.assert_close(got, want, rtol=0, atol=5e-3 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,D", [(1024, 32), (384, 200), (8192, 64)])
+def test_fused_ce_kernels_are_deterministic_on_card(cuda_device, B, D):
+    """No atomics and a fixed order of every sum: two calls of each kernel
+    on the same input agree to the bit (the column-slab sums included)."""
+    ue, ie = _unit_towers(B, D, seed=3 * B + D, device=cuda_device)
+    first = torch_fused_ce.fused_ce_fwd_cuda(ue, ie, 10.0)
+    second = torch_fused_ce.fused_ce_fwd_cuda(ue, ie, 10.0)
+    rs, cs = first
+    grads = [torch_fused_ce.fused_ce_bwd_cuda(ue, ie, rs, cs, 10.0) for _ in range(2)]
+    torch.cuda.synchronize()
+    for x, y in (*zip(first, second), grads):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.gpu
@@ -228,7 +241,7 @@ def test_fused_inbatch_ce_on_card_matches_plain(cuda_device):
         grads = torch.autograd.grad(loss, (u, i))
         torch.cuda.synchronize()
         launched = (torch_fused_ce.fused_ce_fwd_cuda.launches - f0, torch_fused_ce.fused_ce_bwd_cuda.launches - b0)
-        assert launched == ((2, 2) if mode == "auto" else (0, 0))
+        assert launched == ((1, 2) if mode == "auto" else (0, 0))
         out[mode] = (float(loss), grads)
     (loss, grads), (ref, ref_grads) = out["auto"], out["interpret"]
     assert abs(loss - ref) < 5e-3 * max(1.0, abs(ref))
@@ -274,7 +287,7 @@ def test_train_two_tower_on_card_matches_cpu(cuda_device):
     cfg = torch_tt.TwoTowerConfig(dim=16, batch_size=256, epochs=3, seed=0, log_every=1)
     f0, b0 = torch_fused_ce.fused_ce_fwd_cuda.launches, torch_fused_ce.fused_ce_bwd_cuda.launches
     on_card = torch_tt.train_two_tower(rows, cols, 40, 30, cfg, init_user, init_item, device=cuda_device)
-    assert torch_fused_ce.fused_ce_fwd_cuda.launches - f0 == 2 * 3
+    assert torch_fused_ce.fused_ce_fwd_cuda.launches - f0 == 3
     assert torch_fused_ce.fused_ce_bwd_cuda.launches - b0 == 2 * 3
     on_cpu = torch_tt.train_two_tower(rows, cols, 40, 30, cfg, init_user, init_item, device="cpu")
     np.testing.assert_allclose(
