@@ -24,11 +24,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    instructions in the built fused-CE library (``cuobjdump -sass``).
 3. kernel — each kernel held against its plain PyTorch version and the
    library call at the shapes its path gives it, on inputs made on the
-   card; device times by CUDA events, the calls queued behind a spin
-   kernel so the host's pace is not counted. The fused-CE forward is one
-   call (both sums), the backward two (``d_ue``, then ``d_ie`` with the
-   towers swapped); each row adds the achieved tensor-core FLOP/s and
-   exponentials/s.
+   card; times by CUDA events. The fused-CE forward is one call (both
+   sums), the backward one call of two launches (``d_ue``, then ``d_ie``
+   with the towers swapped); each row adds the host's time to issue a
+   call and the achieved tensor-core FLOP/s and exponentials/s.
 4. ALS    — the launch counts are set to 0, ``ALSAlgorithm.train`` runs on
    the card, the query server answers 64 queries, and the counts are read
    and checked against the bucket plan; then one user half-sweep is held
@@ -249,27 +248,33 @@ def residual(A: torch.Tensor, x: torch.Tensor, b: torch.Tensor) -> float:
 
 def time_ms(fn, reps: int) -> float:
     """Mean device time of one call, by CUDA events over ``reps`` calls
-    after two warm-up calls. A spin kernel holds the card while the host
-    queues the calls, so the host's own time between calls is not counted:
-    at small shapes a call's host work outlasts its kernels, and a stall of
-    the host would otherwise land in the mean."""
+    after one warm-up call. The calls are issued back to back, so where a
+    call's host work outlasts its kernels (small shapes) the host's pace
+    sets this time: :func:`host_ms` says how much."""
     fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    once = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    # cycles at the SM clock (at most 2 GHz): at least twice the host's
-    # time for the calls, and 5 ms
-    torch.cuda._sleep(int(min(2.0 * reps * once + 0.005, 2.0) * 2e9))
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean host time to issue one call (the wrapper's Python, allocation
+    and launches, not waiting for the card), over ``reps`` calls after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    issued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return issued * 1e3 / reps
 
 
 def solve_bound(batch: int, k: int) -> tuple[float, str]:
@@ -360,12 +365,12 @@ def phase_fused_kernel(device, exp_per_s: float) -> list:
     for n, (B, D) in enumerate(FUSED_CE_SHAPES):
         ue, ie = unit_towers(B, D, 200 + n, device)
         rs, cs = fused_ce_fwd_cuda(ue, ie, T)
-        due, die = fused_ce_bwd_cuda(ue, ie, rs, cs, T), fused_ce_bwd_cuda(ie, ue, cs, rs, T)
+        due, die = fused_ce_bwd_cuda(ue, ie, rs, cs, T)
         torch.cuda.synchronize()
         if not all(bool(torch.isfinite(t).all()) for t in (rs, cs, due, die)):
             raise RuntimeError(f"fused_ce: non-finite output at [{B},{D}]")
         sums = list(zip((rs, cs), fused_ce_fwd_reference(ue, ie, T)))
-        grads = [(due, fused_ce_bwd_reference(ue, ie, rs, cs, T)), (die, fused_ce_bwd_reference(ie, ue, cs, rs, T))]
+        grads = list(zip((due, die), fused_ce_bwd_reference(ue, ie, rs, cs, T)))
         sum_rel = max(float(((k - p).abs() / p.abs()).max()) for k, p in sums)
         sum_mean_rel = max(float(((k - p).abs() / p.abs()).mean()) for k, p in sums)
         grad_rel = max(float((k - p).abs().max() / p.abs().max()) for k, p in grads)
@@ -386,11 +391,11 @@ def phase_fused_kernel(device, exp_per_s: float) -> list:
 
         reps = 20 if B <= 8192 else 10
         fwd_ms = time_ms(lambda: fused_ce_fwd_cuda(ue, ie, T), reps)
-        bwd_ms = time_ms(lambda: (fused_ce_bwd_cuda(ue, ie, rs, cs, T), fused_ce_bwd_cuda(ie, ue, cs, rs, T)), reps)
+        bwd_ms = time_ms(lambda: fused_ce_bwd_cuda(ue, ie, rs, cs, T), reps)
+        fwd_host_ms = host_ms(lambda: fused_ce_fwd_cuda(ue, ie, T), reps)
+        bwd_host_ms = host_ms(lambda: fused_ce_bwd_cuda(ue, ie, rs, cs, T), reps)
         fwd_plain_ms = time_ms(lambda: fused_ce_fwd_reference(ue, ie, T), 3)
-        bwd_plain_ms = time_ms(
-            lambda: (fused_ce_bwd_reference(ue, ie, rs, cs, T), fused_ce_bwd_reference(ie, ue, cs, rs, T)), 3
-        )
+        bwd_plain_ms = time_ms(lambda: fused_ce_bwd_reference(ue, ie, rs, cs, T), 3)
         # the library calls: the unfused loss (two logit products and two
         # cross-entropies), and its backward by autograd
         fwd_lib_ms = time_ms(lambda: inbatch_loss(ue, ie, T, "bfloat16", "off"), 5)
@@ -406,15 +411,16 @@ def phase_fused_kernel(device, exp_per_s: float) -> list:
         # (2·B²·Dp) once forward and in each of the two backward launches,
         # which add dL·b (2·B²·Dp); B² exponentials a launch
         dp = -(-D // 16) * 16
-        for key, ms, plain_ms, lib_ms, err_abs, err_rel, backward, flop, exps in (
-            ("fwd", fwd_ms, fwd_plain_ms, fwd_lib_ms, fwd_abs, sum_rel, False, 2 * B * B * dp, B * B),
-            ("bwd", bwd_ms, bwd_plain_ms, bwd_lib_ms, bwd_abs, grad_rel, True, 8 * B * B * dp, 2 * B * B),
+        for key, ms, issue_ms, plain_ms, lib_ms, err_abs, err_rel, backward, flop, exps in (
+            ("fwd", fwd_ms, fwd_host_ms, fwd_plain_ms, fwd_lib_ms, fwd_abs, sum_rel, False, 2 * B * B * dp, B * B),
+            ("bwd", bwd_ms, bwd_host_ms, bwd_plain_ms, bwd_lib_ms, bwd_abs, grad_rel, True, 8 * B * B * dp,
+             2 * B * B),
         ):
             bound_ms, bound_by, term = fused_ce_bound(B, D, backward, exp_per_s)
             row[key] = {
-                "max_abs_err": err_abs, "max_rel_err": err_rel, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by, "bound_term": term,
-                "tc_tflops": flop / ms / 1e9, "exp_per_s": exps / ms * 1e3,
+                "max_abs_err": err_abs, "max_rel_err": err_rel, "ms": ms, "host_ms": issue_ms,
+                "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_term": term, "tc_tflops": flop / ms / 1e9, "exp_per_s": exps / ms * 1e3,
             }
         log(f"[kernel] fused_ce {json.dumps(row)}")
         if not (sum_rel <= FUSED_SUM_RTOL and sum_mean_rel <= FUSED_SUM_MEAN_RTOL and grad_rel <= FUSED_GRAD_ATOL
@@ -630,6 +636,7 @@ def profile_once(fn, label: str) -> dict:
         return {"wall_ms": wall_ms, "busy_share": None}
     out = {
         "what": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
+        "device_ops": sum(n for _, n, _ in kernels),
         "top": [{"kernel": name[:90], "ms": ms, "calls": n, "share": ms / busy_ms}
                 for ms, n, name in kernels[:8]],
     }

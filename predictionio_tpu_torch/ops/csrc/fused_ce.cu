@@ -31,7 +31,9 @@
 //   once per call, Dp = D rounded up to 16 with zero columns (they change
 //   no dot product), and the backward's quotients c / r and c / s. The
 //   main kernels copy 16-byte chunks of those copies into shared memory
-//   with cp.async, which cannot convert.
+//   with cp.async, which cannot convert. The backward entry stages once
+//   for both of its launches: the swapped launch takes the same copies and
+//   quotients with the roles of a and b exchanged.
 // * A block of 8 warps owns 128 rows of a; each warp keeps its 16 rows as
 //   mma A fragments (ldmatrix, once per block). The block walks a run of
 //   column tiles of b through a three-stage cp.async ring, copying the
@@ -65,9 +67,10 @@
 // the swapped launch's logits need not be bit-equal to the first launch's
 // (they agree to f32 rounding of the dot product).
 //
-// The kernels launch on the caller's stream, do not synchronise and
-// allocate nothing: the caller passes a workspace of fused_ce_workspace()
-// bytes. The C entries return cudaGetLastError() of the launches.
+// The kernels launch on the caller's current device and stream, do not
+// synchronise and allocate nothing: the caller passes a workspace of
+// fused_ce_workspace() bytes. The C entries return cudaGetLastError() of
+// the launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -429,7 +432,7 @@ size_t align256(size_t bytes) { return (bytes + 255) / 256 * 256; }
 
 // The workspace: a16, b16 [B, Dp] bf16; forward: row slab [splits, B] and
 // column slab [B / 128, B]; backward: qr, qs [B] and, with splits > 1, the
-// partial outputs [splits, B, D].
+// partial outputs [splits, B, D] (of one launch, then of the next).
 struct Workspace {
   bf16 *a16, *b16;
   float *p0, *p1, *p2;
@@ -494,35 +497,33 @@ cudaError_t launch_fwd(const Workspace& w, int B, int D, int splits, float inv_t
 }
 
 template <int kMaxK, int kN>
-cudaError_t launch_bwd(const Workspace& w, float* out, int B, int D, int splits, float inv_temp,
-                       cudaStream_t st) {
+cudaError_t launch_bwd(const bf16* a16, const bf16* b16, const float* qr, const float* qs, float* out,
+                       int B, int D, int splits, float inv_temp, cudaStream_t st) {
   const size_t bytes = bwd_smem(D, kN);
   cudaError_t e = allow_smem(bwd_kernel<kMaxK, kN>, bytes);
   if (e != cudaSuccess) return e;
   const dim3 grid(static_cast<unsigned>(B / kRows), static_cast<unsigned>(splits));
-  bwd_kernel<kMaxK, kN><<<grid, kThreads, bytes, st>>>(w.a16, w.b16, w.p0, w.p1, out, B, D, inv_temp);
+  bwd_kernel<kMaxK, kN><<<grid, kThreads, bytes, st>>>(a16, b16, qr, qs, out, B, D, inv_temp);
   return cudaGetLastError();
 }
 
-// Makes `device` current for its scope, and restores the previous one.
-class DeviceGuard {
- public:
-  explicit DeviceGuard(int device) {
-    if (cudaGetDevice(&prev_) == cudaSuccess && prev_ != device) {
-      error_ = cudaSetDevice(device);
-    } else {
-      prev_ = -1;
-    }
+// out = dL * b for the staged a16, b16 and quotients qr, qs: the backward
+// kernel, then with splits > 1 the sum of its partial outputs (in part).
+cudaError_t backward_pass(const bf16* a16, const bf16* b16, const float* qr, const float* qs, float* part,
+                          float* out, int B, int D, int splits, float inv_temp, cudaStream_t st) {
+  float* dst = splits > 1 ? part : out;
+  cudaError_t e;
+  switch (max_k(D)) {
+    case 4: e = launch_bwd<4, 64>(a16, b16, qr, qs, dst, B, D, splits, inv_temp, st); break;
+    case 8: e = launch_bwd<8, 64>(a16, b16, qr, qs, dst, B, D, splits, inv_temp, st); break;
+    default: e = launch_bwd<16, 32>(a16, b16, qr, qs, dst, B, D, splits, inv_temp, st); break;
   }
-  ~DeviceGuard() {
-    if (prev_ >= 0) cudaSetDevice(prev_);
-  }
-  cudaError_t error() const { return error_; }
-
- private:
-  int prev_ = -1;
-  cudaError_t error_ = cudaSuccess;
-};
+  if (e != cudaSuccess || splits == 1) return e;
+  const long long n = static_cast<long long>(B) * D;
+  const long long blocks = (n + 255) / 256;
+  sum_splits_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0, st>>>(part, out, n, splits);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -534,13 +535,11 @@ size_t fused_ce_workspace(int B, int D, int splits, int backward) {
   return workspace_bytes(B, D, splits, backward != 0, nullptr, nullptr);
 }
 
-// Blocks of one launch the device holds at once (resident blocks per SM
-// times SMs) for the forward (backward == 0) or backward kernel at width D;
-// minus a cudaError_t on failure.
-int fused_ce_capacity(int D, int backward, int device) {
+// Blocks of one launch the current device holds at once (resident blocks
+// per SM times SMs) for the forward (backward == 0) or backward kernel at
+// width D; minus a cudaError_t on failure.
+int fused_ce_capacity(int D, int backward) {
   if (D < 8 || D % 8 || D > kMaxD) return -static_cast<int>(cudaErrorInvalidValue);
-  DeviceGuard guard(device);
-  if (guard.error() != cudaSuccess) return -static_cast<int>(guard.error());
   switch (max_k(D) + (backward ? 100 : 0)) {
     case 4: return capacity_of(fwd_kernel<4>, fwd_smem(D));
     case 8: return capacity_of(fwd_kernel<8>, fwd_smem(D));
@@ -551,15 +550,13 @@ int fused_ce_capacity(int D, int backward, int device) {
   }
 }
 
-// a, b [B, D] -> sums [2, B] (rs, then cs): contiguous float32 on `device`;
-// work holds fused_ce_workspace(B, D, splits, 0) bytes, 256-byte aligned.
-// Three launches on `stream`: staging, the kernel, the slab sums. Returns
-// a cudaError_t (0 on clean launches).
+// a, b [B, D] -> sums [2, B] (rs, then cs): contiguous float32 on the
+// current device; work holds fused_ce_workspace(B, D, splits, 0) bytes,
+// 256-byte aligned. Three launches on `stream`: staging, the kernel, the
+// slab sums. Returns a cudaError_t (0 on clean launches).
 int fused_ce_fwd(const float* a, const float* b, float* sums, void* work, int B, int D, int splits,
-                 float inv_temp, int device, void* stream) {
+                 float inv_temp, void* stream) {
   if (bad_shape(B, D, splits) || work == nullptr) return cudaErrorInvalidValue;
-  DeviceGuard guard(device);
-  if (guard.error() != cudaSuccess) return guard.error();
   cudaGetLastError();  // launch errors below are this call's own
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Workspace w;
@@ -576,31 +573,23 @@ int fused_ce_fwd(const float* a, const float* b, float* sums, void* work, int B,
   return cudaGetLastError();
 }
 
-// a, b [B, D], r, s [B] -> out [B, D]: contiguous float32 on `device`; work
-// holds fused_ce_workspace(B, D, splits, 1) bytes. c is 0.5 * inv_temp / B.
-// Returns a cudaError_t (0 on clean launches).
-int fused_ce_bwd(const float* a, const float* b, const float* r, const float* s, float* out, void* work,
-                 int B, int D, int splits, float inv_temp, float c, int device, void* stream) {
+// a, b [B, D], r, s [B] -> d_a, d_b [B, D]: contiguous float32 on the
+// current device; work holds fused_ce_workspace(B, D, splits, 1) bytes.
+// c is 0.5 * inv_temp / B. One staging, then the kernel twice on `stream`:
+// d_a = bwd(a, b, r, s), and d_b = bwd(b, a, s, r) on the same staged
+// copies. Returns a cudaError_t (0 on clean launches).
+int fused_ce_bwd(const float* a, const float* b, const float* r, const float* s, float* d_a, float* d_b,
+                 void* work, int B, int D, int splits, float inv_temp, float c, void* stream) {
   if (bad_shape(B, D, splits) || work == nullptr) return cudaErrorInvalidValue;
-  DeviceGuard guard(device);
-  if (guard.error() != cudaSuccess) return guard.error();
   cudaGetLastError();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Workspace w;
   workspace_bytes(B, D, splits, true, &w, static_cast<char*>(work));
   cudaError_t e = stage(a, b, r, s, w, B, D, c, st);
   if (e != cudaSuccess) return e;
-  float* dst = splits > 1 ? w.p2 : out;
-  switch (max_k(D)) {
-    case 4: e = launch_bwd<4, 64>(w, dst, B, D, splits, inv_temp, st); break;
-    case 8: e = launch_bwd<8, 64>(w, dst, B, D, splits, inv_temp, st); break;
-    default: e = launch_bwd<16, 32>(w, dst, B, D, splits, inv_temp, st); break;
-  }
-  if (e != cudaSuccess || splits == 1) return e;
-  const long long n = static_cast<long long>(B) * D;
-  const long long blocks = (n + 255) / 256;
-  sum_splits_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0, st>>>(w.p2, out, n, splits);
-  return cudaGetLastError();
+  e = backward_pass(w.a16, w.b16, w.p0, w.p1, w.p2, d_a, B, D, splits, inv_temp, st);
+  if (e != cudaSuccess) return e;
+  return backward_pass(w.b16, w.a16, w.p1, w.p0, w.p2, d_b, B, D, splits, inv_temp, st);
 }
 
 }  // extern "C"

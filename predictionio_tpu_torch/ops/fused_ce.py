@@ -16,17 +16,17 @@ bf16, no running max (the towers are L2-normalised, so a logit is at most
   plain PyTorch versions of that arithmetic, on whole ``[B, B]`` tiles.
 * :func:`fused_ce_fwd_cuda` / :func:`fused_ce_bwd_cuda` — the kernel
   wrappers. On a CUDA tensor each launches ``ops/csrc/fused_ce.cu`` and
-  counts the launch in its ``.launches``; on a CPU tensor it takes the
-  plain version. A failed launch raises: nothing falls back.
+  counts the kernel's launches in its ``.launches`` (one forward, two
+  backward); on a CPU tensor it takes the plain version. A failed launch raises: nothing falls back.
 * :func:`fused_inbatch_ce` — the loss as a ``torch.autograd.Function``.
 
 The forward is one pass, as the TPU kernel is: it returns both the row
 sums ``rs`` and the column sums ``cs`` of the exponentiated logit tile,
 summed in a fixed order without atomics. The backward's ``d_ue`` and
-``d_ie`` come from two launches, the second with the towers swapped,
-``d_ie = bwd(ie, ue, cs, rs)``: a one-pass ``d_ie`` would need ``[B/128,
-B, D]`` partial sums (134 MB at B=8192, D=64). Two calls on the same
-input give bit-identical outputs.
+``d_ie`` come from two launches of one call, the second with the towers
+swapped, ``d_ie = bwd(ie, ue, cs, rs)``: a one-pass ``d_ie`` would need
+``[B/128, B, D]`` partial sums (134 MB at B=8192, D=64). Two calls on the
+same input give bit-identical outputs.
 """
 
 from __future__ import annotations
@@ -62,9 +62,9 @@ MAX_INV_TEMP = 60.0
 #: ``[16, D]`` gradient rows in registers, 128 per thread at D=256
 MAX_KERNEL_D = 256
 
-#: rows of ``a`` a CUDA block owns and rows of ``b`` per forward column
-#: tile (``kRows`` / ``kCols`` in ops/csrc/fused_ce.cu)
-_KERNEL_ROWS = 128
+#: rows of ``b`` per forward column tile (``kCols`` in
+#: ops/csrc/fused_ce.cu; a CUDA block owns ``ROW_BLOCK`` rows of ``a``,
+#: ``kRows`` there)
 _KERNEL_COLS = 64
 
 #: most column splits a launch takes (partial sums summed in split order)
@@ -116,17 +116,17 @@ def fused_ce_fwd_reference(
 
 def fused_ce_bwd_reference(
     a: torch.Tensor, b: torch.Tensor, r: torch.Tensor, s: torch.Tensor, inv_temp: float
-) -> torch.Tensor:
-    """The softmax part of the loss's gradient with respect to ``a``:
-    ``dL = bf16(e·(c/r_i) + e·(c/s_j))`` with ``c = 0.5·inv_temp/B``, then
-    ``dL·bf16(b)``. ``(ue, ie, rs, cs)`` gives ``d_ue``; ``(ie, ue, cs,
-    rs)`` gives ``d_ie``."""
-    b16 = _bf16(b)
-    e = _exp_tile(_bf16(a), b16, inv_temp)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The softmax part of the loss's gradients with respect to ``a`` and
+    ``b``, from one tile: ``dL = bf16(e·(c/r_i) + e·(c/s_j))`` with ``c =
+    0.5·inv_temp/B``, then ``(dL·bf16(b), dLᵀ·bf16(a))``. ``(ue, ie, rs,
+    cs)`` gives ``(d_ue, d_ie)``, as the JAX kernel's ``_bwd_call``."""
+    a16, b16 = _bf16(a), _bf16(b)
+    e = _exp_tile(a16, b16, inv_temp)
     c = torch.full((), 0.5 * inv_temp / a.shape[0], dtype=torch.float32, device=a.device)
     # true divisions (a scalar over a tensor would be a reciprocal times c)
     dl = _bf16(e * (c / r)[:, None] + e * (c / s)[None, :])
-    return dl @ b16
+    return dl @ b16, dl.T @ a16
 
 
 # ---------------------------------------------------------------------------
@@ -157,27 +157,22 @@ def _check_kernel_args(name: str, tensors: tuple, inv_temp: float) -> tuple[int,
     return B, D
 
 
-_lib = None  # the loaded library, its C signatures declared
-
-
 def _kernel_lib() -> ctypes.CDLL:
     """The built ``ops/csrc/fused_ce.cu`` with its C signatures declared."""
-    global _lib
-    if _lib is None:
-        from predictionio_tpu_torch.ops import _build
+    from predictionio_tpu_torch.ops import _build
 
-        lib = _build.load("fused_ce")
+    lib = _build.load("fused_ce")
+    if lib.fused_ce_bwd.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_ce_workspace.argtypes = [i, i, i, i]
         lib.fused_ce_workspace.restype = ctypes.c_size_t
-        lib.fused_ce_capacity.argtypes = [i, i, i]
+        lib.fused_ce_capacity.argtypes = [i, i]
         lib.fused_ce_capacity.restype = i
-        lib.fused_ce_fwd.argtypes = [p, p, p, p, i, i, i, f, i, p]
+        lib.fused_ce_fwd.argtypes = [p, p, p, p, i, i, i, f, p]
         lib.fused_ce_fwd.restype = i
-        lib.fused_ce_bwd.argtypes = [p, p, p, p, p, p, i, i, i, f, f, i, p]
         lib.fused_ce_bwd.restype = i
-        _lib = lib
-    return _lib
+        lib.fused_ce_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, f, f, p]  # last: marks the library bound
+    return lib
 
 
 def choose_splits(row_blocks: int, tiles: int, capacity: int) -> int:
@@ -194,28 +189,25 @@ def choose_splits(row_blocks: int, tiles: int, capacity: int) -> int:
     return next(s for s, cost in enumerate(costs, start=1) if cost <= 1.1 * best)
 
 
-_plans: dict = {}  # (device index, B, D, backward) -> (column splits, workspace bytes)
-_workspaces: dict = {}  # (device index, stream) -> uint8 workspace tensor
+_capacity: dict = {}  # (device index, D, backward) -> resident blocks on the card
 
 
-def _launch_plan(lib: ctypes.CDLL, index: int, stream: int, B: int, D: int, backward: bool) -> tuple[int, int]:
-    """Column splits for one call, from the kernel's occupancy on the card,
-    and the address of a workspace of the bytes the call needs (bf16 copies
-    of the towers, partial-sum slabs). The workspace is kept per stream and
-    grown as needed: calls on one stream run in order, so no two kernels
-    use it at once."""
-    plan = _plans.get((index, B, D, backward))
-    if plan is None:
-        cap = int(lib.fused_ce_capacity(D, int(backward), index))
+def _splits_and_workspace(
+    lib: ctypes.CDLL, device: torch.device, B: int, D: int, backward: bool
+) -> tuple[int, torch.Tensor]:
+    """Column splits for one call, from the kernel's occupancy on the
+    current device, and a workspace of the bytes the call needs (bf16
+    copies of the towers, partial-sum slabs), allocated for this call."""
+    key = (device.index, D, backward)
+    cap = _capacity.get(key)
+    if cap is None:
+        cap = int(lib.fused_ce_capacity(D, int(backward)))
         if cap <= 0:
             raise RuntimeError(f"fused_ce occupancy query failed: cudaError {-cap} at D={D}")
-        splits = choose_splits(B // _KERNEL_ROWS, B // _KERNEL_COLS, cap)
-        plan = _plans[(index, B, D, backward)] = (splits, int(lib.fused_ce_workspace(B, D, splits, int(backward))))
-    splits, nbytes = plan
-    work = _workspaces.get((index, stream))
-    if work is None or work.numel() < nbytes:
-        work = _workspaces[(index, stream)] = torch.empty(nbytes, dtype=torch.uint8, device=torch.device("cuda", index))
-    return splits, work.data_ptr()
+        _capacity[key] = cap
+    splits = choose_splits(B // ROW_BLOCK, B // _KERNEL_COLS, cap)
+    nbytes = int(lib.fused_ce_workspace(B, D, splits, int(backward)))
+    return splits, torch.empty(nbytes, dtype=torch.uint8, device=device)
 
 
 def fused_ce_fwd_cuda(a: torch.Tensor, b: torch.Tensor, inv_temp: float) -> tuple[torch.Tensor, torch.Tensor]:
@@ -226,11 +218,13 @@ def fused_ce_fwd_cuda(a: torch.Tensor, b: torch.Tensor, inv_temp: float) -> tupl
         return fused_ce_fwd_reference(a, b, inv_temp)
     B, D = _check_kernel_args("fused_ce_fwd_cuda", (a, b), inv_temp)
     lib = _kernel_lib()
-    index = a.device.index
-    stream = torch._C._cuda_getCurrentRawStream(index)
-    splits, work = _launch_plan(lib, index, stream, B, D, backward=False)
-    sums = torch.empty((2, B), dtype=torch.float32, device=a.device)
-    err = lib.fused_ce_fwd(a.data_ptr(), b.data_ptr(), sums.data_ptr(), work, B, D, splits, inv_temp, index, stream)
+    with torch.cuda.device(a.device):
+        splits, work = _splits_and_workspace(lib, a.device, B, D, backward=False)
+        sums = torch.empty((2, B), dtype=torch.float32, device=a.device)
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.fused_ce_fwd(
+            a.data_ptr(), b.data_ptr(), sums.data_ptr(), work.data_ptr(), B, D, splits, inv_temp, stream
+        )
     if err != 0:
         raise RuntimeError(f"fused_ce forward kernel launch failed: cudaError {err} at B={B}, D={D}")
     fused_ce_fwd_cuda.launches += 1
@@ -242,26 +236,28 @@ fused_ce_fwd_cuda.launches = 0
 
 def fused_ce_bwd_cuda(
     a: torch.Tensor, b: torch.Tensor, r: torch.Tensor, s: torch.Tensor, inv_temp: float
-) -> torch.Tensor:
-    """``dL·bf16(b)`` ``[B, D]`` by the hand-written CUDA backward kernel.
-    A CPU tensor takes :func:`fused_ce_bwd_reference`; a CUDA tensor
-    launches the kernel (and counts it) or raises."""
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(d_a, d_b)`` ``[B, D]`` by the hand-written CUDA backward kernel,
+    launched twice: ``d_a = bwd(a, b, r, s)``, then ``d_b = bwd(b, a, s,
+    r)`` on the same bf16 copies of the towers. A CPU tensor takes
+    :func:`fused_ce_bwd_reference`; a CUDA tensor launches the kernel (and
+    counts both launches) or raises."""
     if a.device.type == "cpu":
         return fused_ce_bwd_reference(a, b, r, s, inv_temp)
     B, D = _check_kernel_args("fused_ce_bwd_cuda", (a, b, r, s), inv_temp)
     lib = _kernel_lib()
-    index = a.device.index
-    stream = torch._C._cuda_getCurrentRawStream(index)
-    splits, work = _launch_plan(lib, index, stream, B, D, backward=True)
-    out = torch.empty((B, D), dtype=torch.float32, device=a.device)
-    err = lib.fused_ce_bwd(
-        a.data_ptr(), b.data_ptr(), r.data_ptr(), s.data_ptr(), out.data_ptr(), work,
-        B, D, splits, inv_temp, 0.5 * inv_temp / B, index, stream,
-    )
+    with torch.cuda.device(a.device):
+        splits, work = _splits_and_workspace(lib, a.device, B, D, backward=True)
+        out = torch.empty((2, B, D), dtype=torch.float32, device=a.device)
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.fused_ce_bwd(
+            a.data_ptr(), b.data_ptr(), r.data_ptr(), s.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+            work.data_ptr(), B, D, splits, inv_temp, 0.5 * inv_temp / B, stream,
+        )
     if err != 0:
         raise RuntimeError(f"fused_ce backward kernel launch failed: cudaError {err} at B={B}, D={D}")
-    fused_ce_bwd_cuda.launches += 1
-    return out
+    fused_ce_bwd_cuda.launches += 2
+    return out.unbind(0)
 
 
 fused_ce_bwd_cuda.launches = 0
@@ -275,8 +271,8 @@ fused_ce_bwd_cuda.launches = 0
 class _FusedInbatchCE(torch.autograd.Function):
     """Forward: one pass for both sums, then the loss closed outside the
     kernel, ``0.5/B·(Σ log rs + Σ log cs − 2 Σ diag)``, with the positive
-    logits ``diag`` the rowwise dot in f32. Backward: both gradient
-    passes, then the positive pair's ``−(inv_temp/B)·(ie, ue)`` correction
+    logits ``diag`` the rowwise dot in f32. Backward: one call for both
+    gradient passes, then the positive pair's ``−(inv_temp/B)·(ie, ue)`` correction
     and the upstream gradient, also outside the kernels."""
 
     @staticmethod
@@ -296,8 +292,7 @@ class _FusedInbatchCE(torch.autograd.Function):
         ue, ie, rs, cs = ctx.saved_tensors
         inv_temp = ctx.inv_temp
         bwd = fused_ce_bwd_reference if ctx.mode == "interpret" else fused_ce_bwd_cuda
-        due = bwd(ue, ie, rs, cs, inv_temp)
-        die = bwd(ie, ue, cs, rs, inv_temp)
+        due, die = bwd(ue, ie, rs, cs, inv_temp)
         c2 = inv_temp / ue.shape[0]
         return (due - c2 * ie) * g, (die - c2 * ue) * g, None, None
 

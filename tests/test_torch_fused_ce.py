@@ -95,20 +95,33 @@ def test_plain_row_and_column_sums_match_jax_kernel(b, d):
 
 @pytest.mark.parametrize("b,d", SHAPES)
 def test_plain_gradient_passes_match_jax_kernel(b, d):
-    """``bwd(ue, ie, rs, cs)`` is the JAX kernel's ``d_ue`` and the swapped
-    ``bwd(ie, ue, cs, rs)`` its column-accumulated ``d_ie``, before the
-    positive-pair correction."""
+    """``bwd(ue, ie, rs, cs)`` is the JAX kernel's ``(d_ue, d_ie)``, the
+    second accumulated down the tile's columns, before the positive-pair
+    correction."""
     ue, ie = _towers(b, d, seed=1)
     rs_j, cs_j = jax_fused_ce._fwd_call(jnp.asarray(ue), jnp.asarray(ie), INV_TEMP, True)
     due_j, die_j = jax_fused_ce._bwd_call(jnp.asarray(ue), jnp.asarray(ie), rs_j, cs_j, INV_TEMP, True)
     u, i = torch.from_numpy(ue), torch.from_numpy(ie)
     rs = torch.from_numpy(np.asarray(rs_j)[:, 0].copy())
     cs = torch.from_numpy(np.asarray(cs_j)[0].copy())
-    due = torch_fused_ce.fused_ce_bwd_reference(u, i, rs, cs, INV_TEMP)
-    die = torch_fused_ce.fused_ce_bwd_reference(i, u, cs, rs, INV_TEMP)
+    due, die = torch_fused_ce.fused_ce_bwd_reference(u, i, rs, cs, INV_TEMP)
     for got, want in ((due, due_j), (die, die_j)):
         want = np.asarray(want)
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=5e-3 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("b,d", SHAPES)
+def test_swapped_gradient_pass_is_the_column_pass(b, d):
+    """What the CUDA backward's second launch rests on: ``d_ie`` is the row
+    pass with the towers and sums swapped, ``bwd(ie, ue, cs, rs)[0]``, and
+    that call's column pass is ``d_ue``."""
+    ue, ie = _towers(b, d, seed=5)
+    u, i = torch.from_numpy(ue), torch.from_numpy(ie)
+    rs, cs = torch_fused_ce.fused_ce_fwd_reference(u, i, INV_TEMP)
+    due, die = torch_fused_ce.fused_ce_bwd_reference(u, i, rs, cs, INV_TEMP)
+    die_swapped, due_swapped = torch_fused_ce.fused_ce_bwd_reference(i, u, cs, rs, INV_TEMP)
+    for got, want in ((die_swapped, die), (due_swapped, due)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=5e-3 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("b,d", SHAPES)
