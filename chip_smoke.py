@@ -4,7 +4,7 @@
 
 The Recommendation path: ALS trains on ML-20M-shaped ratings (137,931
 users x 27,027 items, 20M ratings, rank 64) through the hand-written CUDA
-Gauss-Jordan solve kernel, the trained model is served by the port's
+Gauss-Jordan solve kernel (one warp per system at rank 64), the trained model is served by the port's
 query server, and 64 ``POST /queries.json`` requests are checked against
 a float64 numpy top-10 of the same factors.
 
@@ -20,14 +20,18 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. device — the card's name, power limit and count; no CUDA device fails.
 2. build  — every kernel built from ``predictionio_tpu_torch/ops/csrc``, one
    ``nvcc`` per source, all at once (``-Xptxas -v``: register and
-   shared-memory lines printed), and the count of tensor-core ``HMMA``
-   instructions in the built fused-CE library (``cuobjdump -sass``).
+   shared-memory lines printed; a spill in any function fails), and the
+   count of tensor-core ``HMMA`` instructions in the built fused-CE
+   library (``cuobjdump -sass``).
 3. kernel — each kernel held against its plain PyTorch version and the
    library call at the shapes its path gives it, on inputs made on the
-   card; times by CUDA events. The fused-CE forward is one call (both
-   sums), the backward one call of two launches (``d_ue``, then ``d_ie``
-   with the towers swapped); each row adds the host's time to issue a
-   call and the achieved tensor-core FLOP/s and exponentials/s.
+   card; times by CUDA events, and the host's time to issue a call. A
+   solve row adds the launch plan (kernel, shared bytes per block, warps
+   per SM, grid) and the achieved GB/s, then the K <= 64 kernel is timed
+   per system at each of ``SOLVE_WIDTHS``. The fused-CE forward is one
+   call (both sums), the backward one call of two launches (``d_ue``,
+   then ``d_ie`` with the towers swapped); each row adds the achieved
+   tensor-core FLOP/s and exponentials/s.
 4. ALS    — the launch counts are set to 0, ``ALSAlgorithm.train`` runs on
    the card, the query server answers 64 queries, and the counts are read
    and checked against the bucket plan; then one user half-sweep is held
@@ -47,6 +51,7 @@ Imports only the port, torch, numpy and the standard library.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -73,7 +78,7 @@ from predictionio_tpu_torch.ops.fused_ce import (
     fused_ce_fwd_reference,
     fused_inbatch_ce,
 )
-from predictionio_tpu_torch.ops.solve import cholesky_solve, gj_solve_cuda, gj_solve_reference
+from predictionio_tpu_torch.ops.solve import cholesky_solve, gj_solve_cuda, gj_solve_plan, gj_solve_reference
 from predictionio_tpu_torch.ops.twotower import AdamState, TwoTowerConfig, inbatch_loss, l2_normalize, train_step
 from predictionio_tpu_torch.templates import twotower as tt
 from predictionio_tpu_torch.templates.recommendation.engine import (
@@ -112,6 +117,9 @@ MAX_RESIDUAL = 1e-4
 #: [B, K] solve shapes: the ALS chunk cap (chunk_rows), a width-192 user
 #: chunk of the ML-20M run, a hot group, and the K=128 / K=256 regimes
 SOLVE_SHAPES = ((32768, 64), (21840, 64), (2049, 64), (4096, 128), (64, 256))
+
+#: widths of the one-warp-per-system kernel timed at the ALS chunk cap
+SOLVE_WIDTHS = (16, 32, 48, 64)
 
 #: the Two-Tower path: the JAX package bench's configuration
 #: (bench.py::_bench_twotower at its accelerator scale)
@@ -202,6 +210,21 @@ def phase_device() -> dict:
 
 
 # ---------------------------------------------------------------- 2. build
+def ptxas_spills(out: str) -> list:
+    """(function, spill store bytes, spill load bytes) for every function
+    in nvcc's ``-Xptxas -v`` output: "N bytes spill stores" stands on a
+    line of its own after "Function properties for <function>"."""
+    spills, current = [], "?"
+    for line in out.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills.append((current, int(m.group(1)), int(m.group(2))))
+    return spills
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     names = sorted(_build.SOURCES)
@@ -209,10 +232,14 @@ def phase_build() -> None:
         outputs = list(pool.map(_build.build, names))
     for name, out in zip(names, outputs):
         for line in out.splitlines():
-            # "N bytes spill stores" stands on a line of its own, after the entry's name
             if "spill" in line or ("ptxas" in line and ("registers" in line or "smem" in line or "Compiling" in line)):
                 log(f"[build] {name}: {line.strip()}")
-    log(f"[build] {names} built in {time.perf_counter() - t0:.3f} s into {_build.BUILD_DIR}")
+        if not out:
+            log(f"[build] {name}: library was built already; no ptxas lines")
+        spilled = [s for s in ptxas_spills(out) if s[1] or s[2]]
+        if spilled:
+            raise RuntimeError(f"build: ptxas spills registers in {name}: {spilled}")
+    log(f"[build] {names} built in {time.perf_counter() - t0:.3f} s into {_build.BUILD_DIR}; no spills")
     # the fused-CE kernels' products run on the tensor cores: count HMMA
     sass = subprocess.run(
         [_build.cuda_tool("cuobjdump"), "-sass", str(_build.lib_path("fused_ce"))],
@@ -277,11 +304,16 @@ def host_ms(fn, reps: int) -> float:
     return issued * 1e3 / reps
 
 
+def solve_bytes(batch: int, k: int) -> float:
+    """Bytes a solve must move: A and b read once, x written once."""
+    return 4.0 * batch * (k * k + 2 * k)
+
+
 def solve_bound(batch: int, k: int) -> tuple[float, str]:
-    """Least time for the solve on the card: A and b read once, x written
-    once, over the memory rate; Cholesky's K³/3 + 2K² FLOP per system
-    over the f32 peak. Returns (ms, which bound)."""
-    byte_ms = 4.0 * batch * (k * k + 2 * k) / PEAK_BYTES_PER_S * 1e3
+    """Least time for the solve on the card: :func:`solve_bytes` over the
+    memory rate; Cholesky's K³/3 + 2K² FLOP per system over the f32 peak.
+    Returns (ms, which bound)."""
+    byte_ms = solve_bytes(batch, k) / PEAK_BYTES_PER_S * 1e3
     flop_ms = batch * (k**3 / 3 + 2 * k**2) / PEAK_F32_FLOPS * 1e3
     return (byte_ms, "bytes") if byte_ms >= flop_ms else (flop_ms, "operations")
 
@@ -304,15 +336,17 @@ def phase_kernel(device) -> list:
         max_abs = float((x - x_plain).abs().max())
         reps = 20 if batch * k * k <= (1 << 28) else 10
         ms = time_ms(lambda: gj_solve_cuda(A, b), reps)
+        issue_ms = host_ms(lambda: gj_solve_cuda(A, b), reps)
         plain_ms = time_ms(lambda: gj_solve_reference(A, b), 3)
         library_ms = time_ms(lambda: cholesky_solve(A, b), 5)
         bound_ms, bound_by = solve_bound(batch, k)
         row = {
-            # [A | b] per block: dynamic shared memory up to K=128, device scratch above
-            "shape": [batch, k, k], "smem_bytes": 4 * k * (k + 1) if k <= 128 else 0,
+            "shape": [batch, k, k], "plan": gj_solve_plan(batch, k, device),
             "rel_err_plain": err_plain, "rel_err_cholesky": err_chol,
-            "residual": res, "residual_plain": res_plain, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "residual": res, "residual_plain": res_plain, "max_abs_err": max_abs, "ms": ms, "host_ms": issue_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            # A and b read once, x written once, over the kernel's time
+            "gb_per_s": solve_bytes(batch, k) / ms / 1e6, "bound_share": bound_ms / ms,
         }
         log(f"[kernel] gj_solve {json.dumps(row)}")
         if not (err_plain < MAX_REL_ERR and err_chol < MAX_REL_ERR and res < MAX_RESIDUAL):
@@ -322,6 +356,32 @@ def phase_kernel(device) -> list:
             )
         rows.append(row)
         del A, b, x, x_plain, x_chol
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_solve_widths(device) -> list:
+    """The K <= 64 kernel at B = 32768 for each of ``SOLVE_WIDTHS``: time
+    per system and FMA instructions a warp issues per ns, beside the plain
+    mirror's agreement. The register kernel's code grows as K², so a time
+    per system that rises faster than its instructions from K = 32 to K = 64
+    points at instruction fetch."""
+    rows = []
+    batch = SOLVE_SHAPES[0][0]
+    for k in SOLVE_WIDTHS:
+        A, b = spd_batch(batch, k, seed=300 + k, device=device)
+        err = rel_err(gj_solve_cuda(A, b), gj_solve_reference(A, b))
+        ms = time_ms(lambda: gj_solve_cuda(A, b), 20)
+        # a lane holds ceil(K/32) rows: each pivot p is that many FMA
+        # instructions per column to its right (and b)
+        fma_instr = -(-k // 32) * k * (k + 1) // 2 * batch
+        row = {"shape": [batch, k, k], "rel_err_plain": err, "ms": ms, "ns_per_system": ms * 1e6 / batch,
+               "fma_instr_per_ns": fma_instr / (ms * 1e6), "bound_ms": solve_bound(batch, k)[0]}
+        log(f"[kernel] gj_solve width {json.dumps(row)}")
+        if not err < MAX_REL_ERR:
+            raise RuntimeError(f"gj_solve disagrees at [{batch},{k},{k}]: rel err vs plain {err:.3g}")
+        rows.append(row)
+        del A, b
         torch.cuda.empty_cache()
     return rows
 
@@ -779,6 +839,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
     phase_build()
     solve_rows = phase_kernel(device)
+    phase_solve_widths(device)
     fused_rows = phase_fused_kernel(device, info["exp_per_s"])
 
     # the Recommendation path

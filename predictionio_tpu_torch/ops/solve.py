@@ -3,10 +3,13 @@
 Counterpart of ``predictionio_tpu/ops/solve.py``:
 
 * :func:`gj_solve_cuda` — the kernel wrapper. On a CUDA tensor it
-  launches ``ops/csrc/gj_solve.cu`` (Gauss-Jordan without pivoting, one
-  thread block per system) and counts the launch in
+  launches ``ops/csrc/gj_solve.cu`` (Gauss-Jordan without pivoting: one
+  warp per system with ``[A|b]`` in registers for K <= 64, one thread
+  block per system above) and counts the launch in
   ``gj_solve_cuda.launches``; on a CPU tensor it takes the plain version.
   A failed launch raises: nothing falls back.
+* :func:`gj_solve_plan` — the launch the kernel makes at a shape (shared
+  bytes, threads, resident blocks per SM, grid), for measurement.
 * :func:`gj_solve_reference` — the plain PyTorch mirror of the JAX
   package's ``_gj_kernel``: pivot blocks of P=8, each inverted by an
   unrolled GJ, then eliminated from every row by two rank-P products.
@@ -31,7 +34,9 @@ __all__ = [
     "MAX_GJ_K",
     "SPD_METHODS",
     "spd_solve",
+    "WARP_MAX_K",
     "gj_solve_cuda",
+    "gj_solve_plan",
     "gj_solve_reference",
     "cholesky_solve",
 ]
@@ -42,6 +47,10 @@ PIVOT_BLOCK = 8
 
 #: largest K the Gauss-Jordan path takes (the JAX package's ``_MAX_PALLAS_K``)
 MAX_GJ_K = 256
+
+#: largest K of the one-warp-per-system kernel (``gj_solve_warp_kernel``);
+#: wider systems take the one-block-per-system kernel
+WARP_MAX_K = 64
 
 #: ``spd_solve`` methods: "auto" (kernel on CUDA, plain GJ on CPU),
 #: "plain" (the plain GJ on any device)
@@ -117,6 +126,8 @@ def _kernel_lib() -> ctypes.CDLL:
     if lib.gj_solve_f32.argtypes is None:
         lib.gj_solve_scratch_floats.argtypes = [ctypes.c_longlong, ctypes.c_int]
         lib.gj_solve_scratch_floats.restype = ctypes.c_longlong
+        lib.gj_solve_plan.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.gj_solve_plan.restype = ctypes.c_int
         lib.gj_solve_f32.restype = ctypes.c_int
         lib.gj_solve_f32.argtypes = [  # last: marks the library bound
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -137,6 +148,10 @@ def gj_solve_cuda(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     x = torch.empty_like(b)
     if B == 0:
         return x
+    if K <= WARP_MAX_K and (A.data_ptr() % 16 or b.data_ptr() % 16):
+        # the warp kernel copies 16-byte chunks: a view at an odd offset
+        # is solved from an aligned copy
+        A, b = A.clone(), b.clone()
     n_scratch = int(lib.gj_solve_scratch_floats(B, K))
     scratch = (
         torch.empty(n_scratch, dtype=torch.float32, device=A.device) if n_scratch else None
@@ -155,6 +170,25 @@ def gj_solve_cuda(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 gj_solve_cuda.launches = 0
+
+
+def gj_solve_plan(B: int, K: int, device: torch.device | str = "cuda") -> dict:
+    """The launch :func:`gj_solve_cuda` makes for a ``[B,K,K]`` batch on
+    ``device`` (a CUDA device): which kernel, its shared bytes and threads
+    per block, resident blocks and warps per SM (the occupancy query), and
+    the grid. Launches nothing."""
+    lib = _kernel_lib()
+    plan = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        err = lib.gj_solve_plan(B, K, plan)
+    if err != 0:
+        raise RuntimeError(f"gj_solve plan failed: cudaError {err} at B={B}, K={K}")
+    smem, threads, per_sm, grid = plan
+    return {
+        "kernel": "warp" if K <= WARP_MAX_K else "block",
+        "smem_per_block": smem, "threads_per_block": threads,
+        "blocks_per_sm": per_sm, "warps_per_sm": per_sm * threads // 32, "grid": grid,
+    }
 
 
 def spd_solve(A: torch.Tensor, b: torch.Tensor, method: str = "auto") -> torch.Tensor:

@@ -8,7 +8,8 @@ Whether there is a card is decided inside the ``cuda_device`` fixture,
 never at import, so every test is collected the same way everywhere; on
 a machine without CUDA the card tests skip.
 
-Tolerances: the CUDA kernel against the plain Gauss-Jordan mirror at
+Tolerances: the CUDA kernels (one warp per system for K <= 64, one block
+per system above) against the plain Gauss-Jordan mirror at
 rtol 5e-4, atol 5e-5 (the JAX package's interpret-vs-Cholesky band,
 tests/test_als.py); ALS on the card against ALS on the CPU at rtol 5e-3,
 atol 5e-4 (its cross-solver ALS band), since the kernel and the mirror
@@ -94,7 +95,18 @@ def test_asking_for_cuda_without_a_card_raises():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,K", [(1000, 64), (300, 128), (20, 256), (5, 8), (33, 136)])
+@pytest.mark.parametrize(
+    "B,K",
+    [
+        # the one-warp-per-system kernel at every width; B = 1, B below a
+        # block's 4 warps, and B = 2049, a ragged last round of the grid
+        (5, 8), (257, 16), (100, 24), (1, 32), (3, 40), (50, 48), (40, 56),
+        (1000, 64), (1, 64), (3, 64), (2049, 64),
+        # the one-block-per-system kernel: its first width, shared memory
+        # to K = 128, device scratch above
+        (130, 72), (300, 128), (33, 136), (20, 256),
+    ],
+)
 def test_kernel_matches_plain_on_card(cuda_device, B, K):
     A, b = _spd(B, K, seed=K)
     At, bt = torch.from_numpy(A).to(cuda_device), torch.from_numpy(b).to(cuda_device)
@@ -104,6 +116,62 @@ def test_kernel_matches_plain_on_card(cuda_device, B, K):
     assert torch_solve.gj_solve_cuda.launches == before + 1
     torch.testing.assert_close(x, torch_solve.gj_solve_reference(At, bt), rtol=SOLVE_RTOL, atol=SOLVE_ATOL)
     torch.testing.assert_close(x, torch_solve.cholesky_solve(At, bt), rtol=SOLVE_RTOL, atol=SOLVE_ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [64, 128])
+def test_kernel_is_deterministic_on_card(cuda_device, K):
+    A, b = _spd(2049, K, seed=3 * K)
+    At, bt = torch.from_numpy(A).to(cuda_device), torch.from_numpy(b).to(cuda_device)
+    first = torch_solve.gj_solve_cuda(At, bt)
+    second = torch_solve.gj_solve_cuda(At, bt)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [64, 128])
+def test_kernel_runs_on_the_current_stream(cuda_device, K):
+    A, b = _spd(700, K, seed=K + 1)
+    At, bt = torch.from_numpy(A).to(cuda_device), torch.from_numpy(b).to(cuda_device)
+    want = torch_solve.gj_solve_cuda(At, bt)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = torch_solve.gj_solve_cuda(At, bt)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_kernel_takes_views_at_any_offset(cuda_device):
+    """The warp kernel copies 16-byte chunks; views that start 4 bytes
+    into their storage give the same bits as aligned tensors."""
+    B, K = 37, 64
+    A, b = _spd(B, K, seed=11)
+    At, bt = torch.from_numpy(A).to(cuda_device), torch.from_numpy(b).to(cuda_device)
+    A_off = torch.empty(B * K * K + 1, device=cuda_device)[1:].view(B, K, K).copy_(At)
+    b_off = torch.empty(B * K + 1, device=cuda_device)[1:].view(B, K).copy_(bt)
+    assert A_off.data_ptr() % 16 and b_off.data_ptr() % 16
+    got = torch_solve.gj_solve_cuda(A_off, b_off)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch_solve.gj_solve_cuda(At, bt))
+
+
+@pytest.mark.gpu
+def test_kernel_plan_on_card(cuda_device):
+    warp = torch_solve.gj_solve_plan(32768, 64, cuda_device)
+    assert warp["kernel"] == "warp" and warp["threads_per_block"] == 128
+    assert warp["smem_per_block"] == 4 * 4 * (64 * 68 + 64 + 2 * 68)
+    assert warp["blocks_per_sm"] >= 1 and warp["warps_per_sm"] == 4 * warp["blocks_per_sm"]
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert warp["grid"] == min(warp["blocks_per_sm"] * sms, 32768 // 4)
+    assert torch_solve.gj_solve_plan(3, 64, cuda_device)["grid"] == 1
+    block = torch_solve.gj_solve_plan(50, 72, cuda_device)
+    assert block["kernel"] == "block" and block["threads_per_block"] == 256 and block["grid"] == 50
+    assert block["smem_per_block"] == 4 * 72 * 73
+    assert torch_solve.gj_solve_plan(50, 256, cuda_device)["smem_per_block"] == 0
 
 
 @pytest.mark.gpu

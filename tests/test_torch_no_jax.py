@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no module of ``predictionio_tpu_torch/``
-and not ``chip_smoke.py`` imports ``jax`` or anything of the JAX package
+and neither ``chip_smoke.py`` nor ``gj_solve_split.py`` imports ``jax`` or anything of the JAX package
 ``predictionio_tpu``, and importing every module of the port leaves
 ``jax`` out of ``sys.modules``."""
 
@@ -13,7 +13,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "predictionio_tpu_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "gj_solve_split.py"]
 
 
 def _forbidden(name: str) -> bool:
