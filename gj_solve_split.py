@@ -20,16 +20,25 @@ and timed at ``[32768, K, K]`` for each K of ``WIDTHS`` by
 Prints each copy's registers per K and ptxas spills and, per shape, its time
 and whether its ``x`` is bit-equal to the kernel's. Exits non-zero without
 a card.
+
+    python3 gj_solve_split.py --against OTHER/gj_solve.cu
+
+also builds another version of the source (the parent commit's, say) and,
+at each of ``chip_smoke.SOLVE_SHAPES`` on chip_smoke's inputs, times it and
+the kernel in turns in this one process (other, kernel, kernel, other) and
+says whether their ``x`` are bit-equal.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 
@@ -49,14 +58,19 @@ CUTS = {
 }
 
 
-def build(name: str) -> tuple[str, str]:
-    """Compile copy ``name``; returns its library path and ptxas lines."""
+def cut_source(name: str) -> str:
+    """gj_solve.cu with copy ``name``'s part taken out."""
     src = _build.SOURCES["gj_solve"].read_text()
     cut = CUTS[name]
     if cut is not None:
         if cut[0] not in src:
             raise RuntimeError(f"{name}: {cut[0].strip()!r} is not in gj_solve.cu")
         src = src.replace(cut[0], cut[1])
+    return src
+
+
+def build(name: str, src: str) -> tuple[str, str]:
+    """Compile ``src`` as copy ``name``; returns its library path and ptxas lines."""
     SPLIT_DIR.mkdir(parents=True, exist_ok=True)
     cu = SPLIT_DIR / f"{name}.cu"
     cu.write_text(src)
@@ -89,9 +103,16 @@ def solver(path: str):
     lib.gj_solve_f32.restype = ctypes.c_int
     lib.gj_solve_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 
+    lib.gj_solve_scratch_floats.argtypes = [ctypes.c_longlong, ctypes.c_int]
+    lib.gj_solve_scratch_floats.restype = ctypes.c_longlong
+
     def solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        B, K = b.shape
         x = torch.empty_like(b)
-        err = lib.gj_solve_f32(A.data_ptr(), b.data_ptr(), x.data_ptr(), None, b.shape[0], b.shape[1],
+        n_scratch = int(lib.gj_solve_scratch_floats(B, K))
+        scratch = torch.empty(n_scratch, device=b.device) if n_scratch else None
+        err = lib.gj_solve_f32(A.data_ptr(), b.data_ptr(), x.data_ptr(),
+                               None if scratch is None else scratch.data_ptr(), B, K,
                                torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"launch failed: cudaError {err}")
@@ -100,12 +121,36 @@ def solver(path: str):
     return solve
 
 
+def against(ours, theirs) -> None:
+    """The kernel and another version of it at chip_smoke's solve shapes
+    and inputs, timed in turns: theirs, ours, ours, theirs."""
+    for i, (batch, k) in enumerate(chip_smoke.SOLVE_SHAPES):
+        A, b = chip_smoke.spd_batch(batch, k, seed=100 + i, device="cuda")
+        x_ours, x_theirs = ours(A, b), theirs(A, b)
+        torch.cuda.synchronize()
+        reps = 20 if batch * k * k <= (1 << 28) else 10
+        t = [chip_smoke.time_ms(lambda f=f: f(A, b), reps) for f in (theirs, ours, ours, theirs)]
+        row = {"shape": [batch, k, k], "bit_equal": bool(torch.equal(x_ours, x_theirs)),
+               "kernel_ms": t[1:3], "against_ms": [t[0], t[3]]}
+        print(f"[against] {json.dumps(row)}", flush=True)
+        del A, b, x_ours, x_theirs
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--against", type=Path, help="another gj_solve.cu to time the kernel against")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("gj_solve_split: torch.cuda.is_available() is false; this script runs on the card only")
     print(chip_smoke._smi("name,power.limit"), flush=True)
-    with ThreadPoolExecutor(max_workers=len(CUTS)) as pool:
-        built = dict(zip(CUTS, pool.map(build, CUTS)))
+    sources = {name: cut_source(name) for name in CUTS}
+    if args.against is not None:
+        sources["against"] = args.against.read_text()
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        built = dict(zip(sources, pool.map(build, sources, sources.values())))
+    if args.against is not None:
+        against(solver(built["kernel"][0]), solver(built.pop("against")[0]))
     inputs = {k: chip_smoke.spd_batch(BATCH, k, seed=400 + k, device="cuda") for k in WIDTHS}
     reference = {}
     for name, (path, ptxas) in built.items():
