@@ -50,7 +50,7 @@
 // * A persistent grid of 4-warp blocks, as many as the occupancy query
 //   says fit (2 a SM at K = 64: 18.2 KB of shared memory a warp, 72.8 KB
 //   a block; __launch_bounds__(128, 2) lets a thread have 255 registers,
-//   and ptxas gives it 184 at K = 64 without a spill, where (128, 3) caps
+//   and ptxas gives it 182 at K = 64 without a spill, where (128, 3) caps
 //   it at 168, spills and runs slower), at most ceil(B / 4) blocks; warp w
 //   walks systems w, w + W, ...
 // * Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W): 0.54 ms at
