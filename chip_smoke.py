@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's two paths once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's three paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -14,6 +14,13 @@ dim 64, batch 8192, 10 epochs) through the hand-written CUDA fused
 in-batch softmax-CE kernels (forward and backward), and the trained towers
 answer 64 queries, checked against a float64 numpy top-10 with the seen
 filter.
+
+The quickstart path: ``pio app new``, the ML-100K replica's 100,000
+``rate`` events into the port's event store (sqlite), ``pio train`` of
+the Recommendation engine (rank 64, so the CUDA solve is on the path)
+through the DASE spine, then ``pio deploy`` as a subprocess answering 64
+``POST /queries.json`` checked against a float64 numpy top-10 of the
+stored model.
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -42,7 +49,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    the loss must fall below 0.8x its first value and recall@10 on held-out
    pairs exceed 5x random; the query server answers 64 queries; one
    steady training step runs under torch.profiler.
-6. a ``[summary]`` line, the ``{"kernels": [...]}`` line, the card's
+6. quickstart — in a temporary ``PIO_FS_BASEDIR``: ``console.main(["app",
+   "new", ...])``; the events written in chunks and timed; the counts set
+   to 0, ``console.main(["train", ...])`` on the default device, the
+   counts read and checked against the plan; the stored blob loaded
+   through ``loads_model`` and its train RMSE held below the mean
+   rating's; ``deploy --port 0`` started as a subprocess, 64 queries held
+   against float64 numpy, ``GET /`` checked for the device and the
+   instance, and SIGTERM must stop it; one ``[quickstart]`` line.
+7. a ``[summary]`` line, the ``{"kernels": [...]}`` line, the card's
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Imports only the port, torch, numpy and the standard library.
@@ -50,17 +65,26 @@ Imports only the port, torch, numpy and the standard library.
 
 from __future__ import annotations
 
+import datetime as dt
 import json
+import os
+import queue
 import re
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from predictionio_tpu_torch.controller.context import local_context
 from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.ops import _build
 from predictionio_tpu_torch.ops.als import (
@@ -87,9 +111,9 @@ from predictionio_tpu_torch.templates.recommendation.engine import (
     Query,
     TrainingData,
 )
-from predictionio_tpu_torch.utils.movielens import ml20m_shaped
+from predictionio_tpu_torch.utils.movielens import ml20m_shaped, synthesize_ml100k
 from predictionio_tpu_torch.utils.synthetic import distinct_pairs, planted_pairs
-from predictionio_tpu_torch.workflow.serving import QueryServer
+from predictionio_tpu_torch.workflow.serving import AlgorithmService, QueryServer
 
 #: H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32
 #: (non-tensor-core) FLOP/s and dense bf16 tensor-core FLOP/s
@@ -109,6 +133,18 @@ SWEEPS = 10
 RANK = 64
 QUERIES = 64
 TOP_K = 10
+
+#: the quickstart path: the ML-100K replica (synthesize_ml100k(42), the
+#: data of tests/test_ml100k_parity.py) through the event store, trained
+#: at the width the ALS path runs (rank 64, 10 sweeps, lambda 0.01,
+#: seed 3); events written in chunks; the deploy must bind within
+#: QS_DEPLOY_TIMEOUT_S seconds
+QS_APP = "quickstart"
+QS_RANK = 64
+QS_SWEEPS = 10
+QS_EVENT_CHUNK = 10_000
+QS_DEPLOY_TIMEOUT_S = 240
+QS_FACTORY = "predictionio_tpu.templates.recommendation:engine_factory"
 
 #: kernel-vs-plain tolerances (the JAX package's on-TPU solve checks)
 MAX_REL_ERR = 1e-4
@@ -542,7 +578,7 @@ def phase_train(device, nnz: int, sweeps: int, rank: int) -> dict:
     algo.on_sweep = on_sweep
     torch.cuda.reset_peak_memory_stats(device)
     t1 = time.perf_counter()
-    model = algo.train(td)
+    model = algo.train(local_context(device), td)
     torch.cuda.synchronize(device)
     train_s = time.perf_counter() - t1
     peak = torch.cuda.max_memory_allocated(device)
@@ -600,7 +636,7 @@ def phase_serve(algo, model, td, U64: np.ndarray, V64: np.ndarray, n_queries: in
     users = rng.choice(len(td.user_index), size=n_queries, replace=False)
     lat = []
     bad = []
-    with QueryServer(algo, model) as server:
+    with QueryServer(AlgorithmService(algo, model)) as server:
         for u in users:
             body = json.dumps({"user": str(u), "num": k}).encode()
             req = urllib.request.Request(
@@ -816,6 +852,182 @@ def phase_tt_profile(trained: dict, device) -> dict:
     return profile_once(step, "one steady Two-Tower training step")
 
 
+# ---------------------------------------------------------- 6. quickstart
+def _http_json(url: str, body: dict | None = None) -> tuple[int, dict]:
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(
+        url, data=data, headers={"Content-Type": "application/json"}, method="GET" if body is None else "POST"
+    )
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def _await_line(lines: "queue.Queue", prefix: str, timeout_s: float) -> str:
+    deadline = time.perf_counter() + timeout_s
+    while True:
+        left = deadline - time.perf_counter()
+        if left <= 0:
+            raise RuntimeError(f"quickstart: no '{prefix}' line within {timeout_s} s")
+        try:
+            line = lines.get(timeout=left)
+        except queue.Empty:
+            continue
+        if line is None:
+            raise RuntimeError(f"quickstart: the deploy exited before printing '{prefix}'")
+        if line.startswith(prefix):
+            return line
+
+
+def phase_quickstart(device, n_queries: int, k: int, smi: str) -> dict:
+    """``app new`` -> events -> ``pio train`` -> ``pio deploy`` -> queries,
+    all through the port's console, in a temporary ``PIO_FS_BASEDIR``."""
+    from predictionio_tpu_torch.data.event import DataMap, Event
+    from predictionio_tpu_torch.data.storage import Storage
+    from predictionio_tpu_torch.data.store import resolve_app
+    from predictionio_tpu_torch.templates.recommendation.engine import (
+        DataSourceParams,
+        RecommendationDataSource,
+    )
+    from predictionio_tpu_torch.tools import console
+    from predictionio_tpu_torch.utils.serialization import loads_model
+
+    t_phase = time.perf_counter()
+    dev_args = [] if device.type == "cuda" else ["--device", device.type]
+    base = tempfile.mkdtemp(prefix="pio-quickstart-")
+    saved_env = os.environ.get("PIO_FS_BASEDIR")
+    os.environ["PIO_FS_BASEDIR"] = base
+    Storage.configure(None)
+    proc = None
+    try:
+        if console.main(["app", "new", QS_APP]) != 0:
+            raise RuntimeError("quickstart: pio app new failed")
+        users, items, ratings, stamps = synthesize_ml100k(42)
+        app_id, _ = resolve_app(QS_APP)
+        t0 = time.perf_counter()
+        events = [
+            Event(event="rate", entity_type="user", entity_id=str(u), target_entity_type="item",
+                  target_entity_id=str(i), properties=DataMap({"rating": float(r)}),
+                  event_time=dt.datetime.fromtimestamp(t, dt.timezone.utc))
+            for u, i, r, t in zip(users.tolist(), items.tolist(), ratings.tolist(), stamps.tolist())
+        ]
+        l_events = Storage.get_l_events()
+        for lo in range(0, len(events), QS_EVENT_CHUNK):
+            l_events.insert_batch(events[lo : lo + QS_EVENT_CHUNK], app_id)
+        write_s = time.perf_counter() - t0
+        engine_json = Path(base) / "engine.json"
+        engine_json.write_text(json.dumps({
+            "id": QS_APP, "version": "1", "engineFactory": QS_FACTORY,
+            "datasource": {"params": {"appName": QS_APP}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": QS_RANK, "numIterations": QS_SWEEPS, "lambda": 0.01, "seed": 3}}],
+        }))
+
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        if console.main(["train", "--engine-json", str(engine_json), *dev_args]) != 0:
+            raise RuntimeError("quickstart: pio train failed")
+        train_wall_s = time.perf_counter() - t1
+        launches = read_launch_counts()
+        (instance,) = Storage.get_meta_data_engine_instances().get_all()
+        if instance.status != "COMPLETED":
+            raise RuntimeError(f"quickstart: engine instance {instance.id} is {instance.status}")
+        timings = json.loads(instance.env["phase_timings"])
+        # the plan from the training data as the DataSource reads it
+        td = RecommendationDataSource(DataSourceParams(app_name=QS_APP)).read_training(
+            local_context(device))
+        cfg = ALSConfig(rank=QS_RANK)
+        expected = QS_SWEEPS * (planned_solves(td.rows, len(td.user_index), cfg)
+                                + planned_solves(td.cols, len(td.item_index), cfg))
+        if device.type == "cuda":
+            check_launches("quickstart", launches, {"gj_solve": expected})
+
+        (kind, model), = loads_model(Storage.get_model_data_models().get(instance.id).models)
+        U64 = np.asarray(model.user_factors, np.float64)
+        V64 = np.asarray(model.item_factors, np.float64)
+        if kind != "pickle" or not (np.isfinite(U64).all() and np.isfinite(V64).all()):
+            raise RuntimeError("quickstart: the stored model is not finite host factors")
+        pred = np.einsum("nk,nk->n", U64[td.rows], V64[td.cols])
+        rmse = float(np.sqrt(np.mean((pred - td.vals) ** 2)))
+        mean_rmse = float(np.sqrt(np.mean((td.vals.mean() - td.vals) ** 2)))
+        if not rmse < mean_rmse:
+            raise RuntimeError(f"quickstart: train RMSE {rmse} is not below the mean rating's {mean_rmse}")
+
+        root = str(Path(__file__).resolve().parent)
+        env = dict(os.environ, PIO_FS_BASEDIR=base,
+                   PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p))
+        err_path = Path(base) / "deploy.stderr"
+        t2 = time.perf_counter()
+        with open(err_path, "w") as err:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "predictionio_tpu_torch.tools.console", "deploy",
+                 "--engine-json", str(engine_json), "--ip", "127.0.0.1", "--port", "0", *dev_args],
+                cwd=root, env=env, stdout=subprocess.PIPE, stderr=err, text=True,
+            )
+        lines: queue.Queue = queue.Queue()
+
+        def pump() -> None:
+            for line in proc.stdout:
+                lines.put(line.strip())
+            lines.put(None)
+
+        threading.Thread(target=pump, daemon=True).start()
+        try:
+            port = int(_await_line(lines, "Bound port", QS_DEPLOY_TIMEOUT_S).split()[-1])
+        except RuntimeError as e:
+            raise RuntimeError(f"{e}; deploy stderr: {err_path.read_text()[-2000:]}") from None
+        deploy_s = time.perf_counter() - t2
+        url = f"http://127.0.0.1:{port}"
+
+        rng = np.random.default_rng(13)
+        picks = rng.choice(len(model.user_index), size=n_queries, replace=False)
+        lat, bad = [], []
+        for uidx in picks.tolist():
+            user = model.user_index.inverse(uidx)
+            t3 = time.perf_counter()
+            status, payload = _http_json(url + "/queries.json", {"user": user, "num": k})
+            lat.append((time.perf_counter() - t3) * 1e3)
+            if status != 200:
+                raise RuntimeError(f"quickstart: status {status} for user {user}")
+            got = [model.item_index[s["item"]] for s in payload["itemScores"]]
+            ref, scores = reference_top(U64, V64, uidx, k)
+            if not check_ranking(got, ref, scores):
+                bad.append((user, got, ref.tolist()))
+        if bad:
+            raise RuntimeError(f"quickstart: {len(bad)} of {n_queries} top-{k} lists differ from float64 numpy: {bad[:3]}")
+        _, status_body = _http_json(url + "/")
+        want_device = "cuda:0" if device.type == "cuda" else "cpu"
+        if status_body.get("device") != want_device or status_body.get("engineInstanceId") != instance.id:
+            raise RuntimeError(f"quickstart: GET / answered {status_body}, expected {want_device} and {instance.id}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        if rc != 0:
+            raise RuntimeError(f"quickstart: the deploy exited {rc} on SIGTERM; stderr: {err_path.read_text()[-2000:]}")
+        proc = None
+        p50, p99 = np.percentile(lat, [50, 99])
+        out = {
+            "events": int(users.size), "users": len(td.user_index), "items": len(td.item_index),
+            "rank": QS_RANK, "sweeps": QS_SWEEPS, "write_s": write_s,
+            "events_per_s_written": users.size / write_s, "read_s": timings["read"],
+            "prepare_s": timings["prepare"], "train_als_s": timings["train:als"], "train_wall_s": train_wall_s,
+            "deploy_start_s": deploy_s, "gj_solve_launches": launches["gj_solve"], "planned": expected,
+            "train_rmse": rmse, "mean_rmse": mean_rmse, "queries": n_queries, "p50_ms": float(p50),
+            "p99_ms": float(p99), "status_device": status_body["device"], "instance": instance.id,
+            "phase_s": time.perf_counter() - t_phase, "card": smi,
+        }
+        log(f"[quickstart] {json.dumps(out)}")
+        return out
+    finally:
+        if proc is not None:
+            proc.kill()
+            proc.wait(timeout=30)
+        Storage.configure(None)
+        if saved_env is None:
+            os.environ.pop("PIO_FS_BASEDIR", None)
+        else:
+            os.environ["PIO_FS_BASEDIR"] = saved_env
+        shutil.rmtree(base, ignore_errors=True)
+
+
 def check_launches(path: str, launches: dict, expected: dict) -> None:
     log(f"[{path}] launches on the path: {json.dumps({k: launches[k] for k in expected})}, "
         f"plan {json.dumps(expected)}")
@@ -860,6 +1072,9 @@ def main() -> int:
     tt_trained["model"] = tt_served["model"]
     tt_profile = phase_tt_profile(tt_trained, device)
 
+    # the quickstart path (its own launch count inside)
+    qs = phase_quickstart(device, QUERIES, TOP_K, info["smi"])
+
     main_fused = fused_rows[0]  # [8192, 64], the Two-Tower path's shape
     kernels = [
         kernel_row("gj_solve", als_launches["gj_solve"], solve_rows[0]),
@@ -884,6 +1099,9 @@ def main() -> int:
             "predict_p50_ms": tt_served["predict_p50_ms"], "predict_p99_ms": tt_served["predict_p99_ms"],
             "step_busy_share": tt_profile["busy_share"],
         },
+        "qs": {key: qs[key] for key in (
+            "events", "write_s", "read_s", "train_als_s", "train_wall_s", "deploy_start_s",
+            "gj_solve_launches", "train_rmse", "mean_rmse", "p50_ms", "p99_ms", "phase_s")},
         "wall_s": time.perf_counter() - t_start,
     }
     log(f"[summary] {json.dumps(summary)}")

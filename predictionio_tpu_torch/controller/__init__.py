@@ -1,1 +1,71 @@
-"""Component parameters of the port."""
+"""DASE controller API — the user-facing engine framework of the port.
+
+Counterpart of ``predictionio_tpu/controller/``. Engine templates import
+from here:
+
+    from predictionio_tpu_torch.controller import (
+        Engine, EngineParams, DataSource, Preparator, IdentityPreparator,
+        TorchAlgorithm, LocalAlgorithm, Serving, FirstServing, Params,
+    )
+
+Evaluation (``Evaluation``, ``MetricEvaluator``, the metrics) waits with
+``pio eval``; ``mesh_context`` waits with the port's distributed path.
+"""
+
+from predictionio_tpu_torch.controller.base import create_doer
+from predictionio_tpu_torch.controller.components import (
+    Algorithm,
+    AverageServing,
+    DataSource,
+    FirstServing,
+    IdentityPreparator,
+    LocalAlgorithm,
+    Preparator,
+    SanityCheck,
+    Serving,
+    TorchAlgorithm,
+)
+from predictionio_tpu_torch.controller.context import WorkflowContext, local_context
+from predictionio_tpu_torch.controller.engine import (
+    Engine,
+    EngineFactory,
+    EngineParams,
+    SimpleEngine,
+    resolve_engine_factory,
+)
+from predictionio_tpu_torch.controller.params import (
+    EmptyParams,
+    Params,
+    ParamsError,
+    params_from_json,
+    params_to_json,
+)
+from predictionio_tpu_torch.controller.persistent import PersistentModel, PersistentModelManifest
+
+__all__ = [
+    "Algorithm",
+    "AverageServing",
+    "DataSource",
+    "EmptyParams",
+    "Engine",
+    "EngineFactory",
+    "EngineParams",
+    "FirstServing",
+    "IdentityPreparator",
+    "LocalAlgorithm",
+    "Params",
+    "ParamsError",
+    "PersistentModel",
+    "PersistentModelManifest",
+    "Preparator",
+    "SanityCheck",
+    "Serving",
+    "SimpleEngine",
+    "TorchAlgorithm",
+    "WorkflowContext",
+    "create_doer",
+    "local_context",
+    "params_from_json",
+    "params_to_json",
+    "resolve_engine_factory",
+]

@@ -4,18 +4,24 @@ from predictionio_tpu_torch.templates.recommendation.engine import (
     ALSAlgorithm,
     ALSAlgorithmParams,
     ALSModel,
+    DataSourceParams,
     ItemScore,
     PredictedResult,
     Query,
+    RecommendationDataSource,
     TrainingData,
+    engine_factory,
 )
 
 __all__ = [
     "ALSAlgorithm",
     "ALSAlgorithmParams",
     "ALSModel",
+    "DataSourceParams",
     "ItemScore",
     "PredictedResult",
     "Query",
+    "RecommendationDataSource",
     "TrainingData",
+    "engine_factory",
 ]

@@ -1,12 +1,26 @@
-"""Recommendation engine: ratings -> ALS on the card -> top-N item queries.
+"""Recommendation engine: event store -> ALS on the card -> top-N item queries.
 
 Counterpart of ``predictionio_tpu/templates/recommendation/engine.py``
-(parity: the reference's scala-parallel-recommendation template). This
-slice carries the algorithm and its wire types: ``train`` takes a
-:class:`TrainingData` built from arrays, ``prepare_model_for_serving``
-moves the factors to the device, and ``predict``/``batch_predict`` score
-there. engine.json params are byte-compatible: ``rank``,
-``numIterations``, ``lambda``, ``seed``, ``implicitPrefs``, ``alpha``.
+(parity: the reference's scala-parallel-recommendation template):
+
+* :class:`RecommendationDataSource` reads ``rate`` events (explicit
+  rating property) and ``buy`` events (implicit rating 4.0) through the
+  columnar bulk scan; the latest event per (user, item) wins, and equal
+  times go to the higher rating;
+* :class:`ALSAlgorithm` trains with :func:`predictionio_tpu_torch.ops.als.train_als`
+  on the context's device, keeps the factors on that device for serving,
+  and scores ``predict``/``batch_predict`` there;
+* serving is the framework's :class:`FirstServing`
+  (:func:`engine_factory`).
+
+engine.json params are byte-compatible: ``rank``, ``numIterations``,
+``lambda``, ``seed``, ``implicitPrefs``, ``alpha``, ``serveOnDevice``,
+``deviceLatencyBudgetMs``, and the datasource's ``appName``/``evalK``.
+
+Waiting: the incremental training cache (it runs only on the columnar
+and partitioned drivers, not ported), the multi-host read, ``read_eval``
+and ``PrecisionAtK`` (with ``pio eval``), warm start, the host (numpy)
+predict branch and the serving tiers.
 """
 
 from __future__ import annotations
@@ -17,8 +31,19 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
-from predictionio_tpu_torch.controller.params import Params
+from predictionio_tpu_torch.controller import (
+    DataSource,
+    Engine,
+    FirstServing,
+    IdentityPreparator,
+    Params,
+    SanityCheck,
+    TorchAlgorithm,
+    WorkflowContext,
+)
 from predictionio_tpu_torch.data.bimap import BiMap
+from predictionio_tpu_torch.data.event import EventValidationError
+from predictionio_tpu_torch.data.store import PEventStore
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.ops.als import (
     ALSConfig,
@@ -27,16 +52,20 @@ from predictionio_tpu_torch.ops.als import (
     train_als,
 )
 from predictionio_tpu_torch.ops.topk import top_k_scores
+from predictionio_tpu_torch.templates.columnar_util import event_name_mask
 from predictionio_tpu_torch.templates.results import ItemScore, PredictedResult
 
 __all__ = [
     "Query",
     "ItemScore",
     "PredictedResult",
+    "DataSourceParams",
     "TrainingData",
+    "RecommendationDataSource",
     "ALSAlgorithmParams",
     "ALSModel",
     "ALSAlgorithm",
+    "engine_factory",
 ]
 
 
@@ -48,8 +77,25 @@ class Query:
     num: int = 4
 
 
+# ---------------------------------------------------------------- datasource
+@dataclasses.dataclass(frozen=True)
+class DataSourceParams(Params):
+    app_name: str = ""
+    #: events read as explicit ratings (property ``rating``)
+    rate_event: str = "rate"
+    #: events read as implicit positive signal with this rating value
+    buy_event: str = "buy"
+    buy_rating: float = 4.0
+    #: eval folds for read_eval (which waits with ``pio eval``)
+    eval_k: int = 3
+    #: the JAX package's incremental re-index on a columnar store; no
+    #: driver the port has can serve it, so every read is a full read
+    incremental: bool = True
+    json_aliases = {"appName": "app_name", "evalK": "eval_k"}
+
+
 @dataclasses.dataclass
-class TrainingData:
+class TrainingData(SanityCheck):
     """COO ratings + the entity-id <-> dense-index BiMaps."""
 
     rows: np.ndarray
@@ -60,11 +106,118 @@ class TrainingData:
 
     def sanity_check(self) -> None:
         if self.rows.size == 0:
-            raise ValueError("TrainingData is empty — no ratings")
+            raise ValueError(
+                "TrainingData is empty — no rate/buy events found; "
+                "check appName and imported events"
+            )
         if not (self.rows.size == self.cols.size == self.vals.size):
             raise ValueError("TrainingData arrays are misaligned")
 
 
+class RecommendationDataSource(DataSource):
+    params_class = DataSourceParams
+
+    def __init__(self, params: DataSourceParams):
+        super().__init__(params)
+
+    def _extract_ratings_arrays(self, cols):
+        """EventColumns -> (u_code, i_code, event_time_us, rating) in the
+        columns' own vocab space; validates that rate events carry a
+        numeric rating."""
+        p = self.params
+        # exact-match lookup: a third-party driver's event_vocab need not
+        # be sorted (the EventColumns contract doesn't promise it)
+        is_buy = event_name_mask(cols, p.buy_event)
+        if is_buy.any():
+            vals = np.where(is_buy, np.float32(p.buy_rating), cols.prop)
+        else:
+            vals = cols.prop
+        keep = cols.target_code >= 0  # events without a target are skipped
+        bad = keep & ~is_buy & np.isnan(vals)
+        if bad.any():
+            n_bad = int(bad.sum())
+            u = cols.entity_vocab[cols.entity_code[np.argmax(bad)]]
+            raise EventValidationError(
+                f"{n_bad} '{p.rate_event}' event(s) lack a numeric 'rating' "
+                f"property (first offender: entity {u!r})"
+            )
+        if keep.all():
+            return (
+                cols.entity_code,
+                cols.target_code,
+                cols.event_time_us,
+                vals.astype(np.float32, copy=False),
+            )
+        return (
+            cols.entity_code[keep],
+            cols.target_code[keep],
+            cols.event_time_us[keep],
+            vals[keep].astype(np.float32, copy=False),
+        )
+
+    @staticmethod
+    def _assemble_training_data(u_code, i_code, t_arr, v, user_vocab, item_vocab) -> TrainingData:
+        """Dedup (latest wins, ties -> higher rating) + vocabulary
+        compaction. One argsort groups the pairs; only rows inside
+        duplicate groups (usually a tiny fraction) pay the 3-key lexsort.
+        The pair key uses the narrowest dtype that fits."""
+        span = int(user_vocab.size) * (int(item_vocab.size) + 1)
+        pair_dt = np.uint32 if span < 2**32 else np.int64
+        pair = u_code.astype(pair_dt) * pair_dt(item_vocab.size + 1) + i_code.astype(pair_dt)
+        # stability is irrelevant: duplicate groups are re-ranked below by
+        # (time, rating), so the faster introsort wins over kind="stable"
+        order = np.argsort(pair)
+        ps = pair[order]
+        n = ps.size
+        last = np.flatnonzero(np.r_[ps[1:] != ps[:-1], n > 0])
+        first = np.r_[0, last[:-1] + 1] if n else last
+        sizes = last - first + 1
+        sel = order[last]
+        dup_groups = np.flatnonzero(sizes > 1)
+        if dup_groups.size:
+            rows_d = order[np.repeat(sizes > 1, sizes)]
+            dsizes = sizes[dup_groups]
+            group_of = np.repeat(np.arange(dup_groups.size), dsizes)
+            o2 = np.lexsort((v[rows_d], t_arr[rows_d], group_of))
+            sel[dup_groups] = rows_d[o2[np.cumsum(dsizes) - 1]]
+        u_sel = u_code[sel]
+        i_sel = i_code[sel]
+        # compact the vocabularies to ids that survived (bincount is O(N),
+        # unlike a sort-based unique)
+        used_u = np.flatnonzero(np.bincount(u_sel, minlength=user_vocab.size))
+        used_i = np.flatnonzero(np.bincount(i_sel, minlength=item_vocab.size))
+        u_lut = np.zeros(user_vocab.size, np.int64)
+        u_lut[used_u] = np.arange(used_u.size)
+        i_lut = np.zeros(item_vocab.size, np.int64)
+        i_lut[used_i] = np.arange(used_i.size)
+        return TrainingData(
+            rows=u_lut[u_sel],
+            cols=i_lut[i_sel],
+            vals=v[sel],
+            user_index=BiMap.string_index(user_vocab[used_u].tolist()),
+            item_index=BiMap.string_index(item_vocab[used_i].tolist()),
+        )
+
+    def read_training(self, ctx: WorkflowContext) -> TrainingData:
+        """Vectorized single-host read: the columnar bulk scan
+        (``PEventStore.find_columns``) plus numpy dedup and BiMaps, no
+        per-event Python."""
+        if ctx.num_hosts != 1:
+            raise NotImplementedError("the port reads events on one host only")
+        p = self.params
+        cols = PEventStore.find_columns(
+            app_name=p.app_name,
+            entity_type="user",
+            event_names=[p.rate_event, p.buy_event],
+            prop="rating",
+        )
+        u_code, i_code, t_arr, v = self._extract_ratings_arrays(cols)
+        return self._assemble_training_data(
+            u_code, i_code, t_arr, v, cols.entity_vocab, cols.target_vocab
+        )
+
+
+# ----------------------------------------------------------------- algorithm
 @dataclasses.dataclass(frozen=True)
 class ALSAlgorithmParams(Params):
     rank: int = 10
@@ -73,17 +226,25 @@ class ALSAlgorithmParams(Params):
     seed: int | None = 3
     implicit_prefs: bool = False
     alpha: float = 1.0
+    #: the JAX package's choice between host numpy and device serving;
+    #: the port serves from the context's device either way (its host
+    #: predict branch waits), and keeps the keys so an engine.json or an
+    #: engine instance of the JAX package binds unchanged
+    serve_on_device: bool = False
+    device_latency_budget_ms: float = 10.0
     json_aliases = {
         "numIterations": "num_iterations",
         "lambda": "lambda_",
         "implicitPrefs": "implicit_prefs",
+        "serveOnDevice": "serve_on_device",
+        "deviceLatencyBudgetMs": "device_latency_budget_ms",
     }
 
 
 @dataclasses.dataclass
 class ALSModel:
-    """Factor matrices + id maps: host numpy after ``train``, device
-    tensors after ``prepare_model_for_serving``."""
+    """Factor matrices + id maps: host numpy after ``train`` and in blobs,
+    device tensors after ``prepare_model_for_serving``."""
 
     user_factors: Any  # [U, K]
     item_factors: Any  # [I, K]
@@ -91,7 +252,7 @@ class ALSModel:
     item_index: BiMap
 
 
-class ALSAlgorithm:
+class ALSAlgorithm(TorchAlgorithm):
     params_class = ALSAlgorithmParams
     query_class = Query
 
@@ -99,14 +260,15 @@ class ALSAlgorithm:
     BATCH_PREDICT_CHUNK = 2048
 
     def __init__(self, params: ALSAlgorithmParams, device: str | torch.device | None = None):
-        self.params = params
-        self.device = resolve_device(device)
+        super().__init__(params, device)
         #: optional ``on_sweep(step, user, item)`` hook handed to train_als
         self.on_sweep: Callable[[int, torch.Tensor, torch.Tensor], None] | None = None
 
-    def train(self, pd: TrainingData) -> ALSModel:
-        pd.sanity_check()
+    def train(self, ctx: WorkflowContext, pd: TrainingData) -> ALSModel:
+        """ALS on ``ctx.device`` (the algorithm's own device when the
+        context names none); the model comes back as host numpy."""
         p = self.params
+        device = self.device if ctx.device is None else resolve_device(ctx.device)
         factors = train_als(
             pd.rows,
             pd.cols,
@@ -121,7 +283,7 @@ class ALSAlgorithm:
                 alpha=p.alpha,
                 seed=0 if p.seed is None else p.seed,
             ),
-            device=self.device,
+            device=device,
             on_sweep=self.on_sweep,
         )
         return ALSModel(
@@ -147,8 +309,7 @@ class ALSAlgorithm:
         """Make the calling thread ready to serve: the device current, and
         one query through the scoring path (a CUDA thread sets up its
         context and cuBLAS handle on its first product)."""
-        if self.device.type == "cuda":
-            torch.cuda.set_device(self.device)
+        super().warm_up(model)
         if len(model.user_index):
             self.predict(model, Query(user=model.user_index.keys()[0], num=4))
 
@@ -197,3 +358,12 @@ class ALSAlgorithm:
                     for i, s in zip(row_ids[:k], row_scores[:k])
                 ))))
         return results
+
+
+def engine_factory() -> Engine:
+    return Engine(
+        datasource_class=RecommendationDataSource,
+        preparator_class=IdentityPreparator,
+        algorithms_class_map={"als": ALSAlgorithm},
+        serving_class=FirstServing,
+    )

@@ -1,24 +1,36 @@
-"""A minimal query server for a deployed engine (counterpart of the query
-half of ``predictionio_tpu/workflow/serving.py``).
+"""Query server — deploy a trained engine instance behind HTTP.
 
-``POST /queries.json`` binds the JSON body to the algorithm's
-``query_class``, predicts on the device and answers with the same JSON
-shape as the JAX package's ``_result_to_json``; a query whose predict
-raises answers 500 with the error's message; ``GET /`` answers a status
-object. The server runs on a ``ThreadingHTTPServer`` in a
-background thread, started by :meth:`QueryServer.start` and stopped by
-:meth:`QueryServer.close`.
+Counterpart of the query half of ``predictionio_tpu/workflow/serving.py``
+(parity: ``core/workflow/CreateServer.scala``).
+
+* :class:`QueryService` is one deployed engine instance. It loads the
+  latest COMPLETED ``EngineInstance`` of an engine variant (or the one
+  asked for), re-hydrates its models through ``Engine.prepare_deploy`` on
+  the context's device, and answers a query by supplement -> each
+  algorithm's predict -> serve, in the JSON shape of the JAX package's
+  ``_result_to_json``.
+* :class:`AlgorithmService` serves one algorithm and a model already in
+  hand (no engine, no store), for callers that trained in-process.
+* :class:`QueryServer` puts either behind ``POST /queries.json`` and
+  ``GET /`` on a ``ThreadingHTTPServer`` in a background thread, started
+  by :meth:`QueryServer.start` and stopped by :meth:`QueryServer.close`.
+  A query whose predict raises answers 500 with the error's message.
 
 The HTTP server reads each request on a thread of its own, but every
-predict runs on one long-lived worker thread, warmed once at start
-by the algorithm's ``warm_up(model)``: the device
-context and the library handles (cuBLAS) that a CUDA thread sets up on
-its first product are set up once, not on every request.
+query runs on one long-lived worker thread, warmed once at start by the
+service's ``warm_up()``: the device context and the library handles
+(cuBLAS) that a CUDA thread sets up on its first product are set up
+once, not on every request.
+
+Waiting: ``/reload`` and degraded serving, ``/stop``, feedback, plugins,
+micro-batching, the result cache, the pinned, sharded, quantized, ANN,
+online and AOT tiers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime as _dt
 import json
 import logging
 import threading
@@ -26,14 +38,21 @@ from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Mapping
 
+from predictionio_tpu_torch.controller.context import WorkflowContext, local_context
 from predictionio_tpu_torch.controller.params import ParamsError, params_from_json
+from predictionio_tpu_torch.data.storage import Storage
+from predictionio_tpu_torch.workflow.engine_json import EngineVariant
 
-__all__ = ["QueryServer", "result_to_json"]
+__all__ = ["AlgorithmService", "QueryServer", "QueryServerError", "QueryService", "result_to_json"]
 
 logger = logging.getLogger(__name__)
 
 #: largest request body the server reads
 _MAX_BODY_BYTES = 1 << 20
+
+
+class QueryServerError(RuntimeError):
+    pass
 
 
 def result_to_json(result: Any) -> Any:
@@ -45,12 +64,143 @@ def result_to_json(result: Any) -> Any:
     return result
 
 
-class QueryServer:
-    """Serves one algorithm and its prepared model over HTTP."""
+def _bind_query(query_class: Any, body: Any) -> Any:
+    if query_class is None or not isinstance(body, Mapping):
+        return body
+    return params_from_json(query_class, body)
 
-    def __init__(self, algorithm: Any, model: Any, host: str = "127.0.0.1", port: int = 0):
+
+class AlgorithmService:
+    """Serves one algorithm and its prepared model."""
+
+    def __init__(self, algorithm: Any, model: Any):
         self.algorithm = algorithm
         self.model = model
+
+    def warm_up(self) -> None:
+        self.algorithm.warm_up(self.model)
+
+    def handle_query(self, body: Any) -> tuple[int, Any]:
+        """``(status, payload)`` for one parsed ``/queries.json`` body."""
+        if not isinstance(body, Mapping):
+            return 400, {"message": "Query body must be a JSON object."}
+        try:
+            query = _bind_query(self.algorithm.query_class, body)
+        except ParamsError as e:
+            return 400, {"message": f"Invalid query: {e}"}
+        return 200, result_to_json(self.algorithm.predict(self.model, query))
+
+    def status_json(self) -> dict:
+        return {
+            "status": "alive",
+            "algorithm": type(self.algorithm).__name__,
+            "device": str(getattr(self.algorithm, "device", "")),
+        }
+
+
+class QueryService:
+    """One deployed engine instance, loaded at construction."""
+
+    def __init__(
+        self,
+        variant: EngineVariant,
+        ctx: WorkflowContext | None = None,
+        instance_id: str | None = None,
+    ):
+        self.variant = variant
+        self.ctx = ctx if ctx is not None else local_context()
+        self._requested_instance_id = instance_id
+        self._lock = threading.Lock()
+        self.start_time = _dt.datetime.now(_dt.timezone.utc)
+        self.query_count = 0
+        self.instance = self._resolve_instance()
+        engine = variant.build_engine()
+        engine_params = engine.params_from_json(self._instance_params(self.instance))
+        blob = Storage.get_model_data_models().get(self.instance.id)
+        if blob is None:
+            raise QueryServerError(f"No model blob for instance '{self.instance.id}'")
+        self._serving, self._pairs = engine.prepare_deploy(
+            self.ctx, engine_params, self.instance.id, blob.models
+        )
+        #: where the first algorithm serves from (``GET /`` reports it)
+        self.device = str(getattr(self._pairs[0][0], "device", self.ctx.device))
+        logger.info("Loaded engine instance %s on %s", self.instance.id, self.device)
+
+    # ---------------------------------------------------------------- load
+    def _resolve_instance(self):
+        repo = Storage.get_meta_data_engine_instances()
+        if self._requested_instance_id:
+            inst = repo.get(self._requested_instance_id)
+            if inst is None:
+                raise QueryServerError(
+                    f"Engine instance '{self._requested_instance_id}' not found"
+                )
+            return inst
+        inst = repo.get_latest_completed(self.variant.id, self.variant.version, self.variant.id)
+        if inst is None:
+            raise QueryServerError(
+                f"No COMPLETED training of engine '{self.variant.id}' "
+                f"(version '{self.variant.version}') found — run `pio train` first"
+            )
+        return inst
+
+    def _instance_params(self, instance) -> Mapping[str, Any]:
+        """The params the instance trained with (the JAX package's and the
+        port's instances store them alike); the variant's own when the
+        instance has none."""
+        if not instance.algorithms_params:
+            return self.variant.raw
+        return {
+            "datasource": {"params": json.loads(instance.datasource_params or "{}")},
+            "preparator": {"params": json.loads(instance.preparator_params or "{}")},
+            "algorithms": json.loads(instance.algorithms_params or "[]"),
+            "serving": {"params": json.loads(instance.serving_params or "{}")},
+        }
+
+    def warm_up(self) -> None:
+        for algo, model in self._pairs:
+            warm = getattr(algo, "warm_up", None)
+            if warm is not None:
+                warm(model)
+
+    # --------------------------------------------------------------- query
+    def handle_query(self, body: Any) -> tuple[int, Any]:
+        """supplement -> each algorithm's predict -> serve -> JSON."""
+        if body is None:
+            return 400, {"message": "Query body is required (JSON)."}
+        try:
+            query = _bind_query(getattr(self._pairs[0][0], "query_class", None), body)
+        except Exception as e:
+            return 400, {"message": f"Invalid query: {e}"}
+        query = self._serving.supplement_base(query)
+        predictions = [algo.predict_base(model, query) for algo, model in self._pairs]
+        payload = result_to_json(self._serving.serve_base(query, predictions))
+        with self._lock:
+            self.query_count += 1
+        return 200, payload
+
+    def status_json(self) -> dict:
+        inst = self.instance
+        with self._lock:
+            count = self.query_count
+        return {
+            "status": "alive",
+            "engineId": self.variant.id,
+            "engineVersion": self.variant.version,
+            "engineFactory": self.variant.engine_factory,
+            "engineInstanceId": inst.id,
+            "startTime": self.start_time.isoformat(),
+            "queryCount": count,
+            "device": self.device,
+        }
+
+
+class QueryServer:
+    """Serves a :class:`QueryService` or an :class:`AlgorithmService` over
+    HTTP."""
+
+    def __init__(self, service: Any, host: str = "127.0.0.1", port: int = 0):
+        self.service = service
         self._httpd = ThreadingHTTPServer((host, port), self._handler_class())
         self._httpd.daemon_threads = True
         self._thread: threading.Thread | None = None
@@ -66,7 +216,7 @@ class QueryServer:
         return f"http://{host}:{self.port}"
 
     def start(self) -> "QueryServer":
-        self._worker.submit(self.algorithm.warm_up, self.model).result()
+        self._worker.submit(self.service.warm_up).result()
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, name="pio-torch-query-server", daemon=True
         )
@@ -87,22 +237,8 @@ class QueryServer:
         self.close()
 
     def handle_query(self, body: Any) -> tuple[int, Any]:
-        """``(status, payload)`` for one parsed ``/queries.json`` body."""
-        if not isinstance(body, Mapping):
-            return 400, {"message": "Query body must be a JSON object."}
-        try:
-            query = params_from_json(self.algorithm.query_class, body)
-        except ParamsError as e:
-            return 400, {"message": f"Invalid query: {e}"}
-        result = self._worker.submit(self.algorithm.predict, self.model, query).result()
-        return 200, result_to_json(result)
-
-    def status_json(self) -> dict:
-        return {
-            "status": "alive",
-            "algorithm": type(self.algorithm).__name__,
-            "device": str(getattr(self.algorithm, "device", "")),
-        }
+        """``(status, payload)`` for one parsed body, on the worker thread."""
+        return self._worker.submit(self.service.handle_query, body).result()
 
     def _handler_class(self) -> type:
         server = self
@@ -123,7 +259,7 @@ class QueryServer:
 
             def do_GET(self) -> None:
                 if self.path == "/":
-                    self._reply(200, server.status_json())
+                    self._reply(200, server.service.status_json())
                 else:
                     self._reply(404, {"message": f"Not found: {self.path}"})
 

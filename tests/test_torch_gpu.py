@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from predictionio_tpu_torch.controller.context import local_context
 from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.ops import als as torch_als
@@ -238,7 +239,7 @@ def test_engine_serves_from_the_card(cuda_device):
         item_index=BiMap.string_index(str(i) for i in range(32)),
     )
     algo = ALSAlgorithm(ALSAlgorithmParams(rank=16, num_iterations=3, lambda_=0.1), device=cuda_device)
-    model = algo.prepare_model_for_serving(algo.train(td))
+    model = algo.prepare_model_for_serving(algo.train(local_context(cuda_device), td))
     assert model.item_factors.device.type == "cuda"
     U = model.user_factors.double().cpu().numpy()
     V = model.item_factors.double().cpu().numpy()
@@ -253,6 +254,73 @@ def test_engine_serves_from_the_card(cuda_device):
     single = algo.predict(model, Query(user="3", num=5))
     assert [s.item for s in batch[0].item_scores] == [s.item for s in single.item_scores]
     assert batch[1].item_scores == ()
+
+
+@pytest.mark.gpu
+def test_run_train_on_the_card_through_the_spine(cuda_device):
+    # events in the memory store -> run_train on the card -> the stored
+    # blob -> prepare_deploy on the card and on the CPU
+    import datetime as dt
+
+    from predictionio_tpu_torch.data.event import DataMap, Event
+    from predictionio_tpu_torch.data.storage import Storage
+    from predictionio_tpu_torch.data.storage.base import App
+    from predictionio_tpu_torch.templates.recommendation.engine import (
+        DataSourceParams,
+        RecommendationDataSource,
+    )
+    from predictionio_tpu_torch.utils.serialization import loads_model
+    from predictionio_tpu_torch.workflow import load_engine_variant, run_train
+
+    rows, cols, vals = _ratings(num_users=300, num_items=160, nnz=4000, seed=4)
+    Storage.configure({
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "MEM",
+        "PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+    })
+    try:
+        app_id = Storage.get_meta_data_apps().insert(App(id=0, name="card"))
+        t0 = dt.datetime(2021, 1, 1, tzinfo=dt.timezone.utc)
+        Storage.get_l_events().insert_batch([
+            Event(event="rate", entity_type="user", entity_id=str(u), target_entity_type="item",
+                  target_entity_id=str(i), properties=DataMap({"rating": float(v)}),
+                  event_time=t0 + dt.timedelta(seconds=k))
+            for k, (u, i, v) in enumerate(zip(rows.tolist(), cols.tolist(), vals.tolist()))
+        ], app_id)
+        variant = load_engine_variant({
+            "id": "card", "version": "1",
+            "engineFactory": "predictionio_tpu.templates.recommendation:engine_factory",
+            "datasource": {"params": {"appName": "card"}},
+            "algorithms": [{"name": "als", "params": {"rank": 16, "numIterations": 3, "lambda": 0.1}}],
+        })
+        td = RecommendationDataSource(DataSourceParams(app_name="card")).read_training(local_context("cpu"))
+        cfg = torch_als.ALSConfig(rank=16)
+        expected = 3 * (torch_als.planned_solves(td.rows, len(td.user_index), cfg)
+                        + torch_als.planned_solves(td.cols, len(td.item_index), cfg))
+        before = torch_solve.gj_solve_cuda.launches
+        inst = run_train(variant, local_context(cuda_device))
+        assert inst.status == "COMPLETED" and inst.mesh_conf == {"device": "cuda:0"}
+        assert torch_solve.gj_solve_cuda.launches - before == expected > 0
+        blob = Storage.get_model_data_models().get(inst.id).models
+        (_, stored), = loads_model(blob)
+        assert isinstance(stored.user_factors, np.ndarray) and stored.user_factors.dtype == np.float32
+        assert stored.user_factors.shape == (len(td.user_index), 16)
+        engine = variant.build_engine()
+        ep = variant.engine_params(engine)
+        _, [(algo, model)] = engine.prepare_deploy(local_context(cuda_device), ep, inst.id, blob)
+        _, [(cpu_algo, cpu_model)] = engine.prepare_deploy(local_context("cpu"), ep, inst.id, blob)
+    finally:
+        Storage.configure(None)
+    assert model.user_factors.device.type == "cuda" and cpu_model.user_factors.device.type == "cpu"
+    V = stored.item_factors.astype(np.float64)
+    for user in list(td.user_index.keys())[::17]:
+        got = [td.item_index[s.item] for s in algo.predict(model, Query(user=user, num=10)).item_scores]
+        want = [td.item_index[s.item] for s in cpu_algo.predict(cpu_model, Query(user=user, num=10)).item_scores]
+        scores = V @ stored.user_factors[td.user_index[user]].astype(np.float64)
+        assert len(got) == len(want) == 10
+        for g, w in zip(got, want):
+            assert g == w or abs(scores[g] - scores[w]) <= 1e-5 * abs(scores[w])
 
 
 def _unit_towers(B: int, D: int, seed: int, device) -> tuple[torch.Tensor, torch.Tensor]:

@@ -70,3 +70,23 @@ def test_importing_the_port_loads_no_jax():
         [sys.executable, "-c", probe], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
     )
     assert run.returncode == 0, run.stdout + run.stderr
+
+
+def test_console_help_loads_no_jax():
+    # `python -m predictionio_tpu_torch.tools.console --help` as a user runs it
+    probe = (
+        "import runpy, sys\n"
+        "sys.argv = ['console', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('predictionio_tpu_torch.tools.console', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'predictionio_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    run = subprocess.run(
+        [sys.executable, "-c", probe], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert "train" in run.stdout and "deploy" in run.stdout

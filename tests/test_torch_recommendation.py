@@ -34,6 +34,7 @@ from predictionio_tpu.templates.results import ItemScore as JaxItemScore
 from predictionio_tpu.templates.results import PredictedResult as JaxPredictedResult
 from predictionio_tpu.utils.movielens import synthesize_ml100k as jax_ml100k
 from predictionio_tpu.workflow.serving import _result_to_json as jax_result_to_json
+from predictionio_tpu_torch.controller.context import local_context
 from predictionio_tpu_torch.controller.params import params_from_json
 from predictionio_tpu_torch.convert import als_model_from_numpy, als_model_to_numpy
 from predictionio_tpu_torch.data.bimap import BiMap
@@ -45,7 +46,7 @@ from predictionio_tpu_torch.templates.recommendation.engine import (
     TrainingData,
 )
 from predictionio_tpu_torch.utils.movielens import ml20m_shaped, synthesize_ml100k
-from predictionio_tpu_torch.workflow.serving import QueryServer
+from predictionio_tpu_torch.workflow.serving import AlgorithmService, QueryServer
 
 RTOL, ATOL = 5e-3, 5e-4
 NEAR_TIE = 1e-5
@@ -65,7 +66,7 @@ def slice_run():
     )
     params = ALSAlgorithmParams.from_json(ENGINE_JSON)
     algo = ALSAlgorithm(params, device="cpu")
-    model = algo.train(td)
+    model = algo.train(local_context("cpu"), td)
     U, I = len(td.user_index), len(td.item_index)
     ref = jax_als.train_als(
         users, items, ratings, U, I,
@@ -145,7 +146,7 @@ def test_batch_predict_equals_predict(slice_run):
 
 def test_http_queries_match_predict_and_jax_wire_shape(slice_run):
     td, algo, model = slice_run["td"], slice_run["algo"], slice_run["model"]
-    with QueryServer(algo, model) as server:
+    with QueryServer(AlgorithmService(algo, model)) as server:
 
         def post(body) -> tuple:
             req = urllib.request.Request(
@@ -192,7 +193,7 @@ def test_query_server_predicts_on_one_warmed_thread(slice_run):
             seen.append(("predict", threading.get_ident()))
             return algo.predict(m, q)
 
-    with QueryServer(Recording(), model) as server:
+    with QueryServer(AlgorithmService(Recording(), model)) as server:
         for u in (0, 7, 42):
             req = urllib.request.Request(
                 server.url + "/queries.json", data=json.dumps({"user": f"u{u}", "num": 3}).encode(),

@@ -54,7 +54,7 @@ from predictionio_tpu_torch.templates.twotower import (
     TwoTowerParams,
 )
 from predictionio_tpu_torch.utils.synthetic import distinct_pairs, planted_pairs
-from predictionio_tpu_torch.workflow.serving import QueryServer
+from predictionio_tpu_torch.workflow.serving import AlgorithmService, QueryServer
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -293,7 +293,7 @@ def test_template_trains_and_serves_over_http():
     )
     model = algo.prepare_model_for_serving(algo.train(td))
     assert isinstance(model.item_vecs, torch.Tensor) and model.loss_history[-1][1] < model.loss_history[0][1]
-    with QueryServer(algo, model) as server:
+    with QueryServer(AlgorithmService(algo, model)) as server:
         req = urllib.request.Request(
             server.url + "/queries.json", data=json.dumps({"user": "4"}).encode(),
             headers={"Content-Type": "application/json"}, method="POST",
