@@ -162,7 +162,8 @@ class TorchAlgorithm(Algorithm[PD, M, Q, P]):
     * the algorithm runs on ``device``, which the engine takes from the
       workflow context (``ctx.device``). ``None`` is the card: without
       one, construction raises. The CPU is used only when asked for;
-    * ``train(ctx, pd)`` does its heavy compute on ``ctx.device`` and
+    * ``train(ctx, pd)`` does its heavy compute on :attr:`device`, which
+      must be ``ctx.device`` (:meth:`train_base` checks it), and
       returns a model whose arrays are host numpy, so a model crosses the
       train->serve boundary as a pickle of host arrays
       (``predictionio_tpu_torch.utils.serialization``);
@@ -177,6 +178,13 @@ class TorchAlgorithm(Algorithm[PD, M, Q, P]):
         super().__init__(params)
         self.device = resolve_device(device)
         self._kernels: dict[str, Callable] = {}
+
+    def train_base(self, ctx: WorkflowContext, prepared_data: PD) -> M:
+        if ctx.device != self.device:
+            raise ValueError(
+                f"{type(self).__name__} is on {self.device} but the context is on {ctx.device}"
+            )
+        return self.train(ctx, prepared_data)
 
     def kernel(self, name: str, build: Callable[[], Callable]) -> Callable:
         """Memoize ``build()`` under ``name`` (one build per algorithm)."""

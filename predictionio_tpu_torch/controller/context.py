@@ -28,22 +28,27 @@ class WorkflowContext:
     """Everything a DASE component may need from the runtime.
 
     Attributes:
-      device: the ``torch.device`` training and serving run on. ``None``
-        means the default, the card (``cuda``); the CPU only when asked.
+      device: the ``torch.device`` training and serving run on, always
+        resolved (:func:`~predictionio_tpu_torch.device.resolve_device`):
+        the card by default, raising where there is none; the CPU only
+        when asked for.
       host_index / num_hosts: this process's slot in a multi-host job;
         always 0 / 1 in the port so far.
       batch: free-form run label (parity: ``WorkflowParams.batch``).
       verbose: verbosity level (parity: ``WorkflowParams.verbose``).
-      warm_model: the previous trained model of THIS algorithm when the
-        run is a warm retrain; set per algorithm by ``Engine.train``.
+      warm_model: the previous trained model of THIS algorithm for a warm
+        retrain; ``None`` until ``pio train --warm-start`` is ported.
     """
 
-    device: torch.device | None = None
+    device: torch.device = dataclasses.field(default_factory=resolve_device)
     host_index: int = 0
     num_hosts: int = 1
     batch: str = ""
     verbose: int = 0
     warm_model: Any = None
+
+    def __post_init__(self) -> None:
+        object.__setattr__(self, "device", resolve_device(self.device))
 
 
 def local_context(
@@ -51,4 +56,4 @@ def local_context(
 ) -> WorkflowContext:
     """A one-device context: ``device=None`` resolves to the card and
     raises where there is none; ``device="cpu"`` runs on the CPU."""
-    return WorkflowContext(device=resolve_device(device), batch=batch, verbose=verbose)
+    return WorkflowContext(device=device, batch=batch, verbose=verbose)

@@ -44,7 +44,6 @@ from predictionio_tpu_torch.controller import (
 from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.data.event import EventValidationError
 from predictionio_tpu_torch.data.store import PEventStore
-from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.ops.als import (
     ALSConfig,
     predict_scores,
@@ -265,10 +264,9 @@ class ALSAlgorithm(TorchAlgorithm):
         self.on_sweep: Callable[[int, torch.Tensor, torch.Tensor], None] | None = None
 
     def train(self, ctx: WorkflowContext, pd: TrainingData) -> ALSModel:
-        """ALS on ``ctx.device`` (the algorithm's own device when the
-        context names none); the model comes back as host numpy."""
+        """ALS on :attr:`device` (the engine builds the algorithm on
+        ``ctx.device``); the model comes back as host numpy."""
         p = self.params
-        device = self.device if ctx.device is None else resolve_device(ctx.device)
         factors = train_als(
             pd.rows,
             pd.cols,
@@ -283,7 +281,7 @@ class ALSAlgorithm(TorchAlgorithm):
                 alpha=p.alpha,
                 seed=0 if p.seed is None else p.seed,
             ),
-            device=device,
+            device=self.device,
             on_sweep=self.on_sweep,
         )
         return ALSModel(

@@ -35,8 +35,6 @@ class WorkflowParams:
     """Invocation flags (parity: ``WorkflowParams.scala``)."""
 
     batch: str = ""
-    verbose: int = 0
-    save_model: bool = True
     skip_sanity_check: bool = False
     stop_after_read: bool = False
     stop_after_prepare: bool = False
@@ -87,7 +85,7 @@ def run_train(
         engine_variant=variant.id,
         engine_factory=variant.engine_factory,
         batch=workflow_params.batch,
-        mesh_conf={"device": str(ctx.device if ctx.device is not None else "cuda")},
+        mesh_conf={"device": str(ctx.device)},
         **params_json(engine_params),
     )
     instances.insert(instance)
@@ -107,10 +105,9 @@ def run_train(
             instance = instance.with_status("STOPPED", end_time=_now())
             instances.update(instance)
             return instance
-        if workflow_params.save_model:
-            blob = engine.models_to_bytes(instance.id, engine_params, models)
-            Storage.get_model_data_models().insert(Model(id=instance.id, models=blob))
-            logger.info("Saved model blob for instance %s (%d bytes)", instance.id, len(blob))
+        blob = engine.models_to_bytes(instance.id, engine_params, models)
+        Storage.get_model_data_models().insert(Model(id=instance.id, models=blob))
+        logger.info("Saved model blob for instance %s (%d bytes)", instance.id, len(blob))
         instance = dataclasses.replace(
             instance,
             status="COMPLETED",

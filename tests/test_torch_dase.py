@@ -146,12 +146,12 @@ BUILDS: list = []
 
 
 class TensorAlgo(TorchAlgorithm):
-    """Trains a small table on the context's device."""
+    """Trains a small table on its device, the context's."""
 
     params_class = AlgoParams
 
     def train(self, ctx, pd):
-        return {"table": torch.full((2, 3), float(pd * self.params.mult), device=ctx.device)}
+        return {"table": torch.full((2, 3), float(pd * self.params.mult), device=self.device)}
 
     def predict(self, model, query):
         return float(self.kernel("total", self.build_total)(model["table"])) + query
@@ -272,6 +272,17 @@ def test_torch_algorithm_takes_the_context_device():
             eng.train(WorkflowContext(), ep)
         with pytest.raises(RuntimeError, match="cuda"):
             local_context()
+
+
+def test_context_device_is_resolved_and_matches_the_algorithm():
+    assert CPU.device == torch.device("cpu")
+    assert WorkflowContext(device="cpu").device == torch.device("cpu")
+    assert dataclasses.replace(CPU, batch="b").device == torch.device("cpu")
+    algo = TensorAlgo(AlgoParams(2), device="cpu")
+    assert algo.train_base(CPU, 1)["table"].device.type == "cpu"
+    algo.device = torch.device("cuda", 0)  # built for another device than the context's
+    with pytest.raises(ValueError, match="the context is on cpu"):
+        algo.train_base(CPU, 1)
 
 
 # ---------------------------------------------------------- model blobs

@@ -313,6 +313,8 @@ def test_run_train_on_the_card_through_the_spine(cuda_device):
     finally:
         Storage.configure(None)
     assert model.user_factors.device.type == "cuda" and cpu_model.user_factors.device.type == "cpu"
+    with pytest.raises(ValueError, match="context is on cuda:0"):
+        cpu_algo.train_base(local_context(cuda_device), td)  # no training on a device the algorithm is not on
     V = stored.item_factors.astype(np.float64)
     for user in list(td.user_index.keys())[::17]:
         got = [td.item_index[s.item] for s in algo.predict(model, Query(user=user, num=10)).item_scores]
