@@ -1,26 +1,34 @@
-"""Drive the PyTorch/CUDA port's three paths once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's four paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
 The Recommendation path: ALS trains on ML-20M-shaped ratings (137,931
-users x 27,027 items, 20M ratings, rank 64) through the hand-written CUDA
-Gauss-Jordan solve kernel (one warp per system at rank 64), the trained model is served by the port's
-query server, and 64 ``POST /queries.json`` requests are checked against
-a float64 numpy top-10 of the same factors.
+users x 27,027 items, 20M ratings, rank 64) through ``pio train``'s
+workflow (``run_train`` of an engine whose DataSource hands over the
+ratings made in memory) and the hand-written CUDA Gauss-Jordan solve
+kernel (one warp per system at rank 64); a ``QueryService`` serves the
+stored instance, and 64 ``POST /queries.json`` requests are checked
+against a float64 numpy top-10 of the same factors.
 
-The Two-Tower path: the towers train on the JAX package bench's
-planted-preference pairs (1M pairs over 20,000 users x 10,000 items,
-dim 64, batch 8192, 10 epochs) through the hand-written CUDA fused
-in-batch softmax-CE kernels (forward and backward), and the trained towers
+The Two-Tower path: the towers train the same way on the JAX package
+bench's planted-preference pairs (1M pairs over 20,000 users x 10,000
+items, dim 64, batch 8192, 10 epochs) through the hand-written CUDA fused
+in-batch softmax-CE kernels (forward and backward), and the stored towers
 answer 64 queries, checked against a float64 numpy top-10 with the seen
 filter.
 
-The quickstart path: ``pio app new``, the ML-100K replica's 100,000
-``rate`` events into the port's event store (sqlite), ``pio train`` of
-the Recommendation engine (rank 64, so the CUDA solve is on the path)
-through the DASE spine, then ``pio deploy`` as a subprocess answering 64
-``POST /queries.json`` checked against a float64 numpy top-10 of the
-stored model.
+The quickstart path: ``pio app new``, ``pio import`` of the ML-100K
+replica's 100,000 ``rate`` events as an NDJSON file into the port's event
+store (sqlite), ``pio train`` of the Recommendation engine (rank 64, so
+the CUDA solve is on the path) through the DASE spine, ``pio deploy`` as a
+subprocess answering 64 ``POST /queries.json`` checked against a float64
+numpy top-10 of the stored model, then ``pio eval`` of the engine with
+``PrecisionAtK(10)`` over two folds.
+
+The Two-Tower quickstart path: the same verbs for the Two-Tower engine
+on 200,000 planted-preference ``view`` events (4,000 users x 2,000 items)
+at dim 64, batch 8192, 10 epochs, so the fused-CE kernels run in
+``pio train`` and in ``pio eval`` (``RecallAtK(10)``).
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -39,25 +47,35 @@ Phases, in order; any failure exits non-zero and prints no result:
    call (both sums), the backward one call of two launches (``d_ue``,
    then ``d_ie`` with the towers swapped); each row adds the achieved
    tensor-core FLOP/s and exponentials/s.
-4. ALS    — the launch counts are set to 0, ``ALSAlgorithm.train`` runs on
-   the card, the query server answers 64 queries, and the counts are read
-   and checked against the bucket plan; then one user half-sweep is held
+4. ALS    — in a temporary ``PIO_FS_BASEDIR``: the launch counts are set to
+   0, ``run_train`` trains on the card, a ``QueryService`` of the stored
+   instance answers 64 queries over HTTP, and the counts are read and
+   checked against the bucket plan; then one user half-sweep is held
    against the same half-sweep with the plain solve, and one more sweep
    runs under torch.profiler: device time by kernel and busy share.
-5. Two-Tower — the counts are set to 0, ``TwoTowerAlgorithm.train`` runs
-   on the card and the counts are read and checked against the step plan;
-   the loss must fall below 0.8x its first value and recall@10 on held-out
-   pairs exceed 5x random; the query server answers 64 queries; one
-   steady training step runs under torch.profiler.
+5. Two-Tower — the same for the towers: the counts checked against the
+   step plan; the stored loss must fall below 0.8x its first value and
+   recall@10 on held-out pairs exceed 5x random; 64 queries; one steady
+   training step runs under torch.profiler.
 6. quickstart — in a temporary ``PIO_FS_BASEDIR``: ``console.main(["app",
-   "new", ...])``; the events written in chunks and timed; the counts set
-   to 0, ``console.main(["train", ...])`` on the default device, the
-   counts read and checked against the plan; the stored blob loaded
-   through ``loads_model`` and its train RMSE held below the mean
-   rating's; ``deploy --port 0`` started as a subprocess, 64 queries held
-   against float64 numpy, ``GET /`` checked for the device and the
-   instance, and SIGTERM must stop it; one ``[quickstart]`` line.
-7. a ``[summary]`` line, the ``{"kernels": [...]}`` line, the card's
+   "new", ...])``; ``console.main(["import", ...])`` of the events' NDJSON
+   file, timed; the counts set to 0, ``console.main(["train", ...])`` on
+   the default device, the counts read and checked against the plan; the
+   stored blob loaded through ``loads_model`` and its train RMSE held
+   below the mean rating's; ``deploy --port 0`` started as a subprocess,
+   64 queries held against float64 numpy, ``GET /`` checked for the device
+   and the instance, and SIGTERM must stop it; the counts set to 0,
+   ``console.main(["eval", ...])``, the counts checked against both folds'
+   plans (from the port's ``read_eval``), the score above the precision of
+   a random ranking, the ``EvaluationInstance`` EVALCOMPLETED; one
+   ``[quickstart]`` line.
+7. Two-Tower quickstart — the same verbs for the Two-Tower engine in its
+   own temporary ``PIO_FS_BASEDIR``, the fused-CE launches of ``train`` and
+   of ``eval`` checked against their step plans, the stored loss and
+   recall@10 held to phase 5's bars, the deploy's top-10s to float64 numpy
+   without the seen items, the eval's recall printed beside a random
+   ranking's; one ``[tt-quickstart]`` line.
+8. a ``[summary]`` line, the ``{"kernels": [...]}`` line, the card's
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Imports only the port, torch, numpy and the standard library.
@@ -65,6 +83,7 @@ Imports only the port, torch, numpy and the standard library.
 
 from __future__ import annotations
 
+import contextlib
 import datetime as dt
 import json
 import os
@@ -84,8 +103,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from predictionio_tpu_torch.controller import DataSource, SimpleEngine
 from predictionio_tpu_torch.controller.context import local_context
 from predictionio_tpu_torch.data.bimap import BiMap
+from predictionio_tpu_torch.data.event import format_event_time
+from predictionio_tpu_torch.data.storage import Storage
 from predictionio_tpu_torch.ops import _build
 from predictionio_tpu_torch.ops.als import (
     ALSConfig,
@@ -105,15 +127,13 @@ from predictionio_tpu_torch.ops.fused_ce import (
 from predictionio_tpu_torch.ops.solve import cholesky_solve, gj_solve_cuda, gj_solve_plan, gj_solve_reference
 from predictionio_tpu_torch.ops.twotower import AdamState, TwoTowerConfig, inbatch_loss, l2_normalize, train_step
 from predictionio_tpu_torch.templates import twotower as tt
-from predictionio_tpu_torch.templates.recommendation.engine import (
-    ALSAlgorithm,
-    ALSAlgorithmParams,
-    Query,
-    TrainingData,
-)
+from predictionio_tpu_torch.templates.recommendation.engine import ALSAlgorithm, TrainingData
+from predictionio_tpu_torch.tools import console
 from predictionio_tpu_torch.utils.movielens import ml20m_shaped, synthesize_ml100k
+from predictionio_tpu_torch.utils.serialization import loads_model
 from predictionio_tpu_torch.utils.synthetic import distinct_pairs, planted_pairs
-from predictionio_tpu_torch.workflow.serving import AlgorithmService, QueryServer
+from predictionio_tpu_torch.workflow import load_engine_variant, run_train
+from predictionio_tpu_torch.workflow.serving import QueryServer, QueryService
 
 #: H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32
 #: (non-tensor-core) FLOP/s and dense bf16 tensor-core FLOP/s
@@ -135,16 +155,35 @@ QUERIES = 64
 TOP_K = 10
 
 #: the quickstart path: the ML-100K replica (synthesize_ml100k(42), the
-#: data of tests/test_ml100k_parity.py) through the event store, trained
-#: at the width the ALS path runs (rank 64, 10 sweeps, lambda 0.01,
-#: seed 3); events written in chunks; the deploy must bind within
-#: QS_DEPLOY_TIMEOUT_S seconds
+#: data of tests/test_ml100k_parity.py) imported into the event store,
+#: trained at the width the ALS path runs (rank 64, 10 sweeps, lambda
+#: 0.01, seed 3) and evaluated over QS_EVAL_K folds by precision@10; the
+#: deploy must bind within QS_DEPLOY_TIMEOUT_S seconds
 QS_APP = "quickstart"
 QS_RANK = 64
 QS_SWEEPS = 10
-QS_EVENT_CHUNK = 10_000
+QS_EVAL_K = 2
 QS_DEPLOY_TIMEOUT_S = 240
 QS_FACTORY = "predictionio_tpu.templates.recommendation:engine_factory"
+
+#: the Two-Tower quickstart path: the planted-preference workload cut to
+#: 200,000 pairs for the sqlite store's pace (4,000 users x 2,000 items,
+#: 10,000 held out), at the Two-Tower path's width
+TTQ_APP = "ttquickstart"
+TTQ_NNZ = 200_000
+TTQ_FACTORY = "predictionio_tpu.templates.twotower:engine_factory"
+
+#: an evaluation module as a user writes one: an Evaluation of the
+#: engine.json at ``path`` with one metric
+EVAL_MODULE = """
+from predictionio_tpu_torch.controller import Evaluation
+from predictionio_tpu_torch.templates.{template} import {metric}, engine_factory
+from predictionio_tpu_torch.workflow import load_engine_variant
+
+ENGINE = engine_factory()
+evaluation = Evaluation(engine=ENGINE, metric={metric}({k}))
+evaluation.engine_params_list = [load_engine_variant({path!r}).engine_params(ENGINE)]
+"""
 
 #: kernel-vs-plain tolerances (the JAX package's on-TPU solve checks)
 MAX_REL_ERR = 1e-4
@@ -204,6 +243,70 @@ KERNELS = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# --------------------------------------------- the in-memory arrays engines
+#: what the arrays engines' DataSource hands over, and the hook the ALS
+#: engine's algorithm gives train_als
+ARRAYS: dict = {}
+
+
+class ArraysDataSource(DataSource):
+    """Hands ``pio train``'s workflow the TrainingData made in memory."""
+
+    def read_training(self, ctx):
+        return ARRAYS["td"]
+
+
+class SweepLoggedALS(ALSAlgorithm):
+    """ALS with ``ARRAYS["on_sweep"]`` as its per-sweep hook."""
+
+    def __init__(self, params, device=None):
+        super().__init__(params, device)
+        self.on_sweep = ARRAYS.get("on_sweep")
+
+
+def als_arrays_engine() -> SimpleEngine:
+    return SimpleEngine(ArraysDataSource, SweepLoggedALS)
+
+
+def tt_arrays_engine() -> SimpleEngine:
+    return SimpleEngine(ArraysDataSource, tt.TwoTowerAlgorithm)
+
+
+def arrays_variant(name: str, params: dict):
+    """The engine variant of ``chip_smoke:<name>_arrays_engine``."""
+    return load_engine_variant({
+        "id": f"{name}-arrays", "version": "1", "engineFactory": f"chip_smoke:{name}_arrays_engine",
+        "algorithms": [{"name": "", "params": params}],
+    })
+
+
+@contextlib.contextmanager
+def temporary_store(prefix: str):
+    """A fresh ``PIO_FS_BASEDIR`` (sqlite + localfs) for the block, removed
+    after it, and the storage registry pointed at it."""
+    base = tempfile.mkdtemp(prefix=prefix)
+    saved = os.environ.get("PIO_FS_BASEDIR")
+    os.environ["PIO_FS_BASEDIR"] = base
+    Storage.configure(None)
+    try:
+        yield Path(base)
+    finally:
+        Storage.configure(None)
+        if saved is None:
+            os.environ.pop("PIO_FS_BASEDIR", None)
+        else:
+            os.environ["PIO_FS_BASEDIR"] = saved
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def stored_model(instance_id: str):
+    """The model of a stored instance, as host arrays."""
+    (kind, model), = loads_model(Storage.get_model_data_models().get(instance_id).models)
+    if kind != "pickle":
+        raise RuntimeError(f"instance {instance_id} stored a {kind} model")
+    return model
 
 
 def reset_launch_counts() -> None:
@@ -544,6 +647,8 @@ def train_rmse(U: torch.Tensor, V: torch.Tensor, r: torch.Tensor, c: torch.Tenso
 
 
 def phase_train(device, nnz: int, sweeps: int, rank: int) -> dict:
+    """``run_train`` of the ALS arrays engine on the card into the current
+    store, with the train RMSE after every sweep."""
     t0 = time.perf_counter()
     rows, cols, vals, num_users, num_items = ml20m_shaped(nnz, seed=5)
     td = TrainingData(
@@ -553,12 +658,10 @@ def phase_train(device, nnz: int, sweeps: int, rank: int) -> dict:
     )
     log(f"[train] data: {num_users} users x {num_items} items, {rows.size} ratings "
         f"({time.perf_counter() - t0:.3f} s)")
-    params = ALSAlgorithmParams(rank=rank, num_iterations=sweeps, lambda_=0.01, seed=3)
     cfg = ALSConfig(rank=rank)
     expected = sweeps * (
         planned_solves(rows, num_users, cfg) + planned_solves(cols, num_items, cfg)
     )
-    algo = ALSAlgorithm(params, device=device)
     r_d = torch.as_tensor(rows, device=device)
     c_d = torch.as_tensor(cols, device=device)
     v_d = torch.as_tensor(vals, device=device)
@@ -575,13 +678,16 @@ def phase_train(device, nnz: int, sweeps: int, rank: int) -> dict:
             + ("" if sweep_s is None else f", {sweep_s:.4f} s"))
         clock["t"] = time.perf_counter()
 
-    algo.on_sweep = on_sweep
+    ARRAYS.update(td=td, on_sweep=on_sweep)
+    variant = arrays_variant("als", {"rank": rank, "numIterations": sweeps, "lambda": 0.01, "seed": 3})
     torch.cuda.reset_peak_memory_stats(device)
     t1 = time.perf_counter()
-    model = algo.train(local_context(device), td)
-    torch.cuda.synchronize(device)
-    train_s = time.perf_counter() - t1
+    instance = run_train(variant, local_context(device))
+    wall_s = time.perf_counter() - t1
+    ARRAYS.clear()
     peak = torch.cuda.max_memory_allocated(device)
+    timings = json.loads(instance.env["phase_timings"])
+    model = stored_model(instance.id)
     U, V = model.user_factors, model.item_factors
     if not (np.isfinite(U).all() and np.isfinite(V).all()):
         raise RuntimeError("train: non-finite factors")
@@ -590,12 +696,13 @@ def phase_train(device, nnz: int, sweeps: int, rank: int) -> dict:
     if not marks[-1]["rmse"] < marks[0]["rmse"]:
         raise RuntimeError(f"train: rmse did not fall ({marks[0]['rmse']} -> {marks[-1]['rmse']})")
     steady = [m["seconds"] for m in marks if m["seconds"] is not None]
+    train_s = timings["train:"]
     log(f"[train] {sweeps} sweeps at rank {rank} in {train_s:.3f} s "
-        f"(sweep 1 incl. bucketing and upload; later sweeps {steady}); "
-        f"peak device memory {peak / 2**30:.3f} GiB")
+        f"(sweep 1 incl. bucketing and upload; later sweeps {steady}); run_train {wall_s:.3f} s "
+        f"with the blob stored; peak device memory {peak / 2**30:.3f} GiB")
     return {
-        "algo": algo, "model": model, "td": td, "expected_launches": expected,
-        "sweeps": marks, "train_s": train_s, "peak_bytes": peak,
+        "variant": variant, "instance": instance, "model": model, "td": td, "expected_launches": expected,
+        "sweeps": marks, "train_s": train_s, "run_train_s": wall_s, "peak_bytes": peak,
         "ratings_per_s": rows.size * len(steady) / sum(steady) if steady else None,
     }
 
@@ -624,29 +731,22 @@ def check_ranking(got: list, ref: np.ndarray, scores: np.ndarray, rtol: float = 
     return True
 
 
-def phase_serve(algo, model, td, U64: np.ndarray, V64: np.ndarray, n_queries: int, k: int, card: str,
-                seed: int = 11) -> dict:
-    """``n_queries`` single queries of top-``k`` over HTTP for distinct
-    random users (ids ``str(i)`` for index ``i``), each held against the
-    float64 numpy top-``k`` of ``U64``/``V64`` without the user's seen
-    items (``td.seen``, where the template filters them); then the same
-    queries through ``predict`` alone."""
+def phase_serve(service: QueryService, td, U64: np.ndarray, V64: np.ndarray, n_queries: int, k: int,
+                card: str, seed: int = 11) -> dict:
+    """``n_queries`` single queries of top-``k`` over HTTP to ``service``
+    for distinct random users (ids ``str(i)`` for index ``i``), each held
+    against the float64 numpy top-``k`` of ``U64``/``V64`` without the
+    user's seen items (``td.seen``, where the template filters them); then
+    the same queries through ``handle_query`` alone."""
     seen = getattr(td, "seen", None)
     rng = np.random.default_rng(seed)
     users = rng.choice(len(td.user_index), size=n_queries, replace=False)
     lat = []
     bad = []
-    with QueryServer(AlgorithmService(algo, model)) as server:
+    with QueryServer(service) as server:
         for u in users:
-            body = json.dumps({"user": str(u), "num": k}).encode()
-            req = urllib.request.Request(
-                server.url + "/queries.json", data=body,
-                headers={"Content-Type": "application/json"}, method="POST",
-            )
             t0 = time.perf_counter()
-            with urllib.request.urlopen(req, timeout=60) as resp:
-                status = resp.status
-                payload = json.loads(resp.read())
+            status, payload = _http_json(server.url + "/queries.json", {"user": str(u), "num": k})
             lat.append((time.perf_counter() - t0) * 1e3)
             if status != 200:
                 raise RuntimeError(f"serve: status {status} for user {u}")
@@ -659,28 +759,29 @@ def phase_serve(algo, model, td, U64: np.ndarray, V64: np.ndarray, n_queries: in
                 bad.append((int(u), got, ref.tolist()))
     if bad:
         raise RuntimeError(f"serve: {len(bad)} of {n_queries} top-{k} lists differ from float64 numpy: {bad[:3]}")
-    # the same queries through predict alone, on this (warmed) thread: the
-    # part of the HTTP latency that scoring and top-k take
+    # the same queries through the service alone, on this thread: the part
+    # of the HTTP latency that scoring and top-k take
     pred = []
     for u in users:
         t0 = time.perf_counter()
-        algo.predict(model, algo.query_class(user=str(u), num=k))
+        service.handle_query({"user": str(u), "num": k})
         pred.append((time.perf_counter() - t0) * 1e3)
     p50, p99 = np.percentile(lat, [50, 99])
     pp50, pp99 = np.percentile(pred, [50, 99])
-    log(f"[serve] {type(algo).__name__}: {n_queries} POST /queries.json, all 200, top-{k} equal float64 numpy"
+    log(f"[serve] {service.variant.id} instance {service.instance.id} on {service.device}: {n_queries} "
+        f"POST /queries.json, all 200, top-{k} equal float64 numpy"
         f"{' without seen items' if seen is not None else ''}; p50 {p50:.3f} ms, p99 {p99:.3f} ms; "
-        f"predict alone p50 {pp50:.3f} ms, p99 {pp99:.3f} ms on {card}")
+        f"handle_query alone p50 {pp50:.3f} ms, p99 {pp99:.3f} ms on {card}")
     return {"p50_ms": float(p50), "p99_ms": float(p99),
             "predict_p50_ms": float(pp50), "predict_p99_ms": float(pp99)}
 
 
-def phase_als_serve(trained: dict, n_queries: int, k: int, card: str) -> dict:
-    algo, td = trained["algo"], trained["td"]
+def phase_als_serve(trained: dict, device, n_queries: int, k: int, card: str) -> dict:
+    """The stored ALS instance, loaded by a ``QueryService`` on the card."""
+    service = QueryService(trained["variant"], local_context(device), instance_id=trained["instance"].id)
     U64 = trained["model"].user_factors.astype(np.float64)
     V64 = trained["model"].item_factors.astype(np.float64)
-    model = algo.prepare_model_for_serving(trained["model"])
-    return dict(phase_serve(algo, model, td, U64, V64, n_queries, k, card), model=model)
+    return phase_serve(service, trained["td"], U64, V64, n_queries, k, card)
 
 
 def phase_half_sweep(trained: dict, device, rank: int) -> tuple:
@@ -696,8 +797,8 @@ def phase_half_sweep(trained: dict, device, rank: int) -> tuple:
     ib = to_device_buckets(build_buckets(td.cols, td.rows, td.vals, I, U, **kw), device)
     model = trained["model"]
     zero = torch.zeros((1, rank), device=device)
-    uf = torch.cat([model.user_factors, zero])
-    vf = torch.cat([model.item_factors, zero])
+    uf = torch.cat([torch.as_tensor(model.user_factors, device=device), zero])
+    vf = torch.cat([torch.as_tensor(model.item_factors, device=device), zero])
     with torch.no_grad():
         got = half_sweep(uf.clone(), vf, ub, 0.01, False, 1.0, "auto")
         ref = half_sweep(uf.clone(), vf, ub, 0.01, False, 1.0, "plain")
@@ -785,21 +886,25 @@ def recall_at_10(user_vecs: np.ndarray, item_vecs: np.ndarray, r_te, c_te, devic
 
 
 def phase_tt_train(device, nnz: int, dim: int, batch: int, epochs: int) -> dict:
+    """``run_train`` of the Two-Tower arrays engine on the card into the
+    current store; the stored loss and recall@10 held to their bars."""
     t0 = time.perf_counter()
     td, r_te, c_te, num_items = tt_training_data(nnz)
     n = td.rows.size
     log(f"[tt-train] data: {len(td.user_index)} users x {num_items} items, {nnz} pairs, {n} distinct "
         f"({time.perf_counter() - t0:.3f} s)")
-    params = tt.TwoTowerParams(embedding_dim=dim, batch_size=batch, epochs=epochs,
-                               learning_rate=0.05, temperature=1.0 / TT_INV_TEMP, seed=2)
-    algo = tt.TwoTowerAlgorithm(params, device=device)
+    params = {"embeddingDim": dim, "batchSize": batch, "epochs": epochs, "learningRate": 0.05,
+              "temperature": 1.0 / TT_INV_TEMP, "seed": 2}
+    variant = arrays_variant("tt", params)
     steps = epochs * -(-n // batch)
+    ARRAYS.update(td=td)
     torch.cuda.reset_peak_memory_stats(device)
     t1 = time.perf_counter()
-    model = algo.train(td)
-    torch.cuda.synchronize(device)
+    instance = run_train(variant, local_context(device))
     wall_s = time.perf_counter() - t1
+    ARRAYS.clear()
     peak = torch.cuda.max_memory_allocated(device)
+    model = stored_model(instance.id)
     if not (np.isfinite(model.user_vecs).all() and np.isfinite(model.item_vecs).all()):
         raise RuntimeError("tt-train: non-finite towers")
     if model.user_vecs.shape != (len(td.user_index), dim) or model.item_vecs.shape != (num_items, dim):
@@ -812,36 +917,38 @@ def phase_tt_train(device, nnz: int, dim: int, batch: int, epochs: int) -> dict:
     random_recall = 10.0 / num_items
     if not recall > 5 * random_recall:
         raise RuntimeError(f"tt-train: recall@10 {recall} is not above 5x random ({random_recall})")
-    train_s = model.timings["train_seconds"]
+    timings = json.loads(instance.env["phase_timings"])
+    train_s = timings["train:"]
     out = {
-        "pairs": n, "steps": steps, "train_s": train_s, "wall_s": wall_s,
+        "pairs": n, "steps": steps, "train_s": train_s, "run_train_s": wall_s,
         "interactions_per_s": n * epochs / train_s, "steps_per_s": steps / train_s,
         "loss_first": loss_first, "loss_last": loss_last, "recall_at_10": recall,
-        "random_recall_at_10": random_recall, "peak_gib": peak / 2**30, "timings": dict(model.timings),
+        "random_recall_at_10": random_recall, "peak_gib": peak / 2**30, "timings": timings,
     }
     log(f"[tt-train] {json.dumps(out)}")
-    return dict(out, algo=algo, model=model, td=td, params=params,
+    return dict(out, variant=variant, instance=instance, model=model, td=td, params=params,
                 expected_launches={"fused_ce_fwd": steps, "fused_ce_bwd": 2 * steps})
 
 
-def phase_tt_serve(trained: dict, n_queries: int, k: int, card: str) -> dict:
-    algo, td = trained["algo"], trained["td"]
+def phase_tt_serve(trained: dict, device, n_queries: int, k: int, card: str) -> dict:
+    """The stored Two-Tower instance, loaded by a ``QueryService`` on the card."""
+    service = QueryService(trained["variant"], local_context(device), instance_id=trained["instance"].id)
     U64 = trained["model"].user_vecs.astype(np.float64)
     V64 = trained["model"].item_vecs.astype(np.float64)
-    model = algo.prepare_model_for_serving(trained["model"])
-    return dict(phase_serve(algo, model, td, U64, V64, n_queries, k, card, seed=12), model=model)
+    return phase_serve(service, trained["td"], U64, V64, n_queries, k, card, seed=12)
 
 
 def phase_tt_profile(trained: dict, device) -> dict:
     """Where one steady Two-Tower training step spends the card's time: a
     step on a random batch of the pairs, from the trained towers."""
     p, model, td = trained["params"], trained["model"], trained["td"]
-    cfg = TwoTowerConfig(dim=p.embedding_dim, batch_size=p.batch_size, learning_rate=p.learning_rate,
-                         temperature=p.temperature, seed=p.seed)
-    tables = [model.user_vecs.clone().requires_grad_(True), model.item_vecs.clone().requires_grad_(True)]
+    cfg = TwoTowerConfig(dim=p["embeddingDim"], batch_size=p["batchSize"], learning_rate=p["learningRate"],
+                         temperature=p["temperature"], seed=p["seed"])
+    tables = [torch.as_tensor(model.user_vecs, device=device).clone().requires_grad_(True),
+              torch.as_tensor(model.item_vecs, device=device).clone().requires_grad_(True)]
     state = AdamState(tables)
     gen = torch.Generator(device=device).manual_seed(3)
-    pick = torch.randint(0, td.rows.size, (p.batch_size,), generator=gen, device=device)
+    pick = torch.randint(0, td.rows.size, (p["batchSize"],), generator=gen, device=device)
     u_ids = torch.as_tensor(td.rows, device=device)[pick]
     i_ids = torch.as_tensor(td.cols, device=device)[pick]
 
@@ -878,85 +985,39 @@ def _await_line(lines: "queue.Queue", prefix: str, timeout_s: float) -> str:
             return line
 
 
-def phase_quickstart(device, n_queries: int, k: int, smi: str) -> dict:
-    """``app new`` -> events -> ``pio train`` -> ``pio deploy`` -> queries,
-    all through the port's console, in a temporary ``PIO_FS_BASEDIR``."""
-    from predictionio_tpu_torch.data.event import DataMap, Event
-    from predictionio_tpu_torch.data.storage import Storage
-    from predictionio_tpu_torch.data.store import resolve_app
-    from predictionio_tpu_torch.templates.recommendation.engine import (
-        DataSourceParams,
-        RecommendationDataSource,
-    )
-    from predictionio_tpu_torch.tools import console
-    from predictionio_tpu_torch.utils.serialization import loads_model
+def write_ndjson(path: Path, lines) -> float:
+    """Write one JSON object a line; returns the seconds it took."""
+    t0 = time.perf_counter()
+    with open(path, "w") as f:
+        f.writelines(json.dumps(line) + "\n" for line in lines)
+    return time.perf_counter() - t0
 
-    t_phase = time.perf_counter()
-    dev_args = [] if device.type == "cuda" else ["--device", device.type]
-    base = tempfile.mkdtemp(prefix="pio-quickstart-")
-    saved_env = os.environ.get("PIO_FS_BASEDIR")
-    os.environ["PIO_FS_BASEDIR"] = base
-    Storage.configure(None)
+
+def console_ok(label: str, argv: list) -> float:
+    """``console.main(argv)``, which must exit 0; returns its seconds."""
+    t0 = time.perf_counter()
+    if console.main(argv) != 0:
+        raise RuntimeError(f"{label}: pio {argv[0]} failed")
+    return time.perf_counter() - t0
+
+
+def deploy_and_query(label: str, base: Path, engine_json: Path, dev_args: list, instance_id: str,
+                     index: tuple, U64: np.ndarray, V64: np.ndarray, seen: dict | None, n_queries: int,
+                     k: int, seed: int, device) -> dict:
+    """``pio deploy --port 0`` as a subprocess (``PYTHONPATH`` the repo
+    root); ``n_queries`` top-``k`` queries for distinct random users held
+    against the float64 numpy top-``k`` of ``U64``/``V64`` (rows by
+    ``index``, the stored model's user and item ``BiMap``s) without each
+    user's ``seen`` items; ``GET /`` must report the device and the
+    instance; SIGTERM must stop it with exit 0."""
+    user_index, item_index = index
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PIO_FS_BASEDIR=str(base),
+               PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    err_path = base / "deploy.stderr"
     proc = None
     try:
-        if console.main(["app", "new", QS_APP]) != 0:
-            raise RuntimeError("quickstart: pio app new failed")
-        users, items, ratings, stamps = synthesize_ml100k(42)
-        app_id, _ = resolve_app(QS_APP)
         t0 = time.perf_counter()
-        events = [
-            Event(event="rate", entity_type="user", entity_id=str(u), target_entity_type="item",
-                  target_entity_id=str(i), properties=DataMap({"rating": float(r)}),
-                  event_time=dt.datetime.fromtimestamp(t, dt.timezone.utc))
-            for u, i, r, t in zip(users.tolist(), items.tolist(), ratings.tolist(), stamps.tolist())
-        ]
-        l_events = Storage.get_l_events()
-        for lo in range(0, len(events), QS_EVENT_CHUNK):
-            l_events.insert_batch(events[lo : lo + QS_EVENT_CHUNK], app_id)
-        write_s = time.perf_counter() - t0
-        engine_json = Path(base) / "engine.json"
-        engine_json.write_text(json.dumps({
-            "id": QS_APP, "version": "1", "engineFactory": QS_FACTORY,
-            "datasource": {"params": {"appName": QS_APP}},
-            "algorithms": [{"name": "als", "params": {
-                "rank": QS_RANK, "numIterations": QS_SWEEPS, "lambda": 0.01, "seed": 3}}],
-        }))
-
-        reset_launch_counts()
-        t1 = time.perf_counter()
-        if console.main(["train", "--engine-json", str(engine_json), *dev_args]) != 0:
-            raise RuntimeError("quickstart: pio train failed")
-        train_wall_s = time.perf_counter() - t1
-        launches = read_launch_counts()
-        (instance,) = Storage.get_meta_data_engine_instances().get_all()
-        if instance.status != "COMPLETED":
-            raise RuntimeError(f"quickstart: engine instance {instance.id} is {instance.status}")
-        timings = json.loads(instance.env["phase_timings"])
-        # the plan from the training data as the DataSource reads it
-        td = RecommendationDataSource(DataSourceParams(app_name=QS_APP)).read_training(
-            local_context(device))
-        cfg = ALSConfig(rank=QS_RANK)
-        expected = QS_SWEEPS * (planned_solves(td.rows, len(td.user_index), cfg)
-                                + planned_solves(td.cols, len(td.item_index), cfg))
-        if device.type == "cuda":
-            check_launches("quickstart", launches, {"gj_solve": expected})
-
-        (kind, model), = loads_model(Storage.get_model_data_models().get(instance.id).models)
-        U64 = np.asarray(model.user_factors, np.float64)
-        V64 = np.asarray(model.item_factors, np.float64)
-        if kind != "pickle" or not (np.isfinite(U64).all() and np.isfinite(V64).all()):
-            raise RuntimeError("quickstart: the stored model is not finite host factors")
-        pred = np.einsum("nk,nk->n", U64[td.rows], V64[td.cols])
-        rmse = float(np.sqrt(np.mean((pred - td.vals) ** 2)))
-        mean_rmse = float(np.sqrt(np.mean((td.vals.mean() - td.vals) ** 2)))
-        if not rmse < mean_rmse:
-            raise RuntimeError(f"quickstart: train RMSE {rmse} is not below the mean rating's {mean_rmse}")
-
-        root = str(Path(__file__).resolve().parent)
-        env = dict(os.environ, PIO_FS_BASEDIR=base,
-                   PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p))
-        err_path = Path(base) / "deploy.stderr"
-        t2 = time.perf_counter()
         with open(err_path, "w") as err:
             proc = subprocess.Popen(
                 [sys.executable, "-m", "predictionio_tpu_torch.tools.console", "deploy",
@@ -974,58 +1035,286 @@ def phase_quickstart(device, n_queries: int, k: int, smi: str) -> dict:
         try:
             port = int(_await_line(lines, "Bound port", QS_DEPLOY_TIMEOUT_S).split()[-1])
         except RuntimeError as e:
-            raise RuntimeError(f"{e}; deploy stderr: {err_path.read_text()[-2000:]}") from None
-        deploy_s = time.perf_counter() - t2
+            raise RuntimeError(f"{label}: {e}; deploy stderr: {err_path.read_text()[-2000:]}") from None
+        deploy_s = time.perf_counter() - t0
         url = f"http://127.0.0.1:{port}"
-
-        rng = np.random.default_rng(13)
-        picks = rng.choice(len(model.user_index), size=n_queries, replace=False)
+        rng = np.random.default_rng(seed)
+        picks = rng.choice(len(user_index), size=n_queries, replace=False)
         lat, bad = [], []
         for uidx in picks.tolist():
-            user = model.user_index.inverse(uidx)
-            t3 = time.perf_counter()
+            user = user_index.inverse(uidx)
+            t1 = time.perf_counter()
             status, payload = _http_json(url + "/queries.json", {"user": user, "num": k})
-            lat.append((time.perf_counter() - t3) * 1e3)
+            lat.append((time.perf_counter() - t1) * 1e3)
             if status != 200:
-                raise RuntimeError(f"quickstart: status {status} for user {user}")
-            got = [model.item_index[s["item"]] for s in payload["itemScores"]]
-            ref, scores = reference_top(U64, V64, uidx, k)
+                raise RuntimeError(f"{label}: status {status} for user {user}")
+            got = [item_index[s["item"]] for s in payload["itemScores"]]
+            exclude = None
+            if seen is not None:
+                exclude = np.array([item_index[i] for i in seen.get(user, ())], dtype=np.int64)
+            ref, scores = reference_top(U64, V64, uidx, k, exclude)
             if not check_ranking(got, ref, scores):
                 bad.append((user, got, ref.tolist()))
         if bad:
-            raise RuntimeError(f"quickstart: {len(bad)} of {n_queries} top-{k} lists differ from float64 numpy: {bad[:3]}")
+            raise RuntimeError(
+                f"{label}: {len(bad)} of {n_queries} top-{k} lists differ from float64 numpy: {bad[:3]}")
         _, status_body = _http_json(url + "/")
         want_device = "cuda:0" if device.type == "cuda" else "cpu"
-        if status_body.get("device") != want_device or status_body.get("engineInstanceId") != instance.id:
-            raise RuntimeError(f"quickstart: GET / answered {status_body}, expected {want_device} and {instance.id}")
+        if status_body.get("device") != want_device or status_body.get("engineInstanceId") != instance_id:
+            raise RuntimeError(f"{label}: GET / answered {status_body}, expected {want_device} and {instance_id}")
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=60)
-        if rc != 0:
-            raise RuntimeError(f"quickstart: the deploy exited {rc} on SIGTERM; stderr: {err_path.read_text()[-2000:]}")
         proc = None
-        p50, p99 = np.percentile(lat, [50, 99])
-        out = {
-            "events": int(users.size), "users": len(td.user_index), "items": len(td.item_index),
-            "rank": QS_RANK, "sweeps": QS_SWEEPS, "write_s": write_s,
-            "events_per_s_written": users.size / write_s, "read_s": timings["read"],
-            "prepare_s": timings["prepare"], "train_als_s": timings["train:als"], "train_wall_s": train_wall_s,
-            "deploy_start_s": deploy_s, "gj_solve_launches": launches["gj_solve"], "planned": expected,
-            "train_rmse": rmse, "mean_rmse": mean_rmse, "queries": n_queries, "p50_ms": float(p50),
-            "p99_ms": float(p99), "status_device": status_body["device"], "instance": instance.id,
-            "phase_s": time.perf_counter() - t_phase, "card": smi,
-        }
-        log(f"[quickstart] {json.dumps(out)}")
-        return out
+        if rc != 0:
+            raise RuntimeError(f"{label}: the deploy exited {rc} on SIGTERM; stderr: {err_path.read_text()[-2000:]}")
     finally:
         if proc is not None:
             proc.kill()
             proc.wait(timeout=30)
-        Storage.configure(None)
-        if saved_env is None:
-            os.environ.pop("PIO_FS_BASEDIR", None)
-        else:
-            os.environ["PIO_FS_BASEDIR"] = saved_env
-        shutil.rmtree(base, ignore_errors=True)
+    p50, p99 = np.percentile(lat, [50, 99])
+    return {"deploy_start_s": deploy_s, "p50_ms": float(p50), "p99_ms": float(p99),
+            "status_device": status_body["device"]}
+
+
+def run_eval(label: str, base: Path, module: str, template: str, metric: str, k: int, engine_json: Path,
+             dev_args: list) -> tuple[float, dict, float]:
+    """``pio eval`` of an evaluation module written into ``base`` as a user
+    writes one (:data:`EVAL_MODULE`); the launch counts set to 0 before it
+    and read after it. Returns the best score, the counts and the seconds,
+    once the ``EvaluationInstance`` is EVALCOMPLETED."""
+    (base / f"{module}.py").write_text(
+        EVAL_MODULE.format(template=template, metric=metric, k=k, path=str(engine_json)))
+    sys.path.insert(0, str(base))
+    try:
+        reset_launch_counts()
+        eval_s = console_ok(label, ["eval", f"{module}:evaluation", "--output-path", str(base / "best.json"),
+                                    *dev_args])
+        launches = read_launch_counts()
+    finally:
+        sys.path.remove(str(base))
+        sys.modules.pop(module, None)
+    (instance,) = Storage.get_meta_data_evaluation_instances().get_all()
+    if instance.status != "EVALCOMPLETED":
+        raise RuntimeError(f"{label}: evaluation instance {instance.id} is {instance.status}")
+    score = json.loads((base / "best.json").read_text())["bestScore"]["score"]
+    if not np.isfinite(score):
+        raise RuntimeError(f"{label}: the eval scored {score}")
+    return score, launches, eval_s
+
+
+def phase_quickstart(device, n_queries: int, k: int, smi: str) -> dict:
+    """``app new`` -> ``import`` -> ``train`` -> ``deploy`` -> queries ->
+    ``eval``, all through the port's console, in a temporary
+    ``PIO_FS_BASEDIR``."""
+    from predictionio_tpu_torch.templates.recommendation.engine import (
+        DataSourceParams,
+        RecommendationDataSource,
+    )
+
+    t_phase = time.perf_counter()
+    dev_args = [] if device.type == "cuda" else ["--device", device.type]
+    with temporary_store("pio-quickstart-") as base:
+        console_ok("quickstart", ["app", "new", QS_APP])
+        users, items, ratings, stamps = synthesize_ml100k(42)
+        events = base / "events.json"
+        file_s = write_ndjson(events, (
+            {"event": "rate", "entityType": "user", "entityId": str(u), "targetEntityType": "item",
+             "targetEntityId": str(i), "properties": {"rating": float(r)},
+             "eventTime": format_event_time(dt.datetime.fromtimestamp(t, dt.timezone.utc))}
+            for u, i, r, t in zip(users.tolist(), items.tolist(), ratings.tolist(), stamps.tolist())
+        ))
+        import_s = console_ok("quickstart", ["import", "--appname", QS_APP, "--input", str(events)])
+        engine_json = base / "engine.json"
+        body = {
+            "id": QS_APP, "version": "1", "engineFactory": QS_FACTORY,
+            "datasource": {"params": {"appName": QS_APP, "evalK": QS_EVAL_K}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": QS_RANK, "numIterations": QS_SWEEPS, "lambda": 0.01, "seed": 3}}],
+        }
+        engine_json.write_text(json.dumps(body))
+
+        reset_launch_counts()
+        train_wall_s = console_ok("quickstart", ["train", "--engine-json", str(engine_json), *dev_args])
+        launches = read_launch_counts()
+        (instance,) = Storage.get_meta_data_engine_instances().get_all()
+        if instance.status != "COMPLETED":
+            raise RuntimeError(f"quickstart: engine instance {instance.id} is {instance.status}")
+        timings = json.loads(instance.env["phase_timings"])
+        # the plan from the training data as the DataSource reads it
+        source = RecommendationDataSource(DataSourceParams(app_name=QS_APP, eval_k=QS_EVAL_K))
+        td = source.read_training(local_context(device))
+        cfg = ALSConfig(rank=QS_RANK)
+
+        def plan(t) -> int:
+            return QS_SWEEPS * (planned_solves(t.rows, len(t.user_index), cfg)
+                                + planned_solves(t.cols, len(t.item_index), cfg))
+
+        expected = plan(td)
+        if device.type == "cuda":
+            check_launches("quickstart", launches, {"gj_solve": expected})
+
+        model = stored_model(instance.id)
+        U64 = np.asarray(model.user_factors, np.float64)
+        V64 = np.asarray(model.item_factors, np.float64)
+        if not (np.isfinite(U64).all() and np.isfinite(V64).all()):
+            raise RuntimeError("quickstart: the stored model is not finite host factors")
+        pred = np.einsum("nk,nk->n", U64[td.rows], V64[td.cols])
+        rmse = float(np.sqrt(np.mean((pred - td.vals) ** 2)))
+        mean_rmse = float(np.sqrt(np.mean((td.vals.mean() - td.vals) ** 2)))
+        if not rmse < mean_rmse:
+            raise RuntimeError(f"quickstart: train RMSE {rmse} is not below the mean rating's {mean_rmse}")
+
+        served = deploy_and_query("quickstart", base, engine_json, dev_args, instance.id,
+                                  (model.user_index, model.item_index), U64, V64, None, n_queries, k, 13, device)
+
+        # pio eval: precision@10 over QS_EVAL_K folds; the plan and the
+        # precision of a random ranking from the port's own folds
+        folds = source.read_eval(local_context(device))
+        eval_plan = sum(plan(fold_td) for fold_td, _, _ in folds)
+        random_units = []
+        for fold_td, _, qa in folds:
+            known = set(fold_td.item_index)
+            for q, actual in qa:
+                if q.user in fold_td.user_index:
+                    candidates = known - set(actual.seen)
+                    random_units.append(len(candidates & set(actual.items)) / len(candidates))
+        random_precision = float(np.mean(random_units))
+        score, eval_launches, eval_s = run_eval("quickstart", base, "qs_eval", "recommendation", "PrecisionAtK",
+                                                TOP_K, engine_json, dev_args)
+        if device.type == "cuda":
+            check_launches("quickstart eval", eval_launches, {"gj_solve": eval_plan})
+        if not score > random_precision:
+            raise RuntimeError(f"quickstart: precision@{TOP_K} {score} is not above a random ranking's "
+                               f"{random_precision}")
+        out = {
+            "events": int(users.size), "users": len(td.user_index), "items": len(td.item_index),
+            "rank": QS_RANK, "sweeps": QS_SWEEPS, "file_s": file_s, "import_s": import_s,
+            "events_per_s_imported": users.size / import_s, "read_s": timings["read"],
+            "prepare_s": timings["prepare"], "train_als_s": timings["train:als"], "train_wall_s": train_wall_s,
+            "deploy_start_s": served["deploy_start_s"], "gj_solve_launches": launches["gj_solve"],
+            "planned": expected, "train_rmse": rmse, "mean_rmse": mean_rmse, "queries": n_queries,
+            "p50_ms": served["p50_ms"], "p99_ms": served["p99_ms"], "status_device": served["status_device"],
+            "instance": instance.id, "eval_k": QS_EVAL_K, "eval_s": eval_s,
+            "eval_gj_solve_launches": eval_launches["gj_solve"], "eval_planned": eval_plan,
+            f"precision_at_{TOP_K}": score, f"random_precision_at_{TOP_K}": random_precision,
+            "phase_s": time.perf_counter() - t_phase, "card": smi,
+        }
+        log(f"[quickstart] {json.dumps(out)}")
+        return out
+
+
+def phase_tt_quickstart(device, nnz: int, dim: int, batch: int, epochs: int, n_queries: int, k: int,
+                        smi: str) -> dict:
+    """The quickstart of the Two-Tower engine: ``app new`` -> ``import`` of
+    ``nnz`` planted ``view`` pairs -> ``train`` -> ``deploy`` -> queries ->
+    ``eval``, all through the port's console, in a temporary
+    ``PIO_FS_BASEDIR``."""
+    t_phase = time.perf_counter()
+    dev_args = [] if device.type == "cuda" else ["--device", device.type]
+    with temporary_store("pio-tt-quickstart-") as base:
+        console_ok("tt-quickstart", ["app", "new", TTQ_APP])
+        r_tr, c_tr, r_te, c_te, num_users, num_items = planted_pairs(nnz, seed=11)
+        events = base / "events.json"
+        file_s = write_ndjson(events, (
+            {"event": "view", "entityType": "user", "entityId": f"u{u}", "targetEntityType": "item",
+             "targetEntityId": f"i{i}", "eventTime": "2021-01-01T00:00:00.000Z"}
+            for u, i in zip(r_tr.tolist(), c_tr.tolist())
+        ))
+        import_s = console_ok("tt-quickstart", ["import", "--appname", TTQ_APP, "--input", str(events)])
+        engine_json = base / "engine.json"
+        engine_json.write_text(json.dumps({
+            "id": TTQ_APP, "version": "1", "engineFactory": TTQ_FACTORY,
+            "datasource": {"params": {"appName": TTQ_APP, "eventNames": ["view"], "evalK": QS_EVAL_K}},
+            "algorithms": [{"name": "twotower", "params": {
+                "embeddingDim": dim, "batchSize": batch, "epochs": epochs, "learningRate": 0.05,
+                "temperature": 1.0 / TT_INV_TEMP, "seed": 2}}],
+        }))
+
+        reset_launch_counts()
+        train_wall_s = console_ok("tt-quickstart", ["train", "--engine-json", str(engine_json), *dev_args])
+        launches = read_launch_counts()
+        (instance,) = Storage.get_meta_data_engine_instances().get_all()
+        if instance.status != "COMPLETED":
+            raise RuntimeError(f"tt-quickstart: engine instance {instance.id} is {instance.status}")
+        timings = json.loads(instance.env["phase_timings"])
+        # the step plan from the pairs as the DataSource reads them
+        source = tt.TwoTowerDataSource(tt.DataSourceParams(app_name=TTQ_APP, event_names=("view",),
+                                                           eval_k=QS_EVAL_K))
+        td = source.read_training(local_context(device))
+
+        def plan(t) -> dict:
+            steps = epochs * -(-t.rows.size // batch)
+            return {"fused_ce_fwd": steps, "fused_ce_bwd": 2 * steps}
+
+        expected = plan(td)
+        if device.type == "cuda":
+            check_launches("tt-quickstart", launches, expected)
+
+        model = stored_model(instance.id)
+        if not (np.isfinite(model.user_vecs).all() and np.isfinite(model.item_vecs).all()):
+            raise RuntimeError("tt-quickstart: the stored towers are not finite")
+        if model.user_vecs.shape != (len(td.user_index), dim):
+            raise RuntimeError(f"tt-quickstart: user tower shape {model.user_vecs.shape}")
+        loss_first, loss_last = model.loss_history[0][1], model.loss_history[-1][1]
+        if not loss_last < 0.8 * loss_first:
+            raise RuntimeError(f"tt-quickstart: loss did not fall below 0.8x its first value "
+                               f"({loss_first} -> {loss_last})")
+        # recall@10 of the held-out pairs by the stored towers' own index;
+        # a pair whose user or item the store never saw counts as a miss
+        probe = min(TT_RECALL_PROBE, r_te.size)
+        rows_te = np.array([model.user_index.get(f"u{u}", -1) for u in r_te[:probe].tolist()])
+        cols_te = np.array([model.item_index.get(f"i{i}", -1) for i in c_te[:probe].tolist()])
+        known = rows_te >= 0
+        recall = recall_at_10(model.user_vecs, model.item_vecs, rows_te[known], cols_te[known], device)
+        recall *= known.sum() / probe
+        random_recall = 10.0 / len(model.item_index)
+        if not recall > 5 * random_recall:
+            raise RuntimeError(f"tt-quickstart: recall@10 {recall} is not above 5x random ({random_recall})")
+
+        served = deploy_and_query(
+            "tt-quickstart", base, engine_json, dev_args, instance.id, (model.user_index, model.item_index),
+            model.user_vecs.astype(np.float64), model.item_vecs.astype(np.float64), model.seen, n_queries, k, 14,
+            device)
+
+        # pio eval: recall@10 over QS_EVAL_K folds; the plan and the recall
+        # of a random ranking from the port's own folds
+        folds = source.read_eval(local_context(device))
+        eval_plan = {"fused_ce_fwd": 0, "fused_ce_bwd": 0}
+        random_units = []
+        for fold_td, _, qa in folds:
+            for name, n in plan(fold_td).items():
+                eval_plan[name] += n
+            for q, actual in qa:
+                candidates = len(fold_td.item_index) - len(fold_td.seen[q.user])
+                in_model = sum(1 for i in actual if i in fold_td.item_index)
+                random_units.append(min(1.0, 10 / candidates) * in_model / len(actual))
+        random_eval = float(np.mean(random_units))
+        score, eval_launches, eval_s = run_eval("tt-quickstart", base, "tt_eval", "twotower", "RecallAtK",
+                                                TOP_K, engine_json, dev_args)
+        if device.type == "cuda":
+            check_launches("tt-quickstart eval", eval_launches, eval_plan)
+        # no bar against the random ranking here: a fold's held-out pairs
+        # are distinct pairs its training never saw, and the in-batch
+        # softmax ranks those below a random ranking in both packages
+        # (tests/test_torch_twotower_engine.py)
+        if not 0.0 <= score <= 1.0:
+            raise RuntimeError(f"tt-quickstart: eval recall@{TOP_K} {score} is not a recall")
+        out = {
+            "pairs_imported": int(r_tr.size), "pairs": int(td.rows.size), "users": len(td.user_index),
+            "items": len(td.item_index), "dim": dim, "batch": batch, "epochs": epochs, "file_s": file_s,
+            "import_s": import_s, "events_per_s_imported": r_tr.size / import_s, "read_s": timings["read"],
+            "train_tt_s": timings["train:twotower"], "train_wall_s": train_wall_s,
+            "deploy_start_s": served["deploy_start_s"], "launches": {n: launches[n] for n in expected},
+            "planned": expected, "loss_first": loss_first, "loss_last": loss_last, "recall_at_10": recall,
+            "random_recall_at_10": random_recall, "queries": n_queries, "p50_ms": served["p50_ms"],
+            "p99_ms": served["p99_ms"], "status_device": served["status_device"], "instance": instance.id,
+            "eval_k": QS_EVAL_K, "eval_s": eval_s, "eval_launches": {n: eval_launches[n] for n in eval_plan},
+            "eval_planned": eval_plan, f"eval_recall_at_{TOP_K}": score,
+            f"random_eval_recall_at_{TOP_K}": random_eval, "phase_s": time.perf_counter() - t_phase,
+            "card": smi,
+        }
+        log(f"[tt-quickstart] {json.dumps(out)}")
+        return out
 
 
 def check_launches(path: str, launches: dict, expected: dict) -> None:
@@ -1047,6 +1336,8 @@ def kernel_row(name: str, launches: int, m: dict) -> dict:
 
 def main() -> int:
     t_start = time.perf_counter()
+    # the arrays engines' factory path, chip_smoke:..., names this module
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])
     info = phase_device()
     device = torch.device("cuda", 0)
     phase_build()
@@ -1055,25 +1346,26 @@ def main() -> int:
     fused_rows = phase_fused_kernel(device, info["exp_per_s"])
 
     # the Recommendation path
-    reset_launch_counts()
-    trained = phase_train(device, NNZ, SWEEPS, RANK)
-    served = phase_als_serve(trained, QUERIES, TOP_K, info["kind"])
-    als_launches = read_launch_counts()
+    with temporary_store("pio-als-"):
+        reset_launch_counts()
+        trained = phase_train(device, NNZ, SWEEPS, RANK)
+        served = phase_als_serve(trained, device, QUERIES, TOP_K, info["kind"])
+        als_launches = read_launch_counts()
     check_launches("train", als_launches, {"gj_solve": trained["expected_launches"]})
-    trained["model"] = served["model"]
     profile = phase_profile(*phase_half_sweep(trained, device, RANK), device)
 
     # the Two-Tower path
-    reset_launch_counts()
-    tt_trained = phase_tt_train(device, TT_NNZ, TT_DIM, TT_BATCH, TT_EPOCHS)
-    tt_launches = read_launch_counts()
-    check_launches("tt-train", tt_launches, tt_trained["expected_launches"])
-    tt_served = phase_tt_serve(tt_trained, QUERIES, TOP_K, info["kind"])
-    tt_trained["model"] = tt_served["model"]
+    with temporary_store("pio-tt-"):
+        reset_launch_counts()
+        tt_trained = phase_tt_train(device, TT_NNZ, TT_DIM, TT_BATCH, TT_EPOCHS)
+        tt_launches = read_launch_counts()
+        check_launches("tt-train", tt_launches, tt_trained["expected_launches"])
+        tt_served = phase_tt_serve(tt_trained, device, QUERIES, TOP_K, info["kind"])
     tt_profile = phase_tt_profile(tt_trained, device)
 
-    # the quickstart path (its own launch count inside)
+    # the quickstart paths (their own launch counts inside)
     qs = phase_quickstart(device, QUERIES, TOP_K, info["smi"])
+    ttq = phase_tt_quickstart(device, TTQ_NNZ, TT_DIM, TT_BATCH, TT_EPOCHS, QUERIES, TOP_K, info["smi"])
 
     main_fused = fused_rows[0]  # [8192, 64], the Two-Tower path's shape
     kernels = [
@@ -1084,7 +1376,8 @@ def main() -> int:
     summary = {
         "card": info["smi"], "nnz": NNZ, "rank": RANK, "sweeps": len(trained["sweeps"]),
         "rmse_first": trained["sweeps"][0]["rmse"], "rmse_last": trained["sweeps"][-1]["rmse"],
-        "train_s": trained["train_s"], "ratings_per_s": trained["ratings_per_s"],
+        "train_s": trained["train_s"], "run_train_s": trained["run_train_s"],
+        "ratings_per_s": trained["ratings_per_s"],
         "peak_gib": trained["peak_bytes"] / 2**30,
         "p50_ms": served["p50_ms"], "p99_ms": served["p99_ms"],
         "predict_p50_ms": served["predict_p50_ms"], "predict_p99_ms": served["predict_p99_ms"],
@@ -1100,8 +1393,13 @@ def main() -> int:
             "step_busy_share": tt_profile["busy_share"],
         },
         "qs": {key: qs[key] for key in (
-            "events", "write_s", "read_s", "train_als_s", "train_wall_s", "deploy_start_s",
-            "gj_solve_launches", "train_rmse", "mean_rmse", "p50_ms", "p99_ms", "phase_s")},
+            "events", "import_s", "read_s", "train_als_s", "train_wall_s", "deploy_start_s",
+            "gj_solve_launches", "train_rmse", "mean_rmse", "p50_ms", "p99_ms", "eval_s",
+            "eval_gj_solve_launches", f"precision_at_{TOP_K}", "phase_s")},
+        "tt_qs": {key: ttq[key] for key in (
+            "pairs", "import_s", "read_s", "train_tt_s", "train_wall_s", "deploy_start_s", "launches",
+            "loss_first", "loss_last", "recall_at_10", "p50_ms", "p99_ms", "eval_s", "eval_launches",
+            f"eval_recall_at_{TOP_K}", "phase_s")},
         "wall_s": time.perf_counter() - t_start,
     }
     log(f"[summary] {json.dumps(summary)}")

@@ -6,10 +6,10 @@ from here:
     from predictionio_tpu_torch.controller import (
         Engine, EngineParams, DataSource, Preparator, IdentityPreparator,
         TorchAlgorithm, LocalAlgorithm, Serving, FirstServing, Params,
+        AverageMetric, Evaluation, EngineParamsGenerator,
     )
 
-Evaluation (``Evaluation``, ``MetricEvaluator``, the metrics) waits with
-``pio eval``; ``mesh_context`` waits with the port's distributed path.
+``mesh_context`` waits with the port's distributed path.
 """
 
 from predictionio_tpu_torch.controller.base import create_doer
@@ -33,6 +33,21 @@ from predictionio_tpu_torch.controller.engine import (
     SimpleEngine,
     resolve_engine_factory,
 )
+from predictionio_tpu_torch.controller.evaluation import (
+    EngineParamsGenerator,
+    Evaluation,
+    MetricEvaluator,
+    MetricEvaluatorResult,
+    MetricScores,
+)
+from predictionio_tpu_torch.controller.metrics import (
+    AverageMetric,
+    Metric,
+    OptionAverageMetric,
+    StdevMetric,
+    SumMetric,
+    ZeroMetric,
+)
 from predictionio_tpu_torch.controller.params import (
     EmptyParams,
     Params,
@@ -44,15 +59,23 @@ from predictionio_tpu_torch.controller.persistent import PersistentModel, Persis
 
 __all__ = [
     "Algorithm",
+    "AverageMetric",
     "AverageServing",
     "DataSource",
     "EmptyParams",
     "Engine",
     "EngineFactory",
     "EngineParams",
+    "EngineParamsGenerator",
+    "Evaluation",
     "FirstServing",
     "IdentityPreparator",
     "LocalAlgorithm",
+    "Metric",
+    "MetricEvaluator",
+    "MetricEvaluatorResult",
+    "MetricScores",
+    "OptionAverageMetric",
     "Params",
     "ParamsError",
     "PersistentModel",
@@ -61,8 +84,11 @@ __all__ = [
     "SanityCheck",
     "Serving",
     "SimpleEngine",
+    "StdevMetric",
+    "SumMetric",
     "TorchAlgorithm",
     "WorkflowContext",
+    "ZeroMetric",
     "create_doer",
     "local_context",
     "params_from_json",

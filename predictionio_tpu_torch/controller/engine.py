@@ -1,8 +1,8 @@
-"""The Engine: a typed DASE composition plus its train/deploy logic.
+"""The Engine: a typed DASE composition plus its train/eval/deploy logic.
 
 Counterpart of ``predictionio_tpu/controller/engine.py``. Parity:
 ``core/src/main/scala/org/apache/predictionio/controller/Engine.scala``
-(``class Engine[TD,EI,PD,Q,P,A]``, ``object Engine.train``,
+(``class Engine[TD,EI,PD,Q,P,A]``, ``object Engine.train/eval``,
 ``makeSerializableModels``, ``prepareDeploy``, ``SimpleEngine``,
 ``EngineParams``) and ``EngineFactory.scala``.
 
@@ -11,8 +11,6 @@ carrying each component's ``Params``. The workflow layer
 (:mod:`predictionio_tpu_torch.workflow`) instantiates and drives it. A
 :class:`~predictionio_tpu_torch.controller.components.TorchAlgorithm` is
 constructed on the workflow context's device.
-
-``Engine.eval`` and ``read_eval_folds`` wait with ``pio eval``.
 """
 
 from __future__ import annotations
@@ -226,6 +224,56 @@ class Engine:
                 key = f"train:{name}#{i}"  # same algorithm listed twice
             models.append(_timed(key, lambda a=algo: a.train_base(ctx, pd)))
         return models
+
+    # ------------------------------------------------------------------ eval
+    def read_eval_folds(self, ctx: WorkflowContext, engine_params: EngineParams) -> list:
+        """Materialize the eval folds for these datasource params — split
+        out so a parameter sweep whose candidates share datasource params
+        reads and splits the events once (see MetricEvaluator's fold
+        cache)."""
+        datasource = create_doer(self.datasource_class, engine_params.datasource)
+        return list(datasource.read_eval_base(ctx))
+
+    def eval(
+        self,
+        ctx: WorkflowContext,
+        engine_params: EngineParams,
+        folds: list | None = None,
+    ) -> list[tuple[Any, list[tuple[Any, Any, Any]]]]:
+        """Per eval fold: train on TD, batch-predict the held-out queries,
+        serve, and pair with actuals -> ``[(EI, [(Q, P, A), ...]), ...]``
+        (parity: ``object Engine.eval``). ``folds`` short-circuits the
+        datasource read (fold reuse across sweep candidates). Each
+        algorithm trains on ``ctx.device``, and its model goes through
+        ``prepare_model_for_serving`` before the predictions, as on the
+        deploy path: ``train`` returns host arrays, predict reads them on
+        the device."""
+        preparator = create_doer(self.preparator_class, engine_params.preparator)
+        serving = create_doer(self.serving_class, engine_params.serving)
+        if folds is None:
+            folds = self.read_eval_folds(ctx, engine_params)
+        results = []
+        for fold_index, (td, eval_info, qa_pairs) in enumerate(folds):
+            logger.info("Evaluating fold %d (%d queries)", fold_index, len(qa_pairs))
+            pd = preparator.prepare_base(ctx, td)
+            algos = self._make_algorithms(engine_params, ctx)
+            models = [
+                algo.prepare_model_for_serving(algo.train_base(ctx, pd)) for _, algo in algos
+            ]
+            # supplement once, then both predict and serve see the
+            # supplemented query, as on the deploy path
+            supplemented = [serving.supplement_base(q) for q, _ in qa_pairs]
+            indexed_queries = list(enumerate(supplemented))
+            per_algo = [
+                dict(algo.batch_predict_base(model, indexed_queries))
+                for (_name, algo), model in zip(algos, models)
+            ]
+            qpa = [
+                (sq, serving.serve_base(sq, [preds[i] for preds in per_algo]), a)
+                for i, (sq, (_, a)) in enumerate(zip(supplemented, qa_pairs))
+            ]
+            results.append((eval_info, qpa))
+        return results
 
     # ---------------------------------------------------------- persistence
     def models_to_bytes(

@@ -4,8 +4,10 @@ from predictionio_tpu_torch.templates.recommendation.engine import (
     ALSAlgorithm,
     ALSAlgorithmParams,
     ALSModel,
+    Actual,
     DataSourceParams,
     ItemScore,
+    PrecisionAtK,
     PredictedResult,
     Query,
     RecommendationDataSource,
@@ -17,8 +19,10 @@ __all__ = [
     "ALSAlgorithm",
     "ALSAlgorithmParams",
     "ALSModel",
+    "Actual",
     "DataSourceParams",
     "ItemScore",
+    "PrecisionAtK",
     "PredictedResult",
     "Query",
     "RecommendationDataSource",

@@ -7,25 +7,27 @@ Counterpart of ``predictionio_tpu/templates/recommendation/engine.py``
   rating property) and ``buy`` events (implicit rating 4.0) through the
   columnar bulk scan; the latest event per (user, item) wins, and equal
   times go to the higher rating;
+  ``read_eval`` splits the same ratings into k folds by a stable hash of
+  (user, item);
 * :class:`ALSAlgorithm` trains with :func:`predictionio_tpu_torch.ops.als.train_als`
   on the context's device, keeps the factors on that device for serving,
   and scores ``predict``/``batch_predict`` there;
 * serving is the framework's :class:`FirstServing`
-  (:func:`engine_factory`).
+  (:func:`engine_factory`); :class:`PrecisionAtK` scores ``pio eval``.
 
 engine.json params are byte-compatible: ``rank``, ``numIterations``,
 ``lambda``, ``seed``, ``implicitPrefs``, ``alpha``, ``serveOnDevice``,
 ``deviceLatencyBudgetMs``, and the datasource's ``appName``/``evalK``.
 
 Waiting: the incremental training cache (it runs only on the columnar
-and partitioned drivers, not ported), the multi-host read, ``read_eval``
-and ``PrecisionAtK`` (with ``pio eval``), warm start, the host (numpy)
-predict branch and the serving tiers.
+and partitioned drivers, not ported), the multi-host read, warm start,
+the host (numpy) predict branch and the serving tiers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import zlib
 from typing import Any, Callable, Sequence
 
 import numpy as np
@@ -36,6 +38,7 @@ from predictionio_tpu_torch.controller import (
     Engine,
     FirstServing,
     IdentityPreparator,
+    OptionAverageMetric,
     Params,
     SanityCheck,
     TorchAlgorithm,
@@ -56,6 +59,7 @@ from predictionio_tpu_torch.templates.results import ItemScore, PredictedResult
 
 __all__ = [
     "Query",
+    "Actual",
     "ItemScore",
     "PredictedResult",
     "DataSourceParams",
@@ -64,6 +68,7 @@ __all__ = [
     "ALSAlgorithmParams",
     "ALSModel",
     "ALSAlgorithm",
+    "PrecisionAtK",
     "engine_factory",
 ]
 
@@ -76,6 +81,16 @@ class Query:
     num: int = 4
 
 
+@dataclasses.dataclass(frozen=True)
+class Actual:
+    """Ground truth for one eval query: held-out positive items plus the
+    items the user already rated in the training split (skipped — not
+    penalized — by :class:`PrecisionAtK`)."""
+
+    items: tuple = ()
+    seen: tuple = ()
+
+
 # ---------------------------------------------------------------- datasource
 @dataclasses.dataclass(frozen=True)
 class DataSourceParams(Params):
@@ -85,7 +100,7 @@ class DataSourceParams(Params):
     #: events read as implicit positive signal with this rating value
     buy_event: str = "buy"
     buy_rating: float = 4.0
-    #: eval folds for read_eval (which waits with ``pio eval``)
+    #: eval folds for read_eval
     eval_k: int = 3
     #: the JAX package's incremental re-index on a columnar store; no
     #: driver the port has can serve it, so every read is a full read
@@ -214,6 +229,63 @@ class RecommendationDataSource(DataSource):
         return self._assemble_training_data(
             u_code, i_code, t_arr, v, cols.entity_vocab, cols.target_vocab
         )
+
+    def _read_ratings(self, ctx: WorkflowContext) -> list[tuple[str, str, float]]:
+        """``(user, item, rating)`` per distinct pair, from the columnar
+        read (read_eval's input)."""
+        td = self.read_training(ctx)
+        users = td.user_index.keys()
+        items = td.item_index.keys()
+        return [
+            (users[r], items[c], float(v))
+            for r, c, v in zip(td.rows.tolist(), td.cols.tolist(), td.vals.tolist())
+        ]
+
+    @staticmethod
+    def _to_training_data(triples: Sequence[tuple[str, str, float]]) -> TrainingData:
+        user_index = BiMap.string_index(u for u, _, _ in triples)
+        item_index = BiMap.string_index(i for _, i, _ in triples)
+        rows = np.fromiter((user_index[u] for u, _, _ in triples), np.int64, len(triples))
+        cols = np.fromiter((item_index[i] for _, i, _ in triples), np.int64, len(triples))
+        vals = np.fromiter((r for _, _, r in triples), np.float32, len(triples))
+        return TrainingData(rows, cols, vals, user_index, item_index)
+
+    def read_eval(self, ctx: WorkflowContext):
+        """K-fold split by stable hash of (user, item): train on k-1 folds,
+        query each held-out user for the full ranking, actual = the
+        held-out items rated 3.5 or more, and the user's training items
+        (parity: the template's ``readEval`` + e2 ``splitData``)."""
+        triples = self._read_ratings(ctx)
+        k = max(2, self.params.eval_k)
+
+        def fold_of(u: str, i: str) -> int:
+            return zlib.crc32(f"{u}\x00{i}".encode()) % k
+
+        num_items = len({i for _, i, _ in triples})
+        folds = []
+        for fold in range(k):
+            train = [t for t in triples if fold_of(t[0], t[1]) != fold]
+            held = [t for t in triples if fold_of(t[0], t[1]) == fold]
+            td = self._to_training_data(train)
+            seen_by_user: dict[str, set] = {}
+            for u, i, _ in train:
+                seen_by_user.setdefault(u, set()).add(i)
+            by_user: dict[str, list[str]] = {}
+            for u, i, r in held:
+                if r >= 3.5:  # positively-rated held-out items
+                    by_user.setdefault(u, []).append(i)
+            # the full ranking: PrecisionAtK skips the user's training
+            # items (Actual.seen) rather than penalizing them
+            qa = [
+                (
+                    Query(user=u, num=num_items),
+                    Actual(items=tuple(items), seen=tuple(seen_by_user.get(u, ()))),
+                )
+                for u, items in by_user.items()
+                if items
+            ]
+            folds.append((td, {"fold": fold}, qa))
+        return folds
 
 
 # ----------------------------------------------------------------- algorithm
@@ -356,6 +428,30 @@ class ALSAlgorithm(TorchAlgorithm):
                     for i, s in zip(row_ids[:k], row_scores[:k])
                 ))))
         return results
+
+
+class PrecisionAtK(OptionAverageMetric):
+    """Fraction of recommended items that are in the held-out positives
+    (parity: the eval metric of the reference recommendation template)."""
+
+    def __init__(self, k: int = 10):
+        self.k = k
+
+    def header(self) -> str:
+        return f"Precision@{self.k}"
+
+    def calculate_unit(self, query, predicted: PredictedResult, actual) -> float | None:
+        if not predicted.item_scores:
+            return None
+        if isinstance(actual, Actual):
+            positives, seen = set(actual.items), set(actual.seen)
+        else:  # plain iterable of positive items
+            positives, seen = set(actual), set()
+        top = [s.item for s in predicted.item_scores if s.item not in seen][: self.k]
+        if not top:
+            return None
+        hits = sum(1 for i in top if i in positives)
+        return hits / len(top)
 
 
 def engine_factory() -> Engine:

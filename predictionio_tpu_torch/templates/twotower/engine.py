@@ -1,42 +1,76 @@
-"""Two-Tower retrieval engine: interaction pairs -> towers trained on the
+"""Two-Tower retrieval engine: interaction events -> towers trained on the
 card -> personalised top-N queries.
 
-Counterpart of ``predictionio_tpu/templates/twotower/engine.py``. This
-slice carries the algorithm and its wire types: ``train`` takes a
-:class:`TrainingData` of distinct (user, item) pairs built from arrays,
-``prepare_model_for_serving`` moves the towers to the device, and
-``predict``/``batch_predict`` rank the catalog there by cosine score with
-the seen-item filter. engine.json params are byte-compatible
-(``embeddingDim``, ``batchSize``, ``learningRate``, ``gemmDtype``,
-``fusedCe``, ...); the wire shapes are the Recommendation template's.
+Counterpart of ``predictionio_tpu/templates/twotower/engine.py``, on the
+DASE spine (:func:`engine_factory`):
+
+* :class:`TwoTowerDataSource` reads the distinct (user, item) pairs of any
+  of ``eventNames`` through the columnar bulk scan (in-batch softmax has
+  no per-pair weight, so a set of pairs is the right shape), with each
+  user's seen items for the serving-time filter; ``read_eval`` splits the
+  pairs into k folds by a stable hash of (user, item);
+* :class:`TwoTowerAlgorithm` trains the towers with
+  :func:`predictionio_tpu_torch.ops.twotower.train_two_tower` on the
+  context's device (the fused softmax-CE kernels on the card),
+  ``prepare_model_for_serving`` moves them to that device, and
+  ``predict``/``batch_predict`` rank the catalog there by cosine score
+  with the seen-item filter;
+* serving is the framework's :class:`FirstServing`; :class:`RecallAtK`
+  scores ``pio eval``.
+
+engine.json is the JAX package's, byte for byte::
+
+    {"engineFactory": "predictionio_tpu.templates.twotower:engine_factory",
+     "datasource": {"params": {"appName": "myapp",
+                               "eventNames": ["view", "buy"]}},
+     "algorithms": [{"name": "twotower",
+                     "params": {"embeddingDim": 64, "batchSize": 512,
+                                "epochs": 5, "learningRate": 0.05}}]}
+
+Waiting: the multi-host read, warm start, the host (numpy) predict branch
+and the serving tiers.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from types import MappingProxyType
+import zlib
 from typing import Any, Sequence
 
 import numpy as np
 import torch
 
-from predictionio_tpu_torch.controller.params import Params
+from predictionio_tpu_torch.controller import (
+    DataSource,
+    Engine,
+    FirstServing,
+    IdentityPreparator,
+    OptionAverageMetric,
+    Params,
+    SanityCheck,
+    TorchAlgorithm,
+    WorkflowContext,
+)
 from predictionio_tpu_torch.data.bimap import BiMap
-from predictionio_tpu_torch.device import resolve_device
+from predictionio_tpu_torch.data.store import PEventStore
 from predictionio_tpu_torch.ops.als import predict_scores, top_k_items_batch
 from predictionio_tpu_torch.ops.topk import bucket_k, top_k_scores
 from predictionio_tpu_torch.ops.twotower import TwoTowerConfig, train_two_tower
+from predictionio_tpu_torch.templates.columnar_util import aggregate_pairs, densify_pairs
 from predictionio_tpu_torch.templates.results import ItemScore, PredictedResult
 
 __all__ = [
+    "DataSourceParams",
     "Query",
     "ItemScore",
     "PredictedResult",
     "TrainingData",
+    "TwoTowerDataSource",
     "TwoTowerParams",
     "TwoTowerServingModel",
     "TwoTowerAlgorithm",
     "RecallAtK",
+    "engine_factory",
 ]
 
 
@@ -48,8 +82,21 @@ class Query:
     num: int = 10
 
 
+# --------------------------------------------------------------- data source
+@dataclasses.dataclass(frozen=True)
+class DataSourceParams(Params):
+    app_name: str = ""
+    event_names: Sequence[str] = ("view", "rate", "buy", "like")
+    eval_k: int = 2
+    json_aliases = {
+        "appName": "app_name",
+        "eventNames": "event_names",
+        "evalK": "eval_k",
+    }
+
+
 @dataclasses.dataclass
-class TrainingData:
+class TrainingData(SanityCheck):
     """Distinct (user, item) pairs as dense indices, the id maps, and each
     user's seen items (the serving-time filter)."""
 
@@ -66,6 +113,83 @@ class TrainingData:
             raise ValueError("TrainingData arrays are misaligned")
 
 
+class TwoTowerDataSource(DataSource):
+    params_class = DataSourceParams
+
+    def __init__(self, params: DataSourceParams):
+        super().__init__(params)
+
+    def _columns(self, ctx: WorkflowContext):
+        if ctx.num_hosts != 1:
+            raise NotImplementedError("the port reads events on one host only")
+        p = self.params
+        return PEventStore.find_columns(app_name=p.app_name, event_names=list(p.event_names))
+
+    def _read_pairs(self, ctx: WorkflowContext) -> list:
+        """Sorted distinct (user, item) id pairs; the dedup runs over code
+        arrays, so the remaining Python is O(distinct pairs)."""
+        cols = self._columns(ctx)
+        u_sel, i_sel, _ = aggregate_pairs(cols)
+        return sorted(zip(cols.entity_vocab[u_sel].tolist(), cols.target_vocab[i_sel].tolist()))
+
+    @staticmethod
+    def _to_training_data(pairs: Sequence) -> TrainingData:
+        user_index = BiMap.string_index(sorted({u for u, _ in pairs}))
+        item_index = BiMap.string_index(sorted({i for _, i in pairs}))
+        n = len(pairs)
+        rows = np.fromiter((user_index[u] for u, _ in pairs), np.int64, n)
+        cols = np.fromiter((item_index[i] for _, i in pairs), np.int64, n)
+        seen: dict[str, set] = {}
+        for u, i in pairs:
+            seen.setdefault(u, set()).add(i)
+        return TrainingData(rows, cols, user_index, item_index, seen)
+
+    def read_training(self, ctx: WorkflowContext) -> TrainingData:
+        """Vectorized read: the columnar bulk scan and a grouped pair
+        dedup, no per-event Python; the seen filter is built from the
+        (much smaller) distinct pairs."""
+        cols = self._columns(ctx)
+        u_sel, i_sel, _counts = aggregate_pairs(cols)
+        rows, cols_idx, user_vocab, item_vocab = densify_pairs(cols, u_sel, i_sel)
+        seen: dict[str, set] = {}
+        for r, c in zip(rows.tolist(), cols_idx.tolist()):
+            seen.setdefault(user_vocab[r], set()).add(item_vocab[c])
+        return TrainingData(
+            rows, cols_idx, BiMap.string_index(user_vocab), BiMap.string_index(item_vocab), seen
+        )
+
+    def read_eval(self, ctx: WorkflowContext):
+        """K-fold split by stable hash of (user, item): train on k-1
+        folds, query each user with held-out interactions for the full
+        ranking, actual = the held-out item ids (consumed by
+        :class:`RecallAtK`)."""
+        pairs = self._read_pairs(ctx)
+        k = max(2, self.params.eval_k)
+
+        def fold_of(u: str, i: str) -> int:
+            return zlib.crc32(f"{u}\x00{i}".encode()) % k
+
+        folds = []
+        for fold in range(k):
+            train = [pr for pr in pairs if fold_of(*pr) != fold]
+            held = [pr for pr in pairs if fold_of(*pr) == fold]
+            td = self._to_training_data(train)
+            by_user: dict[str, list] = {}
+            for u, i in held:
+                # only users the fold's model knows can be queried
+                if u in td.user_index:
+                    by_user.setdefault(u, []).append(i)
+            num_items = len(td.item_index)
+            qa = [
+                (Query(user=u, num=num_items), tuple(items))
+                for u, items in by_user.items()
+                if items
+            ]
+            folds.append((td, {"fold": fold}, qa))
+        return folds
+
+
+# ----------------------------------------------------------------- algorithm
 @dataclasses.dataclass(frozen=True)
 class TwoTowerParams(Params):
     embedding_dim: int = 32
@@ -96,7 +220,10 @@ class TwoTowerParams(Params):
 @dataclasses.dataclass
 class TwoTowerServingModel:
     """L2-normalised towers + id maps + seen filter: host numpy after
-    ``train``, device tensors after ``prepare_model_for_serving``."""
+    ``train`` and in blobs, device tensors after
+    ``prepare_model_for_serving``. The JAX package's class has these
+    fields, so a blob of either package reads as the other's class
+    (:mod:`predictionio_tpu_torch.utils.serialization`)."""
 
     user_vecs: Any  # [U, D]
     item_vecs: Any  # [I, D]
@@ -104,11 +231,9 @@ class TwoTowerServingModel:
     item_index: BiMap
     seen: dict
     loss_history: tuple = ()
-    #: the training run's phase seconds (``TwoTowerModel.timings``)
-    timings: Any = MappingProxyType({})
 
 
-class TwoTowerAlgorithm:
+class TwoTowerAlgorithm(TorchAlgorithm):
     params_class = TwoTowerParams
     query_class = Query
 
@@ -116,11 +241,11 @@ class TwoTowerAlgorithm:
     BATCH_PREDICT_CHUNK = 2048
 
     def __init__(self, params: TwoTowerParams, device: str | torch.device | None = None):
-        self.params = params
-        self.device = resolve_device(device)
+        super().__init__(params, device)
 
-    def train(self, pd: TrainingData) -> TwoTowerServingModel:
-        pd.sanity_check()
+    def train(self, ctx: WorkflowContext, pd: TrainingData) -> TwoTowerServingModel:
+        """The towers on :attr:`device` (the engine builds the algorithm on
+        ``ctx.device``); the model comes back as host numpy."""
         p = self.params
         model = train_two_tower(
             pd.rows,
@@ -146,7 +271,6 @@ class TwoTowerAlgorithm:
             item_index=pd.item_index,
             seen=pd.seen,
             loss_history=model.loss_history,
-            timings=model.timings,
         )
 
     def prepare_model_for_serving(self, model: TwoTowerServingModel) -> TwoTowerServingModel:
@@ -161,8 +285,7 @@ class TwoTowerAlgorithm:
     def warm_up(self, model: TwoTowerServingModel) -> None:
         """Make the calling thread ready to serve: the device current, and
         one query through the scoring path."""
-        if self.device.type == "cuda":
-            torch.cuda.set_device(self.device)
+        super().warm_up(model)
         if len(model.user_index):
             self.predict(model, Query(user=model.user_index.keys()[0], num=4))
 
@@ -224,7 +347,7 @@ class TwoTowerAlgorithm:
         return results
 
 
-class RecallAtK:
+class RecallAtK(OptionAverageMetric):
     """Fraction of held-out positives recovered in the top-k."""
 
     def __init__(self, k: int = 10):
@@ -239,3 +362,12 @@ class RecallAtK:
             return None
         top = {s.item for s in predicted.item_scores[: self.k]}
         return len(top & positives) / len(positives)
+
+
+def engine_factory() -> Engine:
+    return Engine(
+        datasource_class=TwoTowerDataSource,
+        preparator_class=IdentityPreparator,
+        algorithms_class_map={"twotower": TwoTowerAlgorithm},
+        serving_class=FirstServing,
+    )

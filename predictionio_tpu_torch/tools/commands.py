@@ -1,24 +1,27 @@
 """CLI command implementations (transport- and argparse-free).
 
 Counterpart of ``predictionio_tpu/tools/commands.py``, for the commands
-the port's console has so far: ``app new``, ``app list`` and ``status``.
-Parity: ``tools/console/App.scala`` and the status checks of
-``Console.scala``. Each function returns data (and prints human output
+the port's console has so far: ``app new``, ``app list``, ``import`` and
+``status``. Parity: ``tools/console/App.scala``, ``Import.scala`` and the
+status checks of ``Console.scala``. Each function returns data (and prints human output
 via the ``out`` callback) so tests can drive them without capturing
 stdout.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable
 
 import torch
 
+from predictionio_tpu_torch.data.ingest import IngestPipeline, PipelineError
 from predictionio_tpu_torch.data.storage import Storage, StorageError
 from predictionio_tpu_torch.data.storage.base import AccessKey, App
+from predictionio_tpu_torch.data.store import resolve_app
 from predictionio_tpu_torch.device import resolve_device
 
-__all__ = ["app_new", "app_list", "status_check"]
+__all__ = ["app_new", "app_list", "import_events", "status_check"]
 
 Out = Callable[[str], None]
 
@@ -63,6 +66,60 @@ def app_list(out: Out = _print) -> list[App]:
         out(f"{app.name:<20} | {app.id:<4} | {first}")
     out(f"Finished listing {len(apps)} app(s).")
     return apps
+
+
+# ----------------------------------------------------------------- import
+def import_events(
+    app_name: str,
+    input_path: str,
+    channel: str | None = None,
+    out: Out = _print,
+) -> int:
+    """``pio import`` — JSON-lines file -> event store bulk write
+    (parity: ``tools/imprt/FileToEvents.scala``).
+
+    The file is read in byte blocks through the bulk-ingest pipeline's
+    parse→validate→append stages: no per-line ``Event``, one columnar
+    chunk append per 65536 lines, dedup on — lines carrying an
+    ``eventId`` are idempotency keys, so re-running an interrupted import
+    never double-stores. The first invalid line aborts with its 1-based
+    ``file:line`` position. The JAX package's other input, a columnar
+    export directory, needs the columnar driver, which the port does not
+    have yet: a directory raises :class:`StorageError` saying so."""
+    app_id, channel_id = resolve_app(app_name, channel)
+    if os.path.isdir(input_path):
+        raise StorageError(
+            f"{input_path} is a directory: importing a columnar export needs the "
+            "columnar event store, which the port does not have yet; import a "
+            "JSON-lines file"
+        )
+    pipeline = IngestPipeline(Storage.get_l_events(), app_id, channel_id, chunk_rows=65536)
+
+    def check(results) -> None:
+        for res in results:
+            if res.errors:
+                first = res.errors[0]
+                pipeline.close()
+                raise StorageError(f"{input_path}:{first['line'] + 1}: {first['message']}")
+            if res.storage_error is not None:
+                pipeline.close()
+                raise StorageError(res.storage_error)
+
+    try:
+        with open(input_path, "rb") as f:
+            while True:
+                block = f.read(1 << 20)
+                if not block:
+                    break
+                pipeline.feed(block)
+                check(pipeline.poll())
+        check(pipeline.finish())
+    except PipelineError as e:
+        raise StorageError(f"import pipeline failed: {e}") from e
+    n = pipeline.stored + pipeline.duplicates
+    dup_note = f" ({pipeline.duplicates} duplicate eventIds absorbed)" if pipeline.duplicates else ""
+    out(f"Imported {n} events to app {app_name}.{dup_note}")
+    return n
 
 
 # ----------------------------------------------------------------- status

@@ -10,11 +10,16 @@ model (as the JAX package's ``_to_host`` does for ``jax.Array``): a blob
 never pins a device. Deploy-time placement is the algorithm's
 ``prepare_model_for_serving``.
 
-:func:`loads_model` also reads blobs the JAX package wrote. Its unpickler
-maps the JAX package's model classes to the port's through an explicit
-table, refuses every other class of the JAX package with a clear error,
-and never imports one. The two ``BiMap`` classes have the same
-``__slots__``, so their pickled state is the same.
+A blob has one format whichever package wrote it. The model classes the
+two packages share (:data:`_JAX_CLASSES`) are written under the JAX
+package's paths, so the JAX package's plain ``pickle.loads`` reads a port
+blob as its own classes, and :func:`loads_model` maps those paths back to
+the port's classes. Neither direction imports the JAX package: the
+writer is the pure-Python pickler with its class-path check skipped for
+the mapped classes (the C pickler imports a class's module to check it),
+and the reader refuses every other class of the JAX package with a clear
+error. The two ``BiMap`` classes have the same ``__slots__``, and each
+mapped dataclass the same fields, so their pickled state is the same.
 """
 
 from __future__ import annotations
@@ -39,16 +44,35 @@ _JAX_CLASSES = {
         "predictionio_tpu_torch.data.bimap", "BiMap"),
     ("predictionio_tpu.controller.persistent", "PersistentModelManifest"): (
         "predictionio_tpu_torch.controller.persistent", "PersistentModelManifest"),
+    ("predictionio_tpu.templates.twotower.engine", "TwoTowerServingModel"): (
+        "predictionio_tpu_torch.templates.twotower.engine", "TwoTowerServingModel"),
 }
 
+#: the inverse table: the port's (module, name) -> the JAX package's
+_PORT_CLASSES = {port: jax for jax, port in _JAX_CLASSES.items()}
 
-class _HostPickler(pickle.Pickler):
-    """Pickles every tensor as the numpy array of its host copy."""
+
+class _HostPickler(pickle._Pickler):
+    """Pickles every tensor as the numpy array of its host copy, and each
+    class of :data:`_PORT_CLASSES` under the JAX package's path."""
 
     def reducer_override(self, obj: Any) -> Any:
         if isinstance(obj, torch.Tensor):
             return obj.detach().cpu().numpy().__reduce__()
         return NotImplemented
+
+    def save_global(self, obj: Any, name: str | None = None) -> None:
+        key = (getattr(obj, "__module__", None), name or getattr(obj, "__qualname__", None))
+        mapped = _PORT_CLASSES.get(key)
+        if mapped is None:
+            super().save_global(obj, name)
+            return
+        # what the base class writes at protocol >= 4, without importing
+        # the module it names
+        self.save(mapped[0])
+        self.save(mapped[1])
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
 
 
 class _PortUnpickler(pickle.Unpickler):
@@ -66,7 +90,8 @@ class _PortUnpickler(pickle.Unpickler):
 
 
 def dumps_model(model: Any) -> bytes:
-    """Object -> bytes. Tensors become numpy arrays."""
+    """Object -> bytes. Tensors become numpy arrays; the mapped classes are
+    written under the JAX package's paths."""
     buf = io.BytesIO()
     buf.write(_MAGIC)
     _HostPickler(buf, protocol=pickle.HIGHEST_PROTOCOL).dump(model)

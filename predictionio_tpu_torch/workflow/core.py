@@ -1,13 +1,14 @@
-"""Core workflow: the train runner with its lineage record.
+"""Core workflow: train and evaluation runners with lineage records.
 
 Counterpart of ``predictionio_tpu/workflow/core.py``. Parity:
 ``core/workflow/CoreWorkflow.scala`` (``runTrain`` — train, persist
-models, insert COMPLETED ``EngineInstance`` with timings) and the argument
-surface of ``core/workflow/WorkflowParams.scala``.
+models, insert COMPLETED ``EngineInstance`` with timings;
+``runEvaluation``) and the argument surface of
+``core/workflow/WorkflowParams.scala``.
 
 One host, one device. The multi-host exchanges wait with the port's
 distributed path; ``warm_start`` waits with the aligned factor init it
-needs; ``run_evaluation`` waits with ``pio eval``.
+needs.
 """
 
 from __future__ import annotations
@@ -20,12 +21,18 @@ import uuid
 
 from predictionio_tpu_torch.controller.context import WorkflowContext
 from predictionio_tpu_torch.controller.engine import EngineParams
+from predictionio_tpu_torch.controller.evaluation import (
+    EngineParamsGenerator,
+    Evaluation,
+    MetricEvaluator,
+    MetricEvaluatorResult,
+)
 from predictionio_tpu_torch.controller.params import params_to_json
 from predictionio_tpu_torch.data.storage import Storage
-from predictionio_tpu_torch.data.storage.base import EngineInstance, Model
+from predictionio_tpu_torch.data.storage.base import EngineInstance, EvaluationInstance, Model
 from predictionio_tpu_torch.workflow.engine_json import EngineVariant
 
-__all__ = ["WorkflowParams", "run_train", "params_json"]
+__all__ = ["WorkflowParams", "run_train", "run_evaluation", "params_json"]
 
 logger = logging.getLogger(__name__)
 
@@ -123,4 +130,48 @@ def run_train(
         return instance
     except Exception:
         instances.update(instance.with_status("FAILED", end_time=_now()))
+        raise
+
+
+def run_evaluation(
+    evaluation: Evaluation,
+    generator: EngineParamsGenerator,
+    ctx: WorkflowContext,
+    workflow_params: WorkflowParams = WorkflowParams(),
+    evaluation_class: str = "",
+    generator_class: str = "",
+) -> tuple[EvaluationInstance, MetricEvaluatorResult]:
+    """Run a parameter sweep on ``ctx.device`` and record an
+    ``EvaluationInstance``: EVALUATING, then EVALCOMPLETED with the
+    leaderboard and its JSON, or FAILED and the exception re-raised
+    (parity: ``CoreWorkflow.runEvaluation`` + ``EvaluationWorkflow``)."""
+    instances = Storage.get_meta_data_evaluation_instances()
+    instance = EvaluationInstance(
+        id=uuid.uuid4().hex,
+        status="EVALUATING",
+        start_time=_now(),
+        end_time=_now(),
+        evaluation_class=evaluation_class or type(evaluation).__name__,
+        engine_params_generator_class=generator_class or type(generator).__name__,
+        batch=workflow_params.batch,
+    )
+    instances.insert(instance)
+    try:
+        evaluator = MetricEvaluator(
+            metric=evaluation.metric, other_metrics=tuple(evaluation.other_metrics)
+        )
+        result = evaluator.evaluate_base(
+            ctx, evaluation.engine, list(generator.engine_params_list)
+        )
+        instance = dataclasses.replace(
+            instance,
+            status="EVALCOMPLETED",
+            end_time=_now(),
+            evaluator_results=result.leaderboard(),
+            evaluator_results_json=json.dumps(result.to_json(), default=str),
+        )
+        instances.update(instance)
+        return instance, result
+    except Exception:
+        instances.update(dataclasses.replace(instance, status="FAILED", end_time=_now()))
         raise

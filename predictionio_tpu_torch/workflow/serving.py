@@ -9,9 +9,7 @@ Counterpart of the query half of ``predictionio_tpu/workflow/serving.py``
   the context's device, and answers a query by supplement -> each
   algorithm's predict -> serve, in the JSON shape of the JAX package's
   ``_result_to_json``.
-* :class:`AlgorithmService` serves one algorithm and a model already in
-  hand (no engine, no store), for callers that trained in-process.
-* :class:`QueryServer` puts either behind ``POST /queries.json`` and
+* :class:`QueryServer` puts it behind ``POST /queries.json`` and
   ``GET /`` on a ``ThreadingHTTPServer`` in a background thread, started
   by :meth:`QueryServer.start` and stopped by :meth:`QueryServer.close`.
   A query whose predict raises answers 500 with the error's message.
@@ -39,11 +37,11 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Mapping
 
 from predictionio_tpu_torch.controller.context import WorkflowContext, local_context
-from predictionio_tpu_torch.controller.params import ParamsError, params_from_json
+from predictionio_tpu_torch.controller.params import params_from_json
 from predictionio_tpu_torch.data.storage import Storage
 from predictionio_tpu_torch.workflow.engine_json import EngineVariant
 
-__all__ = ["AlgorithmService", "QueryServer", "QueryServerError", "QueryService", "result_to_json"]
+__all__ = ["QueryServer", "QueryServerError", "QueryService", "result_to_json"]
 
 logger = logging.getLogger(__name__)
 
@@ -65,37 +63,13 @@ def result_to_json(result: Any) -> Any:
 
 
 def _bind_query(query_class: Any, body: Any) -> Any:
-    if query_class is None or not isinstance(body, Mapping):
+    """The body as the algorithm's query class; an algorithm without one
+    takes the body as it is."""
+    if query_class is None:
         return body
+    if not isinstance(body, Mapping):
+        raise ValueError("the query body must be a JSON object")
     return params_from_json(query_class, body)
-
-
-class AlgorithmService:
-    """Serves one algorithm and its prepared model."""
-
-    def __init__(self, algorithm: Any, model: Any):
-        self.algorithm = algorithm
-        self.model = model
-
-    def warm_up(self) -> None:
-        self.algorithm.warm_up(self.model)
-
-    def handle_query(self, body: Any) -> tuple[int, Any]:
-        """``(status, payload)`` for one parsed ``/queries.json`` body."""
-        if not isinstance(body, Mapping):
-            return 400, {"message": "Query body must be a JSON object."}
-        try:
-            query = _bind_query(self.algorithm.query_class, body)
-        except ParamsError as e:
-            return 400, {"message": f"Invalid query: {e}"}
-        return 200, result_to_json(self.algorithm.predict(self.model, query))
-
-    def status_json(self) -> dict:
-        return {
-            "status": "alive",
-            "algorithm": type(self.algorithm).__name__,
-            "device": str(getattr(self.algorithm, "device", "")),
-        }
 
 
 class QueryService:
@@ -196,10 +170,9 @@ class QueryService:
 
 
 class QueryServer:
-    """Serves a :class:`QueryService` or an :class:`AlgorithmService` over
-    HTTP."""
+    """Serves a :class:`QueryService` over HTTP."""
 
-    def __init__(self, service: Any, host: str = "127.0.0.1", port: int = 0):
+    def __init__(self, service: QueryService, host: str = "127.0.0.1", port: int = 0):
         self.service = service
         self._httpd = ThreadingHTTPServer((host, port), self._handler_class())
         self._httpd.daemon_threads = True

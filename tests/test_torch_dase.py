@@ -3,7 +3,9 @@ controller (``Engine.train``, sanity checks, the ``stop_after_*`` flags,
 timings), model blobs (``models_to_bytes``/``models_from_bytes``/
 ``prepare_deploy``, and blobs the JAX package wrote), ``run_train``'s
 lineage on the memory and sqlite drivers, the ``engineFactory`` path
-rewrite, and one ``pio.db`` written by one package and read by the other.
+rewrite, one ``pio.db`` written by one package and read by the other,
+and evaluation: ``Engine.eval``, ``MetricEvaluator`` (scores, ranking,
+leaderboard, fold reuse) and ``run_evaluation``'s ``EvaluationInstance``.
 
 The port's components below are a copy of ``tests/fake_dase.py`` on the
 port's controller (the reference's ``Engine0`` pattern: integer-typed
@@ -21,6 +23,12 @@ import pytest
 import torch
 
 import fake_dase as jax_fake
+from predictionio_tpu.controller import AverageMetric as JaxAverageMetric
+from predictionio_tpu.controller import EngineParamsGenerator as JaxEngineParamsGenerator
+from predictionio_tpu.controller import Evaluation as JaxEvaluation
+from predictionio_tpu.controller import MetricEvaluator as JaxMetricEvaluator
+from predictionio_tpu.controller import OptionAverageMetric as JaxOptionAverageMetric
+from predictionio_tpu.controller import ZeroMetric as JaxZeroMetric
 from predictionio_tpu.controller import local_context as jax_local_context
 from predictionio_tpu.data.aggregator import BiMap as JaxBiMap
 from predictionio_tpu.data.event import DataMap as JaxDataMap
@@ -34,12 +42,18 @@ from predictionio_tpu.workflow import load_engine_variant as jax_load_variant
 from predictionio_tpu.workflow import run_train as jax_run_train
 from predictionio_tpu.workflow.core import WorkflowParams as JaxWorkflowParams
 from predictionio_tpu.workflow.core import _params_json as jax_params_json
+from predictionio_tpu.workflow.core import run_evaluation as jax_run_evaluation
 from predictionio_tpu_torch.controller import (
+    AverageMetric,
     DataSource,
     Engine,
     EngineParams,
+    EngineParamsGenerator,
+    Evaluation,
     FirstServing,
     LocalAlgorithm,
+    MetricEvaluator,
+    OptionAverageMetric,
     Params,
     PersistentModel,
     Preparator,
@@ -47,6 +61,7 @@ from predictionio_tpu_torch.controller import (
     Serving,
     TorchAlgorithm,
     WorkflowContext,
+    ZeroMetric,
     local_context,
     resolve_engine_factory,
 )
@@ -56,8 +71,9 @@ from predictionio_tpu_torch.data.storage import Storage
 from predictionio_tpu_torch.data.storage.base import App
 from predictionio_tpu_torch.templates.recommendation import engine_factory as rec_factory
 from predictionio_tpu_torch.templates.recommendation.engine import ALSModel
+from predictionio_tpu_torch.templates.twotower import engine_factory as tt_factory
 from predictionio_tpu_torch.utils.serialization import dumps_model, loads_model
-from predictionio_tpu_torch.workflow import WorkflowParams, load_engine_variant, run_train
+from predictionio_tpu_torch.workflow import WorkflowParams, load_engine_variant, run_evaluation, run_train
 from predictionio_tpu_torch.workflow.core import params_json
 
 
@@ -92,6 +108,12 @@ class DataSource0(DataSource):
     def read_training(self, ctx):
         CALLS.append("read")
         return TD0(self.params.base)
+
+    def read_eval(self, ctx):
+        # two folds; actual = query + base
+        CALLS.append("read_eval")
+        return [(TD0(self.params.base), {"fold": fold}, [(q, q + self.params.base) for q in range(3)])
+                for fold in range(2)]
 
 
 class Preparator0(Preparator):
@@ -371,9 +393,15 @@ def test_jax_factory_path_resolves_to_the_port(path):
     assert eng.algorithms_class_map["als"].__module__.startswith("predictionio_tpu_torch.")
 
 
+def test_jax_two_tower_factory_path_resolves_to_the_port():
+    factory = resolve_engine_factory("predictionio_tpu.templates.twotower:engine_factory")
+    assert factory is tt_factory
+    assert factory().algorithms_class_map["twotower"].__module__ == "predictionio_tpu_torch.templates.twotower.engine"
+
+
 @pytest.mark.parametrize("path", [
     "predictionio_tpu.templates.classification:engine_factory",  # no such port module yet
-    "predictionio_tpu.templates.twotower:engine_factory",  # the module, not the factory yet
+    "predictionio_tpu.templates.similarproduct:engine_factory",  # no such port module yet
 ])
 def test_factory_without_a_port_counterpart_fails_clearly(path):
     with pytest.raises(ImportError, match="no counterpart in the port"):
@@ -499,3 +527,162 @@ def test_one_sqlite_store_written_by_one_package_read_by_the_other(writer, tmp_p
     read_inst = r.get_meta_data_engine_instances().get_latest_completed("fake-engine", "0.1", "fake-engine")
     assert read_inst.id == inst.id and read_inst.algorithms_params == inst.algorithms_params
     assert r.get_model_data_models().get(inst.id).models == w.get_model_data_models().get(inst.id).models
+
+
+# ------------------------------------------------------------ evaluation
+class MAE(AverageMetric):
+    def header(self) -> str:
+        return "MAE"
+
+    def calculate_unit(self, q, p, a):
+        return -abs(p - a)
+
+
+class JaxMAE(JaxAverageMetric):
+    header = MAE.header
+    calculate_unit = MAE.calculate_unit
+
+
+def _candidates(ep_cls, ds_cls, algo_cls, mults=(5, 1, 3), bases=(10, 10, 99)) -> list:
+    return [ep_cls(datasource=ds_cls(base=b), algorithms=(("a0", algo_cls(mult=m)),)) for m, b in zip(mults, bases)]
+
+
+def _first_serving_engines():
+    eng, jax_eng = engine0(), jax_fake.engine0()
+    eng.serving_class, jax_eng.serving_class = FirstServing, jax_fake.FirstServing
+    return eng, jax_eng
+
+
+@pytest.mark.parametrize("mults", [(2, 3), (5, 1)])
+def test_engine_eval_matches_jax(mults):
+    CALLS.clear()
+    got = engine0().eval(CPU, simple_params(*mults))
+    ref = jax_fake.engine0().eval(jax_local_context(), jax_fake.simple_params(*mults))
+    assert got == ref
+    assert [ei for ei, _ in got] == [{"fold": 0}, {"fold": 1}]
+    # p = (11·m0 + q) + (11·m1 + q), actual = q + 10
+    assert got[0][1] == [(q, 11 * sum(mults) + 2 * q, q + 10) for q in range(3)]
+    assert CALLS == ["read_eval", "prepare", f"train:{mults[0]}", f"train:{mults[1]}",
+                     "prepare", f"train:{mults[0]}", f"train:{mults[1]}"]
+
+
+def test_engine_eval_supplements_once_like_jax():
+    class SupplServing(Serving):
+        def supplement(self, query):
+            return {"q": query, "extra": 100}
+
+        def serve(self, query, predictions):
+            return predictions[0] + query["extra"]
+
+    class DictAlgo(Algo0):
+        def predict(self, model, query):
+            return model + query["q"]
+
+    class JaxSupplServing(jax_fake.Serving):
+        supplement = SupplServing.supplement
+        serve = SupplServing.serve
+
+    class JaxDictAlgo(jax_fake.Algo0):
+        predict = DictAlgo.predict
+
+    eng, jax_eng = engine0(), jax_fake.engine0()
+    eng.serving_class, eng.algorithms_class_map = SupplServing, {"a0": DictAlgo}
+    jax_eng.serving_class, jax_eng.algorithms_class_map = JaxSupplServing, {"a0": JaxDictAlgo}
+    got = eng.eval(CPU, EngineParams(datasource=DSParams(), algorithms=(("a0", AlgoParams()),)))
+    ref = jax_eng.eval(jax_local_context(), jax_fake.EngineParams(
+        datasource=jax_fake.DSParams(), algorithms=(("a0", jax_fake.AlgoParams()),)))
+    assert got == ref
+    assert got[0][1][1] == ({"q": 1, "extra": 100}, 22 + 1 + 100, 11)
+
+
+@pytest.mark.parametrize("other", [False, True])
+def test_metric_evaluator_matches_jax(other, tmp_path):
+    eng, jax_eng = _first_serving_engines()
+    out, jax_out = tmp_path / "port.json", tmp_path / "jax.json"
+    result = MetricEvaluator(MAE(), [ZeroMetric()] if other else [], output_path=str(out)).evaluate_base(
+        CPU, eng, _candidates(EngineParams, DSParams, AlgoParams))
+    ref = JaxMetricEvaluator(JaxMAE(), [JaxZeroMetric()] if other else [], output_path=str(jax_out)).evaluate_base(
+        jax_local_context(), jax_eng, _candidates(jax_fake.EngineParams, jax_fake.DSParams, jax_fake.AlgoParams))
+    assert [s.score for _, s in result.engine_params_scores] == [s.score for _, s in ref.engine_params_scores]
+    assert [s.other_scores for _, s in result.engine_params_scores] == [
+        s.other_scores for _, s in ref.engine_params_scores]
+    assert (result.best_index, result.ranking, result.metric_header, result.other_metric_headers) == (
+        ref.best_index, ref.ranking, ref.metric_header, ref.other_metric_headers)
+    assert result.best_index == 1 and result.best_score.score == -1.0
+
+    def no_seconds(doc: dict) -> dict:
+        for entry in doc["engineParamsScores"]:
+            entry.pop("seconds")
+        return doc
+
+    assert no_seconds(json.loads(out.read_text())) == no_seconds(json.loads(jax_out.read_text()))
+
+    # the same text once each candidate's wall seconds are the other package's
+    result = dataclasses.replace(result, engine_params_scores=tuple(
+        (ep, dataclasses.replace(s, seconds=js.seconds))
+        for (ep, s), (_, js) in zip(result.engine_params_scores, ref.engine_params_scores)))
+    assert result.leaderboard() == ref.leaderboard()
+    assert "<== BEST" in result.leaderboard().splitlines()[1]
+
+
+def test_metric_evaluator_scores_the_same_triples_exactly():
+    # the same (Q, P, A) triples through both packages' metric classes
+    rng = np.random.default_rng(7)
+    data = [({"fold": f}, [(int(q), float(p), float(a)) for q, p, a in rng.normal(size=(20, 3))]) for f in range(3)]
+
+    class Opt(OptionAverageMetric):
+        def calculate_unit(self, q, p, a):
+            return None if q == 0 else p * a
+
+    class JaxOpt(JaxOptionAverageMetric):
+        calculate_unit = Opt.calculate_unit
+
+    assert MAE().calculate(CPU, data) == JaxMAE().calculate(jax_local_context(), data)
+    assert Opt().calculate(CPU, data) == JaxOpt().calculate(jax_local_context(), data)
+
+
+def test_fold_reuse_reads_once_per_datasource_config():
+    eng, _ = _first_serving_engines()
+    CALLS.clear()
+    result = MetricEvaluator(MAE()).evaluate_base(CPU, eng, _candidates(EngineParams, DSParams, AlgoParams))
+    assert CALLS.count("read_eval") == 2  # bases 10, 10, 99
+    assert len(result.engine_params_scores) == 3 and "s]" in result.leaderboard()
+
+
+@pytest.mark.parametrize("driver", ["memory", "sqlite"])
+def test_run_evaluation_instance_matches_jax(driver, tmp_path, both_stores):
+    _configure(driver, tmp_path)
+    eng, jax_eng = _first_serving_engines()
+    inst, result = run_evaluation(
+        Evaluation(engine=eng, metric=MAE()),
+        EngineParamsGenerator(_candidates(EngineParams, DSParams, AlgoParams)),
+        CPU, WorkflowParams(batch="b2"), evaluation_class="my.Evaluation")
+    ref, jax_result = jax_run_evaluation(
+        JaxEvaluation(engine=jax_eng, metric=JaxMAE()),
+        JaxEngineParamsGenerator(_candidates(jax_fake.EngineParams, jax_fake.DSParams, jax_fake.AlgoParams)),
+        jax_local_context(), JaxWorkflowParams(batch="b2"), evaluation_class="my.Evaluation")
+    assert inst.status == ref.status == "EVALCOMPLETED"
+    for field in ("evaluation_class", "engine_params_generator_class", "batch", "env", "evaluator_results_html"):
+        assert getattr(inst, field) == getattr(ref, field), field
+    stored = Storage.get_meta_data_evaluation_instances().get(inst.id)
+    assert stored.status == "EVALCOMPLETED" and stored.evaluator_results == result.leaderboard()
+    doc, jax_doc = json.loads(stored.evaluator_results_json), json.loads(ref.evaluator_results_json)
+    for d in (doc, jax_doc):
+        for entry in d["engineParamsScores"]:
+            entry.pop("seconds")
+    assert doc == jax_doc and doc["bestIdx"] == 1
+
+
+def test_run_evaluation_failed_instance(tmp_path, both_stores):
+    _configure("memory", tmp_path)
+
+    class Boom(MAE):
+        def calculate_unit(self, q, p, a):
+            raise KeyError("metric exploded")
+
+    eng, _ = _first_serving_engines()
+    with pytest.raises(KeyError, match="exploded"):
+        run_evaluation(Evaluation(engine=eng, metric=Boom()),
+                       EngineParamsGenerator(_candidates(EngineParams, DSParams, AlgoParams)), CPU)
+    (inst,) = Storage.get_meta_data_evaluation_instances().get_all()
+    assert inst.status == "FAILED"

@@ -449,7 +449,7 @@ def test_twotower_engine_serves_from_the_card(cuda_device):
     )
     algo = tt_engine.TwoTowerAlgorithm(tt_engine.TwoTowerParams(embedding_dim=16, batch_size=128, epochs=3),
                                        device=cuda_device)
-    model = algo.prepare_model_for_serving(algo.train(td))
+    model = algo.prepare_model_for_serving(algo.train(local_context(cuda_device), td))
     assert model.item_vecs.device.type == "cuda"
     U = model.user_vecs.double().cpu().numpy()
     V = model.item_vecs.double().cpu().numpy()
@@ -462,3 +462,54 @@ def test_twotower_engine_serves_from_the_card(cuda_device):
     batch = dict(algo.batch_predict(model, [(0, tt_engine.Query(user="3", num=5))]))
     single = algo.predict(model, tt_engine.Query(user="3", num=5))
     assert [s.item for s in batch[0].item_scores] == [s.item for s in single.item_scores]
+
+
+@pytest.mark.gpu
+def test_two_tower_run_train_on_the_card_launches_the_plan(cuda_device):
+    # view events in the memory store -> the Two-Tower engine's run_train
+    # on the card -> the fused-CE launches against the step plan of the
+    # pairs the DataSource reads -> the stored blob
+    import datetime as dt
+
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.storage import Storage
+    from predictionio_tpu_torch.data.storage.base import App
+    from predictionio_tpu_torch.utils.serialization import loads_model
+    from predictionio_tpu_torch.workflow import load_engine_variant, run_train
+
+    rng = np.random.default_rng(6)
+    rows, cols = rng.integers(0, 120, 3000), rng.integers(0, 90, 3000)
+    Storage.configure({
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "MEM",
+        "PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+    })
+    try:
+        app_id = Storage.get_meta_data_apps().insert(App(id=0, name="tt-card"))
+        t0 = dt.datetime(2021, 1, 1, tzinfo=dt.timezone.utc)
+        Storage.get_l_events().insert_batch([
+            Event(event="view", entity_type="user", entity_id=f"u{u}", target_entity_type="item",
+                  target_entity_id=f"i{i}", event_time=t0 + dt.timedelta(seconds=k))
+            for k, (u, i) in enumerate(zip(rows.tolist(), cols.tolist()))
+        ], app_id)
+        variant = load_engine_variant({
+            "id": "tt-card", "version": "1",
+            "engineFactory": "predictionio_tpu.templates.twotower:engine_factory",
+            "datasource": {"params": {"appName": "tt-card"}},
+            "algorithms": [{"name": "twotower", "params": {"embeddingDim": 16, "batchSize": 256, "epochs": 3}}],
+        })
+        td = tt_engine.TwoTowerDataSource(tt_engine.DataSourceParams(app_name="tt-card")).read_training(
+            local_context("cpu"))
+        steps = 3 * -(-td.rows.size // 256)
+        f0, b0 = torch_fused_ce.fused_ce_fwd_cuda.launches, torch_fused_ce.fused_ce_bwd_cuda.launches
+        inst = run_train(variant, local_context(cuda_device))
+        assert inst.status == "COMPLETED" and inst.mesh_conf == {"device": "cuda:0"}
+        assert torch_fused_ce.fused_ce_fwd_cuda.launches - f0 == steps > 0
+        assert torch_fused_ce.fused_ce_bwd_cuda.launches - b0 == 2 * steps
+        (_, stored), = loads_model(Storage.get_model_data_models().get(inst.id).models)
+    finally:
+        Storage.configure(None)
+    assert type(stored) is tt_engine.TwoTowerServingModel
+    assert stored.user_vecs.shape == (len(td.user_index), 16) and np.isfinite(stored.user_vecs).all()
+    assert stored.loss_history[-1][1] < stored.loss_history[0][1]

@@ -19,7 +19,14 @@ Then, on that one ``pio.db``:
   the port's own ``predict`` on the same blob;
 * a blob the JAX package trained into the same store, served by a second
   port ``deploy``, ranks like JAX ``ALSAlgorithm.predict``, except
-  near-ties: two items whose float64 scores are within 1e-5 (relative).
+  near-ties: two items whose float64 scores are within 1e-5 (relative);
+* ``read_eval`` (evalK 2) gives the JAX package's folds: each fold's
+  ``TrainingData`` bit for bit, the same queries and the same ``Actual``s;
+* the port's ``pio eval`` of an ``Evaluation`` with ``PrecisionAtK(10)``
+  scores within 1e-6 of the JAX package's ``run_evaluation`` of the same
+  engine.json, whose ALS starts from the port's seeded draw (the
+  ``jax.random`` draw cannot be replayed in torch); both record an
+  EVALCOMPLETED ``EvaluationInstance``.
 """
 
 import datetime as dt
@@ -34,9 +41,12 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from predictionio_tpu.controller import Evaluation as JaxEvaluation
+from predictionio_tpu.controller import EngineParamsGenerator as JaxEngineParamsGenerator
 from predictionio_tpu.controller import local_context as jax_local_context
 from predictionio_tpu.data.storage import Storage as JaxStorage
 from predictionio_tpu.ops import als as jax_als
+from predictionio_tpu.templates.recommendation import engine as jax_rec
 from predictionio_tpu.templates.recommendation.engine import ALSAlgorithm as JaxALSAlgorithm
 from predictionio_tpu.templates.recommendation.engine import DataSourceParams as JaxDataSourceParams
 from predictionio_tpu.templates.recommendation.engine import Query as JaxQuery
@@ -46,6 +56,7 @@ from predictionio_tpu.templates.recommendation.engine import (
 from predictionio_tpu.utils.movielens import synthesize_ml100k as jax_ml100k
 from predictionio_tpu.workflow import load_engine_variant as jax_load_variant
 from predictionio_tpu.workflow import run_train as jax_run_train
+from predictionio_tpu.workflow.core import run_evaluation as jax_run_evaluation
 from predictionio_tpu_torch.controller import local_context
 from predictionio_tpu_torch.data.event import DataMap, Event
 from predictionio_tpu_torch.data.storage import Storage
@@ -56,7 +67,7 @@ from predictionio_tpu_torch.templates.recommendation.engine import (
     Query,
     RecommendationDataSource,
 )
-from predictionio_tpu_torch.tools import commands
+from predictionio_tpu_torch.tools import commands, console
 from predictionio_tpu_torch.utils.movielens import synthesize_ml100k
 from predictionio_tpu_torch.workflow import load_engine_variant, run_train
 
@@ -276,3 +287,77 @@ def test_jax_trained_blob_served_by_the_port_ranks_like_jax(store, trained):
     assert not bad, f"{len(bad)} users rank differently from JAX predict: {bad[:5]}"
     with urllib.request.urlopen(url + "/", timeout=30) as resp:
         assert json.loads(resp.read())["engineInstanceId"] == jax_inst.id
+
+
+# ------------------------------------------------------------------ eval
+EVAL_MODULE = """
+from predictionio_tpu_torch.controller import Evaluation
+from predictionio_tpu_torch.templates.recommendation import PrecisionAtK, engine_factory
+from predictionio_tpu_torch.workflow import load_engine_variant
+
+ENGINE = engine_factory()
+evaluation = Evaluation(engine=ENGINE, metric=PrecisionAtK(10))
+evaluation.engine_params_list = [load_engine_variant({path!r}).engine_params(ENGINE)]
+"""
+
+
+class SeededJaxALS(JaxALSAlgorithm):
+    """The JAX package's ALS, from the port's seeded draw."""
+
+    def train(self, ctx, pd):
+        p = self.params
+        U, I = len(pd.user_index), len(pd.item_index)
+        f = jax_als.train_als(
+            pd.rows, pd.cols, pd.vals, U, I,
+            jax_als.ALSConfig(rank=p.rank, iterations=p.num_iterations, reg=p.lambda_, solver="cholesky"),
+            init_user=seed_factors(U, p.rank, p.seed, False), init_item=seed_factors(I, p.rank, p.seed + 1, False),
+        )
+        return jax_rec.ALSModel(np.asarray(f.user), np.asarray(f.item), pd.user_index, pd.item_index)
+
+
+def _eval_json(store) -> str:
+    path = store["base"] / "eval.json"
+    body = engine_json("ml100k-eval")
+    body["datasource"]["params"]["evalK"] = 2
+    path.write_text(json.dumps(body))
+    return str(path)
+
+
+def test_read_eval_folds_equal_to_jax(store):
+    ours = RecommendationDataSource(DataSourceParams(app_name=APP, eval_k=2)).read_eval(local_context("cpu"))
+    ref = JaxRecommendationDataSource(JaxDataSourceParams(app_name=APP, eval_k=2)).read_eval(jax_local_context())
+    assert len(ours) == len(ref) == 2
+    for (td, ei, qa), (jtd, jei, jqa) in zip(ours, ref):
+        for name in ("rows", "cols", "vals"):
+            got, want = getattr(td, name), getattr(jtd, name)
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+        assert td.user_index.to_dict() == jtd.user_index.to_dict()
+        assert td.item_index.to_dict() == jtd.item_index.to_dict()
+        assert ei == jei
+        assert [(q.user, q.num, a.items, a.seen) for q, a in qa] == [
+            (q.user, q.num, a.items, a.seen) for q, a in jqa]
+        assert len(qa) > 500
+
+
+def test_pio_eval_precision_matches_jax(store, tmp_path, monkeypatch, capsys):
+    path = _eval_json(store)
+    (tmp_path / "rec_eval.py").write_text(EVAL_MODULE.format(path=path))
+    monkeypatch.syspath_prepend(str(tmp_path))
+    out = tmp_path / "best.json"
+    assert console.main(["eval", "rec_eval:evaluation", "--device", "cpu", "--output-path", str(out)]) == 0
+    assert "Precision@10" in capsys.readouterr().out
+    score = json.loads(out.read_text())["bestScore"]["score"]
+    (inst,) = [i for i in Storage.get_meta_data_evaluation_instances().get_all()
+               if i.evaluation_class == "rec_eval:evaluation"]
+    assert inst.status == "EVALCOMPLETED" and json.loads(inst.evaluator_results_json)["bestScore"]["score"] == score
+
+    jax_engine = jax_rec.engine_factory()
+    jax_engine.algorithms_class_map = {"als": SeededJaxALS}
+    jax_ep = jax_load_variant(path).engine_params(jax_engine)
+    jax_inst, jax_result = jax_run_evaluation(
+        JaxEvaluation(engine=jax_engine, metric=jax_rec.PrecisionAtK(10)),
+        JaxEngineParamsGenerator([jax_ep]), jax_local_context())
+    assert jax_inst.status == "EVALCOMPLETED"
+    assert abs(score - jax_result.best_score.score) <= 1e-6, (score, jax_result.best_score.score)
+    assert 0.0 < score < 1.0

@@ -13,7 +13,10 @@ package: ratings -> ``ALSAlgorithm.train`` -> ``predict`` -> HTTP
 * A JAX-trained model carried across by ``convert.py`` holds the same
   factors, so there each top-10 equals JAX's except near-ties: two items
   whose float64 scores are within 1e-5 of each other (relative).
-* The HTTP body has the shape of the JAX package's ``_result_to_json``.
+* The HTTP body has the shape of the JAX package's ``_result_to_json``:
+  the engine trains through ``run_train`` (a ``SimpleEngine`` whose
+  DataSource hands over the ratings already made) into a temporary store,
+  and a ``QueryService`` serves the stored instance.
 """
 
 import json
@@ -34,6 +37,7 @@ from predictionio_tpu.templates.results import ItemScore as JaxItemScore
 from predictionio_tpu.templates.results import PredictedResult as JaxPredictedResult
 from predictionio_tpu.utils.movielens import synthesize_ml100k as jax_ml100k
 from predictionio_tpu.workflow.serving import _result_to_json as jax_result_to_json
+from predictionio_tpu_torch.controller import DataSource, SimpleEngine
 from predictionio_tpu_torch.controller.context import local_context
 from predictionio_tpu_torch.controller.params import params_from_json
 from predictionio_tpu_torch.convert import als_model_from_numpy, als_model_to_numpy
@@ -45,8 +49,10 @@ from predictionio_tpu_torch.templates.recommendation.engine import (
     Query,
     TrainingData,
 )
+from predictionio_tpu_torch.data.storage import Storage
 from predictionio_tpu_torch.utils.movielens import ml20m_shaped, synthesize_ml100k
-from predictionio_tpu_torch.workflow.serving import AlgorithmService, QueryServer
+from predictionio_tpu_torch.workflow import load_engine_variant, run_train
+from predictionio_tpu_torch.workflow.serving import QueryServer, QueryService
 
 RTOL, ATOL = 5e-3, 5e-4
 NEAR_TIE = 1e-5
@@ -80,6 +86,56 @@ def slice_run():
         "td": td, "algo": algo, "model": model, "trained": trained,
         "jax_user": np.asarray(ref.user), "jax_item": np.asarray(ref.item),
     }
+
+
+#: the ratings the arrays engine's DataSource hands over
+ARRAYS: dict = {}
+#: (what, thread) the recording algorithm saw, in order
+CALLS: list = []
+
+
+class ArraysDataSource(DataSource):
+    def read_training(self, ctx):
+        return ARRAYS["td"]
+
+
+class RecordingALS(ALSAlgorithm):
+    """Records the thread of each warm-up and each served query."""
+
+    def warm_up(self, model):
+        CALLS.append(("warm", threading.get_ident()))
+        super().warm_up(model)
+
+    def predict_base(self, model, query):
+        CALLS.append(("predict", threading.get_ident()))
+        return super().predict_base(model, query)
+
+
+def arrays_engine() -> SimpleEngine:
+    return SimpleEngine(ArraysDataSource, RecordingALS)
+
+
+@pytest.fixture(scope="module")
+def served(slice_run, tmp_path_factory):
+    """``slice_run``'s ratings trained through ``run_train`` into a
+    temporary store; the stored instance loaded by a ``QueryService`` and
+    by ``prepare_deploy`` (to compare with)."""
+    Storage.configure({"PIO_FS_BASEDIR": str(tmp_path_factory.mktemp("rec_served"))})
+    ARRAYS["td"] = slice_run["td"]
+    variant = load_engine_variant({
+        "id": "rec-arrays", "version": "1", "engineFactory": "test_torch_recommendation:arrays_engine",
+        "algorithms": [{"name": "", "params": ENGINE_JSON}],
+    })
+    try:
+        inst = run_train(variant, local_context("cpu"))
+        service = QueryService(variant, local_context("cpu"))
+        engine = arrays_engine()
+        _, [(algo, model)] = engine.prepare_deploy(
+            local_context("cpu"), variant.engine_params(engine), inst.id,
+            Storage.get_model_data_models().get(inst.id).models)
+        yield {"service": service, "algo": algo, "model": model, "instance": inst}
+    finally:
+        Storage.configure(None)
 
 
 def _jax_top(user_vec: np.ndarray, item_factors: np.ndarray) -> list:
@@ -144,9 +200,10 @@ def test_batch_predict_equals_predict(slice_run):
     assert got[4].item_scores == ()
 
 
-def test_http_queries_match_predict_and_jax_wire_shape(slice_run):
-    td, algo, model = slice_run["td"], slice_run["algo"], slice_run["model"]
-    with QueryServer(AlgorithmService(algo, model)) as server:
+def test_http_queries_match_predict_and_jax_wire_shape(slice_run, served):
+    algo, model = served["algo"], served["model"]
+    np.testing.assert_array_equal(model.user_factors.numpy(), slice_run["trained"]["user"])
+    with QueryServer(served["service"]) as server:
 
         def post(body) -> tuple:
             req = urllib.request.Request(
@@ -173,27 +230,16 @@ def test_http_queries_match_predict_and_jax_wire_shape(slice_run):
         assert status == 500 and "many" in body["message"]
         assert post({"user": "u1", "num": TOP})[0] == 200  # and the server goes on
         with urllib.request.urlopen(server.url + "/", timeout=30) as resp:
-            assert json.loads(resp.read())["status"] == "alive"
+            status_body = json.loads(resp.read())
+        assert status_body["status"] == "alive"
+        assert status_body["engineInstanceId"] == served["instance"].id and status_body["device"] == "cpu"
 
 
-def test_query_server_predicts_on_one_warmed_thread(slice_run):
+def test_query_server_predicts_on_one_warmed_thread(served):
     # each request is read on a thread of its own, but every predict runs
     # on the one worker thread that warm_up prepared
-    algo, model = slice_run["algo"], slice_run["model"]
-    seen = []
-
-    class Recording:
-        query_class = Query
-
-        def warm_up(self, m):
-            seen.append(("warm", threading.get_ident()))
-            algo.warm_up(m)
-
-        def predict(self, m, q):
-            seen.append(("predict", threading.get_ident()))
-            return algo.predict(m, q)
-
-    with QueryServer(AlgorithmService(Recording(), model)) as server:
+    CALLS.clear()
+    with QueryServer(served["service"]) as server:
         for u in (0, 7, 42):
             req = urllib.request.Request(
                 server.url + "/queries.json", data=json.dumps({"user": f"u{u}", "num": 3}).encode(),
@@ -201,8 +247,8 @@ def test_query_server_predicts_on_one_warmed_thread(slice_run):
             )
             with urllib.request.urlopen(req, timeout=30) as resp:
                 assert resp.status == 200
-    assert [kind for kind, _ in seen] == ["warm", "predict", "predict", "predict"]
-    threads = {ident for _, ident in seen}
+    assert [kind for kind, _ in CALLS] == ["warm", "predict", "predict", "predict"]
+    threads = {ident for _, ident in CALLS}
     assert len(threads) == 1 and threading.get_ident() not in threads
 
 

@@ -22,6 +22,9 @@ planted-preference generator and the model carrier in ``convert.py``.
 * A JAX-trained model served through the port returns the same item ids in
   the same order as the JAX template, seen filter included, for every
   user (``predict`` and ``batch_predict``).
+* The template trains through ``run_train`` (a ``SimpleEngine`` whose
+  DataSource hands over the pairs already made) into a temporary store,
+  and a ``QueryService`` serves the stored instance over HTTP.
 """
 
 import json
@@ -41,9 +44,11 @@ from predictionio_tpu.controller.params import params_from_json as jax_params_fr
 from predictionio_tpu.data.aggregator import BiMap as JaxBiMap
 from predictionio_tpu.ops import twotower as jax_tt
 from predictionio_tpu.templates.twotower import engine as jax_engine
+from predictionio_tpu_torch.controller import DataSource, SimpleEngine, local_context
 from predictionio_tpu_torch.controller.params import params_from_json
 from predictionio_tpu_torch.convert import twotower_model_from_numpy, twotower_model_to_numpy
 from predictionio_tpu_torch.data.bimap import BiMap
+from predictionio_tpu_torch.data.storage import Storage
 from predictionio_tpu_torch.ops import fused_ce as torch_fused_ce
 from predictionio_tpu_torch.ops import twotower as torch_tt
 from predictionio_tpu_torch.templates.twotower import (
@@ -53,8 +58,10 @@ from predictionio_tpu_torch.templates.twotower import (
     TwoTowerAlgorithm,
     TwoTowerParams,
 )
+from predictionio_tpu_torch.utils.serialization import loads_model
 from predictionio_tpu_torch.utils.synthetic import distinct_pairs, planted_pairs
-from predictionio_tpu_torch.workflow.serving import AlgorithmService, QueryServer
+from predictionio_tpu_torch.workflow import load_engine_variant, run_train
+from predictionio_tpu_torch.workflow.serving import QueryServer, QueryService
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -276,7 +283,20 @@ def test_params_parse_like_jax():
     assert ours.to_json()["embeddingDim"] == 16 and Query(user="u").num == jax_engine.Query(user="u").num == 10
 
 
-def test_template_trains_and_serves_over_http():
+#: the pairs the arrays engine's DataSource hands over
+ARRAYS: dict = {}
+
+
+class ArraysDataSource(DataSource):
+    def read_training(self, ctx):
+        return ARRAYS["td"]
+
+
+def arrays_engine() -> SimpleEngine:
+    return SimpleEngine(ArraysDataSource, TwoTowerAlgorithm)
+
+
+def test_template_trains_and_serves_over_http(tmp_path):
     rows, cols = _clustered(num_users=30, num_items=24, groups=2, seed=2)
     rows, cols = distinct_pairs(rows, cols, 24)
     td = TrainingData(
@@ -287,19 +307,31 @@ def test_template_trains_and_serves_over_http():
     )
     for r, c in zip(rows.tolist(), cols.tolist()):
         td.seen.setdefault(str(r), set()).add(str(c))
-    algo = TwoTowerAlgorithm(
-        params_from_json(TwoTowerParams, {"embeddingDim": 8, "batchSize": 128, "epochs": 20, "seed": 1}),
-        device="cpu",
-    )
-    model = algo.prepare_model_for_serving(algo.train(td))
-    assert isinstance(model.item_vecs, torch.Tensor) and model.loss_history[-1][1] < model.loss_history[0][1]
-    with QueryServer(AlgorithmService(algo, model)) as server:
-        req = urllib.request.Request(
-            server.url + "/queries.json", data=json.dumps({"user": "4"}).encode(),
-            headers={"Content-Type": "application/json"}, method="POST",
-        )
-        with urllib.request.urlopen(req, timeout=30) as resp:
-            payload = json.loads(resp.read())
+    ARRAYS["td"] = td
+    variant = load_engine_variant({
+        "id": "tt-arrays", "version": "1", "engineFactory": "test_torch_twotower:arrays_engine",
+        "algorithms": [{"name": "", "params": {"embeddingDim": 8, "batchSize": 128, "epochs": 20, "seed": 1}}],
+    })
+    Storage.configure({"PIO_FS_BASEDIR": str(tmp_path)})
+    try:
+        inst = run_train(variant, local_context("cpu"))
+        (_, stored), = loads_model(Storage.get_model_data_models().get(inst.id).models)
+        assert stored.loss_history[-1][1] < stored.loss_history[0][1]
+        service = QueryService(variant, local_context("cpu"))
+        engine = arrays_engine()
+        _, [(algo, model)] = engine.prepare_deploy(
+            local_context("cpu"), variant.engine_params(engine), inst.id,
+            Storage.get_model_data_models().get(inst.id).models)
+        assert isinstance(model.item_vecs, torch.Tensor)
+        with QueryServer(service) as server:
+            req = urllib.request.Request(
+                server.url + "/queries.json", data=json.dumps({"user": "4"}).encode(),
+                headers={"Content-Type": "application/json"}, method="POST",
+            )
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                payload = json.loads(resp.read())
+    finally:
+        Storage.configure(None)
     want = algo.predict(model, Query(user="4")).to_json()
     assert payload == json.loads(json.dumps(want))
     got = [s["item"] for s in payload["itemScores"]]
