@@ -55,8 +55,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    runs under torch.profiler: device time by kernel and busy share.
 5. Two-Tower — the same for the towers: the counts checked against the
    step plan; the stored loss must fall below 0.8x its first value and
-   recall@10 on held-out pairs exceed 5x random; 64 queries; one steady
-   training step runs under torch.profiler.
+   recall@10 on held-out pairs exceed 5x random (the user's top-10 over
+   every item; a held-out pair may repeat a training pair, so the share
+   of such pairs and the recall of the others are printed beside it);
+   64 queries; one steady training step runs under torch.profiler.
 6. quickstart — in a temporary ``PIO_FS_BASEDIR``: ``console.main(["app",
    "new", ...])``; ``console.main(["import", ...])`` of the events' NDJSON
    file, timed; the counts set to 0, ``console.main(["train", ...])`` on
@@ -73,8 +75,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    own temporary ``PIO_FS_BASEDIR``, the fused-CE launches of ``train`` and
    of ``eval`` checked against their step plans, the stored loss and
    recall@10 held to phase 5's bars, the deploy's top-10s to float64 numpy
-   without the seen items, the eval's recall printed beside a random
-   ranking's; one ``[tt-quickstart]`` line.
+   without the seen items; the eval's recall held to RecallAtK computed in
+   float64 numpy from towers trained here on each of the port's folds
+   with the same params, and printed beside the recall of a random and of
+   a popularity ranking; one ``[tt-quickstart]`` line.
 8. a ``[summary]`` line, the ``{"kernels": [...]}`` line, the card's
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
@@ -103,7 +107,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from predictionio_tpu_torch.controller import DataSource, SimpleEngine
 from predictionio_tpu_torch.controller.context import local_context
 from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.data.event import format_event_time
@@ -134,6 +137,9 @@ from predictionio_tpu_torch.utils.serialization import loads_model
 from predictionio_tpu_torch.utils.synthetic import distinct_pairs, planted_pairs
 from predictionio_tpu_torch.workflow import load_engine_variant, run_train
 from predictionio_tpu_torch.workflow.serving import QueryServer, QueryService
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+from torch_arrays_engine import arrays_variant  # noqa: E402  (tests/, shared with the port's tests)
 
 #: H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32
 #: (non-tensor-core) FLOP/s and dense bf16 tensor-core FLOP/s
@@ -243,43 +249,6 @@ KERNELS = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-# --------------------------------------------- the in-memory arrays engines
-#: what the arrays engines' DataSource hands over, and the hook the ALS
-#: engine's algorithm gives train_als
-ARRAYS: dict = {}
-
-
-class ArraysDataSource(DataSource):
-    """Hands ``pio train``'s workflow the TrainingData made in memory."""
-
-    def read_training(self, ctx):
-        return ARRAYS["td"]
-
-
-class SweepLoggedALS(ALSAlgorithm):
-    """ALS with ``ARRAYS["on_sweep"]`` as its per-sweep hook."""
-
-    def __init__(self, params, device=None):
-        super().__init__(params, device)
-        self.on_sweep = ARRAYS.get("on_sweep")
-
-
-def als_arrays_engine() -> SimpleEngine:
-    return SimpleEngine(ArraysDataSource, SweepLoggedALS)
-
-
-def tt_arrays_engine() -> SimpleEngine:
-    return SimpleEngine(ArraysDataSource, tt.TwoTowerAlgorithm)
-
-
-def arrays_variant(name: str, params: dict):
-    """The engine variant of ``chip_smoke:<name>_arrays_engine``."""
-    return load_engine_variant({
-        "id": f"{name}-arrays", "version": "1", "engineFactory": f"chip_smoke:{name}_arrays_engine",
-        "algorithms": [{"name": "", "params": params}],
-    })
 
 
 @contextlib.contextmanager
@@ -678,13 +647,17 @@ def phase_train(device, nnz: int, sweeps: int, rank: int) -> dict:
             + ("" if sweep_s is None else f", {sweep_s:.4f} s"))
         clock["t"] = time.perf_counter()
 
-    ARRAYS.update(td=td, on_sweep=on_sweep)
-    variant = arrays_variant("als", {"rank": rank, "numIterations": sweeps, "lambda": 0.01, "seed": 3})
+    class SweepLoggedALS(ALSAlgorithm):
+        def __init__(self, params, device=None):
+            super().__init__(params, device)
+            self.on_sweep = on_sweep
+
+    variant = arrays_variant("als", td, SweepLoggedALS,
+                             {"rank": rank, "numIterations": sweeps, "lambda": 0.01, "seed": 3})
     torch.cuda.reset_peak_memory_stats(device)
     t1 = time.perf_counter()
     instance = run_train(variant, local_context(device))
     wall_s = time.perf_counter() - t1
-    ARRAYS.clear()
     peak = torch.cuda.max_memory_allocated(device)
     timings = json.loads(instance.env["phase_timings"])
     model = stored_model(instance.id)
@@ -873,16 +846,24 @@ def tt_training_data(nnz: int):
     return td, r_te, c_te, num_items
 
 
-def recall_at_10(user_vecs: np.ndarray, item_vecs: np.ndarray, r_te, c_te, device) -> float:
-    """Share of the first ``TT_RECALL_PROBE`` held-out pairs whose item is in
-    the user's top-10 over all items (bench.py::_bench_twotower)."""
-    probe = min(TT_RECALL_PROBE, r_te.size)
-    pu = torch.as_tensor(r_te[:probe], device=device)
-    pi = torch.as_tensor(c_te[:probe], device=device)
-    uv = torch.as_tensor(user_vecs, device=device)
-    iv = torch.as_tensor(item_vecs, device=device)
-    top = torch.topk(uv[pu] @ iv.T, 10, dim=1).indices
-    return float((top == pi[:, None]).any(dim=1).float().mean())
+def probe_recall(model, users: list, items: list, device) -> dict:
+    """recall@10 of held-out (user, item) id pairs by a stored Two-Tower
+    model: the share whose item is in the user's top-10 over every item
+    (bench.py::_bench_twotower); a pair whose user or item the model does
+    not know is a miss. ``planted_pairs`` draws with repeats, so a held-out
+    pair may be one the towers trained on: the share of those and the
+    recall of the others come with it."""
+    pu = np.array([model.user_index.get(u, -1) for u in users])
+    pi = np.array([model.item_index.get(i, -1) for i in items])
+    known = (pu >= 0) & (pi >= 0)
+    hits = np.zeros(len(users), dtype=bool)
+    uv = torch.as_tensor(model.user_vecs, device=device)
+    iv = torch.as_tensor(model.item_vecs, device=device)
+    top = torch.topk(uv[torch.as_tensor(pu[known], device=device)] @ iv.T, 10, dim=1).indices
+    hits[known] = (top == torch.as_tensor(pi[known], device=device)[:, None]).any(dim=1).cpu().numpy()
+    repeat = np.array([i in model.seen.get(u, ()) for u, i in zip(users, items)])
+    return {"recall_at_10": float(hits.mean()), "heldout_repeat_share": float(repeat.mean()),
+            "recall_at_10_new_pairs": float(hits[~repeat].mean())}
 
 
 def phase_tt_train(device, nnz: int, dim: int, batch: int, epochs: int) -> dict:
@@ -895,14 +876,20 @@ def phase_tt_train(device, nnz: int, dim: int, batch: int, epochs: int) -> dict:
         f"({time.perf_counter() - t0:.3f} s)")
     params = {"embeddingDim": dim, "batchSize": batch, "epochs": epochs, "learningRate": 0.05,
               "temperature": 1.0 / TT_INV_TEMP, "seed": 2}
-    variant = arrays_variant("tt", params)
+    loop: dict = {}  # the training loop's own seconds (TwoTowerModel.timings)
+
+    class LoopTimedTwoTower(tt.TwoTowerAlgorithm):
+        def train(self, ctx, pd):
+            model = super().train(ctx, pd)
+            loop.update(self.train_timings)
+            return model
+
+    variant = arrays_variant("tt", td, LoopTimedTwoTower, params)
     steps = epochs * -(-n // batch)
-    ARRAYS.update(td=td)
     torch.cuda.reset_peak_memory_stats(device)
     t1 = time.perf_counter()
     instance = run_train(variant, local_context(device))
     wall_s = time.perf_counter() - t1
-    ARRAYS.clear()
     peak = torch.cuda.max_memory_allocated(device)
     model = stored_model(instance.id)
     if not (np.isfinite(model.user_vecs).all() and np.isfinite(model.item_vecs).all()):
@@ -913,16 +900,22 @@ def phase_tt_train(device, nnz: int, dim: int, batch: int, epochs: int) -> dict:
     loss_first, loss_last = hist[0][1], hist[-1][1]
     if not loss_last < 0.8 * loss_first:
         raise RuntimeError(f"tt-train: loss did not fall below 0.8x its first value ({loss_first} -> {loss_last})")
-    recall = recall_at_10(model.user_vecs, model.item_vecs, r_te, c_te, device)
+    probe = min(TT_RECALL_PROBE, r_te.size)
+    recall = probe_recall(model, [str(u) for u in r_te[:probe].tolist()], [str(i) for i in c_te[:probe].tolist()],
+                          device)
     random_recall = 10.0 / num_items
-    if not recall > 5 * random_recall:
-        raise RuntimeError(f"tt-train: recall@10 {recall} is not above 5x random ({random_recall})")
+    if not recall["recall_at_10"] > 5 * random_recall:
+        raise RuntimeError(f"tt-train: recall@10 {recall['recall_at_10']} is not above 5x random ({random_recall})")
     timings = json.loads(instance.env["phase_timings"])
-    train_s = timings["train:"]
+    # the rates read the epoch loop's seconds, as in earlier runs; the
+    # engine's train: span adds the upload, the TrainingData handling and
+    # the readback
+    train_s = loop["train_seconds"]
     out = {
-        "pairs": n, "steps": steps, "train_s": train_s, "run_train_s": wall_s,
+        "pairs": n, "steps": steps, "train_s": train_s, "train_span_s": timings["train:"],
+        "ingest_s": loop["ingest_seconds"], "finalize_s": loop["finalize_seconds"], "run_train_s": wall_s,
         "interactions_per_s": n * epochs / train_s, "steps_per_s": steps / train_s,
-        "loss_first": loss_first, "loss_last": loss_last, "recall_at_10": recall,
+        "loss_first": loss_first, "loss_last": loss_last, **recall,
         "random_recall_at_10": random_recall, "peak_gib": peak / 2**30, "timings": timings,
     }
     log(f"[tt-train] {json.dumps(out)}")
@@ -1203,6 +1196,48 @@ def phase_quickstart(device, n_queries: int, k: int, smi: str) -> dict:
         return out
 
 
+def recall_units(user_vecs, item_vecs, td, qa, k: int) -> list:
+    """RecallAtK's units over a fold's ``(query, actual)`` pairs in float64
+    numpy: each user's top-``k`` of the items it did not see in ``td``."""
+    U = np.asarray(user_vecs, np.float64)
+    V = np.asarray(item_vecs, np.float64)
+    units = []
+    for q, actual in qa:
+        s = V @ U[td.user_index[q.user]]
+        s[[td.item_index[i] for i in td.seen[q.user]]] = -np.inf
+        top = {td.item_index.inverse(int(j)) for j in np.argsort(-s, kind="stable")[:k]}
+        units.append(len(top & set(actual)) / len(set(actual)))
+    return units
+
+
+def eval_reference(engine_json: Path, td, model, folds: list, k: int, device) -> dict:
+    """What ``pio eval`` of the Two-Tower engine must score, from towers
+    trained here with the engine.json's params on each of the port's
+    ``read_eval`` folds (the eval keeps none of its own): RecallAtK in
+    float64 numpy, each fold's and the mean of all units as the metric
+    takes it. Also the recall of ranking each user's unseen items by
+    their count in the fold, and how far a retraining on ``td`` lands
+    from the stored towers (0 when training on the card repeats itself)."""
+    variant = load_engine_variant(str(engine_json))
+    (_, params), = variant.engine_params(tt.engine_factory()).algorithms
+    ctx = local_context(device)
+    units, fold_recalls, popular = [], [], []
+    for fold_td, _, qa in folds:
+        towers = tt.TwoTowerAlgorithm(params, device).train(ctx, fold_td)
+        fold_units = recall_units(towers.user_vecs, towers.item_vecs, fold_td, qa, k)
+        units += fold_units
+        fold_recalls.append(float(np.mean(fold_units)))
+        # popularity as a product: every user's vector is 1, every item's
+        # its count in the fold's training pairs
+        counts = np.bincount(fold_td.cols, minlength=len(fold_td.item_index)).astype(np.float64)
+        popular += recall_units(np.ones((len(fold_td.user_index), 1)), counts[:, None], fold_td, qa, k)
+    again = tt.TwoTowerAlgorithm(params, device).train(ctx, td)
+    diff = max(float(np.abs(again.user_vecs - model.user_vecs).max()),
+               float(np.abs(again.item_vecs - model.item_vecs).max()))
+    return {"reference": float(np.mean(units)), "folds": fold_recalls, "popularity": float(np.mean(popular)),
+            "retrain_max_abs_diff": diff}
+
+
 def phase_tt_quickstart(device, nnz: int, dim: int, batch: int, epochs: int, n_queries: int, k: int,
                         smi: str) -> dict:
     """The quickstart of the Two-Tower engine: ``app new`` -> ``import`` of
@@ -1259,17 +1294,13 @@ def phase_tt_quickstart(device, nnz: int, dim: int, batch: int, epochs: int, n_q
         if not loss_last < 0.8 * loss_first:
             raise RuntimeError(f"tt-quickstart: loss did not fall below 0.8x its first value "
                                f"({loss_first} -> {loss_last})")
-        # recall@10 of the held-out pairs by the stored towers' own index;
-        # a pair whose user or item the store never saw counts as a miss
         probe = min(TT_RECALL_PROBE, r_te.size)
-        rows_te = np.array([model.user_index.get(f"u{u}", -1) for u in r_te[:probe].tolist()])
-        cols_te = np.array([model.item_index.get(f"i{i}", -1) for i in c_te[:probe].tolist()])
-        known = rows_te >= 0
-        recall = recall_at_10(model.user_vecs, model.item_vecs, rows_te[known], cols_te[known], device)
-        recall *= known.sum() / probe
+        recall = probe_recall(model, [f"u{u}" for u in r_te[:probe].tolist()],
+                              [f"i{i}" for i in c_te[:probe].tolist()], device)
         random_recall = 10.0 / len(model.item_index)
-        if not recall > 5 * random_recall:
-            raise RuntimeError(f"tt-quickstart: recall@10 {recall} is not above 5x random ({random_recall})")
+        if not recall["recall_at_10"] > 5 * random_recall:
+            raise RuntimeError(f"tt-quickstart: recall@10 {recall['recall_at_10']} is not above 5x random "
+                               f"({random_recall})")
 
         served = deploy_and_query(
             "tt-quickstart", base, engine_json, dev_args, instance.id, (model.user_index, model.item_index),
@@ -1293,24 +1324,25 @@ def phase_tt_quickstart(device, nnz: int, dim: int, batch: int, epochs: int, n_q
                                                 TOP_K, engine_json, dev_args)
         if device.type == "cuda":
             check_launches("tt-quickstart eval", eval_launches, eval_plan)
-        # no bar against the random ranking here: a fold's held-out pairs
-        # are distinct pairs its training never saw, and the in-batch
-        # softmax ranks those below a random ranking in both packages
-        # (tests/test_torch_twotower_engine.py)
-        if not 0.0 <= score <= 1.0:
-            raise RuntimeError(f"tt-quickstart: eval recall@{TOP_K} {score} is not a recall")
+        check = eval_reference(engine_json, td, model, folds, TOP_K, device)
+        if not (check["reference"] > 0 and abs(score - check["reference"]) <= 0.1 * check["reference"]):
+            raise RuntimeError(f"tt-quickstart: eval recall@{TOP_K} {score} is not within 10% of "
+                               f"{check['reference']}, float64 numpy over towers trained on the same folds")
         out = {
             "pairs_imported": int(r_tr.size), "pairs": int(td.rows.size), "users": len(td.user_index),
             "items": len(td.item_index), "dim": dim, "batch": batch, "epochs": epochs, "file_s": file_s,
             "import_s": import_s, "events_per_s_imported": r_tr.size / import_s, "read_s": timings["read"],
             "train_tt_s": timings["train:twotower"], "train_wall_s": train_wall_s,
             "deploy_start_s": served["deploy_start_s"], "launches": {n: launches[n] for n in expected},
-            "planned": expected, "loss_first": loss_first, "loss_last": loss_last, "recall_at_10": recall,
+            "planned": expected, "loss_first": loss_first, "loss_last": loss_last, **recall,
             "random_recall_at_10": random_recall, "queries": n_queries, "p50_ms": served["p50_ms"],
             "p99_ms": served["p99_ms"], "status_device": served["status_device"], "instance": instance.id,
             "eval_k": QS_EVAL_K, "eval_s": eval_s, "eval_launches": {n: eval_launches[n] for n in eval_plan},
             "eval_planned": eval_plan, f"eval_recall_at_{TOP_K}": score,
-            f"random_eval_recall_at_{TOP_K}": random_eval, "phase_s": time.perf_counter() - t_phase,
+            f"reference_eval_recall_at_{TOP_K}": check["reference"], "reference_fold_recalls": check["folds"],
+            f"random_eval_recall_at_{TOP_K}": random_eval,
+            f"popularity_eval_recall_at_{TOP_K}": check["popularity"],
+            "retrain_max_abs_diff": check["retrain_max_abs_diff"], "phase_s": time.perf_counter() - t_phase,
             "card": smi,
         }
         log(f"[tt-quickstart] {json.dumps(out)}")
@@ -1336,8 +1368,6 @@ def kernel_row(name: str, launches: int, m: dict) -> dict:
 
 def main() -> int:
     t_start = time.perf_counter()
-    # the arrays engines' factory path, chip_smoke:..., names this module
-    sys.modules.setdefault("chip_smoke", sys.modules[__name__])
     info = phase_device()
     device = torch.device("cuda", 0)
     phase_build()
@@ -1385,9 +1415,10 @@ def main() -> int:
         "tt": {
             "pairs": tt_trained["pairs"], "dim": TT_DIM, "batch": TT_BATCH, "epochs": TT_EPOCHS,
             "steps": tt_trained["steps"], "train_s": tt_trained["train_s"],
-            "interactions_per_s": tt_trained["interactions_per_s"], "steps_per_s": tt_trained["steps_per_s"],
+            "train_span_s": tt_trained["train_span_s"], "interactions_per_s": tt_trained["interactions_per_s"], "steps_per_s": tt_trained["steps_per_s"],
             "loss_first": tt_trained["loss_first"], "loss_last": tt_trained["loss_last"],
-            "recall_at_10": tt_trained["recall_at_10"], "peak_gib": tt_trained["peak_gib"],
+            "recall_at_10": tt_trained["recall_at_10"], "heldout_repeat_share": tt_trained["heldout_repeat_share"],
+            "recall_at_10_new_pairs": tt_trained["recall_at_10_new_pairs"], "peak_gib": tt_trained["peak_gib"],
             "p50_ms": tt_served["p50_ms"], "p99_ms": tt_served["p99_ms"],
             "predict_p50_ms": tt_served["predict_p50_ms"], "predict_p99_ms": tt_served["predict_p99_ms"],
             "step_busy_share": tt_profile["busy_share"],
@@ -1398,8 +1429,9 @@ def main() -> int:
             "eval_gj_solve_launches", f"precision_at_{TOP_K}", "phase_s")},
         "tt_qs": {key: ttq[key] for key in (
             "pairs", "import_s", "read_s", "train_tt_s", "train_wall_s", "deploy_start_s", "launches",
-            "loss_first", "loss_last", "recall_at_10", "p50_ms", "p99_ms", "eval_s", "eval_launches",
-            f"eval_recall_at_{TOP_K}", "phase_s")},
+            "loss_first", "loss_last", "recall_at_10", "recall_at_10_new_pairs", "p50_ms", "p99_ms", "eval_s",
+            "eval_launches", f"eval_recall_at_{TOP_K}", f"reference_eval_recall_at_{TOP_K}",
+            f"random_eval_recall_at_{TOP_K}", "phase_s")},
         "wall_s": time.perf_counter() - t_start,
     }
     log(f"[summary] {json.dumps(summary)}")

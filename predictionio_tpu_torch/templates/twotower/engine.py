@@ -242,6 +242,9 @@ class TwoTowerAlgorithm(TorchAlgorithm):
 
     def __init__(self, params: TwoTowerParams, device: str | torch.device | None = None):
         super().__init__(params, device)
+        #: the last ``train``'s seconds of upload, epoch loop and readback
+        #: (``TwoTowerModel.timings``)
+        self.train_timings: dict = {}
 
     def train(self, ctx: WorkflowContext, pd: TrainingData) -> TwoTowerServingModel:
         """The towers on :attr:`device` (the engine builds the algorithm on
@@ -264,6 +267,7 @@ class TwoTowerAlgorithm(TorchAlgorithm):
             ),
             device=self.device,
         )
+        self.train_timings = dict(model.timings)
         return TwoTowerServingModel(
             user_vecs=model.user_vecs,
             item_vecs=model.item_vecs,

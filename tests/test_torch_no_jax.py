@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no module of ``predictionio_tpu_torch/``
-and neither ``chip_smoke.py`` nor ``gj_solve_split.py`` imports ``jax`` or anything of the JAX package
+and neither ``chip_smoke.py``, ``gj_solve_split.py`` nor the arrays engine
+they share with the tests (``tests/torch_arrays_engine.py``) imports ``jax`` or anything of the JAX package
 ``predictionio_tpu``, and importing every module of the port leaves
 ``jax`` out of ``sys.modules``."""
 
@@ -13,7 +14,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "predictionio_tpu_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "gj_solve_split.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "gj_solve_split.py", ROOT / "tests" / "torch_arrays_engine.py"
+]
 
 
 def _forbidden(name: str) -> bool:

@@ -37,7 +37,6 @@ from predictionio_tpu.templates.results import ItemScore as JaxItemScore
 from predictionio_tpu.templates.results import PredictedResult as JaxPredictedResult
 from predictionio_tpu.utils.movielens import synthesize_ml100k as jax_ml100k
 from predictionio_tpu.workflow.serving import _result_to_json as jax_result_to_json
-from predictionio_tpu_torch.controller import DataSource, SimpleEngine
 from predictionio_tpu_torch.controller.context import local_context
 from predictionio_tpu_torch.controller.params import params_from_json
 from predictionio_tpu_torch.convert import als_model_from_numpy, als_model_to_numpy
@@ -51,8 +50,9 @@ from predictionio_tpu_torch.templates.recommendation.engine import (
 )
 from predictionio_tpu_torch.data.storage import Storage
 from predictionio_tpu_torch.utils.movielens import ml20m_shaped, synthesize_ml100k
-from predictionio_tpu_torch.workflow import load_engine_variant, run_train
+from predictionio_tpu_torch.workflow import run_train
 from predictionio_tpu_torch.workflow.serving import QueryServer, QueryService
+from torch_arrays_engine import arrays_engine, arrays_variant
 
 RTOL, ATOL = 5e-3, 5e-4
 NEAR_TIE = 1e-5
@@ -88,15 +88,8 @@ def slice_run():
     }
 
 
-#: the ratings the arrays engine's DataSource hands over
-ARRAYS: dict = {}
 #: (what, thread) the recording algorithm saw, in order
 CALLS: list = []
-
-
-class ArraysDataSource(DataSource):
-    def read_training(self, ctx):
-        return ARRAYS["td"]
 
 
 class RecordingALS(ALSAlgorithm):
@@ -111,21 +104,13 @@ class RecordingALS(ALSAlgorithm):
         return super().predict_base(model, query)
 
 
-def arrays_engine() -> SimpleEngine:
-    return SimpleEngine(ArraysDataSource, RecordingALS)
-
-
 @pytest.fixture(scope="module")
 def served(slice_run, tmp_path_factory):
     """``slice_run``'s ratings trained through ``run_train`` into a
     temporary store; the stored instance loaded by a ``QueryService`` and
     by ``prepare_deploy`` (to compare with)."""
     Storage.configure({"PIO_FS_BASEDIR": str(tmp_path_factory.mktemp("rec_served"))})
-    ARRAYS["td"] = slice_run["td"]
-    variant = load_engine_variant({
-        "id": "rec-arrays", "version": "1", "engineFactory": "test_torch_recommendation:arrays_engine",
-        "algorithms": [{"name": "", "params": ENGINE_JSON}],
-    })
+    variant = arrays_variant("rec", slice_run["td"], RecordingALS, ENGINE_JSON)
     try:
         inst = run_train(variant, local_context("cpu"))
         service = QueryService(variant, local_context("cpu"))

@@ -44,7 +44,7 @@ from predictionio_tpu.controller.params import params_from_json as jax_params_fr
 from predictionio_tpu.data.aggregator import BiMap as JaxBiMap
 from predictionio_tpu.ops import twotower as jax_tt
 from predictionio_tpu.templates.twotower import engine as jax_engine
-from predictionio_tpu_torch.controller import DataSource, SimpleEngine, local_context
+from predictionio_tpu_torch.controller import local_context
 from predictionio_tpu_torch.controller.params import params_from_json
 from predictionio_tpu_torch.convert import twotower_model_from_numpy, twotower_model_to_numpy
 from predictionio_tpu_torch.data.bimap import BiMap
@@ -60,8 +60,9 @@ from predictionio_tpu_torch.templates.twotower import (
 )
 from predictionio_tpu_torch.utils.serialization import loads_model
 from predictionio_tpu_torch.utils.synthetic import distinct_pairs, planted_pairs
-from predictionio_tpu_torch.workflow import load_engine_variant, run_train
+from predictionio_tpu_torch.workflow import run_train
 from predictionio_tpu_torch.workflow.serving import QueryServer, QueryService
+from torch_arrays_engine import arrays_engine, arrays_variant
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -283,19 +284,6 @@ def test_params_parse_like_jax():
     assert ours.to_json()["embeddingDim"] == 16 and Query(user="u").num == jax_engine.Query(user="u").num == 10
 
 
-#: the pairs the arrays engine's DataSource hands over
-ARRAYS: dict = {}
-
-
-class ArraysDataSource(DataSource):
-    def read_training(self, ctx):
-        return ARRAYS["td"]
-
-
-def arrays_engine() -> SimpleEngine:
-    return SimpleEngine(ArraysDataSource, TwoTowerAlgorithm)
-
-
 def test_template_trains_and_serves_over_http(tmp_path):
     rows, cols = _clustered(num_users=30, num_items=24, groups=2, seed=2)
     rows, cols = distinct_pairs(rows, cols, 24)
@@ -307,11 +295,8 @@ def test_template_trains_and_serves_over_http(tmp_path):
     )
     for r, c in zip(rows.tolist(), cols.tolist()):
         td.seen.setdefault(str(r), set()).add(str(c))
-    ARRAYS["td"] = td
-    variant = load_engine_variant({
-        "id": "tt-arrays", "version": "1", "engineFactory": "test_torch_twotower:arrays_engine",
-        "algorithms": [{"name": "", "params": {"embeddingDim": 8, "batchSize": 128, "epochs": 20, "seed": 1}}],
-    })
+    variant = arrays_variant("tt", td, TwoTowerAlgorithm,
+                             {"embeddingDim": 8, "batchSize": 128, "epochs": 20, "seed": 1})
     Storage.configure({"PIO_FS_BASEDIR": str(tmp_path)})
     try:
         inst = run_train(variant, local_context("cpu"))
