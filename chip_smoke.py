@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's four paths once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's five paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -27,8 +27,16 @@ numpy top-10 of the stored model, then ``pio eval`` of the engine with
 
 The Two-Tower quickstart path: the same verbs for the Two-Tower engine
 on 200,000 planted-preference ``view`` events (4,000 users x 2,000 items)
-at dim 64, batch 8192, 10 epochs, so the fused-CE kernels run in
-``pio train`` and in ``pio eval`` (``RecallAtK(10)``).
+in the columnar event store, at dim 64, batch 8192, 10 epochs, so the
+fused-CE kernels run in ``pio train`` and in ``pio eval``
+(``RecallAtK(10)``).
+
+The workflow path (the JAX package's ``bench.py::_bench_workflow`` at the
+ML-20M shape): 20,000,000 ``rate`` events written into a columnar store,
+``pio train`` of the Recommendation engine (rank 64, 10 sweeps), 200,000
+new events through ``pio eventserver``'s bulk route, a second ``pio
+train`` that reads only the new segments and tail lines through the
+incremental training cache, ``pio deploy`` and ``pio app compact``.
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -78,8 +86,26 @@ Phases, in order; any failure exits non-zero and prints no result:
    without the seen items; the eval's recall held to RecallAtK computed in
    float64 numpy from towers trained here on each of the port's folds
    with the same params, and printed beside the recall of a random and of
-   a popularity ranking; one ``[tt-quickstart]`` line.
-8. a ``[summary]`` line, the ``{"kernels": [...]}`` line, the card's
+   a popularity ranking; one ``[tt-quickstart]`` line. The events live in
+   the columnar store.
+8. workflow — in a temporary ``PIO_FS_BASEDIR`` with the columnar event
+   store: ``app new``; ``ml20m_shaped(20_000_000, seed=5)`` written through
+   ``PEvents.write_columns`` (timed); ``pio train`` cold, its ``gj_solve``
+   launches held to the plan of a full read (``incremental=False``), the
+   train RMSE below the mean rating's; ``pio eventserver --port 0`` as a
+   subprocess with the app's access key: 200,000 ``rate`` events with
+   client ids through ``POST /events/bulk.json`` (re-rates of stored
+   pairs, new pairs, events of 1,000 new users and 50 new items), the
+   last 10,000 lines sent again and reported duplicates, the store grown
+   by exactly 200,000, 3 ``POST /events.json`` read back through ``GET
+   /events/<id>.json``, SIGTERM; ``pio train`` warm, which must log
+   "Incremental re-index: merged", leave a new cache manifest equal to
+   the store's ``scan_state``, give the TrainingData of a full read and
+   launch that read's plan; ``pio deploy`` of the warm instance, 64
+   queries (8 of users only the event server brought) against float64
+   numpy; ``pio app compact``, after which the tail is empty and a full
+   read is unchanged; one ``[workflow]`` line.
+9. a ``[summary]`` line, the ``{"kernels": [...]}`` line, the card's
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Imports only the port, torch, numpy and the standard library.
@@ -90,6 +116,7 @@ from __future__ import annotations
 import contextlib
 import datetime as dt
 import json
+import logging
 import os
 import queue
 import re
@@ -172,12 +199,36 @@ QS_EVAL_K = 2
 QS_DEPLOY_TIMEOUT_S = 240
 QS_FACTORY = "predictionio_tpu.templates.recommendation:engine_factory"
 
-#: the Two-Tower quickstart path: the planted-preference workload cut to
-#: 200,000 pairs for the sqlite store's pace (4,000 users x 2,000 items,
-#: 10,000 held out), at the Two-Tower path's width
+#: the Two-Tower quickstart path on the columnar event store: the
+#: planted-preference workload at 200,000 pairs (4,000 users x 2,000
+#: items, 10,000 held out), at the Two-Tower path's width. The pairs stay
+#: where the sqlite runs had them, so import and read compare with those;
+#: ``pio eval`` queries every user for the full ranking in Python, which
+#: grows as users x items and holds the size there
 TTQ_APP = "ttquickstart"
 TTQ_NNZ = 200_000
 TTQ_FACTORY = "predictionio_tpu.templates.twotower:engine_factory"
+
+#: the workflow path (bench.py::_bench_workflow at the ML-20M shape): the
+#: ratings written into a columnar store, ``pio train`` cold, new events
+#: through ``pio eventserver``'s bulk route, ``pio train`` warm (the
+#: incremental re-index), ``pio deploy`` and ``pio app compact``
+WF_APP = "wf"
+WF_NNZ = 20_000_000
+WF_RANK = 64
+WF_SWEEPS = 10
+WF_LAMBDA = 0.05
+WF_SEED = 7
+WF_FACTORY = "predictionio_tpu.templates.recommendation:engine_factory"
+#: the bulk delta: re-rates of stored pairs, new pairs of stored users,
+#: then events of WF_NEW_USERS users and WF_NEW_ITEMS items the store
+#: does not hold (WF_NEW_EVENTS of them); the last WF_RESEND lines are
+#: sent twice; WF_DELTA_QUERIES of the deploy's queries go to new users
+WF_BULK = {"rerates": 100_000, "new_pairs": 90_000, "new_users": 1_000, "new_items": 50,
+           "new_events": 10_000, "resend": 10_000}
+WF_SINGLES = 3
+WF_DELTA_QUERIES = 8
+WF_SERVER_TIMEOUT_S = 120
 
 #: an evaluation module as a user writes one: an Evaluation of the
 #: engine.json at ``path`` with one metric
@@ -252,21 +303,35 @@ def log(msg: str) -> None:
 
 
 @contextlib.contextmanager
-def temporary_store(prefix: str):
-    """A fresh ``PIO_FS_BASEDIR`` (sqlite + localfs) for the block, removed
-    after it, and the storage registry pointed at it."""
+def temporary_store(prefix: str, driver: str = "sqlite"):
+    """A fresh ``PIO_FS_BASEDIR`` for the block, removed after it, and the
+    storage registry pointed at it: metadata in sqlite and models in
+    localfs, the events in sqlite or, with ``driver="columnar"``, in a
+    columnar store under ``<base>/events``. The settings go into
+    ``os.environ``, so the ``deploy`` and ``eventserver`` subprocesses see
+    the same store."""
     base = tempfile.mkdtemp(prefix=prefix)
-    saved = os.environ.get("PIO_FS_BASEDIR")
-    os.environ["PIO_FS_BASEDIR"] = base
+    env = {"PIO_FS_BASEDIR": base}
+    if driver == "columnar":
+        env.update({
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "COL",
+            "PIO_STORAGE_SOURCES_COL_TYPE": "columnar",
+            "PIO_STORAGE_SOURCES_COL_PATH": os.path.join(base, "events"),
+        })
+    elif driver != "sqlite":
+        raise ValueError(f"unknown event store {driver!r}")
+    saved = {key: os.environ.get(key) for key in env}
+    os.environ.update(env)
     Storage.configure(None)
     try:
         yield Path(base)
     finally:
         Storage.configure(None)
-        if saved is None:
-            os.environ.pop("PIO_FS_BASEDIR", None)
-        else:
-            os.environ["PIO_FS_BASEDIR"] = saved
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
         shutil.rmtree(base, ignore_errors=True)
 
 
@@ -967,13 +1032,13 @@ def _await_line(lines: "queue.Queue", prefix: str, timeout_s: float) -> str:
     while True:
         left = deadline - time.perf_counter()
         if left <= 0:
-            raise RuntimeError(f"quickstart: no '{prefix}' line within {timeout_s} s")
+            raise RuntimeError(f"no '{prefix}' line within {timeout_s} s")
         try:
             line = lines.get(timeout=left)
         except queue.Empty:
             continue
         if line is None:
-            raise RuntimeError(f"quickstart: the deploy exited before printing '{prefix}'")
+            raise RuntimeError(f"the server exited before printing '{prefix}'")
         if line.startswith(prefix):
             return line
 
@@ -994,45 +1059,56 @@ def console_ok(label: str, argv: list) -> float:
     return time.perf_counter() - t0
 
 
-def deploy_and_query(label: str, base: Path, engine_json: Path, dev_args: list, instance_id: str,
-                     index: tuple, U64: np.ndarray, V64: np.ndarray, seen: dict | None, n_queries: int,
-                     k: int, seed: int, device) -> dict:
-    """``pio deploy --port 0`` as a subprocess (``PYTHONPATH`` the repo
-    root); ``n_queries`` top-``k`` queries for distinct random users held
-    against the float64 numpy top-``k`` of ``U64``/``V64`` (rows by
-    ``index``, the stored model's user and item ``BiMap``s) without each
-    user's ``seen`` items; ``GET /`` must report the device and the
-    instance; SIGTERM must stop it with exit 0."""
-    user_index, item_index = index
+def start_console_server(label: str, base: Path, argv: list, err_path: Path, timeout_s: float) -> tuple:
+    """``python -m predictionio_tpu_torch.tools.console <argv> --ip
+    127.0.0.1 --port 0`` as a subprocess (``PYTHONPATH`` the repo root,
+    the store of ``os.environ`` at ``base``, stderr to ``err_path``);
+    returns the process and the port it printed as ``Bound port N``."""
     root = str(Path(__file__).resolve().parent)
     env = dict(os.environ, PIO_FS_BASEDIR=str(base),
                PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch.tools.console", *argv, "--ip", "127.0.0.1", "--port", "0"],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=err, text=True,
+        )
+    lines: queue.Queue = queue.Queue()
+
+    def pump() -> None:
+        for line in proc.stdout:
+            lines.put(line.strip())
+        lines.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    try:
+        bound = _await_line(lines, "Bound port", timeout_s)
+    except RuntimeError as e:
+        proc.kill()
+        proc.wait(timeout=30)
+        raise RuntimeError(f"{label}: {e}; {argv[0]} stderr: {err_path.read_text()[-2000:]}") from None
+    return proc, int(bound.split()[-1])
+
+
+def deploy_and_query(label: str, base: Path, engine_json: Path, dev_args: list, instance_id: str,
+                     index: tuple, U64: np.ndarray, V64: np.ndarray, seen: dict | None, n_queries: int,
+                     k: int, seed: int, device, picks: np.ndarray | None = None) -> dict:
+    """``pio deploy --port 0`` as a subprocess (``PYTHONPATH`` the repo
+    root); ``n_queries`` top-``k`` queries for distinct random users (or
+    the user rows ``picks``) held against the float64 numpy top-``k`` of
+    ``U64``/``V64`` (rows by ``index``, the stored model's user and item
+    ``BiMap``s) without each user's ``seen`` items; ``GET /`` must report
+    the device and the instance; SIGTERM must stop it with exit 0."""
+    user_index, item_index = index
     err_path = base / "deploy.stderr"
     proc = None
     try:
         t0 = time.perf_counter()
-        with open(err_path, "w") as err:
-            proc = subprocess.Popen(
-                [sys.executable, "-m", "predictionio_tpu_torch.tools.console", "deploy",
-                 "--engine-json", str(engine_json), "--ip", "127.0.0.1", "--port", "0", *dev_args],
-                cwd=root, env=env, stdout=subprocess.PIPE, stderr=err, text=True,
-            )
-        lines: queue.Queue = queue.Queue()
-
-        def pump() -> None:
-            for line in proc.stdout:
-                lines.put(line.strip())
-            lines.put(None)
-
-        threading.Thread(target=pump, daemon=True).start()
-        try:
-            port = int(_await_line(lines, "Bound port", QS_DEPLOY_TIMEOUT_S).split()[-1])
-        except RuntimeError as e:
-            raise RuntimeError(f"{label}: {e}; deploy stderr: {err_path.read_text()[-2000:]}") from None
+        proc, port = start_console_server(
+            label, base, ["deploy", "--engine-json", str(engine_json), *dev_args], err_path, QS_DEPLOY_TIMEOUT_S)
         deploy_s = time.perf_counter() - t0
         url = f"http://127.0.0.1:{port}"
-        rng = np.random.default_rng(seed)
-        picks = rng.choice(len(user_index), size=n_queries, replace=False)
+        if picks is None:
+            picks = np.random.default_rng(seed).choice(len(user_index), size=n_queries, replace=False)
         lat, bad = [], []
         for uidx in picks.tolist():
             user = user_index.inverse(uidx)
@@ -1243,10 +1319,10 @@ def phase_tt_quickstart(device, nnz: int, dim: int, batch: int, epochs: int, n_q
     """The quickstart of the Two-Tower engine: ``app new`` -> ``import`` of
     ``nnz`` planted ``view`` pairs -> ``train`` -> ``deploy`` -> queries ->
     ``eval``, all through the port's console, in a temporary
-    ``PIO_FS_BASEDIR``."""
+    ``PIO_FS_BASEDIR`` whose events live in the columnar store."""
     t_phase = time.perf_counter()
     dev_args = [] if device.type == "cuda" else ["--device", device.type]
-    with temporary_store("pio-tt-quickstart-") as base:
+    with temporary_store("pio-tt-quickstart-", "columnar") as base:
         console_ok("tt-quickstart", ["app", "new", TTQ_APP])
         r_tr, c_tr, r_te, c_te, num_users, num_items = planted_pairs(nnz, seed=11)
         events = base / "events.json"
@@ -1349,6 +1425,278 @@ def phase_tt_quickstart(device, nnz: int, dim: int, batch: int, epochs: int, n_q
         return out
 
 
+# ------------------------------------------------------------ 8. workflow
+def _post_bytes(url: str, data: bytes, ctype: str) -> tuple[int, bytes]:
+    """POST ``data``; the whole response body, read to its end."""
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": ctype}, method="POST")
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return resp.status, resp.read()
+
+
+def bulk_delta(rows: np.ndarray, cols: np.ndarray, num_users: int, num_items: int, bulk: dict,
+               seed: int) -> list:
+    """The eventserver's delta as NDJSON objects, each with a client
+    ``eventId`` and a time after every stored event: re-rates of stored
+    pairs, new pairs of stored users and items, then events of users and
+    items the store does not hold (``n<j>`` rates ``m<i>``, distinct pairs)."""
+    rng = np.random.default_rng(seed)
+    pick = rng.choice(rows.size, size=bulk["rerates"], replace=False)
+    pairs = [(str(u), str(i)) for u, i in zip(rows[pick].tolist(), cols[pick].tolist())]
+    stored = np.unique(rows * num_items + cols)
+    fresh = np.empty(0, np.int64)
+    while fresh.size < bulk["new_pairs"]:
+        cand = rng.integers(0, num_users, 2 * bulk["new_pairs"]) * num_items + rng.integers(
+            0, num_items, 2 * bulk["new_pairs"])
+        fresh = np.unique(np.concatenate([fresh, cand[~np.isin(cand, stored)]]))
+    fresh = rng.permutation(fresh)[: bulk["new_pairs"]]
+    pairs += [(str(k // num_items), str(k % num_items)) for k in fresh.tolist()]
+    per_user = bulk["new_events"] // bulk["new_users"]
+    pairs += [(f"n{j}", f"m{i}") for j in range(bulk["new_users"])
+              for i in rng.choice(bulk["new_items"], size=per_user, replace=False).tolist()]
+    stars = rng.integers(1, 11, len(pairs)) / 2.0
+    t0 = dt.datetime(2021, 1, 1, tzinfo=dt.timezone.utc)
+    return [
+        {"event": "rate", "entityType": "user", "entityId": u, "targetEntityType": "item", "targetEntityId": i,
+         "properties": {"rating": float(r)}, "eventId": f"wf-{n}",
+         "eventTime": format_event_time(t0 + dt.timedelta(milliseconds=n))}
+        for n, ((u, i), r) in enumerate(zip(pairs, stars.tolist()))
+    ]
+
+
+def same_training_data(a, b) -> bool:
+    return (np.array_equal(a.rows, b.rows) and np.array_equal(a.cols, b.cols) and np.array_equal(a.vals, b.vals)
+            and a.user_index.to_dict() == b.user_index.to_dict()
+            and a.item_index.to_dict() == b.item_index.to_dict())
+
+
+class RecordHandler(logging.Handler):
+    """Keeps the messages of the log records it receives."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.messages: list = []
+
+    def emit(self, record: logging.LogRecord) -> None:
+        self.messages.append(record.getMessage())
+
+
+def phase_workflow(device, nnz: int, bulk: dict, n_queries: int, k: int, smi: str) -> dict:
+    """``bench.py::_bench_workflow`` through the port's verbs, in a
+    temporary columnar store: ``app new``; ``nnz`` ML-20M-shaped ``rate``
+    events through ``PEvents.write_columns``; ``pio train`` cold; ``pio
+    eventserver`` taking the ``bulk`` delta through ``POST
+    /events/bulk.json`` (and a retransmit of its tail, absorbed) and
+    ``WF_SINGLES`` events through ``POST /events.json``; ``pio train``
+    warm, which must take the incremental path and equal a full read;
+    ``pio deploy`` of the warm instance with queries of stored and of new
+    users held to float64 numpy; ``pio app compact``, after which a full
+    read is unchanged. Each train's ``gj_solve`` launches must equal the
+    plan of the TrainingData a full read gives."""
+    from predictionio_tpu_torch.templates.recommendation.engine import (
+        DataSourceParams,
+        RecommendationDataSource,
+    )
+    from predictionio_tpu_torch.templates.recommendation import engine as rec_engine
+
+    t_phase = time.perf_counter()
+    dev_args = [] if device.type == "cuda" else ["--device", device.type]
+    cfg = ALSConfig(rank=WF_RANK)
+
+    def full_read():
+        source = RecommendationDataSource(DataSourceParams(app_name=WF_APP, incremental=False))
+        td = source.read_training(local_context(device))
+        return td, WF_SWEEPS * (planned_solves(td.rows, len(td.user_index), cfg)
+                                + planned_solves(td.cols, len(td.item_index), cfg))
+
+    def train(label: str) -> dict:
+        handler = RecordHandler()
+        logger = logging.getLogger(rec_engine.__name__)
+        level = logger.level
+        logger.addHandler(handler)
+        logger.setLevel(logging.INFO)
+        try:
+            reset_launch_counts()
+            wall_s = console_ok(label, ["train", "--engine-json", str(engine_json), *dev_args])
+            launches = read_launch_counts()
+        finally:
+            logger.removeHandler(handler)
+            logger.setLevel(level)
+        instance = max(Storage.get_meta_data_engine_instances().get_all(), key=lambda i: i.start_time)
+        if instance.status != "COMPLETED":
+            raise RuntimeError(f"{label}: engine instance {instance.id} is {instance.status}")
+        timings = json.loads(instance.env["phase_timings"])
+        return {"instance": instance, "wall_s": wall_s, "read_s": timings["read"],
+                "train_als_s": timings["train:als"], "launches": launches["gj_solve"], "log": handler.messages}
+
+    with temporary_store("pio-workflow-", "columnar") as base:
+        console_ok("workflow", ["app", "new", WF_APP])
+        app = Storage.get_meta_data_apps().get_by_name(WF_APP)
+        (access_key,) = Storage.get_meta_data_access_keys().get_by_appid(app.id)
+
+        # 1. the ratings, written as columns
+        rows, cols, vals, num_users, num_items = ml20m_shaped(nnz, seed=5)
+        t_us = (1_600_000_000_000_000 + np.random.default_rng(9).integers(0, 10**9, nnz)).astype(np.int64)
+        t0 = time.perf_counter()
+        written = Storage.get_p_events().write_columns(
+            app.id, event="rate", entity_type="user", entity_codes=rows,
+            entity_vocab=np.asarray([str(i) for i in range(num_users)]), target_entity_type="item",
+            target_codes=cols, target_vocab=np.asarray([str(i) for i in range(num_items)]),
+            event_time_us=t_us, props={"rating": vals.astype(np.float64)},
+        )
+        write_s = time.perf_counter() - t0
+        if written != nnz:
+            raise RuntimeError(f"workflow: write_columns wrote {written} of {nnz} events")
+        store_bytes = sum(f.stat().st_size for f in (base / "events").rglob("*") if f.is_file())
+        log(f"[workflow] wrote {nnz} events in {write_s:.3f} s ({nnz / write_s:.1f} events/s), "
+            f"{store_bytes / 2**20:.1f} MiB on disk")
+
+        # 2. pio train, cold
+        engine_json = base / "engine.json"
+        engine_json.write_text(json.dumps({
+            "id": WF_APP, "version": "1", "engineFactory": WF_FACTORY,
+            "datasource": {"params": {"appName": WF_APP}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": WF_RANK, "numIterations": WF_SWEEPS, "lambda": WF_LAMBDA, "seed": WF_SEED}}],
+        }))
+        cold = train("workflow cold train")
+        td_cold, cold_plan = full_read()
+        if device.type == "cuda":
+            check_launches("workflow cold train", {"gj_solve": cold["launches"]}, {"gj_solve": cold_plan})
+        if any("Incremental re-index" in m for m in cold["log"]):
+            raise RuntimeError(f"workflow: the cold train read incrementally: {cold['log']}")
+        model = stored_model(cold["instance"].id)
+        U64 = np.asarray(model.user_factors, np.float64)
+        V64 = np.asarray(model.item_factors, np.float64)
+        if not (np.isfinite(U64).all() and np.isfinite(V64).all()):
+            raise RuntimeError("workflow: the cold model is not finite")
+        if model.user_index.to_dict() != td_cold.user_index.to_dict():
+            raise RuntimeError("workflow: the cold model's users differ from a full read's")
+        pred = np.einsum("nk,nk->n", U64[td_cold.rows], V64[td_cold.cols])
+        rmse = float(np.sqrt(np.mean((pred - td_cold.vals) ** 2)))
+        mean_rmse = float(np.sqrt(np.mean((td_cold.vals.mean() - td_cold.vals) ** 2)))
+        if not rmse < mean_rmse:
+            raise RuntimeError(f"workflow: train RMSE {rmse} is not below the mean rating's {mean_rmse}")
+        del pred, U64, V64, model
+        cache_json = next((base / "train_cache").glob("*.json"))
+        cold_payload = json.loads(cache_json.read_text())["payload_id"]
+        log(f"[workflow] cold train: read {cold['read_s']:.3f} s, train:als {cold['train_als_s']:.3f} s, "
+            f"wall {cold['wall_s']:.3f} s, {cold['launches']} gj_solve launches (plan {cold_plan}), "
+            f"rmse {rmse:.6f} (mean rating's {mean_rmse:.6f})")
+
+        # 3. pio eventserver: the bulk delta, a retransmit, single events
+        delta = bulk_delta(rows, cols, num_users, num_items, bulk, seed=21)
+        lines = [(json.dumps(obj) + "\n").encode() for obj in delta]
+        singles = [
+            {"event": "rate", "entityType": "user", "entityId": f"n{j}", "targetEntityType": "item",
+             "targetEntityId": f"m{j}", "properties": {"rating": 4.5},
+             "eventTime": format_event_time(dt.datetime(2021, 2, 1, 0, 0, j, 250000, tzinfo=dt.timezone.utc))}
+            for j in range(WF_SINGLES)
+        ]
+        del rows, cols, vals, t_us
+        proc = None
+        try:
+            t0 = time.perf_counter()
+            proc, port = start_console_server("workflow", base, ["eventserver", "--drain-deadline-s", "30"],
+                                              base / "eventserver.stderr", WF_SERVER_TIMEOUT_S)
+            server_start_s = time.perf_counter() - t0
+            url = f"http://127.0.0.1:{port}"
+            t0 = time.perf_counter()
+            status, body = _post_bytes(f"{url}/events/bulk.json?accessKey={access_key.key}", b"".join(lines),
+                                       "application/x-ndjson")
+            bulk_s = time.perf_counter() - t0
+            summary = json.loads(body.splitlines()[-1])
+            if status != 200 or not summary.get("ok") or summary["stored"] != len(lines) or summary["duplicates"]:
+                raise RuntimeError(f"workflow: the bulk POST answered {status} {summary}")
+            status, body = _post_bytes(f"{url}/events/bulk.json?accessKey={access_key.key}",
+                                       b"".join(lines[-bulk["resend"]:]), "application/x-ndjson")
+            resent = json.loads(body.splitlines()[-1])
+            if status != 200 or resent["stored"] != 0 or resent["duplicates"] != bulk["resend"]:
+                raise RuntimeError(f"workflow: the retransmit answered {status} {resent}")
+            grown = len(Storage.get_p_events().find_columns(app.id)) - nnz
+            if grown != len(lines):
+                raise RuntimeError(f"workflow: the store grew by {grown} events, not {len(lines)}")
+            for obj in singles:
+                status, created = _http_json(f"{url}/events.json?accessKey={access_key.key}", obj)
+                got_status, got = _http_json(f"{url}/events/{created['eventId']}.json?accessKey={access_key.key}")
+                if status != 201 or got_status != 200 or any(got.get(key) != value for key, value in obj.items()):
+                    raise RuntimeError(f"workflow: single event {obj} read back as {got_status} {got}")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+            proc = None
+            if rc != 0:
+                raise RuntimeError(f"workflow: the eventserver exited {rc} on SIGTERM: "
+                                   f"{(base / 'eventserver.stderr').read_text()[-2000:]}")
+        finally:
+            if proc is not None:
+                proc.kill()
+                proc.wait(timeout=30)
+        state = Storage.get_p_events().scan_state(app.id)
+        if state["tail_lines"] != WF_SINGLES:
+            raise RuntimeError(f"workflow: the tail holds {state['tail_lines']} lines, not {WF_SINGLES}")
+        log(f"[workflow] eventserver: {len(lines)} events in {bulk_s:.3f} s through /events/bulk.json "
+            f"({len(lines) / bulk_s:.1f} events/s), {resent['duplicates']} resent duplicates absorbed, "
+            f"{WF_SINGLES} single events read back")
+
+        # 4. pio train, warm: the incremental path
+        warm = train("workflow warm train")
+        meta = json.loads(cache_json.read_text())
+        if not any("Incremental re-index: merged" in m for m in warm["log"]):
+            raise RuntimeError(f"workflow: the warm train did not read incrementally: {warm['log']}")
+        if (meta["segments"], meta["tail_lines"]) != (state["segments"], state["tail_lines"]) or (
+                meta["payload_id"] == cold_payload):
+            raise RuntimeError(f"workflow: the cache manifest {meta} does not record the store's state {state}")
+        td_warm, warm_plan = full_read()
+        cached = RecommendationDataSource(DataSourceParams(app_name=WF_APP)).read_training(local_context(device))
+        warm_model = stored_model(warm["instance"].id)
+        if not same_training_data(cached, td_warm) or (
+                warm_model.user_index.to_dict() != td_warm.user_index.to_dict()) or (
+                warm_model.item_index.to_dict() != td_warm.item_index.to_dict()):
+            raise RuntimeError("workflow: the incremental read differs from a full read")
+        if device.type == "cuda":
+            check_launches("workflow warm train", {"gj_solve": warm["launches"]}, {"gj_solve": warm_plan})
+        log(f"[workflow] warm train: read {warm['read_s']:.3f} s (cold {cold['read_s']:.3f} s), "
+            f"train:als {warm['train_als_s']:.3f} s, wall {warm['wall_s']:.3f} s; {warm['launches']} gj_solve "
+            f"launches (plan {warm_plan}); {warm['log'][-1]}")
+
+        # 5. pio deploy of the warm instance: stored users and new ones
+        U64 = np.asarray(warm_model.user_factors, np.float64)
+        V64 = np.asarray(warm_model.item_factors, np.float64)
+        rng = np.random.default_rng(17)
+        new_rows = [warm_model.user_index[f"n{j}"] for j in rng.choice(bulk["new_users"], WF_DELTA_QUERIES,
+                                                                        replace=False).tolist()]
+        old_rows = [warm_model.user_index[str(u)] for u in rng.choice(num_users, n_queries - WF_DELTA_QUERIES,
+                                                                       replace=False).tolist()]
+        served = deploy_and_query("workflow", base, engine_json, dev_args, warm["instance"].id,
+                                  (warm_model.user_index, warm_model.item_index), U64, V64, None, n_queries, k, 0,
+                                  device, picks=np.asarray(new_rows + old_rows))
+        del U64, V64, warm_model
+
+        # 6. pio app compact: the tail goes into a segment, the data stays
+        console_ok("workflow", ["app", "compact", WF_APP])
+        after = Storage.get_p_events().scan_state(app.id)
+        td_after, _ = full_read()
+        if after["tail_lines"] != 0 or after["compactions"] != state["compactions"] + 1 or not same_training_data(
+                td_after, td_warm):
+            raise RuntimeError(f"workflow: after the compaction the store is {after} and a full read "
+                               f"{'equals' if same_training_data(td_after, td_warm) else 'differs from'} the one before")
+        out = {
+            "events": nnz, "pairs_cold": int(td_cold.rows.size), "pairs_warm": int(td_warm.rows.size),
+            "users_warm": len(td_warm.user_index), "items_warm": len(td_warm.item_index), "rank": WF_RANK,
+            "sweeps": WF_SWEEPS, "write_s": write_s, "write_events_per_s": nnz / write_s,
+            "store_mib": store_bytes / 2**20, "eventserver_start_s": server_start_s, "bulk_events": len(lines),
+            "bulk_s": bulk_s, "bulk_events_per_s": len(lines) / bulk_s, "duplicates_absorbed": resent["duplicates"],
+            "singles": WF_SINGLES, "cold_read_s": cold["read_s"], "cold_train_als_s": cold["train_als_s"],
+            "cold_wall_s": cold["wall_s"], "cold_launches": cold["launches"], "cold_planned": cold_plan,
+            "warm_read_s": warm["read_s"], "warm_train_als_s": warm["train_als_s"], "warm_wall_s": warm["wall_s"],
+            "warm_launches": warm["launches"], "warm_planned": warm_plan, "train_rmse": rmse, "mean_rmse": mean_rmse,
+            "deploy_start_s": served["deploy_start_s"], "queries": n_queries, "delta_user_queries": WF_DELTA_QUERIES,
+            "p50_ms": served["p50_ms"], "p99_ms": served["p99_ms"], "status_device": served["status_device"],
+            "phase_s": time.perf_counter() - t_phase, "card": smi,
+        }
+        log(f"[workflow] {json.dumps(out)}")
+        return out
+
+
 def check_launches(path: str, launches: dict, expected: dict) -> None:
     log(f"[{path}] launches on the path: {json.dumps({k: launches[k] for k in expected})}, "
         f"plan {json.dumps(expected)}")
@@ -1396,6 +1744,7 @@ def main() -> int:
     # the quickstart paths (their own launch counts inside)
     qs = phase_quickstart(device, QUERIES, TOP_K, info["smi"])
     ttq = phase_tt_quickstart(device, TTQ_NNZ, TT_DIM, TT_BATCH, TT_EPOCHS, QUERIES, TOP_K, info["smi"])
+    wf = phase_workflow(device, WF_NNZ, WF_BULK, QUERIES, TOP_K, info["smi"])
 
     main_fused = fused_rows[0]  # [8192, 64], the Two-Tower path's shape
     kernels = [
@@ -1432,6 +1781,10 @@ def main() -> int:
             "loss_first", "loss_last", "recall_at_10", "recall_at_10_new_pairs", "p50_ms", "p99_ms", "eval_s",
             "eval_launches", f"eval_recall_at_{TOP_K}", f"reference_eval_recall_at_{TOP_K}",
             f"random_eval_recall_at_{TOP_K}", "phase_s")},
+        "wf": {key: wf[key] for key in (
+            "events", "pairs_warm", "write_events_per_s", "bulk_events_per_s", "duplicates_absorbed",
+            "cold_read_s", "cold_train_als_s", "cold_wall_s", "cold_launches", "warm_read_s", "warm_train_als_s",
+            "warm_wall_s", "warm_launches", "train_rmse", "deploy_start_s", "p50_ms", "p99_ms", "phase_s")},
         "wall_s": time.perf_counter() - t_start,
     }
     log(f"[summary] {json.dumps(summary)}")

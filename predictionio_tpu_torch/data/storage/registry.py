@@ -44,6 +44,7 @@ _BUILTIN_DRIVERS = {
     "sqlite": "predictionio_tpu_torch.data.storage.sqlite",
     "memory": "predictionio_tpu_torch.data.storage.memory",
     "localfs": "predictionio_tpu_torch.data.storage.localfs",
+    "columnar": "predictionio_tpu_torch.data.storage.columnar",
 }
 
 

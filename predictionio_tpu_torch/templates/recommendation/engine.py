@@ -6,7 +6,11 @@ Counterpart of ``predictionio_tpu/templates/recommendation/engine.py``
 * :class:`RecommendationDataSource` reads ``rate`` events (explicit
   rating property) and ``buy`` events (implicit rating 4.0) through the
   columnar bulk scan; the latest event per (user, item) wins, and equal
-  times go to the higher rating;
+  times go to the higher rating. On the columnar event store a repeat
+  train reads only the segments and tail lines added since the last one
+  and merges them with the training cache
+  (``<PIO_FS_BASEDIR>/train_cache/<tag>.{npz,json}``, the JAX package's
+  format, so a cache either package writes is valid in the other);
   ``read_eval`` splits the same ratings into k folds by a stable hash of
   (user, item);
 * :class:`ALSAlgorithm` trains with :func:`predictionio_tpu_torch.ops.als.train_als`
@@ -19,14 +23,19 @@ engine.json params are byte-compatible: ``rank``, ``numIterations``,
 ``lambda``, ``seed``, ``implicitPrefs``, ``alpha``, ``serveOnDevice``,
 ``deviceLatencyBudgetMs``, and the datasource's ``appName``/``evalK``.
 
-Waiting: the incremental training cache (it runs only on the columnar
-and partitioned drivers, not ported), the multi-host read, warm start,
-the host (numpy) predict branch and the serving tiers.
+Waiting: the multi-host read, warm start, the host (numpy) predict
+branch and the serving tiers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import logging
+import os
+import re
+import uuid
+import zipfile
 import zlib
 from typing import Any, Callable, Sequence
 
@@ -46,7 +55,8 @@ from predictionio_tpu_torch.controller import (
 )
 from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.data.event import EventValidationError
-from predictionio_tpu_torch.data.store import PEventStore
+from predictionio_tpu_torch.data.storage import Storage
+from predictionio_tpu_torch.data.store import PEventStore, resolve_app
 from predictionio_tpu_torch.ops.als import (
     ALSConfig,
     predict_scores,
@@ -102,8 +112,9 @@ class DataSourceParams(Params):
     buy_rating: float = 4.0
     #: eval folds for read_eval
     eval_k: int = 3
-    #: the JAX package's incremental re-index on a columnar store; no
-    #: driver the port has can serve it, so every read is a full read
+    #: on an append-only columnar event store, repeat trains read only
+    #: the segments/tail added since the cached previous read; a full
+    #: read whenever the cache is stale or the store is not columnar
     incremental: bool = True
     json_aliases = {"appName": "app_name", "evalK": "eval_k"}
 
@@ -170,11 +181,12 @@ class RecommendationDataSource(DataSource):
         )
 
     @staticmethod
-    def _assemble_training_data(u_code, i_code, t_arr, v, user_vocab, item_vocab) -> TrainingData:
+    def _assemble_training_data(u_code, i_code, t_arr, v, user_vocab, item_vocab):
         """Dedup (latest wins, ties -> higher rating) + vocabulary
-        compaction. One argsort groups the pairs; only rows inside
-        duplicate groups (usually a tiny fraction) pay the 3-key lexsort.
-        The pair key uses the narrowest dtype that fits."""
+        compaction; returns ``(TrainingData, cache_payload)``. One argsort
+        groups the pairs; only rows inside duplicate groups (usually a
+        tiny fraction) pay the 3-key lexsort. The pair key uses the
+        narrowest dtype that fits."""
         span = int(user_vocab.size) * (int(item_vocab.size) + 1)
         pair_dt = np.uint32 if span < 2**32 else np.int64
         pair = u_code.astype(pair_dt) * pair_dt(item_vocab.size + 1) + i_code.astype(pair_dt)
@@ -196,6 +208,7 @@ class RecommendationDataSource(DataSource):
             sel[dup_groups] = rows_d[o2[np.cumsum(dsizes) - 1]]
         u_sel = u_code[sel]
         i_sel = i_code[sel]
+        v_sel = v[sel]
         # compact the vocabularies to ids that survived (bincount is O(N),
         # unlike a sort-based unique)
         used_u = np.flatnonzero(np.bincount(u_sel, minlength=user_vocab.size))
@@ -204,20 +217,173 @@ class RecommendationDataSource(DataSource):
         u_lut[used_u] = np.arange(used_u.size)
         i_lut = np.zeros(item_vocab.size, np.int64)
         i_lut[used_i] = np.arange(used_i.size)
-        return TrainingData(
-            rows=u_lut[u_sel],
-            cols=i_lut[i_sel],
-            vals=v[sel],
-            user_index=BiMap.string_index(user_vocab[used_u].tolist()),
-            item_index=BiMap.string_index(item_vocab[used_i].tolist()),
+        rows = u_lut[u_sel]
+        cols = i_lut[i_sel]
+        uv_arr = user_vocab[used_u]
+        iv_arr = item_vocab[used_i]
+        td = TrainingData(
+            rows=rows,
+            cols=cols,
+            vals=v_sel,
+            user_index=BiMap.string_index(uv_arr.tolist()),
+            item_index=BiMap.string_index(iv_arr.tolist()),
         )
+        cache_payload = {
+            "u_code": rows.astype(np.int32),
+            "i_code": cols.astype(np.int32),
+            "t_us": t_arr[sel].astype(np.int64),
+            "vals": v_sel,
+            "user_vocab": uv_arr,
+            "item_vocab": iv_arr,
+        }
+        return td, cache_payload
 
-    def read_training(self, ctx: WorkflowContext) -> TrainingData:
-        """Vectorized single-host read: the columnar bulk scan
-        (``PEventStore.find_columns``) plus numpy dedup and BiMaps, no
-        per-event Python."""
-        if ctx.num_hosts != 1:
-            raise NotImplementedError("the port reads events on one host only")
+    # ---------------------------------------------------- incremental cache
+    def _cache_paths(self) -> tuple[str, str]:
+        # the readable prefix is sanitized; the crc suffix keeps distinct
+        # app names (e.g. "my/app" vs "my_app") from sharing a cache file
+        name = self.params.app_name
+        safe = re.sub(r"[^A-Za-z0-9_-]", "_", name)
+        tag = f"{safe}-{zlib.crc32(name.encode()):08x}"
+        base = os.path.join(Storage.base_dir(), "train_cache")
+        return os.path.join(base, f"{tag}.npz"), os.path.join(base, f"{tag}.json")
+
+    def _cache_manifest(self) -> dict:
+        p = self.params
+        return {
+            "version": 1,
+            "app": p.app_name,
+            "rate_event": p.rate_event,
+            "buy_event": p.buy_event,
+            "buy_rating": p.buy_rating,
+        }
+
+    def _try_incremental(self, pe, app_id) -> TrainingData | None:
+        """Delta re-index on an append-only columnar store: if a previous
+        train's cache is still a valid prefix of the store (its segments
+        all exist, no new tombstones, the tail only appended, no
+        compaction since), read ONLY the segments/tail lines added since,
+        merge them with the cached deduped matrix, and re-dedup. None
+        when the cache cannot serve this read."""
+        npz_path, json_path = self._cache_paths()
+        try:
+            with open(json_path) as f:
+                meta = json.load(f)
+        except (FileNotFoundError, ValueError):
+            return None
+        if meta.get("manifest") != self._cache_manifest():
+            return None
+        state = pe.scan_state(app_id)
+        cached_segments = set(meta.get("segments", ()))
+        if (
+            meta.get("stream_id") != state.get("stream_id")
+            or not meta.get("stream_id")
+            or meta.get("tombstones") != state["tombstones"]
+            or not cached_segments.issubset(set(state["segments"]))
+            or meta.get("tail_lines", 0) > state["tail_lines"]
+            # a compaction CONSUMED the recorded tail lines; once the
+            # tail regrows past the recorded length, tail_skip would
+            # silently skip genuinely new events — the generation
+            # counter makes any pre-compaction manifest stale
+            or meta.get("compactions", 0) != state.get("compactions", 0)
+        ):
+            return None
+        new_segments = [s for s in state["segments"] if s not in cached_segments]
+        try:
+            with np.load(npz_path, allow_pickle=False) as z:
+                cache = {k: z[k] for k in z.files}
+        except (FileNotFoundError, ValueError, EOFError, OSError, zipfile.BadZipFile):
+            # a truncated/empty payload invalidates the cache
+            return None
+        # manifest and payload must be from the SAME save: concurrent
+        # trains can interleave the two atomic replaces
+        if str(cache.pop("__payload_id__", "")) != meta.get("payload_id"):
+            return None
+        p = self.params
+        delta = pe.find_columns(
+            app_id,
+            entity_type="user",
+            event_names=[p.rate_event, p.buy_event],
+            prop="rating",
+            segments=new_segments,
+            tail_skip=int(meta.get("tail_lines", 0)),
+        )
+        # TOCTOU guard: a compaction landing between the scan_state above
+        # and this delta read moves the uncached tail lines into a
+        # segment that is NOT in new_segments while emptying the tail —
+        # the delta would silently miss them. Each storage call is
+        # snapshot-consistent on its own; the two-call sequence is only
+        # valid if the generation did not move underneath it.
+        if pe.scan_state(app_id).get("compactions", 0) != state.get("compactions", 0):
+            return None
+        du, di, dt_us, dv = self._extract_ratings_arrays(delta)
+        log = logging.getLogger(__name__)
+        if du.size == 0:
+            # nothing new: the cache IS the training data. Still advance
+            # the manifest when rating-free segments/tail appeared, so
+            # they are not re-scanned next time.
+            if (
+                meta.get("segments") != state["segments"]
+                or meta.get("tail_lines") != state["tail_lines"]
+            ):
+                self._save_cache(dict(cache), state)
+            log.info(
+                "Incremental re-index: store unchanged, reusing %d cached ratings",
+                cache["vals"].size,
+            )
+            return TrainingData(
+                rows=cache["u_code"].astype(np.int64),
+                cols=cache["i_code"].astype(np.int64),
+                vals=cache["vals"],
+                user_index=BiMap.string_index(cache["user_vocab"].tolist()),
+                item_index=BiMap.string_index(cache["item_vocab"].tolist()),
+            )
+        # unify vocabularies (the cache vocab is exactly its used ids; du
+        # is non-empty here, so the delta vocabs are non-empty too)
+        user_vocab = np.unique(np.concatenate([cache["user_vocab"], delta.entity_vocab]))
+        item_vocab = np.unique(np.concatenate([cache["item_vocab"], delta.target_vocab]))
+        cu = np.searchsorted(user_vocab, cache["user_vocab"]).astype(np.int64)[cache["u_code"]]
+        ci = np.searchsorted(item_vocab, cache["item_vocab"]).astype(np.int64)[cache["i_code"]]
+        du = np.searchsorted(user_vocab, delta.entity_vocab).astype(np.int64)[du]
+        di = np.searchsorted(item_vocab, delta.target_vocab).astype(np.int64)[di]
+        td, payload = self._assemble_training_data(
+            np.concatenate([cu, du]),
+            np.concatenate([ci, di]),
+            np.concatenate([cache["t_us"], dt_us]),
+            np.concatenate([cache["vals"], dv]).astype(np.float32),
+            user_vocab,
+            item_vocab,
+        )
+        self._save_cache(payload, state)
+        log.info(
+            "Incremental re-index: merged %d cached ratings with %d delta "
+            "events (%d new segments, %d new tail lines)",
+            cache["vals"].size, dv.size, len(new_segments),
+            state["tail_lines"] - int(meta.get("tail_lines", 0)),
+        )
+        return td
+
+    def _save_cache(self, payload: dict, state: dict) -> None:
+        npz_path, json_path = self._cache_paths()
+        os.makedirs(os.path.dirname(npz_path), exist_ok=True)
+        # the same id is stored INSIDE both files: two concurrent trains
+        # interleaving their two atomic replaces could otherwise pair one
+        # run's manifest with the other's payload
+        payload_id = uuid.uuid4().hex
+        tmp = npz_path + ".tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, __payload_id__=np.array(payload_id), **payload)
+        # the cache is a pure optimization: a torn/absent file fails the
+        # payload_id pairing check on load and the next train re-indexes
+        # from the event store, so fsync latency here buys nothing
+        os.replace(tmp, npz_path)  # piolint: waive=PIO501 -- rebuildable cache: torn files fail payload_id validation and trigger a full re-index; no acked data rides on this rename
+        tmp = json_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"manifest": self._cache_manifest(), "payload_id": payload_id, **state}, f)
+        os.replace(tmp, json_path)
+
+    def _read_full(self) -> tuple[TrainingData, dict]:
+        """A full read of the store: ``(TrainingData, cache_payload)``."""
         p = self.params
         cols = PEventStore.find_columns(
             app_name=p.app_name,
@@ -230,10 +396,44 @@ class RecommendationDataSource(DataSource):
             u_code, i_code, t_arr, v, cols.entity_vocab, cols.target_vocab
         )
 
+    def read_training(self, ctx: WorkflowContext) -> TrainingData:
+        """Vectorized single-host read: the columnar bulk scan
+        (``PEventStore.find_columns``) plus numpy dedup and BiMaps, no
+        per-event Python. On a store with ``scan_state`` (the columnar
+        driver) and ``incremental`` on, a repeat train reads only the new
+        segments/tail through :meth:`_try_incremental`, and every read
+        leaves the cache for the next one."""
+        if ctx.num_hosts != 1:
+            raise NotImplementedError("the port reads events on one host only")
+        p = self.params
+        pe = Storage.get_p_events()
+        if not (p.incremental and hasattr(pe, "scan_state")):
+            return self._read_full()[0]
+        app_id, _ = resolve_app(p.app_name)
+        try:
+            td = self._try_incremental(pe, app_id)
+            if td is not None:
+                return td
+        except Exception:
+            logging.getLogger(__name__).warning(
+                "Incremental re-index failed; falling back to a full read", exc_info=True
+            )
+        # BEFORE the read: a concurrent append between read and state
+        # snapshot must invalidate, not count as already consumed
+        state = pe.scan_state(app_id)
+        td, payload = self._read_full()
+        try:
+            self._save_cache(payload, state)
+        except OSError:
+            logging.getLogger(__name__).warning("Could not persist the training cache", exc_info=True)
+        return td
+
     def _read_ratings(self, ctx: WorkflowContext) -> list[tuple[str, str, float]]:
-        """``(user, item, rating)`` per distinct pair, from the columnar
-        read (read_eval's input)."""
-        td = self.read_training(ctx)
+        """``(user, item, rating)`` per distinct pair, from a full columnar
+        read (read_eval's input; it neither reads nor writes the cache)."""
+        if ctx.num_hosts != 1:
+            raise NotImplementedError("the port reads events on one host only")
+        td = self._read_full()[0]
         users = td.user_index.keys()
         items = td.item_index.keys()
         return [

@@ -1,27 +1,43 @@
 """CLI command implementations (transport- and argparse-free).
 
 Counterpart of ``predictionio_tpu/tools/commands.py``, for the commands
-the port's console has so far: ``app new``, ``app list``, ``import`` and
-``status``. Parity: ``tools/console/App.scala``, ``Import.scala`` and the
-status checks of ``Console.scala``. Each function returns data (and prints human output
-via the ``out`` callback) so tests can drive them without capturing
-stdout.
+the port's console has so far: the ``app`` and ``accesskey`` verbs,
+``import``, ``export`` and ``status``. Parity: ``tools/console/App.scala``,
+``AccessKey.scala``, ``Export.scala``, ``Import.scala`` and the status
+checks of ``Console.scala``. Each function returns data (and prints human
+output via the ``out`` callback) so tests can drive them without
+capturing stdout. Only ``status_check`` imports torch, so the data verbs
+and the event server start without it.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Callable
+from typing import Callable, Iterable
 
-import torch
-
+from predictionio_tpu_torch.data.event import event_to_json
 from predictionio_tpu_torch.data.ingest import IngestPipeline, PipelineError
 from predictionio_tpu_torch.data.storage import Storage, StorageError
-from predictionio_tpu_torch.data.storage.base import AccessKey, App
+from predictionio_tpu_torch.data.storage.base import AccessKey, App, Channel
 from predictionio_tpu_torch.data.store import resolve_app
-from predictionio_tpu_torch.device import resolve_device
 
-__all__ = ["app_new", "app_list", "import_events", "status_check"]
+__all__ = [
+    "app_new",
+    "app_list",
+    "app_show",
+    "app_delete",
+    "app_data_delete",
+    "app_compact",
+    "channel_new",
+    "channel_delete",
+    "accesskey_new",
+    "accesskey_list",
+    "accesskey_delete",
+    "import_events",
+    "export_events",
+    "status_check",
+]
 
 Out = Callable[[str], None]
 
@@ -68,31 +84,184 @@ def app_list(out: Out = _print) -> list[App]:
     return apps
 
 
-# ----------------------------------------------------------------- import
+def app_show(name: str, out: Out = _print) -> dict:
+    app = Storage.get_meta_data_apps().get_by_name(name)
+    if app is None:
+        raise StorageError(f"App '{name}' does not exist.")
+    keys = Storage.get_meta_data_access_keys().get_by_appid(app.id)
+    channels = Storage.get_meta_data_channels().get_by_appid(app.id)
+    out(f"    App Name: {app.name}")
+    out(f"      App ID: {app.id}")
+    out(f" Description: {app.description or ''}")
+    for k in keys:
+        events = ",".join(k.events) if k.events else "(all)"
+        out(f"  Access Key: {k.key} | {events}")
+    for ch in channels:
+        out(f"     Channel: {ch.name} (id {ch.id})")
+    return {"app": app, "access_keys": keys, "channels": channels}
+
+
+def app_delete(name: str, out: Out = _print) -> None:
+    """``pio app delete`` — drop the app, its keys, channels, events."""
+    from predictionio_tpu_torch.api.service import invalidate_access_key_caches
+
+    app = Storage.get_meta_data_apps().get_by_name(name)
+    if app is None:
+        raise StorageError(f"App '{name}' does not exist.")
+    le = Storage.get_l_events()
+    for ch in Storage.get_meta_data_channels().get_by_appid(app.id):
+        le.remove(app.id, ch.id)
+        Storage.get_meta_data_channels().delete(ch.id)
+    le.remove(app.id)
+    deleted_keys = []
+    for k in Storage.get_meta_data_access_keys().get_by_appid(app.id):
+        Storage.get_meta_data_access_keys().delete(k.key)
+        deleted_keys.append(k.key)
+    Storage.get_meta_data_apps().delete(app.id)
+    # revoke in any event server sharing this process; out-of-process
+    # servers converge within the key-cache TTL (docs/eventserver.md)
+    invalidate_access_key_caches(deleted_keys)
+    out(f"Deleted app {name}.")
+
+
+def _resolve_app_channel(name: str, channel: str | None):
+    """(app, channel_id) for commands addressing one app's stream."""
+    app = Storage.get_meta_data_apps().get_by_name(name)
+    if app is None:
+        raise StorageError(f"App '{name}' does not exist.")
+    channel_id = None
+    if channel is not None:
+        matches = [
+            c for c in Storage.get_meta_data_channels().get_by_appid(app.id)
+            if c.name == channel
+        ]
+        if not matches:
+            raise StorageError(f"Channel '{channel}' does not exist.")
+        channel_id = matches[0].id
+    return app, channel_id
+
+
+def app_data_delete(name: str, channel: str | None = None, out: Out = _print) -> None:
+    """``pio app data-delete`` — wipe events, keep the app."""
+    app, channel_id = _resolve_app_channel(name, channel)
+    le = Storage.get_l_events()
+    le.remove(app.id, channel_id)
+    le.init(app.id, channel_id)
+    out(f"Deleted data of app {name}" + (f" channel {channel}." if channel else "."))
+
+
+def app_compact(name: str, channel: str | None = None, out: Out = _print) -> int:
+    """``pio app compact`` — seal the columnar event tail into segments
+    (the HBase major-compaction role). Event ids survive. No-op error on
+    backends without a tail/segment layout."""
+    app, channel_id = _resolve_app_channel(name, channel)
+    le = Storage.get_l_events()
+    if not hasattr(le, "compact"):
+        raise StorageError(
+            "The configured EVENTDATA backend has no tail to compact "
+            "(compaction applies to the columnar driver)."
+        )
+    moved = le.compact(app.id, channel_id)
+    out(f"Compacted {moved} tail events of app {name} into segments.")
+    return moved
+
+
+# --------------------------------------------------------------- channels
+def channel_new(app_name: str, channel_name: str, out: Out = _print) -> Channel:
+    app = Storage.get_meta_data_apps().get_by_name(app_name)
+    if app is None:
+        raise StorageError(f"App '{app_name}' does not exist.")
+    if not Channel.is_valid_name(channel_name):
+        raise StorageError(f"Channel name {Channel.NAME_CONSTRAINT}.")
+    existing = Storage.get_meta_data_channels().get_by_appid(app.id)
+    if any(c.name == channel_name for c in existing):
+        raise StorageError(f"Channel '{channel_name}' already exists.")
+    ch_id = Storage.get_meta_data_channels().insert(
+        Channel(id=0, name=channel_name, appid=app.id)
+    )
+    Storage.get_l_events().init(app.id, ch_id)
+    out(f"Created channel {channel_name} (id {ch_id}) for app {app_name}.")
+    return Channel(id=ch_id, name=channel_name, appid=app.id)
+
+
+def channel_delete(app_name: str, channel_name: str, out: Out = _print) -> None:
+    app = Storage.get_meta_data_apps().get_by_name(app_name)
+    if app is None:
+        raise StorageError(f"App '{app_name}' does not exist.")
+    matches = [
+        c for c in Storage.get_meta_data_channels().get_by_appid(app.id)
+        if c.name == channel_name
+    ]
+    if not matches:
+        raise StorageError(f"Channel '{channel_name}' does not exist.")
+    Storage.get_l_events().remove(app.id, matches[0].id)
+    Storage.get_meta_data_channels().delete(matches[0].id)
+    out(f"Deleted channel {channel_name} of app {app_name}.")
+
+
+# ------------------------------------------------------------ access keys
+def accesskey_new(
+    app_name: str, events: Iterable[str] = (), key: str = "", out: Out = _print
+) -> str:
+    app = Storage.get_meta_data_apps().get_by_name(app_name)
+    if app is None:
+        raise StorageError(f"App '{app_name}' does not exist.")
+    new_key = Storage.get_meta_data_access_keys().insert(
+        AccessKey(key=key, appid=app.id, events=tuple(events))
+    )
+    if new_key is None:
+        raise StorageError(f"Access key '{key}' already exists.")
+    out(f"Created new access key: {new_key}")
+    return new_key
+
+
+def accesskey_list(app_name: str | None = None, out: Out = _print) -> list[AccessKey]:
+    repo = Storage.get_meta_data_access_keys()
+    if app_name is None:
+        keys = repo.get_all()
+    else:
+        app = Storage.get_meta_data_apps().get_by_name(app_name)
+        if app is None:
+            raise StorageError(f"App '{app_name}' does not exist.")
+        keys = repo.get_by_appid(app.id)
+    for k in keys:
+        events = ",".join(k.events) if k.events else "(all)"
+        out(f"{k.key} | app {k.appid} | {events}")
+    out(f"Finished listing {len(keys)} access key(s).")
+    return keys
+
+
+def accesskey_delete(key: str, out: Out = _print) -> None:
+    from predictionio_tpu_torch.api.service import invalidate_access_key_caches
+
+    if not Storage.get_meta_data_access_keys().delete(key):
+        raise StorageError(f"Access key '{key}' does not exist.")
+    invalidate_access_key_caches([key])
+    out(f"Deleted access key {key}.")
+
+
+# ---------------------------------------------------------- import/export
 def import_events(
     app_name: str,
     input_path: str,
     channel: str | None = None,
     out: Out = _print,
 ) -> int:
-    """``pio import`` — JSON-lines file -> event store bulk write
+    """``pio import`` — JSON-lines file (or a columnar export directory,
+    auto-detected) -> event store bulk write
     (parity: ``tools/imprt/FileToEvents.scala``).
 
-    The file is read in byte blocks through the bulk-ingest pipeline's
+    A file is read in byte blocks through the bulk-ingest pipeline's
     parse→validate→append stages: no per-line ``Event``, one columnar
     chunk append per 65536 lines, dedup on — lines carrying an
     ``eventId`` are idempotency keys, so re-running an interrupted import
     never double-stores. The first invalid line aborts with its 1-based
-    ``file:line`` position. The JAX package's other input, a columnar
-    export directory, needs the columnar driver, which the port does not
-    have yet: a directory raises :class:`StorageError` saying so."""
+    ``file:line`` position. A directory must be a ``pio export --format
+    columnar`` export (of either package): its events stream back through
+    the object path, with ids assigned by the destination store."""
     app_id, channel_id = resolve_app(app_name, channel)
     if os.path.isdir(input_path):
-        raise StorageError(
-            f"{input_path} is a directory: importing a columnar export needs the "
-            "columnar event store, which the port does not have yet; import a "
-            "JSON-lines file"
-        )
+        return _import_columnar_export(app_name, input_path, app_id, channel_id, out)
     pipeline = IngestPipeline(Storage.get_l_events(), app_id, channel_id, chunk_rows=65536)
 
     def check(results) -> None:
@@ -122,11 +291,112 @@ def import_events(
     return n
 
 
+def _import_columnar_export(
+    app_name: str, input_path: str, app_id: int, channel_id: int | None, out: Out
+) -> int:
+    # a `pio export --format columnar` directory: stream its events
+    # back through the portable object path (ids re-assigned by the
+    # destination store). Anything else directory-shaped (e.g. a
+    # --sharded JSONL export) must error, not silently import 0
+    # events — and must not be mutated by instantiating a driver on
+    # top of it.
+    if not os.path.isdir(os.path.join(input_path, "export_events")):
+        raise StorageError(
+            f"{input_path} is a directory but not a columnar export "
+            "(no export_events/ inside). For sharded JSONL exports, "
+            "import each shard file individually."
+        )
+    src = _columnar_file_client(input_path).get_p_events()
+    counter = {"n": 0}
+
+    def gen():
+        for event in src.find(0):
+            counter["n"] += 1
+            yield event.with_event_id(None) if event.event_id else event
+
+    Storage.get_p_events().write(gen(), app_id, channel_id)
+    out(f"Imported {counter['n']} events to app {app_name}.")
+    return counter["n"]
+
+
+def _columnar_file_client(path: str):
+    """A throwaway columnar driver rooted at ``path`` — the on-disk
+    columnar interchange format IS the columnar store layout (the role
+    `--format parquet` plays for the reference's EventsToFile)."""
+    from predictionio_tpu_torch.data.storage import columnar
+    from predictionio_tpu_torch.data.storage.base import StorageClientConfig
+
+    return columnar.StorageClient(
+        StorageClientConfig("FILE", "columnar", {"path": path, "prefix": "export"})
+    )
+
+
+def export_events(
+    app_name: str,
+    output_path: str,
+    channel: str | None = None,
+    num_shards: int = 0,
+    format: str = "json",
+    out: Out = _print,
+) -> int:
+    """``pio export`` — event store -> JSON-lines file, or a columnar
+    segment directory (``format="columnar"`` — the reference's ``--format
+    parquet`` analog: dictionary-encoded, read back at array speed)
+    (parity: ``tools/export/EventsToFile.scala``). The JAX package's
+    ``num_shards > 0`` (round-robin shard files for multi-host reads)
+    waits for the port's parallel reader and raises ``ValueError``."""
+    app_id, channel_id = resolve_app(app_name, channel)
+    events = Storage.get_p_events().find(app_id, channel_id)
+    if format == "columnar":
+        if num_shards > 0:
+            raise ValueError(
+                "--sharded applies to the JSON format only; a columnar "
+                "export is already a segment directory"
+            )
+        if os.path.isdir(os.path.join(output_path, "export_events")):
+            # appending segments to a previous export would duplicate
+            # every event on re-import (JSON exports overwrite; refuse
+            # rather than silently differ)
+            raise StorageError(
+                f"{output_path} already holds a columnar export; remove it "
+                "or export to a fresh directory"
+            )
+        n = 0
+
+        def counted():
+            nonlocal n
+            for e in events:
+                n += 1
+                yield e
+
+        _columnar_file_client(output_path).get_p_events().write(counted(), 0)
+        out(f"Exported {n} events to columnar segments in {output_path}.")
+        return n
+    if format != "json":
+        raise ValueError(f"unknown export format {format!r} (json|columnar)")
+    if num_shards > 0:
+        raise ValueError(
+            "--sharded waits for the port's parallel reader "
+            "(parallel/reader.py); export one JSON-lines file"
+        )
+    n = 0
+    with open(output_path, "w") as f:
+        for event in events:
+            f.write(json.dumps(event_to_json(event), default=str) + "\n")
+            n += 1
+    out(f"Exported {n} events to {output_path}.")
+    return n
+
+
 # ----------------------------------------------------------------- status
 def status_check(device: str | None = None, out: Out = _print) -> dict:
     """``pio status`` — verify storage connectivity per repository role
     and the device that train and deploy would run on (parity: the
     storage checks in ``Console.scala``)."""
+    import torch
+
+    from predictionio_tpu_torch.device import resolve_device
+
     results: dict = {}
     checks = [
         ("metadata", lambda: Storage.get_meta_data_apps().get_all()),

@@ -325,6 +325,85 @@ def test_run_train_on_the_card_through_the_spine(cuda_device):
             assert g == w or abs(scores[g] - scores[w]) <= 1e-5 * abs(scores[w])
 
 
+@pytest.mark.gpu
+def test_incremental_retrain_on_the_card_launches_the_plan(cuda_device, tmp_path, caplog):
+    # ratings in a columnar store -> run_train on the card -> a delta of a
+    # new segment and tail lines -> run_train again: the second read is
+    # incremental, equals a full read, and each train launches its plan
+    import datetime as dt
+    import logging
+
+    from predictionio_tpu_torch.data.event import DataMap, Event
+    from predictionio_tpu_torch.data.storage import Storage
+    from predictionio_tpu_torch.data.storage.base import App
+    from predictionio_tpu_torch.templates.recommendation.engine import (
+        DataSourceParams,
+        RecommendationDataSource,
+    )
+    from predictionio_tpu_torch.workflow import load_engine_variant, run_train
+
+    Storage.configure({
+        "PIO_FS_BASEDIR": str(tmp_path),
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "COL",
+        "PIO_STORAGE_SOURCES_COL_TYPE": "columnar",
+        "PIO_STORAGE_SOURCES_COL_PATH": str(tmp_path / "events"),
+    })
+    cfg = torch_als.ALSConfig(rank=16)
+
+    def plan() -> tuple:
+        td = RecommendationDataSource(DataSourceParams(app_name="inc", incremental=False)).read_training(
+            local_context("cpu"))
+        return td, 3 * (torch_als.planned_solves(td.rows, len(td.user_index), cfg)
+                        + torch_als.planned_solves(td.cols, len(td.item_index), cfg))
+
+    def write(seed: int, nnz: int, users: int) -> None:
+        rows, cols, vals = _ratings(num_users=users, num_items=160, nnz=nnz, seed=seed)
+        Storage.get_p_events().write_columns(
+            app_id, event="rate", entity_type="user", entity_codes=rows,
+            entity_vocab=np.asarray([f"u{i}" for i in range(users)]), target_entity_type="item",
+            target_codes=cols, target_vocab=np.asarray([f"i{i}" for i in range(160)]),
+            event_time_us=1_600_000_000_000_000 + seed * 10**9 + np.arange(nnz, dtype=np.int64),
+            props={"rating": vals.astype(np.float64)},
+        )
+
+    try:
+        app_id = Storage.get_meta_data_apps().insert(App(id=0, name="inc"))
+        write(4, 4000, 300)
+        variant = load_engine_variant({
+            "id": "inc", "version": "1",
+            "engineFactory": "predictionio_tpu.templates.recommendation:engine_factory",
+            "datasource": {"params": {"appName": "inc"}},
+            "algorithms": [{"name": "als", "params": {"rank": 16, "numIterations": 3, "lambda": 0.1}}],
+        })
+        launches = []
+        for step in range(2):
+            if step == 1:
+                write(5, 600, 340)
+                Storage.get_l_events().insert_batch([
+                    Event(event="rate", entity_type="user", entity_id=f"new{k}", target_entity_type="item",
+                          target_entity_id=f"i{k}", properties=DataMap({"rating": 4.0}),
+                          event_time=dt.datetime(2022, 1, 1, tzinfo=dt.timezone.utc))
+                    for k in range(5)
+                ], app_id)
+            before = torch_solve.gj_solve_cuda.launches
+            caplog.clear()
+            with caplog.at_level(logging.INFO):
+                inst = run_train(variant, local_context(cuda_device))
+            assert inst.status == "COMPLETED"
+            launches.append((torch_solve.gj_solve_cuda.launches - before, plan()[1]))
+            merged = [r for r in caplog.records if "Incremental re-index: merged" in r.getMessage()]
+            assert bool(merged) == (step == 1)
+        td_full, _ = plan()
+        td_inc = RecommendationDataSource(DataSourceParams(app_name="inc")).read_training(local_context("cpu"))
+    finally:
+        Storage.configure(None)
+    assert all(got == want > 0 for got, want in launches), launches
+    for name in ("rows", "cols", "vals"):
+        np.testing.assert_array_equal(getattr(td_inc, name), getattr(td_full, name))
+    assert td_inc.user_index.to_dict() == td_full.user_index.to_dict()
+    assert "new4" in td_full.user_index
+
+
 def _unit_towers(B: int, D: int, seed: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     rng = np.random.default_rng(seed)
     ue = rng.normal(size=(B, D)).astype(np.float32)

@@ -7,8 +7,9 @@ same duplicate count, and the two apps hold the same events field by
 field (an event without a client ``eventId`` gets a fresh id on each
 side, and each side stamps its own creation time). A second file with an
 invalid third line aborts both imports with the same ``file:line``
-message. The port's console drives the same path, and a directory input
-(the JAX package's columnar export) is refused with a clear error.
+message. The port's console drives the same path, and a directory that
+is not a columnar export is refused with a clear error (an export
+directory is imported: tests/test_torch_data_cli.py).
 """
 
 import json

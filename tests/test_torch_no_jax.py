@@ -2,7 +2,8 @@
 and neither ``chip_smoke.py``, ``gj_solve_split.py`` nor the arrays engine
 they share with the tests (``tests/torch_arrays_engine.py``) imports ``jax`` or anything of the JAX package
 ``predictionio_tpu``, and importing every module of the port leaves
-``jax`` out of ``sys.modules``."""
+``jax`` out of ``sys.modules``. The event data plane (the columnar store,
+the event server, the data verbs) starts without torch as well."""
 
 import ast
 import os
@@ -67,6 +68,49 @@ def test_importing_the_port_loads_no_jax():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'predictionio_tpu'))\n"
         "print(len(sys.modules)); assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    run = subprocess.run(
+        [sys.executable, "-c", probe], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert run.returncode == 0, run.stdout + run.stderr
+
+
+DATA_PLANE = [
+    "predictionio_tpu_torch.api",
+    "predictionio_tpu_torch.api.http",
+    "predictionio_tpu_torch.api.health",
+    "predictionio_tpu_torch.api.lifecycle",
+    "predictionio_tpu_torch.resilience",
+    "predictionio_tpu_torch.data.storage.columnar",
+    "predictionio_tpu_torch.data.storage.compaction",
+    "predictionio_tpu_torch.tools.commands",
+    "predictionio_tpu_torch.tools.console",
+]
+
+
+def test_the_probe_covers_the_data_plane():
+    modules = {".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+               for p in PORT.rglob("*.py")}
+    assert set(DATA_PLANE) <= modules
+
+
+def test_data_plane_loads_neither_jax_nor_torch():
+    # what `pio eventserver` and the data verbs import: a columnar store
+    # opened, an event service built and its console parser made
+    probe = (
+        "import importlib, sys, tempfile\n"
+        f"for m in {DATA_PLANE!r}: importlib.import_module(m)\n"
+        "from predictionio_tpu_torch.api import EventService\n"
+        "from predictionio_tpu_torch.data.storage import Storage\n"
+        "d = tempfile.mkdtemp()\n"
+        "Storage.configure({'PIO_FS_BASEDIR': d, 'PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE': 'C',\n"
+        "                   'PIO_STORAGE_SOURCES_C_TYPE': 'columnar', 'PIO_STORAGE_SOURCES_C_PATH': d})\n"
+        "Storage.get_l_events().init(1)\n"
+        "assert EventService().dispatch('GET', '/', {}).status == 200\n"
+        "sys.modules['predictionio_tpu_torch.tools.console'].build_parser().parse_args(['eventserver'])\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'predictionio_tpu', 'torch'))\n"
+        "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     run = subprocess.run(
