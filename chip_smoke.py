@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's five paths once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -37,6 +37,14 @@ ML-20M shape): 20,000,000 ``rate`` events written into a columnar store,
 new events through ``pio eventserver``'s bulk route, a second ``pio
 train`` that reads only the new segments and tail lines through the
 incremental training cache, ``pio deploy`` and ``pio app compact``.
+
+The serving path, on the workflow's store and its warm instance (138,931
+users x 27,077 items, rank 64): ``pio deploy`` per request against ``pio
+deploy --batching --pin-model --result-cache --coalesce --feedback`` under
+32 keep-alive clients, ``pio train --warm-start``, ``POST /reload`` under
+load and a degraded one, ``pio undeploy``, ``pio batchpredict``, reloads
+of an in-process ``QueryService``; and a ``--batching --pin-model``
+deploy of the Two-Tower quickstart's instance.
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -105,7 +113,29 @@ Phases, in order; any failure exits non-zero and prints no result:
    queries (8 of users only the event server brought) against float64
    numpy; ``pio app compact``, after which the tail is empty and a full
    read is unchanged; one ``[workflow]`` line.
-9. a ``[summary]`` line, the ``{"kernels": [...]}`` line, the card's
+9. serving — on the workflow's store (``phase_serving``): a per-request
+   ``pio deploy`` and a ``--batching --max-batch-size 32
+   --max-batch-delay-ms 2 --pin-model --result-cache --coalesce
+   --feedback`` one (warmed on every bucket; feedback into a ``pio
+   eventserver`` on the same store) under the same 32 x 100 uniform load,
+   then a Zipf(1.2) load: queries/s, p50, p99, the batch histogram,
+   ``bucketMisses`` 0, the cache hit ratio, ``bytesPinned`` equal to the
+   tables' bytes and the share of batched answers bit-equal to the
+   per-request ones; ``pio train --warm-start`` at 3 sweeps (launches =
+   plan, the carried rows from its log, the RMSE not above the
+   predecessor's, ``warm_start_from`` in the lineage); ``POST /reload``
+   under 32 clients (all 200, generation 2, answers after the swap held
+   to the new instance); a third instance without its blob, whose
+   ``/reload`` must answer 503 ``degraded`` while queries go on; one
+   ``predict`` event in the store for each computed answer; ``pio
+   undeploy`` (exit 0 within 10 s); ``pio batchpredict`` of 100,000
+   queries (1,000 lines checked); five reloads of an in-process
+   ``QueryService`` with ``torch.cuda.memory_allocated`` flat within 1 MiB
+   and TF32 off on its serving thread. In the Two-Tower quickstart's
+   store, a ``--batching --pin-model`` deploy under 8 x 50 queries held
+   to float64 numpy without the seen items. Every answer checked is held
+   to float64 numpy under the near-tie rule; ``[serving]`` lines.
+10. a ``[summary]`` line, the ``{"kernels": [...]}`` line, the card's
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Imports only the port, torch, numpy and the standard library.
@@ -114,6 +144,7 @@ Imports only the port, torch, numpy and the standard library.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime as dt
 import json
 import logging
@@ -127,6 +158,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -229,6 +261,29 @@ WF_BULK = {"rerates": 100_000, "new_pairs": 90_000, "new_users": 1_000, "new_ite
 WF_SINGLES = 3
 WF_DELTA_QUERIES = 8
 WF_SERVER_TIMEOUT_S = 120
+#: the serving phase, on the workflow's store and warm instance: the JAX
+#: bench's serving traffic (bench.py:740, :4155-4172: 32 keep-alive
+#: clients x 100 requests, max batch 32, 2 ms delay, Zipf(1.2) users);
+#: a 3-sweep warm start; 100,000 batchpredict queries, 1,000 of them
+#: checked; 5 in-process reloads; the Two-Tower deploy at 8 x 50
+SRV_CLIENTS = 32
+SRV_REQUESTS = 100
+SRV_MAX_BATCH = 32
+SRV_MAX_DELAY_MS = 2
+SRV_ZIPF_A = 1.2
+SRV_WARM_SWEEPS = 3
+SRV_RELOAD_LEAD_S = 1.5
+SRV_BATCHPREDICT = 100_000
+SRV_BATCHPREDICT_SAMPLE = 1_000
+SRV_RELOADS = 5
+SRV_TT_CLIENTS = 8
+SRV_TT_REQUESTS = 50
+#: the app the batched deploy's feedback posts its ``predict`` events to,
+#: in the workflow's store: a fresh stream. In the workflow app's stream
+#: (20M events, client ids over many segments) a single insert with a
+#: client id takes the exact id lookup, about 50 ms an event on the chip
+#: host (PR 8 run 1: 1,704 events in about 90 s)
+SRV_FEEDBACK_APP = "wf-feedback"
 
 #: an evaluation module as a user writes one: an Evaluation of the
 #: engine.json at ``path`` with one metric
@@ -1315,11 +1370,13 @@ def eval_reference(engine_json: Path, td, model, folds: list, k: int, device) ->
 
 
 def phase_tt_quickstart(device, nnz: int, dim: int, batch: int, epochs: int, n_queries: int, k: int,
-                        smi: str) -> dict:
+                        smi: str, then=None) -> dict:
     """The quickstart of the Two-Tower engine: ``app new`` -> ``import`` of
     ``nnz`` planted ``view`` pairs -> ``train`` -> ``deploy`` -> queries ->
     ``eval``, all through the port's console, in a temporary
-    ``PIO_FS_BASEDIR`` whose events live in the columnar store."""
+    ``PIO_FS_BASEDIR`` whose events live in the columnar store.
+    ``then(ctx)``, when given, runs last in the store; its result is the
+    output's ``"serving"``."""
     t_phase = time.perf_counter()
     dev_args = [] if device.type == "cuda" else ["--device", device.type]
     with temporary_store("pio-tt-quickstart-", "columnar") as base:
@@ -1422,6 +1479,9 @@ def phase_tt_quickstart(device, nnz: int, dim: int, batch: int, epochs: int, n_q
             "card": smi,
         }
         log(f"[tt-quickstart] {json.dumps(out)}")
+        if then is not None:
+            out["serving"] = then({"base": base, "engine_json": engine_json, "dev_args": dev_args,
+                                   "model": model})
         return out
 
 
@@ -1480,7 +1540,7 @@ class RecordHandler(logging.Handler):
         self.messages.append(record.getMessage())
 
 
-def phase_workflow(device, nnz: int, bulk: dict, n_queries: int, k: int, smi: str) -> dict:
+def phase_workflow(device, nnz: int, bulk: dict, n_queries: int, k: int, smi: str, then=None) -> dict:
     """``bench.py::_bench_workflow`` through the port's verbs, in a
     temporary columnar store: ``app new``; ``nnz`` ML-20M-shaped ``rate``
     events through ``PEvents.write_columns``; ``pio train`` cold; ``pio
@@ -1491,7 +1551,9 @@ def phase_workflow(device, nnz: int, bulk: dict, n_queries: int, k: int, smi: st
     ``pio deploy`` of the warm instance with queries of stored and of new
     users held to float64 numpy; ``pio app compact``, after which a full
     read is unchanged. Each train's ``gj_solve`` launches must equal the
-    plan of the TrainingData a full read gives."""
+    plan of the TrainingData a full read gives. ``then(ctx)``, when
+    given, runs last in the store (the serving phase); its result is the
+    output's ``"serving"``."""
     from predictionio_tpu_torch.templates.recommendation.engine import (
         DataSourceParams,
         RecommendationDataSource,
@@ -1694,7 +1756,454 @@ def phase_workflow(device, nnz: int, bulk: dict, n_queries: int, k: int, smi: st
             "phase_s": time.perf_counter() - t_phase, "card": smi,
         }
         log(f"[workflow] {json.dumps(out)}")
+        if then is not None:
+            out["serving"] = then({"base": base, "engine_json": engine_json, "dev_args": dev_args,
+                                   "instance": warm["instance"], "full_read": full_read})
         return out
+
+
+# ------------------------------------------------------------- 9. serving
+def load_picks(n: int, num_users: int, seed: int, zipf_a: float | None = None) -> np.ndarray:
+    """``n`` user rows: uniform over the stored users, or Zipf(``zipf_a``)
+    the way ``bench.py::_bench_serving_cache`` draws them."""
+    rng = np.random.default_rng(seed)
+    if zipf_a is None:
+        return rng.integers(0, num_users, n)
+    return (rng.zipf(zipf_a, n) - 1) % num_users
+
+
+def run_load(url: str, picks: np.ndarray, user_index, clients: int, k: int,
+             stop: threading.Event | None = None, seed: int = 0) -> dict:
+    """``clients`` threads, each on one keep-alive connection, POST
+    ``/queries.json`` top-``k`` for its share of ``picks`` (client ``c``
+    takes ``picks[c::clients]``), or, given ``stop``, for random stored
+    users until it is set. Returns every answer as ``(user row, status,
+    payload, start, end)`` and the rate and latencies."""
+    import http.client
+
+    host, port = url.removeprefix("http://").split(":")
+    records: list = []
+    lock = threading.Lock()
+    errors: list = []
+
+    def client(c: int) -> None:
+        conn = http.client.HTTPConnection(host, int(port), timeout=120)
+        rng = np.random.default_rng(seed * 1000 + c)
+        mine = iter(picks[c::clients].tolist()) if stop is None else None
+        out = []
+        try:
+            while True:
+                if stop is None:
+                    uidx = next(mine, None)
+                    if uidx is None:
+                        break
+                elif stop.is_set():
+                    break
+                else:
+                    uidx = int(rng.integers(0, len(user_index)))
+                body = json.dumps({"user": user_index.inverse(uidx), "num": k}).encode()
+                t0 = time.perf_counter()
+                conn.request("POST", "/queries.json", body=body, headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                payload = json.loads(resp.read())
+                out.append((uidx, resp.status, payload, t0, time.perf_counter()))
+        except Exception as e:  # reported below; a failed client fails the phase
+            errors.append(repr(e))
+        finally:
+            conn.close()
+            with lock:
+                records.extend(out)
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True) for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise RuntimeError(f"serving: {len(errors)} clients failed: {errors[:3]}")
+    lat = [(end - start) * 1e3 for _, _, _, start, end in records]
+    p50, p99 = np.percentile(lat, [50, 99]) if lat else (float("nan"), float("nan"))
+    return {"records": records, "wall_s": wall, "queries": len(records), "queries_per_s": len(records) / wall,
+            "p50_ms": float(p50), "p99_ms": float(p99)}
+
+
+def check_answers(label: str, answers: list, U64: np.ndarray, V64: np.ndarray, item_index, k: int,
+                  seen: dict | None = None, user_index=None) -> int:
+    """Every ``(user row, payload)`` answer's top-``k`` against the float64
+    numpy top-``k`` of ``U64``/``V64`` (without the user's ``seen``
+    items) under the near-tie rule (:func:`check_ranking`); raises on any
+    difference. Scores in chunks of 512 users."""
+    bad = []
+    for lo in range(0, len(answers), 512):
+        part = answers[lo:lo + 512]
+        S = U64[[u for u, _ in part]] @ V64.T
+        for (uidx, payload), scores in zip(part, S):
+            got = [item_index[s["item"]] for s in payload["itemScores"]]
+            masked = scores
+            if seen is not None:
+                drop = [item_index[i] for i in seen.get(user_index.inverse(uidx), ())]
+                masked = scores.copy()
+                masked[drop] = -np.inf
+            top = np.argpartition(-masked, k - 1)[:k]
+            ref = top[np.lexsort((top, -masked[top]))]
+            if not check_ranking(got, ref, scores):
+                bad.append((uidx, got, ref.tolist()))
+    if bad:
+        raise RuntimeError(f"{label}: {len(bad)} of {len(answers)} top-{k} lists differ from float64 numpy: {bad[:3]}")
+    return len(answers)
+
+
+def ok_answers(label: str, load: dict) -> list:
+    """The ``(user row, payload)`` of a load's answers, all of which must be 200."""
+    statuses = {}
+    for _, status, _, _, _ in load["records"]:
+        statuses[status] = statuses.get(status, 0) + 1
+    if set(statuses) != {200}:
+        raise RuntimeError(f"{label}: answers other than 200: {statuses}")
+    return [(u, payload) for u, _, payload, _, _ in load["records"]]
+
+
+def load_line(label: str, load: dict, clients: int, card: str) -> None:
+    log(f"[serving] {label}: {load['queries']} queries from {clients} keep-alive clients in "
+        f"{load['wall_s']:.3f} s, {load['queries_per_s']:.1f} queries/s, p50 {load['p50_ms']:.3f} ms, "
+        f"p99 {load['p99_ms']:.3f} ms on {card}")
+
+
+def phase_serving(device, ctx: dict, clients: int, per_client: int, k: int, batchpredict_n: int,
+                  smi: str) -> dict:
+    """The serving tier of ``pio deploy`` on the workflow's store and warm
+    instance (ML-20M shape, rank 64): a per-request deploy against a
+    ``--batching --pin-model --result-cache --coalesce --feedback`` one
+    (feedback into a ``pio eventserver`` on the same store) under the
+    same uniform load, then a Zipf load; ``pio train --warm-start``
+    (``SRV_WARM_SWEEPS`` sweeps, launches held to the plan) and ``POST
+    /reload`` under load; a degraded ``/reload``; ``pio undeploy``; ``pio
+    batchpredict``; five reloads of an in-process ``QueryService`` with
+    the card's allocated memory flat. Every answer checked is held to
+    float64 numpy under the near-tie rule."""
+    from predictionio_tpu_torch.templates.recommendation import engine as rec_engine
+
+    t_phase = time.perf_counter()
+    base, engine_json, dev_args = ctx["base"], ctx["engine_json"], ctx["dev_args"]
+    first = ctx["instance"]
+    model = stored_model(first.id)
+    user_index, item_index = model.user_index, model.item_index
+    U64 = np.asarray(model.user_factors, np.float64)
+    V64 = np.asarray(model.item_factors, np.float64)
+    rank = model.user_factors.shape[1]
+    pinned_bytes = (len(user_index) + len(item_index)) * rank * 4
+    n = clients * per_client
+    uniform = load_picks(n, len(user_index), seed=31)
+    warm_query = json.dumps({"user": user_index.inverse(0), "num": k})
+    out: dict = {"users": len(user_index), "items": len(item_index), "rank": rank, "clients": clients,
+                 "requests_per_client": per_client, "card": smi}
+
+    # 1. the per-request deploy (no tiers)
+    proc, port = start_console_server("serving", base, ["deploy", "--engine-json", str(engine_json), *dev_args],
+                                      base / "deploy-plain.stderr", QS_DEPLOY_TIMEOUT_S)
+    try:
+        plain = run_load(f"http://127.0.0.1:{port}", uniform, user_index, clients, k)
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=60)
+    plain_answers = ok_answers("serving per-request", plain)
+    check_answers("serving per-request", plain_answers, U64, V64, item_index, k)
+    load_line("per-request deploy, uniform users", plain, clients, smi)
+
+    # 2. the batched, cached, pinned deploy with feedback into an event server
+    console_ok("serving", ["app", "new", SRV_FEEDBACK_APP])
+    fb_app = Storage.get_meta_data_apps().get_by_name(SRV_FEEDBACK_APP)
+    (fb_key,) = Storage.get_meta_data_access_keys().get_by_appid(fb_app.id)
+    es_proc = dep_proc = None
+    try:
+        es_proc, es_port = start_console_server("serving", base, ["eventserver"], base / "es-srv.stderr",
+                                                WF_SERVER_TIMEOUT_S)
+        t0 = time.perf_counter()
+        dep_proc, port = start_console_server(
+            "serving", base,
+            ["deploy", "--engine-json", str(engine_json), *dev_args, "--batching",
+             "--max-batch-size", str(SRV_MAX_BATCH), "--max-batch-delay-ms", str(SRV_MAX_DELAY_MS),
+             "--batch-warmup-query", warm_query, "--pin-model", "--result-cache", "--coalesce",
+             "--feedback", "--event-server-ip", "127.0.0.1", "--event-server-port", str(es_port),
+             "--accesskey", fb_key.key],
+            base / "deploy-srv.stderr", QS_DEPLOY_TIMEOUT_S)
+        out["deploy_start_s"] = time.perf_counter() - t0
+        url = f"http://127.0.0.1:{port}"
+        batched = run_load(url, uniform, user_index, clients, k)
+        batched_answers = ok_answers("serving batched", batched)
+        check_answers("serving batched", batched_answers, U64, V64, item_index, k)
+        load_line("batched+cached+pinned deploy, uniform users", batched, clients, smi)
+        plain_by_user = {}
+        for u, payload in plain_answers:
+            plain_by_user.setdefault(u, payload["itemScores"])
+        same = sum(1 for u, payload in batched_answers if payload["itemScores"] == plain_by_user[u])
+        same_order = sum(1 for u, payload in batched_answers if [s["item"] for s in payload["itemScores"]] == [
+            s["item"] for s in plain_by_user[u]])
+        _, stats_uniform = _http_json(url + "/stats.json")
+        zipf = run_load(url, load_picks(n, len(user_index), seed=32, zipf_a=SRV_ZIPF_A), user_index, clients, k)
+        zipf_answers = ok_answers("serving zipf", zipf)
+        check_answers("serving zipf", zipf_answers, U64, V64, item_index, k)
+        load_line(f"batched+cached+pinned deploy, Zipf({SRV_ZIPF_A}) users", zipf, clients, smi)
+        _, stats = _http_json(url + "/stats.json")
+        batcher, cache = stats["batcher"], stats["cache"]
+        if batcher["bucketMisses"] != 0:
+            raise RuntimeError(f"serving: {batcher['bucketMisses']} bucket misses after the warm-up")
+        if cache["bytesPinned"] != pinned_bytes:
+            raise RuntimeError(f"serving: bytesPinned {cache['bytesPinned']}, the tables hold {pinned_bytes}")
+        zipf_hits = cache["hits"] - stats_uniform["cache"]["hits"]
+        zipf_misses = cache["misses"] - stats_uniform["cache"]["misses"]
+        out.update({
+            "per_request": {key: plain[key] for key in ("queries", "wall_s", "queries_per_s", "p50_ms", "p99_ms")},
+            "batched_uniform": {key: batched[key] for key in ("queries", "wall_s", "queries_per_s", "p50_ms",
+                                                               "p99_ms")},
+            "batched_zipf": {key: zipf[key] for key in ("queries", "wall_s", "queries_per_s", "p50_ms", "p99_ms")},
+            "bit_equal_share": same / len(batched_answers),
+            "same_order_share": same_order / len(batched_answers),
+            "batch_size_hist": batcher["batchSizeHist"], "bucket_hist": batcher["bucketHist"],
+            "mean_batch_size": batcher["meanBatchSize"], "bucket_misses": batcher["bucketMisses"],
+            "warmed_buckets": batcher["warmedBuckets"], "batcher_latency_ms": batcher["latencyMs"],
+            "cache_hit_ratio_uniform": stats_uniform["cache"]["hits"] / max(
+                1, stats_uniform["cache"]["hits"] + stats_uniform["cache"]["misses"]),
+            "cache_hit_ratio_zipf": zipf_hits / max(1, zipf_hits + zipf_misses),
+            "coalesced": cache["coalesced"], "bytes_pinned": cache["bytesPinned"],
+            "bytes_pinned_expected": pinned_bytes,
+        })
+        log(f"[serving] batcher: batch sizes {batcher['batchSizeHist']}, buckets {batcher['bucketHist']}, "
+            f"bucketMisses {batcher['bucketMisses']}; cache hit ratio {out['cache_hit_ratio_uniform']:.4f} uniform, "
+            f"{out['cache_hit_ratio_zipf']:.4f} Zipf; bytesPinned {cache['bytesPinned']}; "
+            f"{same} of {len(batched_answers)} batched answers bit-equal to the per-request deploy's, "
+            f"{same_order} with the same items in the same order, on {smi}")
+
+        # 3. pio train --warm-start, then /reload under load
+        warm_json = base / "engine-warm.json"
+        spec = json.loads(engine_json.read_text())
+        spec["algorithms"][0]["params"]["numIterations"] = SRV_WARM_SWEEPS
+        warm_json.write_text(json.dumps(spec))
+        handler = RecordHandler()
+        logger = logging.getLogger(rec_engine.__name__)
+        level = logger.level
+        logger.addHandler(handler)
+        logger.setLevel(logging.INFO)
+        try:
+            reset_launch_counts()
+            warm_s = console_ok("serving warm train", ["train", "--engine-json", str(warm_json), "--warm-start",
+                                                       *dev_args])
+            warm_launches = read_launch_counts()
+        finally:
+            logger.removeHandler(handler)
+            logger.setLevel(level)
+        second = max(Storage.get_meta_data_engine_instances().get_all(), key=lambda i: i.start_time)
+        if second.status != "COMPLETED" or second.env.get("warm_start_from") != first.id:
+            raise RuntimeError(f"serving: the warm train {second.id} is {second.status}, warm_start_from "
+                               f"{second.env.get('warm_start_from')}, not {first.id}")
+        td = ctx["full_read"]()[0]
+        cfg = ALSConfig(rank=rank)
+        plan = SRV_WARM_SWEEPS * (planned_solves(td.rows, len(td.user_index), cfg)
+                                  + planned_solves(td.cols, len(td.item_index), cfg))
+        if device.type == "cuda":
+            check_launches("serving warm train", {"gj_solve": warm_launches["gj_solve"]}, {"gj_solve": plan})
+        carried = next((m for m in handler.messages if m.startswith("Warm start: carried")), "")
+        both_users = len(set(user_index.keys()) & set(td.user_index.keys()))
+        both_items = len(set(item_index.keys()) & set(td.item_index.keys()))
+        want = (f"Warm start: carried {both_users}/{len(td.user_index)} user and "
+                f"{both_items}/{len(td.item_index)} item vectors")
+        if carried != want:
+            raise RuntimeError(f"serving: the warm train logged {carried!r}, expected {want!r}")
+        new_model = stored_model(second.id)
+        U2 = np.asarray(new_model.user_factors, np.float64)
+        V2 = np.asarray(new_model.item_factors, np.float64)
+
+        def rmse(U, V, m) -> float:
+            r = np.asarray([m.user_index[u] for u in td.user_index.keys()])[td.rows]
+            c = np.asarray([m.item_index[i] for i in td.item_index.keys()])[td.cols]
+            return float(np.sqrt(np.mean((np.einsum("nk,nk->n", U[r], V[c]) - td.vals) ** 2)))
+
+        rmse_before, rmse_after = rmse(U64, V64, model), rmse(U2, V2, new_model)
+        if not rmse_after <= rmse_before:
+            raise RuntimeError(f"serving: the warm train's RMSE {rmse_after} exceeds its predecessor's {rmse_before}")
+        log(f"[serving] pio train --warm-start: {SRV_WARM_SWEEPS} sweeps in {warm_s:.3f} s, "
+            f"{warm_launches['gj_solve']} gj_solve launches (plan {plan}), {carried}, train RMSE "
+            f"{rmse_before:.6f} -> {rmse_after:.6f}, warm_start_from {first.id}")
+        stop = threading.Event()
+        box: dict = {}
+        loader = threading.Thread(target=lambda: box.update(
+            run_load(url, np.zeros(0, np.int64), user_index, clients, k, stop=stop, seed=33)), daemon=True)
+        loader.start()
+        time.sleep(SRV_RELOAD_LEAD_S)
+        t_reload = time.perf_counter()
+        status, body = _http_json(url + "/reload", {})
+        t_reloaded = time.perf_counter()
+        time.sleep(SRV_RELOAD_LEAD_S)
+        stop.set()
+        loader.join()
+        if status != 200:
+            raise RuntimeError(f"serving: POST /reload answered {status} {body}")
+        under_load = ok_answers("serving reload under load", box)
+        before = [(u, p) for (u, _, p, _, end) in box["records"] if end < t_reload]
+        after = [(u, p) for (u, _, p, start, _) in box["records"] if start > t_reloaded]
+        check_answers("serving before the reload", before, U64, V64, item_index, k)
+        check_answers("serving after the reload", after, U2, V2, new_model.item_index, k)
+        _, stats = _http_json(url + "/stats.json")
+        if stats["generation"] != 2:
+            raise RuntimeError(f"serving: /stats.json reports generation {stats['generation']} after the reload")
+        out["reload_under_load"] = {"queries": len(under_load), "before": len(before), "after": len(after),
+                                    "non_200": 0, "reload_s": t_reloaded - t_reload,
+                                    "queries_per_s": box["queries_per_s"], "p99_ms": box["p99_ms"],
+                                    "generation": stats["generation"]}
+        log(f"[serving] POST /reload under {clients} clients: {len(under_load)} answers, all 200 "
+            f"({len(before)} before the swap held to generation 1, {len(after)} after it to generation 2), "
+            f"reload {t_reloaded - t_reload:.3f} s, generation {stats['generation']} on {smi}")
+        out.update({"warm_start_s": warm_s, "warm_start_launches": warm_launches["gj_solve"],
+                    "warm_start_planned": plan, "warm_start_carried": carried, "rmse_before": rmse_before,
+                    "rmse_after": rmse_after})
+
+        # 4. degraded: a third instance whose blob is gone
+        models = Storage.get_model_data_models()
+        third = dataclasses.replace(second, id=f"{second.id}-noblob", start_time=dt.datetime.now(dt.timezone.utc))
+        Storage.get_meta_data_engine_instances().insert(third)
+        models.insert(dataclasses.replace(models.get(second.id), id=third.id))
+        models.delete(third.id)
+        req = urllib.request.Request(url + "/reload", data=b"{}", headers={"Content-Type": "application/json"},
+                                     method="POST")
+        try:
+            urllib.request.urlopen(req, timeout=60)
+            raise RuntimeError("serving: /reload to an instance without a blob answered 200")
+        except urllib.error.HTTPError as e:
+            degraded = (e.code, json.loads(e.read()), e.headers.get("Retry-After"))
+        _, root = _http_json(url + "/")
+        if degraded[0] != 503 or degraded[1].get("degraded") is not True or not root["degraded"]:
+            raise RuntimeError(f"serving: the broken reload answered {degraded}, GET / {root}")
+        still = run_load(url, load_picks(4 * clients, len(user_index), seed=34), user_index, clients, k)
+        check_answers("serving degraded", ok_answers("serving degraded", still), U2, V2, new_model.item_index, k)
+        out["degraded"] = {"status": degraded[0], "retry_after": degraded[2], "queries": still["queries"],
+                           "last_reload_error": root["lastReloadError"]}
+        log(f"[serving] degraded: POST /reload answered {degraded[0]} degraded={degraded[1]['degraded']} "
+            f"(Retry-After {degraded[2]}); GET / degraded={root['degraded']}; {still['queries']} queries "
+            f"answered 200 from generation 2")
+
+        # feedback: one predict event for each answered (computed) query
+        deadline = time.perf_counter() + 60
+        while True:
+            _, stats = _http_json(url + "/stats.json")
+            fb = stats["feedback"]
+            if fb["sent"] + fb["failed"] + fb["dropped"] >= stats["queryCount"] or time.perf_counter() > deadline:
+                break
+            time.sleep(0.1)
+        answered_ids = {payload["prId"] for rec in (batched, zipf, box, still) for _, _, payload, _, _ in rec["records"]}
+        cols = Storage.get_p_events().find_columns(fb_app.id, entity_type="pio_pr", event_names=["predict"])
+        stored_ids = set(cols.entity_vocab[cols.entity_code].tolist())
+        if fb["failed"] or fb["dropped"] or fb["sent"] != stats["queryCount"] or len(cols) != stats["queryCount"] or (
+                stored_ids != answered_ids):
+            raise RuntimeError(f"serving: feedback {fb}, queryCount {stats['queryCount']}, {len(cols)} predict "
+                               f"events stored, {len(answered_ids)} answered prIds, "
+                               f"{len(stored_ids ^ answered_ids)} differ")
+        out["feedback"] = {**fb, "query_count": stats["queryCount"], "predict_events": len(cols)}
+        log(f"[serving] feedback: {len(cols)} predict events in the event server's store (app "
+            f"{SRV_FEEDBACK_APP}) = queryCount "
+            f"{stats['queryCount']} (the answers' {len(answered_ids)} prIds; the rest were cache hits)")
+
+        # 5. pio undeploy
+        t0 = time.perf_counter()
+        console_ok("serving undeploy", ["undeploy", "--port", str(port)])
+        rc = dep_proc.wait(timeout=10)
+        out["undeploy_s"] = time.perf_counter() - t0
+        dep_proc = None
+        if rc != 0:
+            raise RuntimeError(f"serving: the deploy exited {rc} after pio undeploy")
+        log(f"[serving] pio undeploy: the deploy exited 0 in {out['undeploy_s']:.3f} s")
+    finally:
+        for p in (dep_proc, es_proc):
+            if p is not None:
+                p.send_signal(signal.SIGTERM)
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait(timeout=30)
+
+    # 6. pio batchpredict of stored users
+    picks = load_picks(batchpredict_n, len(td.user_index), seed=35)
+    query_file = base / "bp-queries.json"
+    write_ndjson(query_file, ({"user": td.user_index.inverse(u), "num": k} for u in picks.tolist()))
+    bp_s = console_ok("serving batchpredict", ["batchpredict", "--engine-json", str(warm_json), "--input",
+                                               str(query_file), "--output", str(base / "bp-out.json"),
+                                               "--engine-instance-id", second.id, *dev_args])
+    with open(base / "bp-out.json") as f:
+        lines = [json.loads(line) for line in f]
+    if len(lines) != batchpredict_n:
+        raise RuntimeError(f"serving: batchpredict wrote {len(lines)} lines for {batchpredict_n} queries")
+    sample = np.random.default_rng(36).choice(batchpredict_n, min(SRV_BATCHPREDICT_SAMPLE, batchpredict_n),
+                                              replace=False)
+    check_answers("serving batchpredict", [(new_model.user_index[lines[j]["query"]["user"]], lines[j]["prediction"])
+                                           for j in sample.tolist()], U2, V2, new_model.item_index, k)
+    out["batchpredict"] = {"queries": batchpredict_n, "wall_s": bp_s, "queries_per_s": batchpredict_n / bp_s,
+                           "sample_checked": int(sample.size)}
+    log(f"[serving] pio batchpredict: {batchpredict_n} queries in {bp_s:.3f} s ({batchpredict_n / bp_s:.1f} "
+        f"queries/s, the load included); {sample.size} sampled lines equal float64 numpy on {smi}")
+
+    # 7. in process: five reloads, the card's allocated memory flat
+    service = QueryService(load_engine_variant(str(warm_json)), local_context(device), instance_id=second.id)
+    try:
+        if device.type == "cuda":
+            tf32 = service.run_on_device(lambda: torch.backends.cuda.matmul.allow_tf32)
+            if tf32:
+                raise RuntimeError("serving: TF32 is on on the serving thread")
+            torch.cuda.synchronize(device)
+        first_mem = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+        for _ in range(SRV_RELOADS):
+            service.reload()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        last_mem = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+        status, payload = service.handle_query({"user": new_model.user_index.inverse(0), "num": k})
+        check_answers("serving in-process", [(0, payload)], U2, V2, new_model.item_index, k)
+    finally:
+        service.close()
+    if service.model_generation != 1 + SRV_RELOADS or abs(last_mem - first_mem) > 1 << 20:
+        raise RuntimeError(f"serving: after {SRV_RELOADS} reloads generation {service.model_generation}, "
+                           f"memory_allocated {first_mem} -> {last_mem}")
+    out["reloads"] = {"count": SRV_RELOADS, "memory_allocated_first": first_mem, "memory_allocated_last": last_mem,
+                      "tf32_on_serving_thread": False if device.type == "cuda" else None}
+    log(f"[serving] in-process QueryService: {SRV_RELOADS} reloads, torch.cuda.memory_allocated {first_mem} "
+        f"after the first load, {last_mem} after the last (flat within 1 MiB); TF32 off on the serving thread "
+        f"on {smi}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[serving] {json.dumps(out)}")
+    return out
+
+
+def phase_tt_serving(device, ctx: dict, clients: int, per_client: int, k: int, smi: str) -> dict:
+    """``pio deploy --batching --pin-model`` of the Two-Tower quickstart's
+    instance: ``clients`` x ``per_client`` queries, each held to the
+    float64 numpy top-``k`` without the user's seen items."""
+    model = ctx["model"]
+    proc, port = start_console_server(
+        "tt-serving", ctx["base"],
+        ["deploy", "--engine-json", str(ctx["engine_json"]), *ctx["dev_args"], "--batching", "--pin-model",
+         "--batch-warmup-query", json.dumps({"user": model.user_index.inverse(0), "num": k})],
+        ctx["base"] / "deploy-tt-srv.stderr", QS_DEPLOY_TIMEOUT_S)
+    try:
+        url = f"http://127.0.0.1:{port}"
+        load = run_load(url, load_picks(clients * per_client, len(model.user_index), seed=37), model.user_index,
+                        clients, k)
+        _, stats = _http_json(url + "/stats.json")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=60)
+    checked = check_answers("tt-serving", ok_answers("tt-serving", load), model.user_vecs.astype(np.float64),
+                            model.item_vecs.astype(np.float64), model.item_index, k, model.seen, model.user_index)
+    pinned = (len(model.user_index) + len(model.item_index)) * model.user_vecs.shape[1] * 4
+    if stats["batcher"]["bucketMisses"] != 0 or stats["cache"]["bytesPinned"] != pinned:
+        raise RuntimeError(f"tt-serving: bucketMisses {stats['batcher']['bucketMisses']}, bytesPinned "
+                           f"{stats['cache']['bytesPinned']} (tables {pinned})")
+    load_line("Two-Tower batched+pinned deploy, uniform users", load, clients, smi)
+    out = {key: load[key] for key in ("queries", "wall_s", "queries_per_s", "p50_ms", "p99_ms")}
+    out.update({"checked": checked, "batch_size_hist": stats["batcher"]["batchSizeHist"],
+                "bytes_pinned": stats["cache"]["bytesPinned"], "card": smi})
+    log(f"[serving] two-tower: {json.dumps(out)}")
+    return out
 
 
 def check_launches(path: str, launches: dict, expected: dict) -> None:
@@ -1743,8 +2252,15 @@ def main() -> int:
 
     # the quickstart paths (their own launch counts inside)
     qs = phase_quickstart(device, QUERIES, TOP_K, info["smi"])
-    ttq = phase_tt_quickstart(device, TTQ_NNZ, TT_DIM, TT_BATCH, TT_EPOCHS, QUERIES, TOP_K, info["smi"])
-    wf = phase_workflow(device, WF_NNZ, WF_BULK, QUERIES, TOP_K, info["smi"])
+    ttq = phase_tt_quickstart(
+        device, TTQ_NNZ, TT_DIM, TT_BATCH, TT_EPOCHS, QUERIES, TOP_K, info["smi"],
+        then=lambda ctx: phase_tt_serving(device, ctx, SRV_TT_CLIENTS, SRV_TT_REQUESTS, TOP_K, info["smi"]))
+    # the serving tier runs on the workflow's store and warm instance (its
+    # own launch counts inside)
+    wf = phase_workflow(
+        device, WF_NNZ, WF_BULK, QUERIES, TOP_K, info["smi"],
+        then=lambda ctx: phase_serving(device, ctx, SRV_CLIENTS, SRV_REQUESTS, TOP_K, SRV_BATCHPREDICT, info["smi"]))
+    srv = wf["serving"]
 
     main_fused = fused_rows[0]  # [8192, 64], the Two-Tower path's shape
     kernels = [
@@ -1785,6 +2301,19 @@ def main() -> int:
             "events", "pairs_warm", "write_events_per_s", "bulk_events_per_s", "duplicates_absorbed",
             "cold_read_s", "cold_train_als_s", "cold_wall_s", "cold_launches", "warm_read_s", "warm_train_als_s",
             "warm_wall_s", "warm_launches", "train_rmse", "deploy_start_s", "p50_ms", "p99_ms", "phase_s")},
+        "srv": {
+            **{key: srv[key] for key in (
+                "per_request", "batched_uniform", "batched_zipf", "bit_equal_share", "same_order_share",
+                "bucket_misses",
+                "cache_hit_ratio_zipf", "bytes_pinned", "warm_start_launches", "rmse_before", "rmse_after",
+                "undeploy_s", "phase_s")},
+            "batchpredict_queries_per_s": srv["batchpredict"]["queries_per_s"],
+            "reload_non_200": srv["reload_under_load"]["non_200"], "degraded_status": srv["degraded"]["status"],
+            "predict_events": srv["feedback"]["predict_events"],
+            "memory_allocated_first_last": [srv["reloads"]["memory_allocated_first"],
+                                            srv["reloads"]["memory_allocated_last"]],
+            "tt": {key: ttq["serving"][key] for key in ("queries_per_s", "p50_ms", "p99_ms")},
+        },
         "wall_s": time.perf_counter() - t_start,
     }
     log(f"[summary] {json.dumps(summary)}")

@@ -215,9 +215,22 @@ class TorchAlgorithm(Algorithm[PD, M, Q, P]):
 
     def warm_up(self, model: M) -> None:
         """Make the calling thread ready to serve ``model``: the query
-        server calls this once on the thread every predict runs on."""
+        server calls this once on the thread every predict runs on. On
+        the card, products run in full f32 (TF32 off), as in training."""
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    def check_host_serving(self) -> None:
+        """A predict branch on host (numpy) tables is taken only on the
+        CPU, where the caller asked for it. On the card, host tables mean
+        the model was not pinned: an error, never a quiet move to the
+        host."""
+        if self.device.type != "cpu":
+            raise RuntimeError(
+                f"{type(self).__name__} on {self.device} was handed host tables: "
+                "pin the model there first (prepare_model_for_serving)"
+            )
 
 
 class LocalAlgorithm(Algorithm[PD, M, Q, P]):

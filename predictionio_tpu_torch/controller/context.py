@@ -37,7 +37,7 @@ class WorkflowContext:
       batch: free-form run label (parity: ``WorkflowParams.batch``).
       verbose: verbosity level (parity: ``WorkflowParams.verbose``).
       warm_model: the previous trained model of THIS algorithm for a warm
-        retrain; ``None`` until ``pio train --warm-start`` is ported.
+        retrain (``pio train --warm-start``), else ``None``.
     """
 
     device: torch.device = dataclasses.field(default_factory=resolve_device)

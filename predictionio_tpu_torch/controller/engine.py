@@ -188,13 +188,15 @@ class Engine:
         stop_after_read: bool = False,
         stop_after_prepare: bool = False,
         timings: dict | None = None,
+        warm_models: Sequence[tuple[str, Any]] | None = None,
     ) -> list[Any]:
         """Run DASE training; returns one model per algorithm
         (parity: ``object Engine.train``; the ``stop_after_*`` flags mirror
         ``WorkflowParams.stopAfterRead/Prepare``). When ``timings`` is a
         dict, per-phase wall-clock seconds are recorded into it
-        (read/prepare/train:<name>). Warm retraining (``ctx.warm_model``)
-        waits with ``pio train --warm-start``."""
+        (read/prepare/train:<name>). ``warm_models`` (``models_from_bytes``
+        of a previous COMPLETED instance) hands each algorithm its
+        predecessor via ``ctx.warm_model`` for warm-started retrains."""
 
         def _timed(label: str, fn):
             t0 = time.perf_counter()
@@ -216,13 +218,31 @@ class Engine:
         self._sanity(pd, sanity_check, "prepared data")
         if stop_after_prepare:
             return []
+        # pair warm models to algorithms by NAME (position as tie-break for
+        # duplicate names): a reordered algorithms list must still seed
+        # every algorithm whose predecessor exists
+        warm_pool = list(warm_models) if warm_models else []
+
+        def take_warm(i: int, name: str):
+            if i < len(warm_pool) and warm_pool[i] is not None and warm_pool[i][0] == name:
+                model = warm_pool[i][1]
+                warm_pool[i] = None
+                return model
+            for j, entry in enumerate(warm_pool):
+                if entry is not None and entry[0] == name:
+                    warm_pool[j] = None
+                    return entry[1]
+            return None
+
         models = []
         for i, (name, algo) in enumerate(algorithms):
             logger.info("Training algorithm '%s' (%s)", name, type(algo).__name__)
             key = f"train:{name}"
             if timings is not None and key in timings:
                 key = f"train:{name}#{i}"  # same algorithm listed twice
-            models.append(_timed(key, lambda a=algo: a.train_base(ctx, pd)))
+            warm = take_warm(i, name)
+            a_ctx = ctx if warm is None else dataclasses.replace(ctx, warm_model=warm)
+            models.append(_timed(key, lambda a=algo, c=a_ctx: a.train_base(c, pd)))
         return models
 
     # ------------------------------------------------------------------ eval

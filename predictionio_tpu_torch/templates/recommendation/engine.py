@@ -14,17 +14,23 @@ Counterpart of ``predictionio_tpu/templates/recommendation/engine.py``
   ``read_eval`` splits the same ratings into k folds by a stable hash of
   (user, item);
 * :class:`ALSAlgorithm` trains with :func:`predictionio_tpu_torch.ops.als.train_als`
-  on the context's device, keeps the factors on that device for serving,
-  and scores ``predict``/``batch_predict`` there;
+  on the context's device (from a previous model's aligned factors under
+  ``pio train --warm-start``). For serving, on the card the factors are
+  pinned there (``pin_model_for_serving``) and ``predict``/
+  ``batch_predict`` score there; on the CPU, which the caller asks for,
+  they stay host numpy and take the JAX package's host branch (numpy
+  GEMV/GEMM and ``top_k_host``);
 * serving is the framework's :class:`FirstServing`
   (:func:`engine_factory`); :class:`PrecisionAtK` scores ``pio eval``.
 
 engine.json params are byte-compatible: ``rank``, ``numIterations``,
 ``lambda``, ``seed``, ``implicitPrefs``, ``alpha``, ``serveOnDevice``,
 ``deviceLatencyBudgetMs``, and the datasource's ``appName``/``evalK``.
+``serveOnDevice`` and ``deviceLatencyBudgetMs`` are recorded, not
+switches: the deploy's device decides where a model serves.
 
-Waiting: the multi-host read, warm start, the host (numpy) predict
-branch and the serving tiers.
+Waiting: the multi-host read and the sharded, int8, IVF, online and AOT
+serving tiers.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ import re
 import uuid
 import zipfile
 import zlib
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -57,14 +63,10 @@ from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.data.event import EventValidationError
 from predictionio_tpu_torch.data.storage import Storage
 from predictionio_tpu_torch.data.store import PEventStore, resolve_app
-from predictionio_tpu_torch.ops.als import (
-    ALSConfig,
-    predict_scores,
-    top_k_items_batch,
-    train_als,
-)
-from predictionio_tpu_torch.ops.topk import top_k_scores
+from predictionio_tpu_torch.ops.als import ALSConfig, predict_scores, train_als
+from predictionio_tpu_torch.ops.topk import top_k_host, top_k_scores
 from predictionio_tpu_torch.templates.columnar_util import event_name_mask
+from predictionio_tpu_torch.templates.serving_util import TOPK_CHUNK, aligned_factor_init, chunked_topk
 from predictionio_tpu_torch.templates.results import ItemScore, PredictedResult
 
 __all__ = [
@@ -497,10 +499,12 @@ class ALSAlgorithmParams(Params):
     seed: int | None = 3
     implicit_prefs: bool = False
     alpha: float = 1.0
-    #: the JAX package's choice between host numpy and device serving;
-    #: the port serves from the context's device either way (its host
-    #: predict branch waits), and keeps the keys so an engine.json or an
-    #: engine instance of the JAX package binds unchanged
+    #: the JAX package's choice between host numpy and device serving,
+    #: and its latency budget for falling back to the host. Recorded, not
+    #: switches: the port serves where the deploy's device says (pinned
+    #: on the card, host numpy on the CPU) and never moves to the host
+    #: on its own; the keys stay so the JAX package's engine.json and
+    #: engine instances bind unchanged
     serve_on_device: bool = False
     device_latency_budget_ms: float = 10.0
     json_aliases = {
@@ -515,7 +519,8 @@ class ALSAlgorithmParams(Params):
 @dataclasses.dataclass
 class ALSModel:
     """Factor matrices + id maps: host numpy after ``train`` and in blobs,
-    device tensors after ``prepare_model_for_serving``."""
+    tensors on the algorithm's device once pinned
+    (``pin_model_for_serving``)."""
 
     user_factors: Any  # [U, K]
     item_factors: Any  # [I, K]
@@ -527,8 +532,10 @@ class ALSAlgorithm(TorchAlgorithm):
     params_class = ALSAlgorithmParams
     query_class = Query
 
-    #: queries per scoring product in batch_predict
-    BATCH_PREDICT_CHUNK = 2048
+    #: queries per scoring product in batch_predict (shared with the
+    #: JAX package: serving_util.TOPK_CHUNK; a class attribute so tests can
+    #: shrink it to force several chunks)
+    BATCH_PREDICT_CHUNK = TOPK_CHUNK
 
     def __init__(self, params: ALSAlgorithmParams, device: str | torch.device | None = None):
         super().__init__(params, device)
@@ -537,8 +544,26 @@ class ALSAlgorithm(TorchAlgorithm):
 
     def train(self, ctx: WorkflowContext, pd: TrainingData) -> ALSModel:
         """ALS on :attr:`device` (the engine builds the algorithm on
-        ``ctx.device``); the model comes back as host numpy."""
+        ``ctx.device``); the model comes back as host numpy. With a
+        previous model in ``ctx.warm_model`` (``pio train --warm-start``)
+        the users and items present in both id spaces start from their
+        previous rows (:func:`aligned_factor_init`), the others from the
+        cold draw of the JAX package's warm start."""
         p = self.params
+        seed = 0 if p.seed is None else p.seed
+        init_user = init_item = None
+        warm = ctx.warm_model
+        if isinstance(warm, ALSModel):
+            init_user, n_u = aligned_factor_init(
+                warm.user_factors, warm.user_index, pd.user_index, p.rank, seed
+            )
+            init_item, n_i = aligned_factor_init(
+                warm.item_factors, warm.item_index, pd.item_index, p.rank, seed + 1
+            )
+            logging.getLogger(__name__).info(
+                "Warm start: carried %d/%d user and %d/%d item vectors",
+                n_u, len(pd.user_index), n_i, len(pd.item_index),
+            )
         factors = train_als(
             pd.rows,
             pd.cols,
@@ -551,8 +576,10 @@ class ALSAlgorithm(TorchAlgorithm):
                 reg=p.lambda_,
                 implicit=p.implicit_prefs,
                 alpha=p.alpha,
-                seed=0 if p.seed is None else p.seed,
+                seed=seed,
             ),
+            init_user=init_user,
+            init_item=init_item,
             device=self.device,
             on_sweep=self.on_sweep,
         )
@@ -564,16 +591,46 @@ class ALSAlgorithm(TorchAlgorithm):
         )
 
     def prepare_model_for_serving(self, model: ALSModel) -> ALSModel:
-        """Move the factor tables to the device once, then warm the
+        """On the card, pin the factor tables there; on the CPU, keep them
+        host numpy (the JAX package's host serving). Then warm the
         scoring path with one query."""
-        model.user_factors = torch.as_tensor(
-            np.asarray(model.user_factors, np.float32), device=self.device
-        ).contiguous()
-        model.item_factors = torch.as_tensor(
-            np.asarray(model.item_factors, np.float32), device=self.device
-        ).contiguous()
+        if self.device.type == "cuda":
+            model, _ = self.pin_model_for_serving(model)
+        else:
+            model.user_factors = np.ascontiguousarray(model.user_factors)
+            model.item_factors = np.ascontiguousarray(model.item_factors)
         self.warm_up(model)
         return model
+
+    # ------------------------------------------------------ pinned serving
+    def pin_model_for_serving(self, model: ALSModel) -> tuple[ALSModel, int]:
+        """The ``--pin-model`` tier (workflow/device_state.py): the factor
+        tables become tensors on :attr:`device` once per model generation,
+        and predict/batch_predict score there. Returns the model and the
+        bytes it now holds there (``bytesPinned`` on /stats.json).
+        Idempotent. The host arrays are kept on the model, so
+        :meth:`release_pinned_model` drops the device tables without a
+        copy back."""
+        if isinstance(model.item_factors, np.ndarray):
+            model._pio_host = (model.user_factors, model.item_factors)
+            model.user_factors, model.item_factors = (
+                torch.as_tensor(np.asarray(t, np.float32), device=self.device).contiguous()
+                for t in model._pio_host
+            )
+        model._pio_pinned = True
+        nbytes = sum(t.numel() * t.element_size() for t in (model.user_factors, model.item_factors))
+        model._pio_bytes_by_dtype = {"float32": nbytes}
+        return model, nbytes
+
+    def release_pinned_model(self, model: ALSModel) -> None:
+        """Drop a superseded generation's pinned tables: the model gets its
+        host arrays back and the device tensors lose their last
+        reference, so their memory is freed at once."""
+        host = getattr(model, "_pio_host", None)
+        if host is not None:
+            model.user_factors, model.item_factors = host
+            model._pio_host = None
+        model._pio_pinned = False
 
     def warm_up(self, model: ALSModel) -> None:
         """Make the calling thread ready to serve: the device current, and
@@ -590,19 +647,27 @@ class ALSAlgorithm(TorchAlgorithm):
         k = min(int(query.num), len(model.item_index))
         if k <= 0:
             return PredictedResult(())
-        scores = predict_scores(model.user_factors[uidx], model.item_factors)
-        idx, vals = top_k_scores(scores, k)
+        if isinstance(model.item_factors, np.ndarray):
+            # host branch (the CPU, asked for): one GEMV + partial sort,
+            # the JAX package's code (shared tie rule: ops/topk.py)
+            self.check_host_serving()
+            scores = model.item_factors @ np.asarray(model.user_factors[uidx])
+            top, vals = top_k_host(scores, k)
+            pairs = zip(top.tolist(), vals.tolist())
+        else:
+            # pinned branch: the k-independent GEMV, then the stable sort
+            scores = predict_scores(model.user_factors[uidx], model.item_factors)
+            idx, vals = top_k_scores(scores, k)
+            pairs = zip(idx.tolist(), vals.tolist())
         inverse = model.item_index.inverse
-        return PredictedResult(tuple(
-            ItemScore(item=inverse(i), score=s)
-            for i, s in zip(idx.tolist(), vals.tolist())
-        ))
+        return PredictedResult(tuple(ItemScore(item=inverse(i), score=s) for i, s in pairs))
 
     def batch_predict(
         self, model: ALSModel, queries: Sequence[tuple[int, Query]]
     ) -> list[tuple[int, PredictedResult]]:
         """Score chunks of queries with one ``[B,K]@[K,I]`` product and one
-        top-k each (:func:`top_k_items_batch`)."""
+        top-k each (:func:`chunked_topk`: on the pinned tables' device
+        with one crossing to the host, or numpy on the CPU)."""
         n_items = len(model.item_index)
         results: list[tuple[int, PredictedResult]] = []
         valid: list[tuple[int, int, int]] = []  # (orig idx, uidx, k)
@@ -614,20 +679,63 @@ class ALSAlgorithm(TorchAlgorithm):
             else:
                 valid.append((idx, uidx, k))
         inverse = model.item_index.inverse
-        step = self.BATCH_PREDICT_CHUNK
-        for lo in range(0, len(valid), step):
-            part = valid[lo : lo + step]
-            user_idx = torch.as_tensor([u for _, u, _ in part], device=self.device)
-            kmax = max(k for _, _, k in part)
-            ids, scores = top_k_items_batch(
-                user_idx, model.user_factors, model.item_factors, kmax
-            )
-            for (oi, _, k), row_ids, row_scores in zip(part, ids.tolist(), scores.tolist()):
+        for part, idx_l, score_l in self._topk_staged(model, valid):
+            for (oi, _, k), ids, scs in zip(part, idx_l, score_l):
                 results.append((oi, PredictedResult(tuple(
-                    ItemScore(item=inverse(i), score=s)
-                    for i, s in zip(row_ids[:k], row_scores[:k])
+                    ItemScore(item=inverse(i), score=s) for i, s in zip(ids[:k], scs[:k])
                 ))))
         return results
+
+    def _topk_staged(self, model: ALSModel, valid: list):
+        """Chunked top-k over ``valid = [(slot, uidx, k), ...]``
+        (:func:`chunked_topk`)."""
+        if isinstance(model.item_factors, np.ndarray):
+            self.check_host_serving()
+        return chunked_topk(
+            model.user_factors, model.item_factors, valid, chunk=self.BATCH_PREDICT_CHUNK
+        )
+
+    def batch_predict_json(self, model: ALSModel, bodies: Sequence[Any]) -> list[str | None]:
+        """Bulk scoring straight to JSON payload strings (the ``pio
+        batchpredict`` fast path — ``QueryService.handle_batch_jsonlines``;
+        the JAX package's code). Only bodies that bind trivially
+        (``{"user": str, "num"?: int}``) are answered; anything else is
+        ``None`` in its slot, for the caller's exact slow path. Each
+        string is ``PredictedResult.to_json`` serialized: same scores,
+        same order."""
+        n_items = len(model.item_index)
+        get_u = model.user_index.get
+        out: list[str | None] = [None] * len(bodies)
+        valid: list[tuple[int, int, int]] = []
+        for j, b in enumerate(bodies):
+            if not isinstance(b, Mapping) or set(b) - {"user", "num"}:
+                continue  # the slow path replicates the exact bind/error behavior
+            user = b.get("user")
+            num = b.get("num", 4)
+            if not isinstance(user, str) or type(num) is not int:
+                continue
+            uidx = get_u(user)
+            k = min(num, n_items)
+            if uidx is None or k <= 0:
+                out[j] = '{"itemScores": []}'
+            else:
+                valid.append((j, uidx, k))
+        if not valid:
+            return out
+        # per-item prefix strings, built once per model by index order
+        pre = getattr(model, "_item_json_prefix", None)
+        if pre is None:
+            inverse = model.item_index.inverse
+            pre = ['{"item": %s, "score": ' % json.dumps(inverse(i)) for i in range(n_items)]
+            model._item_json_prefix = pre
+        for part, idx_l, score_l in self._topk_staged(model, valid):
+            for (j, _, k), ids, scs in zip(part, idx_l, score_l):
+                out[j] = (
+                    '{"itemScores": ['
+                    + ", ".join(pre[i] + repr(s) + "}" for i, s in zip(ids[:k], scs[:k]))
+                    + "]}"
+                )
+        return out
 
 
 class PrecisionAtK(OptionAverageMetric):

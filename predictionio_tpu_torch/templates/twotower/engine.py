@@ -11,8 +11,10 @@ DASE spine (:func:`engine_factory`):
   pairs into k folds by a stable hash of (user, item);
 * :class:`TwoTowerAlgorithm` trains the towers with
   :func:`predictionio_tpu_torch.ops.twotower.train_two_tower` on the
-  context's device (the fused softmax-CE kernels on the card),
-  ``prepare_model_for_serving`` moves them to that device, and
+  context's device (the fused softmax-CE kernels on the card; from a
+  previous model's aligned towers under ``pio train --warm-start``).
+  ``prepare_model_for_serving`` pins the towers on the card, or keeps
+  them host numpy on the CPU (the JAX package's host branch), and
   ``predict``/``batch_predict`` rank the catalog there by cosine score
   with the seen-item filter;
 * serving is the framework's :class:`FirstServing`; :class:`RecallAtK`
@@ -27,13 +29,14 @@ engine.json is the JAX package's, byte for byte::
                      "params": {"embeddingDim": 64, "batchSize": 512,
                                 "epochs": 5, "learningRate": 0.05}}]}
 
-Waiting: the multi-host read, warm start, the host (numpy) predict branch
-and the serving tiers.
+Waiting: the multi-host read and the sharded, int8, IVF, online and AOT
+serving tiers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import zlib
 from typing import Any, Sequence
 
@@ -53,11 +56,12 @@ from predictionio_tpu_torch.controller import (
 )
 from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.data.store import PEventStore
-from predictionio_tpu_torch.ops.als import predict_scores, top_k_items_batch
-from predictionio_tpu_torch.ops.topk import bucket_k, top_k_scores
+from predictionio_tpu_torch.ops.als import predict_scores
+from predictionio_tpu_torch.ops.topk import bucket_k, top_k_host, top_k_scores
 from predictionio_tpu_torch.ops.twotower import TwoTowerConfig, train_two_tower
 from predictionio_tpu_torch.templates.columnar_util import aggregate_pairs, densify_pairs
 from predictionio_tpu_torch.templates.results import ItemScore, PredictedResult
+from predictionio_tpu_torch.templates.serving_util import aligned_factor_init, chunked_topk
 
 __all__ = [
     "DataSourceParams",
@@ -198,8 +202,8 @@ class TwoTowerParams(Params):
     learning_rate: float = 0.05
     temperature: float = 0.1
     seed: int = 0
-    #: accepted for engine.json compatibility; the port always serves from
-    #: the device it trained on
+    #: recorded, not switches (see the ALS template's params): the
+    #: deploy's device decides where the towers serve
     serve_on_device: bool = False
     device_latency_budget_ms: float = 10.0
     #: "bfloat16" (the fused kernels' type) or "float32"
@@ -220,8 +224,8 @@ class TwoTowerParams(Params):
 @dataclasses.dataclass
 class TwoTowerServingModel:
     """L2-normalised towers + id maps + seen filter: host numpy after
-    ``train`` and in blobs, device tensors after
-    ``prepare_model_for_serving``. The JAX package's class has these
+    ``train`` and in blobs, tensors on the algorithm's device once pinned
+    (``pin_model_for_serving``). The JAX package's class has these
     fields, so a blob of either package reads as the other's class
     (:mod:`predictionio_tpu_torch.utils.serialization`)."""
 
@@ -237,9 +241,6 @@ class TwoTowerAlgorithm(TorchAlgorithm):
     params_class = TwoTowerParams
     query_class = Query
 
-    #: queries per scoring product in batch_predict
-    BATCH_PREDICT_CHUNK = 2048
-
     def __init__(self, params: TwoTowerParams, device: str | torch.device | None = None):
         super().__init__(params, device)
         #: the last ``train``'s seconds of upload, epoch loop and readback
@@ -248,8 +249,29 @@ class TwoTowerAlgorithm(TorchAlgorithm):
 
     def train(self, ctx: WorkflowContext, pd: TrainingData) -> TwoTowerServingModel:
         """The towers on :attr:`device` (the engine builds the algorithm on
-        ``ctx.device``); the model comes back as host numpy."""
+        ``ctx.device``); the model comes back as host numpy. With a
+        previous model in ``ctx.warm_model`` (``pio train --warm-start``)
+        users and items present in both catalogs keep their embeddings
+        and new ones draw the towers' own signed-normal cold init
+        (:func:`aligned_factor_init`), as in the JAX package."""
         p = self.params
+        init_user = init_item = None
+        warm = ctx.warm_model
+        if isinstance(warm, TwoTowerServingModel):
+
+            def fresh(rng, shape):
+                return rng.standard_normal(shape) / np.sqrt(shape[1])
+
+            init_user, n_u = aligned_factor_init(
+                warm.user_vecs, warm.user_index, pd.user_index, p.embedding_dim, p.seed, fresh=fresh
+            )
+            init_item, n_i = aligned_factor_init(
+                warm.item_vecs, warm.item_index, pd.item_index, p.embedding_dim, p.seed + 1, fresh=fresh
+            )
+            logging.getLogger(__name__).info(
+                "Warm start: carried %d/%d user and %d/%d item embeddings",
+                n_u, len(pd.user_index), n_i, len(pd.item_index),
+            )
         model = train_two_tower(
             pd.rows,
             pd.cols,
@@ -265,6 +287,8 @@ class TwoTowerAlgorithm(TorchAlgorithm):
                 gemm_dtype=p.gemm_dtype,
                 fused_ce=p.fused_ce,
             ),
+            init_user=init_user,
+            init_item=init_item,
             device=self.device,
         )
         self.train_timings = dict(model.timings)
@@ -278,13 +302,40 @@ class TwoTowerAlgorithm(TorchAlgorithm):
         )
 
     def prepare_model_for_serving(self, model: TwoTowerServingModel) -> TwoTowerServingModel:
-        """Move the towers to the device once, then warm the scoring path
-        with one query."""
-        for name in ("user_vecs", "item_vecs"):
-            host = np.asarray(getattr(model, name), np.float32)
-            setattr(model, name, torch.as_tensor(host, device=self.device).contiguous())
+        """On the card, pin the towers there; on the CPU, keep them host
+        numpy (the JAX package's host serving). Then warm the scoring
+        path with one query."""
+        if self.device.type == "cuda":
+            model, _ = self.pin_model_for_serving(model)
+        else:
+            model.user_vecs = np.ascontiguousarray(model.user_vecs)
+            model.item_vecs = np.ascontiguousarray(model.item_vecs)
         self.warm_up(model)
         return model
+
+    def pin_model_for_serving(self, model: TwoTowerServingModel) -> tuple[TwoTowerServingModel, int]:
+        """The ``--pin-model`` tier: the ALS template's contract for the
+        tower tables (tensors on :attr:`device` once per generation, the
+        host arrays kept for :meth:`release_pinned_model`)."""
+        if isinstance(model.item_vecs, np.ndarray):
+            model._pio_host = (model.user_vecs, model.item_vecs)
+            model.user_vecs, model.item_vecs = (
+                torch.as_tensor(np.asarray(t, np.float32), device=self.device).contiguous()
+                for t in model._pio_host
+            )
+        model._pio_pinned = True
+        nbytes = sum(t.numel() * t.element_size() for t in (model.user_vecs, model.item_vecs))
+        model._pio_bytes_by_dtype = {"float32": nbytes}
+        return model, nbytes
+
+    def release_pinned_model(self, model: TwoTowerServingModel) -> None:
+        """Drop a superseded generation's pinned towers (the host arrays
+        come back; the device tensors lose their last reference)."""
+        host = getattr(model, "_pio_host", None)
+        if host is not None:
+            model.user_vecs, model.item_vecs = host
+            model._pio_host = None
+        model._pio_pinned = False
 
     def warm_up(self, model: TwoTowerServingModel) -> None:
         """Make the calling thread ready to serve: the device current, and
@@ -318,19 +369,26 @@ class TwoTowerAlgorithm(TorchAlgorithm):
         k = min(num + len(seen), n_items)
         if k <= 0:
             return PredictedResult(())
-        scores = predict_scores(model.user_vecs[uidx], model.item_vecs)
-        idx, vals = top_k_scores(scores, bucket_k(k, n_items))
+        if isinstance(model.item_vecs, np.ndarray):
+            # host branch (the CPU, asked for): the JAX package's code
+            self.check_host_serving()
+            scores = model.item_vecs @ np.asarray(model.user_vecs[uidx])
+            idx, vals = top_k_host(scores, k)
+        else:
+            scores = predict_scores(model.user_vecs[uidx], model.item_vecs)
+            idx, vals = top_k_scores(scores, bucket_k(k, n_items))
         return self._unseen(model, idx[:k].tolist(), vals[:k].tolist(), seen, num)
 
     def batch_predict(
         self, model: TwoTowerServingModel, queries: Sequence[tuple[int, Query]]
     ) -> list[tuple[int, PredictedResult]]:
-        """Score chunks of queries with one ``[B,D]@[D,I]`` product and one
-        top-k each (:func:`top_k_items_batch`); the seen filter as in
+        """Chunks of queries through :func:`chunked_topk` (one
+        ``[B,D]@[D,I]`` product and one top-k each); the seen filter as in
         :meth:`predict`."""
         n_items = len(model.item_index)
         results: list[tuple[int, PredictedResult]] = []
-        valid: list[tuple[int, int, int, int, Any]] = []  # (orig idx, uidx, k, num, seen)
+        valid: list[tuple[int, int, int]] = []
+        seen_num: dict[int, tuple[Any, int]] = {}
         for idx, q in queries:
             uidx = model.user_index.get(q.user)
             num = int(q.num)
@@ -339,15 +397,14 @@ class TwoTowerAlgorithm(TorchAlgorithm):
             if uidx is None or num <= 0 or k <= 0:
                 results.append((idx, PredictedResult(())))
             else:
-                valid.append((idx, uidx, k, num, seen))
-        step = self.BATCH_PREDICT_CHUNK
-        for lo in range(0, len(valid), step):
-            part = valid[lo : lo + step]
-            user_idx = torch.as_tensor([v[1] for v in part], device=self.device)
-            kmax = bucket_k(max(v[2] for v in part), n_items)
-            ids, scores = top_k_items_batch(user_idx, model.user_vecs, model.item_vecs, kmax)
-            for (oi, _, k, num, seen), row_ids, row_scores in zip(part, ids.tolist(), scores.tolist()):
-                results.append((oi, self._unseen(model, row_ids[:k], row_scores[:k], seen, num)))
+                seen_num[idx] = (seen, num)
+                valid.append((idx, uidx, k))
+        if isinstance(model.item_vecs, np.ndarray) and valid:
+            self.check_host_serving()
+        for part, idx_l, score_l in chunked_topk(model.user_vecs, model.item_vecs, valid):
+            for (oi, _, k), ids, scs in zip(part, idx_l, score_l):
+                seen, num = seen_num[oi]
+                results.append((oi, self._unseen(model, ids[:k], scs[:k], seen, num)))
         return results
 
 

@@ -2,9 +2,10 @@
 
 Counterpart of ``predictionio_tpu/tools/commands.py``, for the commands
 the port's console has so far: the ``app`` and ``accesskey`` verbs,
-``import``, ``export`` and ``status``. Parity: ``tools/console/App.scala``,
-``AccessKey.scala``, ``Export.scala``, ``Import.scala`` and the status
-checks of ``Console.scala``. Each function returns data (and prints human
+``import``, ``export``, ``undeploy`` (with the deploy's stop token) and
+``status``. Parity: ``tools/console/App.scala``, ``AccessKey.scala``,
+``Export.scala``, ``Import.scala`` and the undeploy and status checks of
+``Console.scala``. Each function returns data (and prints human
 output via the ``out`` callback) so tests can drive them without
 capturing stdout. Only ``status_check`` imports torch, so the data verbs
 and the event server start without it.
@@ -36,6 +37,9 @@ __all__ = [
     "accesskey_delete",
     "import_events",
     "export_events",
+    "write_stop_token",
+    "read_stop_token",
+    "undeploy",
     "status_check",
 ]
 
@@ -386,6 +390,95 @@ def export_events(
             n += 1
     out(f"Exported {n} events to {output_path}.")
     return n
+
+
+# --------------------------------------------------------------- undeploy
+def _stop_token_path(port: int) -> str:
+    return os.path.join(Storage.base_dir(), "deployments", f"{port}.token")
+
+
+def write_stop_token(port: int) -> str:
+    """Generate the per-deployment stop token and persist it (0600) where
+    ``pio undeploy`` on the same host finds it. Gates ``GET /stop`` so a
+    reachable port is not a remote shutdown primitive."""
+    import secrets
+
+    token = secrets.token_urlsafe(16)
+    path = _stop_token_path(port)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o600)
+    with os.fdopen(fd, "w") as f:
+        f.write(token)
+    return token
+
+
+def read_stop_token(port: int) -> str | None:
+    try:
+        with open(_stop_token_path(port)) as f:
+            return f.read().strip() or None
+    except FileNotFoundError:
+        return None
+
+
+def undeploy(
+    ip: str = "127.0.0.1",
+    port: int = 8000,
+    https: bool = False,
+    insecure: bool = False,
+    token: str | None = None,
+    out: Out = _print,
+) -> None:
+    """``pio undeploy`` — ask a deployed query server to shut down via its
+    ``GET /stop`` route (parity: Console's undeploy hitting CreateServer's
+    stop endpoint). ``insecure`` skips TLS verification (self-signed
+    deployments). ``token`` defaults to the basedir token file written by
+    ``pio deploy`` for this port."""
+    import ssl as _ssl
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+
+    if token is None and (ip.startswith("127.") or ip in ("localhost", "::1")):
+        # the basedir token file is only meaningful for THIS host's
+        # deployments — falling back for a remote ip would transmit the
+        # local deployment's secret to an unrelated server
+        token = read_stop_token(port)
+    scheme = "https" if https else "http"
+    url = f"{scheme}://{ip}:{port}/stop"
+    # token travels in a header — query strings are routinely recorded by
+    # access logs and intermediary proxies. It is ALSO still
+    # sent as ?token= for one transition: servers deployed by an older
+    # version read only the query param, and undeploy must be able to
+    # stop them.
+    if token:
+        url += "?token=" + urllib.parse.quote(token, safe="")
+    req = urllib.request.Request(url)
+    if token:
+        req.add_header("X-PIO-Stop-Token", token)
+    ctx = None
+    if https:
+        ctx = _ssl.create_default_context()
+        if insecure:
+            ctx.check_hostname = False
+            ctx.verify_mode = _ssl.CERT_NONE
+    try:
+        with urllib.request.urlopen(req, timeout=10, context=ctx) as resp:
+            resp.read()
+    except urllib.error.HTTPError as e:
+        # the server is UP but refused — report its actual answer, not a
+        # bogus "unreachable" (501 = deployment without a stop hook)
+        hint = (
+            " (remote deployments require --token)" if e.code == 403 else ""
+        )
+        raise RuntimeError(
+            f"Deployment at {ip}:{port} refused to stop: "
+            f"HTTP {e.code} {e.reason}{hint}"
+        ) from e
+    except urllib.error.URLError as e:
+        raise RuntimeError(
+            f"Could not reach a deployment at {url}: {e.reason}"
+        ) from e
+    out(f"Undeployed engine server at {ip}:{port}.")
 
 
 # ----------------------------------------------------------------- status

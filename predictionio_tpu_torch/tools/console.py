@@ -16,18 +16,33 @@ Counterpart of ``predictionio_tpu/tools/console.py`` (parity:
                [--compact-dead-tombstones N] [--compact-min-interval-s S]
                [--cert PEM --key PEM] [--drain-deadline-s S]
     pio train  --engine-json FILE [--batch B] [--skip-sanity-check]
-               [--stop-after-read] [--stop-after-prepare] [--device D]
+               [--stop-after-read] [--stop-after-prepare] [--warm-start]
+               [--device D]
     pio deploy --engine-json FILE [--ip IP] [--port N]
+               [--engine-instance-id ID] [--device D]
+               [--batching ...] [--result-cache ...] [--coalesce]
+               [--pin-model] [--feedback ...] [--retry-* --breaker-*]
+               [--cert PEM --key PEM] [--drain-deadline-s S]
+    pio undeploy [--ip IP] [--port N] [--https] [--insecure] [--token T]
+    pio batchpredict --engine-json FILE --input FILE --output FILE
                [--engine-instance-id ID] [--device D]
     pio eval   EVALUATION [PARAMS_GENERATOR] [--batch B]
                [--output-path FILE] [--device D]
 
-Where the JAX console takes ``--mesh``, ``train``, ``deploy`` and
-``eval`` take ``--device``: ``cuda`` (the default, the card; it fails
-where there is none) or ``cpu``. ``deploy --port 0`` and ``eventserver
---port 0`` bind a free port and print ``Bound port N``; SIGTERM or SIGINT
-stops the deploy, and the event server drains first when given
-``--drain-deadline-s``. The data verbs and ``eventserver`` import no
+Where the JAX console takes ``--mesh``, ``train``, ``deploy``,
+``batchpredict`` and ``eval`` take ``--device``: ``cuda`` (the default,
+the card; it fails where there is none) or ``cpu``. ``deploy --port 0``
+and ``eventserver --port 0`` bind a free port and print ``Bound port
+N``; SIGTERM or SIGINT stops either (after a drain when given
+``--drain-deadline-s``), and so does ``pio undeploy`` for a deploy, with
+the stop token the deploy wrote under the base directory. ``deploy``
+takes the JAX console's flags: those of the serving tiers the port has
+(micro-batching, result cache, singleflight, pinned tables, feedback,
+storage resilience, TLS, drain) and, parsed and then refused with a
+``ValueError`` naming their ROADMAP item, those of the tiers it does not
+(``--ann*``, ``--quantize``, ``--online*``, ``--explore*``,
+``--variants``, ``--shard-factors``, ``--aot``,
+``--compilation-cache-dir``, the fleet's). The data verbs and ``eventserver`` import no
 torch. ``eval`` takes
 import paths (``module:attr``) of an ``Evaluation`` and, optionally, an
 ``EngineParamsGenerator`` (else the evaluation's own
@@ -35,8 +50,7 @@ import paths (``module:attr``) of an ``Evaluation`` and, optionally, an
 JSON to ``--output-path``. Run as ``python -m
 predictionio_tpu_torch.tools.console``.
 
-Waiting: ``export --sharded``, ``undeploy``, ``eval --grid`` and ``eval
---promote-to``, ``train --warm-start`` and the deploy's serving options.
+Waiting: ``export --sharded``, ``eval --grid`` and ``eval --promote-to``.
 """
 
 from __future__ import annotations
@@ -51,6 +65,151 @@ from predictionio_tpu_torch import __version__
 from predictionio_tpu_torch.tools import commands
 
 __all__ = ["main", "build_parser"]
+
+
+#: deploy flags of serving tiers the port does not have yet: they parse
+#: (so a JAX package's deploy command line reads) and are then refused,
+#: naming what each waits for (ROADMAP queue 1)
+_WAITING_DEPLOY_FLAGS = {
+    "ann": "queue 1 item 7, IVF retrieval",
+    "ann_nlist": "queue 1 item 7, IVF retrieval",
+    "ann_nprobe": "queue 1 item 7, IVF retrieval",
+    "ann_seed": "queue 1 item 7, IVF retrieval",
+    "ann_kmeans_iters": "queue 1 item 7, IVF retrieval",
+    "quantize": "queue 1 item 8, int8 serving",
+    "online": "queue 1 item 9, online fold-in",
+    "online_interval_s": "queue 1 item 9, online fold-in",
+    "online_batch": "queue 1 item 9, online fold-in",
+    "online_algos": "queue 1 item 9, online fold-in",
+    "online_prior_weight": "queue 1 item 9, online fold-in",
+    "online_from_start": "queue 1 item 9, online fold-in",
+    "explore": "queue 1 item 12, experiments",
+    "explore_epsilon": "queue 1 item 12, experiments",
+    "explore_seed": "queue 1 item 12, experiments",
+    "explore_reward_event": "queue 1 item 12, experiments",
+    "variants": "queue 1 item 12, experiments",
+    "shard_factors": "queue 1 item 13, sharded serving",
+    "aot": "queue 1 item 14, AOT serving",
+    "compilation_cache_dir": "queue 1 item 14, AOT serving",
+    **{
+        name: "the fleet router"
+        for name in (
+            "replicas", "replica_id", "probe_interval_s", "failover_retries", "hedge_ms",
+            "fleet_breaker_threshold", "fleet_breaker_reset_s", "endpoint_registry",
+            "router_only", "autoscale", "scale_up_qps", "scale_up_p99_ms", "scale_down_qps",
+            "scale_cooldown_s", "stale_cache_ttl_s", "lease_ttl_s", "announce_dir",
+            "announce_host",
+        )
+    },
+}
+
+
+def _add_deploy_flags(deploy: argparse.ArgumentParser) -> None:
+    """The JAX console's deploy flags: those the port serves, then those
+    of later tiers (:data:`_WAITING_DEPLOY_FLAGS`)."""
+    deploy.add_argument("--engine-json", default="engine.json")
+    deploy.add_argument("--ip", default="0.0.0.0")
+    deploy.add_argument("--port", type=int, default=8000)
+    deploy.add_argument("--engine-instance-id")
+    deploy.add_argument("--device", default="cuda", help="'cuda' (the card) or 'cpu'")
+    # feedback loop: each answered query posts a `predict` event
+    deploy.add_argument("--feedback", action="store_true")
+    deploy.add_argument("--event-server-ip", default="127.0.0.1")
+    deploy.add_argument("--event-server-port", type=int, default=7070)
+    deploy.add_argument("--accesskey", default="")
+    deploy.add_argument("--feedback-timeout", type=float, default=5.0, metavar="S",
+                        help="socket timeout of a feedback post (worker thread)")
+    deploy.add_argument("--feedback-block-ms", type=float, default=0.0,
+                        help="block the query thread up to this long for a feedback "
+                        "queue slot before dropping (default 0: drop at once)")
+    deploy.add_argument("--no-feedback-blocking", action="store_true",
+                        help="never block the query path for feedback (the default)")
+    deploy.add_argument("--feedback-breaker-threshold", type=int, default=0, metavar="N",
+                        help="failed feedback posts that open the feedback breaker (0 = off)")
+    deploy.add_argument("--feedback-breaker-reset-s", type=float, default=5.0,
+                        help="seconds an open feedback breaker waits before probing")
+    # cross-request micro-batching
+    deploy.add_argument("--batching", action="store_true",
+                        help="coalesce concurrent /queries.json requests into batched "
+                        "score products")
+    deploy.add_argument("--max-batch-size", type=int, default=32)
+    deploy.add_argument("--max-batch-delay-ms", type=float, default=2.0,
+                        help="longest wait for batchmates past the oldest queued request")
+    deploy.add_argument("--batch-queue", type=int, default=256,
+                        help="bounded admission queue size")
+    deploy.add_argument("--admission-policy", choices=("reject", "block"), default="reject",
+                        help="full queue: reject = 429 + Retry-After, block = wait up to "
+                        "--admission-timeout-ms, then 503")
+    deploy.add_argument("--admission-timeout-ms", type=float, default=1000.0)
+    deploy.add_argument("--batch-buckets", default="",
+                        help="comma-separated batch sizes to pad to (default: powers of "
+                        "two up to --max-batch-size)")
+    deploy.add_argument("--batch-warmup-query", default=None, metavar="JSON",
+                        help="sample query body run through every bucket at startup")
+    # query-path caching & coalescing
+    deploy.add_argument("--result-cache", action="store_true",
+                        help="serve repeated identical queries from an LRU with TTL and "
+                        "event-driven invalidation")
+    deploy.add_argument("--result-cache-entries", type=int, default=4096)
+    deploy.add_argument("--result-cache-ttl-s", type=float, default=30.0)
+    deploy.add_argument("--result-cache-max-mb", type=float, default=64.0)
+    deploy.add_argument("--cache-scope-field", default="user", metavar="FIELD",
+                        help="query field naming the invalidation scope; 'none' disables")
+    deploy.add_argument("--coalesce", action="store_true",
+                        help="collapse identical in-flight queries into one computation")
+    deploy.add_argument("--pin-model", action="store_true",
+                        help="pin the factor tables on the deploy's device (always on "
+                        "the card; on the CPU, tensors in place of numpy)")
+    # storage resilience
+    deploy.add_argument("--retry-reads", type=int, default=0, metavar="N")
+    deploy.add_argument("--retry-writes", action="store_true")
+    deploy.add_argument("--breaker-threshold", type=int, default=0, metavar="N")
+    deploy.add_argument("--breaker-reset-s", type=float, default=5.0)
+    deploy.add_argument("--rpc-deadline-s", type=float, default=0.0)
+    deploy.add_argument("--cert", default=None, help="PEM certificate for https (default: $PIO_SSL_CERT)")
+    deploy.add_argument("--key", default=None, help="PEM private key for https (default: $PIO_SSL_KEY)")
+    deploy.add_argument("--drain-deadline-s", type=float, default=0.0, metavar="S",
+                        help="graceful drain on SIGTERM/SIGINT within S seconds (0: "
+                        "stop at once)")
+    # later tiers: parsed, then refused
+    deploy.add_argument("--shard-factors", action="store_true")
+    deploy.add_argument("--quantize", choices=("int8",), default=None, metavar="DTYPE")
+    deploy.add_argument("--aot", action="store_true")
+    deploy.add_argument("--compilation-cache-dir", default=None, metavar="DIR")
+    deploy.add_argument("--ann", action="store_true")
+    deploy.add_argument("--ann-nlist", type=int, default=0, metavar="N")
+    deploy.add_argument("--ann-nprobe", type=int, default=8, metavar="N")
+    deploy.add_argument("--ann-seed", type=int, default=0)
+    deploy.add_argument("--ann-kmeans-iters", type=int, default=8, metavar="N")
+    deploy.add_argument("--online", action="store_true")
+    deploy.add_argument("--online-interval-s", type=float, default=1.0, metavar="S")
+    deploy.add_argument("--online-batch", type=int, default=4096, metavar="N")
+    deploy.add_argument("--online-algos", default="", metavar="NAMES")
+    deploy.add_argument("--online-prior-weight", type=float, default=1.0, metavar="W")
+    deploy.add_argument("--online-from-start", action="store_true")
+    deploy.add_argument("--explore", choices=("epsilon", "thompson"), default=None, metavar="POLICY")
+    deploy.add_argument("--explore-epsilon", type=float, default=0.1, metavar="E")
+    deploy.add_argument("--explore-seed", type=int, default=0)
+    deploy.add_argument("--explore-reward-event", default="reward", metavar="NAME")
+    deploy.add_argument("--variants", default="", metavar="NAME[:W],...")
+    deploy.add_argument("--replicas", type=int, default=0, metavar="N")
+    deploy.add_argument("--replica-id", default=None, metavar="ID")
+    deploy.add_argument("--probe-interval-s", type=float, default=0.25, metavar="S")
+    deploy.add_argument("--failover-retries", type=int, default=1, metavar="N")
+    deploy.add_argument("--hedge-ms", type=float, default=0.0, metavar="MS")
+    deploy.add_argument("--fleet-breaker-threshold", type=int, default=2, metavar="N")
+    deploy.add_argument("--fleet-breaker-reset-s", type=float, default=1.0, metavar="S")
+    deploy.add_argument("--endpoint-registry", default=None, metavar="DIR")
+    deploy.add_argument("--router-only", action="store_true")
+    deploy.add_argument("--autoscale", default="", metavar="MIN:MAX")
+    deploy.add_argument("--scale-up-qps", type=float, default=50.0, metavar="Q")
+    deploy.add_argument("--scale-up-p99-ms", type=float, default=250.0, metavar="MS")
+    deploy.add_argument("--scale-down-qps", type=float, default=5.0, metavar="Q")
+    deploy.add_argument("--scale-cooldown-s", type=float, default=10.0, metavar="S")
+    deploy.add_argument("--stale-cache-ttl-s", type=float, default=0.0, metavar="S")
+    deploy.add_argument("--lease-ttl-s", type=float, default=5.0, metavar="S")
+    deploy.add_argument("--announce-dir", default=None, metavar="DIR")
+    deploy.add_argument("--announce-host", default="127.0.0.1", metavar="HOST")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -123,14 +282,35 @@ def build_parser() -> argparse.ArgumentParser:
     train.add_argument("--skip-sanity-check", action="store_true")
     train.add_argument("--stop-after-read", action="store_true")
     train.add_argument("--stop-after-prepare", action="store_true")
+    train.add_argument(
+        "--warm-start", action="store_true",
+        help="seed algorithms from the latest COMPLETED instance's model "
+        "(retrains converge in fewer sweeps)",
+    )
     train.add_argument("--device", default="cuda", help="'cuda' (the card) or 'cpu'")
 
-    deploy = sub.add_parser("deploy", help="serve the latest trained instance")
-    deploy.add_argument("--engine-json", default="engine.json")
-    deploy.add_argument("--ip", default="0.0.0.0")
-    deploy.add_argument("--port", type=int, default=8000)
-    deploy.add_argument("--engine-instance-id")
-    deploy.add_argument("--device", default="cuda", help="'cuda' (the card) or 'cpu'")
+    _add_deploy_flags(sub.add_parser("deploy", help="serve the latest trained instance"))
+
+    und = sub.add_parser("undeploy", help="stop a deployed engine server via GET /stop")
+    und.add_argument("--ip", default="127.0.0.1")
+    und.add_argument("--port", type=int, default=8000)
+    und.add_argument("--https", action="store_true")
+    und.add_argument(
+        "--insecure", action="store_true",
+        help="skip TLS certificate verification (self-signed deployments)",
+    )
+    und.add_argument(
+        "--token", default=None,
+        help="deployment stop token (default: read from the base directory's "
+        "token file written by `pio deploy` for this port)",
+    )
+
+    bp = sub.add_parser("batchpredict", help="bulk predictions from a query file")
+    bp.add_argument("--engine-json", default="engine.json")
+    bp.add_argument("--input", required=True, help="JSON-lines query file")
+    bp.add_argument("--output", required=True, help="JSON-lines results file")
+    bp.add_argument("--engine-instance-id")
+    bp.add_argument("--device", default="cuda", help="'cuda' (the card) or 'cpu'")
 
     ev = sub.add_parser("eval", help="run an evaluation sweep")
     ev.add_argument("evaluation", help="import path of the Evaluation object")
@@ -182,28 +362,98 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _deploy(args: argparse.Namespace) -> None:
-    from predictionio_tpu_torch.controller.context import local_context
-    from predictionio_tpu_torch.workflow.engine_json import load_engine_variant
-    from predictionio_tpu_torch.workflow.serving import QueryServer, QueryService
+def _refuse_waiting_flags(args: argparse.Namespace) -> None:
+    """A deploy flag of a later tier, given a value other than its
+    default, raises ``ValueError`` naming what it waits for."""
+    deploy = argparse.ArgumentParser(add_help=False)
+    _add_deploy_flags(deploy)
+    for name, waits_for in _WAITING_DEPLOY_FLAGS.items():
+        if getattr(args, name) != deploy.get_default(name):
+            flag = "--" + name.replace("_", "-")
+            raise ValueError(f"deploy {flag} is not in the port yet; it waits for {waits_for} (ROADMAP.md)")
 
-    variant = load_engine_variant(args.engine_json)
-    service = QueryService(
-        variant, local_context(args.device), instance_id=args.engine_instance_id
+
+def _deploy(args: argparse.Namespace) -> None:
+    from predictionio_tpu_torch import resilience
+    from predictionio_tpu_torch.api.http import serve
+    from predictionio_tpu_torch.controller.context import local_context
+    from predictionio_tpu_torch.serving import BatcherConfig, CacheConfig
+    from predictionio_tpu_torch.workflow.engine_json import load_engine_variant
+    from predictionio_tpu_torch.workflow.serving import FeedbackConfig, QueryService
+
+    _refuse_waiting_flags(args)
+    # before any storage client exists
+    resilience.set_rpc_defaults(
+        retries=args.retry_reads,
+        retry_writes=args.retry_writes,
+        breaker_threshold=args.breaker_threshold,
+        breaker_reset_s=args.breaker_reset_s,
+        deadline_s=args.rpc_deadline_s,
     )
-    stop = threading.Event()
-    if threading.current_thread() is threading.main_thread():
-        signal.signal(signal.SIGTERM, lambda s, f: stop.set())
-        signal.signal(signal.SIGINT, lambda s, f: stop.set())
-    with QueryServer(service, args.ip, args.port) as server:
-        if args.port == 0:
-            print(f"Bound port {server.port}", flush=True)
-        print(
-            f"Engine is deployed and running. Listening on {args.ip}:{server.port}",
-            flush=True,
+    feedback = None
+    if args.feedback:
+        feedback = FeedbackConfig(
+            event_server_url=f"http://{args.event_server_ip}:{args.event_server_port}",
+            access_key=args.accesskey,
+            timeout_s=args.feedback_timeout,
+            block_ms=0.0 if args.no_feedback_blocking else args.feedback_block_ms,
+            breaker_threshold=args.feedback_breaker_threshold,
+            breaker_reset_s=args.feedback_breaker_reset_s,
         )
-        while not stop.wait(0.5):
-            pass
+    batching = None
+    if args.batching:
+        batching = BatcherConfig(
+            max_batch_size=args.max_batch_size,
+            max_batch_delay_ms=args.max_batch_delay_ms,
+            max_queue=args.batch_queue,
+            admission=args.admission_policy,
+            block_timeout_ms=args.admission_timeout_ms,
+            buckets=tuple(int(x) for x in args.batch_buckets.split(",") if x.strip()),
+            warmup_body=json.loads(args.batch_warmup_query) if args.batch_warmup_query else None,
+        )
+    cache = None
+    if args.result_cache or args.coalesce or args.pin_model:
+        cache = CacheConfig(
+            result_cache=args.result_cache,
+            result_cache_entries=args.result_cache_entries,
+            result_cache_ttl_s=args.result_cache_ttl_s,
+            result_cache_max_bytes=int(args.result_cache_max_mb * 1024 * 1024),
+            coalesce=args.coalesce,
+            pin_model=args.pin_model,
+            scope_field=None if args.cache_scope_field.lower() in ("none", "") else args.cache_scope_field,
+        )
+    service = QueryService(
+        load_engine_variant(args.engine_json),
+        local_context(args.device),
+        feedback=feedback,
+        instance_id=args.engine_instance_id,
+        batching=batching,
+        cache=cache,
+    )
+    lifecycle = _lifecycle_from_args(args)
+
+    def wire_stop(server) -> None:
+        # GET /stop answers first, then the server shuts down on a helper
+        # thread (shutdown() from a handler would deadlock). The token is
+        # written after a successful bind, keyed by the bound port.
+        bound_port = server.server_address[1]
+        service.stop_token = commands.write_stop_token(bound_port)
+        service.stop_server = lambda: threading.Thread(target=server.shutdown, daemon=True).start()
+        if lifecycle is None and threading.current_thread() is threading.main_thread():
+            # without a drain deadline SIGTERM/SIGINT stop at once, exit 0
+            signal.signal(signal.SIGTERM, lambda s, f: service.stop_server())
+            signal.signal(signal.SIGINT, lambda s, f: service.stop_server())
+        if args.port == 0:
+            print(f"Bound port {bound_port}", flush=True)
+        print(f"Engine is deployed and running. Listening on {args.ip}:{bound_port}", flush=True)
+
+    try:
+        serve(
+            service.dispatch, args.ip, args.port,
+            ssl_context=_ssl_from_args(args), ready_callback=wire_stop, lifecycle=lifecycle,
+        )
+    finally:
+        service.close()
     print("Engine server stopped.", flush=True)
 
 
@@ -375,11 +625,21 @@ def main(argv: list[str] | None = None) -> int:
                     skip_sanity_check=args.skip_sanity_check,
                     stop_after_read=args.stop_after_read,
                     stop_after_prepare=args.stop_after_prepare,
+                    warm_start=args.warm_start,
                 ),
             )
             print(f"Training completed. Engine instance: {instance.id}")
         elif cmd == "deploy":
             _deploy(args)
+        elif cmd == "undeploy":
+            commands.undeploy(args.ip, args.port, args.https, args.insecure, token=args.token)
+        elif cmd == "batchpredict":
+            from predictionio_tpu_torch.tools.batchpredict import run_batch_predict
+
+            n = run_batch_predict(
+                args.engine_json, args.input, args.output, args.engine_instance_id, args.device
+            )
+            print(f"Wrote {n} predictions to {args.output}")
         elif cmd == "eval":
             _eval(args)
         return 0

@@ -7,8 +7,7 @@ models, insert COMPLETED ``EngineInstance`` with timings;
 ``core/workflow/WorkflowParams.scala``.
 
 One host, one device. The multi-host exchanges wait with the port's
-distributed path; ``warm_start`` waits with the aligned factor init it
-needs.
+distributed path.
 """
 
 from __future__ import annotations
@@ -45,6 +44,9 @@ class WorkflowParams:
     skip_sanity_check: bool = False
     stop_after_read: bool = False
     stop_after_prepare: bool = False
+    #: seed algorithms from the latest COMPLETED instance's model
+    #: (`pio train --warm-start`) — retrains converge in fewer sweeps
+    warm_start: bool = False
 
 
 def _now() -> _dt.datetime:
@@ -77,7 +79,11 @@ def run_train(
     ``EngineInstance`` -> ``Engine.train`` on ``ctx.device`` -> persist the
     model blob into the ``Models`` repo -> update the instance to
     COMPLETED with timings and the resolved component params. On error
-    the instance is marked FAILED and the exception re-raised.
+    the instance is marked FAILED and the exception re-raised. With
+    ``warm_start`` the latest COMPLETED instance of the same engine,
+    version and variant seeds the algorithms (its blob may be the JAX
+    package's), and the lineage records it as ``warm_start_from``; no
+    predecessor, or one that does not load, is a cold start.
     """
     engine = variant.build_engine()
     engine_params = variant.engine_params(engine)
@@ -97,6 +103,33 @@ def run_train(
     )
     instances.insert(instance)
     try:
+        warm_models = None
+        warm_from = None
+        if workflow_params.warm_start:
+            prev = instances.get_latest_completed(
+                instance.engine_id, instance.engine_version, instance.engine_variant
+            )
+            blob = Storage.get_model_data_models().get(prev.id) if prev is not None else None
+            if blob is not None:
+                try:
+                    warm_models = engine.models_from_bytes(engine_params, prev.id, blob.models)
+                    warm_from = prev.id
+                except Exception as e:
+                    # a changed algorithm list raises ValueError, a stale
+                    # pickle AttributeError/ModuleNotFoundError/
+                    # UnpicklingError: any of them is a cold start, not a
+                    # failed train
+                    logger.warning(
+                        "--warm-start: could not hydrate predecessor model %s (%s: %s); cold start",
+                        prev.id, type(e).__name__, e,
+                    )
+            else:
+                logger.warning(
+                    "--warm-start requested but no completed instance with a "
+                    "stored model exists for this engine/variant; cold start"
+                )
+            if warm_from is not None:
+                logger.info("Warm-starting from completed instance %s", warm_from)
         timings: dict = {}
         models = engine.train(
             ctx,
@@ -105,6 +138,7 @@ def run_train(
             stop_after_read=workflow_params.stop_after_read,
             stop_after_prepare=workflow_params.stop_after_prepare,
             timings=timings,
+            warm_models=warm_models,
         )
         if workflow_params.stop_after_read or workflow_params.stop_after_prepare:
             # debugging run — nothing to persist (parity: reference aborts
@@ -115,12 +149,10 @@ def run_train(
         blob = engine.models_to_bytes(instance.id, engine_params, models)
         Storage.get_model_data_models().insert(Model(id=instance.id, models=blob))
         logger.info("Saved model blob for instance %s (%d bytes)", instance.id, len(blob))
-        instance = dataclasses.replace(
-            instance,
-            status="COMPLETED",
-            end_time=_now(),
-            env={**instance.env, "phase_timings": json.dumps(timings)},
-        )
+        env = {**instance.env, "phase_timings": json.dumps(timings)}
+        if warm_from is not None:
+            env["warm_start_from"] = warm_from
+        instance = dataclasses.replace(instance, status="COMPLETED", end_time=_now(), env=env)
         instances.update(instance)
         logger.info(
             "Training completed: instance %s in %.1fs",

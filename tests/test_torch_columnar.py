@@ -17,9 +17,11 @@ client.
 
 import dataclasses
 import datetime as dt
+import itertools
 import json
 import re
 import shutil
+import uuid
 
 import numpy as np
 import pytest
@@ -226,7 +228,7 @@ def test_recovery_sweeps_the_same_damage_alike(tmp_path):
     assert len(views["port"]["find"]) == 300 + 120 + 6 + 4 - 2
 
 
-def test_compaction_sweep_compacts_the_same_streams(tmp_path):
+def test_compaction_sweep_compacts_the_same_streams(tmp_path, monkeypatch):
     _populate("jax", tmp_path / "store")
     swept, views = {}, {}
     for pkg, (_, _, _, compaction, _) in PACKAGES.items():
@@ -237,7 +239,15 @@ def test_compaction_sweep_compacts_the_same_streams(tmp_path):
             client.get_l_events(),
             compaction.CompactionConfig(tail_bytes_high=200, dead_tombstones_high=10**6, min_interval_s=0.0),
         )
+        # a segment is named seg-<seq>-<random hex>, and a reopened store's
+        # seq starts again at 1 in both packages, so the compaction's segment
+        # shares its number with an older one and the random part decides
+        # which of the two is read first: both packages draw the same names
+        # here, so that their reads can be compared row for row
+        suffixes = itertools.count(1)
+        monkeypatch.setattr(uuid, "uuid4", lambda: uuid.UUID(int=next(suffixes) << 96))
         swept[pkg] = (scheduler.sweep_once(), scheduler.sweep_once())
+        monkeypatch.undo()
         stats = scheduler.to_json()
         swept[pkg] += (stats["compactions"], stats["eventsMoved"], stats["errors"])
         client.close()

@@ -1,0 +1,164 @@
+"""The port's ``pio deploy`` / ``pio undeploy`` console on the CPU.
+
+* ``deploy --device cpu --port 0`` with the batching, cache and feedback
+  flags, as a subprocess: it answers queries through the micro-batcher
+  (warmed with ``--batch-warmup-query``, so no bucket misses), the result
+  cache and singleflight, posts one ``predict`` event per answered query
+  to a stub event server, reports all of it on ``/stats.json``, and
+  ``pio undeploy`` (the stop token from the base directory) stops it:
+  exit 0 within 10 s.
+* The deploy flags of tiers the port does not have parse and are then
+  refused with an error naming their ROADMAP item, before any storage or
+  model is touched.
+"""
+
+import datetime as dt
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from predictionio_tpu_torch.controller.context import local_context
+from predictionio_tpu_torch.data.event import DataMap, Event
+from predictionio_tpu_torch.data.storage import Storage
+from predictionio_tpu_torch.data.storage.base import App
+from predictionio_tpu_torch.tools.console import main
+from predictionio_tpu_torch.workflow import load_engine_variant, run_train
+
+ROOT = Path(__file__).resolve().parents[1]
+ENGINE = {
+    "id": "cli-eng",
+    "version": "1",
+    "engineFactory": "predictionio_tpu.templates.recommendation:engine_factory",
+    "datasource": {"params": {"appName": "cli-app"}},
+    "algorithms": [{"name": "als", "params": {"rank": 8, "numIterations": 2, "lambda": 0.05, "seed": 2}}],
+}
+
+
+class _Events(BaseHTTPRequestHandler):
+    posted: list = []
+
+    def log_message(self, *args):
+        pass
+
+    def do_POST(self):
+        type(self).posted.append(json.loads(self.rfile.read(int(self.headers["Content-Length"]))))
+        self.send_response(201)
+        self.send_header("Content-Length", "2")
+        self.end_headers()
+        self.wfile.write(b"{}")
+
+
+def _get(url: str) -> dict:
+    with urllib.request.urlopen(url, timeout=30) as resp:
+        return json.loads(resp.read())
+
+
+def _post(url: str, body) -> tuple[int, dict]:
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    with urllib.request.urlopen(req, timeout=30) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def test_deploy_with_serving_flags_then_undeploy(tmp_path):
+    base = tmp_path / "base"
+    Storage.configure({"PIO_FS_BASEDIR": str(base)})
+    try:
+        app_id = Storage.get_meta_data_apps().insert(App(id=0, name="cli-app"))
+        Storage.get_l_events().init(app_id)
+        rng = np.random.default_rng(4)
+        t0 = dt.datetime(2022, 2, 1, tzinfo=dt.timezone.utc)
+        Storage.get_l_events().insert_batch(
+            [
+                Event(event="rate", entity_type="user", entity_id=str(u), target_entity_type="item",
+                      target_entity_id=str(i), properties=DataMap({"rating": float(i % 5 + 1)}),
+                      event_time=t0 + dt.timedelta(seconds=k))
+                for k, (u, i) in enumerate(zip(rng.integers(0, 30, 600), rng.integers(0, 50, 600)))
+            ],
+            app_id,
+        )
+        engine_json = tmp_path / "engine.json"
+        engine_json.write_text(json.dumps(ENGINE))
+        run_train(load_engine_variant(str(engine_json)), local_context("cpu"))
+    finally:
+        Storage.configure(None)
+    _Events.posted = []
+    events = ThreadingHTTPServer(("127.0.0.1", 0), _Events)
+    threading.Thread(target=events.serve_forever, daemon=True).start()
+    env = dict(os.environ, PIO_FS_BASEDIR=str(base), PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "predictionio_tpu_torch.tools.console", "deploy",
+         "--engine-json", str(engine_json), "--ip", "127.0.0.1", "--port", "0", "--device", "cpu",
+         "--batching", "--max-batch-size", "8", "--max-batch-delay-ms", "2",
+         "--batch-warmup-query", '{"user": "0", "num": 4}',
+         "--result-cache", "--coalesce", "--pin-model",
+         "--feedback", "--event-server-ip", "127.0.0.1",
+         "--event-server-port", str(events.server_address[1]), "--accesskey", "k-1"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("Bound port"), line or proc.stderr.read()
+        port = int(line.split()[-1])
+        url = f"http://127.0.0.1:{port}"
+        answers = [_post(url + "/queries.json", {"user": str(u), "num": 5}) for u in (1, 2, 1, 3)]
+        assert all(status == 200 and len(body["itemScores"]) == 5 for status, body in answers)
+        assert answers[0][1] == answers[2][1]  # the second is a cache hit
+        status = _get(url + "/")
+        assert status["batching"] and status["caching"] and status["device"] == "cpu"
+        stats = _get(url + "/stats.json")
+        assert stats["batcher"]["bucketMisses"] == 0 and stats["batcher"]["warmedBuckets"] == [1, 2, 4, 8]
+        assert stats["cache"]["hits"] == 1 and stats["cache"]["bytesPinned"] == (30 + 50) * 8 * 4
+        deadline = time.monotonic() + 10
+        while len(_Events.posted) < 3 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert sorted(e["prId"] for e in _Events.posted) == sorted({b["prId"] for _, b in answers})
+        assert all(e["event"] == "predict" and e["eventId"] == "pio_fb_" + e["prId"] for e in _Events.posted)
+        Storage.configure({"PIO_FS_BASEDIR": str(base)})  # where the deploy wrote its stop token
+        try:
+            assert main(["undeploy", "--port", str(port)]) == 0
+        finally:
+            Storage.configure(None)
+        t0 = time.monotonic()
+        assert proc.wait(timeout=10) == 0
+        assert time.monotonic() - t0 < 10
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        events.shutdown()
+        events.server_close()
+
+
+@pytest.mark.parametrize(
+    "flags, item",
+    [
+        (["--ann"], "item 7"),
+        (["--ann-nprobe", "4"], "item 7"),
+        (["--quantize", "int8"], "item 8"),
+        (["--online"], "item 9"),
+        (["--online-interval-s", "0.5"], "item 9"),
+        (["--explore", "epsilon"], "item 12"),
+        (["--variants", "a,b"], "item 12"),
+        (["--shard-factors"], "item 13"),
+        (["--aot"], "item 14"),
+        (["--compilation-cache-dir", "x"], "item 14"),
+        (["--replicas", "2"], "fleet router"),
+        (["--router-only"], "fleet router"),
+        (["--autoscale", "1:3"], "fleet router"),
+    ],
+)
+def test_flags_of_later_tiers_are_refused(flags, item, capsys):
+    assert main(["deploy", "--engine-json", "nowhere.json", "--device", "cpu"] + flags) == 1
+    err = capsys.readouterr().err
+    assert item in err and "not in the port yet" in err and flags[0] in err

@@ -312,7 +312,8 @@ def test_run_train_on_the_card_through_the_spine(cuda_device):
         _, [(cpu_algo, cpu_model)] = engine.prepare_deploy(local_context("cpu"), ep, inst.id, blob)
     finally:
         Storage.configure(None)
-    assert model.user_factors.device.type == "cuda" and cpu_model.user_factors.device.type == "cpu"
+    # the CPU, asked for, serves from host numpy (the JAX package's host branch)
+    assert model.user_factors.device.type == "cuda" and isinstance(cpu_model.user_factors, np.ndarray)
     with pytest.raises(ValueError, match="context is on cuda:0"):
         cpu_algo.train_base(local_context(cuda_device), td)  # no training on a device the algorithm is not on
     V = stored.item_factors.astype(np.float64)
@@ -592,3 +593,96 @@ def test_two_tower_run_train_on_the_card_launches_the_plan(cuda_device):
     assert type(stored) is tt_engine.TwoTowerServingModel
     assert stored.user_vecs.shape == (len(td.user_index), 16) and np.isfinite(stored.user_vecs).all()
     assert stored.loss_history[-1][1] < stored.loss_history[0][1]
+
+
+@pytest.mark.gpu
+def test_query_service_on_the_card_pins_batches_and_reloads_flat(cuda_device):
+    # a QueryService on the card: tables pinned (bytesPinned), TF32 off on
+    # the serving thread, every bucket warmed (bucketMisses 0), batched
+    # answers equal per-request ones under the near-tie rule (relative
+    # 1e-5 on float64 scores), and five reloads leave
+    # torch.cuda.memory_allocated within 1 MiB of its value after the first
+    import datetime as dt
+    import threading
+
+    from predictionio_tpu_torch.data.event import DataMap, Event
+    from predictionio_tpu_torch.data.storage import Storage
+    from predictionio_tpu_torch.data.storage.base import App
+    from predictionio_tpu_torch.serving import BatcherConfig, CacheConfig
+    from predictionio_tpu_torch.utils.serialization import loads_model
+    from predictionio_tpu_torch.workflow import load_engine_variant, run_train
+    from predictionio_tpu_torch.workflow.serving import QueryService
+
+    rows, cols, vals = _ratings(num_users=400, num_items=300, nnz=8000, seed=8)
+    Storage.configure({
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "MEM",
+        "PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+    })
+    try:
+        app_id = Storage.get_meta_data_apps().insert(App(id=0, name="serve"))
+        t0 = dt.datetime(2021, 1, 1, tzinfo=dt.timezone.utc)
+        Storage.get_l_events().insert_batch([
+            Event(event="rate", entity_type="user", entity_id=str(u), target_entity_type="item",
+                  target_entity_id=str(i), properties=DataMap({"rating": float(v)}),
+                  event_time=t0 + dt.timedelta(seconds=k))
+            for k, (u, i, v) in enumerate(zip(rows.tolist(), cols.tolist(), vals.tolist()))
+        ], app_id)
+        variant = load_engine_variant({
+            "id": "serve", "version": "1",
+            "engineFactory": "predictionio_tpu.templates.recommendation:engine_factory",
+            "datasource": {"params": {"appName": "serve"}},
+            "algorithms": [{"name": "als", "params": {"rank": 64, "numIterations": 3, "lambda": 0.1}}],
+        })
+        inst = run_train(variant, local_context(cuda_device))
+        (_, stored), = loads_model(Storage.get_model_data_models().get(inst.id).models)
+        users = list(stored.user_index.keys())
+        qs = QueryService(
+            variant, local_context(cuda_device), cache=CacheConfig(pin_model=True),
+            batching=BatcherConfig(max_batch_size=8, max_batch_delay_ms=2.0,
+                                   warmup_body={"user": users[0], "num": 10}),
+        )
+        try:
+            _, model = qs._algo_model_pairs[0]
+            assert model.item_factors.device.type == "cuda"
+            assert qs.stats_json()["cache"]["bytesPinned"] == (stored.user_factors.nbytes + stored.item_factors.nbytes)
+            assert qs.run_on_device(lambda: torch.backends.cuda.matmul.allow_tf32) is False
+            bodies = [{"user": u, "num": 10} for u in users[::3]]
+            batched: dict = {}
+
+            def client(part):
+                for b in part:
+                    batched[b["user"]] = qs.batcher.submit(b)
+
+            threads = [threading.Thread(target=client, args=(bodies[k::8],)) for k in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+            stats = qs.batcher.stats.to_json()
+            assert stats["bucketMisses"] == 0 and stats["meanBatchSize"] > 1.0
+            U = stored.user_factors.astype(np.float64)
+            V = stored.item_factors.astype(np.float64)
+            for b in bodies:
+                status, got = batched[b["user"]]
+                single_status, single = qs.handle_query(b)
+                assert status == single_status == 200
+                scores = V @ U[stored.user_index[b["user"]]]
+                ref = np.lexsort((np.arange(V.shape[0]), -scores))[:10]
+                for answer in (got, single):
+                    ids = [stored.item_index[s["item"]] for s in answer["itemScores"]]
+                    assert len(ids) == 10
+                    for g, r in zip(ids, ref):
+                        assert g == r or abs(scores[g] - scores[r]) <= 1e-5 * abs(scores[r])
+            torch.cuda.synchronize()
+            after_first = torch.cuda.memory_allocated(cuda_device)
+            for _ in range(5):
+                qs.reload()
+            torch.cuda.synchronize()
+            assert qs.model_generation == 6
+            assert abs(torch.cuda.memory_allocated(cuda_device) - after_first) <= 1 << 20
+        finally:
+            qs.close()
+    finally:
+        Storage.configure(None)

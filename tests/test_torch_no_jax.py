@@ -3,7 +3,9 @@ and neither ``chip_smoke.py``, ``gj_solve_split.py`` nor the arrays engine
 they share with the tests (``tests/torch_arrays_engine.py``) imports ``jax`` or anything of the JAX package
 ``predictionio_tpu``, and importing every module of the port leaves
 ``jax`` out of ``sys.modules``. The event data plane (the columnar store,
-the event server, the data verbs) starts without torch as well."""
+the event server, the data verbs) starts without torch as well, and the
+serving runtime (``serving/``: the micro-batcher, the result cache, the
+``--ann`` config) imports neither torch nor jax."""
 
 import ast
 import os
@@ -137,3 +139,35 @@ def test_console_help_loads_no_jax():
     )
     assert run.returncode == 0, run.stdout + run.stderr
     assert "train" in run.stdout and "deploy" in run.stdout
+
+
+SERVING = sorted((PORT / "serving").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", SERVING, ids=lambda p: str(p.relative_to(ROOT)))
+def test_serving_sources_import_neither_torch_nor_jax(path):
+    bad = [
+        f"{path.name}:{line} imports {name}"
+        for line, name in _imports(path)
+        if _forbidden(name) or name.split(".")[0] == "torch"
+    ]
+    assert not bad, bad
+
+
+def test_serving_runtime_loads_neither_torch_nor_jax():
+    # a micro-batcher answering one batch and a result cache filled once
+    probe = (
+        "import sys\n"
+        "from predictionio_tpu_torch.serving import BatcherConfig, CacheConfig, MicroBatcher, ResultCache\n"
+        "b = MicroBatcher(lambda bodies: [(200, x) for x in bodies], BatcherConfig(max_batch_size=4))\n"
+        "assert b.submit({'q': 1}) == (200, {'q': 1}); b.close()\n"
+        "c = ResultCache(CacheConfig(result_cache=True)); c.commit(c.reserve('k'), (200, 1))\n"
+        "assert c.get('k') == (True, (200, 1))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'predictionio_tpu', 'torch'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    run = subprocess.run(
+        [sys.executable, "-c", probe], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert run.returncode == 0, run.stdout + run.stderr
