@@ -46,6 +46,13 @@ load and a degraded one, ``pio undeploy``, ``pio batchpredict``, reloads
 of an in-process ``QueryService``; and a ``--batching --pin-model``
 deploy of the Two-Tower quickstart's instance.
 
+The online path, on the same warm instance: ``pio deploy`` against ``pio
+deploy --online`` under 8 keep-alive clients while 500 events/s arrive
+through ``pio eventserver``'s bulk route, the online one probed for
+freshness with new users' events; then the same events folded in process
+and held to float64 numpy; and the Two-Tower quickstart's instance served
+with online learning while 256 view events stream into its towers.
+
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. device — the card's name, power limit and count; no CUDA device fails.
@@ -135,7 +142,35 @@ Phases, in order; any failure exits non-zero and prints no result:
    store, a ``--batching --pin-model`` deploy under 8 x 50 queries held
    to float64 numpy without the seen items. Every answer checked is held
    to float64 numpy under the near-tie rule; ``[serving]`` lines.
-10. a ``[summary]`` line, the ``{"kernels": [...]}`` line, the card's
+10. online — on the workflow's store and the serving phase's warm
+   instance (``phase_online``): a ``pio eventserver``; ``pio deploy``,
+   then ``pio deploy --online --online-interval-s 0.25 --online-batch
+   2048``, each under 8 keep-alive clients of top-10 queries to uniform
+   stored users for 6 s while 500 events/s (25 every 50 ms) go through
+   ``/events/bulk.json``; the online one also gets a freshness probe about
+   every second (3 rate events of a new user, its query polled every
+   100 ms until non-empty; a probe past 30 s fails the run). Every answer
+   must be 200, and the online deploy's ``eventsSeen`` must equal the
+   events the event server stored during its run. Printed: queries/s,
+   p50/p99 of both and p99 online/baseline, freshness p50/max,
+   ``foldMs`` p50/p95, ``eventToVisibleSeconds``, and the deploy start
+   with and without ``--online``. Then in process, the events of the
+   online run (read by a follower anchored when that deploy started)
+   fold in batches of 2048 into a ``QueryService`` of the instance
+   through the template's hooks: 32 rows of the last fold within a
+   relative 1e-4 of the float64 numpy solve of their anchored normal
+   equations over the tables read back from the card, 64 moved users'
+   top-10s equal to float64 numpy over the live tables (near-tie rule),
+   ``torch.cuda.memory_allocated`` grown by at most the appended rows'
+   bytes and 1 MiB, and no kernel launched (the fold solves with
+   Cholesky, as the reference does). In the Two-Tower quickstart's store
+   (``phase_tt_online``): its instance in a ``QueryService`` with online
+   learning behind ``QueryServer``, 256 ``view`` events (8 of new users)
+   through the bulk route; the trainer must train every pair, each
+   streamed row keep norm 1 within 1e-5, and no user's top-10 hold the
+   item the user just viewed; the trainer's loss is printed. ``[online]``
+   lines.
+11. a ``[summary]`` line, the ``{"kernels": [...]}`` line, the card's
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Imports only the port, torch, numpy and the standard library.
@@ -186,8 +221,17 @@ from predictionio_tpu_torch.ops.fused_ce import (
     fused_ce_fwd_reference,
     fused_inbatch_ce,
 )
-from predictionio_tpu_torch.ops.solve import cholesky_solve, gj_solve_cuda, gj_solve_plan, gj_solve_reference
+from predictionio_tpu_torch.ops.solve import (
+    cholesky_solve,
+    cholesky_solve_ex,
+    gj_solve_cuda,
+    gj_solve_plan,
+    gj_solve_reference,
+)
 from predictionio_tpu_torch.ops.twotower import AdamState, TwoTowerConfig, inbatch_loss, l2_normalize, train_step
+from predictionio_tpu_torch.online import OnlineConfig
+from predictionio_tpu_torch.online.foldin import MAX_WIDTH
+from predictionio_tpu_torch.online.follower import TailFollower, to_deltas
 from predictionio_tpu_torch.templates import twotower as tt
 from predictionio_tpu_torch.templates.recommendation.engine import ALSAlgorithm, TrainingData
 from predictionio_tpu_torch.tools import console
@@ -284,6 +328,31 @@ SRV_TT_REQUESTS = 50
 #: client id takes the exact id lookup, about 50 ms an event on the chip
 #: host (PR 8 run 1: 1,704 events in about 90 s)
 SRV_FEEDBACK_APP = "wf-feedback"
+#: the online phase (bench.py::_bench_online_freshness's traffic, on the
+#: serving phase's warm instance): 8 keep-alive clients of top-10 queries
+#: to uniform stored users, 500 events/s through the event server's bulk
+#: route (25 events every 50 ms), phases of 6 s, ``--online-interval-s
+#: 0.25 --online-batch 2048``; a freshness probe about every second (3
+#: rate events of a new user, its query polled every 100 ms, 30 s at
+#: most); 32 folded rows held to float64 numpy at a relative 1e-4 and 64
+#: moved users' top-10s; the Two-Tower part posts 256 view events
+ONL_CLIENTS = 8
+ONL_PHASE_S = 6.0
+ONL_INGEST_EPS = 500
+ONL_INGEST_EVERY_S = 0.05
+ONL_INTERVAL_S = 0.25
+ONL_BATCH = 2048
+ONL_PROBE_EVERY_S = 1.0
+ONL_PROBE_EVENTS = 3
+ONL_PROBE_POLL_S = 0.1
+ONL_PROBE_TIMEOUT_S = 30.0
+ONL_CATCH_UP_S = 30.0
+ONL_CHECK_ROWS = 32
+ONL_CHECK_USERS = 64
+ONL_FOLD_RTOL = 1e-4
+ONL_TT_EVENTS = 256
+ONL_TT_NEW_USERS = 8
+ONL_TT_NORM_ATOL = 1e-5
 
 #: an evaluation module as a user writes one: an Evaluation of the
 #: engine.json at ``path`` with one metric
@@ -1481,7 +1550,7 @@ def phase_tt_quickstart(device, nnz: int, dim: int, batch: int, epochs: int, n_q
         log(f"[tt-quickstart] {json.dumps(out)}")
         if then is not None:
             out["serving"] = then({"base": base, "engine_json": engine_json, "dev_args": dev_args,
-                                   "model": model})
+                                   "model": model, "instance": instance.id})
         return out
 
 
@@ -2206,6 +2275,424 @@ def phase_tt_serving(device, ctx: dict, clients: int, per_client: int, k: int, s
     return out
 
 
+# -------------------------------------------------------------- 10. online
+def bulk_post(es_url: str, key: str, objs: list) -> int:
+    """``objs`` as one NDJSON ``POST /events/bulk.json``; every line must be
+    stored. Returns the count stored."""
+    status, body = _post_bytes(f"{es_url}/events/bulk.json?accessKey={key}",
+                               b"".join((json.dumps(o) + "\n").encode() for o in objs), "application/x-ndjson")
+    summary = json.loads(body.splitlines()[-1])
+    if status != 200 or not summary.get("ok") or summary["stored"] != len(objs):
+        raise RuntimeError(f"online: the bulk POST of {len(objs)} events answered {status} {summary}")
+    return int(summary["stored"])
+
+
+def rate_events(rng, users, items, n: int, user: str | None = None, event: str = "rate") -> list:
+    """``n`` events of random stored users (or ``user``) on random stored
+    items, event-server shaped, with a rating for ``rate``."""
+    out = []
+    for _ in range(n):
+        obj = {"event": event, "entityType": "user",
+               "entityId": user if user is not None else users[int(rng.integers(0, len(users)))],
+               "targetEntityType": "item", "targetEntityId": items[int(rng.integers(0, len(items)))]}
+        if event == "rate":
+            obj["properties"] = {"rating": float(rng.integers(1, 6))}
+        out.append(obj)
+    return out
+
+
+def online_traffic(url: str, es_url: str, key: str, user_index, item_index, probe: bool, seed: int) -> dict:
+    """``bench.py::_bench_online_freshness``'s phase against a deploy at
+    ``url``: ``ONL_CLIENTS`` keep-alive clients of top-10 queries to
+    uniform stored users and ``ONL_INGEST_EPS`` events/s through the event
+    server's bulk route for ``ONL_PHASE_S`` s; with ``probe``, about every
+    second ``ONL_PROBE_EVENTS`` rate events of a new user and its query
+    polled every ``ONL_PROBE_POLL_S`` s until the answer is non-empty
+    (``ONL_PROBE_TIMEOUT_S`` at most; a probe started runs to its end)."""
+    users, items = user_index.keys(), item_index.keys()
+    stop = threading.Event()
+    errors: list = []
+    counts = {"ingested": 0, "probe_events": 0}
+    fresh: list = []
+    timeouts: list = []
+    box: dict = {}
+
+    def guarded(fn):
+        def run() -> None:
+            try:
+                fn()
+            except Exception as e:  # reported below; a failed thread fails the phase
+                errors.append(repr(e))
+        return run
+
+    def ingest() -> None:
+        rng = np.random.default_rng(seed * 1000 + 501)
+        chunk = max(1, int(ONL_INGEST_EPS * ONL_INGEST_EVERY_S))
+        due = time.perf_counter()
+        while True:
+            due += ONL_INGEST_EVERY_S  # on a fixed clock: a slow POST does not lower the rate
+            if stop.wait(max(0.0, due - time.perf_counter())):
+                break
+            counts["ingested"] += bulk_post(es_url, key, rate_events(rng, users, items, chunk))
+
+    def prober() -> None:
+        rng = np.random.default_rng(seed * 1000 + 502)
+        n = 0
+        while not stop.is_set():
+            n += 1
+            uid = f"online-fresh-{seed}-{n}"
+            t0 = time.perf_counter()
+            counts["probe_events"] += bulk_post(es_url, key, rate_events(rng, users, items, ONL_PROBE_EVENTS, uid))
+            while True:
+                status, body = _http_json(url + "/queries.json", {"user": uid, "num": TOP_K})
+                if status != 200:
+                    raise RuntimeError(f"online: the probe's query answered {status} {body}")
+                if body.get("itemScores"):
+                    fresh.append(time.perf_counter() - t0)
+                    break
+                if time.perf_counter() - t0 > ONL_PROBE_TIMEOUT_S:
+                    timeouts.append(uid)
+                    break
+                time.sleep(ONL_PROBE_POLL_S)
+            stop.wait(max(0.0, ONL_PROBE_EVERY_S - (time.perf_counter() - t0)))
+
+    threads = [threading.Thread(target=guarded(lambda: box.update(run_load(
+        url, np.zeros(0, np.int64), user_index, ONL_CLIENTS, TOP_K, stop=stop, seed=seed))), daemon=True),
+               threading.Thread(target=guarded(ingest), daemon=True)]
+    if probe:
+        threads.append(threading.Thread(target=guarded(prober), daemon=True))
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    time.sleep(ONL_PHASE_S)
+    stop.set()
+    for t in threads:
+        t.join(timeout=ONL_PROBE_TIMEOUT_S + 60)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"online: {len(errors)} traffic threads failed: {errors[:3]}")
+    ok_answers("online queries", box)
+    out = {key_: box[key_] for key_ in ("queries", "wall_s", "queries_per_s", "p50_ms", "p99_ms")}
+    out.update({"ingested": counts["ingested"], "ingest_events_per_s": counts["ingested"] / wall,
+                "probe_events": counts["probe_events"]})
+    if probe:
+        out["freshness"] = {"samples": len(fresh), "timeouts": len(timeouts),
+                            "p50_s": float(np.percentile(fresh, 50)) if fresh else None,
+                            "max_s": max(fresh) if fresh else None}
+    return out
+
+
+def fold_reference(model, side: str, ent: str, reg: float, prior_weight: float, own: np.ndarray,
+                   opp: np.ndarray) -> np.ndarray:
+    """The float64 numpy solve of the anchored normal equations a fold of
+    ``ent`` (``side`` "users" or "items") solves: its online history
+    (``model._pio_online``) against the opposite table ``opp``, anchored to
+    its row of ``own`` when the model knows it (``online/foldin.py``)."""
+    own_index, opp_index = ((model.user_index, model.item_index) if side == "users"
+                            else (model.item_index, model.user_index))
+    pairs = [(opp_index[o], r) for o, (_, r) in model._pio_online[side][ent].items() if o in opp_index]
+    pairs = pairs[-MAX_WIDTH:]
+    Y = opp[[ix for ix, _ in pairs]]
+    r = np.asarray([v for _, v in pairs], np.float64)
+    row = own_index.get(ent)
+    w = prior_weight if row is not None and row < own.shape[0] else 0.0
+    prior = own[row] if w else np.zeros(own.shape[1])
+    A = Y.T @ Y + (reg * max(len(pairs), 1) + w) * np.eye(own.shape[1])
+    return np.linalg.solve(A, Y.T @ r + w * prior)
+
+
+def phase_online(device, ctx: dict, smi: str) -> dict:
+    """``pio deploy`` against ``pio deploy --online --online-interval-s 0.25
+    --online-batch 2048`` of the workflow's warm instance under the same
+    load and ingest (:func:`online_traffic`), the online one with the
+    freshness probe; its ``eventsSeen`` must equal the events the event
+    server stored during its run. Then, in process, the same events fold
+    into a ``QueryService`` of the instance through the template's hooks
+    (``ONL_BATCH`` a fold): 32 folded rows of the last fold held to the
+    float64 numpy solve of their normal equations over the tables read
+    back from the card, 64 moved users' top-10s to float64 numpy over the
+    live tables, and the card's allocated memory grown by at most the
+    appended rows and 1 MiB."""
+    t_phase = time.perf_counter()
+    base, engine_json, dev_args = ctx["base"], ctx["engine_json"], ctx["dev_args"]
+    first = ctx["instance"]
+    stored = stored_model(first.id)
+    user_index, item_index = stored.user_index, stored.item_index
+    rank = stored.user_factors.shape[1]
+    del stored
+    app = Storage.get_meta_data_apps().get_by_name(WF_APP)
+    (access_key,) = Storage.get_meta_data_access_keys().get_by_appid(app.id)
+    deploy = ["deploy", "--engine-json", str(engine_json), "--engine-instance-id", first.id, *dev_args]
+    online_flags = ["--online", "--online-interval-s", str(ONL_INTERVAL_S), "--online-batch", str(ONL_BATCH)]
+    out: dict = {"users": len(user_index), "items": len(item_index), "rank": rank, "clients": ONL_CLIENTS,
+                 "phase_seconds": ONL_PHASE_S, "target_ingest_eps": ONL_INGEST_EPS, "card": smi}
+    es_proc = dep_proc = None
+    try:
+        es_proc, es_port = start_console_server("online", base, ["eventserver"], base / "es-online.stderr",
+                                                WF_SERVER_TIMEOUT_S)
+        es_url = f"http://127.0.0.1:{es_port}"
+        runs = {}
+        for label, flags in (("baseline", []), ("online", online_flags)):
+            if label == "online":
+                # anchored now, as the deploy's follower is: it sees exactly
+                # the events of the online run
+                follower = TailFollower(WF_APP, state_dir=str(base / "online-check"))
+            t0 = time.perf_counter()
+            dep_proc, port = start_console_server("online", base, deploy + flags, base / f"deploy-{label}.stderr",
+                                                  QS_DEPLOY_TIMEOUT_S)
+            start_s = time.perf_counter() - t0
+            url = f"http://127.0.0.1:{port}"
+            warm = 0
+            for u in range(10):
+                _http_json(url + "/queries.json", {"user": user_index.inverse(u), "num": TOP_K})
+            if label == "online":
+                warm = bulk_post(es_url, access_key.key, rate_events(
+                    np.random.default_rng(40), user_index.keys(), item_index.keys(), 4, "online-warm"))
+                status, body = _http_json(url + "/online/fold.json", {})
+                if status != 200:
+                    raise RuntimeError(f"online: the warm-up fold answered {status} {body}")
+            run = online_traffic(url, es_url, access_key.key, user_index, item_index, label == "online",
+                                 seed=41 if label == "baseline" else 42)
+            run["deploy_start_s"] = start_s
+            if label == "online":
+                accepted = warm + run["ingested"] + run["probe_events"]
+                deadline = time.perf_counter() + ONL_CATCH_UP_S
+                while True:
+                    _, stats = _http_json(url + "/stats.json")
+                    if stats["online"]["eventsSeen"] >= accepted or time.perf_counter() > deadline:
+                        break
+                    time.sleep(0.1)
+                _, root = _http_json(url + "/")
+                onl = stats["online"]
+                run.update({"accepted": accepted, "events_seen": onl["eventsSeen"], "folds": onl["folds"],
+                            "updates_applied": onl["updatesApplied"], "fold_ms": onl["foldMs"],
+                            "event_to_visible_s": onl["eventToVisibleSeconds"], "watermark": onl["watermark"],
+                            "last_error": onl["lastError"], "status_online": root["online"]})
+            dep_proc.send_signal(signal.SIGTERM)
+            rc = dep_proc.wait(timeout=60)
+            dep_proc = None
+            if rc != 0:
+                raise RuntimeError(f"online: the {label} deploy exited {rc} on SIGTERM")
+            runs[label] = run
+            log(f"[online] {label} deploy: started in {start_s:.3f} s; {run['queries']} queries from "
+                f"{ONL_CLIENTS} keep-alive clients, {run['queries_per_s']:.1f} queries/s, p50 {run['p50_ms']:.3f} "
+                f"ms, p99 {run['p99_ms']:.3f} ms, all 200; {run['ingested']} events ingested "
+                f"({run['ingest_events_per_s']:.1f} events/s) through /events/bulk.json on {smi}")
+    finally:
+        for p in (dep_proc, es_proc):
+            if p is not None:
+                p.send_signal(signal.SIGTERM)
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait(timeout=30)
+    online = runs["online"]
+    fr = online["freshness"]
+    if fr["timeouts"] or not fr["samples"]:
+        raise RuntimeError(f"online: freshness probes {fr}")
+    if online["events_seen"] != online["accepted"] or online["last_error"] or online["status_online"] is not True:
+        raise RuntimeError(f"online: eventsSeen {online['events_seen']}, the event server stored "
+                           f"{online['accepted']} during the run; lastError {online['last_error']}")
+    p99_ratio = online["p99_ms"] / runs["baseline"]["p99_ms"]
+    log(f"[online] --online run: freshness p50 {fr['p50_s']:.3f} s, max {fr['max_s']:.3f} s over {fr['samples']} "
+        f"probes, 0 timeouts; eventsSeen {online['events_seen']} = {online['accepted']} events stored during "
+        f"the run; {online['folds']} folds, foldMs p50 {online['fold_ms']['p50']} p95 {online['fold_ms']['p95']}, "
+        f"eventToVisibleSeconds p50 {online['event_to_visible_s']['p50']} p95 "
+        f"{online['event_to_visible_s']['p95']}; p99 online/baseline {p99_ratio:.3f}; deploy start "
+        f"{online['deploy_start_s']:.3f} s with --online, {runs['baseline']['deploy_start_s']:.3f} s without, "
+        f"on {smi}")
+
+    # in process: the same events folded through the hooks, checked
+    events = follower.poll()
+    if len(events) != online["accepted"]:
+        raise RuntimeError(f"online: the store holds {len(events)} events of the online run, the event server "
+                           f"stored {online['accepted']}")
+    deltas = to_deltas(events)
+    ds_params = json.loads(first.datasource_params)
+    config = OnlineConfig(enabled=True, interval_s=ONL_INTERVAL_S, batch_size=ONL_BATCH)
+    service = QueryService(load_engine_variant(str(engine_json)), local_context(device), instance_id=first.id)
+    try:
+        (algo, model), = service.snapshot_pairs()[0]
+        generation = service.model_generation
+        n_users, n_items = len(model.user_index), len(model.item_index)
+        def read_back(table) -> np.ndarray:
+            """A live table as float64 on the host, read on the device thread."""
+            return service.run_on_device(
+                lambda: (table.cpu().numpy() if isinstance(table, torch.Tensor) else np.asarray(table)).astype(
+                    np.float64))
+
+        reset_launch_counts()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        mem_first = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+        moved: list = []
+        fold_ms: list = []
+        worst = 0.0
+        for lo in range(0, len(deltas), ONL_BATCH):
+            t0 = time.perf_counter()
+            upd = algo.online_foldin(model, deltas[lo:lo + ONL_BATCH], ds_params, config, run=service.run_on_device)
+            fold_ms.append((time.perf_counter() - t0) * 1e3)
+            if lo + ONL_BATCH >= len(deltas):
+                # the last fold's rows against float64 numpy over the tables
+                # read back from the card (the apply below has not run yet)
+                U, V = read_back(model.user_factors), read_back(model.item_factors)
+                rng = np.random.default_rng(43)
+                for side, ids, rows, own, opp in (("users", upd.user_ids, upd.user_rows, U, V),
+                                                  ("items", upd.item_ids, upd.item_rows, V, U)):
+                    for j in rng.choice(len(ids), min(ONL_CHECK_ROWS // 2, len(ids)), replace=False).tolist():
+                        ref = fold_reference(model, side, ids[j], algo.params.lambda_, config.prior_weight, own, opp)
+                        err = float(np.linalg.norm(rows[j] - ref) / np.linalg.norm(ref))
+                        worst = max(worst, err)
+                        if err > ONL_FOLD_RTOL:
+                            raise RuntimeError(f"online: the fold of {side[:-1]} {ids[j]} is {err:.3g} from "
+                                               f"float64 numpy (limit {ONL_FOLD_RTOL:g})")
+            res = service.apply_online_update([(0, upd)], generation=generation)
+            if not res["applied"]:
+                raise RuntimeError(f"online: the in-process fold was not applied: {res}")
+            moved += list(upd.user_ids)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        mem_last = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+        added = len(model.user_index) - n_users + len(model.item_index) - n_items
+        if mem_last - mem_first > added * rank * 4 + (1 << 20):
+            raise RuntimeError(f"online: memory_allocated {mem_first} -> {mem_last} for {added} appended rows")
+        U, V = read_back(model.user_factors), read_back(model.item_factors)
+        picks = np.random.default_rng(44).choice(sorted(set(moved)), ONL_CHECK_USERS, replace=False).tolist()
+        answers = [(model.user_index[u], service.handle_query({"user": u, "num": TOP_K})[1]) for u in picks]
+        check_answers("online moved users", answers, U, V, model.item_index, TOP_K)
+        launches = read_launch_counts()
+        # the fold's solve: the error check's host sync (cholesky) against
+        # none (cholesky_ex), each read back, at one chunk's shape
+        A, b = spd_batch(128, rank, 45, device)
+        times = {}
+        for name, fn in (("cholesky_solve", lambda: cholesky_solve(A, b).cpu()),
+                         ("cholesky_solve_ex", lambda: [t.cpu() for t in cholesky_solve_ex(A, b)])):
+            fn()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                fn()
+            times[name] = (time.perf_counter() - t0) * 1e3 / 50
+    finally:
+        service.close()
+    out.update({
+        "baseline": runs["baseline"], "online": runs["online"], "p99_ratio": p99_ratio,
+        "in_process": {"events": len(deltas), "folds": len(fold_ms), "fold_ms": fold_ms,
+                       "rows_checked": ONL_CHECK_ROWS, "worst_rel_err": worst, "users_checked": len(picks),
+                       "appended_rows": added, "memory_allocated_first_last": [mem_first, mem_last],
+                       "launches": launches, "solve_round_trip_ms": times},
+    })
+    log(f"[online] in process: {len(deltas)} events folded in {len(fold_ms)} folds ({fold_ms} ms), "
+        f"{ONL_CHECK_ROWS} folded rows within {worst:.3g} of float64 numpy (limit {ONL_FOLD_RTOL:g}), "
+        f"{len(picks)} moved users' top-{TOP_K} equal float64 numpy over the live tables; memory_allocated "
+        f"{mem_first} -> {mem_last} for {added} appended rows; launches {json.dumps(launches)}; a [128,{rank},"
+        f"{rank}] solve read back in {times['cholesky_solve']:.3f} ms with the error check's sync, "
+        f"{times['cholesky_solve_ex']:.3f} ms without, on {smi}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[online] {json.dumps(out)}")
+    return out
+
+
+def phase_tt_online(device, ctx: dict, smi: str) -> dict:
+    """The Two-Tower quickstart's instance in a ``QueryService`` with
+    online learning behind ``QueryServer`` (the ``--online`` deploy):
+    ``ONL_TT_EVENTS`` ``view`` events through the event server's bulk route
+    (``ONL_TT_NEW_USERS`` of them by users the model does not hold), the
+    streaming trainer's steps awaited; every streamed row must have norm
+    1 within ``ONL_TT_NORM_ATOL``, and no user's answer may hold an item
+    the user just viewed."""
+    t_phase = time.perf_counter()
+    model = ctx["model"]
+    app = Storage.get_meta_data_apps().get_by_name(TTQ_APP)
+    (access_key,) = Storage.get_meta_data_access_keys().get_by_appid(app.id)
+    rng = np.random.default_rng(46)
+    items = model.item_index.keys()
+    known = rng.choice(len(model.user_index), ONL_TT_EVENTS - ONL_TT_NEW_USERS, replace=False).tolist()
+    pairs = []
+    for u in [model.user_index.inverse(j) for j in known] + [f"online-u{j}" for j in range(ONL_TT_NEW_USERS)]:
+        seen = model.seen.get(u, set())
+        pairs.append((u, next(i for i in (items[int(k)] for k in rng.permutation(len(items))) if i not in seen)))
+    es_proc = None
+    streamed = {"users": set(), "items": set()}
+    service = QueryService(load_engine_variant(str(ctx["engine_json"])), local_context(device),
+                           instance_id=ctx["instance"],
+                           online=OnlineConfig(enabled=True, interval_s=ONL_INTERVAL_S, batch_size=ONL_BATCH))
+    apply = service.apply_online_update
+
+    def recording_apply(updates, generation=None):
+        res = apply(updates, generation=generation)
+        if res.get("applied"):
+            for _, upd in updates:
+                streamed["users"].update(upd.user_ids)
+                streamed["items"].update(upd.item_ids)
+        return res
+
+    service.apply_online_update = recording_apply
+    try:
+        es_proc, es_port = start_console_server("tt-online", ctx["base"], ["eventserver"],
+                                                ctx["base"] / "es-tt-online.stderr", WF_SERVER_TIMEOUT_S)
+        with QueryServer(service) as server:
+            t0 = time.perf_counter()
+            posted = bulk_post(f"http://127.0.0.1:{es_port}", access_key.key, [
+                {"event": "view", "entityType": "user", "entityId": u, "targetEntityType": "item",
+                 "targetEntityId": i} for u, i in pairs])
+            deadline = time.perf_counter() + ONL_CATCH_UP_S
+            while True:
+                _, stats = _http_json(server.url + "/stats.json")
+                trainer = stats["online"].get("trainers", {}).get("0", {})
+                if (trainer.get("pairsTrained", 0) >= posted and not trainer.get("queued")) or (
+                        time.perf_counter() > deadline):
+                    break
+                time.sleep(0.05)
+            trained_s = time.perf_counter() - t0
+            answers = {u: _http_json(server.url + "/queries.json", {"user": u, "num": TOP_K})[1] for u, _ in pairs}
+        (_, live), = service.snapshot_pairs()[0]
+        def row_norms(table, ids, index) -> np.ndarray:
+            rows = torch.as_tensor(table)
+            picked = rows.index_select(0, torch.as_tensor([index[x] for x in ids], device=rows.device))
+            return torch.linalg.norm(picked.to(torch.float64), dim=1).cpu().numpy()
+
+        norms = {side: service.run_on_device(row_norms, table, sorted(streamed[side]), index)
+                 for side, table, index in (("users", live.user_vecs, live.user_index),
+                                            ("items", live.item_vecs, live.item_index))}
+    finally:
+        service.close()
+        if es_proc is not None:
+            es_proc.send_signal(signal.SIGTERM)
+            try:
+                es_proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                es_proc.kill()
+                es_proc.wait(timeout=30)
+    onl = stats["online"]
+    if posted != ONL_TT_EVENTS or trainer.get("pairsTrained") != posted or onl["eventsSeen"] != posted or (
+            onl["lastError"]):
+        raise RuntimeError(f"tt-online: {posted} events stored, trainer {trainer}, eventsSeen {onl['eventsSeen']}, "
+                           f"lastError {onl['lastError']}")
+    if not {u for u, _ in pairs} <= streamed["users"] or not {i for _, i in pairs} <= streamed["items"]:
+        raise RuntimeError("tt-online: the streamed updates do not name every user and item of the events")
+    worst = max(float(np.abs(n - 1.0).max()) for n in norms.values())
+    if worst > ONL_TT_NORM_ATOL:
+        raise RuntimeError(f"tt-online: a streamed row's norm is {worst:.3g} off 1 (limit {ONL_TT_NORM_ATOL:g})")
+    leaked = [(u, i) for u, i in pairs if i in {s["item"] for s in answers[u]["itemScores"]}]
+    short = [u for u, _ in pairs if len(answers[u]["itemScores"]) != TOP_K]
+    if leaked or short:
+        raise RuntimeError(f"tt-online: {len(leaked)} answers hold an item the user just viewed ({leaked[:3]}), "
+                           f"{len(short)} answers have fewer than {TOP_K} items")
+    out = {"events": posted, "new_users": ONL_TT_NEW_USERS, "steps": trainer["steps"],
+           "pairs_trained": trainer["pairsTrained"], "last_loss": trainer["lastLoss"],
+           "dropped_batches": trainer["droppedBatches"], "streamed_users": len(streamed["users"]),
+           "streamed_items": len(streamed["items"]), "worst_norm_err": worst, "trained_s": trained_s,
+           "event_to_visible_s": onl["eventToVisibleSeconds"], "phase_s": time.perf_counter() - t_phase,
+           "card": smi}
+    log(f"[online] two-tower: {posted} view events streamed in {trainer['steps']} trainer steps ({trained_s:.3f} s "
+        f"from the POST), loss {trainer['lastLoss']}; {len(streamed['users'])} user and {len(streamed['items'])} "
+        f"item rows streamed, norms within {worst:.3g} of 1; no answer holds an item its user just viewed; "
+        f"on {smi}")
+    log(f"[online] two-tower: {json.dumps(out)}")
+    return out
+
+
 def check_launches(path: str, launches: dict, expected: dict) -> None:
     log(f"[{path}] launches on the path: {json.dumps({k: launches[k] for k in expected})}, "
         f"plan {json.dumps(expected)}")
@@ -2254,13 +2741,20 @@ def main() -> int:
     qs = phase_quickstart(device, QUERIES, TOP_K, info["smi"])
     ttq = phase_tt_quickstart(
         device, TTQ_NNZ, TT_DIM, TT_BATCH, TT_EPOCHS, QUERIES, TOP_K, info["smi"],
-        then=lambda ctx: phase_tt_serving(device, ctx, SRV_TT_CLIENTS, SRV_TT_REQUESTS, TOP_K, info["smi"]))
-    # the serving tier runs on the workflow's store and warm instance (its
-    # own launch counts inside)
+        then=lambda ctx: (phase_tt_serving(device, ctx, SRV_TT_CLIENTS, SRV_TT_REQUESTS, TOP_K, info["smi"]),
+                          phase_tt_online(device, ctx, info["smi"])))
+    tt_srv, tt_onl = ttq["serving"]
+    # the serving tier and online learning run on the workflow's store and
+    # warm instance (their own launch counts inside)
     wf = phase_workflow(
         device, WF_NNZ, WF_BULK, QUERIES, TOP_K, info["smi"],
-        then=lambda ctx: phase_serving(device, ctx, SRV_CLIENTS, SRV_REQUESTS, TOP_K, SRV_BATCHPREDICT, info["smi"]))
-    srv = wf["serving"]
+        then=lambda ctx: (phase_serving(device, ctx, SRV_CLIENTS, SRV_REQUESTS, TOP_K, SRV_BATCHPREDICT,
+                                        info["smi"]),
+                          phase_online(device, ctx, info["smi"])))
+    srv, onl = wf["serving"]
+    online_launches = onl["in_process"]["launches"]
+    if any(online_launches.values()):
+        raise RuntimeError(f"online: the fold launched kernels {online_launches}; its path has none")
 
     main_fused = fused_rows[0]  # [8192, 64], the Two-Tower path's shape
     kernels = [
@@ -2312,7 +2806,17 @@ def main() -> int:
             "predict_events": srv["feedback"]["predict_events"],
             "memory_allocated_first_last": [srv["reloads"]["memory_allocated_first"],
                                             srv["reloads"]["memory_allocated_last"]],
-            "tt": {key: ttq["serving"][key] for key in ("queries_per_s", "p50_ms", "p99_ms")},
+            "tt": {key: tt_srv[key] for key in ("queries_per_s", "p50_ms", "p99_ms")},
+        },
+        "online": {
+            **{label: {key: onl[label][key] for key in ("queries_per_s", "p50_ms", "p99_ms", "deploy_start_s",
+                                                         "ingest_events_per_s")}
+               for label in ("baseline", "online")},
+            "p99_ratio": onl["p99_ratio"], "freshness": onl["online"]["freshness"],
+            "fold_ms": onl["online"]["fold_ms"], "event_to_visible_s": onl["online"]["event_to_visible_s"],
+            "events_seen": onl["online"]["events_seen"], "worst_rel_err": onl["in_process"]["worst_rel_err"],
+            "launches": online_launches, "phase_s": onl["phase_s"],
+            "tt": {key: tt_onl[key] for key in ("events", "steps", "last_loss", "worst_norm_err", "phase_s")},
         },
         "wall_s": time.perf_counter() - t_start,
     }

@@ -2135,7 +2135,9 @@ class StorageClient(BaseStorageClient):
         if partitions > 1 or replication:
             raise StorageError(
                 "the partitioned and replicated columnar layouts "
-                "(PARTITIONS > 1, REPLICATION) are not ported yet"
+                "(PARTITIONS > 1, REPLICATION) are not ported yet; they "
+                "wait for ROADMAP queue 1 item 15 (so does pio deploy "
+                "--online over them)"
             )
         # refuse to open a partitioned layout as a single stream:
         # routing/dedup state lives per partition, and flattening it

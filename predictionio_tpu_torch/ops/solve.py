@@ -14,7 +14,9 @@ Counterpart of ``predictionio_tpu/ops/solve.py``:
   package's ``_gj_kernel``: pivot blocks of P=8, each inverted by an
   unrolled GJ, then eliminated from every row by two rank-P products.
 * :func:`cholesky_solve` — ``torch.linalg.cholesky`` + ``torch.cholesky_solve``,
-  the path for the shapes the kernel does not take.
+  the path for the shapes the kernel does not take; :func:`cholesky_solve_ex`
+  is the same solve without the error check's host sync (the online
+  fold-in's, ``online/foldin.py``).
 * :func:`spd_solve` — the JAX package's shape dispatch: K a multiple of 8
   and K <= 256 go to Gauss-Jordan, everything else to Cholesky.
 
@@ -39,6 +41,7 @@ __all__ = [
     "gj_solve_plan",
     "gj_solve_reference",
     "cholesky_solve",
+    "cholesky_solve_ex",
 ]
 
 #: pivot-block width of the plain mirror, and the K granularity the
@@ -61,6 +64,15 @@ def cholesky_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched SPD solve via Cholesky: A [.., K, K], b [.., K]."""
     L = torch.linalg.cholesky(A)
     return torch.cholesky_solve(b.unsqueeze(-1), L).squeeze(-1)
+
+
+def cholesky_solve_ex(A: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`cholesky_solve` without the host sync of its error check:
+    ``(x, info)``, where ``info[..] > 0`` marks a system that is not
+    positive definite (its row of ``x`` is then no solution). The caller
+    reads ``info`` when it reads ``x``."""
+    L, info = torch.linalg.cholesky_ex(A)
+    return torch.cholesky_solve(b.unsqueeze(-1), L).squeeze(-1), info
 
 
 def gj_solve_reference(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

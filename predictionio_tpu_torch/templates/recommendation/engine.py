@@ -22,6 +22,10 @@ Counterpart of ``predictionio_tpu/templates/recommendation/engine.py``
   GEMV/GEMM and ``top_k_host``);
 * serving is the framework's :class:`FirstServing`
   (:func:`engine_factory`); :class:`PrecisionAtK` scores ``pio eval``.
+* under ``pio deploy --online`` (:mod:`predictionio_tpu_torch.online`),
+  ``online_foldin`` re-solves the rows a batch of fresh ``rate``/``buy``
+  events touched against the fixed opposite factors, on the algorithm's
+  device, and ``apply_online_update`` swaps them into the live model.
 
 engine.json params are byte-compatible: ``rank``, ``numIterations``,
 ``lambda``, ``seed``, ``implicitPrefs``, ``alpha``, ``serveOnDevice``,
@@ -29,8 +33,8 @@ engine.json params are byte-compatible: ``rank``, ``numIterations``,
 ``serveOnDevice`` and ``deviceLatencyBudgetMs`` are recorded, not
 switches: the deploy's device decides where a model serves.
 
-Waiting: the multi-host read and the sharded, int8, IVF, online and AOT
-serving tiers.
+Waiting: the multi-host read and the sharded, int8, IVF and AOT serving
+tiers.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ import re
 import uuid
 import zipfile
 import zlib
+from collections import OrderedDict
 from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
@@ -66,7 +71,7 @@ from predictionio_tpu_torch.data.store import PEventStore, resolve_app
 from predictionio_tpu_torch.ops.als import ALSConfig, predict_scores, train_als
 from predictionio_tpu_torch.ops.topk import top_k_host, top_k_scores
 from predictionio_tpu_torch.templates.columnar_util import event_name_mask
-from predictionio_tpu_torch.templates.serving_util import TOPK_CHUNK, aligned_factor_init, chunked_topk
+from predictionio_tpu_torch.templates.serving_util import TOPK_CHUNK, aligned_factor_init, chunked_topk, release_tables
 from predictionio_tpu_torch.templates.results import ItemScore, PredictedResult
 
 __all__ = [
@@ -528,6 +533,10 @@ class ALSModel:
     item_index: BiMap
 
 
+def _call(fn: Callable, *args: Any) -> Any:
+    return fn(*args)
+
+
 class ALSAlgorithm(TorchAlgorithm):
     params_class = ALSAlgorithmParams
     query_class = Query
@@ -610,7 +619,7 @@ class ALSAlgorithm(TorchAlgorithm):
         bytes it now holds there (``bytesPinned`` on /stats.json).
         Idempotent. The host arrays are kept on the model, so
         :meth:`release_pinned_model` drops the device tables without a
-        copy back."""
+        copy back while no online update has moved a row."""
         if isinstance(model.item_factors, np.ndarray):
             model._pio_host = (model.user_factors, model.item_factors)
             model.user_factors, model.item_factors = (
@@ -625,12 +634,163 @@ class ALSAlgorithm(TorchAlgorithm):
     def release_pinned_model(self, model: ALSModel) -> None:
         """Drop a superseded generation's pinned tables: the model gets its
         host arrays back and the device tensors lose their last
-        reference, so their memory is freed at once."""
-        host = getattr(model, "_pio_host", None)
-        if host is not None:
-            model.user_factors, model.item_factors = host
-            model._pio_host = None
-        model._pio_pinned = False
+        reference, so their memory is freed at once. After an online
+        update the pin-time host arrays are stale (``apply_online_update``
+        dropped them), so the folded tables are copied back instead."""
+        release_tables(model, "user_factors", "item_factors")
+
+    # ------------------------------------------------------ online fold-in
+    @staticmethod
+    def _online_state(model: ALSModel, max_entities: int) -> dict:
+        """Per-model online rating accumulator (LRU-bounded per side):
+        the follower only sees events since deploy, so each touched
+        entity's re-solve uses its accumulated ONLINE history anchored to
+        its trained row (online/foldin.py). Dies with the model on a full
+        /reload — by then a retrain owns the history."""
+        state = getattr(model, "_pio_online", None)
+        if state is None:
+            state = {"users": OrderedDict(), "items": OrderedDict(), "max": max_entities}
+            model._pio_online = state
+        return state
+
+    @staticmethod
+    def _remember(side: OrderedDict, key: str, other: str, t_us: int, rating: float, cap: int) -> None:
+        hist = side.get(key)
+        if hist is None:
+            hist = side[key] = {}
+        side.move_to_end(key)
+        prev = hist.get(other)
+        if prev is None or (t_us, rating) >= prev:
+            hist[other] = (t_us, rating)
+        while len(side) > cap:
+            side.popitem(last=False)
+
+    def online_foldin(self, model: ALSModel, deltas, ds_params, config, run: Callable | None = None):
+        """Re-solved rows for the users/items a delta batch touched —
+        fixed opposite-side factors, ALS-WR objective, prior anchor
+        (online/foldin.py), solved on :attr:`device`. Read-only. The
+        history and the systems are built on the calling thread; ``run``
+        runs the torch calls (the prior rows' gather, the Gramian of an
+        implicit model and the solves)."""
+        from predictionio_tpu_torch.online.foldin import foldin_rows, gram_yty
+        from predictionio_tpu_torch.online.types import OnlineUpdate, latest_wins
+        from predictionio_tpu_torch.workflow import device_state
+
+        run = run or _call
+        p = self.params
+        rate_event = ds_params.get("rate_event", ds_params.get("rateEvent", "rate"))
+        buy_event = ds_params.get("buy_event", ds_params.get("buyEvent", "buy"))
+        buy_rating = float(ds_params.get("buy_rating", ds_params.get("buyRating", 4.0)))
+        # map the event mix to ratings, then collapse with the shared
+        # latest-wins rule (one source of truth with the training read)
+        rated = latest_wins(
+            [
+                dataclasses.replace(d, rating=buy_rating) if d.event == buy_event else d
+                for d in deltas
+                if d.event in (rate_event, buy_event)
+            ]
+        )
+        if not rated:
+            return None
+        state = self._online_state(model, config.max_entities)
+        for (u, i), (t_us, r) in rated.items():
+            self._remember(state["users"], u, i, t_us, r, state["max"])
+            self._remember(state["items"], i, u, t_us, r, state["max"])
+        touched_users = sorted({u for u, _ in rated})
+        touched_items = sorted({i for _, i in rated})
+        implicit = p.implicit_prefs
+        yty_item = yty_user = None
+        if implicit:
+            # the implicit objective's Gramian over the opposite factors,
+            # once per model object (it dies with the model on /reload);
+            # folds move a few rows, so it drifts slightly — the
+            # approximation MLlib's fold-in makes with the training-time
+            # Gramian
+            if "yty_item" not in state:
+                state["yty_item"] = run(gram_yty, model.item_factors)
+                state["yty_user"] = run(gram_yty, model.user_factors)
+            yty_item = state["yty_item"]
+            yty_user = state["yty_user"]
+
+        def solve_side(touched, side_hist, own_factors, own_index, opp_index, opp_factors, yty):
+            ids, entries, prior_rows = [], [], []
+            n_own = int(own_factors.shape[0])
+            for ent in touched:
+                hist = side_hist.get(ent, {})
+                pairs = [(idx, r) for other, (_, r) in hist.items() if (idx := opp_index.get(other)) is not None]
+                if not pairs:
+                    continue  # nothing resolvable yet (opposite unseen)
+                row = own_index.get(ent)
+                ids.append(ent)
+                entries.append(([ix for ix, _ in pairs], [r for _, r in pairs]))
+                # -1 = cold start: pure fold-in from first events
+                prior_rows.append(row if row is not None and row < n_own else -1)
+            if not ids:
+                return [], None
+            # gather ONLY the touched prior rows: on the card one device
+            # gather and a len(ids)-row copy, never the whole table
+            prior_rows = np.asarray(prior_rows, np.int64)
+            known = prior_rows >= 0
+            if n_own:
+                gathered = run(device_state.get_rows, own_factors, np.where(known, prior_rows, 0))
+            else:
+                gathered = np.zeros((len(ids), int(own_factors.shape[1])), np.float32)
+            priors = np.where(known[:, None], gathered, 0.0).astype(np.float32)
+            weights = np.where(known, config.prior_weight, 0.0).astype(np.float32)
+            rows = foldin_rows(
+                opp_factors, entries, reg=p.lambda_, priors=priors, prior_weights=weights,
+                implicit=implicit, alpha=p.alpha, yty=yty, device=self.device, run=run,
+            )
+            return ids, rows
+
+        user_ids, user_rows = solve_side(
+            touched_users, state["users"], model.user_factors,
+            model.user_index, model.item_index, model.item_factors, yty_item,
+        )
+        item_ids, item_rows = solve_side(
+            touched_items, state["items"], model.item_factors,
+            model.item_index, model.user_index, model.user_factors, yty_user,
+        )
+        if not user_ids and not item_ids:
+            return None
+        return OnlineUpdate(
+            user_ids=user_ids,
+            user_rows=user_rows,
+            item_ids=item_ids,
+            item_rows=item_rows,
+            # every user who RATED in this batch sees changed results even
+            # when only the item side of their pair moved
+            extra_scopes=sorted({u for u, _ in rated}),
+            info={"ratings": len(rated)},
+        )
+
+    def apply_online_update(self, model: ALSModel, upd) -> dict:
+        """Swap the computed rows into the live model — the query server
+        runs it on its device thread after the generation check: row
+        swaps (out of place on the pinned tables), id-map extension for
+        cold starts. The pin-time host arrays go stale with the first
+        swap, so they are dropped (:meth:`release_pinned_model` then
+        copies the folded tables back)."""
+        from predictionio_tpu_torch.workflow import device_state
+
+        model._pio_host = None
+        info = {"usersUpdated": 0, "itemsUpdated": 0, "usersAdded": 0, "itemsAdded": 0}
+        if upd.user_ids:
+            info["usersUpdated"], info["usersAdded"] = device_state.swap_side_rows(
+                model, upd.user_ids, upd.user_rows, "user_factors", "user_index", rows_before_index=True
+            )
+        if upd.item_ids:
+            info["itemsUpdated"], info["itemsAdded"] = device_state.swap_side_rows(
+                model, upd.item_ids, upd.item_rows, "item_factors", "item_index", rows_before_index=False
+            )
+            if info["itemsAdded"]:
+                # the batchpredict fast path caches per-item JSON prefixes
+                # by index — a grown catalog invalidates them
+                model._item_json_prefix = None
+            ann_info = device_state.update_ann_items(model, upd.item_ids, upd.item_rows)
+            if ann_info is not None:
+                info["ann"] = ann_info
+        return info
 
     def warm_up(self, model: ALSModel) -> None:
         """Make the calling thread ready to serve: the device current, and

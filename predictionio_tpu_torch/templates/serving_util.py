@@ -10,6 +10,7 @@ Counterpart of ``predictionio_tpu/templates/serving_util.py``:
   sharded, int8 and AOT branches wait (ROADMAP queue 1 items 7, 13, 8
   and 14) and raise ``NotImplementedError`` naming their item.
 * :func:`aligned_factor_init`, a copy: a warm retrain's carried rows.
+* :func:`release_tables`: both templates' release of pinned tables.
 
 ``device_latency_ok`` is not ported on purpose: in the JAX package it
 moves serving to the host when the device answers slowly, and the port
@@ -26,7 +27,7 @@ import torch
 from predictionio_tpu_torch.ops.als import top_k_items_batch
 from predictionio_tpu_torch.ops.topk import bucket_k, top_k_host
 
-__all__ = ["TOPK_CHUNK", "chunked_topk", "aligned_factor_init"]
+__all__ = ["TOPK_CHUNK", "chunked_topk", "aligned_factor_init", "release_tables"]
 
 #: queries per score product in :func:`chunked_topk` (the JAX package's
 #: value, so a host chunk's GEMM has the same shape in both packages)
@@ -142,3 +143,22 @@ def aligned_factor_init(
     ok = src < old.shape[0]
     out[new_rows[hit][ok], :k] = old[src[ok], :k]
     return out, int(ok.sum())
+
+
+def release_tables(model, *attrs: str) -> None:
+    """Release a model's pinned tables ``attrs`` (both templates'
+    ``release_pinned_model``): the pin-time host arrays come back while
+    they are current; once an online update dropped them as stale, the
+    updated tables are copied back to the host instead, so nothing that
+    reads the model later sees pre-update rows."""
+    host = getattr(model, "_pio_host", None)
+    if host is not None:
+        for attr, arr in zip(attrs, host):
+            setattr(model, attr, arr)
+    elif getattr(model, "_pio_pinned", False):
+        for attr in attrs:
+            table = getattr(model, attr)
+            if isinstance(table, torch.Tensor):
+                setattr(model, attr, table.cpu().numpy())
+    model._pio_host = None
+    model._pio_pinned = False

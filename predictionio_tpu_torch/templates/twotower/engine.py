@@ -19,6 +19,10 @@ DASE spine (:func:`engine_factory`):
   with the seen-item filter;
 * serving is the framework's :class:`FirstServing`; :class:`RecallAtK`
   scores ``pio eval``.
+* under ``pio deploy --online`` (:mod:`predictionio_tpu_torch.online`),
+  ``online_trainer_spec`` opts the towers into the streaming trainer,
+  and ``apply_online_update`` swaps its rows into the live towers and
+  grows the seen filter.
 
 engine.json is the JAX package's, byte for byte::
 
@@ -29,8 +33,8 @@ engine.json is the JAX package's, byte for byte::
                      "params": {"embeddingDim": 64, "batchSize": 512,
                                 "epochs": 5, "learningRate": 0.05}}]}
 
-Waiting: the multi-host read and the sharded, int8, IVF, online and AOT
-serving tiers.
+Waiting: the multi-host read and the sharded, int8, IVF and AOT serving
+tiers.
 """
 
 from __future__ import annotations
@@ -61,7 +65,7 @@ from predictionio_tpu_torch.ops.topk import bucket_k, top_k_host, top_k_scores
 from predictionio_tpu_torch.ops.twotower import TwoTowerConfig, train_two_tower
 from predictionio_tpu_torch.templates.columnar_util import aggregate_pairs, densify_pairs
 from predictionio_tpu_torch.templates.results import ItemScore, PredictedResult
-from predictionio_tpu_torch.templates.serving_util import aligned_factor_init, chunked_topk
+from predictionio_tpu_torch.templates.serving_util import aligned_factor_init, chunked_topk, release_tables
 
 __all__ = [
     "DataSourceParams",
@@ -330,12 +334,50 @@ class TwoTowerAlgorithm(TorchAlgorithm):
 
     def release_pinned_model(self, model: TwoTowerServingModel) -> None:
         """Drop a superseded generation's pinned towers (the host arrays
-        come back; the device tensors lose their last reference)."""
-        host = getattr(model, "_pio_host", None)
-        if host is not None:
-            model.user_vecs, model.item_vecs = host
-            model._pio_host = None
-        model._pio_pinned = False
+        come back, or the streamed towers are copied back once an online
+        update made the pin-time arrays stale; the device tensors lose
+        their last reference)."""
+        release_tables(model, "user_vecs", "item_vecs")
+
+    # ----------------------------------------------- online streaming SGD
+    def online_trainer_spec(self, model: TwoTowerServingModel) -> dict:
+        """Opt into the streaming mini-batch trainer (``pio deploy
+        --online``; online/trainer.py): towers have no closed-form
+        fold-in, so their online path is small SGD steps on fresh pairs
+        with the in-batch softmax objective training uses, on
+        :attr:`device`."""
+        p = self.params
+        return {"learning_rate": p.learning_rate, "temperature": p.temperature, "seed": p.seed,
+                "device": str(self.device)}
+
+    def apply_online_update(self, model: TwoTowerServingModel, upd) -> dict:
+        """Swap streamed rows into the live towers — the query server runs
+        it on its device thread after the generation check (row swaps
+        only; the SGD ran on the trainer's thread). Also grows the
+        serving-time seen filter with the folded pairs, copy-on-write per
+        user, so fresh interactions leave the user's recommendations at
+        once. The pin-time host arrays go stale with the first swap and
+        are dropped."""
+        from predictionio_tpu_torch.workflow import device_state
+
+        model._pio_host = None
+        info = {"usersUpdated": 0, "itemsUpdated": 0, "usersAdded": 0, "itemsAdded": 0}
+        if upd.user_ids:
+            info["usersUpdated"], info["usersAdded"] = device_state.swap_side_rows(
+                model, upd.user_ids, upd.user_rows, "user_vecs", "user_index", rows_before_index=True
+            )
+        if upd.item_ids:
+            info["itemsUpdated"], info["itemsAdded"] = device_state.swap_side_rows(
+                model, upd.item_ids, upd.item_rows, "item_vecs", "item_index", rows_before_index=False
+            )
+            ann_info = device_state.update_ann_items(model, upd.item_ids, upd.item_rows)
+            if ann_info is not None:
+                info["ann"] = ann_info
+        for u, i in upd.seen_pairs:
+            # copy-on-write per user: a reader iterating the old set never
+            # observes a mutation
+            model.seen[u] = set(model.seen.get(u, ())) | {i}
+        return info
 
     def warm_up(self, model: TwoTowerServingModel) -> None:
         """Make the calling thread ready to serve: the device current, and

@@ -22,6 +22,9 @@ Counterpart of ``predictionio_tpu/tools/console.py`` (parity:
                [--engine-instance-id ID] [--device D]
                [--batching ...] [--result-cache ...] [--coalesce]
                [--pin-model] [--feedback ...] [--retry-* --breaker-*]
+               [--online [--online-interval-s S] [--online-batch N]
+                [--online-algos NAMES] [--online-prior-weight W]
+                [--online-from-start]]
                [--cert PEM --key PEM] [--drain-deadline-s S]
     pio undeploy [--ip IP] [--port N] [--https] [--insecure] [--token T]
     pio batchpredict --engine-json FILE --input FILE --output FILE
@@ -38,9 +41,9 @@ N``; SIGTERM or SIGINT stops either (after a drain when given
 the stop token the deploy wrote under the base directory. ``deploy``
 takes the JAX console's flags: those of the serving tiers the port has
 (micro-batching, result cache, singleflight, pinned tables, feedback,
-storage resilience, TLS, drain) and, parsed and then refused with a
-``ValueError`` naming their ROADMAP item, those of the tiers it does not
-(``--ann*``, ``--quantize``, ``--online*``, ``--explore*``,
+online learning, storage resilience, TLS, drain) and, parsed and then
+refused with a ``ValueError`` naming their ROADMAP item, those of the
+tiers it does not (``--ann*``, ``--quantize``, ``--explore*``,
 ``--variants``, ``--shard-factors``, ``--aot``,
 ``--compilation-cache-dir``, the fleet's). The data verbs and ``eventserver`` import no
 torch. ``eval`` takes
@@ -77,12 +80,6 @@ _WAITING_DEPLOY_FLAGS = {
     "ann_seed": "queue 1 item 7, IVF retrieval",
     "ann_kmeans_iters": "queue 1 item 7, IVF retrieval",
     "quantize": "queue 1 item 8, int8 serving",
-    "online": "queue 1 item 9, online fold-in",
-    "online_interval_s": "queue 1 item 9, online fold-in",
-    "online_batch": "queue 1 item 9, online fold-in",
-    "online_algos": "queue 1 item 9, online fold-in",
-    "online_prior_weight": "queue 1 item 9, online fold-in",
-    "online_from_start": "queue 1 item 9, online fold-in",
     "explore": "queue 1 item 12, experiments",
     "explore_epsilon": "queue 1 item 12, experiments",
     "explore_seed": "queue 1 item 12, experiments",
@@ -166,6 +163,23 @@ def _add_deploy_flags(deploy: argparse.ArgumentParser) -> None:
     deploy.add_argument("--breaker-threshold", type=int, default=0, metavar="N")
     deploy.add_argument("--breaker-reset-s", type=float, default=5.0)
     deploy.add_argument("--rpc-deadline-s", type=float, default=0.0)
+    # online learning (predictionio_tpu_torch.online): tail the columnar
+    # event store and fold fresh events into the live model
+    deploy.add_argument("--online", action="store_true",
+                        help="tail the event store and fold fresh events into the live model "
+                        "(ALS fold-in, streaming two-tower SGD; columnar event store required)")
+    deploy.add_argument("--online-interval-s", type=float, default=1.0, metavar="S",
+                        help="seconds between watermark polls of the event tail")
+    deploy.add_argument("--online-batch", type=int, default=4096, metavar="N",
+                        help="most events folded per batch")
+    deploy.add_argument("--online-algos", default="", metavar="NAMES",
+                        help="comma-separated algorithm-class allowlist (default: every algorithm "
+                        "with the online hooks)")
+    deploy.add_argument("--online-prior-weight", type=float, default=1.0, metavar="W",
+                        help="anchor strength toward each entity's trained row in the fold-in "
+                        "re-solve; 0 = pure fold-in")
+    deploy.add_argument("--online-from-start", action="store_true",
+                        help="fold events already in the store at deploy time too")
     deploy.add_argument("--cert", default=None, help="PEM certificate for https (default: $PIO_SSL_CERT)")
     deploy.add_argument("--key", default=None, help="PEM private key for https (default: $PIO_SSL_KEY)")
     deploy.add_argument("--drain-deadline-s", type=float, default=0.0, metavar="S",
@@ -181,12 +195,6 @@ def _add_deploy_flags(deploy: argparse.ArgumentParser) -> None:
     deploy.add_argument("--ann-nprobe", type=int, default=8, metavar="N")
     deploy.add_argument("--ann-seed", type=int, default=0)
     deploy.add_argument("--ann-kmeans-iters", type=int, default=8, metavar="N")
-    deploy.add_argument("--online", action="store_true")
-    deploy.add_argument("--online-interval-s", type=float, default=1.0, metavar="S")
-    deploy.add_argument("--online-batch", type=int, default=4096, metavar="N")
-    deploy.add_argument("--online-algos", default="", metavar="NAMES")
-    deploy.add_argument("--online-prior-weight", type=float, default=1.0, metavar="W")
-    deploy.add_argument("--online-from-start", action="store_true")
     deploy.add_argument("--explore", choices=("epsilon", "thompson"), default=None, metavar="POLICY")
     deploy.add_argument("--explore-epsilon", type=float, default=0.1, metavar="E")
     deploy.add_argument("--explore-seed", type=int, default=0)
@@ -429,6 +437,7 @@ def _deploy(args: argparse.Namespace) -> None:
         instance_id=args.engine_instance_id,
         batching=batching,
         cache=cache,
+        online=_online_from_args(args),
     )
     lifecycle = _lifecycle_from_args(args)
 
@@ -455,6 +464,24 @@ def _deploy(args: argparse.Namespace) -> None:
     finally:
         service.close()
     print("Engine server stopped.", flush=True)
+
+
+def _online_from_args(args: argparse.Namespace):
+    """The ``OnlineConfig`` of ``--online*``, as the JAX console builds
+    it; None without ``--online`` (nothing of the online package is
+    imported then)."""
+    if not args.online:
+        return None
+    from predictionio_tpu_torch.online import OnlineConfig
+
+    return OnlineConfig(
+        enabled=True,
+        interval_s=args.online_interval_s,
+        batch_size=args.online_batch,
+        algorithms=tuple(t.strip() for t in args.online_algos.split(",") if t.strip()),
+        prior_weight=args.online_prior_weight,
+        from_start=args.online_from_start,
+    )
 
 
 def _ssl_from_args(args: argparse.Namespace):

@@ -29,10 +29,19 @@ degrades a reload, never a quiet move to the host. On the CPU, which the
 caller asks for, models serve from host numpy, unless ``--pin-model``
 asks for tensors there.
 
+Online learning (``online=``, ``pio deploy --online``): an
+:class:`~predictionio_tpu_torch.online.runner.OnlineRunner` follows the
+event store's tail and folds fresh events into the live models.
+:meth:`QueryService.apply_online_update` swaps the touched rows in on the
+device thread, after the generation check and with per-scope cache
+invalidation; the runner's and the streaming trainer's torch calls go
+through :meth:`QueryService.run_on_device` too. With the option off,
+nothing under ``predictionio_tpu_torch.online`` is imported.
+
 Differences from the JAX package: the fleet (replica ids, A/B variants),
-``--ann``, ``--online``, ``--explore``, ``--aot``, ``--shard-factors``
-and ``--quantize`` tiers are not here (ROADMAP queue 1); their routes
-answer as the JAX package's do with the tier off. ``/profiler/start`` and
+``--ann``, ``--explore``, ``--aot``, ``--shard-factors`` and
+``--quantize`` tiers are not here (ROADMAP queue 1); their routes answer
+as the JAX package's do with the tier off. ``/profiler/start`` and
 ``/profiler/stop`` drive ``torch.profiler`` on the device thread and
 write a Chrome trace.
 """
@@ -52,7 +61,7 @@ import urllib.error
 import urllib.request
 import uuid
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, Mapping, Sequence
+from typing import TYPE_CHECKING, Any, Callable, Mapping, Sequence
 
 from predictionio_tpu_torch import resilience
 from predictionio_tpu_torch.api.http import start_background
@@ -72,6 +81,9 @@ from predictionio_tpu_torch.serving.cache import (
 )
 from predictionio_tpu_torch.workflow import device_state
 from predictionio_tpu_torch.workflow.engine_json import EngineVariant
+
+if TYPE_CHECKING:  # imported only with --online: nothing of it is loaded otherwise
+    from predictionio_tpu_torch.online import OnlineConfig
 
 __all__ = [
     "EngineServerPlugin",
@@ -156,6 +168,7 @@ class QueryService:
         instance_id: str | None = None,
         batching: BatcherConfig | None = None,
         cache: CacheConfig | None = None,
+        online: OnlineConfig | None = None,
     ):
         if cache is not None and cache.shard_factors:
             raise NotImplementedError("--shard-factors waits for ROADMAP queue 1 item 13")
@@ -219,7 +232,22 @@ class QueryService:
                 )
                 resilience.register_stats("feedback", self._feedback_breaker)
             threading.Thread(target=self._feedback_worker, name="pio-torch-feedback", daemon=True).start()
+        #: online learning (an ``OnlineConfig``); None or a disabled
+        #: config starts no follower and imports nothing of it
+        self.online_config = online if online is not None and online.enabled else None
+        self.online = None
+        #: applied partial updates — the freshness counter beside the
+        #: (full-reload) generation
+        self._online_updates = 0
         self.reload()
+        if self.online_config is not None:
+            from predictionio_tpu_torch.online.runner import OnlineRunner
+
+            try:
+                self.online = OnlineRunner(self, self.online_config)
+            except BaseException:
+                self._device.shutdown(wait=False)
+                raise
         # created after the first load, so its warm-up runs every bucket
         # through the loaded models (on the device thread, via handle_batch)
         self.batcher: MicroBatcher | None = (
@@ -516,6 +544,61 @@ class QueryService:
                 count += 1
         return {"invalidated": count, "flushed": False}
 
+    # ------------------------------------------------------ online fold-in
+    def snapshot_pairs(self) -> tuple[list, int]:
+        """Consistent (pairs, model generation) snapshot — what the online
+        runner computes updates against; the generation token comes back
+        through :meth:`apply_online_update`, so updates computed against a
+        superseded generation are dropped."""
+        with self._lock:
+            return list(self._algo_model_pairs), self._model_generation
+
+    def apply_online_update(self, updates: Sequence[tuple[int, Any]], generation: int | None = None) -> dict:
+        """The partial-update hot swap beside ``/reload``: swap ONLY the
+        touched factor rows of the live models.
+
+        ``updates`` is ``[(pair index, OnlineUpdate), ...]``; each pair's
+        algorithm applies its own update (its ``apply_online_update``
+        hook: row swaps, cold-start id injection). ``generation`` (from
+        :meth:`snapshot_pairs`) guards against a concurrent ``/reload``:
+        rows solved against superseded factors are dropped.
+
+        Runs on the device thread, as reloads and queries do: the
+        generation check and the hooks run with no query and no reload in
+        between. Cache contract: unlike ``/reload`` (a full flush), a
+        partial update bumps only the touched scopes, so unrelated cached
+        entries survive a fold-in."""
+        return self.run_on_device(self._apply_online_update, list(updates), generation)
+
+    def _apply_online_update(self, updates: list, generation: int | None) -> dict:
+        with self._lock:
+            if generation is not None and generation != self._model_generation:
+                return {"applied": False, "reason": "superseded generation"}
+            pairs = list(self._algo_model_pairs)
+        infos: list[dict] = []
+        scopes: set[str] = set()
+        try:
+            for pair_idx, upd in updates:
+                if upd is None or getattr(upd, "empty", True) or not 0 <= pair_idx < len(pairs):
+                    continue
+                algo, model = pairs[pair_idx]
+                hook = getattr(algo, "apply_online_update", None)
+                if hook is None:
+                    continue
+                # scopes BEFORE the hook: if it raises mid-swap, the
+                # touched users' cached results may already reflect a
+                # partial swap and must die with it
+                scopes.update(upd.touched_scopes())
+                infos.append(hook(model, upd))
+        finally:
+            if infos:
+                with self._lock:
+                    self._online_updates += 1
+            if scopes:
+                # per-scope, never a full flush
+                self.cache_note_write(sorted(scopes))
+        return {"applied": bool(infos), "infos": infos, "scopes": len(scopes)}
+
     def handle_batch(self, bodies: Sequence[Any], n_real: int | None = None) -> list[tuple[int, Any]]:
         """Batch-amortized :meth:`handle_query` (ref
         ``core/workflow/BatchPredict.scala``), on the device thread: bind
@@ -646,7 +729,7 @@ class QueryService:
             ),
             "ann": False,
             "aot": False,
-            "online": False,
+            "online": self.online is not None,
             "explore": None,
             "degraded": self.degraded,
             "lastReloadError": self.last_reload_error,
@@ -682,6 +765,12 @@ class QueryService:
             out["batcher"] = self.batcher.stats.to_json()
         if self._cache_stats is not None:
             out["cache"] = self._cache_stats.to_json()
+        if self.online is not None:
+            # freshness: events folded, fold latency, watermark lag, and
+            # the measured event->reflected-in-recs latency
+            with self._lock:
+                applied = self._online_updates
+            out["online"] = dict(self.online.stats_json(), updatesApplied=applied)
         return out
 
     def readiness(self) -> dict:
@@ -706,8 +795,12 @@ class QueryService:
         return report
 
     def close(self) -> None:
-        """Release the batcher's dispatcher (queued requests get a 503),
-        then the device thread. Safe to call more than once."""
+        """Stop the online follower and trainer threads, release the
+        batcher's dispatcher (queued requests get a 503), then the device
+        thread. Safe to call more than once."""
+        if self.online is not None:
+            self.online.stop()
+            self.online = None
         if self.batcher is not None:
             self.batcher.close()
         self._device.shutdown(wait=True)
@@ -791,11 +884,19 @@ class QueryService:
         if path == "/stats.json" and method == "GET":
             return Response(200, self.stats_json())
         if path == "/online/fold.json" and method == "POST":
-            return Response(
-                404,
-                {"message": "Online learning is off on this deployment "
-                            "(enable with pio deploy --online)."},
-            )
+            # the partial-update entry point beside /reload: poll the tail
+            # and fold whatever landed, synchronously (the daemon keeps
+            # its own cadence)
+            if self.online is None:
+                return Response(
+                    404,
+                    {"message": "Online learning is off on this deployment "
+                                "(enable with pio deploy --online)."},
+                )
+            try:
+                return Response(200, self.online.fold_now())
+            except Exception as e:
+                return Response(500, {"message": str(e)[:300]})
         if path == "/experiments/reward.json" and method == "POST":
             return Response(
                 404,

@@ -10,8 +10,12 @@
 * The deploy flags of tiers the port does not have parse and are then
   refused with an error naming their ROADMAP item, before any storage or
   model is touched.
+* The ``--online*`` flags build the ``OnlineConfig`` the JAX console
+  builds from the same command line, and ``--online`` on the sqlite event
+  store fails the deploy with the JAX package's message.
 """
 
+import dataclasses
 import datetime as dt
 import json
 import os
@@ -26,6 +30,11 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import predictionio_tpu.tools.console as jax_console
+import predictionio_tpu.workflow.serving as jax_serving
+import predictionio_tpu_torch.workflow.serving as port_serving
+from predictionio_tpu.data.storage import Storage as JaxStorage
+from predictionio_tpu.online.follower import TailFollower as JaxTailFollower
 from predictionio_tpu_torch.controller.context import local_context
 from predictionio_tpu_torch.data.event import DataMap, Event
 from predictionio_tpu_torch.data.storage import Storage
@@ -146,8 +155,8 @@ def test_deploy_with_serving_flags_then_undeploy(tmp_path):
         (["--ann"], "item 7"),
         (["--ann-nprobe", "4"], "item 7"),
         (["--quantize", "int8"], "item 8"),
-        (["--online"], "item 9"),
-        (["--online-interval-s", "0.5"], "item 9"),
+        (["--ann-seed", "3"], "item 7"),
+        (["--explore-epsilon", "0.2"], "item 12"),
         (["--explore", "epsilon"], "item 12"),
         (["--variants", "a,b"], "item 12"),
         (["--shard-factors"], "item 13"),
@@ -162,3 +171,72 @@ def test_flags_of_later_tiers_are_refused(flags, item, capsys):
     assert main(["deploy", "--engine-json", "nowhere.json", "--device", "cpu"] + flags) == 1
     err = capsys.readouterr().err
     assert item in err and "not in the port yet" in err and flags[0] in err
+
+
+class _Built(Exception):
+    pass
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [
+        ["--online"],
+        ["--online", "--online-interval-s", "0.25", "--online-batch", "2048"],
+        ["--online", "--online-algos", "als, twotower,", "--online-prior-weight", "0", "--online-from-start"],
+        ["--online-interval-s", "0.5"],  # without --online: no config
+    ],
+)
+def test_online_flags_build_the_jax_consoles_config(flags, tmp_path, monkeypatch):
+    """Both consoles parse one command line; each one's QueryService is
+    replaced by a stub that records its ``online`` argument and stops
+    the deploy there."""
+    engine_json = tmp_path / "engine.json"
+    engine_json.write_text(json.dumps(ENGINE))
+    built = {}
+
+    def stub(name):
+        def record(*args, **kwargs):
+            built[name] = kwargs.get("online")
+            raise _Built(name)
+        return record
+
+    monkeypatch.setattr(jax_serving, "QueryService", stub("jax"))
+    monkeypatch.setattr(port_serving, "QueryService", stub("torch"))
+    argv = ["deploy", "--engine-json", str(engine_json)] + flags
+    assert jax_console.main(argv) == 1 and main(argv + ["--device", "cpu"]) == 1
+    jax_config, port_config = built["jax"], built["torch"]
+    if "--online" not in flags:
+        assert jax_config is None and port_config is None
+        return
+    assert type(port_config).__module__ == "predictionio_tpu_torch.online.types"
+    assert dataclasses.asdict(port_config) == dataclasses.asdict(jax_config)
+
+
+def test_online_on_the_sqlite_store_fails_with_the_jax_message(tmp_path, capsys):
+    base = tmp_path / "base"
+    Storage.configure({"PIO_FS_BASEDIR": str(base)})
+    try:
+        app_id = Storage.get_meta_data_apps().insert(App(id=0, name="cli-app"))
+        Storage.get_l_events().init(app_id)
+        Storage.get_l_events().insert_batch(
+            [Event(event="rate", entity_type="user", entity_id=str(u % 7), target_entity_type="item",
+                   target_entity_id=str(u % 11), properties=DataMap({"rating": float(u % 5 + 1)}))
+             for u in range(80)],
+            app_id,
+        )
+        engine_json = tmp_path / "engine.json"
+        engine_json.write_text(json.dumps(ENGINE))
+        run_train(load_engine_variant(str(engine_json)), local_context("cpu"))
+        capsys.readouterr()
+        assert main(["deploy", "--engine-json", str(engine_json), "--device", "cpu", "--online"]) == 1
+        err = capsys.readouterr().err
+        JaxStorage.configure({"PIO_FS_BASEDIR": str(base)})
+        try:
+            with pytest.raises(Exception) as jax_error:
+                JaxTailFollower("cli-app")
+        finally:
+            JaxStorage.configure(None)
+    finally:
+        Storage.configure(None)
+    assert type(jax_error.value).__name__ == "FollowerUnsupportedError"
+    assert err.strip() == f"ERROR: {jax_error.value}"

@@ -26,7 +26,9 @@ carry a good part of its row's sum (found: 1.1e-3 at [256,16], 2.3e-7 at
 [8192,64]); the loss and
 gradients of ``fused_inbatch_ce`` against the plain versions at the JAX
 package's on-TPU bar (loss 5e-3·max(1,|ref|), gradients rtol 5e-2, atol
-5e-3·max|ref|, tests/test_pallas_tpu.py). Two-Tower training on the card
+5e-3·max|ref|, tests/test_pallas_tpu.py). An online fold on pinned tables
+against the same fold on the CPU: rtol 1e-4, atol 1e-5 (the fold-in parity
+band of tests/test_torch_online_parity.py). Two-Tower training on the card
 against the CPU: loss history rtol 1e-3, and 99 % of the table entries
 within 1e-3 — adam's first steps move an entry by about ``lr·sign(g)``,
 so an entry whose gradient is near zero may land up to ``2·lr`` away.
@@ -686,3 +688,121 @@ def test_query_service_on_the_card_pins_batches_and_reloads_flat(cuda_device):
             qs.close()
     finally:
         Storage.configure(None)
+
+
+@pytest.fixture
+def online_card(cuda_device, tmp_path):
+    """A QueryService on the card over a columnar store, with online
+    learning whose daemon is stopped (folds are made by hand): the
+    service, the app id and the function that appends rate events."""
+    import datetime as dt
+
+    from predictionio_tpu_torch.data.event import DataMap, Event
+    from predictionio_tpu_torch.data.storage import Storage
+    from predictionio_tpu_torch.data.storage.base import App
+    from predictionio_tpu_torch.online import OnlineConfig
+    from predictionio_tpu_torch.serving import CacheConfig
+    from predictionio_tpu_torch.workflow import load_engine_variant, run_train
+    from predictionio_tpu_torch.workflow.serving import QueryService
+
+    Storage.configure({
+        "PIO_FS_BASEDIR": str(tmp_path),
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "COL",
+        "PIO_STORAGE_SOURCES_COL_TYPE": "columnar",
+        "PIO_STORAGE_SOURCES_COL_PATH": str(tmp_path / "events"),
+    })
+    t0 = dt.datetime(2021, 1, 1, tzinfo=dt.timezone.utc)
+    seq = [0]
+
+    def rate(triples) -> None:
+        events = []
+        for u, i, v in triples:
+            seq[0] += 1
+            events.append(Event(event="rate", entity_type="user", entity_id=str(u), target_entity_type="item",
+                                target_entity_id=str(i), properties=DataMap({"rating": float(v)}),
+                                event_time=t0 + dt.timedelta(seconds=seq[0])))
+        Storage.get_l_events().insert_batch(events, app_id)
+
+    try:
+        app_id = Storage.get_meta_data_apps().insert(App(id=0, name="online"))
+        rows, cols, vals = _ratings(num_users=400, num_items=300, nnz=8000, seed=9)
+        rate(zip(rows.tolist(), cols.tolist(), vals.tolist()))
+        variant = load_engine_variant({
+            "id": "online", "version": "1",
+            "engineFactory": "predictionio_tpu.templates.recommendation:engine_factory",
+            "datasource": {"params": {"appName": "online"}},
+            "algorithms": [{"name": "als", "params": {"rank": 64, "numIterations": 3, "lambda": 0.1}}],
+        })
+        run_train(variant, local_context(cuda_device))
+        qs = QueryService(variant, local_context(cuda_device), cache=CacheConfig(pin_model=True),
+                          online=OnlineConfig(enabled=True, interval_s=600.0))
+        try:
+            qs.online.stop()
+            yield qs, rate
+        finally:
+            qs.close()
+    finally:
+        Storage.configure(None)
+
+
+@pytest.mark.gpu
+def test_online_fold_on_pinned_tables_matches_cpu(online_card):
+    # the template's fold on the pinned tables (gather, solves on the
+    # card through the service's device thread) against the same fold of
+    # a host copy of the model by an algorithm on the CPU
+    import copy
+
+    from predictionio_tpu_torch.online.types import EventDelta
+
+    qs, _ = online_card
+    (algo, model), = qs.snapshot_pairs()[0]
+    assert model.item_factors.device.type == "cuda"
+    host = copy.copy(model)
+    host.user_factors = model.user_factors.cpu().numpy()
+    host.item_factors = model.item_factors.cpu().numpy()
+    host._pio_online = None
+    rng = np.random.default_rng(10)
+    deltas = [EventDelta("rate", str(u), str(i), k, float(v)) for k, (u, i, v) in enumerate(zip(
+        rng.integers(0, 420, 300).tolist(), rng.integers(0, 310, 300).tolist(), rng.integers(1, 6, 300).tolist()))]
+    card = algo.online_foldin(model, deltas, qs.online.ds_params, qs.online_config, run=qs.run_on_device)
+    cpu = ALSAlgorithm(algo.params, "cpu").online_foldin(host, deltas, qs.online.ds_params, qs.online_config)
+    assert card.user_ids == cpu.user_ids and card.item_ids == cpu.item_ids and len(card.user_ids) > 128
+    np.testing.assert_allclose(card.user_rows, cpu.user_rows, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(card.item_rows, cpu.item_rows, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_online_row_swaps_leave_a_snapshot_unchanged(online_card):
+    # set_rows and append_rows build new tables: the tensors a snapshot
+    # took before the fold keep every row
+    qs, rate = online_card
+    (_, model), = qs.snapshot_pairs()[0]
+    users, items = model.user_factors, model.item_factors
+    before = (users.clone(), items.clone())
+    rate([(3, 5, 5.0), (3, 7, 1.0), ("fresh", 5, 4.0), (4, "fresh-item", 5.0)])
+    assert qs.dispatch("POST", "/online/fold.json", {}, None).body == {"events": 4, "applied": True}
+    assert torch.equal(users, before[0]) and torch.equal(items, before[1])
+    assert model.user_factors is not users and model.user_factors.shape[0] == users.shape[0] + 1
+    assert model.item_factors.shape[0] == items.shape[0] + 1 and model.item_factors.device.type == "cuda"
+    assert not torch.equal(model.user_factors[model.user_index["3"]], users[model.user_index["3"]])
+
+
+@pytest.mark.gpu
+def test_reload_after_online_folds_releases_the_folded_generation(online_card, cuda_device):
+    # a /reload after folds (rows moved, rows appended) frees the folded
+    # tables: memory_allocated returns within 1 MiB of its value after
+    # the first load, and the released model holds the folded rows
+    qs, rate = online_card
+    torch.cuda.synchronize()
+    first = torch.cuda.memory_allocated(cuda_device)
+    (_, model), = qs.snapshot_pairs()[0]
+    for k in range(3):
+        rate([(k, 9, 5.0), (f"new-{k}", 4, 3.0), (f"new-{k}", 8, 5.0), (k + 1, f"item-{k}", 4.0)])
+        assert qs.dispatch("POST", "/online/fold.json", {}, None).body["applied"] is True
+    folded = model.user_factors.cpu().numpy()
+    assert qs.dispatch("POST", "/reload", {}, None).status == 200
+    torch.cuda.synchronize()
+    assert qs.model_generation == 2
+    assert abs(torch.cuda.memory_allocated(cuda_device) - first) <= 1 << 20
+    assert isinstance(model.user_factors, np.ndarray)
+    np.testing.assert_array_equal(model.user_factors, folded)

@@ -5,7 +5,10 @@ they share with the tests (``tests/torch_arrays_engine.py``) imports ``jax`` or 
 ``jax`` out of ``sys.modules``. The event data plane (the columnar store,
 the event server, the data verbs) starts without torch as well, and the
 serving runtime (``serving/``: the micro-batcher, the result cache, the
-``--ann`` config) imports neither torch nor jax."""
+``--ann`` config) imports neither torch nor jax. The online-learning
+package (``online/``) is covered like every module; its ``__init__`` and
+``types`` import neither torch nor jax, and a deploy without ``--online``
+imports nothing of it."""
 
 import ast
 import os
@@ -164,6 +167,54 @@ def test_serving_runtime_loads_neither_torch_nor_jax():
         "c = ResultCache(CacheConfig(result_cache=True)); c.commit(c.reserve('k'), (200, 1))\n"
         "assert c.get('k') == (True, (200, 1))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'predictionio_tpu', 'torch'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    run = subprocess.run(
+        [sys.executable, "-c", probe], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert run.returncode == 0, run.stdout + run.stderr
+
+
+ONLINE = ["__init__", "types", "follower", "foldin", "trainer", "runner"]
+
+
+@pytest.mark.parametrize("name", ONLINE)
+def test_online_modules_are_checked(name):
+    assert PORT / "online" / f"{name}.py" in SOURCES
+
+
+def test_online_package_loads_neither_torch_nor_jax():
+    # what constructing an OnlineConfig costs: the package and its types
+    probe = (
+        "import sys\n"
+        "import predictionio_tpu_torch.online\n"
+        "from predictionio_tpu_torch.online import OnlineConfig\n"
+        "from predictionio_tpu_torch.online.types import EventDelta, latest_wins\n"
+        "assert OnlineConfig(enabled=True, interval_s=0.25).enabled\n"
+        "assert latest_wins([EventDelta('rate', 'u', 'i', 1, 2.0)]) == {('u', 'i'): (1, 2.0)}\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'predictionio_tpu', 'torch'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    run = subprocess.run(
+        [sys.executable, "-c", probe], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert run.returncode == 0, run.stdout + run.stderr
+
+
+def test_a_deploy_without_online_imports_nothing_of_it():
+    # the query server, both templates and the console's deploy flags
+    # without --online: no module under predictionio_tpu_torch.online
+    probe = (
+        "import sys\n"
+        "import predictionio_tpu_torch.workflow.serving\n"
+        "import predictionio_tpu_torch.templates.recommendation.engine\n"
+        "import predictionio_tpu_torch.templates.twotower.engine\n"
+        "from predictionio_tpu_torch.tools import console\n"
+        "args = console.build_parser().parse_args(['deploy', '--device', 'cpu', '--pin-model'])\n"
+        "assert console._online_from_args(args) is None\n"
+        "bad = sorted(m for m in sys.modules if m.startswith('predictionio_tpu_torch.online'))\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
