@@ -53,6 +53,12 @@ freshness with new users' events; then the same events folded in process
 and held to float64 numpy; and the Two-Tower quickstart's instance served
 with online learning while 256 view events stream into its towers.
 
+The approximate and int8 retrieval path: ``pio deploy --ann`` and
+``--quantize int8`` on the same warm instance and on the Two-Tower
+quickstart's, the full probe held to exact retrieval to the bit, an
+online fold into int8 tables and their IVF index, and the JAX bench's IVF
+and int8 sweeps over catalogs of up to 262,144 items.
+
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. device — the card's name, power limit and count; no CUDA device fails.
@@ -170,7 +176,32 @@ Phases, in order; any failure exits non-zero and prints no result:
    streamed row keep norm 1 within 1e-5, and no user's top-10 hold the
    item the user just viewed; the trainer's loss is printed. ``[online]``
    lines.
-11. a ``[summary]`` line, the ``{"kernels": [...]}`` line, the card's
+11. ann — approximate and int8 retrieval. On the workflow's store and
+   warm instance (``phase_ann``): ``pio deploy --ann --ann-nprobe 8``,
+   ``--quantize int8`` and ``--ann --quantize int8 --batching
+   --pin-model``, each under the serving phase's 32 x 100 uniform top-10
+   load (all 200; queries/s, p50/p99, recall@10 against float64 numpy,
+   the ``/stats.json`` ``ann`` and ``quant`` sections; int8
+   ``bytesPinned`` must be (users + items) x (rank + 4)); in process, a
+   full-probe ``QueryService`` (``nprobe >= nlist``) must answer 1,000
+   users' ``handle_batch`` equal to the exact one's to the bit, three
+   ``/reload``s with ``--ann`` must leave ``memory_allocated`` flat within
+   1 MiB, the online phase's events fold into an ``--ann --quantize
+   int8`` service (the touched int8 rows ``quantize_table_host`` of the
+   folded rows, ``itemsFolded`` above 0, every item in one lane, moved
+   users' full-probe top-10s equal to float64 numpy over the live int8
+   tables), and an incrementally updated index must keep recall@10 within
+   0.02 of a rebuild on the same factors. In the Two-Tower quickstart's
+   store (``phase_tt_ann``): ``--ann --quantize int8`` under 8 x 50, no
+   seen item in an answer. Then the JAX bench's sweeps
+   (``phase_ann_sweep``) over clustered catalogs of 27,000, 65,536 and
+   262,144 items at dim 64: exact against IVF (nprobe 8) on 8,192 queries
+   in chunks of 512, recall@10 at least 0.95 and the full probe equal to
+   exact to the bit; the two-stage int8 top-10 (recall@10 at least 0.99
+   against f32 exact), int8-slab against f32-slab IVF (recall@10 within
+   0.01), served bytes at least 3.5x smaller. No kernel is on this path:
+   every count must read 0. ``[ann]`` lines.
+12. a ``[summary]`` line, the ``{"kernels": [...]}`` line, the card's
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Imports only the port, torch, numpy and the standard library.
@@ -353,6 +384,31 @@ ONL_FOLD_RTOL = 1e-4
 ONL_TT_EVENTS = 256
 ONL_TT_NEW_USERS = 8
 ONL_TT_NORM_ATOL = 1e-5
+
+#: approximate and int8 retrieval (``[ann]``): the JAX bench's sweeps
+#: (``bench.py::_bench_ann_retrieval`` and ``_bench_quantized_serving``):
+#: clustered catalogs at rank 64, nlist auto (~sqrt(items)), nprobe 8,
+#: queries in chunks of 512; top-128 for the IVF sweep (recall@10 and
+#: @100), top-10 for the int8 one, whose catalogs carry lognormal(0, 0.3)
+#: norms. Bars: the reference's (``tests/test_ci_guards.py:1088``,
+#: ``:1135``, ``:1140-1170``)
+ANN_SIZES = (27_000, 65_536, 262_144)
+ANN_DIM = 64
+ANN_NPROBE = 8
+ANN_QUERIES = 8192
+ANN_CHUNK = 512
+ANN_K = 128
+ANN_RECALL_BAR = 0.95
+QZ_QUERIES = 4096
+QZ_K = 10
+QZ_NORM_SIGMA = 0.3
+QZ_RECALL_BAR = 0.99
+QZ_IVF_RECALL_DELTA = 0.01
+QZ_BYTES_RATIO = 3.5
+ANN_INC_RECALL_DELTA = 0.02
+ANN_FULL_PROBE_USERS = 1000
+ANN_FOLD_CHECK_USERS = 64
+ANN_RELOADS = 3
 
 #: an evaluation module as a user writes one: an Evaluation of the
 #: engine.json at ``path`` with one metric
@@ -2509,6 +2565,7 @@ def phase_online(device, ctx: dict, smi: str) -> dict:
         raise RuntimeError(f"online: the store holds {len(events)} events of the online run, the event server "
                            f"stored {online['accepted']}")
     deltas = to_deltas(events)
+    ctx["online_deltas"] = deltas  # the [ann] phase folds them again
     ds_params = json.loads(first.datasource_params)
     config = OnlineConfig(enabled=True, interval_s=ONL_INTERVAL_S, batch_size=ONL_BATCH)
     service = QueryService(load_engine_variant(str(engine_json)), local_context(device), instance_id=first.id)
@@ -2693,6 +2750,419 @@ def phase_tt_online(device, ctx: dict, smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------- 11. ann
+def clustered_rows(rng, centers: np.ndarray, n: int, unit: bool, norm_sigma: float = 0.0) -> np.ndarray:
+    """``n`` rows of a Gaussian mixture around ``centers`` (spread 0.25),
+    unit-norm or with lognormal(0, ``norm_sigma``) norms — the JAX
+    bench's catalogs."""
+    draw = centers[rng.integers(0, centers.shape[0], n)]
+    draw = draw + 0.25 * rng.standard_normal((n, centers.shape[1])).astype(np.float32)
+    if unit:
+        draw = draw / np.linalg.norm(draw, axis=1, keepdims=True)
+    elif norm_sigma:
+        draw = draw * rng.lognormal(0.0, norm_sigma, n)[:, None]
+    return draw.astype(np.float32)
+
+
+def recall_at(truth: np.ndarray, got: np.ndarray, n: int) -> float:
+    """Mean share of each row's first ``n`` true ids among its first ``n``
+    retrieved ones."""
+    hits = sum(len(set(t[:n].tolist()) & set(g[:n].tolist())) for t, g in zip(truth, got))
+    return hits / (n * truth.shape[0])
+
+
+def timed_chunks(fn, queries: torch.Tensor, chunk: int) -> tuple[dict, np.ndarray]:
+    """``fn`` over ``queries`` a chunk at a time after one warm chunk, each
+    dispatch timed to its ids on the host; the rate and p50/p99 a
+    dispatch, and every row's ids."""
+    fn(queries[:chunk])[0].cpu()
+    lat, ids = [], []
+    t0 = time.perf_counter()
+    for lo in range(0, queries.shape[0], chunk):
+        t1 = time.perf_counter()
+        out = fn(queries[lo:lo + chunk])[0].cpu().numpy()
+        lat.append((time.perf_counter() - t1) * 1e3)
+        ids.append(out)
+    wall = time.perf_counter() - t0
+    p50, p99 = np.percentile(lat, [50, 99])
+    return ({"queries_per_s": queries.shape[0] / wall, "dispatch_p50_ms": float(p50),
+             "dispatch_p99_ms": float(p99)}, np.concatenate(ids))
+
+
+def phase_ann_sweep(device, smi: str) -> dict:
+    """The JAX bench's IVF sweep on the card: per catalog size, exact
+    top-``ANN_K`` (``top_k_items_batch``) against the IVF probe
+    (``ivf_topk_users``, nprobe ``ANN_NPROBE``) over the same query
+    chunks; recall@10 below ``ANN_RECALL_BAR`` fails the run, and so does
+    a full probe (``nprobe >= nlist``) whose ids or scores are not those
+    of the exact top-k, to the bit. Then the int8 sweep: the two-stage
+    int8 top-10 against f32 exact (recall@10 below ``QZ_RECALL_BAR``
+    fails), int8-slab IVF against f32-slab IVF of one build (recall@10
+    more than ``QZ_IVF_RECALL_DELTA`` below fails), the served bytes
+    (less than ``QZ_BYTES_RATIO`` times smaller fails)."""
+    from predictionio_tpu_torch.ops import ivf, quant
+    from predictionio_tpu_torch.ops.als import top_k_items_batch
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(11)
+    uidx = torch.arange(ANN_CHUNK, device=device)
+    sweep = []
+    for n_items in ANN_SIZES:
+        centers = rng.standard_normal((4 * ivf.auto_nlist(n_items), ANN_DIM)).astype(np.float32)
+        items = torch.as_tensor(clustered_rows(rng, centers, n_items, unit=True), device=device)
+        queries = torch.as_tensor(clustered_rows(rng, centers, ANN_QUERIES, unit=True), device=device)
+        index, info = ivf.build_ivf(items, nlist=0, seed=0, iters=8, device=device)
+        exact_stats, exact_ids = timed_chunks(lambda q: top_k_items_batch(uidx, q, items, ANN_K), queries, ANN_CHUNK)
+        ann_stats, ann_ids = timed_chunks(
+            lambda q: ivf.ivf_topk_users(uidx, q, index, ANN_K, ANN_NPROBE), queries, ANN_CHUNK)
+        # the full probe against the exact top-k, to the bit, on two chunks
+        for lo in (0, ANN_QUERIES - ANN_CHUNK):
+            q = queries[lo:lo + ANN_CHUNK]
+            want = top_k_items_batch(uidx, q, items, ANN_K)
+            for nprobe in (index.nlist, index.nlist + 7):
+                got = ivf.ivf_topk_users(uidx, q, index, ANN_K, nprobe)
+                if not (torch.equal(got[0].long(), want[0].long()) and torch.equal(got[1], want[1])):
+                    raise RuntimeError(f"ann: the full probe (nprobe {nprobe}, nlist {index.nlist}) at {n_items} "
+                                       "items is not the exact top-k to the bit")
+        point = {
+            "catalog_items": n_items, "nlist": index.nlist, "nprobe": ANN_NPROBE, "slab_width": index.slab_width,
+            "build_s": info["buildSeconds"], "bytes_index": info["bytesIndex"],
+            "fraction_of_catalog_scored": min(1.0, ANN_NPROBE * index.slab_width / n_items),
+            "exact": exact_stats, "ivf": ann_stats,
+            "speedup": ann_stats["queries_per_s"] / exact_stats["queries_per_s"],
+            "recall_at_10": recall_at(exact_ids, ann_ids, 10), "recall_at_100": recall_at(exact_ids, ann_ids, 100),
+            "full_probe_bit_equal": True,
+        }
+        del index, items, queries
+        sweep.append(point)
+        log(f"[ann] ivf {n_items} items: nlist {point['nlist']}, slab width {point['slab_width']}, built in "
+            f"{point['build_s']} s; exact {exact_stats['queries_per_s']:.1f} queries/s (dispatch p50 "
+            f"{exact_stats['dispatch_p50_ms']:.3f} p99 {exact_stats['dispatch_p99_ms']:.3f} ms), ivf nprobe "
+            f"{ANN_NPROBE} {ann_stats['queries_per_s']:.1f} queries/s (p50 {ann_stats['dispatch_p50_ms']:.3f} p99 "
+            f"{ann_stats['dispatch_p99_ms']:.3f} ms), speedup {point['speedup']:.3f}; recall@10 "
+            f"{point['recall_at_10']:.4f}, @100 {point['recall_at_100']:.4f}; {point['fraction_of_catalog_scored']:.4f}"
+            f" of the catalog scored; full probe bit-equal to exact; on {smi}")
+        if point["recall_at_10"] < ANN_RECALL_BAR:
+            raise RuntimeError(f"ann: recall@10 {point['recall_at_10']:.4f} < {ANN_RECALL_BAR} at {n_items} items")
+
+    rng = np.random.default_rng(13)
+    uidx = torch.arange(ANN_CHUNK, device=device)
+    qz = []
+    for n_items in ANN_SIZES:
+        centers = rng.standard_normal((4 * ivf.auto_nlist(n_items), ANN_DIM)).astype(np.float32)
+        items_np = clustered_rows(rng, centers, n_items, unit=False, norm_sigma=QZ_NORM_SIGMA)
+        items = torch.as_tensor(items_np, device=device)
+        queries = torch.as_tensor(clustered_rows(rng, centers, QZ_QUERIES, unit=False), device=device)
+        exact_stats, exact_ids = timed_chunks(lambda q: top_k_items_batch(uidx, q, items, QZ_K), queries, ANN_CHUNK)
+        table = quant.quantize_table(items_np, device)
+        kp = quant.overfetch(QZ_K, n_items)
+        q_stats, q_ids = timed_chunks(
+            lambda q: quant.quantized_topk_batch(q, table.codes, table.scales, QZ_K, kp, n_items), queries, ANN_CHUNK)
+        idx_f, info_f = ivf.build_ivf(items, nlist=0, seed=0, iters=8, device=device)
+        idx_q, info_q = ivf.build_ivf(items, nlist=0, seed=0, iters=8, quantize=True, device=device, table=table)
+        f_stats, f_ids = timed_chunks(lambda q: ivf.ivf_topk_batch(q, idx_f, QZ_K, ANN_NPROBE), queries, ANN_CHUNK)
+        i_stats, i_ids = timed_chunks(lambda q: ivf.ivf_topk_batch(q, idx_q, QZ_K, ANN_NPROBE), queries, ANN_CHUNK)
+        point = {
+            "catalog_items": n_items, "nlist": idx_f.nlist, "nprobe": ANN_NPROBE, "overfetch": kp,
+            "exact_f32": exact_stats, "exact_int8": q_stats,
+            "recall_at_10_exact_int8": recall_at(exact_ids, q_ids, QZ_K),
+            "bytes_f32": int(items_np.nbytes), "bytes_int8": table.nbytes_codes + table.nbytes_scales,
+            "ivf_f32": dict(f_stats, recall_at_10=recall_at(exact_ids, f_ids, QZ_K), bytes_index=info_f["bytesIndex"],
+                            build_s=info_f["buildSeconds"]),
+            "ivf_int8": dict(i_stats, recall_at_10=recall_at(exact_ids, i_ids, QZ_K), bytes_index=info_q["bytesIndex"],
+                             build_s=info_q["buildSeconds"]),
+        }
+        point["bytes_ratio"] = point["bytes_f32"] / point["bytes_int8"]
+        del idx_f, idx_q, table, items, queries
+        qz.append(point)
+        log(f"[ann] int8 {n_items} items: exact f32 {exact_stats['queries_per_s']:.1f} queries/s, two-stage int8 "
+            f"{q_stats['queries_per_s']:.1f} queries/s (over-fetch {kp}) recall@10 "
+            f"{point['recall_at_10_exact_int8']:.4f}; ivf f32 slabs {f_stats['queries_per_s']:.1f} queries/s recall@10 "
+            f"{point['ivf_f32']['recall_at_10']:.4f}, int8 slabs {i_stats['queries_per_s']:.1f} queries/s recall@10 "
+            f"{point['ivf_int8']['recall_at_10']:.4f}; table bytes {point['bytes_f32']} f32 / {point['bytes_int8']} "
+            f"int8 = {point['bytes_ratio']:.3f}, index bytes {point['ivf_f32']['bytes_index']} / "
+            f"{point['ivf_int8']['bytes_index']}; on {smi}")
+        delta = point["ivf_f32"]["recall_at_10"] - point["ivf_int8"]["recall_at_10"]
+        if (point["recall_at_10_exact_int8"] < QZ_RECALL_BAR or delta > QZ_IVF_RECALL_DELTA
+                or point["bytes_ratio"] < QZ_BYTES_RATIO
+                or point["ivf_f32"]["bytes_index"] <= 3.0 * point["ivf_int8"]["bytes_index"]):
+            raise RuntimeError(f"ann: the int8 sweep at {n_items} items misses a bar: {point}")
+    return {"ivf": sweep, "int8": qz, "phase_s": time.perf_counter() - t_phase, "card": smi}
+
+
+def recall_vs_float64(answers: list, U64: np.ndarray, V64: np.ndarray, item_index, k: int,
+                      seen: dict | None = None, user_index=None) -> float:
+    """recall@``k`` of ``(user row, payload)`` answers against the float64
+    numpy top-``k`` of ``U64``/``V64`` (without the user's ``seen``
+    items)."""
+    hits = 0
+    for lo in range(0, len(answers), 512):
+        part = answers[lo:lo + 512]
+        S = U64[[u for u, _ in part]] @ V64.T
+        for (uidx, payload), scores in zip(part, S):
+            if seen is not None:
+                drop = [item_index[i] for i in seen.get(user_index.inverse(uidx), ())]
+                scores = scores.copy()
+                scores[drop] = -np.inf
+            top = set(np.argpartition(-scores, k - 1)[:k].tolist())
+            hits += len(top & {item_index[s["item"]] for s in payload["itemScores"]})
+    return hits / (k * len(answers))
+
+
+def phase_ann(device, ctx: dict, smi: str) -> dict:
+    """``pio deploy --ann`` and ``--quantize int8`` on the workflow's warm
+    instance (``phase_serving``'s 32 x 100 uniform top-10 load on each of
+    ``--ann --ann-nprobe 8``, ``--quantize int8`` and ``--ann --quantize
+    int8 --batching --pin-model``; every answer 200; int8 ``bytesPinned``
+    must be the codes and scales), then in process: a full-probe
+    ``QueryService`` (``nprobe >= nlist``) against the exact one on 1,000
+    users' ``handle_batch`` (equal to the bit); the ``[online]`` phase's
+    events folded into an ``--ann --quantize int8`` service (touched int8
+    rows ``quantize_table_host`` of the folded rows, ``itemsFolded`` above
+    0, every item in the index once, full-probe answers equal to float64
+    numpy over the live tables); the incremental index's recall@10 within
+    ``ANN_INC_RECALL_DELTA`` of a rebuild on the same factors; three
+    ``/reload``s with ``--ann`` and ``memory_allocated`` flat within 1 MiB."""
+    from predictionio_tpu_torch.ops import ivf, quant
+    from predictionio_tpu_torch.serving import AnnConfig, CacheConfig
+
+    t_phase = time.perf_counter()
+    base, engine_json, dev_args = ctx["base"], ctx["engine_json"], ctx["dev_args"]
+    first = ctx["instance"]
+    model = stored_model(first.id)
+    user_index, item_index = model.user_index, model.item_index
+    U64 = np.asarray(model.user_factors, np.float64)
+    V64 = np.asarray(model.item_factors, np.float64)
+    rank = model.user_factors.shape[1]
+    del model
+    n_rows = len(user_index) + len(item_index)
+    int8_bytes, f32_bytes = n_rows * (rank + 4), n_rows * rank * 4
+    picks = load_picks(SRV_CLIENTS * SRV_REQUESTS, len(user_index), seed=51)
+    deploy = ["deploy", "--engine-json", str(engine_json), "--engine-instance-id", first.id, *dev_args]
+    warm_query = json.dumps({"user": user_index.inverse(0), "num": TOP_K})
+    out: dict = {"users": len(user_index), "items": len(item_index), "rank": rank, "card": smi}
+    reset_launch_counts()
+    deploys = {}
+    for label, flags in (("ann", ["--ann", "--ann-nprobe", str(ANN_NPROBE)]),
+                         ("int8", ["--quantize", "int8"]),
+                         ("ann_int8_batched", ["--ann", "--quantize", "int8", "--batching", "--pin-model",
+                                               "--max-batch-size", str(SRV_MAX_BATCH), "--max-batch-delay-ms",
+                                               str(SRV_MAX_DELAY_MS), "--batch-warmup-query", warm_query])):
+        t0 = time.perf_counter()
+        proc, port = start_console_server("ann", base, deploy + flags, base / f"deploy-{label}.stderr",
+                                          QS_DEPLOY_TIMEOUT_S)
+        try:
+            start_s = time.perf_counter() - t0
+            url = f"http://127.0.0.1:{port}"
+            load = run_load(url, picks, user_index, SRV_CLIENTS, TOP_K)
+            _, stats = _http_json(url + "/stats.json")
+            _, root = _http_json(url + "/")
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            proc.wait(timeout=60)
+        answers = ok_answers(f"ann {label}", load)
+        run = {key: load[key] for key in ("queries", "wall_s", "queries_per_s", "p50_ms", "p99_ms")}
+        run.update({"deploy_start_s": start_s, "recall_at_10": recall_vs_float64(answers, U64, V64, item_index, TOP_K),
+                    "ann": stats.get("ann"), "quant": stats.get("quant"), "cache": stats.get("cache"),
+                    "quantize": root["quantize"], "status_ann": root["ann"]})
+        if "--quantize" in flags:
+            pinned = stats["cache"]["bytesPinned"]
+            if pinned != int8_bytes or set(stats["cache"]["bytesByDtype"]) != {"int8", "scalesFloat32"}:
+                raise RuntimeError(f"ann {label}: bytesPinned {pinned} ({stats['cache']['bytesByDtype']}), the "
+                                   f"codes and scales are {int8_bytes} bytes")
+        if ("--ann" in flags) != (stats.get("ann") is not None):
+            raise RuntimeError(f"ann {label}: /stats.json ann section {stats.get('ann')}")
+        deploys[label] = run
+        log(f"[ann] deploy {' '.join(flags[:4])}: started in {start_s:.3f} s; {load['queries']} queries from "
+            f"{SRV_CLIENTS} keep-alive clients, {load['queries_per_s']:.1f} queries/s, p50 {load['p50_ms']:.3f} ms, "
+            f"p99 {load['p99_ms']:.3f} ms, all 200; recall@10 against float64 numpy {run['recall_at_10']:.4f}; "
+            f"ann {json.dumps(stats.get('ann'))}; quant {json.dumps(stats.get('quant'))}; bytesPinned "
+            f"{(stats.get('cache') or {}).get('bytesPinned')} (f32 tables {f32_bytes}); on {smi}")
+    out["deploys"] = deploys
+
+    # in process: the full probe against exact on 1,000 users' handle_batch
+    variant = load_engine_variant(str(engine_json))
+    bodies = [{"user": user_index.inverse(int(u)), "num": TOP_K}
+              for u in np.random.default_rng(52).choice(len(user_index), ANN_FULL_PROBE_USERS, replace=False)]
+    exact = QueryService(variant, local_context(device), instance_id=first.id)
+    try:
+        want = exact.handle_batch(bodies)
+    finally:
+        exact.close()
+    full = QueryService(variant, local_context(device), instance_id=first.id,
+                        ann=AnnConfig(enabled=True, nprobe=1 << 30))
+    try:
+        got = full.handle_batch(bodies)
+        if got != want:
+            differ = sum(1 for a, b in zip(got, want) if a != b)
+            raise RuntimeError(f"ann: the full-probe service differs from the exact one on {differ} of "
+                               f"{len(bodies)} answers")
+        full_nlist = full.stats_json()["ann"]["nlist"]
+        # three /reloads with --ann: the card's allocated memory stays flat
+        on_card = device.type == "cuda"
+        if on_card:
+            torch.cuda.synchronize(device)
+        mem_first = torch.cuda.memory_allocated(device) if on_card else 0
+        for _ in range(ANN_RELOADS):
+            full.reload()
+        if on_card:
+            torch.cuda.synchronize(device)
+        mem_last = torch.cuda.memory_allocated(device) if on_card else 0
+    finally:
+        full.close()
+    if abs(mem_last - mem_first) > 1 << 20:
+        raise RuntimeError(f"ann: {ANN_RELOADS} reloads moved memory_allocated {mem_first} -> {mem_last}")
+    log(f"[ann] in process: a full-probe QueryService (nlist {full_nlist}) answered {len(bodies)} users' "
+        f"handle_batch equal to the exact service's, to the bit; {ANN_RELOADS} reloads moved memory_allocated "
+        f"{mem_first} -> {mem_last}; on {smi}")
+
+    # in process: the [online] phase's events folded into --ann --quantize int8
+    deltas = ctx["online_deltas"]
+    ds_params = json.loads(first.datasource_params)
+    config = OnlineConfig(enabled=True, interval_s=ONL_INTERVAL_S, batch_size=ONL_BATCH)
+    service = QueryService(variant, local_context(device), instance_id=first.id,
+                           cache=CacheConfig(quantize="int8"), ann=AnnConfig(enabled=True, nprobe=ANN_NPROBE))
+    try:
+        (algo, live), = service.snapshot_pairs()[0]
+        generation = service.model_generation
+        touched = {"user_factors": {}, "item_factors": {}}
+        for lo in range(0, len(deltas), ONL_BATCH):
+            upd = algo.online_foldin(live, deltas[lo:lo + ONL_BATCH], ds_params, config, run=service.run_on_device)
+            res = service.apply_online_update([(0, upd)], generation=generation)
+            if not res["applied"]:
+                raise RuntimeError(f"ann: the int8 fold was not applied: {res}")
+            for attr, ids, rows in (("user_factors", upd.user_ids, upd.user_rows),
+                                    ("item_factors", upd.item_ids, upd.item_rows)):
+                touched[attr].update(zip(ids, np.asarray(rows, np.float32)))
+
+        def host_state():
+            tables = {attr: [t.cpu().numpy() for t in (getattr(live, attr).codes, getattr(live, attr).scales)]
+                      for attr in touched}
+            idx = live._pio_ann.index
+            return tables, idx.slab_ids.cpu().numpy(), int(idx.num_items), idx.nlist
+
+        tables, slab_ids, capacity, nlist = service.run_on_device(host_state)
+        for attr, rows_by_id in touched.items():
+            index = live.user_index if attr == "user_factors" else live.item_index
+            ids = list(rows_by_id)
+            want_codes, want_scales = quant.quantize_table_host(np.stack([rows_by_id[e] for e in ids]))
+            rows = [index[e] for e in ids]
+            codes, scales = tables[attr]
+            if not (np.array_equal(codes[rows], want_codes) and np.array_equal(scales[rows], want_scales)):
+                raise RuntimeError(f"ann: the folded int8 rows of {attr} are not quantize_table_host of the folded "
+                                   "rows")
+        n_items_live = len(live.item_index)
+        real = slab_ids[slab_ids < capacity]
+        if real.size != n_items_live or np.unique(real).size != n_items_live:
+            raise RuntimeError(f"ann: the folded index holds {real.size} lanes ({np.unique(real).size} distinct) "
+                               f"for {n_items_live} items")
+        ann_stats = service.stats_json()["ann"]["models"][0]
+        if ann_stats["itemsFolded"] <= 0:
+            raise RuntimeError(f"ann: itemsFolded {ann_stats['itemsFolded']} after the fold")
+        # full-probe answers over the live int8 tables, against float64 numpy
+        Uq = quant.dequantize(*tables["user_factors"]).astype(np.float64)
+        Vq = quant.dequantize(*tables["item_factors"]).astype(np.float64)
+        moved = sorted(touched["user_factors"])
+        check = np.random.default_rng(53).choice(moved, min(ANN_FOLD_CHECK_USERS, len(moved)), replace=False)
+        uidx = [live.user_index[u] for u in check.tolist()]
+
+        def full_probe():
+            ids, _ = ivf.ivf_topk_batch(live.user_factors[np.asarray(uidx)], live._pio_ann.index, TOP_K, nlist)
+            return ids.cpu().numpy()
+
+        got_ids = service.run_on_device(full_probe)
+        bad = []
+        for u, row in zip(uidx, got_ids):
+            ref, scores = reference_top(Uq, Vq, u, TOP_K)
+            if not check_ranking(row.tolist(), ref, scores):
+                bad.append((u, row.tolist(), ref.tolist()))
+        if bad:
+            raise RuntimeError(f"ann: {len(bad)} full-probe answers after the fold differ from float64 numpy over "
+                               f"the live tables: {bad[:2]}")
+    finally:
+        service.close()
+    folded = {attr: len(v) for attr, v in touched.items()}
+    log(f"[ann] in process: {len(deltas)} events folded into an --ann --quantize int8 service: {folded} rows "
+        f"re-quantized as quantize_table_host of the folded rows; index {ann_stats['incrementalUpdates']} "
+        f"incremental updates, itemsFolded {ann_stats['itemsFolded']}, every one of {n_items_live} items in one lane; "
+        f"{len(uidx)} moved users' full-probe top-{TOP_K} equal float64 numpy over the live int8 tables; on {smi}")
+
+    # the incremental index against a rebuild on the same factors (the JAX
+    # bench's fold simulation: 5 % of the rows re-solved, 2 % new items)
+    rng = np.random.default_rng(54)
+    n_cat = len(item_index)
+    centers = rng.standard_normal((64, rank)).astype(np.float32)
+    base_items = clustered_rows(rng, centers, n_cat, unit=True)
+    idx0, info0 = ivf.build_ivf(base_items, nlist=0, seed=0, iters=8, device=device)
+    rt = ivf.AnnRuntime(idx0, nprobe=ANN_NPROBE, build_info=info0)
+    n_upd, n_new = n_cat // 20, n_cat // 50
+    upd_ids = rng.choice(n_cat, n_upd, replace=False)
+    upd_vecs = clustered_rows(rng, centers, n_upd, unit=True)
+    new_vecs = clustered_rows(rng, centers, n_new, unit=True)
+    t0 = time.perf_counter()
+    rt.update_items(upd_ids, upd_vecs, total_items=n_cat)
+    rt.update_items(np.arange(n_cat, n_cat + n_new), new_vecs, total_items=n_cat + n_new)
+    update_s = time.perf_counter() - t0
+    final = np.concatenate([base_items, new_vecs])
+    final[upd_ids] = upd_vecs
+    rebuilt, _ = ivf.build_ivf(final, nlist=0, seed=0, iters=8, device=device)
+    queries = clustered_rows(rng, centers, 512, unit=True)
+    truth = np.argsort(-(queries.astype(np.float64) @ final.astype(np.float64).T), axis=1, kind="stable")[:, :TOP_K]
+    qd = torch.as_tensor(queries, device=device)
+    inc = recall_at(truth, ivf.ivf_topk_batch(qd, rt.index, TOP_K, ANN_NPROBE)[0].cpu().numpy(), TOP_K)
+    full_rebuild = recall_at(truth, ivf.ivf_topk_batch(qd, rebuilt, TOP_K, ANN_NPROBE)[0].cpu().numpy(), TOP_K)
+    launches = read_launch_counts()
+    if abs(inc - full_rebuild) > ANN_INC_RECALL_DELTA:
+        raise RuntimeError(f"ann: the incremental index's recall@10 {inc:.4f} is more than {ANN_INC_RECALL_DELTA} "
+                           f"from the rebuild's {full_rebuild:.4f}")
+    if any(launches.values()):
+        raise RuntimeError(f"ann: launches {launches}; the retrieval path has no kernel")
+    log(f"[ann] incremental index over {n_cat} items (+{n_upd} re-solved, +{n_new} new, updated in {update_s:.3f} s): "
+        f"recall@10 {inc:.4f} against {full_rebuild:.4f} for a rebuild on the same factors; launches "
+        f"{json.dumps(launches)}; on {smi}")
+    out.update({"full_probe_users": len(bodies), "full_probe_bit_equal": True, "reload_memory": [mem_first, mem_last],
+                "fold": {"events": len(deltas), "rows": folded, "items_folded": ann_stats["itemsFolded"],
+                         "users_checked": len(uidx)},
+                "incremental": {"items": n_cat + n_new, "updated": n_upd, "new": n_new, "update_s": update_s,
+                                "recall_at_10": inc, "rebuild_recall_at_10": full_rebuild},
+                "launches": launches, "phase_s": time.perf_counter() - t_phase})
+    return out
+
+
+def phase_tt_ann(device, ctx: dict, smi: str) -> dict:
+    """``pio deploy --ann --quantize int8`` of the Two-Tower quickstart's
+    instance under ``SRV_TT_CLIENTS`` x ``SRV_TT_REQUESTS`` top-10
+    queries: every answer 200, ``TOP_K`` items long and free of the user's
+    seen items (the seen filter's over-fetch under both tiers)."""
+    model = ctx["model"]
+    proc, port = start_console_server(
+        "tt-ann", ctx["base"],
+        ["deploy", "--engine-json", str(ctx["engine_json"]), *ctx["dev_args"], "--ann", "--quantize", "int8"],
+        ctx["base"] / "deploy-tt-ann.stderr", QS_DEPLOY_TIMEOUT_S)
+    try:
+        url = f"http://127.0.0.1:{port}"
+        load = run_load(url, load_picks(SRV_TT_CLIENTS * SRV_TT_REQUESTS, len(model.user_index), seed=55),
+                        model.user_index, SRV_TT_CLIENTS, TOP_K)
+        _, stats = _http_json(url + "/stats.json")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=60)
+    answers = ok_answers("tt-ann", load)
+    leaked = [u for u, payload in answers
+              if {s["item"] for s in payload["itemScores"]} & set(model.seen.get(model.user_index.inverse(u), ()))]
+    short = [u for u, payload in answers if len(payload["itemScores"]) != TOP_K]
+    if leaked or short:
+        raise RuntimeError(f"tt-ann: {len(leaked)} answers hold a seen item, {len(short)} are short")
+    recall = recall_vs_float64(answers, model.user_vecs.astype(np.float64), model.item_vecs.astype(np.float64),
+                               model.item_index, TOP_K, model.seen, model.user_index)
+    out = {key: load[key] for key in ("queries", "wall_s", "queries_per_s", "p50_ms", "p99_ms")}
+    out.update({"recall_at_10": recall, "ann": stats["ann"], "quant": stats["quant"], "card": smi})
+    log(f"[ann] two-tower --ann --quantize int8: {load['queries']} queries from {SRV_TT_CLIENTS} keep-alive clients, "
+        f"{load['queries_per_s']:.1f} queries/s, p50 {load['p50_ms']:.3f} ms, p99 {load['p99_ms']:.3f} ms, all 200, "
+        f"no seen item in an answer; recall@10 against float64 numpy {recall:.4f}; on {smi}")
+    return out
+
+
 def check_launches(path: str, launches: dict, expected: dict) -> None:
     log(f"[{path}] launches on the path: {json.dumps({k: launches[k] for k in expected})}, "
         f"plan {json.dumps(expected)}")
@@ -2742,19 +3212,29 @@ def main() -> int:
     ttq = phase_tt_quickstart(
         device, TTQ_NNZ, TT_DIM, TT_BATCH, TT_EPOCHS, QUERIES, TOP_K, info["smi"],
         then=lambda ctx: (phase_tt_serving(device, ctx, SRV_TT_CLIENTS, SRV_TT_REQUESTS, TOP_K, info["smi"]),
-                          phase_tt_online(device, ctx, info["smi"])))
-    tt_srv, tt_onl = ttq["serving"]
+                          phase_tt_online(device, ctx, info["smi"]),
+                          phase_tt_ann(device, ctx, info["smi"])))
+    tt_srv, tt_onl, tt_ann = ttq["serving"]
     # the serving tier and online learning run on the workflow's store and
     # warm instance (their own launch counts inside)
     wf = phase_workflow(
         device, WF_NNZ, WF_BULK, QUERIES, TOP_K, info["smi"],
         then=lambda ctx: (phase_serving(device, ctx, SRV_CLIENTS, SRV_REQUESTS, TOP_K, SRV_BATCHPREDICT,
                                         info["smi"]),
-                          phase_online(device, ctx, info["smi"])))
-    srv, onl = wf["serving"]
+                          phase_online(device, ctx, info["smi"]),
+                          phase_ann(device, ctx, info["smi"])))
+    srv, onl, ann = wf["serving"]
     online_launches = onl["in_process"]["launches"]
     if any(online_launches.values()):
         raise RuntimeError(f"online: the fold launched kernels {online_launches}; its path has none")
+    # approximate and int8 retrieval: the JAX bench's sweeps on the card
+    reset_launch_counts()
+    ann_sweep = phase_ann_sweep(device, info["smi"])
+    sweep_launches = read_launch_counts()
+    if any(sweep_launches.values()):
+        raise RuntimeError(f"ann: the sweeps launched kernels {sweep_launches}; their path has none")
+    log(f"[ann] launches on the sweeps' path: {json.dumps(sweep_launches)}; the deploys' and in-process path: "
+        f"{json.dumps(ann['launches'])}")
 
     main_fused = fused_rows[0]  # [8192, 64], the Two-Tower path's shape
     kernels = [
@@ -2817,6 +3297,26 @@ def main() -> int:
             "events_seen": onl["online"]["events_seen"], "worst_rel_err": onl["in_process"]["worst_rel_err"],
             "launches": online_launches, "phase_s": onl["phase_s"],
             "tt": {key: tt_onl[key] for key in ("events", "steps", "last_loss", "worst_norm_err", "phase_s")},
+        },
+        "ann": {
+            "ivf": [{key: p[key] for key in ("catalog_items", "nlist", "slab_width", "build_s", "speedup",
+                                               "recall_at_10", "recall_at_100", "fraction_of_catalog_scored")}
+                    | {"exact_qps": p["exact"]["queries_per_s"], "ivf_qps": p["ivf"]["queries_per_s"]}
+                    for p in ann_sweep["ivf"]],
+            "int8": [{key: p[key] for key in ("catalog_items", "recall_at_10_exact_int8", "bytes_ratio")}
+                     | {"exact_f32_qps": p["exact_f32"]["queries_per_s"],
+                        "exact_int8_qps": p["exact_int8"]["queries_per_s"],
+                        "ivf_f32_qps": p["ivf_f32"]["queries_per_s"], "ivf_int8_qps": p["ivf_int8"]["queries_per_s"],
+                        "ivf_f32_recall": p["ivf_f32"]["recall_at_10"], "ivf_int8_recall": p["ivf_int8"]["recall_at_10"]}
+                     for p in ann_sweep["int8"]],
+            "deploys": {label: {key: run[key] for key in ("queries_per_s", "p50_ms", "p99_ms", "recall_at_10",
+                                                           "deploy_start_s")}
+                        for label, run in ann["deploys"].items()},
+            "bytes_pinned_int8": ann["deploys"]["int8"]["cache"]["bytesPinned"],
+            "full_probe_bit_equal": ann["full_probe_bit_equal"], "reload_memory": ann["reload_memory"],
+            "incremental": ann["incremental"], "fold": ann["fold"],
+            "tt": {key: tt_ann[key] for key in ("queries_per_s", "p50_ms", "p99_ms", "recall_at_10")},
+            "launches": ann["launches"], "phase_s": ann["phase_s"] + ann_sweep["phase_s"],
         },
         "wall_s": time.perf_counter() - t_start,
     }

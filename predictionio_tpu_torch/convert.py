@@ -6,6 +6,13 @@ item_index.to_dict())`` it becomes the port's ``ALSModel`` with the
 factors on ``device``, ready to serve. A ``TwoTowerServingModel`` goes
 the same way with its seen filter: ``(user_vecs, item_vecs, user_index,
 item_index, seen)``. The ``*_to_numpy`` functions are the inverses.
+
+An IVF index crosses as its arrays (:func:`ivf_index_from_numpy`,
+:func:`ivf_index_to_numpy`; the JAX ``IVFIndex`` fields by name), so one
+index built by either package feeds both query paths; an int8 table as
+its codes and scales (:func:`quantized_table_from_numpy`,
+:func:`quantized_table_to_numpy`). These import ``ops.ivf`` and
+``ops.quant`` when called, not with this module.
 """
 
 from __future__ import annotations
@@ -23,6 +30,10 @@ from predictionio_tpu_torch.templates.twotower.engine import TwoTowerServingMode
 __all__ = [
     "als_model_from_numpy",
     "als_model_to_numpy",
+    "ivf_index_from_numpy",
+    "ivf_index_to_numpy",
+    "quantized_table_from_numpy",
+    "quantized_table_to_numpy",
     "twotower_model_from_numpy",
     "twotower_model_to_numpy",
 ]
@@ -113,3 +124,87 @@ def twotower_model_to_numpy(
         model.item_index.to_dict(),
         {u: set(items) for u, items in model.seen.items()},
     )
+
+
+def quantized_table_from_numpy(codes: np.ndarray, scales: np.ndarray, device: str | torch.device | None = None):
+    """int8 codes ``[N, K]`` and f32 scales ``[N]`` -> the port's
+    ``QuantizedTable`` on ``device``."""
+    from predictionio_tpu_torch.ops.quant import QuantizedTable
+
+    dev = resolve_device(device)
+    return QuantizedTable(
+        torch.tensor(np.asarray(codes, np.int8), device=dev), torch.tensor(np.asarray(scales, np.float32), device=dev)
+    )
+
+
+def quantized_table_to_numpy(table) -> tuple[np.ndarray, np.ndarray]:
+    """A ``QuantizedTable`` (either package's) -> ``(codes, scales)`` as
+    numpy."""
+    return (
+        np.asarray(table.codes.cpu() if isinstance(table.codes, torch.Tensor) else table.codes),
+        np.asarray(table.scales.cpu() if isinstance(table.scales, torch.Tensor) else table.scales),
+    )
+
+
+def ivf_index_from_numpy(
+    centroids: np.ndarray,
+    slabs: np.ndarray,
+    slab_ids: np.ndarray,
+    num_items: int,
+    nlist: int,
+    slab_width: int,
+    slab_scales: np.ndarray | None = None,
+    items=None,
+    device: str | torch.device | None = None,
+):
+    """The arrays of an IVF index (numpy) -> the port's ``IVFIndex`` on
+    ``device``. ``items`` is the id-ordered table the full probe scores;
+    by default it is rebuilt from the slabs (each real lane is its item's
+    row: f32 values, or the lane's codes and scale)."""
+    from predictionio_tpu_torch.ops.ivf import IVFIndex
+    from predictionio_tpu_torch.ops.quant import QuantizedTable
+
+    dev = resolve_device(device)
+    slabs = np.asarray(slabs)
+    ids = np.asarray(slab_ids, np.int32)
+    if items is None:
+        real = ids < num_items
+        n = int(ids[real].max()) + 1 if real.any() else 0
+        rows = np.zeros((n, slabs.shape[-1]), slabs.dtype)
+        rows[ids[real]] = slabs[real]
+        if slab_scales is None:
+            items = torch.tensor(rows, device=dev)
+        else:
+            scales = np.zeros(n, np.float32)
+            scales[ids[real]] = np.asarray(slab_scales, np.float32)[real]
+            items = QuantizedTable(torch.tensor(rows, device=dev), torch.tensor(scales, device=dev))
+    return IVFIndex(
+        centroids=torch.tensor(np.asarray(centroids, np.float32), device=dev),
+        slabs=torch.tensor(slabs, device=dev),
+        slab_ids=torch.tensor(ids, device=dev),
+        num_items=int(num_items),
+        nlist=int(nlist),
+        slab_width=int(slab_width),
+        slab_scales=None if slab_scales is None else torch.tensor(np.asarray(slab_scales, np.float32), device=dev),
+        items=items,
+    )
+
+
+def ivf_index_to_numpy(index) -> dict:
+    """An ``IVFIndex`` (either package's) -> its fields as numpy arrays
+    and ints, by the JAX ``IVFIndex``'s field names."""
+
+    def host(a):
+        if a is None:
+            return None
+        return np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
+
+    return {
+        "centroids": host(index.centroids),
+        "slabs": host(index.slabs),
+        "slab_ids": host(index.slab_ids),
+        "num_items": int(index.num_items),
+        "nlist": int(index.nlist),
+        "slab_width": int(index.slab_width),
+        "slab_scales": host(index.slab_scales),
+    }

@@ -40,7 +40,8 @@ returns NaN):
 The device is explicit: the rows solve on ``device`` (the algorithm's),
 whatever holds the opposite table. The gather of the opposite rows runs
 where the table lives (a host fancy-index for numpy, one
-``index_select`` for a tensor), so a host table on a card deploy still
+``index_select`` for a tensor, the gathered rows dequantized for an int8
+table), so a host table on a card deploy still
 folds on the card. ``run(fn, *args)`` runs each chunk's torch calls (the
 query server passes its ``run_on_device``); building the padded systems
 stays on the caller's thread.
@@ -122,7 +123,10 @@ def foldin_solve(
 def gram_yty(opposite):
     """``Y^T Y`` of the opposite factors — computed once per model
     generation by implicit-model callers. A tensor table gives a tensor
-    on its own device; a numpy table the JAX package's float32 numpy."""
+    on its own device (an int8 table its dequantized rows'); a numpy
+    table the JAX package's float32 numpy."""
+    if getattr(opposite, "is_quantized", False):
+        opposite = opposite[:]
     if isinstance(opposite, torch.Tensor):
         Y = opposite.to(torch.float32)
         return Y.T @ Y
@@ -137,6 +141,9 @@ def _solve_chunk(Y, idx, val, mask, pr, pw, reg, alpha, yty, implicit, n_real, d
     K = int(Y.shape[1])
     if isinstance(Y, np.ndarray):
         Yg = torch.from_numpy(np.asarray(Y, np.float32)[idx.reshape(-1)]).to(device)
+    elif getattr(Y, "is_quantized", False):
+        # an int8 table (--quantize): only the gathered rows dequantize
+        Yg = torch.as_tensor(Y[idx.reshape(-1)]).to(device=device, dtype=torch.float32)
     else:
         rows = Y.index_select(0, torch.from_numpy(idx.reshape(-1)).to(Y.device))
         Yg = rows.to(device=device, dtype=torch.float32)
@@ -177,7 +184,7 @@ def foldin_rows(
     device, and the card for a numpy table (the port's rule). ``run``
     runs each chunk's torch calls (default: on the calling thread)."""
     Y = opposite
-    if device is None and isinstance(Y, torch.Tensor):
+    if device is None and (isinstance(Y, torch.Tensor) or getattr(Y, "is_quantized", False)):
         device = Y.device
     device = resolve_device(device)
     run = run or _direct

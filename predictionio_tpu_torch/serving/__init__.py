@@ -12,7 +12,9 @@ transport and :class:`~predictionio_tpu_torch.workflow.serving.QueryService`:
   queries, and the config surface of the pinned model-state tier (which
   lives in :mod:`predictionio_tpu_torch.workflow.device_state`);
 * :mod:`predictionio_tpu_torch.serving.ann` — only the ``--ann`` flag's
-  config: the IVF tier itself waits (ROADMAP queue 1 item 7).
+  config: the IVF tier itself is :mod:`predictionio_tpu_torch.ops.ivf`,
+  built per model generation by
+  :mod:`predictionio_tpu_torch.workflow.device_state`.
 
 This package imports neither torch nor jax: batching and caching are
 pure threading/queue/dict machinery (``tests/test_torch_no_jax.py``

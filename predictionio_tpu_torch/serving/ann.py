@@ -1,9 +1,12 @@
 """Approximate-retrieval configuration surface (``pio deploy --ann``).
 
-Counterpart of ``predictionio_tpu/serving/ann.py``: only the config, so
-the console can parse the ``--ann*`` flags. The IVF index and its
-two-stage query wait (ROADMAP queue 1 item 7); a deploy given
-``--ann`` is refused, naming that item.
+Counterpart of ``predictionio_tpu/serving/ann.py``. Only the config
+lives here, so the serving package imports neither torch nor numpy: the
+IVF index build and its two-stage query are
+:mod:`predictionio_tpu_torch.ops.ivf`, reached through
+:mod:`predictionio_tpu_torch.workflow.device_state` only when a deploy
+asks for ``--ann``. With ``enabled`` False (the default) nothing imports
+``ops.ivf`` and every query takes the exact path.
 """
 
 from __future__ import annotations

@@ -33,8 +33,15 @@ engine.json params are byte-compatible: ``rank``, ``numIterations``,
 ``serveOnDevice`` and ``deviceLatencyBudgetMs`` are recorded, not
 switches: the deploy's device decides where a model serves.
 
-Waiting: the multi-host read and the sharded, int8, IVF and AOT serving
-tiers.
+* ``pio deploy --quantize int8`` (``quantize_model_for_serving``) serves
+  both tables as int8 codes and per-row scales through the two-stage
+  top-k of :mod:`predictionio_tpu_torch.ops.quant`; ``pio deploy --ann``
+  (``build_ann_for_serving``) builds an IVF index over the item table
+  (:mod:`predictionio_tpu_torch.ops.ivf`, int8 slabs under
+  ``--quantize``), and ``predict``/``batch_predict`` probe it; online
+  folds update the index's touched items.
+
+Waiting: the multi-host read and the sharded and AOT serving tiers.
 """
 
 from __future__ import annotations
@@ -71,7 +78,14 @@ from predictionio_tpu_torch.data.store import PEventStore, resolve_app
 from predictionio_tpu_torch.ops.als import ALSConfig, predict_scores, train_als
 from predictionio_tpu_torch.ops.topk import top_k_host, top_k_scores
 from predictionio_tpu_torch.templates.columnar_util import event_name_mask
-from predictionio_tpu_torch.templates.serving_util import TOPK_CHUNK, aligned_factor_init, chunked_topk, release_tables
+from predictionio_tpu_torch.templates.serving_util import (
+    TOPK_CHUNK,
+    aligned_factor_init,
+    build_ann,
+    chunked_topk,
+    quantize_tables,
+    release_tables,
+)
 from predictionio_tpu_torch.templates.results import ItemScore, PredictedResult
 
 __all__ = [
@@ -636,8 +650,38 @@ class ALSAlgorithm(TorchAlgorithm):
         host arrays back and the device tensors lose their last
         reference, so their memory is freed at once. After an online
         update the pin-time host arrays are stale (``apply_online_update``
-        dropped them), so the folded tables are copied back instead."""
+        dropped them), so the folded tables are copied back instead; int8
+        tables come back dequantized, as host f32."""
         release_tables(model, "user_factors", "item_factors")
+
+    # ---------------------------------------------------- quantized serving
+    def quantize_model_for_serving(
+        self, model: ALSModel, mode: str = "int8", shard: bool = False
+    ) -> tuple[ALSModel, int]:
+        """The ``--quantize int8`` tier: both factor tables as int8 codes
+        and per-row f32 scales on :attr:`device` (``rank + 4`` bytes a row
+        instead of ``4·rank``); predict/batch_predict then take the
+        two-stage top-k (int8 coarse scan over-fetching ``max(4k, k+64)``,
+        f32 rescore, the shared tie rule). Returns ``(model, bytes
+        pinned)``."""
+        if shard:
+            raise NotImplementedError("--quantize with --shard-factors waits for ROADMAP queue 1 item 13")
+        return quantize_tables(model, "user_factors", "item_factors", self.device, mode)
+
+    # --------------------------------------------------- ANN retrieval
+    def build_ann_for_serving(self, model: ALSModel, ann) -> tuple[ALSModel, dict]:
+        """The ``--ann`` tier: cluster the item factors into an IVF index on
+        :attr:`device` once per model generation (int8 slabs under
+        ``--quantize``); predict/batch_predict then score only ``nprobe``
+        cluster slabs a query. Returns the model (``model._pio_ann``
+        attached) and the build info for ``/stats.json``."""
+        return build_ann(model, "item_factors", ann, self.device, type(self).__name__)
+
+    def release_ann_state(self, model: ALSModel) -> None:
+        """Drop a superseded generation's IVF index (a hot-reloading server
+        must not hold one index per swap)."""
+        if getattr(model, "_pio_ann", None) is not None:
+            model._pio_ann = None
 
     # ------------------------------------------------------ online fold-in
     @staticmethod
@@ -807,10 +851,28 @@ class ALSAlgorithm(TorchAlgorithm):
         k = min(int(query.num), len(model.item_index))
         if k <= 0:
             return PredictedResult(())
+        ann = getattr(model, "_pio_ann", None)
+        quantrt = getattr(model, "_pio_quant", None)
         if isinstance(model.item_factors, np.ndarray):
+            self.check_host_serving()
+        if ann is not None:
+            from predictionio_tpu_torch.ops import ivf
+
+            if quantrt is not None:
+                # int8 user table: only this row dequantizes
+                qvec = model.user_factors[np.asarray([uidx], np.int64)][0]
+            else:
+                qvec = model.user_factors[uidx]
+            pairs = zip(*ivf.query_topk(ann, qvec, k))
+        elif quantrt is not None:
+            # int8 exact: coarse scan with over-fetch, f32 rescore
+            from predictionio_tpu_torch.ops import quant
+
+            ids_b, scores_b = quant.topk_users(quantrt, model.user_factors, model.item_factors, [uidx], k)
+            pairs = zip(ids_b[0].tolist(), scores_b[0].tolist())
+        elif isinstance(model.item_factors, np.ndarray):
             # host branch (the CPU, asked for): one GEMV + partial sort,
             # the JAX package's code (shared tie rule: ops/topk.py)
-            self.check_host_serving()
             scores = model.item_factors @ np.asarray(model.user_factors[uidx])
             top, vals = top_k_host(scores, k)
             pairs = zip(top.tolist(), vals.tolist())
@@ -848,11 +910,13 @@ class ALSAlgorithm(TorchAlgorithm):
 
     def _topk_staged(self, model: ALSModel, valid: list):
         """Chunked top-k over ``valid = [(slot, uidx, k), ...]``
-        (:func:`chunked_topk`)."""
+        (:func:`chunked_topk`; through the IVF index under ``--ann``, the
+        two-stage int8 top-k under ``--quantize``)."""
         if isinstance(model.item_factors, np.ndarray):
             self.check_host_serving()
         return chunked_topk(
-            model.user_factors, model.item_factors, valid, chunk=self.BATCH_PREDICT_CHUNK
+            model.user_factors, model.item_factors, valid, chunk=self.BATCH_PREDICT_CHUNK,
+            ann=getattr(model, "_pio_ann", None), quant=getattr(model, "_pio_quant", None),
         )
 
     def batch_predict_json(self, model: ALSModel, bodies: Sequence[Any]) -> list[str | None]:

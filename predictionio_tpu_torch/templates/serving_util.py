@@ -2,15 +2,18 @@
 
 Counterpart of ``predictionio_tpu/templates/serving_util.py``:
 
-* :func:`chunked_topk`, the exact branches only. Its host branch is the
-  JAX package's numpy code (one GEMM and :func:`top_k_host` a chunk), so
-  the two packages' host answers are equal to the bit; its device branch
-  scores each chunk with one ``[B,K]@[K,I]`` product on the tensors'
-  device and crosses to the host once for the whole call. The IVF,
-  sharded, int8 and AOT branches wait (ROADMAP queue 1 items 7, 13, 8
-  and 14) and raise ``NotImplementedError`` naming their item.
+* :func:`chunked_topk`. Its host branch is the JAX package's numpy code
+  (one GEMM and :func:`top_k_host` a chunk), so the two packages' host
+  answers are equal to the bit; its device branch scores each chunk with
+  one ``[B,K]@[K,I]`` product on the tensors' device and crosses to the
+  host once for the whole call. The IVF (``ann=``) and int8 (``quant=``)
+  branches keep that rule (:func:`_drain_staged`); the sharded and AOT
+  branches wait (ROADMAP queue 1 items 13 and 14) and raise
+  ``NotImplementedError`` naming their item.
 * :func:`aligned_factor_init`, a copy: a warm retrain's carried rows.
-* :func:`release_tables`: both templates' release of pinned tables.
+* :func:`release_tables`, :func:`quantize_tables` and :func:`build_ann`:
+  both templates' release of pinned (or int8) tables, their
+  ``--quantize int8`` pin and their ``--ann`` index build.
 
 ``device_latency_ok`` is not ported on purpose: in the JAX package it
 moves serving to the host when the device answers slowly, and the port
@@ -27,11 +30,37 @@ import torch
 from predictionio_tpu_torch.ops.als import top_k_items_batch
 from predictionio_tpu_torch.ops.topk import bucket_k, top_k_host
 
-__all__ = ["TOPK_CHUNK", "chunked_topk", "aligned_factor_init", "release_tables"]
+__all__ = ["TOPK_CHUNK", "chunked_topk", "aligned_factor_init", "release_tables", "quantize_tables", "build_ann"]
 
 #: queries per score product in :func:`chunked_topk` (the JAX package's
 #: value, so a host chunk's GEMM has the same shape in both packages)
 TOPK_CHUNK = 2048
+
+
+def _drain_staged(staged: list, n_items: int) -> Iterator[tuple[list, list, list]]:
+    """Drain chunk-staged device results ``[(part, ids, scores), ...]``
+    with ONE crossing to the host: every chunk's ids (int32) and the bit
+    patterns of its scores pack into one tensor, then each row drops its
+    sentinel padding (``id >= n_items`` at ``-inf``) before any consumer
+    sees it. Shared by the exact, IVF and int8 paths."""
+    packed = [
+        torch.cat([ids.to(torch.int32), scores.to(torch.float32).view(torch.int32)], dim=1)
+        for _, ids, scores in staged
+    ]
+    width = packed[0].shape[1] // 2
+    host = torch.cat(packed).cpu().numpy() if len(packed) > 1 else packed[0].cpu().numpy()
+    ids_all = host[:, :width]
+    scores_all = np.ascontiguousarray(host[:, width:]).view(np.float32)
+    off = 0
+    for part, _, _ in staged:
+        ids_b = ids_all[off : off + len(part)]
+        scores_b = scores_all[off : off + len(part)]
+        keep = ids_b < n_items
+        if keep.all():
+            yield part, ids_b.tolist(), scores_b.tolist()
+        else:
+            yield part, [i[m].tolist() for i, m in zip(ids_b, keep)], [s[m].tolist() for s, m in zip(scores_b, keep)]
+        off += len(part)
 
 
 def chunked_topk(
@@ -39,17 +68,27 @@ def chunked_topk(
     ann=None, shards=None, quant=None, aot=None,
 ) -> Iterator[tuple[list, list, list]]:
     """Chunked batch top-k over ``valid = [(slot, uidx, k), ...]``;
-    yields ``(part, ids, scores)`` with ids/scores as Python lists of
-    ``bucket_k(max k)`` entries a row (each caller trims its own k).
+    yields ``(part, ids, scores)`` with ids/scores as Python lists of up
+    to ``bucket_k(max k)`` entries a row (each caller trims its own k).
 
     Host tables (numpy) take one numpy GEMM and :func:`top_k_host` a
     chunk. Tensor tables (pinned on the card, or on the CPU when the
     caller asked for it) take one :func:`top_k_items_batch` a chunk, at
     the chunk's own row count (the micro-batcher already pads to its
-    buckets); every chunk's ids and scores are packed into one int32
-    tensor on the device, so the call crosses to the host once."""
+    buckets); every chunk's ids and scores cross to the host together.
+
+    ``ann`` (an :class:`~predictionio_tpu_torch.ops.ivf.AnnRuntime`)
+    routes the scoring through the IVF probe: only ``nprobe`` cluster
+    slabs are scored a query. The chunk's user rows are gathered where
+    the user table lives (host rows for a numpy table, as the JAX
+    unpinned branch does; dequantized rows for an int8 table), at the
+    chunk's own row count, so the full probe (``nprobe >= nlist``)
+    computes exactly what the exact branch does for the same rows.
+    ``quant`` (a :class:`~predictionio_tpu_torch.ops.quant.QuantRuntime`)
+    runs the two-stage int8 top-k on int8 tables. Both keep the
+    one-crossing rule and trim sentinel padding here."""
     # the tiers not ported yet, by the ROADMAP queue 1 item each waits for
-    waiting = (("ann", ann, 7), ("shards", shards, 13), ("quant", quant, 8), ("aot", aot, 14))
+    waiting = (("shards", shards, 13), ("aot", aot, 14))
     for name, tier, item in waiting:
         if tier is not None:
             raise NotImplementedError(
@@ -59,6 +98,39 @@ def chunked_topk(
         return
     n_items = int(item_mat.shape[0])
     k_max = bucket_k(max(k for _, _, k in valid), n_items)
+    if ann is not None:
+        from predictionio_tpu_torch.ops import ivf
+
+        # one index for the whole call: an online update swaps ann.index
+        # whole, and a call that started on the old one finishes on it
+        index = ann.index
+        staged = []
+        for lo in range(0, len(valid), chunk):
+            part = list(valid[lo : lo + chunk])
+            uidx = np.fromiter((u for _, u, _ in part), np.int64, len(part))
+            if isinstance(user_mat, torch.Tensor):
+                idx_b, score_b = ivf.ivf_topk_users(
+                    torch.as_tensor(uidx, device=user_mat.device), user_mat, index, k_max, ann.nprobe
+                )
+            else:
+                # a numpy table: the chunk's host rows; an int8 table: its
+                # dequantized rows, on the table's device
+                idx_b, score_b = ivf.ivf_topk_batch(user_mat[uidx], index, k_max, ann.nprobe)
+            ann.note_queries(len(part))
+            staged.append((part, idx_b, score_b))
+        yield from _drain_staged(staged, n_items)
+        return
+    if quant is not None:
+        from predictionio_tpu_torch.ops import quant as quant_ops
+
+        staged = []
+        for lo in range(0, len(valid), chunk):
+            part = list(valid[lo : lo + chunk])
+            uidx = np.fromiter((u for _, u, _ in part), np.int64, len(part))
+            idx_b, score_b = quant_ops.run_topk(quant, user_mat, item_mat, uidx, k_max)
+            staged.append((part, idx_b, score_b))
+        yield from _drain_staged(staged, n_items)
+        return
     if isinstance(item_mat, np.ndarray):
         for lo in range(0, len(valid), chunk):
             part = list(valid[lo : lo + chunk])
@@ -68,28 +140,15 @@ def chunked_topk(
             idx_b, score_b = top_k_host(scores, k_max)
             yield part, idx_b.tolist(), score_b.tolist()
         return
-    parts: list[list] = []
-    packed: list[torch.Tensor] = []
+    staged = []
     for lo in range(0, len(valid), chunk):
         part = list(valid[lo : lo + chunk])
         uidx = torch.as_tensor(
             np.fromiter((u for _, u, _ in part), np.int64, len(part)), device=item_mat.device
         )
         idx_b, score_b = top_k_items_batch(uidx, user_mat, item_mat, k_max)
-        # ids fit int32; the scores travel as their f32 bit patterns
-        packed.append(torch.cat([idx_b.to(torch.int32), score_b.view(torch.int32)], dim=1))
-        parts.append(part)
-    host = torch.cat(packed).cpu().numpy()
-    ids_all = host[:, :k_max]
-    scores_all = np.ascontiguousarray(host[:, k_max:]).view(np.float32)
-    off = 0
-    for part in parts:
-        yield (
-            part,
-            ids_all[off : off + len(part)].tolist(),
-            scores_all[off : off + len(part)].tolist(),
-        )
-        off += len(part)
+        staged.append((part, idx_b, score_b))
+    yield from _drain_staged(staged, n_items)
 
 
 def aligned_factor_init(
@@ -150,7 +209,9 @@ def release_tables(model, *attrs: str) -> None:
     ``release_pinned_model``): the pin-time host arrays come back while
     they are current; once an online update dropped them as stale, the
     updated tables are copied back to the host instead, so nothing that
-    reads the model later sees pre-update rows."""
+    reads the model later sees pre-update rows. An int8 table comes back
+    as its dequantized host f32, and the model's ``QuantRuntime`` goes
+    with it."""
     host = getattr(model, "_pio_host", None)
     if host is not None:
         for attr, arr in zip(attrs, host):
@@ -160,5 +221,62 @@ def release_tables(model, *attrs: str) -> None:
             table = getattr(model, attr)
             if isinstance(table, torch.Tensor):
                 setattr(model, attr, table.cpu().numpy())
+            elif getattr(table, "is_quantized", False):
+                setattr(model, attr, np.asarray(table))
     model._pio_host = None
     model._pio_pinned = False
+    model._pio_quant = None
+
+
+def _host_f32(table) -> np.ndarray:
+    if isinstance(table, torch.Tensor):
+        return table.detach().to(torch.float32).cpu().numpy()
+    return np.asarray(table, np.float32)
+
+
+def quantize_tables(model, user_attr: str, item_attr: str, device, mode: str = "int8") -> tuple[object, int]:
+    """Both templates' ``quantize_model_for_serving``: the two tables
+    become int8 codes and per-row scales on ``device`` (quantized there,
+    ``ops/quant``'s one rule). Sets the per-dtype byte ledger
+    (``model._pio_bytes_by_dtype``) and ``model._pio_quant`` (the
+    ``QuantRuntime``, with the item table's quantization error) and
+    returns ``(model, bytes pinned)``."""
+    from predictionio_tpu_torch.ops import quant
+
+    if mode != "int8":
+        raise ValueError(f"unsupported quantize mode {mode!r} (int8)")
+    user_f, item_f = _host_f32(getattr(model, user_attr)), _host_f32(getattr(model, item_attr))
+    user, item = quant.quantize_table(user_f, device), quant.quantize_table(item_f, device)
+    setattr(model, user_attr, user)
+    setattr(model, item_attr, item)
+    model._pio_host = None
+    model._pio_pinned = True
+    breakdown = {
+        "int8": user.nbytes_codes + item.nbytes_codes,
+        "scalesFloat32": user.nbytes_scales + item.nbytes_scales,
+    }
+    model._pio_bytes_by_dtype = breakdown
+    model._pio_quant = quant.QuantRuntime(
+        mode=mode,
+        bytes_by_dtype=breakdown,
+        bytes_f32=user_f.nbytes + item_f.nbytes,
+        # the item side's error is what reorders results
+        error=quant.quantization_error(item_f, item.codes, item.scales),
+    )
+    return model, sum(breakdown.values())
+
+
+def build_ann(model, item_attr: str, ann, device, algorithm: str) -> tuple[object, dict]:
+    """Both templates' ``build_ann_for_serving``: an IVF index over the
+    item table on ``device`` (int8 slabs when the model serves int8),
+    keeping the table itself for the full probe; attached as
+    ``model._pio_ann``. Returns ``(model, build info)``."""
+    from predictionio_tpu_torch.ops import ivf
+
+    items = getattr(model, item_attr)
+    index, info = ivf.build_ivf(
+        items, nlist=ann.nlist, seed=ann.seed, iters=ann.kmeans_iters,
+        quantize=getattr(model, "_pio_quant", None) is not None, device=device, table=items,
+    )
+    model._pio_ann = ivf.AnnRuntime(index, ann.nprobe, info)
+    return model, dict(info, algorithm=algorithm, nprobe=model._pio_ann.nprobe)

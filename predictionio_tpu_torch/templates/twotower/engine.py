@@ -23,6 +23,10 @@ DASE spine (:func:`engine_factory`):
   ``online_trainer_spec`` opts the towers into the streaming trainer,
   and ``apply_online_update`` swaps its rows into the live towers and
   grows the seen filter.
+* ``pio deploy --quantize int8`` and ``--ann`` take the Recommendation
+  template's hooks over the towers (``quantize_model_for_serving``,
+  ``build_ann_for_serving``); the seen filter keeps its over-fetch
+  (``num + |seen|`` candidates fetched before the merge) under both.
 
 engine.json is the JAX package's, byte for byte::
 
@@ -33,8 +37,7 @@ engine.json is the JAX package's, byte for byte::
                      "params": {"embeddingDim": 64, "batchSize": 512,
                                 "epochs": 5, "learningRate": 0.05}}]}
 
-Waiting: the multi-host read and the sharded, int8, IVF and AOT serving
-tiers.
+Waiting: the multi-host read and the sharded and AOT serving tiers.
 """
 
 from __future__ import annotations
@@ -65,7 +68,13 @@ from predictionio_tpu_torch.ops.topk import bucket_k, top_k_host, top_k_scores
 from predictionio_tpu_torch.ops.twotower import TwoTowerConfig, train_two_tower
 from predictionio_tpu_torch.templates.columnar_util import aggregate_pairs, densify_pairs
 from predictionio_tpu_torch.templates.results import ItemScore, PredictedResult
-from predictionio_tpu_torch.templates.serving_util import aligned_factor_init, chunked_topk, release_tables
+from predictionio_tpu_torch.templates.serving_util import (
+    aligned_factor_init,
+    build_ann,
+    chunked_topk,
+    quantize_tables,
+    release_tables,
+)
 
 __all__ = [
     "DataSourceParams",
@@ -339,6 +348,26 @@ class TwoTowerAlgorithm(TorchAlgorithm):
         their last reference)."""
         release_tables(model, "user_vecs", "item_vecs")
 
+    def quantize_model_for_serving(
+        self, model: TwoTowerServingModel, mode: str = "int8", shard: bool = False
+    ) -> tuple[TwoTowerServingModel, int]:
+        """The ``--quantize int8`` tier over the towers (the Recommendation
+        template's contract): int8 codes and per-row scales on
+        :attr:`device`, retrieval through the two-stage top-k."""
+        if shard:
+            raise NotImplementedError("--quantize with --shard-factors waits for ROADMAP queue 1 item 13")
+        return quantize_tables(model, "user_vecs", "item_vecs", self.device, mode)
+
+    def build_ann_for_serving(self, model: TwoTowerServingModel, ann) -> tuple[TwoTowerServingModel, dict]:
+        """The ``--ann`` tier: an IVF index over the item tower on
+        :attr:`device`; serving scores only ``nprobe`` cluster slabs a
+        query, and the seen filter keeps its over-fetch."""
+        return build_ann(model, "item_vecs", ann, self.device, type(self).__name__)
+
+    def release_ann_state(self, model: TwoTowerServingModel) -> None:
+        if getattr(model, "_pio_ann", None) is not None:
+            model._pio_ann = None
+
     # ----------------------------------------------- online streaming SGD
     def online_trainer_spec(self, model: TwoTowerServingModel) -> dict:
         """Opt into the streaming mini-batch trainer (``pio deploy
@@ -370,7 +399,7 @@ class TwoTowerAlgorithm(TorchAlgorithm):
             info["itemsUpdated"], info["itemsAdded"] = device_state.swap_side_rows(
                 model, upd.item_ids, upd.item_rows, "item_vecs", "item_index", rows_before_index=False
             )
-            ann_info = device_state.update_ann_items(model, upd.item_ids, upd.item_rows)
+            ann_info = device_state.update_ann_items(model, upd.item_ids, upd.item_rows, factors_attr="item_vecs")
             if ann_info is not None:
                 info["ann"] = ann_info
         for u, i in upd.seen_pairs:
@@ -411,9 +440,26 @@ class TwoTowerAlgorithm(TorchAlgorithm):
         k = min(num + len(seen), n_items)
         if k <= 0:
             return PredictedResult(())
+        ann = getattr(model, "_pio_ann", None)
+        quantrt = getattr(model, "_pio_quant", None)
+        if isinstance(model.item_vecs, np.ndarray):
+            self.check_host_serving()
+        if ann is not None:
+            from predictionio_tpu_torch.ops import ivf
+
+            if quantrt is not None:
+                qvec = model.user_vecs[np.asarray([uidx], np.int64)][0]
+            else:
+                qvec = model.user_vecs[uidx]
+            idx, vals = ivf.query_topk(ann, qvec, k)
+            return self._unseen(model, idx, vals, seen, num)
+        if quantrt is not None:
+            from predictionio_tpu_torch.ops import quant
+
+            idx, vals = quant.topk_users(quantrt, model.user_vecs, model.item_vecs, [uidx], k)
+            return self._unseen(model, idx[0].tolist(), vals[0].tolist(), seen, num)
         if isinstance(model.item_vecs, np.ndarray):
             # host branch (the CPU, asked for): the JAX package's code
-            self.check_host_serving()
             scores = model.item_vecs @ np.asarray(model.user_vecs[uidx])
             idx, vals = top_k_host(scores, k)
         else:
@@ -443,7 +489,10 @@ class TwoTowerAlgorithm(TorchAlgorithm):
                 valid.append((idx, uidx, k))
         if isinstance(model.item_vecs, np.ndarray) and valid:
             self.check_host_serving()
-        for part, idx_l, score_l in chunked_topk(model.user_vecs, model.item_vecs, valid):
+        for part, idx_l, score_l in chunked_topk(
+            model.user_vecs, model.item_vecs, valid,
+            ann=getattr(model, "_pio_ann", None), quant=getattr(model, "_pio_quant", None),
+        ):
             for (oi, _, k), ids, scs in zip(part, idx_l, score_l):
                 seen, num = seen_num[oi]
                 results.append((oi, self._unseen(model, ids[:k], scs[:k], seen, num)))

@@ -40,12 +40,12 @@ N``; SIGTERM or SIGINT stops either (after a drain when given
 ``--drain-deadline-s``), and so does ``pio undeploy`` for a deploy, with
 the stop token the deploy wrote under the base directory. ``deploy``
 takes the JAX console's flags: those of the serving tiers the port has
-(micro-batching, result cache, singleflight, pinned tables, feedback,
-online learning, storage resilience, TLS, drain) and, parsed and then
-refused with a ``ValueError`` naming their ROADMAP item, those of the
-tiers it does not (``--ann*``, ``--quantize``, ``--explore*``,
-``--variants``, ``--shard-factors``, ``--aot``,
-``--compilation-cache-dir``, the fleet's). The data verbs and ``eventserver`` import no
+(micro-batching, result cache, singleflight, pinned tables, int8 tables
+``--quantize int8``, IVF retrieval ``--ann*``, feedback, online
+learning, storage resilience, TLS, drain) and, parsed and then refused
+with a ``ValueError`` naming their ROADMAP item, those of the tiers it
+does not (``--explore*``, ``--variants``, ``--shard-factors``,
+``--aot``, ``--compilation-cache-dir``, the fleet's). The data verbs and ``eventserver`` import no
 torch. ``eval`` takes
 import paths (``module:attr``) of an ``Evaluation`` and, optionally, an
 ``EngineParamsGenerator`` (else the evaluation's own
@@ -74,12 +74,6 @@ __all__ = ["main", "build_parser"]
 #: (so a JAX package's deploy command line reads) and are then refused,
 #: naming what each waits for (ROADMAP queue 1)
 _WAITING_DEPLOY_FLAGS = {
-    "ann": "queue 1 item 7, IVF retrieval",
-    "ann_nlist": "queue 1 item 7, IVF retrieval",
-    "ann_nprobe": "queue 1 item 7, IVF retrieval",
-    "ann_seed": "queue 1 item 7, IVF retrieval",
-    "ann_kmeans_iters": "queue 1 item 7, IVF retrieval",
-    "quantize": "queue 1 item 8, int8 serving",
     "explore": "queue 1 item 12, experiments",
     "explore_epsilon": "queue 1 item 12, experiments",
     "explore_seed": "queue 1 item 12, experiments",
@@ -185,16 +179,27 @@ def _add_deploy_flags(deploy: argparse.ArgumentParser) -> None:
     deploy.add_argument("--drain-deadline-s", type=float, default=0.0, metavar="S",
                         help="graceful drain on SIGTERM/SIGINT within S seconds (0: "
                         "stop at once)")
+    # int8 tables (ops/quant.py) and IVF retrieval (ops/ivf.py)
+    deploy.add_argument("--quantize", choices=("int8",), default=None, metavar="DTYPE",
+                        help="serve the factor tables (and --ann's IVF slabs) as int8 codes "
+                        "and per-row scales, through a two-stage top-k (int8 coarse scan, "
+                        "f32 rescore)")
+    deploy.add_argument("--ann", action="store_true",
+                        help="serve top-K through an IVF index built at each (re)load: "
+                        "score nprobe cluster slabs a query instead of the catalog")
+    deploy.add_argument("--ann-nlist", type=int, default=0, metavar="N",
+                        help="k-means cluster count for --ann (0: ~sqrt(catalog items))")
+    deploy.add_argument("--ann-nprobe", type=int, default=8, metavar="N",
+                        help="clusters scored a query for --ann; nprobe >= nlist is exact "
+                        "retrieval, to the bit")
+    deploy.add_argument("--ann-seed", type=int, default=0,
+                        help="k-means seed for --ann (a build is deterministic per seed)")
+    deploy.add_argument("--ann-kmeans-iters", type=int, default=8, metavar="N",
+                        help="Lloyd iterations after k-means++ seeding")
     # later tiers: parsed, then refused
     deploy.add_argument("--shard-factors", action="store_true")
-    deploy.add_argument("--quantize", choices=("int8",), default=None, metavar="DTYPE")
     deploy.add_argument("--aot", action="store_true")
     deploy.add_argument("--compilation-cache-dir", default=None, metavar="DIR")
-    deploy.add_argument("--ann", action="store_true")
-    deploy.add_argument("--ann-nlist", type=int, default=0, metavar="N")
-    deploy.add_argument("--ann-nprobe", type=int, default=8, metavar="N")
-    deploy.add_argument("--ann-seed", type=int, default=0)
-    deploy.add_argument("--ann-kmeans-iters", type=int, default=8, metavar="N")
     deploy.add_argument("--explore", choices=("epsilon", "thompson"), default=None, metavar="POLICY")
     deploy.add_argument("--explore-epsilon", type=float, default=0.1, metavar="E")
     deploy.add_argument("--explore-seed", type=int, default=0)
@@ -385,7 +390,7 @@ def _deploy(args: argparse.Namespace) -> None:
     from predictionio_tpu_torch import resilience
     from predictionio_tpu_torch.api.http import serve
     from predictionio_tpu_torch.controller.context import local_context
-    from predictionio_tpu_torch.serving import BatcherConfig, CacheConfig
+    from predictionio_tpu_torch.serving import AnnConfig, BatcherConfig, CacheConfig
     from predictionio_tpu_torch.workflow.engine_json import load_engine_variant
     from predictionio_tpu_torch.workflow.serving import FeedbackConfig, QueryService
 
@@ -420,7 +425,7 @@ def _deploy(args: argparse.Namespace) -> None:
             warmup_body=json.loads(args.batch_warmup_query) if args.batch_warmup_query else None,
         )
     cache = None
-    if args.result_cache or args.coalesce or args.pin_model:
+    if args.result_cache or args.coalesce or args.pin_model or args.quantize:
         cache = CacheConfig(
             result_cache=args.result_cache,
             result_cache_entries=args.result_cache_entries,
@@ -428,7 +433,17 @@ def _deploy(args: argparse.Namespace) -> None:
             result_cache_max_bytes=int(args.result_cache_max_mb * 1024 * 1024),
             coalesce=args.coalesce,
             pin_model=args.pin_model,
+            quantize=args.quantize,
             scope_field=None if args.cache_scope_field.lower() in ("none", "") else args.cache_scope_field,
+        )
+    ann = None
+    if args.ann:
+        ann = AnnConfig(
+            enabled=True,
+            nlist=args.ann_nlist,
+            nprobe=args.ann_nprobe,
+            seed=args.ann_seed,
+            kmeans_iters=args.ann_kmeans_iters,
         )
     service = QueryService(
         load_engine_variant(args.engine_json),
@@ -437,6 +452,7 @@ def _deploy(args: argparse.Namespace) -> None:
         instance_id=args.engine_instance_id,
         batching=batching,
         cache=cache,
+        ann=ann,
         online=_online_from_args(args),
     )
     lifecycle = _lifecycle_from_args(args)

@@ -1,18 +1,28 @@
-"""Pinned serving state — the ``--pin-model`` tier.
+"""Pinned serving state — the ``--pin-model``, ``--quantize`` and ``--ann`` tiers.
 
 Counterpart of ``predictionio_tpu/workflow/device_state.py``
-(``pin_pairs``, ``release_pairs``, ``bytes_by_dtype``). Each successful
-(re)load of a query server pins the deployed models' scoring tables on
-the algorithm's device once per model generation, so every request
-scores against resident tensors. Algorithms opt in by implementing
-``pin_model_for_serving(model) -> (model, bytes_pinned)`` and
-``release_pinned_model(model)``; any other pair is served as it is.
+(``pin_pairs``, ``build_ann_pairs``, ``release_pairs``,
+``bytes_by_dtype``). Each successful (re)load of a query server pins the
+deployed models' scoring tables on the algorithm's device once per model
+generation, so every request scores against resident tensors.
+Algorithms opt in by implementing ``pin_model_for_serving(model) ->
+(model, bytes_pinned)`` and ``release_pinned_model(model)``; any other
+pair is served as it is. ``--quantize int8`` prefers the
+``quantize_model_for_serving(model, mode, shard)`` hook (int8 codes and
+per-row scales, ``ops/quant.py``); ``--ann`` asks each algorithm with a
+``build_ann_for_serving(model, ann_config)`` hook for an IVF index
+(``ops/ivf.py``) once per generation, and :func:`release_pairs` drops
+the superseded generation's pinned tables and index together. Nothing
+here imports ``ops.quant`` or ``ops.ivf`` unless a table or a deploy
+asks for it.
 
 One difference from the JAX package, which the port's rules require: a
-pin hook that raises is not swallowed (the JAX ``pin_pairs`` serves the
-pair unpinned). The error reaches the caller, so a deploy's first load
-fails loudly and a ``/reload`` leaves the service degraded on its
-last-good model; nothing falls back to the host quietly.
+pin, quantize or index-build hook that raises is not swallowed (the JAX
+package serves the pair unpinned, f32 or exact), and a deploy asking for
+``--quantize`` or ``--ann`` from an algorithm without the hook raises.
+The error reaches the caller, so a deploy's first load fails loudly and a
+``/reload`` leaves the service degraded on its last-good generation;
+nothing falls back to the host, to f32 or to exact retrieval quietly.
 
 The online fold-in's row swaps (``pio deploy --online``): :func:`get_rows`,
 :func:`set_rows`, :func:`append_rows`, :func:`swap_side_rows` and
@@ -20,9 +30,10 @@ The online fold-in's row swaps (``pio deploy --online``): :func:`get_rows`,
 whole, as in the JAX package. Pinned tensors update out of place
 (``index_copy`` into a new table, ``torch.cat`` for growth): a tensor that
 ``QueryService.snapshot_pairs`` or an in-flight query holds never
-changes under it, as with JAX's ``.at[].set``. An int8 or sharded table
-raises ``NotImplementedError``: those tiers wait with ROADMAP queue 1
-items 8 and 13, as do the IVF and AOT tiers with items 7 and 14.
+changes under it, as with JAX's ``.at[].set``. An int8 table re-quantizes
+only the rows touched or added (the host quantizer, bit-equal to the
+card's). A sharded table raises ``NotImplementedError``: that tier waits
+with ROADMAP queue 1 item 13, as does the AOT tier with item 14.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ import numpy as np
 
 __all__ = [
     "append_rows",
+    "build_ann_pairs",
     "bytes_by_dtype",
     "get_rows",
     "pin_pairs",
@@ -46,21 +58,58 @@ __all__ = [
 logger = logging.getLogger(__name__)
 
 
-def pin_pairs(pairs: Sequence) -> tuple[list, int]:
+def pin_pairs(pairs: Sequence, quantize: str | None = None) -> tuple[list, int]:
     """Pin every (algorithm, model) pair whose algorithm has the hook.
 
-    Returns ``(pairs, bytes_pinned)`` — the pair list with the pinned
-    models and the bytes of every table they now hold on their device.
-    A hook that raises propagates (see the module docstring)."""
+    ``quantize`` (``pio deploy --quantize int8``) takes the
+    ``quantize_model_for_serving`` hook instead; an algorithm without it
+    raises (the module docstring). Returns ``(pairs, bytes_pinned)`` —
+    the pair list with the pinned models and the bytes of every table
+    they now hold on their device. A hook that raises propagates."""
     out = []
     total = 0
     for algo, model in pairs:
         pin = getattr(algo, "pin_model_for_serving", None)
+        if quantize is not None:
+            qhook = getattr(algo, "quantize_model_for_serving", None)
+            if qhook is None:
+                raise NotImplementedError(
+                    f"--quantize {quantize}: {type(algo).__name__} has no quantize_model_for_serving hook"
+                )
+
+            def pin(m, _q=qhook):
+                return _q(m, mode=quantize, shard=False)
+
         if pin is not None:
             model, nbytes = pin(model)
             total += int(nbytes)
         out.append((algo, model))
     return out, total
+
+
+def build_ann_pairs(pairs: Sequence, ann_config) -> tuple[list, list]:
+    """Build the IVF retrieval state of every pair whose algorithm has a
+    ``build_ann_for_serving`` hook. Returns ``(pairs, infos)`` — one build
+    info dict per built index (``/stats.json`` ``ann``). A build that
+    raises propagates, and a deploy whose algorithms have no hook at all
+    raises: ``--ann`` never serves exact retrieval quietly."""
+    out = []
+    infos = []
+    for algo, model in pairs:
+        build = getattr(algo, "build_ann_for_serving", None)
+        if build is not None:
+            model, info = build(model, ann_config)
+            infos.append(info)
+            logger.info(
+                "Built IVF retrieval index for %s: nlist=%s nprobe=%s slabWidth=%s build=%ss",
+                type(algo).__name__, info.get("nlist"), info.get("nprobe"),
+                info.get("slabWidth"), info.get("buildSeconds"),
+            )
+        out.append((algo, model))
+    if pairs and not infos:
+        names = sorted({type(algo).__name__ for algo, _ in pairs})
+        raise NotImplementedError(f"--ann: no algorithm of this engine has a build_ann_for_serving hook ({names})")
+    return out, infos
 
 
 def bytes_by_dtype(pairs: Sequence) -> dict:
@@ -76,10 +125,8 @@ def bytes_by_dtype(pairs: Sequence) -> dict:
 
 
 def _check_plain(mat) -> None:
-    """Refuse the tables of tiers the port does not have: they must not
+    """Refuse the tables of a tier the port does not have: they must not
     be treated as plain ones."""
-    if getattr(mat, "is_quantized", False):
-        raise NotImplementedError("online updates of int8 tables wait for ROADMAP queue 1 item 8")
     if hasattr(mat, "placements"):  # a torch.distributed DTensor
         raise NotImplementedError("online updates of sharded tables wait for ROADMAP queue 1 item 13")
 
@@ -87,22 +134,39 @@ def _check_plain(mat) -> None:
 def get_rows(mat, idx) -> np.ndarray:
     """Rows ``idx`` of a factor table as host float32: a numpy fancy
     index, or one gather on the tensor's device and a ``len(idx)``-row
-    copy — never the whole table."""
+    copy — never the whole table. An int8 table dequantizes only those
+    rows."""
     _check_plain(mat)
     idx = np.asarray(idx, np.int64)
     if isinstance(mat, np.ndarray):
         return np.asarray(mat[idx], np.float32)
     import torch
 
+    if getattr(mat, "is_quantized", False):
+        rows = mat[idx]
+        return rows.cpu().numpy() if isinstance(rows, torch.Tensor) else np.asarray(rows, np.float32)
     return mat.index_select(0, torch.from_numpy(idx).to(mat.device)).to(torch.float32).cpu().numpy()
+
+
+def _quantized_parts(rows):
+    """An int8 table's touched rows, quantized on the host (``ops/quant``'s
+    one rule; the card's quantizer writes the same codes)."""
+    from predictionio_tpu_torch.ops import quant
+
+    return quant.quantize_table_host(np.asarray(rows, np.float32))
 
 
 def set_rows(mat, idx, rows):
     """Replace factor rows ``idx`` of ``mat`` with ``rows`` — the online
     fold-in's delta swap. A host array updates copy-on-write; a tensor
     out of place (``index_copy``), so only the touched rows cross to the
-    device and every holder of the old table keeps it intact."""
+    device and every holder of the old table keeps it intact. An int8
+    table re-quantizes only the touched rows, then swaps its codes and
+    scales through this same function."""
     _check_plain(mat)
+    if getattr(mat, "is_quantized", False):
+        codes, scales = _quantized_parts(rows)
+        return type(mat)(set_rows(mat.codes, idx, codes), set_rows(mat.scales, idx, scales))
     if isinstance(mat, np.ndarray):
         out = mat.copy()
         out[np.asarray(idx, np.int64)] = np.asarray(rows, mat.dtype)
@@ -110,19 +174,23 @@ def set_rows(mat, idx, rows):
     import torch
 
     index = torch.as_tensor(np.asarray(idx, np.int64)).to(mat.device)
-    src = torch.as_tensor(np.asarray(rows, np.float32)).to(device=mat.device, dtype=mat.dtype)
+    src = torch.as_tensor(np.asarray(rows)).to(device=mat.device, dtype=mat.dtype)
     return mat.index_copy(0, index, src)
 
 
 def append_rows(mat, rows):
     """Grow a factor table by cold-start rows (fold-in injection for
-    never-seen entities); a new table on the same device."""
+    never-seen entities); a new table on the same device. An int8 table
+    quantizes only the new rows and grows its codes and scales in step."""
     _check_plain(mat)
+    if getattr(mat, "is_quantized", False):
+        codes, scales = _quantized_parts(rows)
+        return type(mat)(append_rows(mat.codes, codes), append_rows(mat.scales, scales))
     if isinstance(mat, np.ndarray):
         return np.concatenate([mat, np.asarray(rows, mat.dtype)], axis=0)
     import torch
 
-    src = torch.as_tensor(np.asarray(rows, np.float32)).to(device=mat.device, dtype=mat.dtype)
+    src = torch.as_tensor(np.asarray(rows)).to(device=mat.device, dtype=mat.dtype)
     return torch.cat([mat, src], dim=0)
 
 
@@ -167,22 +235,33 @@ def swap_side_rows(
     return len(known), len(new)
 
 
-def update_ann_items(model, item_ids, rows, index_attr: str = "item_index"):
-    """Fold changed/new item rows into the model's incremental IVF index;
-    ``None`` — the port builds no IVF index until ROADMAP queue 1 item 7."""
-    return None
+def update_ann_items(model, item_ids, rows, index_attr: str = "item_index", factors_attr: str = "item_factors"):
+    """Fold changed/new item rows into the model's IVF index (when one is
+    built), after :func:`swap_side_rows` swapped them into the table: the
+    index keeps the model's new table for its full probe. Returns the
+    update info dict, or ``None`` without an index."""
+    ann = getattr(model, "_pio_ann", None)
+    if ann is None:
+        return None
+    index = getattr(model, index_attr)
+    all_idx = np.asarray([index[i] for i in item_ids], np.int64)
+    return ann.update_items(
+        all_idx, np.asarray(rows, np.float32), total_items=len(index), table=getattr(model, factors_attr)
+    )
 
 
 def release_pairs(pairs: Sequence) -> None:
-    """Drop a superseded generation's pinned tables so their device
-    memory is freed at once (a hot-reloading server must not hold one
-    catalog per reload). The query server calls it on its device thread,
-    where no query of the old generation can still be running."""
+    """Drop a superseded generation's pinned tables and IVF index so their
+    device memory is freed at once (a hot-reloading server must not hold
+    one catalog, or one index, per reload). The query server calls it on
+    its device thread, where no query of the old generation can still be
+    running."""
     for algo, model in pairs:
-        release = getattr(algo, "release_pinned_model", None)
-        if release is None:
-            continue
-        try:
-            release(model)
-        except Exception:
-            logger.exception("release_pinned_model failed for %s", type(algo).__name__)
+        for name in ("release_pinned_model", "release_ann_state"):
+            release = getattr(algo, name, None)
+            if release is None:
+                continue
+            try:
+                release(model)
+            except Exception:
+                logger.exception("%s failed for %s", name, type(algo).__name__)

@@ -38,10 +38,19 @@ invalidation; the runner's and the streaming trainer's torch calls go
 through :meth:`QueryService.run_on_device` too. With the option off,
 nothing under ``predictionio_tpu_torch.online`` is imported.
 
+Approximate and int8 retrieval (``ann=``, ``pio deploy --ann``;
+``CacheConfig(quantize="int8")``, ``pio deploy --quantize int8``): the
+tables pin as int8 codes and scales, and an IVF index is built on the
+device thread at every load and ``/reload`` (``workflow/device_state.py``);
+``/stats.json`` grows its ``quant`` and ``ann`` sections and the cache
+keys carry the retrieval mode, so exact, ANN and int8 answers never serve
+each other. A build or quantization that fails fails the first load and
+degrades a ``/reload``, as a failing pin does.
+
 Differences from the JAX package: the fleet (replica ids, A/B variants),
-``--ann``, ``--explore``, ``--aot``, ``--shard-factors`` and
-``--quantize`` tiers are not here (ROADMAP queue 1); their routes answer
-as the JAX package's do with the tier off. ``/profiler/start`` and
+``--explore``, ``--aot`` and ``--shard-factors`` tiers are not here
+(ROADMAP queue 1); their routes answer as the JAX package's do with the
+tier off. ``/profiler/start`` and
 ``/profiler/stop`` drive ``torch.profiler`` on the device thread and
 write a Chrome trace.
 """
@@ -70,7 +79,7 @@ from predictionio_tpu_torch.controller.components import FirstServing, Serving
 from predictionio_tpu_torch.controller.context import WorkflowContext, local_context
 from predictionio_tpu_torch.controller.params import params_from_json
 from predictionio_tpu_torch.data.storage import Storage
-from predictionio_tpu_torch.serving import BatcherConfig, CacheConfig, MicroBatcher
+from predictionio_tpu_torch.serving import AnnConfig, BatcherConfig, CacheConfig, MicroBatcher
 from predictionio_tpu_torch.serving.cache import (
     CacheStats,
     ResultCache,
@@ -168,12 +177,11 @@ class QueryService:
         instance_id: str | None = None,
         batching: BatcherConfig | None = None,
         cache: CacheConfig | None = None,
+        ann: AnnConfig | None = None,
         online: OnlineConfig | None = None,
     ):
         if cache is not None and cache.shard_factors:
             raise NotImplementedError("--shard-factors waits for ROADMAP queue 1 item 13")
-        if cache is not None and cache.quantize is not None:
-            raise NotImplementedError("--quantize waits for ROADMAP queue 1 item 8")
         self.variant = variant
         self.ctx = ctx if ctx is not None else local_context()
         self.plugins = list(plugins)
@@ -184,10 +192,24 @@ class QueryService:
         self._device = ThreadPoolExecutor(max_workers=1, thread_name_prefix="pio-torch-device")
         self._device_thread = self._device.submit(threading.current_thread).result()
         self.cache_config = cache if cache is not None and cache.enabled else None
-        #: pin on the card always; on the CPU only when --pin-model asks
+        #: ``pio deploy --quantize``'s mode (None: f32 tables)
+        self.quantize = self.cache_config.quantize if self.cache_config is not None else None
+        #: pin on the card always; on the CPU only when --pin-model or
+        #: --quantize asks
         self._pin = self.ctx.device.type == "cuda" or (
-            self.cache_config is not None and self.cache_config.pin_model
+            self.cache_config is not None and (self.cache_config.pin_model or self.quantize is not None)
         )
+        #: approximate retrieval (``pio deploy --ann``); None or a disabled
+        #: config keeps every query on the exact path and imports nothing
+        #: of ops/ivf. Set before the first load, which builds the index.
+        self.ann_config = ann if ann is not None and ann.enabled else None
+        #: retrieval-mode tag of every cache and singleflight key, so exact,
+        #: ANN and int8 answers never serve each other
+        self._cache_mode = self.ann_config.cache_mode if self.ann_config is not None else "exact"
+        if self.quantize:
+            self._cache_mode = f"{self._cache_mode}+q{self.quantize}"
+        #: the serving generation's IVF runtimes (``/stats.json`` ``ann``)
+        self._ann_runtimes: list = []
         self._cache_stats: CacheStats | None = None
         self._result_cache: ResultCache | None = None
         self._singleflight: Singleflight | None = None
@@ -381,10 +403,14 @@ class QueryService:
                 raise QueryServerError(f"No model blob for instance '{instance.id}'")
             serving, pairs = engine.prepare_deploy(self.ctx, engine_params, instance.id, blob.models)
             if self._pin:
-                pairs, bytes_pinned = device_state.pin_pairs(pairs)
+                pairs, bytes_pinned = device_state.pin_pairs(pairs, quantize=self.quantize)
                 if self._cache_stats is not None:
                     self._cache_stats.set_gauge("bytes_pinned", bytes_pinned)
                     self._cache_stats.set_gauge("bytes_by_dtype", device_state.bytes_by_dtype(pairs))
+            if self.ann_config is not None:
+                # the IVF index of this generation, built here on the
+                # device thread; it hot-swaps with the pairs
+                pairs, _infos = device_state.build_ann_pairs(pairs, self.ann_config)
         except Exception as e:
             with self._lock:
                 has_last_good = self._serving is not None
@@ -407,6 +433,7 @@ class QueryService:
             old_pairs = self._algo_model_pairs
             self._serving = serving
             self._algo_model_pairs = pairs
+            self._ann_runtimes = [rt for _, model in pairs if (rt := getattr(model, "_pio_ann", None)) is not None]
             self.instance = instance
             self.device = str(getattr(pairs[0][0], "device", self.ctx.device)) if pairs else self.device
             self.degraded = False
@@ -419,9 +446,10 @@ class QueryService:
         if self._result_cache is not None and generation > 1:
             # a new generation never serves the old generation's results
             self._result_cache.invalidate_all()
-        if self._pin and old_pairs and old_pairs is not pairs:
+        if (self._pin or self.ann_config is not None) and old_pairs and old_pairs is not pairs:
             # on the device thread: no query of the old generation runs
-            # now, and none can start on it, so its tables go at once
+            # now, and none can start on it, so its tables and index go
+            # at once
             device_state.release_pairs(old_pairs)
         logger.info("Loaded engine instance %s (generation %d) on %s", instance.id, generation, self.device)
 
@@ -502,7 +530,7 @@ class QueryService:
         if key is None:
             self._cache_stats.incr("uncacheable")
             return self._scored_query(body)
-        key = f"exact|{key}"
+        key = f"{self._cache_mode}|{key}"
         rc = self._result_cache
         scope = extract_scope(body, self.cache_config.scope_field)
         if rc is not None:
@@ -723,11 +751,11 @@ class QueryService:
             "batching": self.batcher is not None,
             "caching": self.cache_config is not None,
             "shardFactors": False,
-            "quantize": None,
+            "quantize": self.quantize,
             "bytesPinnedByDtype": (
                 self._cache_stats.to_json()["bytesByDtype"] if self._cache_stats is not None else {}
             ),
-            "ann": False,
+            "ann": self.ann_config is not None,
             "aot": False,
             "online": self.online is not None,
             "explore": None,
@@ -771,6 +799,27 @@ class QueryService:
             with self._lock:
                 applied = self._online_updates
             out["online"] = dict(self.online.stats_json(), updatesApplied=applied)
+        if self.quantize is not None:
+            # dtype, the byte ledger against f32, the measured
+            # quantization error and the rescore depth the over-fetch paid
+            with self._lock:
+                q_pairs = list(self._algo_model_pairs)
+            out["quant"] = {
+                "dtype": self.quantize,
+                "models": [rt.stats_json() for _, model in q_pairs if (rt := getattr(model, "_pio_quant", None)) is not None],
+            }
+        if self.ann_config is not None:
+            # the effective nlist/nprobe and, per index, the clusters
+            # scored and the share of the catalog each query paid for
+            with self._lock:
+                runtimes = list(self._ann_runtimes)
+            out["ann"] = {
+                # nlist 0 means auto (~sqrt(catalog)): report what the build picked
+                "nlist": self.ann_config.nlist or (runtimes[0].index.nlist if runtimes else 0),
+                "nprobe": self.ann_config.nprobe,
+                "cacheMode": self._cache_mode,
+                "models": [rt.stats_json() for rt in runtimes],
+            }
         return out
 
     def readiness(self) -> dict:

@@ -10,6 +10,11 @@
 * The deploy flags of tiers the port does not have parse and are then
   refused with an error naming their ROADMAP item, before any storage or
   model is touched.
+* ``--ann*`` and ``--quantize int8`` build the ``AnnConfig`` and the
+  ``CacheConfig`` the JAX console builds from the same command line
+  (both consoles' ``QueryService`` replaced by a recording stub), and a
+  ``deploy --device cpu --ann --quantize int8`` subprocess serves with
+  them (``/stats.json`` ``ann`` and ``quant``, ``GET /`` ``quantize``).
 * The ``--online*`` flags build the ``OnlineConfig`` the JAX console
   builds from the same command line, and ``--online`` on the sqlite event
   store fails the deploy with the JAX package's message.
@@ -152,10 +157,6 @@ def test_deploy_with_serving_flags_then_undeploy(tmp_path):
 @pytest.mark.parametrize(
     "flags, item",
     [
-        (["--ann"], "item 7"),
-        (["--ann-nprobe", "4"], "item 7"),
-        (["--quantize", "int8"], "item 8"),
-        (["--ann-seed", "3"], "item 7"),
         (["--explore-epsilon", "0.2"], "item 12"),
         (["--explore", "epsilon"], "item 12"),
         (["--variants", "a,b"], "item 12"),
@@ -175,6 +176,99 @@ def test_flags_of_later_tiers_are_refused(flags, item, capsys):
 
 class _Built(Exception):
     pass
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [
+        ["--ann"],
+        ["--ann-nprobe", "4"],  # without --ann: no config
+        ["--quantize", "int8"],
+        ["--ann", "--ann-seed", "3"],
+        ["--ann", "--ann-nlist", "16", "--ann-nprobe", "4", "--ann-kmeans-iters", "2", "--quantize", "int8",
+         "--pin-model"],
+    ],
+)
+def test_ann_and_quantize_flags_build_the_jax_consoles_configs(flags, tmp_path, monkeypatch):
+    """Both consoles parse one command line; each one's QueryService is
+    replaced by a stub that records its ``ann`` and ``cache`` arguments
+    and stops the deploy there."""
+    engine_json = tmp_path / "engine.json"
+    engine_json.write_text(json.dumps(ENGINE))
+    built = {}
+
+    def stub(name):
+        def record(*args, **kwargs):
+            built[name] = (kwargs.get("ann"), kwargs.get("cache"))
+            raise _Built(name)
+        return record
+
+    monkeypatch.setattr(jax_serving, "QueryService", stub("jax"))
+    monkeypatch.setattr(port_serving, "QueryService", stub("torch"))
+    argv = ["deploy", "--engine-json", str(engine_json)] + flags
+    assert jax_console.main(argv) == 1 and main(argv + ["--device", "cpu"]) == 1
+    (jax_ann, jax_cache), (port_ann, port_cache) = built["jax"], built["torch"]
+    if "--ann" not in flags:
+        assert jax_ann is None and port_ann is None
+    else:
+        assert type(port_ann).__module__ == "predictionio_tpu_torch.serving.ann"
+        assert dataclasses.asdict(port_ann) == dataclasses.asdict(jax_ann)
+    if "--quantize" not in flags:
+        assert jax_cache is None and port_cache is None
+    else:
+        assert type(port_cache).__module__ == "predictionio_tpu_torch.serving.cache"
+        assert dataclasses.asdict(port_cache) == dataclasses.asdict(jax_cache)
+        assert port_cache.quantize == "int8"
+
+
+def test_deploy_with_ann_and_int8_serves(tmp_path):
+    """``pio deploy --device cpu --ann --quantize int8`` answers queries
+    from an int8 IVF index and reports both tiers."""
+    base = tmp_path / "base"
+    Storage.configure({"PIO_FS_BASEDIR": str(base)})
+    try:
+        app_id = Storage.get_meta_data_apps().insert(App(id=0, name="cli-app"))
+        Storage.get_l_events().init(app_id)
+        rng = np.random.default_rng(5)
+        Storage.get_l_events().insert_batch(
+            [Event(event="rate", entity_type="user", entity_id=str(u), target_entity_type="item",
+                   target_entity_id=str(i), properties=DataMap({"rating": float(i % 5 + 1)}))
+             for u, i in zip(rng.integers(0, 30, 600), rng.integers(0, 50, 600))],
+            app_id,
+        )
+        engine_json = tmp_path / "engine.json"
+        engine_json.write_text(json.dumps(ENGINE))
+        run_train(load_engine_variant(str(engine_json)), local_context("cpu"))
+    finally:
+        Storage.configure(None)
+    env = dict(os.environ, PIO_FS_BASEDIR=str(base), PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "predictionio_tpu_torch.tools.console", "deploy",
+         "--engine-json", str(engine_json), "--ip", "127.0.0.1", "--port", "0", "--device", "cpu",
+         "--ann", "--ann-nlist", "4", "--ann-nprobe", "2", "--quantize", "int8", "--batching"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("Bound port"), line or proc.stderr.read()
+        url = f"http://127.0.0.1:{int(line.split()[-1])}"
+        answers = [_post(url + "/queries.json", {"user": str(u), "num": 5}) for u in (1, 2, 3)]
+        assert all(status == 200 and len(body["itemScores"]) == 5 for status, body in answers)
+        status = _get(url + "/")
+        assert status["quantize"] == "int8" and status["ann"] is True
+        assert set(status["bytesPinnedByDtype"]) == {"int8", "scalesFloat32"}
+        stats = _get(url + "/stats.json")
+        assert stats["cache"]["bytesPinned"] == (30 + 50) * (8 + 4)
+        assert stats["ann"]["nlist"] == 4 and stats["ann"]["cacheMode"] == "ann[nlist=4,nprobe=2]+qint8"
+        model = stats["ann"]["models"][0]
+        assert model["quantized"] is True and model["queries"] == 3 and model["nprobe"] == 2
+        assert stats["quant"]["dtype"] == "int8" and stats["quant"]["models"][0]["bytesSaved"] > 0
+        assert _post(url + "/reload", {})[0] == 200
+        assert _get(url + "/stats.json")["generation"] == 2
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
 
 
 @pytest.mark.parametrize(

@@ -32,6 +32,12 @@ band of tests/test_torch_online_parity.py). Two-Tower training on the card
 against the CPU: loss history rtol 1e-3, and 99 % of the table entries
 within 1e-3 — adam's first steps move an entry by about ``lr·sign(g)``,
 so an entry whose gradient is near zero may land up to ``2·lr`` away.
+The IVF and int8 tiers: the card's and the host's quantizers bit-equal
+(exact ``.5`` quotients included), the int8 coarse scan's sums equal to
+int64 numpy, the full probe (``nprobe >= nlist``) bit-equal to the exact
+top-k, the build bit-equal between two runs of one seed, and three
+``/reload``s with ``--ann --quantize int8`` within 1 MiB of allocated
+memory.
 """
 
 import numpy as np
@@ -806,3 +812,134 @@ def test_reload_after_online_folds_releases_the_folded_generation(online_card, c
     assert abs(torch.cuda.memory_allocated(cuda_device) - first) <= 1 << 20
     assert isinstance(model.user_factors, np.ndarray)
     np.testing.assert_array_equal(model.user_factors, folded)
+
+
+# ------------------------------------------------ IVF and int8 retrieval
+def _unit_rows(n: int, dim: int, seed: int, centers: int = 24) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    c = rng.standard_normal((centers, dim)).astype(np.float32)
+    x = c[rng.integers(0, centers, n)] + 0.15 * rng.standard_normal((n, dim)).astype(np.float32)
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.gpu
+def test_card_and_host_quantizers_are_bit_equal(cuda_device):
+    # the card's division is IEEE (no fast math): quotients that land on
+    # exactly .5 round half to even on both sides
+    from predictionio_tpu_torch.ops import quant
+
+    rng = np.random.default_rng(60)
+    halves = np.asarray([[127.0, 0.5, 1.5, 2.5, -2.5, -0.5, 63.5, -126.5]], np.float32)
+    for mat in [rng.standard_normal((4096, 64)).astype(np.float32) * np.float32(10.0 ** e) for e in (-3, 0, 3)] + [
+        halves, np.tile(halves, (300, 8)) * np.float32(0.125), np.zeros((3, 64), np.float32),
+    ]:
+        host_codes, host_scales = quant.quantize_table_host(mat)
+        codes, scales = quant.quantize_rows(torch.as_tensor(mat, device=cuda_device))
+        np.testing.assert_array_equal(codes.cpu().numpy(), host_codes)
+        np.testing.assert_array_equal(scales.cpu().numpy(), host_scales)
+
+
+@pytest.mark.gpu
+def test_int8_coarse_scan_sums_are_exact_on_card(cuda_device):
+    from predictionio_tpu_torch.ops import quant
+
+    rng = np.random.default_rng(61)
+    for rank in (64, quant.MAX_EXACT_RANK):
+        a = rng.integers(-127, 128, (300, rank)).astype(np.int8)
+        b = rng.integers(-127, 128, (5000, rank)).astype(np.int8)
+        b[:4] = 127  # the largest sums
+        a[:4] = 127
+        got = quant.int8_matmul(torch.as_tensor(a, device=cuda_device), torch.as_tensor(b, device=cuda_device))
+        want = a.astype(np.int64) @ b.astype(np.int64).T
+        np.testing.assert_array_equal(got.cpu().numpy().astype(np.int64), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantize", [False, True], ids=["f32", "int8"])
+def test_full_probe_is_exact_to_the_bit_on_card(cuda_device, quantize):
+    from predictionio_tpu_torch.ops import ivf, quant
+    from predictionio_tpu_torch.ops.topk import top_k_scores
+
+    x = _unit_rows(20_000, 64, seed=62)
+    q = torch.as_tensor(_unit_rows(1000, 64, seed=63), device=cuda_device)
+    index, _ = ivf.build_ivf(x, nlist=0, seed=0, iters=4, quantize=quantize, device=cuda_device)
+    uidx = torch.arange(1000, device=cuda_device)
+    if quantize:
+        items = index.items
+        want = top_k_scores((q @ items.codes.float().T) * items.scales[None, :], 128)
+        assert isinstance(items, quant.QuantizedTable)
+    else:
+        want = torch_als.top_k_items_batch(uidx, q, index.items, 128)
+    for nprobe in (index.nlist, index.nlist + 5):
+        got = ivf.ivf_topk_users(uidx, q, index, 128, nprobe)
+        assert torch.equal(got[0].long(), want[0].long()) and torch.equal(got[1], want[1])
+        got = ivf.ivf_topk_batch(q, index, 128, nprobe)
+        assert torch.equal(got[0].long(), want[0].long()) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_ivf_build_is_deterministic_per_seed_on_card(cuda_device):
+    from predictionio_tpu_torch.ops import ivf
+
+    x = _unit_rows(30_000, 64, seed=64)
+    a, _ = ivf.build_ivf(x, nlist=0, seed=5, iters=8, device=cuda_device)
+    b, _ = ivf.build_ivf(x, nlist=0, seed=5, iters=8, device=cuda_device)
+    assert torch.equal(a.centroids, b.centroids)
+    assert torch.equal(a.slab_ids, b.slab_ids) and torch.equal(a.slabs, b.slabs)
+
+
+@pytest.mark.gpu
+def test_reloads_with_ann_and_int8_leave_card_memory_flat(cuda_device):
+    # --ann --quantize int8 on the card: bytesPinned is the codes and
+    # scales, the full probe answers as the exact int8-free service does
+    # for the same batch, and three reloads leave memory_allocated flat
+    from predictionio_tpu_torch.data.event import DataMap, Event
+    from predictionio_tpu_torch.data.storage import Storage
+    from predictionio_tpu_torch.data.storage.base import App
+    from predictionio_tpu_torch.serving import AnnConfig, CacheConfig
+    from predictionio_tpu_torch.workflow import load_engine_variant, run_train
+    from predictionio_tpu_torch.workflow.serving import QueryService
+
+    rows, cols, vals = _ratings(num_users=400, num_items=300, nnz=8000, seed=9)
+    Storage.configure({
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "MEM",
+        "PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+    })
+    try:
+        app_id = Storage.get_meta_data_apps().insert(App(id=0, name="ann"))
+        Storage.get_l_events().insert_batch([
+            Event(event="rate", entity_type="user", entity_id=str(u), target_entity_type="item",
+                  target_entity_id=str(i), properties=DataMap({"rating": float(v)}))
+            for u, i, v in zip(rows.tolist(), cols.tolist(), vals.tolist())
+        ], app_id)
+        variant = load_engine_variant({
+            "id": "ann", "version": "1",
+            "engineFactory": "predictionio_tpu.templates.recommendation:engine_factory",
+            "datasource": {"params": {"appName": "ann"}},
+            "algorithms": [{"name": "als", "params": {"rank": 64, "numIterations": 3, "lambda": 0.1}}],
+        })
+        run_train(variant, local_context(cuda_device))
+        exact = QueryService(variant, local_context(cuda_device))
+        full = QueryService(variant, local_context(cuda_device), ann=AnnConfig(enabled=True, nlist=16, nprobe=16))
+        qs = QueryService(variant, local_context(cuda_device), cache=CacheConfig(quantize="int8"),
+                          ann=AnnConfig(enabled=True, nlist=16, nprobe=4))
+        try:
+            bodies = [{"user": str(u), "num": 10} for u in range(0, 400, 3)]
+            assert full.handle_batch(bodies) == exact.handle_batch(bodies)
+            n_users, n_items = (len(qs._algo_model_pairs[0][1].user_index), len(qs._algo_model_pairs[0][1].item_index))
+            assert qs.stats_json()["cache"]["bytesPinned"] == (n_users + n_items) * (64 + 4)
+            assert all(status == 200 for status, _ in qs.handle_batch(bodies))
+            torch.cuda.synchronize()
+            after_first = torch.cuda.memory_allocated(cuda_device)
+            for _ in range(3):
+                qs.reload()
+            torch.cuda.synchronize()
+            assert qs.model_generation == 4 and qs.stats_json()["ann"]["models"][0]["quantized"] is True
+            assert abs(torch.cuda.memory_allocated(cuda_device) - after_first) <= 1 << 20
+        finally:
+            for s in (exact, full, qs):
+                s.close()
+    finally:
+        Storage.configure(None)

@@ -8,7 +8,9 @@ serving runtime (``serving/``: the micro-batcher, the result cache, the
 ``--ann`` config) imports neither torch nor jax. The online-learning
 package (``online/``) is covered like every module; its ``__init__`` and
 ``types`` import neither torch nor jax, and a deploy without ``--online``
-imports nothing of it."""
+imports nothing of it. The approximate and int8 retrieval modules
+(``ops/ivf.py``, ``ops/quant.py``) are covered too, and a deploy without
+``--ann`` or ``--quantize`` imports neither."""
 
 import ast
 import os
@@ -215,6 +217,35 @@ def test_a_deploy_without_online_imports_nothing_of_it():
         "args = console.build_parser().parse_args(['deploy', '--device', 'cpu', '--pin-model'])\n"
         "assert console._online_from_args(args) is None\n"
         "bad = sorted(m for m in sys.modules if m.startswith('predictionio_tpu_torch.online'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    run = subprocess.run(
+        [sys.executable, "-c", probe], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert run.returncode == 0, run.stdout + run.stderr
+
+
+RETRIEVAL = ["ops/ivf.py", "ops/quant.py", "ops/topk.py", "serving/ann.py"]
+
+
+@pytest.mark.parametrize("name", RETRIEVAL)
+def test_retrieval_modules_are_checked(name):
+    assert PORT / name in SOURCES
+
+
+def test_default_deploy_imports_neither_ivf_nor_quant():
+    """The port's counterpart of ``tests/test_ivf.py``'s
+    ``test_default_import_path_never_touches_ivf``: a deploy without
+    ``--ann`` or ``--quantize`` (the console, the query server and both
+    templates) imports neither ``ops.ivf`` nor ``ops.quant``."""
+    probe = (
+        "import sys\n"
+        "import predictionio_tpu_torch.tools.console\n"
+        "import predictionio_tpu_torch.workflow.serving\n"
+        "import predictionio_tpu_torch.templates.recommendation\n"
+        "import predictionio_tpu_torch.templates.twotower\n"
+        "bad = [m for m in ('predictionio_tpu_torch.ops.ivf', 'predictionio_tpu_torch.ops.quant') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))

@@ -10,20 +10,23 @@ serves through the port on the CPU. The port's fold-in and trainer take
 the CPU because the tests ask for it (``device="cpu"``); their default
 is the card.
 
+``TestIncrementalIVF`` runs on the port's ``ops.ivf`` (its ``build_ivf``
+bound to the CPU, ``jax.numpy.asarray`` making CPU tensors).
 ``TestOnlineUnderShardFactors`` (sharded serving, ROADMAP queue 1 item
-13; red in the reference on this tree) and ``TestIncrementalIVF`` (item
-7) wait with their items.
+13; red in the reference on this tree) waits with its item.
 """
 
 import functools
 import os
 import subprocess
 import sys
-import types
 
 import pytest
 
+import jax
+
 import predictionio_tpu.data.storage as jax_storage_package
+import predictionio_tpu.ops as jax_ops_package
 import predictionio_tpu_torch.data.aggregator as port_aggregator
 import predictionio_tpu_torch.data.event as port_event
 import predictionio_tpu_torch.data.ingest as port_ingest
@@ -35,6 +38,7 @@ import predictionio_tpu_torch.online.follower as port_follower
 import predictionio_tpu_torch.online.foldin as port_foldin
 import predictionio_tpu_torch.online.trainer as port_trainer
 import predictionio_tpu_torch.online.types as port_types
+import predictionio_tpu_torch.ops.ivf as port_ivf
 import predictionio_tpu_torch.serving as port_serving_package
 import predictionio_tpu_torch.workflow as port_workflow
 import predictionio_tpu_torch.workflow.device_state as port_device_state
@@ -42,19 +46,9 @@ import predictionio_tpu_torch.workflow.serving as port_serving
 import test_online as jax_cases
 from predictionio_tpu_torch.data.storage import Storage as PortStorage
 from test_online import columnar_env, online_service  # noqa: F401  (the cases' fixtures)
-from torch_package_swap import PACKAGES, controller_module, memory_storage, use_port
+from torch_package_swap import PACKAGES, controller_module, cpu_module, memory_storage, tensor_numpy, use_port
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def _cpu_module(name: str, module: types.ModuleType, **on_cpu) -> types.ModuleType:
-    """A stand-in for the JAX module ``name``: the port's ``module`` with
-    the callables named in ``on_cpu`` bound to ``device="cpu"``."""
-    stand_in = types.ModuleType(name)
-    stand_in.__dict__.update({k: v for k, v in vars(module).items() if not k.startswith("__")})
-    for attr, fn in on_cpu.items():
-        setattr(stand_in, attr, functools.partial(fn, device="cpu"))
-    return stand_in
 
 
 @pytest.fixture(params=PACKAGES, autouse=True)
@@ -75,10 +69,10 @@ def package(request, monkeypatch):
                 "predictionio_tpu.online": port_online,
                 "predictionio_tpu.online.follower": port_follower,
                 "predictionio_tpu.online.types": port_types,
-                "predictionio_tpu.online.foldin": _cpu_module(
+                "predictionio_tpu.online.foldin": cpu_module(
                     "predictionio_tpu.online.foldin", port_foldin, foldin_rows=port_foldin.foldin_rows
                 ),
-                "predictionio_tpu.online.trainer": _cpu_module(
+                "predictionio_tpu.online.trainer": cpu_module(
                     "predictionio_tpu.online.trainer", port_trainer,
                     sgd_step=port_trainer.sgd_step, StreamingTrainer=port_trainer.StreamingTrainer,
                 ),
@@ -91,6 +85,12 @@ def package(request, monkeypatch):
         # `from predictionio_tpu.data.storage import columnar` reads the
         # package's attribute before sys.modules
         monkeypatch.setattr(jax_storage_package, "columnar", port_columnar, raising=False)
+        if request.cls is TestIncrementalIVF:
+            # `from predictionio_tpu.ops import ivf` and `import jax.numpy
+            # as jnp` read package attributes before sys.modules
+            ivf = cpu_module("predictionio_tpu.ops.ivf", port_ivf, build_ivf=port_ivf.build_ivf)
+            monkeypatch.setattr(jax_ops_package, "ivf", ivf, raising=False)
+            monkeypatch.setattr(jax, "numpy", tensor_numpy())
     return request.param
 
 
@@ -116,6 +116,10 @@ class TestQueryServiceOnline(jax_cases.TestQueryServiceOnline):
 
 
 class TestStreamingTrainer(jax_cases.TestStreamingTrainer):
+    pass
+
+
+class TestIncrementalIVF(jax_cases.TestIncrementalIVF):
     pass
 
 

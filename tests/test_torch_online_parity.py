@@ -19,9 +19,10 @@ users x 60 items):
   invalidated scopes and the same ``usersAdded``/``itemsAdded``; with
   ``--pin-model``, ``bytesPinned`` keeps its pin-time value after the
   cold-start growth in both packages;
-* the port's row swaps leave a table taken earlier unchanged, refuse the
-  int8 and sharded tiers, and a released generation hands back its
-  folded rows, not the pin-time ones.
+* the port's row swaps leave a table taken earlier unchanged, re-quantize
+  only the touched rows of an int8 table (where they refused it until
+  the int8 tier was ported), refuse the sharded tier, and a released
+  generation hands back its folded rows, not the pin-time ones.
 """
 
 import datetime as dt
@@ -171,11 +172,23 @@ def test_row_swaps_leave_an_earlier_table_unchanged():
 
 
 def test_row_swaps_refuse_the_int8_and_sharded_tiers():
-    class Quantized:
-        is_quantized = True
+    """The sharded tier is still refused. The int8 tier is served now (it
+    was refused until it was ported; the name is kept): a swap into an
+    int8 table re-quantizes only the touched rows and leaves the old
+    table as it was."""
+    from predictionio_tpu_torch.ops import quant
 
-    with pytest.raises(NotImplementedError, match="item 8"):
-        device_state.set_rows(Quantized(), [0], np.zeros((1, 4), np.float32))
+    rng = np.random.default_rng(17)
+    mat = rng.standard_normal((5, 4)).astype(np.float32)
+    table = quant.quantize_table(mat, "cpu")
+    codes_before = table.codes.clone()
+    rows = rng.standard_normal((2, 4)).astype(np.float32)
+    out = device_state.set_rows(table, [1, 3], rows)
+    mat[[1, 3]] = rows
+    want_codes, want_scales = quant.quantize_table_host(mat)
+    np.testing.assert_array_equal(out.codes.numpy(), want_codes)
+    np.testing.assert_array_equal(out.scales.numpy(), want_scales)
+    assert torch.equal(table.codes, codes_before)
     model = _Model()
     model._pio_shards, model.user_index = object(), BiMap.string_index(["a"])
     with pytest.raises(NotImplementedError, match="item 13"):

@@ -11,14 +11,28 @@ the card). The JAX test files stay as they are.
 
 from __future__ import annotations
 
+import functools
 import sys
 import types
+
+import numpy as np
+import torch
 
 from predictionio_tpu.data.storage import Storage as JaxStorage
 from predictionio_tpu_torch.controller.context import local_context
 from predictionio_tpu_torch.data.storage import Storage
 
-__all__ = ["MEMORY", "PACKAGES", "controller_module", "cpu_context", "memory_storage", "use_port"]
+__all__ = [
+    "MEMORY",
+    "PACKAGES",
+    "controller_module",
+    "cpu_context",
+    "cpu_module",
+    "memory_storage",
+    "tensor_numpy",
+    "tensor_top_k_items_batch",
+    "use_port",
+]
 
 PACKAGES = ("jax", "torch")
 
@@ -65,3 +79,39 @@ def controller_module() -> types.ModuleType:
     module = types.ModuleType("predictionio_tpu.controller")
     module.local_context = cpu_context
     return module
+
+
+def cpu_module(name: str, module: types.ModuleType, **on_cpu) -> types.ModuleType:
+    """A stand-in for the JAX module ``name``: the port's ``module`` with
+    the callables named in ``on_cpu`` bound to ``device="cpu"`` (the
+    port's entry points default to the card)."""
+    stand_in = types.ModuleType(name)
+    stand_in.__dict__.update({k: v for k, v in vars(module).items() if not k.startswith("__")})
+    for attr, fn in on_cpu.items():
+        setattr(stand_in, attr, functools.partial(fn, device="cpu"))
+    return stand_in
+
+
+def tensor_numpy() -> types.ModuleType:
+    """A stand-in for ``jax.numpy`` in a JAX test module run on the port:
+    ``asarray`` makes a CPU tensor, which the port's functions take where
+    the JAX ones take a device array."""
+    module = types.ModuleType("jax.numpy")
+
+    def asarray(a, dtype=None):
+        return torch.as_tensor(np.asarray(a) if dtype is None else np.asarray(a, dtype))
+
+    module.asarray = asarray
+    return module
+
+
+def _tensor(a) -> torch.Tensor:
+    return a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+
+
+def tensor_top_k_items_batch(user_idx, user_factors, item_factors, k):
+    """The port's ``top_k_items_batch`` on a JAX case's arrays (numpy or
+    :func:`tensor_numpy` tensors)."""
+    from predictionio_tpu_torch.ops.als import top_k_items_batch
+
+    return top_k_items_batch(_tensor(user_idx).to(torch.int64), _tensor(user_factors), _tensor(item_factors), k)
