@@ -53,6 +53,11 @@ freshness with new users' events; then the same events folded in process
 and held to float64 numpy; and the Two-Tower quickstart's instance served
 with online learning while 256 view events stream into its towers.
 
+The templates path: SimilarProduct and ECommerce (implicit ALS through
+the same solve kernel at rank 32), Classification and Text-Classification,
+each through ``pio template get``, ``pio import``, ``pio train``, ``pio
+deploy`` and (the classifiers) ``pio eval``.
+
 The approximate and int8 retrieval path: ``pio deploy --ann`` and
 ``--quantize int8`` on the same warm instance and on the Two-Tower
 quickstart's, the full probe held to exact retrieval to the bit, an
@@ -201,10 +206,41 @@ Phases, in order; any failure exits non-zero and prints no result:
    against f32 exact), int8-slab against f32-slab IVF (recall@10 within
    0.01), served bytes at least 3.5x smaller. No kernel is on this path:
    every count must read 0. ``[ann]`` lines.
-12. a ``[summary]`` line, the ``{"kernels": [...]}`` line, the card's
+12. templates — the four templates beside Recommendation and Two-Tower
+   (``phase_templates``), through the console verbs in one temporary
+   columnar store, each engine.json the one ``pio template get`` writes.
+   SimilarProduct and ECommerce on one app: ``ml20m_shaped(20_000_000,
+   seed=5)``'s pairs as ``view`` events and every 20th again as a ``buy``
+   (``write_columns``), a ``$set`` of one of 20 categories per item and a
+   ``constraint``/``unavailableItems`` of 100 popular items (``pio
+   import``); ``pio train`` of each at rank 32, 10 sweeps (implicit ALS):
+   ``gj_solve`` launches must equal the plan of the TrainingData its
+   DataSource reads and the implicit loss (float64 on the card after every
+   sweep) must fall; ``pio deploy`` and 64 queries under 1 and under 8
+   keep-alive clients — baskets of 1 and 3 items, categories, whiteLists
+   and blackLists; known users, whose viewed and bought items must be
+   absent, and cold users ranked by popularity, whose ties must come in
+   ascending order — each held to float64 numpy over the stored factors
+   and the rules written out plainly (near-tie rule; none for popularity),
+   with no unavailable item answered though some sit in the unfiltered
+   top-10; ``handle_query`` in process, the ECommerce query timed apart
+   into its two ``LEventStore`` lookups and the rest; SimilarProduct with
+   ``--ann``, whose blackLists of the whole exact top-10 must still
+   answer 10 items. The solve kernel is timed at the largest ``[B,32,32]``
+   batch the sweeps launched. Classification: 100,000 ``$set`` users with
+   ``attr0..attr2`` and a 3-class ``plan``; Text-Classification: 20,000
+   documents in 20 classes at 4,096 hashed features; each trained as its
+   NB and its LR variant, both deployed, 64 queries each: an NB label must
+   be float64 numpy's argmax and an LR probability within 1e-3 of a
+   float64 run of the same descent (scipy.sparse for the text matrix);
+   ``pio eval`` of ``Accuracy`` over the two classifiers must beat the
+   majority-class rate, and the text answers' accuracy 1/20; no kernel may
+   launch on these paths. ``[templates]`` lines.
+13. a ``[summary]`` line, the ``{"kernels": [...]}`` line, the card's
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
-Imports only the port, torch, numpy and the standard library.
+Imports only the port, torch, numpy and the standard library (and
+scipy.sparse, for one float64 reference of phase 12).
 """
 
 from __future__ import annotations
@@ -409,6 +445,40 @@ ANN_INC_RECALL_DELTA = 0.02
 ANN_FULL_PROBE_USERS = 1000
 ANN_FOLD_CHECK_USERS = 64
 ANN_RELOADS = 3
+
+#: the templates phase (``[templates]``): SimilarProduct and ECommerce on
+#: one columnar app at the ML-20M shape (``ml20m_shaped``'s pairs as
+#: ``view`` events, every TPL_BUY_EVERY-th again as a ``buy``; one
+#: category of TPL_CATEGORIES an item; TPL_UNAVAILABLE unavailable items),
+#: trained with the engine.json ``pio template get`` writes (rank 32, 10
+#: sweeps, lambda 0.01; alpha 1.0, the default, written out); queries under
+#: each of TPL_CLIENTS clients; TPL_ANN_QUERIES ``--ann`` blackLists.
+#: Classification: TPL_CLS_USERS users drawn as
+#: tests/test_classification_template.py:35-60 draws them. Text:
+#: TPL_TEXT_DOCS documents in TPL_TEXT_CLASSES classes (a class's own
+#: Zipf vocabulary, a shared one) at 4,096 hashed features
+TPL_APP = "tpl"
+TPL_NNZ = 20_000_000
+TPL_BUY_EVERY = 20
+TPL_CATEGORIES = 20
+TPL_UNAVAILABLE = 100
+TPL_RANK = 32
+TPL_SWEEPS = 10
+TPL_CLIENTS = (1, 8)
+TPL_ANN_QUERIES = 16
+TPL_CLS_APP = "tplcls"
+TPL_CLS_USERS = 100_000
+TPL_CLS_LABELS = ("basic", "premium", "gold")
+TPL_TEXT_APP = "tpltext"
+TPL_TEXT_DOCS = 20_000
+TPL_TEXT_CLASSES = 20
+TPL_TEXT_VOCAB = 300
+TPL_TEXT_SHARED = 3000
+TPL_TEXT_LEN = 40
+TPL_TEXT_OWN_SHARE = 0.3
+TPL_TEXT_FEATURES = 4096
+#: an LR confidence's largest distance from the float64 descent's
+TPL_LR_ATOL = 1e-3
 
 #: an evaluation module as a user writes one: an Evaluation of the
 #: engine.json at ``path`` with one metric
@@ -671,46 +741,51 @@ def solve_bound(batch: int, k: int) -> tuple[float, str]:
     return (byte_ms, "bytes") if byte_ms >= flop_ms else (flop_ms, "operations")
 
 
+def solve_row(batch: int, k: int, seed: int, device) -> dict:
+    """The solve kernel at ``[batch,k,k]`` on ALS-shaped SPD systems made on
+    the card: held against its plain mirror and the library Cholesky
+    (relative error and residual), timed beside both, with its launch
+    plan, bound and achieved rate. Raises on a disagreement."""
+    A, b = spd_batch(batch, k, seed=seed, device=device)
+    x = gj_solve_cuda(A, b)
+    torch.cuda.synchronize()
+    x_plain = gj_solve_reference(A, b)
+    x_chol = cholesky_solve(A, b)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(x).all()):
+        raise RuntimeError(f"gj_solve: non-finite solution at [{batch},{k},{k}]")
+    err_plain = rel_err(x, x_plain)
+    err_chol = rel_err(x, x_chol)
+    res = residual(A, x, b)
+    res_plain = residual(A, x_plain, b)
+    max_abs = float((x - x_plain).abs().max())
+    reps = 20 if batch * k * k <= (1 << 28) else 10
+    ms = time_ms(lambda: gj_solve_cuda(A, b), reps)
+    issue_ms = host_ms(lambda: gj_solve_cuda(A, b), reps)
+    plain_ms = time_ms(lambda: gj_solve_reference(A, b), 3)
+    library_ms = time_ms(lambda: cholesky_solve(A, b), 5)
+    bound_ms, bound_by = solve_bound(batch, k)
+    row = {
+        "shape": [batch, k, k], "plan": gj_solve_plan(batch, k, device),
+        "rel_err_plain": err_plain, "rel_err_cholesky": err_chol,
+        "residual": res, "residual_plain": res_plain, "max_abs_err": max_abs, "ms": ms, "host_ms": issue_ms,
+        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        # A and b read once, x written once, over the kernel's time
+        "gb_per_s": solve_bytes(batch, k) / ms / 1e6, "bound_share": bound_ms / ms,
+    }
+    log(f"[kernel] gj_solve {json.dumps(row)}")
+    if not (err_plain < MAX_REL_ERR and err_chol < MAX_REL_ERR and res < MAX_RESIDUAL):
+        raise RuntimeError(
+            f"gj_solve disagrees at [{batch},{k},{k}]: rel err vs plain {err_plain:.3g}, "
+            f"vs cholesky {err_chol:.3g}, residual {res:.3g} (limit {MAX_REL_ERR:g})"
+        )
+    del A, b, x, x_plain, x_chol
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_kernel(device) -> list:
-    rows = []
-    for i, (batch, k) in enumerate(SOLVE_SHAPES):
-        A, b = spd_batch(batch, k, seed=100 + i, device=device)
-        x = gj_solve_cuda(A, b)
-        torch.cuda.synchronize()
-        x_plain = gj_solve_reference(A, b)
-        x_chol = cholesky_solve(A, b)
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(x).all()):
-            raise RuntimeError(f"gj_solve: non-finite solution at [{batch},{k},{k}]")
-        err_plain = rel_err(x, x_plain)
-        err_chol = rel_err(x, x_chol)
-        res = residual(A, x, b)
-        res_plain = residual(A, x_plain, b)
-        max_abs = float((x - x_plain).abs().max())
-        reps = 20 if batch * k * k <= (1 << 28) else 10
-        ms = time_ms(lambda: gj_solve_cuda(A, b), reps)
-        issue_ms = host_ms(lambda: gj_solve_cuda(A, b), reps)
-        plain_ms = time_ms(lambda: gj_solve_reference(A, b), 3)
-        library_ms = time_ms(lambda: cholesky_solve(A, b), 5)
-        bound_ms, bound_by = solve_bound(batch, k)
-        row = {
-            "shape": [batch, k, k], "plan": gj_solve_plan(batch, k, device),
-            "rel_err_plain": err_plain, "rel_err_cholesky": err_chol,
-            "residual": res, "residual_plain": res_plain, "max_abs_err": max_abs, "ms": ms, "host_ms": issue_ms,
-            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            # A and b read once, x written once, over the kernel's time
-            "gb_per_s": solve_bytes(batch, k) / ms / 1e6, "bound_share": bound_ms / ms,
-        }
-        log(f"[kernel] gj_solve {json.dumps(row)}")
-        if not (err_plain < MAX_REL_ERR and err_chol < MAX_REL_ERR and res < MAX_RESIDUAL):
-            raise RuntimeError(
-                f"gj_solve disagrees at [{batch},{k},{k}]: rel err vs plain {err_plain:.3g}, "
-                f"vs cholesky {err_chol:.3g}, residual {res:.3g} (limit {MAX_REL_ERR:g})"
-            )
-        rows.append(row)
-        del A, b, x, x_plain, x_chol
-        torch.cuda.empty_cache()
-    return rows
+    return [solve_row(batch, k, 100 + i, device) for i, (batch, k) in enumerate(SOLVE_SHAPES)]
 
 
 def phase_solve_widths(device) -> list:
@@ -1326,13 +1401,13 @@ def deploy_and_query(label: str, base: Path, engine_json: Path, dev_args: list, 
 
 
 def run_eval(label: str, base: Path, module: str, template: str, metric: str, k: int, engine_json: Path,
-             dev_args: list) -> tuple[float, dict, float]:
+             dev_args: list, source: str | None = None) -> tuple[float, dict, float]:
     """``pio eval`` of an evaluation module written into ``base`` as a user
-    writes one (:data:`EVAL_MODULE`); the launch counts set to 0 before it
-    and read after it. Returns the best score, the counts and the seconds,
-    once the ``EvaluationInstance`` is EVALCOMPLETED."""
+    writes one (:data:`EVAL_MODULE`, or ``source``); the launch counts set
+    to 0 before it and read after it. Returns the best score, the counts
+    and the seconds, once the ``EvaluationInstance`` is EVALCOMPLETED."""
     (base / f"{module}.py").write_text(
-        EVAL_MODULE.format(template=template, metric=metric, k=k, path=str(engine_json)))
+        source or EVAL_MODULE.format(template=template, metric=metric, k=k, path=str(engine_json)))
     sys.path.insert(0, str(base))
     try:
         reset_launch_counts()
@@ -3163,6 +3238,806 @@ def phase_tt_ann(device, ctx: dict, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------- 12. templates
+def run_bodies(url: str, bodies: list, clients: int) -> dict:
+    """``clients`` threads, each on one keep-alive connection, POST
+    ``/queries.json`` with its share of ``bodies`` (client ``c`` takes
+    ``bodies[c::clients]``). Returns every answer as ``(body index,
+    status, payload)`` in body order, and the rate and latencies."""
+    import http.client
+
+    host, port = url.removeprefix("http://").split(":")
+    answers: dict = {}
+    lat: list = []
+    lock = threading.Lock()
+    errors: list = []
+
+    def client(c: int) -> None:
+        conn = http.client.HTTPConnection(host, int(port), timeout=120)
+        try:
+            for j in range(c, len(bodies), clients):
+                t0 = time.perf_counter()
+                conn.request("POST", "/queries.json", body=json.dumps(bodies[j]).encode(),
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                payload = json.loads(resp.read())
+                with lock:
+                    answers[j] = (j, resp.status, payload)
+                    lat.append((time.perf_counter() - t0) * 1e3)
+        except Exception as e:  # reported below; a failed client fails the phase
+            errors.append(repr(e))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True) for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise RuntimeError(f"templates: {len(errors)} clients failed: {errors[:3]}")
+    bad = {j: status for j, status, _ in answers.values() if status != 200}
+    if bad or len(answers) != len(bodies):
+        raise RuntimeError(f"templates: {len(bad)} answers other than 200 ({list(bad.items())[:3]}), "
+                           f"{len(answers)} of {len(bodies)} answered")
+    p50, p99 = np.percentile(lat, [50, 99])
+    return {"answers": [answers[j] for j in range(len(bodies))], "wall_s": wall,
+            "queries_per_s": len(bodies) / wall, "p50_ms": float(p50), "p99_ms": float(p99)}
+
+
+def template_engine_json(base: Path, name: str, app: str, edit=None) -> Path:
+    """``pio template get NAME <base>/<name>-<n> --appname APP``: the
+    engine.json the port's console writes, with ``edit(variant)`` applied
+    when given."""
+    n = len(list(base.glob(f"{name}-*")))
+    directory = base / f"{name}-{n}"
+    console_ok("templates", ["template", "get", name, str(directory), "--appname", app])
+    path = directory / "engine.json"
+    if edit is not None:
+        variant = json.loads(path.read_text())
+        edit(variant)
+        path.write_text(json.dumps(variant))
+    return path
+
+
+def implicit_loss(U: torch.Tensor, V: torch.Tensor, r: torch.Tensor, c: torch.Tensor, v: torch.Tensor,
+                  n_u: torch.Tensor, n_i: torch.Tensor, reg: float, alpha: float) -> float:
+    """The objective implicit ALS descends, in float64 on the tables'
+    device: over every (user, item) pair ``c·(p − x·y)²`` with ``c = 1 +
+    α·v`` and ``p = [v > 0]`` on the stored pairs (``c = 1``, ``p = 0``
+    elsewhere), plus ``λ·(Σ n_u·|x_u|² + Σ n_i·|y_i|²)`` (the ridge the
+    solve adds, ``n`` the positive pairs of each row). The unobserved
+    pairs' sum comes from the two Gramians: ``Σ (x·y)² = Σ (XᵀX)∘(YᵀY)``."""
+    Ud, Vd = U.double(), V.double()
+    total = ((Ud.T @ Ud) * (Vd.T @ Vd)).sum()
+    step = 1 << 21
+    for lo in range(0, r.numel(), step):
+        s = (Ud[r[lo:lo + step]] * Vd[c[lo:lo + step]]).sum(dim=-1)
+        val = v[lo:lo + step]
+        pref = (val > 0).double()
+        total += ((1.0 + alpha * val) * (pref - s) ** 2 - s ** 2).sum()
+    total += reg * ((n_u * Ud.pow(2).sum(dim=-1)).sum() + (n_i * Vd.pow(2).sum(dim=-1)).sum())
+    return float(total)
+
+
+@contextlib.contextmanager
+def recorded_solves(shapes: list):
+    """Record the ``[B, K]`` of every batched solve the ALS sweep hands
+    ``spd_solve`` in the block (``ops.als``'s name for it is swapped for a
+    recorder that calls it: the kernel wrapper and its launch count are
+    untouched)."""
+    from predictionio_tpu_torch.ops import als as als_module
+
+    real = als_module.spd_solve
+
+    def recording(A, b, method="auto"):
+        shapes.append(tuple(b.shape))
+        return real(A, b, method=method)
+
+    als_module.spd_solve = recording
+    try:
+        yield shapes
+    finally:
+        als_module.spd_solve = real
+
+
+def train_template_als(label: str, algo_class, engine_json: Path, td, device, dev_args: list) -> dict:
+    """``pio train`` of an ALS template with its launch counts set to 0
+    before it and read after it, the implicit loss after every sweep (the
+    algorithm class's ``on_sweep`` hook) and the solve shapes recorded.
+    On the card, ``gj_solve`` must launch exactly the plan of ``td`` (the
+    TrainingData its DataSource reads), and nothing else may launch."""
+    p = json.loads(engine_json.read_text())["algorithms"][0]["params"]
+    reg, alpha = float(p.get("lambda", 0.01)), float(p.get("alpha", 1.0))
+    cfg = ALSConfig(rank=int(p["rank"]))
+    plan = int(p["numIterations"]) * (planned_solves(td.rows, len(td.user_index), cfg)
+                                     + planned_solves(td.cols, len(td.item_index), cfg))
+    r = torch.as_tensor(td.rows, device=device)
+    c = torch.as_tensor(td.cols, device=device)
+    v = torch.as_tensor(td.vals, dtype=torch.float64, device=device)
+    n_u = torch.bincount(r[v > 0], minlength=len(td.user_index)).double()
+    n_i = torch.bincount(c[v > 0], minlength=len(td.item_index)).double()
+    losses: list = []
+    # a class attribute: the algorithm is built inside pio train
+    algo_class.on_sweep = staticmethod(
+        lambda step, U, V: losses.append(implicit_loss(U, V, r, c, v, n_u, n_i, reg, alpha)))
+    shapes: list = []
+    try:
+        with recorded_solves(shapes):
+            reset_launch_counts()
+            wall_s = console_ok(label, ["train", "--engine-json", str(engine_json), *dev_args])
+            launches = read_launch_counts()
+    finally:
+        algo_class.on_sweep = None
+    del r, c, v
+    instance = max(Storage.get_meta_data_engine_instances().get_all(), key=lambda i: i.start_time)
+    if instance.status != "COMPLETED":
+        raise RuntimeError(f"{label}: engine instance {instance.id} is {instance.status}")
+    timings = json.loads(instance.env["phase_timings"])
+    solves = [b for b, k in shapes if k == cfg.rank]
+    if len(solves) != plan or len(shapes) != plan:
+        raise RuntimeError(f"{label}: the sweeps made {len(shapes)} solves ({len(solves)} at K={cfg.rank}), "
+                           f"the plan says {plan}")
+    if device.type == "cuda":
+        check_launches(label, launches, {"gj_solve": plan})
+        if launches["fused_ce_fwd"] or launches["fused_ce_bwd"]:
+            raise RuntimeError(f"{label}: the fused-CE kernels launched on an ALS path: {launches}")
+    if len(losses) != int(p["numIterations"]) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"{label}: the implicit loss did not fall over the sweeps: {losses}")
+    algo = next(name for name in timings if name.startswith("train:"))
+    return {"instance": instance, "wall_s": wall_s, "read_s": timings["read"], "train_s": timings[algo],
+            "launches": launches["gj_solve"], "plan": plan, "losses": losses, "loss_ratio": losses[-1] / losses[0],
+            "solve_batches": sorted(set(solves))}
+
+
+def deploy_pair(label: str, base: Path, engine_json: Path, ids: dict, extra: list, dev_args: list) -> dict:
+    """One ``pio deploy --engine-instance-id`` subprocess per entry of
+    ``ids`` (name -> instance id), all started at once; returns name ->
+    ``(process, url, start seconds)``. The caller stops them."""
+    def start(name: str):
+        t0 = time.perf_counter()
+        proc, port = start_console_server(
+            f"{label} {name}", base,
+            ["deploy", "--engine-json", str(engine_json), "--engine-instance-id", ids[name], *extra, *dev_args],
+            base / f"deploy-{label}-{name}.stderr", QS_DEPLOY_TIMEOUT_S)
+        return proc, f"http://127.0.0.1:{port}", time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(ids)) as pool:
+        futures = {name: pool.submit(start, name) for name in ids}
+        started, failed = {}, []
+        for name, fut in futures.items():
+            try:
+                started[name] = fut.result()
+            except Exception as e:  # every started one is stopped before raising
+                failed.append(e)
+    if failed:
+        stop_deploys(label, started, check=False)
+        raise failed[0]
+    return started
+
+
+def stop_deploys(label: str, started: dict, device=None, check: bool = True) -> None:
+    """SIGTERM every deploy; with ``check``, ``GET /`` must first report the
+    device, and each must exit 0."""
+    errors = []
+    for name, (proc, url, _) in started.items():
+        try:
+            if check:
+                _, body = _http_json(url + "/")
+                want = "cuda:0" if device.type == "cuda" else "cpu"
+                if body.get("device") != want:
+                    errors.append(f"{name}: GET / answered device {body.get('device')}, expected {want}")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+            if rc != 0 and check:
+                errors.append(f"{name}: the deploy exited {rc} on SIGTERM")
+        except Exception as e:
+            errors.append(f"{name}: {e!r}")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    if errors:
+        raise RuntimeError(f"{label}: {errors}")
+
+
+def reference_masked_top(scores: np.ndarray, allowed: np.ndarray, num: int) -> np.ndarray:
+    """The float64 answer: the top ``min(num, allowed)`` allowed rows by
+    descending score, ties to the lower row, non-finite scores dropped."""
+    order = np.lexsort((np.arange(scores.size), -scores))
+    order = order[allowed[order]][: max(0, min(int(num), int(allowed.sum())))]
+    return order[np.isfinite(scores[order])]
+
+
+def rule_mask(n: int, index, cat_of_row: np.ndarray, exclude_rows, body: dict) -> np.ndarray:
+    """The reference's business rules over ``n`` rows, written out plainly:
+    the excluded rows out, only ``whiteList`` items, no ``blackList``
+    item, only items of one of ``categories``."""
+    allowed = np.ones(n, dtype=bool)
+    allowed[list(exclude_rows)] = False
+    if body.get("whiteList"):
+        listed = np.zeros(n, dtype=bool)
+        listed[[index[i] for i in body["whiteList"] if i in index]] = True
+        allowed &= listed
+    if body.get("blackList"):
+        allowed[[index[i] for i in body["blackList"] if i in index]] = False
+    if body.get("categories"):
+        allowed &= np.isin(cat_of_row, body["categories"])
+    return allowed
+
+
+def check_item_answers(label: str, answers: list, refs: list, strict: list) -> int:
+    """Each answer's items (rows through ``index``) against its float64
+    reference ``(rows, scores)``: equal, except where two differing items'
+    float64 scores are within a relative 1e-5 (:func:`check_ranking`) —
+    no slack where ``strict`` (popularity: ties must keep ascending
+    rows). Raises on a difference; returns the answers checked."""
+    bad = []
+    for (j, _, payload), (rows, scores, index, forbidden), exact in zip(answers, refs, strict):
+        got = [index[s["item"]] for s in payload["itemScores"]]
+        if set(got) & forbidden:
+            bad.append((j, "forbidden", sorted(set(got) & forbidden)[:5]))
+        elif exact and (got != rows.tolist()
+                        or [s["score"] for s in payload["itemScores"]] != scores[rows].tolist()):
+            bad.append((j, got, rows.tolist()))
+        elif not exact and not check_ranking(got, rows, scores):
+            bad.append((j, got, rows.tolist()))
+    if bad:
+        raise RuntimeError(f"{label}: {len(bad)} of {len(answers)} answers differ from float64 numpy: {bad[:3]}")
+    return len(answers)
+
+
+def served_line(name: str, deploy_start_s: float, runs: dict, handle: dict, smi: str) -> dict:
+    out = {"deploy_start_s": deploy_start_s,
+           **{f"clients_{n}": {key: run[key] for key in ("queries_per_s", "p50_ms", "p99_ms")}
+              for n, run in runs.items()},
+           "handle_query_p50_ms": handle["p50_ms"]}
+    log(f"[templates] {name} served: {json.dumps(out)} on {smi}")
+    return out
+
+
+def handle_p50(engine_json: Path, instance_id: str, bodies: list, device, timers: dict | None = None) -> dict:
+    """``handle_query`` alone for ``bodies`` in an in-process ``QueryService``
+    of the instance; ``timers`` (method name -> list) wraps those methods
+    of the served algorithm to time them per query."""
+    service = QueryService(load_engine_variant(str(engine_json)), local_context(device), instance_id=instance_id)
+    try:
+        (algo, _), = service._algo_model_pairs
+        for name, spent in (timers or {}).items():
+            fn = getattr(algo, name)
+
+            def timed(*args, _fn=fn, _spent=spent):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args)
+                finally:
+                    _spent.append((time.perf_counter() - t0) * 1e3)
+
+            setattr(algo, name, timed)
+        lat = []
+        for body in bodies:
+            t0 = time.perf_counter()
+            status, _ = service.handle_query(body)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            if status != 200:
+                raise RuntimeError(f"templates: handle_query answered {status} for {body}")
+    finally:
+        service.close()
+    return {"p50_ms": float(np.percentile(lat, 50)), "lat_ms": lat}
+
+
+def phase_templates(device, smi: str, nnz: int, cls_users: int, text_docs: int, n_queries: int) -> dict:
+    """Similar-Product, E-Commerce, Classification and Text-Classification
+    through the port's console verbs, in one temporary columnar store; see
+    the module docstring, phase 12."""
+    t_phase = time.perf_counter()
+    dev_args = [] if device.type == "cuda" else ["--device", device.type]
+    out: dict = {}
+    with temporary_store("pio-templates-", "columnar") as base:
+        out["similarproduct"], out["ecommerce"], out["solve_row"] = phase_tpl_als(device, base, smi, nnz, n_queries,
+                                                                              dev_args)
+        out["classification"] = phase_tpl_classification(device, base, smi, cls_users, n_queries, dev_args)
+        out["textclassification"] = phase_tpl_text(device, base, smi, text_docs, n_queries, dev_args)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[templates] phase {out['phase_s']:.3f} s on {smi}")
+    return out
+
+
+def phase_tpl_als(device, base: Path, smi: str, nnz: int, n_queries: int, dev_args: list) -> tuple:
+    """SimilarProduct and ECommerce on one app: ``nnz`` ML-20M-shaped view
+    pairs and every ``TPL_BUY_EVERY``-th again as a buy, written as
+    columns; item categories and the unavailable items through ``pio
+    import``; ``pio train`` of each with the engine.json ``pio template
+    get`` writes; deploys under 1 and 8 clients; SimilarProduct again
+    with ``--ann``."""
+    from predictionio_tpu_torch.templates.ecommerce import engine as ec_engine
+    from predictionio_tpu_torch.templates.similarproduct import engine as sp_engine
+
+    console_ok("templates", ["app", "new", TPL_APP])
+    app = Storage.get_meta_data_apps().get_by_name(TPL_APP)
+    rows, cols, _, num_users, num_items = ml20m_shaped(nnz, seed=5)
+    buys = slice(0, None, TPL_BUY_EVERY)
+    t_us = (1_600_000_000_000_000 + np.random.default_rng(9).integers(0, 10**9, nnz)).astype(np.int64)
+    user_vocab = np.asarray([str(i) for i in range(num_users)])
+    item_vocab = np.asarray([str(j) for j in range(num_items)])
+    t0 = time.perf_counter()
+    written = 0
+    for event, sel in (("view", slice(None)), ("buy", buys)):
+        written += Storage.get_p_events().write_columns(
+            app.id, event=event, entity_type="user", entity_codes=rows[sel], entity_vocab=user_vocab,
+            target_entity_type="item", target_codes=cols[sel], target_vocab=item_vocab, event_time_us=t_us[sel])
+    write_s = time.perf_counter() - t0
+    # the ECommerce popularity: a view weighs 1, a buy 5; the unavailable
+    # items: every other one of the 2 * TPL_UNAVAILABLE most popular
+    popularity = (np.bincount(cols, minlength=num_items)
+                  + 5 * np.bincount(cols[buys], minlength=num_items)).astype(np.float64)
+    by_pop = np.lexsort((np.arange(num_items), -popularity))
+    unavailable = {str(j) for j in by_pop[1: 2 * TPL_UNAVAILABLE: 2].tolist()}
+    sets = [{"event": "$set", "entityType": "item", "entityId": str(j),
+             "properties": {"categories": [f"c{j % TPL_CATEGORIES}"]}} for j in range(num_items)]
+    sets.append({"event": "$set", "entityType": "constraint", "entityId": "unavailableItems",
+                 "properties": {"items": sorted(unavailable)}})
+    write_ndjson(base / "sets.json", sets)
+    import_s = console_ok("templates", ["import", "--appname", TPL_APP, "--input", str(base / "sets.json")])
+    events = written + len(sets)
+    log(f"[templates] similarproduct/ecommerce app: {written} view and buy events by write_columns in "
+        f"{write_s:.3f} s, {len(sets)} $set events by pio import in {import_s:.3f} s")
+    if written != nnz + len(rows[buys]):
+        raise RuntimeError(f"templates: write_columns wrote {written} events")
+
+    def als_params(variant: dict) -> None:
+        params = variant["algorithms"][0]["params"]
+        if params != {"rank": TPL_RANK, "numIterations": TPL_SWEEPS, "lambda": 0.01}:
+            raise RuntimeError(f"templates: pio template get wrote {params}")
+        params["alpha"] = 1.0
+
+    sp_json = template_engine_json(base, "similarproduct", TPL_APP, als_params)
+
+    def ec_params(variant: dict) -> None:
+        als_params(variant)
+        # the serving-time lookups need the app (the README of `get` says
+        # to edit appName in)
+        variant["algorithms"][0]["params"]["appName"] = TPL_APP
+
+    ec_json = template_engine_json(base, "ecommerce", TPL_APP, ec_params)
+    ctx = local_context(device)
+    t0 = time.perf_counter()
+    sp_td = sp_engine.SimilarProductDataSource(sp_engine.DataSourceParams(app_name=TPL_APP)).read_training(ctx)
+    sp_read_s = time.perf_counter() - t0
+    sp = train_template_als("templates similarproduct train", sp_engine.ALSAlgorithm, sp_json, sp_td, device,
+                            dev_args)
+    t0 = time.perf_counter()
+    ec_td = ec_engine.ECommerceDataSource(ec_engine.DataSourceParams(app_name=TPL_APP)).read_training(ctx)
+    ec_read_s = time.perf_counter() - t0
+    ec = train_template_als("templates ecommerce train", ec_engine.ECommAlgorithm, ec_json, ec_td, device, dev_args)
+    for name, trained, td, read_s in (("similarproduct", sp, sp_td, sp_read_s), ("ecommerce", ec, ec_td, ec_read_s)):
+        log(f"[templates] {name} train: {events} events, read {read_s:.3f} s in process, {trained['read_s']:.3f} s "
+            f"in pio train; {len(td.user_index)} users x {len(td.item_index)} items, {td.rows.size} pairs; "
+            f"train {trained['train_s']:.3f} s, pio train wall {trained['wall_s']:.3f} s; {trained['launches']} "
+            f"gj_solve launches (plan {trained['plan']}), batches [B,{TPL_RANK},{TPL_RANK}] up to "
+            f"{max(trained['solve_batches'])}; implicit loss last/first {trained['loss_ratio']:.6f} "
+            f"({trained['losses'][0]:.6g} -> {trained['losses'][-1]:.6g}) on {smi}")
+    sp_model = stored_model(sp["instance"].id)
+    ec_model = stored_model(ec["instance"].id)
+    if not np.array_equal(ec_model.popularity, popularity[[int(i) for i in ec_model.item_index.keys()]]):
+        raise RuntimeError("templates: the ECommerce model's popularity is not the events' weighted counts")
+    del sp_td, ec_td
+
+    rng = np.random.default_rng(31)
+    sp_out = tpl_similarproduct(device, base, smi, sp, sp_json, sp_model, rng, n_queries, dev_args)
+    ec_out = tpl_ecommerce(device, base, smi, ec, ec_json, ec_model, rows, cols, unavailable, rng, n_queries,
+                           dev_args)
+    del rows, cols
+    bmax = max(sp["solve_batches"] + ec["solve_batches"])
+    solve = solve_row(bmax, TPL_RANK, 400, device) if device.type == "cuda" else None
+    for out, trained, read_s in ((sp_out, sp, sp_read_s), (ec_out, ec, ec_read_s)):
+        out.update({key: trained[key] for key in ("wall_s", "read_s", "train_s", "launches", "plan", "loss_ratio")},
+                   events=events, read_in_process_s=read_s, losses=trained["losses"],
+                   solve_batch_max=max(trained["solve_batches"]))
+    return sp_out, ec_out, solve
+
+
+def tpl_similarproduct(device, base: Path, smi: str, trained: dict, engine_json: Path, model, rng,
+                       n_queries: int, dev_args: list) -> dict:
+    """64 SimilarProduct queries (1- and 3-item baskets, categories,
+    whiteList, blackList) under 1 and 8 clients, each held to float64
+    numpy over the stored unit item table; then ``--ann`` with blackLists
+    that exclude the whole exact top-10."""
+    index = model.item_index
+    n = len(index)
+    unit64 = np.asarray(model.item_factors, np.float64)
+    if not np.isfinite(unit64).all():
+        raise RuntimeError("templates: the SimilarProduct item table is not finite")
+    cat_of_row = np.asarray([f"c{int(index.inverse(r)) % TPL_CATEGORIES}" for r in range(n)])
+    ids = index.keys()
+
+    def scores_of(items: list) -> np.ndarray:
+        target = unit64[[index[i] for i in items]].sum(axis=0)
+        return unit64 @ (target / np.linalg.norm(target))
+
+    bodies = []
+    for q in range(n_queries):
+        kind = q % 5
+        basket = [ids[int(j)] for j in rng.choice(n, size=3 if kind == 1 else 1, replace=False)]
+        body = {"items": basket, "num": TOP_K}
+        if kind == 2:
+            body["categories"] = [f"c{int(c)}" for c in rng.choice(TPL_CATEGORIES, size=2, replace=False)]
+        elif kind == 3:
+            body["whiteList"] = [ids[int(j)] for j in rng.choice(n, size=40, replace=False)]
+        elif kind == 4:
+            # the basket's own top-5 and two random items
+            allowed = rule_mask(n, index, cat_of_row, [index[i] for i in basket], {})
+            top = reference_masked_top(scores_of(basket), allowed, 5)
+            body["blackList"] = [ids[int(j)] for j in top] + [ids[int(j)] for j in rng.choice(n, size=2)]
+        bodies.append(body)
+    refs = []
+    for body in bodies:
+        basket_rows = [index[i] for i in body["items"]]
+        scores = scores_of(body["items"])
+        allowed = rule_mask(n, index, cat_of_row, basket_rows, body)
+        forbidden = set(basket_rows) | {index[i] for i in body.get("blackList", ())}
+        forbidden |= set(np.flatnonzero(~allowed).tolist())
+        refs.append((reference_masked_top(scores, allowed, body["num"]), scores, index, forbidden))
+    deployed = deploy_pair("similarproduct", base, engine_json, {"exact": trained["instance"].id}, [], dev_args)
+    try:
+        url = deployed["exact"][1]
+        runs = {}
+        for clients in TPL_CLIENTS:
+            runs[clients] = run_bodies(url, bodies, clients)
+            check_item_answers(f"templates similarproduct x{clients}", runs[clients]["answers"], refs,
+                               [False] * len(refs))
+    finally:
+        stop_deploys("similarproduct", deployed, device)
+    handle = handle_p50(engine_json, trained["instance"].id, bodies, device)
+    out = {"queries": len(bodies), **served_line("similarproduct", deployed["exact"][2], runs, handle, smi)}
+
+    # --ann: blackLists of the whole exact top-10 still answer TOP_K items
+    ann_bodies = []
+    for q in range(TPL_ANN_QUERIES):
+        basket = [ids[int(rng.integers(n))]]
+        allowed = rule_mask(n, index, cat_of_row, [index[basket[0]]], {})
+        top = reference_masked_top(scores_of(basket), allowed, TOP_K)
+        ann_bodies.append({"items": basket, "num": TOP_K, "blackList": [ids[int(j)] for j in top]})
+    deployed = deploy_pair("similarproduct-ann", base, engine_json, {"ann": trained["instance"].id}, ["--ann"],
+                           dev_args)
+    try:
+        run = run_bodies(deployed["ann"][1], ann_bodies, 1)
+        _, ann_stats = _http_json(deployed["ann"][1] + "/stats.json")
+    finally:
+        stop_deploys("similarproduct-ann", deployed, device)
+    for (j, _, payload), body in zip(run["answers"], ann_bodies):
+        got = [s["item"] for s in payload["itemScores"]]
+        if len(got) != TOP_K or set(got) & (set(body["blackList"]) | set(body["items"])):
+            raise RuntimeError(f"templates: --ann answered {got} to a blackList of the exact top-{TOP_K} {body}")
+    out["ann"] = {"deploy_start_s": deployed["ann"][2], "queries": len(ann_bodies), "p50_ms": run["p50_ms"],
+                  "p99_ms": run["p99_ms"], "nlist": ann_stats["ann"]["models"][0].get("nlist")}
+    log(f"[templates] similarproduct --ann: {len(ann_bodies)} blackLists of the exact top-{TOP_K}, each answered "
+        f"{TOP_K} other items; {json.dumps(out['ann'])} on {smi}")
+    return out
+
+
+def tpl_ecommerce(device, base: Path, smi: str, trained: dict, engine_json: Path, model, rows: np.ndarray,
+                  cols: np.ndarray, unavailable: set, rng, n_queries: int, dev_args: list) -> dict:
+    """64 ECommerce queries — known users (their viewed and bought items
+    must be absent), cold users ranked by popularity (ties by ascending
+    row; a whiteList of tied items), categories and blackLists — under 1
+    and 8 clients, each held to float64 numpy over the stored factors;
+    then ``handle_query`` in process, timed apart into the two
+    ``LEventStore`` lookups and the rest."""
+    uindex, index = model.user_index, model.item_index
+    n = len(index)
+    U64 = np.asarray(model.user_factors, np.float64)
+    V64 = np.asarray(model.item_factors, np.float64)
+    pop64 = np.asarray(model.popularity, np.float64)
+    if not (np.isfinite(U64).all() and np.isfinite(V64).all()):
+        raise RuntimeError("templates: the ECommerce factors are not finite")
+    cat_of_row = np.asarray([f"c{int(index.inverse(r)) % TPL_CATEGORIES}" for r in range(n)])
+    ids = index.keys()
+    unavailable_rows = {index[i] for i in unavailable if i in index}
+    # a popularity value shared by many items: a whiteList of those ties
+    values, counts = np.unique(pop64, return_counts=True)
+    tied_rows = np.flatnonzero(pop64 == values[np.argmax(counts)])[:30]
+    known = rng.choice(len(uindex), size=n_queries // 2, replace=False)
+    known_users = [uindex.inverse(int(u)) for u in known]
+    wanted = np.isin(rows, np.asarray([int(u) for u in known_users]))
+    seen: dict = {}
+    for u, i in zip(rows[wanted].tolist(), cols[wanted].tolist()):
+        seen.setdefault(str(u), set()).add(index[str(i)])
+    bodies, refs, strict, unfiltered_hits = [], [], [], 0
+    for q in range(n_queries):
+        cold = q >= len(known_users)
+        body = {"user": f"cold{q}" if cold else known_users[q], "num": TOP_K}
+        kind = q % 4
+        if kind == 1:
+            body["categories"] = [f"c{int(rng.integers(TPL_CATEGORIES))}"]
+        elif kind == 2 and cold:
+            body["whiteList"] = [ids[int(j)] for j in tied_rows]
+        elif kind == 3:
+            body["blackList"] = [ids[int(j)] for j in rng.choice(n, size=5, replace=False)]
+        scores = pop64 if cold else V64 @ U64[uindex[body["user"]]]
+        user_seen = set() if cold else seen[body["user"]]
+        allowed = rule_mask(n, index, cat_of_row, user_seen | unavailable_rows, body)
+        unfiltered = reference_masked_top(scores, rule_mask(n, index, cat_of_row, (), body), TOP_K)
+        unfiltered_hits += bool(set(unfiltered.tolist()) & unavailable_rows)
+        forbidden = user_seen | unavailable_rows | {index[i] for i in body.get("blackList", ())}
+        bodies.append(body)
+        refs.append((reference_masked_top(scores, allowed, TOP_K), scores, index, forbidden))
+        strict.append(cold)
+    if not unfiltered_hits:
+        raise RuntimeError("templates: no ECommerce query has an unavailable item in its unfiltered top-10")
+    deployed = deploy_pair("ecommerce", base, engine_json, {"exact": trained["instance"].id}, [], dev_args)
+    try:
+        runs = {}
+        for clients in TPL_CLIENTS:
+            runs[clients] = run_bodies(deployed["exact"][1], bodies, clients)
+            check_item_answers(f"templates ecommerce x{clients}", runs[clients]["answers"], refs, strict)
+    finally:
+        stop_deploys("ecommerce", deployed, device)
+    timers = {"_seen_items": [], "_unavailable_items": []}
+    handle = handle_p50(engine_json, trained["instance"].id, bodies, device, timers)
+    split = {
+        "seen_lookup_p50_ms": float(np.percentile(timers["_seen_items"], 50)),
+        "unavailable_lookup_p50_ms": float(np.percentile(timers["_unavailable_items"], 50)),
+        "rest_p50_ms": float(np.percentile(np.asarray(handle["lat_ms"]) - np.asarray(timers["_seen_items"])
+                                           - np.asarray(timers["_unavailable_items"]), 50)),
+    }
+    out = {"queries": len(bodies), "cold_queries": sum(strict), "unfiltered_top10_with_unavailable": unfiltered_hits,
+           **served_line("ecommerce", deployed["exact"][2], runs, handle, smi), "split": split}
+    log(f"[templates] ecommerce: {unfiltered_hits} queries had an unavailable item in the unfiltered top-{TOP_K}, "
+        f"none in an answer; no seen, blacklisted or unavailable item answered; {sum(strict)} popularity answers "
+        f"in ascending-row tie order; handle_query split {json.dumps(split)} on {smi}")
+    return out
+
+
+def tpl_classifiers(label: str, engine_jsons: dict, device, dev_args: list) -> dict:
+    """``pio train`` of each engine.json (name -> path) with the launch
+    counts set to 0 before it and read after it: nothing may launch."""
+    trained = {}
+    for name, path in engine_jsons.items():
+        reset_launch_counts()
+        wall_s = console_ok(label, ["train", "--engine-json", str(path), *dev_args])
+        launches = read_launch_counts()
+        if any(launches.values()):
+            raise RuntimeError(f"{label} {name}: kernels launched on a classifier's path: {launches}")
+        instance = max(Storage.get_meta_data_engine_instances().get_all(), key=lambda i: i.start_time)
+        if instance.status != "COMPLETED":
+            raise RuntimeError(f"{label} {name}: engine instance {instance.id} is {instance.status}")
+        timings = json.loads(instance.env["phase_timings"])
+        algo = next(key for key in timings if key.startswith("train:"))
+        trained[name] = {"instance": instance, "wall_s": wall_s, "read_s": timings["read"],
+                         "train_s": timings[algo], "launches": launches}
+    return trained
+
+
+def nb_reference(x, y: np.ndarray, classes: int, smoothing: float = 1.0) -> tuple[np.ndarray, np.ndarray]:
+    """Multinomial NB in float64 numpy: (log_prior [C], log_theta [C, F]);
+    ``x`` dense or scipy.sparse."""
+    one_hot = np.eye(classes)[y]
+    feat = np.asarray((x.T @ one_hot).T, np.float64)
+    counts = one_hot.sum(axis=0)
+    log_prior = np.log(counts + smoothing) - np.log(counts.sum() + classes * smoothing)
+    log_theta = np.log(feat + smoothing) - np.log(feat.sum(axis=1, keepdims=True) + smoothing * x.shape[1])
+    return log_prior, log_theta
+
+
+def lr_reference(x, y: np.ndarray, classes: int, iterations: int, lr: float = 1.0,
+                 reg: float = 1e-4) -> tuple[np.ndarray, np.ndarray]:
+    """The reference's full-batch descent in float64 numpy: zero init,
+    ``g = (p − one_hot)/n``, ``w -= lr·(xᵀg + reg·w)``, ``b -= lr·Σg``."""
+    n, f = x.shape
+    one_hot = np.eye(classes)[y]
+    w = np.zeros((f, classes))
+    b = np.zeros(classes)
+    for _ in range(iterations):
+        logits = np.asarray(x @ w) + b
+        p = np.exp(logits - logits.max(axis=1, keepdims=True))
+        p /= p.sum(axis=1, keepdims=True)
+        g = (p - one_hot) / n
+        w, b = w - lr * (np.asarray(x.T @ g) + reg * w), b - lr * g.sum(axis=0)
+    return w, b
+
+
+def softmax64(z: np.ndarray) -> np.ndarray:
+    e = np.exp(z - z.max(axis=-1, keepdims=True))
+    return e / e.sum(axis=-1, keepdims=True)
+
+
+def check_labels(label: str, answers: list, field: str, names: list, ref_scores: np.ndarray, kind: str,
+                 truth: list | None = None) -> dict:
+    """Each answer's label against the float64 argmax of ``ref_scores``
+    (``[Q, C]`` log-posteriors for NB, probabilities for LR); a differing
+    label passes only on a near-tie of the two (relative 1e-5 for NB,
+    1e-3 for LR); an LR confidence must be within 1e-3 of its float64
+    probability. Returns the worst gaps and, with ``truth``, the accuracy."""
+    bad, worst_conf = [], 0.0
+    for (j, _, payload), row in zip(answers, ref_scores):
+        got, want = names.index(payload[field]), int(np.argmax(row))
+        if got != want:
+            tol = 1e-5 * abs(row[want]) if kind == "nb" else 1e-3
+            if abs(row[got] - row[want]) > tol:
+                bad.append((j, payload[field], names[want]))
+        if kind == "lr":
+            worst_conf = max(worst_conf, abs(payload["confidence"] - row[got]))
+    if bad or worst_conf > TPL_LR_ATOL:
+        raise RuntimeError(f"{label}: {len(bad)} labels differ from float64 numpy's argmax ({bad[:3]}); "
+                           f"worst LR confidence gap {worst_conf:.3g} (limit {TPL_LR_ATOL:g})")
+    out = {"worst_confidence_gap": worst_conf}
+    if truth is not None:
+        out["accuracy"] = float(np.mean([p[field] == t for (_, _, p), t in zip(answers, truth)]))
+    return out
+
+
+def phase_tpl_classification(device, base: Path, smi: str, users: int, n_queries: int, dev_args: list) -> dict:
+    """``users`` ``$set`` users with ``attr0..attr2`` and a 3-class ``plan``
+    (the draw of tests/test_classification_template.py's fixture) through
+    ``pio import``; ``pio train`` of the NB and of the LR variant; both
+    deployed, 64 queries each held to float64 numpy; ``pio eval`` of
+    ``Accuracy`` over both, each above the majority-class rate."""
+    console_ok("templates", ["app", "new", TPL_CLS_APP])
+    rng = np.random.default_rng(41)
+    cls = np.arange(users) % 3
+    attrs = rng.poisson(1, size=(users, 3))
+    attrs[np.arange(users), cls] += rng.poisson(6, size=users) + 2
+    write_ndjson(base / "cls.json", (
+        {"event": "$set", "entityType": "user", "entityId": f"u{n}",
+         "properties": {"attr0": int(a[0]), "attr1": int(a[1]), "attr2": int(a[2]), "plan": TPL_CLS_LABELS[c]}}
+        for n, (a, c) in enumerate(zip(attrs.tolist(), cls.tolist()))))
+    import_s = console_ok("templates", ["import", "--appname", TPL_CLS_APP, "--input", str(base / "cls.json")])
+    nb_json = template_engine_json(base, "classification", TPL_CLS_APP)
+
+    def lr_variant(variant: dict) -> None:
+        variant["algorithms"] = [{"name": "lr", "params": {"iterations": 200}}]
+
+    lr_json = template_engine_json(base, "classification", TPL_CLS_APP, lr_variant)
+    trained = tpl_classifiers("templates classification train", {"nb": nb_json, "lr": lr_json}, device,
+                              dev_args)
+    # the training rows in the DataSource's order (sorted entity ids)
+    order = sorted(range(users), key=lambda n: f"u{n}")
+    x = attrs[order].astype(np.float32)
+    y_names = [TPL_CLS_LABELS[c] for c in cls[order].tolist()]
+    names = list(dict.fromkeys(y_names))
+    y = np.asarray([names.index(name) for name in y_names])
+    nb_model = stored_model(trained["nb"]["instance"].id)
+    lr_model = stored_model(trained["lr"]["instance"].id)
+    for model in (nb_model, lr_model):
+        if model["label_index"].keys() != names:
+            raise RuntimeError(f"templates: the classifier's labels {model['label_index'].keys()} are not {names}")
+    log_prior, log_theta = nb_reference(x.astype(np.float64), y, 3)
+    x64 = x.astype(np.float64)
+    mean, std = x64.mean(axis=0), x64.std(axis=0)
+    w64, b64 = lr_reference((x64 - mean) / std, y, 3, 200)
+    w_gap = float(np.abs(np.asarray(lr_model["lr"].w, np.float64) - w64).max())
+    picks = rng.choice(users, size=n_queries, replace=False)
+    qx = attrs[picks].astype(np.float64)
+    bodies = [{f"attr{a}": int(v) for a, v in enumerate(row)} for row in attrs[picks].tolist()]
+    truth = [TPL_CLS_LABELS[c] for c in cls[picks].tolist()]
+    deployed = deploy_pair("classification", base, nb_json,
+                           {"nb": trained["nb"]["instance"].id, "lr": trained["lr"]["instance"].id}, [], dev_args)
+    try:
+        runs = {name: run_bodies(deployed[name][1], bodies, 1) for name in ("nb", "lr")}
+    finally:
+        stop_deploys("classification", deployed, device)
+    checks = {
+        "nb": check_labels("templates classification nb", runs["nb"]["answers"], "label", names,
+                           log_prior + qx @ log_theta.T, "nb", truth),
+        "lr": check_labels("templates classification lr", runs["lr"]["answers"], "label", names,
+                           softmax64(((qx - mean) / std) @ w64 + b64), "lr", truth),
+    }
+    # pio eval: Accuracy over both algorithms, 3 folds
+    source = (
+        "from predictionio_tpu_torch.controller import Evaluation\n"
+        "from predictionio_tpu_torch.templates.classification import Accuracy, engine_factory\n"
+        "from predictionio_tpu_torch.workflow import load_engine_variant\n"
+        "ENGINE = engine_factory()\n"
+        "evaluation = Evaluation(engine=ENGINE, metric=Accuracy())\n"
+        f"evaluation.engine_params_list = [load_engine_variant(p).engine_params(ENGINE) "
+        f"for p in {[str(nb_json), str(lr_json)]!r}]\n")
+    _, eval_launches, eval_s = run_eval("templates classification", base, "cls_eval", "", "", 0, nb_json, dev_args,
+                                        source)
+    if any(eval_launches.values()):
+        raise RuntimeError(f"templates: pio eval of the classifiers launched kernels {eval_launches}")
+    scores = [s["score"] for s in json.loads((base / "best.json").read_text())["engineParamsScores"]]
+    majority = float(np.bincount(cls).max() / users)
+    if len(scores) != 2 or not min(scores) > majority:
+        raise RuntimeError(f"templates: classification accuracy {scores} not above the majority rate {majority}")
+    out = {"events": users, "import_s": import_s, "eval_s": eval_s, "accuracy_nb": scores[0],
+           "accuracy_lr": scores[1], "majority_rate": majority, "lr_w_gap_vs_float64": w_gap,
+           **{name: {"deploy_start_s": deployed[name][2], "p50_ms": runs[name]["p50_ms"],
+                     "p99_ms": runs[name]["p99_ms"], "read_s": trained[name]["read_s"],
+                     "train_s": trained[name]["train_s"], "wall_s": trained[name]["wall_s"],
+                     "served_accuracy": checks[name]["accuracy"],
+                     "worst_confidence_gap": checks[name]["worst_confidence_gap"]} for name in ("nb", "lr")}}
+    for name in ("nb", "lr"):
+        out[name]["handle_query_p50_ms"] = handle_p50(nb_json, trained[name]["instance"].id, bodies, device)["p50_ms"]
+    log(f"[templates] classification: {json.dumps(out)}; no kernel launched in train, deploy or eval; on {smi}")
+    return out
+
+
+def text_corpus(docs: int, seed: int, offset: int = 0) -> tuple[list, list]:
+    """``docs`` synthetic documents in ``TPL_TEXT_CLASSES`` classes: each
+    token from the class's own Zipf(1.3) vocabulary with probability
+    ``TPL_TEXT_OWN_SHARE``, else from a Zipf(1.3) vocabulary every class
+    shares. Returns (texts, labels)."""
+    rng = np.random.default_rng(seed)
+    cls = (np.arange(docs) + offset) % TPL_TEXT_CLASSES
+    own = rng.random((docs, TPL_TEXT_LEN)) < TPL_TEXT_OWN_SHARE
+    own_rank = (rng.zipf(1.3, (docs, TPL_TEXT_LEN)) - 1) % TPL_TEXT_VOCAB
+    shared_rank = (rng.zipf(1.3, (docs, TPL_TEXT_LEN)) - 1) % TPL_TEXT_SHARED
+    texts = [
+        " ".join(f"w{c}x{o}" if m else f"s{s}" for m, o, s in zip(mask, orow, srow))
+        for c, mask, orow, srow in zip(cls.tolist(), own.tolist(), own_rank.tolist(), shared_rank.tolist())
+    ]
+    return texts, [f"topic{c}" for c in cls.tolist()]
+
+
+def phase_tpl_text(device, base: Path, smi: str, docs: int, n_queries: int, dev_args: list) -> dict:
+    """``docs`` labelled documents through ``pio import``; ``pio train`` of
+    the NB and the LR variant at ``numFeatures`` 4,096; both deployed and
+    held to float64 numpy on 64 new documents, whose accuracy must beat
+    1/``TPL_TEXT_CLASSES``."""
+    import scipy.sparse
+
+    console_ok("templates", ["app", "new", TPL_TEXT_APP])
+    texts, labels = text_corpus(docs, seed=51)
+    write_ndjson(base / "text.json", (
+        {"event": "$set", "entityType": "content", "entityId": f"d{n}", "properties": {"text": t, "category": c}}
+        for n, (t, c) in enumerate(zip(texts, labels))))
+    import_s = console_ok("templates", ["import", "--appname", TPL_TEXT_APP, "--input", str(base / "text.json")])
+
+    def nb_variant(variant: dict) -> None:
+        variant["preparator"] = {"params": {"numFeatures": TPL_TEXT_FEATURES}}
+
+    def lr_variant(variant: dict) -> None:
+        nb_variant(variant)
+        variant["algorithms"] = [{"name": "lr", "params": {"iterations": 300}}]
+
+    nb_json = template_engine_json(base, "textclassification", TPL_TEXT_APP, nb_variant)
+    lr_json = template_engine_json(base, "textclassification", TPL_TEXT_APP, lr_variant)
+    trained = tpl_classifiers("templates textclassification train", {"nb": nb_json, "lr": lr_json}, device,
+                              dev_args)
+    order = sorted(range(docs), key=lambda n: f"d{n}")
+    nb_model = stored_model(trained["nb"]["instance"].id)
+    featurizer = nb_model["featurizer"]
+    names = nb_model["label_index"].keys()
+    x = scipy.sparse.csr_matrix(featurizer.transform([texts[n] for n in order]).astype(np.float64))
+    y = np.asarray([names.index(labels[n]) for n in order])
+    log_prior, log_theta = nb_reference(x, y, len(names))
+    w64, b64 = lr_reference(x, y, len(names), 300)
+    lr_model = stored_model(trained["lr"]["instance"].id)
+    w_gap = float(np.abs(np.asarray(lr_model["lr"].w, np.float64) - w64).max())
+    q_texts, q_labels = text_corpus(n_queries, seed=52, offset=7)
+    qx = featurizer.transform(q_texts).astype(np.float64)
+    bodies = [{"text": t} for t in q_texts]
+    deployed = deploy_pair("textclassification", base, nb_json,
+                           {"nb": trained["nb"]["instance"].id, "lr": trained["lr"]["instance"].id}, [], dev_args)
+    try:
+        runs = {name: run_bodies(deployed[name][1], bodies, 1) for name in ("nb", "lr")}
+    finally:
+        stop_deploys("textclassification", deployed, device)
+    checks = {
+        "nb": check_labels("templates text nb", runs["nb"]["answers"], "category", names,
+                           log_prior + qx @ log_theta.T, "nb", q_labels),
+        "lr": check_labels("templates text lr", runs["lr"]["answers"], "category", names,
+                           softmax64(qx @ w64 + b64), "lr", q_labels),
+    }
+    chance = 1.0 / TPL_TEXT_CLASSES
+    if not min(checks[name]["accuracy"] for name in checks) > chance:
+        raise RuntimeError(f"templates: text accuracy {checks} not above 1/{TPL_TEXT_CLASSES}")
+    out = {"events": docs, "import_s": import_s, "num_features": TPL_TEXT_FEATURES, "nnz": int(x.nnz),
+           "lr_w_gap_vs_float64": w_gap, "chance": chance,
+           **{name: {"deploy_start_s": deployed[name][2], "p50_ms": runs[name]["p50_ms"],
+                     "p99_ms": runs[name]["p99_ms"], "read_s": trained[name]["read_s"],
+                     "train_s": trained[name]["train_s"], "wall_s": trained[name]["wall_s"],
+                     "accuracy": checks[name]["accuracy"],
+                     "worst_confidence_gap": checks[name]["worst_confidence_gap"]} for name in ("nb", "lr")}}
+    for name in ("nb", "lr"):
+        out[name]["handle_query_p50_ms"] = handle_p50(nb_json, trained[name]["instance"].id, bodies, device)["p50_ms"]
+    log(f"[templates] textclassification: {json.dumps(out)}; no kernel launched in train or deploy; on {smi}")
+    return out
+
+
 def check_launches(path: str, launches: dict, expected: dict) -> None:
     log(f"[{path}] launches on the path: {json.dumps({k: launches[k] for k in expected})}, "
         f"plan {json.dumps(expected)}")
@@ -3235,6 +4110,8 @@ def main() -> int:
         raise RuntimeError(f"ann: the sweeps launched kernels {sweep_launches}; their path has none")
     log(f"[ann] launches on the sweeps' path: {json.dumps(sweep_launches)}; the deploys' and in-process path: "
         f"{json.dumps(ann['launches'])}")
+    # the four other templates (their own launch counts inside)
+    tpl = phase_templates(device, info["smi"], TPL_NNZ, TPL_CLS_USERS, TPL_TEXT_DOCS, QUERIES)
 
     main_fused = fused_rows[0]  # [8192, 64], the Two-Tower path's shape
     kernels = [
@@ -3317,6 +4194,18 @@ def main() -> int:
             "incremental": ann["incremental"], "fold": ann["fold"],
             "tt": {key: tt_ann[key] for key in ("queries_per_s", "p50_ms", "p99_ms", "recall_at_10")},
             "launches": ann["launches"], "phase_s": ann["phase_s"] + ann_sweep["phase_s"],
+        },
+        "templates": {
+            **{name: {key: tpl[name][key] for key in (
+                "events", "read_s", "train_s", "wall_s", "launches", "plan", "loss_ratio", "solve_batch_max",
+                "deploy_start_s", "clients_1", "clients_8", "handle_query_p50_ms")}
+               for name in ("similarproduct", "ecommerce")},
+            "similarproduct_ann": tpl["similarproduct"]["ann"], "ecommerce_split": tpl["ecommerce"]["split"],
+            "solve_row": {key: tpl["solve_row"][key] for key in ("shape", "ms", "bound_ms", "library_ms")},
+            "classification": {key: tpl["classification"][key] for key in (
+                "accuracy_nb", "accuracy_lr", "majority_rate", "nb", "lr")},
+            "textclassification": {key: tpl["textclassification"][key] for key in ("chance", "nb", "lr")},
+            "phase_s": tpl["phase_s"],
         },
         "wall_s": time.perf_counter() - t_start,
     }

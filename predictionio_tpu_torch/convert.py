@@ -7,6 +7,17 @@ factors on ``device``, ready to serve. A ``TwoTowerServingModel`` goes
 the same way with its seen filter: ``(user_vecs, item_vecs, user_index,
 item_index, seen)``. The ``*_to_numpy`` functions are the inverses.
 
+The four other templates' models cross as host numpy, as they serve
+from blobs: a ``SimilarProductModel`` as ``(item_factors, item_index,
+categories)``, an ``ECommModel`` as ``(user_factors, item_factors,
+user_index, item_index, categories, popularity)``, and a Classification
+or Text-Classification model (a dict) as the same dict with its
+NamedTuples as plain tuples of arrays — ``"nb"`` ``(log_prior,
+log_theta)``, ``"lr"`` ``(w, b)``, ``"featurizer"`` ``(idf,
+num_features, stopwords)`` — and its ``label_index`` as a plain dict.
+Either package's NamedTuples are tuples, so a JAX model's dict goes
+into :func:`classifier_model_from_numpy` as it is.
+
 An IVF index crosses as its arrays (:func:`ivf_index_from_numpy`,
 :func:`ivf_index_to_numpy`; the JAX ``IVFIndex`` fields by name), so one
 index built by either package feeds both query paths; an int8 table as
@@ -24,16 +35,26 @@ import torch
 
 from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.device import resolve_device
+from predictionio_tpu_torch.ops.classify import LogRegModel, NaiveBayesModel
+from predictionio_tpu_torch.ops.text import HashingTfIdf
+from predictionio_tpu_torch.templates.ecommerce.engine import ECommModel
 from predictionio_tpu_torch.templates.recommendation.engine import ALSModel
+from predictionio_tpu_torch.templates.similarproduct.engine import SimilarProductModel
 from predictionio_tpu_torch.templates.twotower.engine import TwoTowerServingModel
 
 __all__ = [
     "als_model_from_numpy",
     "als_model_to_numpy",
+    "classifier_model_from_numpy",
+    "classifier_model_to_numpy",
+    "ecomm_model_from_numpy",
+    "ecomm_model_to_numpy",
     "ivf_index_from_numpy",
     "ivf_index_to_numpy",
     "quantized_table_from_numpy",
     "quantized_table_to_numpy",
+    "similarproduct_model_from_numpy",
+    "similarproduct_model_to_numpy",
     "twotower_model_from_numpy",
     "twotower_model_to_numpy",
 ]
@@ -124,6 +145,101 @@ def twotower_model_to_numpy(
         model.item_index.to_dict(),
         {u: set(items) for u, items in model.seen.items()},
     )
+
+
+def _index(m) -> dict[str, int]:
+    return m.to_dict() if hasattr(m, "to_dict") else dict(m)
+
+
+def similarproduct_model_from_numpy(
+    item_factors: np.ndarray, item_index: Mapping[str, int], categories: Mapping[str, Iterable[str]]
+) -> SimilarProductModel:
+    """A unit item table ``[I, K]``, its id map and each item's categories
+    -> the port's ``SimilarProductModel`` (host numpy, as a blob holds it)."""
+    items = np.asarray(item_factors, np.float32)
+    if items.ndim != 2 or items.shape[0] != len(item_index):
+        raise ValueError(f"item table {items.shape} does not match {len(item_index)} items")
+    return SimilarProductModel(
+        item_factors=items, item_index=BiMap(_index(item_index)),
+        categories={i: tuple(c) for i, c in categories.items()},
+    )
+
+
+def similarproduct_model_to_numpy(model: SimilarProductModel) -> tuple[np.ndarray, dict[str, int], dict]:
+    """``(item_factors, item_index, categories)`` as numpy and plain dicts."""
+    return _host(model.item_factors), model.item_index.to_dict(), dict(model.categories)
+
+
+def ecomm_model_from_numpy(
+    user_factors: np.ndarray,
+    item_factors: np.ndarray,
+    user_index: Mapping[str, int],
+    item_index: Mapping[str, int],
+    categories: Mapping[str, Iterable[str]],
+    popularity: np.ndarray,
+) -> ECommModel:
+    """Factor tables, id maps, categories and the popularity vector ``[I]``
+    -> the port's ``ECommModel`` (host numpy)."""
+    uf, vf = _tables(user_factors, item_factors, user_index, item_index)
+    pop = np.asarray(popularity, np.float32)
+    if pop.shape != (vf.shape[0],):
+        raise ValueError(f"popularity {pop.shape} does not match {vf.shape[0]} items")
+    return ECommModel(
+        user_factors=uf, item_factors=vf, user_index=BiMap(_index(user_index)),
+        item_index=BiMap(_index(item_index)), categories={i: tuple(c) for i, c in categories.items()},
+        popularity=pop,
+    )
+
+
+def ecomm_model_to_numpy(model: ECommModel) -> tuple:
+    """``(user_factors, item_factors, user_index, item_index, categories,
+    popularity)`` as numpy and plain dicts."""
+    return (
+        _host(model.user_factors), _host(model.item_factors), model.user_index.to_dict(),
+        model.item_index.to_dict(), dict(model.categories), _host(model.popularity),
+    )
+
+
+#: a classifier model's NamedTuple fields, by its key in the model dict
+_CLASSIFIERS = {"nb": NaiveBayesModel, "lr": LogRegModel}
+
+
+def classifier_model_from_numpy(model: Mapping) -> dict:
+    """A Classification or Text-Classification model dict (either
+    package's, or :func:`classifier_model_to_numpy`'s plain form) -> the
+    port's: its NamedTuples the port's, arrays float32 numpy, the label
+    index a ``BiMap``."""
+    out = {}
+    for key, value in model.items():
+        if key in _CLASSIFIERS:
+            value = _CLASSIFIERS[key](*(np.asarray(t, np.float32) for t in value))
+        elif key == "featurizer":
+            idf, num_features, stopwords = value
+            value = HashingTfIdf(np.asarray(idf, np.float32), int(num_features), frozenset(stopwords))
+        elif key == "label_index":
+            value = BiMap(_index(value))
+        elif key in ("mean", "std"):
+            value = np.asarray(value, np.float32)
+        out[key] = value
+    return out
+
+
+def classifier_model_to_numpy(model: Mapping) -> dict:
+    """The inverse of :func:`classifier_model_from_numpy`: NamedTuples as
+    plain tuples of numpy arrays (the featurizer as ``(idf, num_features,
+    stopwords)``), the label index as a dict."""
+    out = {}
+    for key, value in model.items():
+        if key in _CLASSIFIERS:
+            value = tuple(_host(t) for t in value)
+        elif key == "featurizer":
+            value = (np.asarray(value.idf, np.float32), int(value.num_features), frozenset(value.stopwords))
+        elif key == "label_index":
+            value = value.to_dict()
+        elif key in ("mean", "std"):
+            value = np.asarray(value, np.float32)
+        out[key] = value
+    return out
 
 
 def quantized_table_from_numpy(codes: np.ndarray, scales: np.ndarray, device: str | torch.device | None = None):

@@ -83,6 +83,7 @@ from predictionio_tpu_torch.templates.serving_util import (
     aligned_factor_init,
     build_ann,
     chunked_topk,
+    pin_tables,
     quantize_tables,
     release_tables,
 )
@@ -634,16 +635,7 @@ class ALSAlgorithm(TorchAlgorithm):
         Idempotent. The host arrays are kept on the model, so
         :meth:`release_pinned_model` drops the device tables without a
         copy back while no online update has moved a row."""
-        if isinstance(model.item_factors, np.ndarray):
-            model._pio_host = (model.user_factors, model.item_factors)
-            model.user_factors, model.item_factors = (
-                torch.as_tensor(np.asarray(t, np.float32), device=self.device).contiguous()
-                for t in model._pio_host
-            )
-        model._pio_pinned = True
-        nbytes = sum(t.numel() * t.element_size() for t in (model.user_factors, model.item_factors))
-        model._pio_bytes_by_dtype = {"float32": nbytes}
-        return model, nbytes
+        return pin_tables(model, self.device, "user_factors", "item_factors")
 
     def release_pinned_model(self, model: ALSModel) -> None:
         """Drop a superseded generation's pinned tables: the model gets its

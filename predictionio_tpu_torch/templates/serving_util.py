@@ -4,16 +4,23 @@ Counterpart of ``predictionio_tpu/templates/serving_util.py``:
 
 * :func:`chunked_topk`. Its host branch is the JAX package's numpy code
   (one GEMM and :func:`top_k_host` a chunk), so the two packages' host
-  answers are equal to the bit; its device branch scores each chunk with
-  one ``[B,K]@[K,I]`` product on the tensors' device and crosses to the
-  host once for the whole call. The IVF (``ann=``) and int8 (``quant=``)
+  answers are equal to the bit wherever no tie straddles the k-th place
+  (there the port keeps the lowest indices, as ``jax.lax.top_k`` does,
+  and the reference's ``top_k_host`` arbitrary ones); its device branch
+  scores each chunk with one ``[B,K]@[K,I]`` product on the tensors'
+  device and crosses to the host once for the whole call. The IVF (``ann=``) and int8 (``quant=``)
   branches keep that rule (:func:`_drain_staged`); the sharded and AOT
   branches wait (ROADMAP queue 1 items 13 and 14) and raise
   ``NotImplementedError`` naming their item.
 * :func:`aligned_factor_init`, a copy: a warm retrain's carried rows.
-* :func:`release_tables`, :func:`quantize_tables` and :func:`build_ann`:
-  both templates' release of pinned (or int8) tables, their
+* :func:`pin_tables`, :func:`release_tables`, :func:`quantize_tables` and
+  :func:`build_ann`: the templates' pin and release of their tables, their
   ``--quantize int8`` pin and their ``--ann`` index build.
+* :func:`allowed_items` and :func:`masked_topk`: the business rules of the
+  SimilarProduct and ECommerce templates (excluded items, ``whiteList``,
+  ``blackList``, ``categories``; the category test done by item rows
+  instead of a Python loop over the catalog) and their ranking of the
+  allowed items.
 
 ``device_latency_ok`` is not ported on purpose: in the JAX package it
 moves serving to the host when the device answers slowly, and the port
@@ -28,9 +35,13 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.ops.als import top_k_items_batch
-from predictionio_tpu_torch.ops.topk import bucket_k, top_k_host
+from predictionio_tpu_torch.ops.topk import bucket_k, top_k_host, top_k_scores
+from predictionio_tpu_torch.templates.results import ItemScore, PredictedResult
 
-__all__ = ["TOPK_CHUNK", "chunked_topk", "aligned_factor_init", "release_tables", "quantize_tables", "build_ann"]
+__all__ = [
+    "TOPK_CHUNK", "chunked_topk", "aligned_factor_init", "pin_tables", "release_tables", "quantize_tables",
+    "build_ann", "allowed_items", "masked_topk",
+]
 
 #: queries per score product in :func:`chunked_topk` (the JAX package's
 #: value, so a host chunk's GEMM has the same shape in both packages)
@@ -204,8 +215,24 @@ def aligned_factor_init(
     return out, int(ok.sum())
 
 
+def pin_tables(model, device, *attrs: str) -> tuple[object, int]:
+    """The templates' ``pin_model_for_serving`` (the ``--pin-model`` tier,
+    and every deploy on the card): the host arrays ``attrs`` become
+    float32 tensors on ``device`` once per model generation (idempotent),
+    and stay on the model as ``_pio_host`` for :func:`release_tables`.
+    Returns the model and the bytes its tables hold there."""
+    if all(isinstance(getattr(model, a), np.ndarray) for a in attrs):
+        model._pio_host = tuple(getattr(model, a) for a in attrs)
+        for attr, arr in zip(attrs, model._pio_host):
+            setattr(model, attr, torch.as_tensor(np.asarray(arr, np.float32), device=device).contiguous())
+    model._pio_pinned = True
+    nbytes = sum(getattr(model, a).numel() * getattr(model, a).element_size() for a in attrs)
+    model._pio_bytes_by_dtype = {"float32": nbytes}
+    return model, nbytes
+
+
 def release_tables(model, *attrs: str) -> None:
-    """Release a model's pinned tables ``attrs`` (both templates'
+    """Release a model's pinned tables ``attrs`` (the templates'
     ``release_pinned_model``): the pin-time host arrays come back while
     they are current; once an online update dropped them as stale, the
     updated tables are copied back to the host instead, so nothing that
@@ -280,3 +307,69 @@ def build_ann(model, item_attr: str, ann, device, algorithm: str) -> tuple[objec
     )
     model._pio_ann = ivf.AnnRuntime(index, ann.nprobe, info)
     return model, dict(info, algorithm=algorithm, nprobe=model._pio_ann.nprobe)
+
+
+def _category_rows(model) -> dict:
+    """``category -> item rows`` of a model's ``categories`` (item id ->
+    tuple of categories) and ``item_index``, built once per model."""
+    rows = getattr(model, "_pio_category_rows", None)
+    if rows is None:
+        by_cat: dict = {}
+        for item, cats in model.categories.items():
+            row = model.item_index.get(item)
+            if row is not None:
+                for c in cats:
+                    by_cat.setdefault(c, []).append(row)
+        rows = {c: np.asarray(r, np.int64) for c, r in by_cat.items()}
+        model._pio_category_rows = rows
+    return rows
+
+
+def allowed_items(
+    model, n: int, exclude, white_list=None, black_list=None, categories=None
+) -> np.ndarray:
+    """Bool ``[n]``: the items a SimilarProduct or ECommerce query may
+    answer (the reference's ``_allowed_mask`` rules). ``exclude`` holds
+    item rows; ``white_list``/``black_list`` item ids (unknown ids are
+    ignored); ``categories`` keeps only the items that carry one of them
+    in ``model.categories``."""
+    allowed = np.ones(n, dtype=bool)
+    allowed[np.fromiter(exclude, np.int64)] = False
+    index = model.item_index
+    if white_list:
+        listed = np.zeros(n, dtype=bool)
+        listed[[r for i in white_list if (r := index.get(i)) is not None]] = True
+        allowed &= listed
+    if black_list:
+        allowed[[r for i in black_list if (r := index.get(i)) is not None]] = False
+    if categories:
+        by_cat = _category_rows(model)
+        wanted = np.zeros(n, dtype=bool)
+        for c in set(categories):
+            rows = by_cat.get(c)
+            if rows is not None:
+                wanted[rows] = True
+        allowed &= wanted
+    return allowed
+
+
+def masked_topk(algo, model, scores, allowed: np.ndarray, num: int) -> PredictedResult:
+    """The SimilarProduct and ECommerce answer: the top ``min(num,
+    allowed)`` of ``scores`` over the ``allowed`` items (the others at
+    ``-inf``), non-finite scores dropped, under the shared tie rule —
+    :func:`top_k_host` on host scores (the CPU, which ``algo`` must be
+    on), :func:`top_k_scores` on a tensor."""
+    k = min(int(num), int(allowed.sum()))
+    if k <= 0:
+        return PredictedResult(())
+    if isinstance(scores, np.ndarray):
+        algo.check_host_serving()
+        scores = np.where(allowed, scores, -np.inf)
+        top, _ = top_k_host(scores, k)
+        pairs = zip(top.tolist(), scores[top].tolist())
+    else:
+        mask = torch.from_numpy(allowed).to(scores.device)
+        idx, vals = top_k_scores(scores.masked_fill(~mask, float("-inf")), k)
+        pairs = zip(idx.tolist(), vals.tolist())
+    inverse = model.item_index.inverse
+    return PredictedResult(tuple(ItemScore(item=inverse(i), score=s) for i, s in pairs if np.isfinite(s)))

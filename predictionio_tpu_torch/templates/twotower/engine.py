@@ -72,6 +72,7 @@ from predictionio_tpu_torch.templates.serving_util import (
     aligned_factor_init,
     build_ann,
     chunked_topk,
+    pin_tables,
     quantize_tables,
     release_tables,
 )
@@ -330,16 +331,7 @@ class TwoTowerAlgorithm(TorchAlgorithm):
         """The ``--pin-model`` tier: the ALS template's contract for the
         tower tables (tensors on :attr:`device` once per generation, the
         host arrays kept for :meth:`release_pinned_model`)."""
-        if isinstance(model.item_vecs, np.ndarray):
-            model._pio_host = (model.user_vecs, model.item_vecs)
-            model.user_vecs, model.item_vecs = (
-                torch.as_tensor(np.asarray(t, np.float32), device=self.device).contiguous()
-                for t in model._pio_host
-            )
-        model._pio_pinned = True
-        nbytes = sum(t.numel() * t.element_size() for t in (model.user_vecs, model.item_vecs))
-        model._pio_bytes_by_dtype = {"float32": nbytes}
-        return model, nbytes
+        return pin_tables(model, self.device, "user_vecs", "item_vecs")
 
     def release_pinned_model(self, model: TwoTowerServingModel) -> None:
         """Drop a superseded generation's pinned towers (the host arrays

@@ -2,8 +2,8 @@
 
 Counterpart of ``predictionio_tpu/tools/commands.py``, for the commands
 the port's console has so far: the ``app`` and ``accesskey`` verbs,
-``import``, ``export``, ``undeploy`` (with the deploy's stop token) and
-``status``. Parity: ``tools/console/App.scala``, ``AccessKey.scala``,
+``import``, ``export``, ``undeploy`` (with the deploy's stop token),
+``status`` and ``template list|get``. Parity: ``tools/console/App.scala``, ``AccessKey.scala``,
 ``Export.scala``, ``Import.scala`` and the undeploy and status checks of
 ``Console.scala``. Each function returns data (and prints human
 output via the ``out`` callback) so tests can drive them without
@@ -41,6 +41,9 @@ __all__ = [
     "read_stop_token",
     "undeploy",
     "status_check",
+    "BUILTIN_TEMPLATES",
+    "template_list",
+    "template_get",
 ]
 
 Out = Callable[[str], None]
@@ -516,3 +519,99 @@ def status_check(device: str | None = None, out: Out = _print) -> dict:
     out("(sanity check) All systems go!" if ok else "Storage check FAILED")
     results["ok"] = ok
     return results
+
+
+# ---------------------------------------------------------------- templates
+#: built-in engine templates: name -> (engineFactory, description, default
+#: engine.json algorithm block) — the JAX package's table, engineFactory
+#: strings and algorithm blocks unchanged (the port resolves each factory
+#: to its own module of the same path); two descriptions name the port's
+#: kernels instead of the Pallas solve and sharded embeddings. The reference-era `pio template get` downloaded scaffolds from a
+#: gallery; templates here ship in-package, so `get` writes a
+#: ready-to-train engine.json instead.
+BUILTIN_TEMPLATES = {
+    "recommendation": (
+        "predictionio_tpu.templates.recommendation:engine_factory",
+        "Personalized top-N via ALS (explicit + implicit), CUDA Gauss-Jordan SPD solve",
+        [{"name": "als", "params": {"rank": 32, "numIterations": 10, "lambda": 0.05}}],
+    ),
+    "classification": (
+        "predictionio_tpu.templates.classification:engine_factory",
+        "Attribute -> label classification (NaiveBayes / LogisticRegression)",
+        [{"name": "naive", "params": {"lambda": 1.0}}],
+    ),
+    "similarproduct": (
+        "predictionio_tpu.templates.similarproduct:engine_factory",
+        "Items similar to a basket of items (implicit ALS, cosine)",
+        [{"name": "als", "params": {"rank": 32, "numIterations": 10, "lambda": 0.01}}],
+    ),
+    "ecommerce": (
+        "predictionio_tpu.templates.ecommerce:engine_factory",
+        "E-commerce recommendations with serving-time business rules",
+        [{"name": "ecomm", "params": {"rank": 32, "numIterations": 10, "lambda": 0.01}}],
+    ),
+    "textclassification": (
+        "predictionio_tpu.templates.textclassification:engine_factory",
+        "Text -> label via hashing TF-IDF + NB/LR",
+        [{"name": "nb", "params": {"lambda": 1.0}}],
+    ),
+    "twotower": (
+        "predictionio_tpu.templates.twotower:engine_factory",
+        "Two-tower retrieval: in-batch sampled softmax, fused CUDA CE kernels",
+        [
+            {
+                "name": "twotower",
+                "params": {"embeddingDim": 64, "batchSize": 512, "epochs": 5},
+            }
+        ],
+    ),
+}
+
+
+def template_list(out: Out = _print) -> dict:
+    """``pio template list`` — built-in engine templates."""
+    out(f"{'NAME':<20} ENGINE FACTORY")
+    for name, (factory, desc, _) in BUILTIN_TEMPLATES.items():
+        out(f"{name:<20} {factory}")
+        out(f"{'':<20}   {desc}")
+    return BUILTIN_TEMPLATES
+
+
+def template_get(
+    name: str, directory: str, app_name: str = "MyApp", out: Out = _print
+) -> str:
+    """``pio template get`` — scaffold a ready-to-train engine directory
+    (engine.json + README) for a built-in template."""
+    if name not in BUILTIN_TEMPLATES:
+        raise ValueError(
+            f"Unknown template '{name}'. Available: {', '.join(BUILTIN_TEMPLATES)}"
+        )
+    factory, desc, algorithms = BUILTIN_TEMPLATES[name]
+    os.makedirs(directory, exist_ok=True)
+    engine_path = os.path.join(directory, "engine.json")
+    if os.path.exists(engine_path):
+        raise ValueError(f"{engine_path} already exists; refusing to overwrite")
+    variant = {
+        "id": name,
+        "version": "1",
+        "engineFactory": factory,
+        "datasource": {"params": {"appName": app_name}},
+        "algorithms": algorithms,
+    }
+    with open(engine_path, "w") as f:
+        json.dump(variant, f, indent=2)
+        f.write("\n")
+    readme = os.path.join(directory, "README.md")
+    if not os.path.exists(readme):
+        with open(readme, "w") as f:
+            f.write(
+                f"# {name} engine\n\n{desc}\n\n"
+                "```bash\n"
+                f"pio app new {app_name}\n"
+                f"pio import --appname {app_name} --input events.json\n"
+                "pio train --engine-json engine.json\n"
+                "pio deploy --port 8000\n"
+                "```\n"
+            )
+    out(f"Template '{name}' scaffolded in {directory}/ (edit appName in engine.json).")
+    return engine_path

@@ -31,6 +31,7 @@ Counterpart of ``predictionio_tpu/tools/console.py`` (parity:
                [--engine-instance-id ID] [--device D]
     pio eval   EVALUATION [PARAMS_GENERATOR] [--batch B]
                [--output-path FILE] [--device D]
+    pio template list | get NAME DIRECTORY [--appname APP]
 
 Where the JAX console takes ``--mesh``, ``train``, ``deploy``,
 ``batchpredict`` and ``eval`` take ``--device``: ``cuda`` (the default,
@@ -336,6 +337,14 @@ def build_parser() -> argparse.ArgumentParser:
     ev.add_argument("--batch", default="")
     ev.add_argument("--output-path", default="best.json")
     ev.add_argument("--device", default="cuda", help="'cuda' (the card) or 'cpu'")
+
+    tpl = sub.add_parser("template", help="built-in engine templates")
+    tpl_sub = tpl.add_subparsers(dest="template_command", required=True)
+    tpl_sub.add_parser("list")
+    tpl_get = tpl_sub.add_parser("get")
+    tpl_get.add_argument("name")
+    tpl_get.add_argument("directory")
+    tpl_get.add_argument("--appname", default="MyApp")
 
     es = sub.add_parser("eventserver", help="start the event server")
     es.add_argument("--ip", default="0.0.0.0")
@@ -685,6 +694,11 @@ def main(argv: list[str] | None = None) -> int:
             print(f"Wrote {n} predictions to {args.output}")
         elif cmd == "eval":
             _eval(args)
+        elif cmd == "template":
+            if args.template_command == "list":
+                commands.template_list()
+            elif args.template_command == "get":
+                commands.template_get(args.name, args.directory, args.appname)
         return 0
     except Exception as e:
         print(f"ERROR: {e}", file=sys.stderr)

@@ -18,8 +18,10 @@ the port's classes. Neither direction imports the JAX package: the
 writer is the pure-Python pickler with its class-path check skipped for
 the mapped classes (the C pickler imports a class's module to check it),
 and the reader refuses every other class of the JAX package with a clear
-error. The two ``BiMap`` classes have the same ``__slots__``, and each
-mapped dataclass the same fields, so their pickled state is the same.
+error. The two ``BiMap`` classes have the same ``__slots__``, each
+mapped dataclass the same fields and each mapped NamedTuple (the
+classifiers' models, the fitted TF-IDF) the same fields in the same
+order, so their pickled state is the same.
 """
 
 from __future__ import annotations
@@ -46,6 +48,16 @@ _JAX_CLASSES = {
         "predictionio_tpu_torch.controller.persistent", "PersistentModelManifest"),
     ("predictionio_tpu.templates.twotower.engine", "TwoTowerServingModel"): (
         "predictionio_tpu_torch.templates.twotower.engine", "TwoTowerServingModel"),
+    ("predictionio_tpu.templates.similarproduct.engine", "SimilarProductModel"): (
+        "predictionio_tpu_torch.templates.similarproduct.engine", "SimilarProductModel"),
+    ("predictionio_tpu.templates.ecommerce.engine", "ECommModel"): (
+        "predictionio_tpu_torch.templates.ecommerce.engine", "ECommModel"),
+    ("predictionio_tpu.ops.classify", "NaiveBayesModel"): (
+        "predictionio_tpu_torch.ops.classify", "NaiveBayesModel"),
+    ("predictionio_tpu.ops.classify", "LogRegModel"): (
+        "predictionio_tpu_torch.ops.classify", "LogRegModel"),
+    ("predictionio_tpu.ops.text", "HashingTfIdf"): (
+        "predictionio_tpu_torch.ops.text", "HashingTfIdf"),
 }
 
 #: the inverse table: the port's (module, name) -> the JAX package's

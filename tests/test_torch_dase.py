@@ -400,8 +400,8 @@ def test_jax_two_tower_factory_path_resolves_to_the_port():
 
 
 @pytest.mark.parametrize("path", [
-    "predictionio_tpu.templates.classification:engine_factory",  # no such port module yet
-    "predictionio_tpu.templates.similarproduct:engine_factory",  # no such port module yet
+    "predictionio_tpu.experiments.sweep:engine_factory",  # no such port module yet
+    "predictionio_tpu.templates.classification:no_such_factory",  # the port's module lacks the name
 ])
 def test_factory_without_a_port_counterpart_fails_clearly(path):
     with pytest.raises(ImportError, match="no counterpart in the port"):

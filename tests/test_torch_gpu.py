@@ -37,7 +37,9 @@ The IVF and int8 tiers: the card's and the host's quantizers bit-equal
 int64 numpy, the full probe (``nprobe >= nlist``) bit-equal to the exact
 top-k, the build bit-equal between two runs of one seed, and three
 ``/reload``s with ``--ann --quantize int8`` within 1 MiB of allocated
-memory.
+memory. Similar-Product, E-Commerce and the classifiers pinned on the
+card answer as their CPU branch does (ids except near-ties of relative 1e-5, scores
+and confidences within 1e-5).
 """
 
 import numpy as np
@@ -943,3 +945,80 @@ def test_reloads_with_ann_and_int8_leave_card_memory_flat(cuda_device):
                 s.close()
     finally:
         Storage.configure(None)
+
+
+@pytest.mark.gpu
+def test_templates_serve_on_card_as_on_the_cpu(cuda_device):
+    """SimilarProduct and ECommerce pinned on the card (one GEMV, the mask,
+    ``top_k_scores``) answer as their CPU numpy branch does for one
+    model: ids equal except near-ties (relative 1e-5), scores within 1e-5;
+    a cold ECommerce user's tied popularity comes in ascending order on
+    both. The classifiers' card answers equal the CPU's (labels,
+    confidences within 1e-5), and none of it launches a kernel."""
+    from predictionio_tpu_torch.ops import classify
+    from predictionio_tpu_torch.templates.classification import engine as cls
+    from predictionio_tpu_torch.templates.ecommerce import engine as ec
+    from predictionio_tpu_torch.templates.similarproduct import engine as sp
+
+    rng = np.random.default_rng(3)
+    n_users, n_items, rank = 50, 400, 32
+    users = rng.normal(size=(n_users, rank)).astype(np.float32)
+    items = rng.normal(size=(n_items, rank)).astype(np.float32)
+    unit = items / np.linalg.norm(items, axis=1, keepdims=True)
+    user_index = BiMap.string_index(f"u{u}" for u in range(n_users))
+    item_index = BiMap.string_index(f"i{i}" for i in range(n_items))
+    categories = {f"i{i}": (f"c{i % 4}",) for i in range(n_items)}
+    popularity = rng.integers(0, 5, n_items).astype(np.float32)
+    launches = torch_solve.gj_solve_cuda.launches
+
+    def same(got, want):
+        assert len(got.item_scores) == len(want.item_scores)
+        for g, w in zip(got.item_scores, want.item_scores):
+            # a differing item at a place is a near-tie of the two
+            assert abs(g.score - w.score) <= 1e-5 * max(1.0, abs(w.score))
+
+    for module, algo_class, params, make, queries in (
+        (sp, sp.ALSAlgorithm, sp.ALSAlgorithmParams(),
+         lambda: sp.SimilarProductModel(unit.copy(), item_index, categories),
+         [sp.Query(items=("i1",), num=10), sp.Query(items=("i1", "i7", "i9"), num=10, categories=("c2",)),
+          sp.Query(items=("i3",), num=10, white_list=tuple(f"i{i}" for i in range(0, 60, 3))),
+          sp.Query(items=("i3",), num=10, black_list=("i4", "i5"))]),
+        (ec, ec.ECommAlgorithm, ec.ECommAlgorithmParams(),
+         lambda: ec.ECommModel(users.copy(), items.copy(), user_index, item_index, categories, popularity.copy()),
+         [ec.Query(user="u2", num=10), ec.Query(user="u3", num=10, categories=("c1",)),
+          ec.Query(user="cold", num=10), ec.Query(user="cold", num=25, black_list=("i0",))]),
+    ):
+        card = algo_class(params, device=cuda_device)
+        host = algo_class(params, device="cpu")
+        on_card = card.prepare_model_for_serving(make())
+        on_host = host.prepare_model_for_serving(make())
+        assert isinstance(on_card.item_factors, torch.Tensor) and on_card.item_factors.is_cuda
+        for q in queries:
+            same(card.predict(on_card, q), host.predict(on_host, q))
+        card.release_pinned_model(on_card)
+        assert isinstance(on_card.item_factors, np.ndarray)
+    cold = ec.ECommAlgorithm(ec.ECommAlgorithmParams(), device=cuda_device)
+    model = cold.prepare_model_for_serving(
+        ec.ECommModel(users, items, user_index, item_index, categories, popularity))
+    got = [s.item for s in cold.predict(model, ec.Query(user="cold", num=60)).item_scores]
+    order = np.lexsort((np.arange(n_items), -popularity.astype(np.float64)))[:60]
+    assert got == [f"i{i}" for i in order]
+
+    x = rng.poisson(2.0, size=(300, 3)).astype(np.float32)
+    y = rng.integers(0, 3, 300)
+    labels = BiMap.string_index(["a", "b", "c"])
+    mean, std = x.mean(axis=0), x.std(axis=0)
+    for algo_class, model in (
+        (cls.NaiveBayesAlgorithm, {"nb": classify.to_numpy(classify.train_naive_bayes(x, y, 3, device=cuda_device))}),
+        (cls.LRAlgorithm, {"lr": classify.to_numpy(classify.train_logreg((x - mean) / std, y, 3, device=cuda_device)),
+                           "mean": mean, "std": std}),
+    ):
+        model.update(label_index=labels, attributes=("attr0", "attr1", "attr2"))
+        card = algo_class(algo_class.params_class(), device=cuda_device)
+        host = algo_class(algo_class.params_class(), device="cpu")
+        on_card, on_host = card.prepare_model_for_serving(dict(model)), host.prepare_model_for_serving(dict(model))
+        queries = [dict(zip(("attr0", "attr1", "attr2"), map(float, row))) for row in x[:40]]
+        for q in queries:
+            a, b = card.predict(on_card, q), host.predict(on_host, q)
+            assert a.label == b.label and abs(a.confidence - b.confidence) <= 1e-5
+    assert torch_solve.gj_solve_cuda.launches == launches

@@ -29,6 +29,7 @@ import predictionio_tpu_torch.data.event as port_event
 import predictionio_tpu_torch.data.storage.base as port_storage_base
 import predictionio_tpu_torch.ops.ivf as port_ivf
 import predictionio_tpu_torch.serving as port_serving_package
+import predictionio_tpu_torch.templates.similarproduct.engine as port_similarproduct
 import predictionio_tpu_torch.templates.twotower.engine as port_twotower
 import predictionio_tpu_torch.workflow as port_workflow
 import predictionio_tpu_torch.workflow.device_state as port_device_state
@@ -55,6 +56,14 @@ def _twotower_module():
     )
 
 
+def _similarproduct_module():
+    """The port's Similar-Product engine module, its algorithm on the CPU."""
+    return cpu_module(
+        "predictionio_tpu.templates.similarproduct.engine", port_similarproduct,
+        ALSAlgorithm=port_similarproduct.ALSAlgorithm,
+    )
+
+
 def _swap(package, request, monkeypatch):
     if package != "torch":
         return package
@@ -77,6 +86,7 @@ def _swap(package, request, monkeypatch):
             "predictionio_tpu.data.event": port_event,
             "predictionio_tpu.data.storage.base": port_storage_base,
             "predictionio_tpu.serving": port_serving_package,
+            "predictionio_tpu.templates.similarproduct.engine": _similarproduct_module(),
             "predictionio_tpu.templates.twotower.engine": _twotower_module(),
             "predictionio_tpu.workflow": port_workflow,
             "predictionio_tpu.workflow.serving": port_serving,
@@ -111,8 +121,8 @@ class TestServingIntegration(jax_cases.TestServingIntegration):
     test_ann_composes_with_microbatcher = None
 
 
-class TestTemplateHooks:
-    test_twotower_seen_overfetch_with_ann = jax_cases.TestTemplateHooks.test_twotower_seen_overfetch_with_ann
+class TestTemplateHooks(jax_cases.TestTemplateHooks):
+    pass
 
 
 class TestFullProbeContract:
@@ -137,6 +147,7 @@ class TestFullProbeContract:
 
 
 def test_cases_run_on_the_ports_classes(package):
+    from predictionio_tpu.templates.similarproduct.engine import ALSAlgorithm
     from predictionio_tpu.templates.twotower.engine import TwoTowerAlgorithm
     from predictionio_tpu.workflow.serving import QueryService
 
@@ -144,6 +155,6 @@ def test_cases_run_on_the_ports_classes(package):
     for obj in (QueryService, jax_cases.AnnConfig, jax_cases.top_k_permuted, jax_cases.ivf.AnnRuntime):
         assert obj.__module__.startswith(prefix)
     if package == "torch":
-        assert TwoTowerAlgorithm.keywords == {"device": "cpu"}
+        assert TwoTowerAlgorithm.keywords == ALSAlgorithm.keywords == {"device": "cpu"}
         assert jax_cases.ivf.build_ivf.keywords == {"device": "cpu"}
         assert isinstance(jax_cases.jnp.asarray([1.0]), torch.Tensor)

@@ -10,7 +10,10 @@ package (``online/``) is covered like every module; its ``__init__`` and
 ``types`` import neither torch nor jax, and a deploy without ``--online``
 imports nothing of it. The approximate and int8 retrieval modules
 (``ops/ivf.py``, ``ops/quant.py``) are covered too, and a deploy without
-``--ann`` or ``--quantize`` imports neither."""
+``--ann`` or ``--quantize`` imports neither. So are the Similar-Product,
+E-Commerce, Classification and Text-Classification templates and the
+copies they run on (``ops/text.py``,
+``controller/cleaning.py``, ``e2/``)."""
 
 import ast
 import os
@@ -253,3 +256,19 @@ def test_default_deploy_imports_neither_ivf_nor_quant():
         [sys.executable, "-c", probe], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
     )
     assert run.returncode == 0, run.stdout + run.stderr
+
+
+TEMPLATES = [
+    "ops/classify.py", "ops/text.py", "controller/cleaning.py",
+    "e2/__init__.py", "e2/engine.py", "e2/evaluation.py",
+    *(f"templates/{name}/{part}.py" for name in ("similarproduct", "ecommerce", "classification",
+                                                 "textclassification") for part in ("__init__", "engine")),
+]
+
+
+@pytest.mark.parametrize("name", TEMPLATES)
+def test_template_modules_are_checked(name):
+    """The four templates of the reference's ``BUILTIN_TEMPLATES`` beside
+    Recommendation and Two-Tower, and the modules they run on: each is
+    scanned and imported by the probe above."""
+    assert PORT / name in SOURCES
