@@ -236,7 +236,44 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``pio eval`` of ``Accuracy`` over the two classifiers must beat the
    majority-class rate, and the text answers' accuracy 1/20; no kernel may
    launch on these paths. ``[templates]`` lines.
-13. a ``[summary]`` line, the ``{"kernels": [...]}`` line, the card's
+13. fleet — ``pio deploy --replicas N`` (``phase_fleet``) of the
+   workflow's warm instance at N = 1, 2 and 4 under the [serving] phase's
+   32 x 100 uniform load: queries/s, p50 and p99 beside the single-process
+   deploy's, the router's ``/stats.json``, the card memory by process;
+   each fleet's ring must hold N healthy replicas before the load, and
+   ``pio undeploy`` of the router must stop every replica. On the
+   2-replica fleet the JAX bench's SIGKILL drill (16 clients, one replica
+   killed at 2 s, the clients on until its respawn is back in the ring:
+   no failed query; p99 before and after, seconds to rejoin) and a
+   rolling ``POST /reload`` under 16 clients (no failed query, no scope
+   answered by an older generation after a newer one, one generation
+   after it). Every answer through a router is held to float64 numpy.
+   On the quickstart's store (``phase_fleet_ab``): ``--replicas 2
+   --variants control:1,treatment:1`` under 8 clients x 40 users twice
+   (a share within 0.05 of 0.5, a user on one variant, every
+   ``X-PIO-Variant`` the port's ``TrafficSplit`` assignment), then ``pio
+   eval --grid --promote-to`` of a 2-candidate grid rolls the fleet onto
+   the winner under the same clients with no failed query. No kernel is
+   on these paths. ``[fleet]`` lines.
+14. experiments — the JAX bench's closed loop (16 arms, 400 queries, a
+   retrain every 25) with the port's ``Explorer`` on the card: Thompson's
+   cumulative regret must be below exploit-only's. ``pio deploy`` against
+   ``pio deploy --explore thompson`` of the warm instance under the
+   [serving] load (each answer's items, by score, float64 numpy's
+   top-10), 64 rewards through ``POST /experiments/reward.json``, then
+   ``--explore thompson --online``, whose follower must fold the 48
+   reward events written to the store. On the quickstart's store (``phase_grid``):
+   ``pio eval --grid`` of 16 candidates (lambda 0.01, 0.05, 0.1, 0.5 x
+   seed 0-3, rank 64, 10 sweeps, ``PrecisionAtK(10)``, 2 folds padded to
+   1,024 x 2,048) as one batched program a fold (no fallback, no kernel
+   launch): seconds, seconds a candidate, peak memory; the grid again in
+   float64 on the card from the same draw (each score within 2e-3, the
+   winner the same unless the best two are within 2e-3); the sequential
+   ``pio eval`` of the first 2 candidates (``gj_solve`` launches = plan);
+   one batched call against 16 single-candidate calls at the JAX bench's
+   size (48 x 48, rank 8, 3 sweeps; at least 2x) and at full size.
+   ``[experiments]`` lines.
+15. a ``[summary]`` line, the ``{"kernels": [...]}`` line, the card's
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Imports only the port, torch, numpy and the standard library (and
@@ -1426,10 +1463,11 @@ def run_eval(label: str, base: Path, module: str, template: str, metric: str, k:
     return score, launches, eval_s
 
 
-def phase_quickstart(device, n_queries: int, k: int, smi: str) -> dict:
+def phase_quickstart(device, n_queries: int, k: int, smi: str, then=None) -> dict:
     """``app new`` -> ``import`` -> ``train`` -> ``deploy`` -> queries ->
     ``eval``, all through the port's console, in a temporary
-    ``PIO_FS_BASEDIR``."""
+    ``PIO_FS_BASEDIR``; ``then(ctx)``, given the store, runs before it is
+    removed."""
     from predictionio_tpu_torch.templates.recommendation.engine import (
         DataSourceParams,
         RecommendationDataSource,
@@ -1524,6 +1562,9 @@ def phase_quickstart(device, n_queries: int, k: int, smi: str) -> dict:
             "phase_s": time.perf_counter() - t_phase, "card": smi,
         }
         log(f"[quickstart] {json.dumps(out)}")
+        if then is not None:
+            out["then"] = then({"base": base, "engine_json": engine_json, "dev_args": dev_args,
+                                "instance": instance, "model": model})
         return out
 
 
@@ -4038,6 +4079,843 @@ def phase_tpl_text(device, base: Path, smi: str, docs: int, n_queries: int, dev_
     return out
 
 
+# ------------------------------------------------------------- 13. fleet
+#: ``pio deploy --replicas N`` at each N under the [serving] phase's 32 x
+#: 100 uniform load; the JAX bench's SIGKILL drill (``bench.py:2052-2077``:
+#: 2 replicas, 16 clients for 6 s, one SIGKILL at 2 s); a rolling
+#: ``/reload`` under 16 clients; its A/B drill (``bench.py:3027-3028``: 8
+#: clients x 40 queries, ``control:1,treatment:1``)
+FLT_REPLICAS = (1, 2, 4)
+FLT_PROBE_S = 0.1
+FLT_READY_TIMEOUT_S = 240
+FLT_DRILL_CLIENTS = 16
+FLT_DRILL_S = 6.0
+FLT_KILL_AT_S = 2.0
+FLT_ROLL_LEAD_S = 1.0
+FLT_AB_SPLIT = "control:1,treatment:1"
+FLT_AB_CLIENTS = 8
+FLT_AB_QUERIES = 40
+FLT_AB_SHARE_TOL = 0.05
+
+#: [experiments]: the JAX bench's closed loop (``bench.py:3021-3100``: 16
+#: arms, 400 queries, a retrain every 25); ``pio deploy --explore
+#: thompson`` under the [serving] load, 64 rewards posted, 48 through the
+#: follower; ``pio eval --grid`` on the quickstart's ML-100K store (16
+#: candidates: 4 lambdas x 4 seeds, rank 64, 10 sweeps, precision@10, 2
+#: folds); the bench's batched-against-sequential size (``bench.py:3112-3130``)
+EXP_ARMS = 16
+EXP_QUERIES = 400
+EXP_RETRAIN = 25
+EXP_REWARDS_POSTED = 64
+EXP_REWARDS_FOLLOWED = 48
+EXP_FOLLOW_TIMEOUT_S = 30.0
+EXP_GRID_LAMBDAS = (0.01, 0.05, 0.1, 0.5)
+EXP_GRID_SEEDS = (0, 1, 2, 3)
+EXP_GRID_RANK = 64
+EXP_GRID_SWEEPS = 10
+EXP_SEQ_CANDIDATES = 2
+EXP_F64_ATOL = 2e-3
+EXP_BENCH = {"users": 48, "candidates": 16, "rank": 8, "iterations": 3, "k": 3, "reps": 3}
+EXP_BENCH_MIN_RATIO = 2.0
+
+GRID_MODULE = """
+from predictionio_tpu_torch.controller import EngineParams, Evaluation
+from predictionio_tpu_torch.templates.recommendation import ALSAlgorithmParams, DataSourceParams, engine_factory
+from predictionio_tpu_torch.templates.recommendation.engine import PrecisionAtK
+
+evaluation = Evaluation(engine=engine_factory(), metric=PrecisionAtK({k}))
+evaluation.engine_params_list = [
+    EngineParams(datasource=DataSourceParams(app_name={app!r}, eval_k={folds}),
+                 algorithms=(("als", ALSAlgorithmParams(rank={rank}, num_iterations={sweeps}, lambda_=lam,
+                                                        seed=seed)),))
+    for lam, seed in {candidates!r}
+]
+"""
+
+
+def smi_processes() -> list:
+    """``nvidia-smi --query-compute-apps=pid,used_memory``: the processes
+    that hold a context on the card and their memory (where process ids
+    are hidden, every one shows as pid 1 with the card's total)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return [line.strip() for line in out.stdout.splitlines() if line.strip()]
+
+
+def smi_memory_used_mib() -> int:
+    return int(_smi("memory.used").split()[0])
+
+
+def console_processes() -> list:
+    """``(pid, verb)`` of every live ``predictionio_tpu_torch.tools.console``
+    process on the host (``/proc/*/cmdline``): what else holds the host's
+    cores and the card while a phase measures."""
+    found = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        with contextlib.suppress(OSError):
+            argv = Path(f"/proc/{entry}/cmdline").read_bytes().split(b"\0")
+            if b"predictionio_tpu_torch.tools.console" in argv:
+                verb = argv[argv.index(b"predictionio_tpu_torch.tools.console") + 1].decode()
+                found.append((int(entry), verb))
+    return sorted(found)
+
+
+def cpu_seconds(pid: int) -> float:
+    """User + system CPU seconds of a live process (``/proc/<pid>/stat``)."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+@contextlib.contextmanager
+def busy_shares(pids: dict, device):
+    """The cores each process of ``pids`` (name -> pid) and this one (the
+    load's clients, ``"clients"``) kept busy over the block, and the mean
+    of ``nvidia-smi``'s ``utilization.gpu`` sampled every 0.25 s in it;
+    filled into the yielded dict when the block ends."""
+    out: dict = {}
+    samples: list = []
+    stop = threading.Event()
+
+    def sample() -> None:
+        while not stop.wait(0.25):
+            with contextlib.suppress(Exception):
+                samples.append(float(_smi("utilization.gpu").split()[0]))
+
+    sampler = threading.Thread(target=sample, daemon=True) if device.type == "cuda" else None
+    before = {name: cpu_seconds(pid) for name, pid in pids.items()}
+    client0, t0 = time.process_time(), time.perf_counter()
+    if sampler is not None:
+        sampler.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        if sampler is not None:
+            sampler.join(timeout=10)
+        wall = time.perf_counter() - t0
+        for name, pid in pids.items():
+            with contextlib.suppress(OSError):
+                out[name] = (cpu_seconds(pid) - before[name]) / wall
+        out["clients"] = (time.process_time() - client0) / wall
+        out["gpu_utilization_pct"] = float(np.mean(samples)) if samples else None
+
+
+def start_fleet(label: str, base: Path, deploy: list, n: int) -> dict:
+    """``pio deploy --replicas n`` (the router on port 0, its own endpoint
+    registry under ``base``) until the router's ring holds ``n`` healthy
+    replicas; a failure stops the fleet before raising."""
+    registry = base / f"endpoints-{label.replace(' ', '-')}-{n}"
+    t0 = time.perf_counter()
+    proc, port = start_console_server(
+        label, base, [*deploy, "--replicas", str(n), "--probe-interval-s", str(FLT_PROBE_S),
+                      "--endpoint-registry", str(registry)],
+        base / f"fleet-{label.replace(' ', '-')}-{n}.stderr", FLT_READY_TIMEOUT_S)
+    fleet = {"proc": proc, "port": port, "url": f"http://127.0.0.1:{port}", "n": n,
+             "state": base / "deployments" / f"fleet-{port}.json", "label": label}
+    try:
+        deadline = time.perf_counter() + FLT_READY_TIMEOUT_S
+        while True:
+            if proc.poll() is not None:
+                raise RuntimeError(f"{label}: the router exited {proc.returncode} before its ring was full")
+            _, root = _http_json(fleet["url"] + "/")
+            reps = root["replicas"]
+            if root.get("role") == "router" and len(reps) == n and all(r["healthy"] for r in reps):
+                break
+            if time.perf_counter() > deadline:
+                raise RuntimeError(f"{label}: {n} healthy replicas not in the ring within {FLT_READY_TIMEOUT_S} s: "
+                                   f"{reps}")
+            time.sleep(0.1)
+    except BaseException:
+        stop_fleet(fleet, check=False)
+        raise
+    fleet["ready_s"] = time.perf_counter() - t0
+    return fleet
+
+
+def fleet_pids(fleet: dict) -> list:
+    try:
+        return [int(r["pid"]) for r in json.loads(fleet["state"].read_text())["replicas"] if r.get("pid")]
+    except (OSError, ValueError, KeyError):
+        return []
+
+
+def pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    return True
+
+
+def stop_fleet(fleet: dict, check: bool = True) -> float:
+    """``pio undeploy`` of the router, which must stop the whole fleet:
+    the router exits 0, every replica pid on file is gone and the state
+    file removed. Without ``check``, SIGTERM and then SIGKILL whatever
+    is left. Returns the seconds it took."""
+    proc, pids = fleet["proc"], fleet_pids(fleet)
+    t0 = time.perf_counter()
+    try:
+        if check:
+            console_ok(fleet["label"], ["undeploy", "--port", str(fleet["port"])])
+            rc = proc.wait(timeout=60)
+            if rc != 0:
+                raise RuntimeError(f"{fleet['label']}: the router exited {rc} after pio undeploy")
+            deadline = time.perf_counter() + 30
+            while any(pid_alive(p) for p in pids) and time.perf_counter() < deadline:
+                time.sleep(0.05)
+            left = [p for p in pids if pid_alive(p)]
+            if left or fleet["state"].exists():
+                raise RuntimeError(f"{fleet['label']}: after pio undeploy replicas {left} live on, state file "
+                                   f"{'kept' if fleet['state'].exists() else 'removed'}")
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+        for pid in pids:
+            if pid_alive(pid):
+                with contextlib.suppress(ProcessLookupError):
+                    os.kill(pid, signal.SIGKILL)
+    return time.perf_counter() - t0
+
+
+class DrillClients:
+    """Keep-alive clients that never retry (zero failed queries means the
+    router absorbed every fault): client ``c`` queries the user rows
+    ``rows[c::clients]`` in turn, so each scope belongs to one client and
+    its answers arrive in order. Records ``(start, end, status, row,
+    generation, variant, payload)``; a transport error is status 0."""
+
+    def __init__(self, url: str, rows: np.ndarray, user_index, clients: int, k: int, passes: int | None = None):
+        import http.client
+
+        host, port = url.removeprefix("http://").split(":")
+        self.records: list = []
+        self._lock = threading.Lock()
+        self._passes = passes
+        self.stop = threading.Event()
+
+        def client(c: int) -> None:
+            mine = rows[c::clients].tolist()
+            conn = http.client.HTTPConnection(host, int(port), timeout=120)
+            out = []
+            n = 0
+            while mine and not self.stop.is_set() and (passes is None or n < passes * len(mine)):
+                uidx = mine[n % len(mine)]
+                n += 1
+                body = json.dumps({"user": user_index.inverse(uidx), "num": TOP_K}).encode()
+                t0 = time.perf_counter()
+                try:
+                    conn.request("POST", "/queries.json", body=body, headers={"Content-Type": "application/json"})
+                    resp = conn.getresponse()
+                    payload = json.loads(resp.read())
+                    out.append((t0, time.perf_counter(), resp.status, uidx,
+                                int(resp.headers.get("X-PIO-Generation") or 0), resp.headers.get("X-PIO-Variant"),
+                                payload))
+                except Exception:  # counted as failed: the drills allow none
+                    out.append((t0, time.perf_counter(), 0, uidx, 0, None, None))
+                    conn.close()
+                    conn = http.client.HTTPConnection(host, int(port), timeout=120)
+            conn.close()
+            with self._lock:
+                self.records.extend(out)
+
+        self._threads = [threading.Thread(target=client, args=(c,), daemon=True) for c in range(clients)]
+        for t in self._threads:
+            t.start()
+
+    def join(self) -> list:
+        """Stop the clients (with ``passes``, let them finish them) and
+        return the records in the order they ended."""
+        if self._passes is None:
+            self.stop.set()
+        for t in self._threads:
+            t.join(timeout=300)
+        return sorted(self.records, key=lambda r: r[1])
+
+    @staticmethod
+    def failed(records: list) -> list:
+        return [r for r in records if r[2] != 200]
+
+    @staticmethod
+    def p99_ms(records: list) -> float:
+        lat = [(r[1] - r[0]) * 1e3 for r in records]
+        return float(np.percentile(lat, 99)) if lat else float("nan")
+
+    @staticmethod
+    def cross_generation(records: list) -> int:
+        """Answers of a scope served by an older generation than one it
+        was served before (the scope's answers in arrival order)."""
+        last: dict = {}
+        bad = 0
+        for r in records:
+            if r[2] != 200 or r[4] <= 0:
+                continue
+            if r[4] < last.get(r[3], 0):
+                bad += 1
+            else:
+                last[r[3]] = r[4]
+        return bad
+
+
+def phase_fleet(device, ctx: dict, plain: dict, smi: str) -> dict:
+    """``pio deploy --replicas N`` of the workflow's warm instance at each
+    ``FLT_REPLICAS`` under the [serving] phase's 32 x 100 uniform load,
+    beside its single-process deploy (``plain``); on the 2-replica fleet
+    the SIGKILL drill and a rolling ``POST /reload`` under 16 clients.
+    Every answer through a router is held to float64 numpy; the fleet
+    paths launch no kernel."""
+    t_phase = time.perf_counter()
+    base, engine_json, dev_args = ctx["base"], ctx["engine_json"], ctx["dev_args"]
+    first = ctx["instance"]
+    model = stored_model(first.id)
+    user_index, item_index = model.user_index, model.item_index
+    U64 = np.asarray(model.user_factors, np.float64)
+    V64 = np.asarray(model.item_factors, np.float64)
+    del model
+    deploy = ["deploy", "--engine-json", str(engine_json), "--engine-instance-id", first.id, *dev_args]
+    clients, per_client = SRV_CLIENTS, SRV_REQUESTS
+    uniform = load_picks(clients * per_client, len(user_index), seed=31)  # the [serving] phase's picks
+    out: dict = {"single_process": {key: plain[key] for key in ("queries_per_s", "p50_ms", "p99_ms")},
+                 "scaling": {}, "card": smi}
+    checked = 0
+    idle_mib = smi_memory_used_mib() if device.type == "cuda" else 0
+    deadline = time.perf_counter() + 15
+    while (others := console_processes()) and time.perf_counter() < deadline:
+        time.sleep(0.1)
+    log(f"[fleet] before the fleets: card memory used {idle_mib} MiB, load average {os.getloadavg()}, other "
+        f"console processes {others}")
+    if others:
+        raise RuntimeError(f"fleet: console processes of earlier phases still run: {others}")
+    reset_launch_counts()
+    for n in FLT_REPLICAS:
+        fleet = start_fleet("fleet", base, deploy, n)
+        done = False
+        try:
+            memory = smi_processes() if device.type == "cuda" else []
+            used = smi_memory_used_mib() if device.type == "cuda" else 0
+            pids = {"router": fleet["proc"].pid, **{f"replica{i}": pid for i, pid in enumerate(fleet_pids(fleet))}}
+            with busy_shares(pids, device) as busy:
+                load = run_load(fleet["url"], uniform, user_index, clients, TOP_K)
+            checked += check_answers(f"fleet x{n}", ok_answers(f"fleet x{n}", load), U64, V64, item_index, TOP_K)
+            _, stats = _http_json(fleet["url"] + "/stats.json")
+            run = {key: load[key] for key in ("queries", "wall_s", "queries_per_s", "p50_ms", "p99_ms")}
+            run.update({"ready_s": fleet["ready_s"], "router": stats["router"],
+                        "forwarded": {r["id"]: r["forwarded"] for r in stats["replicas"]},
+                        "card_memory_used_mib": used, "mib_per_replica": (used - idle_mib) / n,
+                        "contexts": len(memory), "per_process_memory": memory, "cores_busy": busy})
+            out["scaling"][n] = run
+            log(f"[fleet] pio deploy --replicas {n}: ring full in {fleet['ready_s']:.3f} s; {load['queries']} "
+                f"queries from {clients} keep-alive clients, {load['queries_per_s']:.1f} queries/s, p50 "
+                f"{load['p50_ms']:.3f} ms, p99 {load['p99_ms']:.3f} ms (single-process deploy "
+                f"{plain['queries_per_s']:.1f} queries/s, p50 {plain['p50_ms']:.3f} ms, p99 {plain['p99_ms']:.3f} "
+                f"ms); router {json.dumps(stats['router'])}; forwarded {json.dumps(run['forwarded'])}; card memory "
+                f"used {used} MiB, {run['mib_per_replica']:.1f} MiB a replica above the {idle_mib} MiB before the "
+                f"fleets; nvidia-smi lists {len(memory)} contexts: {memory}; cores busy during the load "
+                f"{json.dumps({key: round(v, 3) if isinstance(v, float) else v for key, v in busy.items()})} on "
+                f"{smi}")
+            if n == 2:
+                out["sigkill"], answers = fleet_sigkill_drill(fleet, user_index, smi)
+                checked += check_answers("fleet sigkill", answers, U64, V64, item_index, TOP_K)
+                out["rolling"], answers = fleet_rolling_reload(fleet, user_index, smi)
+                checked += check_answers("fleet rolling reload", answers, U64, V64, item_index, TOP_K)
+            done = True
+        finally:
+            out["scaling"].setdefault(n, {})["stop_s"] = stop_fleet(fleet, check=done)
+    launches = read_launch_counts()
+    if any(launches.values()):
+        raise RuntimeError(f"fleet: the fleet paths launched kernels {launches}; they have none")
+    out.update({"answers_checked": checked, "launches": launches, "phase_s": time.perf_counter() - t_phase})
+    log(f"[fleet] {checked} answers through the routers equal float64 numpy's top-{TOP_K} (near-tie rule); "
+        f"launches {json.dumps(launches)}")
+    log(f"[fleet] {json.dumps(out)}")
+    return out
+
+
+def fleet_sigkill_drill(fleet: dict, user_index, smi: str) -> tuple[dict, list]:
+    """16 clients for ``FLT_DRILL_S`` seconds, one replica SIGKILLed at
+    ``FLT_KILL_AT_S``; the clients go on until the supervisor's respawn
+    is back in the ring. No query may fail."""
+    rows = np.random.default_rng(37).permutation(len(user_index))[:FLT_DRILL_CLIENTS * 64]
+    state = json.loads(fleet["state"].read_text())
+    victim = state["replicas"][0]
+    drill = DrillClients(fleet["url"], rows, user_index, FLT_DRILL_CLIENTS, TOP_K)
+    time.sleep(FLT_KILL_AT_S)
+    t_kill = time.perf_counter()
+    os.kill(int(victim["pid"]), signal.SIGKILL)
+    rejoin_s = None
+    deadline = t_kill + FLT_READY_TIMEOUT_S
+    while time.perf_counter() < deadline:
+        doc = json.loads(fleet["state"].read_text())
+        rep = next(r for r in doc["replicas"] if r["id"] == victim["id"])
+        if rep.get("alive") and rep.get("pid") != victim["pid"]:
+            _, root = _http_json(fleet["url"] + "/")
+            if any(r["id"] == victim["id"] and r["healthy"] for r in root["replicas"]):
+                rejoin_s = time.perf_counter() - t_kill
+                break
+        time.sleep(0.05)
+    t_rejoin = time.perf_counter()
+    time.sleep(max(1.0, FLT_DRILL_S - (t_rejoin - t_kill + FLT_KILL_AT_S)))
+    records = drill.join()
+    failed = DrillClients.failed(records)
+    if rejoin_s is None or failed:
+        raise RuntimeError(f"fleet: SIGKILL drill: rejoin {rejoin_s} s, {len(failed)} failed queries of "
+                           f"{len(records)}: {[r[:4] for r in failed[:5]]}")
+    before = [r for r in records if r[1] < t_kill]
+    after = [r for r in records if r[0] > t_rejoin]
+    _, stats = _http_json(fleet["url"] + "/stats.json")
+    out = {"clients": FLT_DRILL_CLIENTS, "queries": len(records), "failed": 0, "killed": victim["id"],
+           "rejoin_s": rejoin_s, "p99_ms_before": DrillClients.p99_ms(before),
+           "p99_ms_after": DrillClients.p99_ms(after), "p99_ms_all": DrillClients.p99_ms(records),
+           "failovers": stats["router"]["failovers"], "wall_s": records[-1][1] - records[0][0]}
+    log(f"[fleet] SIGKILL drill: {FLT_DRILL_CLIENTS} clients, replica {victim['id']} (pid {victim['pid']}) "
+        f"SIGKILLed at {FLT_KILL_AT_S:g} s; {len(records)} queries, 0 failed; respawn back in the ring in "
+        f"{rejoin_s:.3f} s; p99 {out['p99_ms_before']:.3f} ms before the kill, {out['p99_ms_after']:.3f} ms after "
+        f"the rejoin; router failovers {out['failovers']} on {smi}")
+    return out, [(r[3], r[6]) for r in records]
+
+
+def fleet_rolling_reload(fleet: dict, user_index, smi: str) -> tuple[dict, list]:
+    """A rolling ``POST /reload`` through the router under 16 clients: no
+    failed query, no scope answered by an older generation after a newer
+    one, and every replica on one generation after it."""
+    rows = np.random.default_rng(38).permutation(len(user_index))[:FLT_DRILL_CLIENTS * 64]
+    drill = DrillClients(fleet["url"], rows, user_index, FLT_DRILL_CLIENTS, TOP_K)
+    time.sleep(FLT_ROLL_LEAD_S)
+    t0 = time.perf_counter()
+    status, report = _http_json(fleet["url"] + "/reload", {})
+    reload_s = time.perf_counter() - t0
+    time.sleep(FLT_ROLL_LEAD_S)
+    records = drill.join()
+    failed = DrillClients.failed(records)
+    cross = DrillClients.cross_generation(records)
+    gens = sorted({r[4] for r in records if r[0] > t0 + reload_s})
+    if status != 200 or not report.get("ok") or not report.get("converged") or failed or cross or len(gens) != 1:
+        raise RuntimeError(f"fleet: rolling reload answered {status} {report}; {len(failed)} failed queries, {cross} "
+                           f"cross-generation answers, generations after it {gens}")
+    out = {"queries": len(records), "failed": 0, "cross_generation": 0, "reload_s": reload_s,
+           "generations": report["generations"], "p99_ms": DrillClients.p99_ms(records)}
+    log(f"[fleet] rolling POST /reload under {FLT_DRILL_CLIENTS} clients: {len(records)} queries, 0 failed, 0 "
+        f"cross-generation answers; converged on generation {report['generations']} in {reload_s:.3f} s on {smi}")
+    return out, [(r[3], r[6]) for r in records]
+
+
+def console_eval(label: str, base: Path, module: str, source: str, extra: list) -> tuple[dict, dict, float]:
+    """``pio eval module:evaluation`` of a module written into ``base``;
+    the launch counts set to 0 before it and read after. Returns the
+    result JSON, the counts and the seconds."""
+    (base / f"{module}.py").write_text(source)
+    sys.path.insert(0, str(base))
+    try:
+        reset_launch_counts()
+        try:
+            eval_s = console_ok(label, ["eval", f"{module}:evaluation", "--output-path", str(base / f"{module}.json"),
+                                        *extra])
+        except SystemExit as e:  # --promote-to's refusals
+            raise RuntimeError(f"{label}: {e}") from None
+        launches = read_launch_counts()
+    finally:
+        sys.path.remove(str(base))
+        sys.modules.pop(module, None)
+    (instance,) = [i for i in Storage.get_meta_data_evaluation_instances().get_all()
+                   if i.evaluation_class == f"{module}:evaluation"]
+    if instance.status != "EVALCOMPLETED":
+        raise RuntimeError(f"{label}: evaluation instance {instance.id} is {instance.status}")
+    return json.loads((base / f"{module}.json").read_text()), launches, eval_s
+
+
+def phase_fleet_ab(device, ctx: dict, smi: str) -> dict:
+    """On the quickstart's store: ``pio deploy --replicas 2 --variants
+    control:1,treatment:1``; 8 clients x 40 users, twice: each variant's
+    share within 0.05 of 0.5, a user keeps its variant, every
+    ``X-PIO-Variant`` answered the port's ``TrafficSplit`` assignment;
+    then ``pio eval --grid --promote-to`` of a 2-candidate grid under the
+    same clients rolls the fleet onto the winner with no failed query."""
+    from predictionio_tpu_torch.experiments.split import SplitConfig, TrafficSplit
+    from predictionio_tpu_torch.serving.cache import affinity_key
+
+    t_phase = time.perf_counter()
+    base, engine_json, dev_args = ctx["base"], ctx["engine_json"], ctx["dev_args"]
+    model = ctx["model"]
+    user_index, item_index = model.user_index, model.item_index
+    U64 = np.asarray(model.user_factors, np.float64)
+    V64 = np.asarray(model.item_factors, np.float64)
+    split = TrafficSplit(SplitConfig.parse(FLT_AB_SPLIT))
+    deploy = ["deploy", "--engine-json", str(engine_json), *dev_args, "--variants", FLT_AB_SPLIT]
+    rows = np.arange(FLT_AB_CLIENTS * FLT_AB_QUERIES)
+    reset_launch_counts()
+    fleet = start_fleet("fleet ab", base, deploy, 2)
+    done = False
+    try:
+        records = DrillClients(fleet["url"], rows, user_index, FLT_AB_CLIENTS, TOP_K, passes=2).join()
+        want = {r: split.assign(affinity_key({"user": user_index.inverse(r), "num": TOP_K}, "user"))
+                for r in rows.tolist()}
+        seen: dict = {}
+        bad = [r[:6] for r in records if r[2] != 200 or r[5] != want[r[3]] or seen.setdefault(r[3], r[5]) != r[5]]
+        share = sum(1 for v in want.values() if v == "control") / len(want)
+        if bad or len(records) != 2 * len(rows) or abs(share - 0.5) > FLT_AB_SHARE_TOL:
+            raise RuntimeError(f"fleet ab: {len(bad)} answers failed, off their variant or changed it "
+                               f"({bad[:5]}); {len(records)} answers; control share {share}")
+        _, before = _http_json(fleet["url"] + "/experiments.json")
+        # the promotion: a 2-candidate grid, one candidate a variant, under load
+        drill = DrillClients(fleet["url"], rows, user_index, FLT_AB_CLIENTS, TOP_K)
+        source = GRID_MODULE.format(k=TOP_K, app=QS_APP, folds=QS_EVAL_K, rank=EXP_GRID_RANK, sweeps=EXP_GRID_SWEEPS,
+                                    candidates=[(0.01, 0), (0.5, 0)])
+        result, launches, eval_s = console_eval("fleet ab", base, "qs_ab", source,
+                                                ["--grid", "--promote-to", fleet["url"], *dev_args])
+        time.sleep(0.5)
+        during = drill.join()
+        winner = split.variant_names()[result["bestIdx"]]
+        failed = DrillClients.failed(during)
+        _, after = _http_json(fleet["url"] + "/experiments.json")
+        registry = json.loads((base / "fleet" / "model-registry.json").read_text())["current"]
+        post = DrillClients(fleet["url"], rows[:FLT_AB_CLIENTS * 4], user_index, FLT_AB_CLIENTS, TOP_K,
+                            passes=1).join()
+        if (failed or (after.get("promoted") or {}).get("variant") != winner
+                or registry.get("meta", {}).get("variant") != winner
+                or any(r[2] != 200 or r[5] != winner for r in post) or any(launches.values())):
+            raise RuntimeError(f"fleet ab: promotion of {winner}: {len(failed)} failed queries of {len(during)}; "
+                               f"experiments {after}; registry {registry}; after it "
+                               f"{sorted({r[5] for r in post})}; grid launches {launches}")
+        _, stats = _http_json(fleet["url"] + "/stats.json")
+        # every answer is the one instance's: promotion reloads it
+        checked = check_answers("fleet ab", [(r[3], r[6]) for r in records + during + post], U64, V64, item_index,
+                                TOP_K)
+        done = True
+    finally:
+        stop_s = stop_fleet(fleet, check=done)
+    routed = {v["name"]: v["routed"] for v in before["variants"]}
+    out = {"queries": len(records), "control_share": share, "routed": routed, "winner": winner,
+           "grid_eval_s": eval_s, "promotion_queries": len(during), "promotion_failed": 0,
+           "registry_generation": registry["generation"], "ready_s": fleet["ready_s"], "stop_s": stop_s,
+           "answers_checked": checked,
+           "variant_p99_ms": {v["name"]: v["p99Ms"] for v in stats["experiments"]["variants"]},
+           "phase_s": time.perf_counter() - t_phase, "card": smi}
+    log(f"[fleet] A/B {FLT_AB_SPLIT}: {len(records)} answers from {FLT_AB_CLIENTS} clients x {FLT_AB_QUERIES} users "
+        f"twice, control share {share:.4f}, every user on one variant and every X-PIO-Variant the split's; pio eval "
+        f"--grid --promote-to in {eval_s:.3f} s promoted {winner} (registry generation {registry['generation']}) "
+        f"under {len(during)} queries, 0 failed; {checked} answers equal float64 numpy's top-{TOP_K} on {smi}")
+    log(f"[fleet] {json.dumps(out)}")
+    return out
+
+
+# ------------------------------------------------------- 14. experiments
+def phase_explore_loop(device, smi: str) -> dict:
+    """The JAX bench's closed loop (``bench.py:3021-3100``) with the
+    port's ``Explorer`` on ``device``: the true-best arm hides below a
+    mediocre arm whose prior overstates it; Thompson's cumulative regret
+    must be below exploit-only's."""
+    from predictionio_tpu_torch.experiments.explore import ExploreConfig, Explorer
+
+    rng_true = np.random.default_rng(7)
+    p_true = 0.05 + 0.25 * rng_true.random(EXP_ARMS)
+    best_arm, greedy_arm = 1, 0
+    p_true[greedy_arm] = 0.40
+    p_true[best_arm] = 0.75
+    prior = 0.05 + 0.30 * rng_true.random(EXP_ARMS)
+    prior[greedy_arm] = 0.55
+    prior[best_arm] = 0.22
+    p_best = float(p_true.max())
+
+    def run_policy(config: ExploreConfig) -> dict:
+        ex = Explorer(config, device)
+        rng = np.random.default_rng(config.seed + 13)
+        scores = prior.copy()
+        pulls = np.zeros(EXP_ARMS, np.int64)
+        reward_sum = np.zeros(EXP_ARMS, np.float64)
+        regret = 0.0
+        t0 = time.perf_counter()
+        for q in range(EXP_QUERIES):
+            order = np.argsort(-scores)
+            served = int(ex.rerank([{"item": str(i), "score": float(scores[i])} for i in order])[0]["item"])
+            reward = float(rng.random() < p_true[served])
+            pulls[served] += 1
+            reward_sum[served] += reward
+            regret += p_best - float(p_true[served])
+            ex.note_reward_events([{"event": config.reward_event, "targetEntityId": str(served),
+                                    "properties": {"value": reward}}])
+            if (q + 1) % EXP_RETRAIN == 0:
+                obs = pulls > 0
+                scores = np.where(obs, (reward_sum + 2.0 * prior) / (pulls + 2.0), prior)
+        stats = ex.stats_json()
+        if stats["lastError"] is not None:
+            raise RuntimeError(f"experiments: the explorer failed: {stats['lastError']}")
+        return {"cumulative_regret": regret, "best_arm_frac": float(pulls[best_arm]) / EXP_QUERIES,
+                "explored": stats["explored"], "rerank_ms": (time.perf_counter() - t0) * 1e3 / EXP_QUERIES,
+                "reward_events": stats["rewards"]["events"]}
+
+    exploit = run_policy(ExploreConfig(policy="epsilon", epsilon=0.0, seed=0))
+    thompson = run_policy(ExploreConfig(policy="thompson", seed=0, prior_scale=0.5))
+    if not thompson["cumulative_regret"] < exploit["cumulative_regret"]:
+        raise RuntimeError(f"experiments: Thompson's regret {thompson['cumulative_regret']} is not below "
+                           f"exploit-only's {exploit['cumulative_regret']}")
+    out = {"arms": EXP_ARMS, "queries": EXP_QUERIES, "exploit": exploit, "thompson": thompson, "card": smi}
+    log(f"[experiments] closed loop, {EXP_ARMS} arms, {EXP_QUERIES} queries on {device}: cumulative regret Thompson "
+        f"{thompson['cumulative_regret']:.3f} (best arm {thompson['best_arm_frac']:.4f} of pulls), exploit-only "
+        f"{exploit['cumulative_regret']:.3f} ({exploit['best_arm_frac']:.4f}); rerank {thompson['rerank_ms']:.3f} ms "
+        f"(Thompson), {exploit['rerank_ms']:.3f} ms (epsilon) a query on {smi}")
+    return out
+
+
+def phase_explore_deploy(device, ctx: dict, smi: str) -> dict:
+    """On the workflow's warm instance: ``pio deploy`` against ``pio
+    deploy --explore thompson`` under the [serving] load (each answer's
+    items, by their score, the float64 top-10 under the near-tie rule),
+    rewards through ``POST /experiments/reward.json``; then ``--explore
+    thompson --online``, whose follower must fold exactly the reward
+    events written to the store."""
+    from predictionio_tpu_torch.data.event import DataMap, Event
+
+    t_phase = time.perf_counter()
+    base, engine_json, dev_args = ctx["base"], ctx["engine_json"], ctx["dev_args"]
+    first = ctx["instance"]
+    model = stored_model(first.id)
+    user_index, item_index = model.user_index, model.item_index
+    U64 = np.asarray(model.user_factors, np.float64)
+    V64 = np.asarray(model.item_factors, np.float64)
+    del model
+    deploy = ["deploy", "--engine-json", str(engine_json), "--engine-instance-id", first.id, *dev_args]
+    picks = load_picks(SRV_CLIENTS * SRV_REQUESTS, len(user_index), seed=31)
+    out: dict = {"card": smi}
+    reset_launch_counts()
+    for label, flags in (("plain", []), ("thompson", ["--explore", "thompson"])):
+        t0 = time.perf_counter()
+        proc, port = start_console_server(f"explore {label}", base, deploy + flags,
+                                          base / f"deploy-explore-{label}.stderr", QS_DEPLOY_TIMEOUT_S)
+        try:
+            start_s = time.perf_counter() - t0
+            url = f"http://127.0.0.1:{port}"
+            with busy_shares({"deploy": proc.pid}, device) as busy:
+                load = run_load(url, picks, user_index, SRV_CLIENTS, TOP_K)
+            answers = ok_answers(f"explore {label}", load)
+            greedy = [(u, {"itemScores": sorted(p["itemScores"], key=lambda s: -s["score"])}) for u, p in answers]
+            check_answers(f"explore {label}", greedy, U64, V64, item_index, TOP_K)
+            run = {key: load[key] for key in ("queries", "wall_s", "queries_per_s", "p50_ms", "p99_ms")}
+            run.update({"deploy_start_s": start_s, "cores_busy": busy})
+            if label == "thompson":
+                reordered = sum(1 for (_, p), (_, g) in zip(answers, greedy) if p["itemScores"] != g["itemScores"])
+                served = [p["itemScores"][0]["item"] for _, p in answers[:EXP_REWARDS_POSTED]]
+                status, body = _http_json(url + "/experiments/reward.json", [
+                    {"event": "reward", "entityType": "user", "entityId": user_index.inverse(u),
+                     "targetEntityType": "item", "targetEntityId": item, "properties": {"value": 1.0}}
+                    for (u, _), item in zip(answers, served)])
+                _, stats = _http_json(url + "/stats.json")
+                explore = stats["explore"]
+                if (status != 200 or body["matched"] != EXP_REWARDS_POSTED or explore["lastError"] is not None
+                        or explore["queries"] != load["queries"] or explore["rewards"]["events"] != EXP_REWARDS_POSTED
+                        or not 0 < explore["explored"] <= load["queries"]):
+                    raise RuntimeError(f"experiments: --explore thompson answered the rewards {status} {body}; "
+                                       f"/stats.json explore {explore}")
+                run.update({"reordered": reordered, "explore": explore})
+            out[label] = run
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            proc.wait(timeout=60)
+        log(f"[experiments] pio deploy {' '.join(flags) or '(plain)'}: {load['queries']} queries from {SRV_CLIENTS} "
+            f"keep-alive clients, {load['queries_per_s']:.1f} queries/s, p50 {load['p50_ms']:.3f} ms, p99 "
+            f"{load['p99_ms']:.3f} ms, cores busy {json.dumps(run['cores_busy'])}; every answer float64 numpy's "
+            f"top-{TOP_K} as a set"
+            + (f"; {run['reordered']} reordered, explored {run['explore']['explored']}, regret "
+               f"{run['explore']['regret']}, {EXP_REWARDS_POSTED} rewards posted and matched" if label == "thompson"
+               else "") + f" on {smi}")
+    # rewards through the online follower
+    app = Storage.get_meta_data_apps().get_by_name(WF_APP)
+    proc, port = start_console_server(
+        "explore online", base, deploy + ["--explore", "thompson", "--online", "--online-interval-s",
+                                          str(ONL_INTERVAL_S)], base / "deploy-explore-online.stderr",
+        QS_DEPLOY_TIMEOUT_S)
+    try:
+        url = f"http://127.0.0.1:{port}"
+        rng = np.random.default_rng(52)
+        users = rng.choice(len(user_index), EXP_REWARDS_FOLLOWED, replace=False).tolist()
+        items = rng.choice(len(item_index), EXP_REWARDS_FOLLOWED).tolist()
+        t0 = time.perf_counter()
+        Storage.get_l_events().insert_batch([
+            Event(event="reward", entity_type="user", entity_id=user_index.inverse(u), target_entity_type="item",
+                  target_entity_id=item_index.inverse(i), properties=DataMap({"value": 1.0}))
+            for u, i in zip(users, items)], app.id)
+        while True:
+            _, stats = _http_json(url + "/stats.json")
+            if stats["explore"]["rewards"]["events"] >= EXP_REWARDS_FOLLOWED:
+                break
+            if time.perf_counter() - t0 > EXP_FOLLOW_TIMEOUT_S:
+                break
+            time.sleep(0.05)
+        follow_s = time.perf_counter() - t0
+        rewards = stats["explore"]["rewards"]
+        if rewards["events"] != EXP_REWARDS_FOLLOWED or rewards["matched"] != EXP_REWARDS_FOLLOWED:
+            raise RuntimeError(f"experiments: the follower folded rewards {rewards}, {EXP_REWARDS_FOLLOWED} written")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=60)
+    launches = read_launch_counts()
+    if any(launches.values()):
+        raise RuntimeError(f"experiments: the explore deploys launched kernels {launches}; they have none")
+    out["online"] = {"rewards": rewards, "follow_s": follow_s, "events_seen": stats["online"]["eventsSeen"]}
+    out["ratio"] = out["thompson"]["queries_per_s"] / out["plain"]["queries_per_s"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[experiments] --explore thompson at {out['ratio']:.4f}x the plain deploy's queries/s; --online follower "
+        f"folded {rewards['events']} of {EXP_REWARDS_FOLLOWED} reward events in {follow_s:.3f} s")
+    log(f"[experiments] {json.dumps(out)}")
+    return out
+
+
+def bench_fold(users: int, seed: int) -> dict:
+    """``bench.py``'s sweep fold: two halves of the catalog, 10 liked
+    items a user, 7 observed and 3 held out."""
+    rng = np.random.default_rng(seed)
+    R = np.zeros((users, users), np.float32)
+    T = np.zeros((users, users), np.float32)
+    centers = rng.integers(0, 2, users)
+    for u in range(users):
+        half = np.arange(users // 2) + (users // 2) * centers[u]
+        liked = rng.choice(half, size=10, replace=False)
+        R[u, liked[:7]] = 1.0
+        T[u, liked[7:]] = 1.0
+    return {"R": R, "M": R.copy(), "T": T, "seen": R.copy(), "user_w": np.ones(users, np.float32),
+            "item_valid": np.ones(users, np.float32)}
+
+
+def timed_grid(device, arrays: dict, regs, alphas, seeds, statics: dict, single: bool) -> float:
+    """Seconds of one batched :func:`grid_train_eval` call over every
+    candidate, or (``single``) of one call per candidate, the scores
+    read back."""
+    from predictionio_tpu_torch.experiments.sweep import grid_train_eval
+
+    args = [torch.as_tensor(arrays[key], device=device) for key in ("R", "M", "T", "seen", "user_w", "item_valid")]
+    t0 = time.perf_counter()
+    if single:
+        for c in range(len(regs)):
+            grid_train_eval(*args, regs[c:c + 1], alphas[c:c + 1], seeds[c:c + 1], **statics, device=device).cpu()
+    else:
+        grid_train_eval(*args, regs, alphas, seeds, **statics, device=device).cpu()
+    return time.perf_counter() - t0
+
+
+def phase_grid(device, ctx: dict, smi: str) -> dict:
+    """``pio eval --grid`` on the quickstart's store; see the module
+    docstring, phase 14."""
+    from predictionio_tpu_torch.experiments.sweep import MAX_GRID_CELLS, fold_arrays, grid_train_eval
+    from predictionio_tpu_torch.templates.recommendation.engine import DataSourceParams, RecommendationDataSource
+
+    t_phase = time.perf_counter()
+    base, dev_args = ctx["base"], ctx["dev_args"]
+    candidates = [(lam, seed) for lam in EXP_GRID_LAMBDAS for seed in EXP_GRID_SEEDS]
+    C = len(candidates)
+    source = GRID_MODULE.format(k=TOP_K, app=QS_APP, folds=QS_EVAL_K, rank=EXP_GRID_RANK, sweeps=EXP_GRID_SWEEPS,
+                                candidates=candidates)
+    handler = RecordHandler()
+    sweep_log = logging.getLogger("predictionio_tpu_torch.experiments.sweep")
+    level = sweep_log.level
+    sweep_log.addHandler(handler)
+    sweep_log.setLevel(logging.INFO)
+    try:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        grid, grid_launches, grid_s = console_eval("grid", base, "qs_grid", source, ["--grid", *dev_args])
+        peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    finally:
+        sweep_log.removeHandler(handler)
+        sweep_log.setLevel(level)
+    if not any("in one batched program per fold" in m for m in handler.messages) or any(grid_launches.values()):
+        raise RuntimeError(f"grid: the grid did not run as one batched program ({handler.messages}) or launched "
+                           f"kernels {grid_launches}")
+    scores32 = np.asarray([s["score"] for s in grid["engineParamsScores"]])
+    program_s = grid["engineParamsScores"][0]["seconds"] * C
+
+    # the same grid in float64 on the card, from the same draw
+    folds = RecommendationDataSource(DataSourceParams(app_name=QS_APP, eval_k=QS_EVAL_K)).read_eval(
+        local_context(device))
+    prepared = [fold_arrays(td, qa, TOP_K) for td, _, qa in folds]
+    cells = [C * a["R"].size for a, _, _ in prepared]
+    regs = np.float32([lam for lam, _ in candidates])
+    alphas = np.ones(C, np.float32)
+    seeds = np.int64([seed for _, seed in candidates])
+    statics = dict(rank=EXP_GRID_RANK, iterations=EXP_GRID_SWEEPS, implicit=False)
+    num, den = np.zeros(C), 0.0
+    t0 = time.perf_counter()
+    for arrays, n_eval, k_eff in prepared:
+        f64 = {key: value.astype(np.float64) for key, value in arrays.items()}
+        s = grid_train_eval(*f64.values(), regs.astype(np.float64), alphas.astype(np.float64), seeds, **statics,
+                            k=k_eff, device=device)
+        num += s.cpu().numpy() * n_eval
+        den += n_eval
+    f64_s = time.perf_counter() - t0
+    scores64 = num / den
+    worst = float(np.abs(scores32 - scores64).max())
+    best32, best64 = int(np.argmax(scores32)), int(np.argmax(scores64))
+    top2 = np.sort(scores64)[-2:]
+    if worst > EXP_F64_ATOL or (best32 != best64 and top2[1] - top2[0] > EXP_F64_ATOL) or (
+            grid["bestIdx"] != best32 or max(cells) > MAX_GRID_CELLS):
+        raise RuntimeError(f"grid: f32 scores {scores32.tolist()} against float64 {scores64.tolist()} (worst "
+                           f"{worst}), winners {grid['bestIdx']}/{best32}/{best64}; cells {cells}")
+
+    # the sequential pio eval of the first candidates, its solves on the kernel
+    seq_source = GRID_MODULE.format(k=TOP_K, app=QS_APP, folds=QS_EVAL_K, rank=EXP_GRID_RANK,
+                                    sweeps=EXP_GRID_SWEEPS, candidates=candidates[:EXP_SEQ_CANDIDATES])
+    seq, seq_launches, seq_s = console_eval("grid sequential", base, "qs_seq", seq_source, dev_args)
+    cfg = ALSConfig(rank=EXP_GRID_RANK)
+    plan = EXP_SEQ_CANDIDATES * EXP_GRID_SWEEPS * sum(
+        planned_solves(td.rows, len(td.user_index), cfg) + planned_solves(td.cols, len(td.item_index), cfg)
+        for td, _, _ in folds)
+    if device.type == "cuda":
+        check_launches("grid sequential eval", seq_launches, {"gj_solve": plan})
+
+    # batched against one call a candidate: the JAX bench's size, then full size
+    b = EXP_BENCH
+    bench = bench_fold(b["users"], 3)
+    b_regs = torch.as_tensor(np.geomspace(0.01, 100.0, b["candidates"]).astype(np.float32))
+    b_alphas = torch.zeros(b["candidates"])
+    b_seeds = torch.zeros(b["candidates"], dtype=torch.int64)
+    b_statics = dict(rank=b["rank"], iterations=b["iterations"], implicit=False, k=b["k"])
+    timings = {}
+    for single in (False, True):
+        timed_grid(device, bench, b_regs, b_alphas, b_seeds, b_statics, single)  # warm
+        timings[single] = min(timed_grid(device, bench, b_regs, b_alphas, b_seeds, b_statics, single)
+                              for _ in range(b["reps"]))
+    bench_ratio = timings[True] / timings[False]
+    if bench_ratio < EXP_BENCH_MIN_RATIO:
+        raise RuntimeError(f"grid: at the JAX bench's size one batched call took {timings[False]} s against "
+                           f"{timings[True]} s for {b['candidates']} single calls ({bench_ratio:.3f}x, "
+                           f"the reference asks {EXP_BENCH_MIN_RATIO}x)")
+    arrays0, _, k0 = prepared[0]
+    full_args = (torch.as_tensor(regs), torch.as_tensor(alphas), torch.as_tensor(seeds), {**statics, "k": k0})
+    full = {single: timed_grid(device, arrays0, *full_args[:3], full_args[3], single) for single in (False, True)}
+    full_ratio = full[True] / full[False]
+    out = {
+        "candidates": C, "folds": len(prepared), "fold_shapes": [list(a["R"].shape) for a, _, _ in prepared],
+        "cells": cells, "grid_eval_s": grid_s, "grid_program_s": program_s, "grid_s_per_candidate": grid_s / C,
+        "grid_peak_gib": peak / 2**30, "scores": scores32.tolist(), "best_idx": grid["bestIdx"],
+        "f64_scores": scores64.tolist(), "f64_worst_abs": worst, "f64_s": f64_s,
+        "sequential_candidates": EXP_SEQ_CANDIDATES, "sequential_eval_s": seq_s,
+        "sequential_s_per_candidate": seq_s / EXP_SEQ_CANDIDATES, "sequential_launches": seq_launches["gj_solve"],
+        "sequential_plan": plan, "sequential_best": seq["bestScore"]["score"],
+        "grid_launches": grid_launches, "bench_batched_s": timings[False], "bench_single_s": timings[True],
+        "bench_ratio": bench_ratio, "full_batched_s": full[False], "full_single_s": full[True],
+        "full_ratio": full_ratio, "phase_s": time.perf_counter() - t_phase, "card": smi,
+    }
+    log(f"[experiments] pio eval --grid: {C} candidates x {len(prepared)} folds (padded "
+        f"{out['fold_shapes']}, {max(cells)} cells) in {grid_s:.3f} s, {grid_s / C:.3f} s a candidate "
+        f"({program_s:.3f} s in the batched programs), peak {peak / 2**30:.3f} GiB, 0 launches; best candidate "
+        f"{grid['bestIdx']} precision@{TOP_K} {scores32[grid['bestIdx']]:.6f}; float64 from the same draw within "
+        f"{worst:.3g} (bar {EXP_F64_ATOL:g}), best {best64}; sequential pio eval of {EXP_SEQ_CANDIDATES} candidates "
+        f"{seq_s:.3f} s, {seq_s / EXP_SEQ_CANDIDATES:.3f} s a candidate, {seq_launches['gj_solve']} gj_solve "
+        f"launches (plan {plan}); one batched call against {b['candidates']} single calls: {timings[False]:.4f} s "
+        f"vs {timings[True]:.4f} s ({bench_ratio:.2f}x) at the JAX bench's size, {full[False]:.3f} s vs "
+        f"{full[True]:.3f} s ({full_ratio:.2f}x) at full size on {smi}")
+    log(f"[experiments] {json.dumps(out)}")
+    return out
+
+
 def check_launches(path: str, launches: dict, expected: dict) -> None:
     log(f"[{path}] launches on the path: {json.dumps({k: launches[k] for k in expected})}, "
         f"plan {json.dumps(expected)}")
@@ -4082,23 +4960,31 @@ def main() -> int:
         tt_served = phase_tt_serve(tt_trained, device, QUERIES, TOP_K, info["kind"])
     tt_profile = phase_tt_profile(tt_trained, device)
 
-    # the quickstart paths (their own launch counts inside)
-    qs = phase_quickstart(device, QUERIES, TOP_K, info["smi"])
+    # the quickstart paths (their own launch counts inside); the grid and
+    # the A/B fleet on the quickstart's store
+    qs = phase_quickstart(device, QUERIES, TOP_K, info["smi"],
+                          then=lambda ctx: (phase_grid(device, ctx, info["smi"]),
+                                            phase_fleet_ab(device, ctx, info["smi"])))
+    grid, fleet_ab = qs["then"]
+    loop = phase_explore_loop(device, info["smi"])
     ttq = phase_tt_quickstart(
         device, TTQ_NNZ, TT_DIM, TT_BATCH, TT_EPOCHS, QUERIES, TOP_K, info["smi"],
         then=lambda ctx: (phase_tt_serving(device, ctx, SRV_TT_CLIENTS, SRV_TT_REQUESTS, TOP_K, info["smi"]),
                           phase_tt_online(device, ctx, info["smi"]),
                           phase_tt_ann(device, ctx, info["smi"])))
     tt_srv, tt_onl, tt_ann = ttq["serving"]
-    # the serving tier and online learning run on the workflow's store and
-    # warm instance (their own launch counts inside)
-    wf = phase_workflow(
-        device, WF_NNZ, WF_BULK, QUERIES, TOP_K, info["smi"],
-        then=lambda ctx: (phase_serving(device, ctx, SRV_CLIENTS, SRV_REQUESTS, TOP_K, SRV_BATCHPREDICT,
-                                        info["smi"]),
-                          phase_online(device, ctx, info["smi"]),
-                          phase_ann(device, ctx, info["smi"])))
-    srv, onl, ann = wf["serving"]
+    # the serving tier, online learning, retrieval, the fleet and the
+    # exploring deploys run on the workflow's store and warm instance
+    # (their own launch counts inside)
+    def on_workflow(ctx: dict) -> tuple:
+        srv = phase_serving(device, ctx, SRV_CLIENTS, SRV_REQUESTS, TOP_K, SRV_BATCHPREDICT, info["smi"])
+        onl = phase_online(device, ctx, info["smi"])
+        ann = phase_ann(device, ctx, info["smi"])
+        flt = phase_fleet(device, ctx, srv["per_request"], info["smi"])
+        return srv, onl, ann, flt, phase_explore_deploy(device, ctx, info["smi"])
+
+    wf = phase_workflow(device, WF_NNZ, WF_BULK, QUERIES, TOP_K, info["smi"], then=on_workflow)
+    srv, onl, ann, flt, exp = wf["serving"]
     online_launches = onl["in_process"]["launches"]
     if any(online_launches.values()):
         raise RuntimeError(f"online: the fold launched kernels {online_launches}; its path has none")
@@ -4206,6 +5092,27 @@ def main() -> int:
                 "accuracy_nb", "accuracy_lr", "majority_rate", "nb", "lr")},
             "textclassification": {key: tpl["textclassification"][key] for key in ("chance", "nb", "lr")},
             "phase_s": tpl["phase_s"],
+        },
+        "fleet": {
+            "single_process": flt["single_process"],
+            "scaling": {n: {key: run[key] for key in ("queries_per_s", "p50_ms", "p99_ms", "ready_s",
+                                                      "mib_per_replica")}
+                        for n, run in flt["scaling"].items()},
+            "sigkill": {key: flt["sigkill"][key] for key in ("queries", "failed", "rejoin_s", "p99_ms_before",
+                                                             "p99_ms_after")},
+            "rolling": {key: flt["rolling"][key] for key in ("queries", "failed", "cross_generation", "reload_s")},
+            "ab": {key: fleet_ab[key] for key in ("control_share", "winner", "promotion_queries", "promotion_failed")},
+            "launches": flt["launches"], "phase_s": flt["phase_s"] + fleet_ab["phase_s"],
+        },
+        "experiments": {
+            "regret": {"thompson": loop["thompson"]["cumulative_regret"],
+                       "exploit": loop["exploit"]["cumulative_regret"]},
+            "explore_qps": {label: exp[label]["queries_per_s"] for label in ("plain", "thompson")},
+            "explore_ratio": exp["ratio"], "rewards_followed": exp["online"]["rewards"]["events"],
+            **{key: grid[key] for key in ("grid_eval_s", "grid_s_per_candidate", "grid_peak_gib", "f64_worst_abs",
+                                          "sequential_s_per_candidate", "sequential_launches", "bench_ratio",
+                                          "full_ratio")},
+            "phase_s": exp["phase_s"] + grid["phase_s"],
         },
         "wall_s": time.perf_counter() - t_start,
     }

@@ -25,9 +25,10 @@ The host work of a cycle (polling, the deltas, the hooks' histories and
 systems) runs on this thread; every torch call goes through the query
 server's ``run_on_device``, which is the one thread that serves queries
 (``workflow/serving.py``), so queries queue behind a fold's chunk there.
+With ``--explore``, the same polled batch feeds the explorer's posterior
+(:meth:`~predictionio_tpu_torch.experiments.explore.Explorer.note_reward_events`).
 Differences from the JAX package: one follower (the partitioned store
-waits, ROADMAP queue 1 item 15) and no explorer reward fold-back (item
-12).
+waits, ROADMAP queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -267,6 +268,15 @@ class OnlineRunner:
         events = self.follower.poll()
         if not events:
             return {"events": 0, "applied": False}
+        # exploration reward fold-back: reward events are telemetry for
+        # the bandit, not ratings, so they ride beside the fold pipeline
+        # (which ignores non-rating events) rather than in it
+        explorer = getattr(self.service, "explorer", None)
+        if explorer is not None:
+            try:
+                explorer.note_reward_events(events)
+            except Exception:
+                logger.exception("explorer reward fold-back failed")
         deltas = to_deltas(events)
         newest_us = max((d.t_us for d in deltas), default=0)
         applied, folded, aborted = self._fold_batches(pairs, generation, deltas, deadline)

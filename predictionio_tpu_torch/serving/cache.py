@@ -39,6 +39,7 @@ __all__ = [
     "CacheStats",
     "ResultCache",
     "Singleflight",
+    "affinity_key",
     "canonical_key",
 ]
 
@@ -464,6 +465,21 @@ def extract_scope(body: Any, scope_field: str | None) -> str | None:
     if isinstance(value, (int, float)) and not isinstance(value, bool):
         return str(value)
     return None
+
+
+def affinity_key(body: Any, scope_field: str | None = "user") -> str | None:
+    """Scope→replica routing key of a query body, for the fleet router's
+    consistent hash (``predictionio_tpu_torch.fleet``): the query's
+    invalidation scope when it names one — so all of a scope's queries
+    (and so its cached results) land on one replica and the fleet's
+    aggregate cache shards instead of duplicating — else the whole
+    canonical body, else None (route by load). The prefixes keep the two
+    key spaces apart."""
+    scope = extract_scope(body, scope_field)
+    if scope is not None:
+        return f"s:{scope}"
+    key = canonical_key(body)
+    return f"q:{key}" if key is not None else None
 
 
 def scopes_from_events(

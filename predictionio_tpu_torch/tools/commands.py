@@ -2,8 +2,10 @@
 
 Counterpart of ``predictionio_tpu/tools/commands.py``, for the commands
 the port's console has so far: the ``app`` and ``accesskey`` verbs,
-``import``, ``export``, ``undeploy`` (with the deploy's stop token),
-``status`` and ``template list|get``. Parity: ``tools/console/App.scala``, ``AccessKey.scala``,
+``import``, ``export``, ``undeploy`` (with the deploy's stop token; a fleet
+router's stops the whole fleet), ``status`` (with its fleet section: the
+endpoint registry, each fleet's replicas and experiment) and ``template
+list|get``. Parity: ``tools/console/App.scala``, ``AccessKey.scala``,
 ``Export.scala``, ``Import.scala`` and the undeploy and status checks of
 ``Console.scala``. Each function returns data (and prints human
 output via the ``out`` callback) so tests can drive them without
@@ -41,6 +43,7 @@ __all__ = [
     "read_stop_token",
     "undeploy",
     "status_check",
+    "fleet_status",
     "BUILTIN_TEMPLATES",
     "template_list",
     "template_get",
@@ -516,9 +519,253 @@ def status_check(device: str | None = None, out: Out = _print) -> dict:
         ok = False
     for role, status in results.items():
         out(f"  {role:<10} {status}")
+    fleets = fleet_status(out)
     out("(sanity check) All systems go!" if ok else "Storage check FAILED")
     results["ok"] = ok
+    if fleets:
+        results["fleets"] = fleets
     return results
+
+
+def fleet_status(out: Out = _print) -> list[dict]:
+    """Aggregate every active replica fleet on this host (``pio deploy
+    --replicas``): the cross-host endpoint registry is the
+    primary view (per-host replica rows with lease age, generation and
+    readiness, ring membership, stale-lease and torn-entry warnings);
+    the supervisor's per-host state files are the degraded fallback —
+    they still list PIDs and liveness when the registry dir is absent
+    (pre-elastic fleets) or unreadable."""
+    import glob
+    import urllib.request
+
+    pattern = os.path.join(Storage.base_dir(), "deployments", "fleet-*.json")
+    paths = sorted(glob.glob(pattern))
+    registry_dir = os.path.join(Storage.base_dir(), "fleet", "endpoints")
+    if not paths and not os.path.isdir(registry_dir):
+        return []  # nothing fleet-ish on this host: never import the package
+    from predictionio_tpu_torch.fleet.supervisor import read_fleet_state
+
+    fleets: list[dict] = []
+    states = [s for s in (read_fleet_state(p) for p in paths) if s]
+    # a fleet on a custom --endpoint-registry DIR reports its directory
+    # on the router's /fleet/endpoints.json — ask each router so status
+    # aggregates THAT registry, not just the default location
+    registry_dirs: list[str] = []
+    for state in states:
+        reported = _router_registry_dir(state.get("routerPort"))
+        if reported and reported not in registry_dirs:
+            registry_dirs.append(reported)
+    if os.path.isdir(registry_dir) and registry_dir not in registry_dirs:
+        registry_dirs.append(registry_dir)
+    for directory in registry_dirs:
+        registry_view = _endpoint_registry_status(directory, out)
+        if registry_view is not None:
+            fleets.append({"endpointRegistry": registry_view})
+    for state in states:
+        replicas = []
+        for rep in state.get("replicas", []):
+            entry = {
+                "id": rep.get("id"),
+                "port": rep.get("port") or None,
+                "ready": False,
+                "generation": None,
+                "alive": rep.get("alive"),
+            }
+            if not entry["port"]:
+                # elastic replica: bound port 0 and self-reported through
+                # the registry — the registry view above is authoritative;
+                # this row only carries supervisor liveness
+                entry["ready"] = None
+                replicas.append(entry)
+                continue
+            try:
+                with urllib.request.urlopen(
+                    f"http://127.0.0.1:{rep.get('port')}/readyz", timeout=2
+                ) as resp:
+                    report = json.loads(resp.read())
+            except Exception:
+                report = None
+            if report is not None:
+                entry["ready"] = bool(report.get("ready"))
+                entry["generation"] = report.get("generation")
+            replicas.append(entry)
+        generations = {
+            r["generation"] for r in replicas if r["generation"] is not None
+        }
+        fleet = {
+            "routerPort": state.get("routerPort"),
+            "replicas": replicas,
+            "generationConverged": len(generations) == 1,
+        }
+        experiment = _fleet_experiment(state.get("routerPort"))
+        if experiment is not None:
+            fleet["experiment"] = experiment
+        fleets.append(fleet)
+        probed = [r for r in replicas if r["ready"] is not None]
+        if probed:
+            ready_part = (
+                f"{sum(1 for r in probed if r['ready'])}/{len(probed)} "
+                f"replicas ready, generations "
+                f"{sorted(generations) if generations else '[]'}"
+                f"{' (converged)' if fleet['generationConverged'] else ''}"
+            )
+        else:
+            ready_part = (
+                f"{len(replicas)} replica(s), readiness via the endpoint "
+                "registry above"
+            )
+        out(
+            f"  fleet      router :{fleet['routerPort']} — {ready_part}"
+        )
+        if experiment is not None:
+            arms = ", ".join(
+                f"{v['name']}:{v['weight']:g} "
+                f"({v['routed']} routed, {v['rewardCount']} rewards)"
+                for v in experiment.get("variants", [])
+            )
+            promoted = experiment.get("promoted")
+            out(
+                "  experiment "
+                + (arms or "(no variants)")
+                + (
+                    f" — PROMOTED {promoted['variant']} at {promoted['at']}"
+                    if promoted
+                    else ""
+                )
+            )
+    return fleets
+
+
+def _router_registry_dir(router_port: int | None) -> str | None:
+    """The registry directory a live router actually serves from
+    (``GET /fleet/endpoints.json``) — how status finds a custom
+    ``--endpoint-registry DIR``. ``None`` when the router is down or
+    pre-elastic (404)."""
+    import urllib.request
+
+    if not router_port:
+        return None
+    try:
+        with urllib.request.urlopen(
+            f"http://127.0.0.1:{router_port}/fleet/endpoints.json", timeout=2
+        ) as resp:
+            doc = json.loads(resp.read())
+        return doc.get("registry", {}).get("directory") or None
+    except Exception:
+        return None
+
+
+def _endpoint_registry_status(directory: str, out: Out = _print) -> dict | None:
+    """Aggregate the cross-host endpoint registry for ``pio status``
+    : per-host replica rows (lease age, generation, readiness
+    probed at the self-reported address), ring membership, stale-lease
+    warnings for expired-but-unevicted entries, and loud torn-entry
+    problems. ``None`` when the registry dir is absent — callers fall
+    back to the per-host supervisor state files."""
+    import urllib.request
+
+    if not os.path.isdir(directory):
+        return None
+    from predictionio_tpu_torch.fleet.registry import EndpointRegistry
+
+    # read-only aggregation: snapshot, never evict — eviction is the
+    # routers' job (claimed exactly once); status just reports
+    live, expired, problems = EndpointRegistry(directory).snapshot()
+    hosts: dict[str, list[dict]] = {}
+    for entry in live:
+        row = {
+            "id": entry.replica_id,
+            "host": entry.host,
+            "port": entry.port,
+            "leaseAgeS": round(entry.lease_age_s(), 3),
+            "generation": entry.generation,
+            "ready": False,
+        }
+        try:
+            with urllib.request.urlopen(
+                f"http://{entry.host}:{entry.port}/readyz", timeout=2
+            ) as resp:
+                report = json.loads(resp.read())
+            row["ready"] = bool(report.get("ready"))
+            row["generation"] = report.get("generation", entry.generation)
+        except Exception:
+            pass
+        hosts.setdefault(entry.host, []).append(row)
+    for rows in hosts.values():
+        rows.sort(key=lambda r: r["id"])
+    view = {
+        "directory": directory,
+        "ring": sorted(e.replica_id for e in live),
+        "hosts": hosts,
+        "staleLeases": sorted(e.replica_id for e in expired),
+        "problems": problems,
+    }
+    out(
+        f"  endpoints  {len(live)} live replica(s) across "
+        f"{len(hosts)} host(s) in {directory}"
+    )
+    for host in sorted(hosts):
+        rows = hosts[host]
+        out(
+            f"    {host}: "
+            + ", ".join(
+                f"{r['id']}:{r['port']} gen={r['generation']} "
+                f"lease={r['leaseAgeS']:.1f}s"
+                f"{' ready' if r['ready'] else ' NOT-READY'}"
+                for r in rows
+            )
+        )
+    if view["ring"]:
+        out(f"    ring members: {view['ring']}")
+    if view["staleLeases"]:
+        out(
+            f"    WARNING: stale leases (expired, not yet evicted): "
+            f"{view['staleLeases']}"
+        )
+    for problem in problems:
+        out(
+            f"    WARNING: torn registry entry {problem['file']}: "
+            f"{problem['error']}"
+        )
+    return view
+
+
+def _fleet_experiment(router_port) -> dict | None:
+    """One fleet's active experiment (``pio status``): the
+    router's live ``/experiments.json`` (variants, weights, sample
+    counts, promotion stamp), falling back to the registry file's
+    promotion record when the router is down. None = no experiment."""
+    import urllib.request
+
+    if router_port:
+        try:
+            with urllib.request.urlopen(
+                f"http://127.0.0.1:{router_port}/experiments.json", timeout=2
+            ) as resp:
+                if resp.status == 200:
+                    return json.loads(resp.read())
+        except Exception:
+            pass
+    # router unreachable (or answered non-200): the promotion stamp in
+    # the fleet registry is still on disk
+    registry_path = os.path.join(
+        Storage.base_dir(), "fleet", "model-registry.json"
+    )
+    try:
+        with open(registry_path) as f:
+            doc = json.load(f)
+    except (OSError, json.JSONDecodeError):
+        return None
+    meta = ((doc.get("current") or {}).get("meta")) or {}
+    if meta.get("source") != "experiment_promotion":
+        return None
+    return {
+        "variants": [],
+        "promoted": {
+            "variant": meta.get("variant"),
+            "at": (doc.get("current") or {}).get("publishedAt"),
+        },
+    }
 
 
 # ---------------------------------------------------------------- templates

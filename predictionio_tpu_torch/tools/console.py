@@ -25,12 +25,16 @@ Counterpart of ``predictionio_tpu/tools/console.py`` (parity:
                [--online [--online-interval-s S] [--online-batch N]
                 [--online-algos NAMES] [--online-prior-weight W]
                 [--online-from-start]]
-               [--cert PEM --key PEM] [--drain-deadline-s S]
+               [--explore epsilon|thompson [--explore-epsilon E]
+                [--explore-seed N] [--explore-reward-event NAME]]
+               [--replicas N [--variants NAME:W,...] [--autoscale LO:HI]
+                [--endpoint-registry DIR] [--probe-interval-s S] ...]
+               [--router-only] [--cert PEM --key PEM] [--drain-deadline-s S]
     pio undeploy [--ip IP] [--port N] [--https] [--insecure] [--token T]
     pio batchpredict --engine-json FILE --input FILE --output FILE
                [--engine-instance-id ID] [--device D]
     pio eval   EVALUATION [PARAMS_GENERATOR] [--batch B]
-               [--output-path FILE] [--device D]
+               [--output-path FILE] [--device D] [--grid] [--promote-to URL]
     pio template list | get NAME DIRECTORY [--appname APP]
 
 Where the JAX console takes ``--mesh``, ``train``, ``deploy``,
@@ -43,24 +47,34 @@ the stop token the deploy wrote under the base directory. ``deploy``
 takes the JAX console's flags: those of the serving tiers the port has
 (micro-batching, result cache, singleflight, pinned tables, int8 tables
 ``--quantize int8``, IVF retrieval ``--ann*``, feedback, online
-learning, storage resilience, TLS, drain) and, parsed and then refused
-with a ``ValueError`` naming their ROADMAP item, those of the tiers it
-does not (``--explore*``, ``--variants``, ``--shard-factors``,
-``--aot``, ``--compilation-cache-dir``, the fleet's). The data verbs and ``eventserver`` import no
-torch. ``eval`` takes
-import paths (``module:attr``) of an ``Evaluation`` and, optionally, an
+learning, exploration ``--explore*``, storage resilience, TLS, drain,
+and the replica fleet: ``--replicas N`` spawns N port deploys behind a
+stdlib router on ``--port``, ``--variants`` splits its traffic into A/B
+variants, ``--router-only`` serves a second router on the same endpoint
+registry, ``--autoscale`` grows and shrinks the fleet) and, parsed and
+then refused with a ``ValueError`` naming their ROADMAP item, those of
+the tiers it does not (``--shard-factors``, ``--aot``,
+``--compilation-cache-dir``). A fleet's router process imports no
+torch; each replica is ``python -m predictionio_tpu_torch.tools.console
+deploy`` with the fleet's other flags, ``--device`` among them. The data
+verbs and ``eventserver`` import no torch. ``eval`` takes import paths
+(``module:attr``) of an ``Evaluation`` and, optionally, an
 ``EngineParamsGenerator`` (else the evaluation's own
 ``engine_params_list``), prints the leaderboard and writes the result's
-JSON to ``--output-path``. Run as ``python -m
+JSON to ``--output-path``; ``--grid`` scores a lambda/alpha/seed grid of
+ALS candidates as one batched program a fold on ``--device``, and
+``--promote-to URL`` then promotes the winner on a fleet router deployed
+with one variant a candidate. Run as ``python -m
 predictionio_tpu_torch.tools.console``.
 
-Waiting: ``export --sharded``, ``eval --grid`` and ``eval --promote-to``.
+Waiting: ``export --sharded`` (item 15) and the verbs of item 19.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import signal
 import sys
 import threading
@@ -75,25 +89,26 @@ __all__ = ["main", "build_parser"]
 #: (so a JAX package's deploy command line reads) and are then refused,
 #: naming what each waits for (ROADMAP queue 1)
 _WAITING_DEPLOY_FLAGS = {
-    "explore": "queue 1 item 12, experiments",
-    "explore_epsilon": "queue 1 item 12, experiments",
-    "explore_seed": "queue 1 item 12, experiments",
-    "explore_reward_event": "queue 1 item 12, experiments",
-    "variants": "queue 1 item 12, experiments",
     "shard_factors": "queue 1 item 13, sharded serving",
     "aot": "queue 1 item 14, AOT serving",
     "compilation_cache_dir": "queue 1 item 14, AOT serving",
-    **{
-        name: "the fleet router"
-        for name in (
-            "replicas", "replica_id", "probe_interval_s", "failover_retries", "hedge_ms",
-            "fleet_breaker_threshold", "fleet_breaker_reset_s", "endpoint_registry",
-            "router_only", "autoscale", "scale_up_qps", "scale_up_p99_ms", "scale_down_qps",
-            "scale_cooldown_s", "stale_cache_ttl_s", "lease_ttl_s", "announce_dir",
-            "announce_host",
-        )
-    },
 }
+
+
+def _int_at_least(floor: int):
+    """argparse ``type=``: an int with a lower bound, so a bad value
+    fails at parse time with the usual ``usage:`` error."""
+
+    def parse(text: str) -> int:
+        try:
+            value = int(text)
+        except ValueError:
+            raise argparse.ArgumentTypeError(f"invalid int value: {text!r}") from None
+        if value < floor:
+            raise argparse.ArgumentTypeError(f"must be >= {floor}")
+        return value
+
+    return parse
 
 
 def _add_deploy_flags(deploy: argparse.ArgumentParser) -> None:
@@ -197,33 +212,64 @@ def _add_deploy_flags(deploy: argparse.ArgumentParser) -> None:
                         help="k-means seed for --ann (a build is deterministic per seed)")
     deploy.add_argument("--ann-kmeans-iters", type=int, default=8, metavar="N",
                         help="Lloyd iterations after k-means++ seeding")
-    # later tiers: parsed, then refused
-    deploy.add_argument("--shard-factors", action="store_true")
-    deploy.add_argument("--aot", action="store_true")
-    deploy.add_argument("--compilation-cache-dir", default=None, metavar="DIR")
-    deploy.add_argument("--explore", choices=("epsilon", "thompson"), default=None, metavar="POLICY")
-    deploy.add_argument("--explore-epsilon", type=float, default=0.1, metavar="E")
-    deploy.add_argument("--explore-seed", type=int, default=0)
-    deploy.add_argument("--explore-reward-event", default="reward", metavar="NAME")
-    deploy.add_argument("--variants", default="", metavar="NAME[:W],...")
-    deploy.add_argument("--replicas", type=int, default=0, metavar="N")
-    deploy.add_argument("--replica-id", default=None, metavar="ID")
-    deploy.add_argument("--probe-interval-s", type=float, default=0.25, metavar="S")
-    deploy.add_argument("--failover-retries", type=int, default=1, metavar="N")
-    deploy.add_argument("--hedge-ms", type=float, default=0.0, metavar="MS")
-    deploy.add_argument("--fleet-breaker-threshold", type=int, default=2, metavar="N")
-    deploy.add_argument("--fleet-breaker-reset-s", type=float, default=1.0, metavar="S")
-    deploy.add_argument("--endpoint-registry", default=None, metavar="DIR")
-    deploy.add_argument("--router-only", action="store_true")
-    deploy.add_argument("--autoscale", default="", metavar="MIN:MAX")
+    # exploration (predictionio_tpu_torch.experiments): off by default,
+    # and then the package is never imported
+    deploy.add_argument("--explore", choices=("epsilon", "thompson"), default=None, metavar="POLICY",
+                        help="re-rank each answer's top-K through a bandit policy (epsilon-greedy or "
+                        "Thompson sampling over per-item posteriors); rewards fold back through "
+                        "--online's follower or POST /experiments/reward.json")
+    deploy.add_argument("--explore-epsilon", type=float, default=0.1, metavar="E",
+                        help="epsilon policy: probability a query serves an explored head")
+    deploy.add_argument("--explore-seed", type=int, default=0,
+                        help="seed of the policy's per-query generators")
+    deploy.add_argument("--explore-reward-event", default="reward", metavar="NAME",
+                        help="event name counted as bandit reward")
+    # the replica fleet (predictionio_tpu_torch.fleet): off by default,
+    # and then the package is never imported
+    deploy.add_argument("--replicas", type=_int_at_least(1), default=0, metavar="N",
+                        help="serve through N replica deploys behind a router on --port: "
+                        "consistent hash of the cache scope, health gating, failover, "
+                        "rolling /reload")
+    deploy.add_argument("--replica-id", default=None, metavar="ID",
+                        help="fleet-internal: this process is replica ID (set by the supervisor)")
+    deploy.add_argument("--variants", default="", metavar="NAME[:W],...",
+                        help="router: split /queries.json into weighted A/B variants, sticky by "
+                        "cache scope; POST /experiments/promote.json picks the winner")
+    deploy.add_argument("--probe-interval-s", type=float, default=0.25, metavar="S",
+                        help="router: seconds between /readyz probes of each replica")
+    deploy.add_argument("--failover-retries", type=_int_at_least(0), default=1, metavar="N",
+                        help="router: re-dispatches of one idempotent request to a peer")
+    deploy.add_argument("--hedge-ms", type=float, default=0.0, metavar="MS",
+                        help="router: hedge a query to a second replica after max(MS, p95); 0 = off")
+    deploy.add_argument("--fleet-breaker-threshold", type=_int_at_least(1), default=2, metavar="N",
+                        help="router: consecutive transport failures that open a replica's breaker")
+    deploy.add_argument("--fleet-breaker-reset-s", type=float, default=1.0, metavar="S",
+                        help="router: seconds an open replica breaker waits before probing")
+    deploy.add_argument("--endpoint-registry", default=None, metavar="DIR",
+                        help="fleet: shared endpoint-registry directory replicas announce into "
+                        "(default <basedir>/fleet/endpoints)")
+    deploy.add_argument("--router-only", action="store_true",
+                        help="fleet: serve a router without spawning replicas (HA pair on one "
+                        "--endpoint-registry)")
+    deploy.add_argument("--autoscale", default="", metavar="MIN:MAX",
+                        help="fleet: scale the replicas between MIN and MAX on the watermarks below")
     deploy.add_argument("--scale-up-qps", type=float, default=50.0, metavar="Q")
     deploy.add_argument("--scale-up-p99-ms", type=float, default=250.0, metavar="MS")
     deploy.add_argument("--scale-down-qps", type=float, default=5.0, metavar="Q")
     deploy.add_argument("--scale-cooldown-s", type=float, default=10.0, metavar="S")
-    deploy.add_argument("--stale-cache-ttl-s", type=float, default=0.0, metavar="S")
-    deploy.add_argument("--lease-ttl-s", type=float, default=5.0, metavar="S")
-    deploy.add_argument("--announce-dir", default=None, metavar="DIR")
-    deploy.add_argument("--announce-host", default="127.0.0.1", metavar="HOST")
+    deploy.add_argument("--stale-cache-ttl-s", type=float, default=0.0, metavar="S",
+                        help="router: serve a scope's last good answer (X-PIO-Stale) up to S "
+                        "seconds when no replica can; 0 = off")
+    deploy.add_argument("--lease-ttl-s", type=float, default=5.0, metavar="S",
+                        help="endpoint registry: seconds a replica's lease lives between heartbeats")
+    deploy.add_argument("--announce-dir", default=None, metavar="DIR",
+                        help="replica: announce the bound address into this endpoint registry")
+    deploy.add_argument("--announce-host", default="127.0.0.1", metavar="HOST",
+                        help="replica: the address other hosts reach this replica at")
+    # later tiers: parsed, then refused
+    deploy.add_argument("--shard-factors", action="store_true")
+    deploy.add_argument("--aot", action="store_true")
+    deploy.add_argument("--compilation-cache-dir", default=None, metavar="DIR")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -337,6 +383,14 @@ def build_parser() -> argparse.ArgumentParser:
     ev.add_argument("--batch", default="")
     ev.add_argument("--output-path", default="best.json")
     ev.add_argument("--device", default="cuda", help="'cuda' (the card) or 'cpu'")
+    ev.add_argument("--grid", action="store_true",
+                    help="train and score every candidate as one batched program a fold when the "
+                    "generator sweeps lambda/alpha/seed of one ALS algorithm; any other sweep "
+                    "takes the sequential evaluator, with the same output")
+    ev.add_argument("--promote-to", default=None, metavar="URL",
+                    help="after the sweep, POST the winning candidate's variant to "
+                    "URL/experiments/promote.json of a fleet router deployed with --variants, "
+                    "one variant a candidate, in the same order")
 
     tpl = sub.add_parser("template", help="built-in engine templates")
     tpl_sub = tpl.add_subparsers(dest="template_command", required=True)
@@ -395,7 +449,12 @@ def _refuse_waiting_flags(args: argparse.Namespace) -> None:
             raise ValueError(f"deploy {flag} is not in the port yet; it waits for {waits_for} (ROADMAP.md)")
 
 
-def _deploy(args: argparse.Namespace) -> None:
+def _deploy(args: argparse.Namespace) -> int:
+    _refuse_waiting_flags(args)
+    if args.replicas > 0 or args.router_only:
+        # the fleet: a router process and replica subprocesses (or a bare
+        # HA router); a fleet-less deploy never imports the fleet package
+        return _deploy_fleet(args)
     from predictionio_tpu_torch import resilience
     from predictionio_tpu_torch.api.http import serve
     from predictionio_tpu_torch.controller.context import local_context
@@ -403,7 +462,6 @@ def _deploy(args: argparse.Namespace) -> None:
     from predictionio_tpu_torch.workflow.engine_json import load_engine_variant
     from predictionio_tpu_torch.workflow.serving import FeedbackConfig, QueryService
 
-    _refuse_waiting_flags(args)
     # before any storage client exists
     resilience.set_rpc_defaults(
         retries=args.retry_reads,
@@ -463,6 +521,8 @@ def _deploy(args: argparse.Namespace) -> None:
         cache=cache,
         ann=ann,
         online=_online_from_args(args),
+        explore=_explore_from_args(args),
+        replica_id=args.replica_id,
     )
     lifecycle = _lifecycle_from_args(args)
 
@@ -480,6 +540,8 @@ def _deploy(args: argparse.Namespace) -> None:
         if args.port == 0:
             print(f"Bound port {bound_port}", flush=True)
         print(f"Engine is deployed and running. Listening on {args.ip}:{bound_port}", flush=True)
+        if args.announce_dir:
+            _start_announcer(args, service, server)
 
     try:
         serve(
@@ -489,6 +551,299 @@ def _deploy(args: argparse.Namespace) -> None:
     finally:
         service.close()
     print("Engine server stopped.", flush=True)
+    return 0
+
+
+def _explore_from_args(args: argparse.Namespace):
+    """The ``ExploreConfig`` of ``--explore*``, as the JAX console builds
+    it; None without ``--explore`` (nothing of the experiments package is
+    imported then)."""
+    if not args.explore:
+        return None
+    from predictionio_tpu_torch.experiments.explore import ExploreConfig
+
+    return ExploreConfig(
+        policy=args.explore,
+        epsilon=args.explore_epsilon,
+        seed=args.explore_seed,
+        reward_event=args.explore_reward_event,
+    )
+
+
+#: deploy flags that stay with the router: never passed to a replica
+_ROUTER_FLAGS = frozenset({
+    "command",
+    "replicas", "replica_id", "probe_interval_s", "failover_retries", "hedge_ms",
+    "fleet_breaker_threshold", "fleet_breaker_reset_s", "variants", "endpoint_registry",
+    "router_only", "autoscale", "scale_up_qps", "scale_up_p99_ms", "scale_down_qps",
+    "scale_cooldown_s", "stale_cache_ttl_s",
+    # rebound below, or ended at the router (TLS)
+    "ip", "port", "cert", "key", "announce_dir", "announce_host", "lease_ttl_s",
+})
+
+
+def _replica_argv(args: argparse.Namespace, replica_id: str, announce_dir: str) -> list[str]:
+    """One replica's ``deploy`` argv from the parsed fleet args: every
+    non-default deploy flag is carried over (``--device`` among them, so
+    a ``--device cpu`` fleet stays on the CPU), the router's flags, the
+    public bind and TLS are not. A replica listens in plain HTTP on the
+    loopback, binds port 0 and announces its bound address through the
+    endpoint registry (``--announce-dir``), so no port is picked before
+    the bind."""
+    defaults = build_parser().parse_args(["deploy"])
+    argv = ["-m", "predictionio_tpu_torch.tools.console", "deploy"]
+    for name, value in sorted(vars(args).items()):
+        if name in _ROUTER_FLAGS or value == getattr(defaults, name, None):
+            continue
+        if value is None or value is False:
+            continue
+        flag = "--" + name.replace("_", "-")
+        if value is True:
+            argv.append(flag)
+        else:
+            argv.extend([flag, str(value)])
+    argv.extend([
+        "--ip", "127.0.0.1", "--port", "0",
+        "--replica-id", replica_id,
+        "--announce-dir", announce_dir,
+        "--announce-host", args.announce_host,
+        "--lease-ttl-s", str(args.lease_ttl_s),
+    ])
+    return argv
+
+
+def _deploy_fleet(args: argparse.Namespace) -> int:
+    """``pio deploy --replicas N`` (and ``--router-only``): spawn the
+    replica subprocesses under the self-healing supervisor and serve the
+    fleet router on the public port. Replicas bind port 0 and join the
+    ring by announcing their bound address through the endpoint registry
+    — the router starts with an empty ring and reconciles membership from
+    the registry every probe interval. SIGTERM/SIGINT, ``GET /stop``
+    (token-gated) and ``pio undeploy`` stop the whole fleet: replicas
+    never outlive their router. The router process imports no torch."""
+    import atexit
+
+    from predictionio_tpu_torch.api.http import serve
+    from predictionio_tpu_torch.data.storage import Storage
+    from predictionio_tpu_torch.fleet import (
+        EndpointRegistry,
+        FleetSupervisor,
+        ModelRegistry,
+        ReplicaSpec,
+        RouterConfig,
+        RouterService,
+        fleet_state_path,
+    )
+
+    if args.router_only and args.autoscale:
+        raise SystemExit("--router-only serves no supervisor to scale; run --autoscale on the fleet "
+                         "that owns the replicas")
+    base_dir = Storage.base_dir()
+    endpoints_dir = args.endpoint_registry or os.path.join(base_dir, "fleet", "endpoints")
+    endpoint_registry = EndpointRegistry(endpoints_dir, lease_ttl_s=args.lease_ttl_s)
+    # with an explicit shared registry, many supervisors feed one ring:
+    # each replica id carries a host-unique token, so ids minted per host
+    # (r0, scale1, ...) never overwrite each other's entries
+    if args.endpoint_registry:
+        import socket
+
+        host_token = f"{socket.gethostname().split('.')[0]}-{os.getpid()}"
+
+        def _rid(base: str) -> str:
+            return f"{base}@{host_token}"
+    else:
+        def _rid(base: str) -> str:
+            return base
+
+    specs: list = []
+    if not args.router_only:
+        for i in range(args.replicas):
+            rid = _rid(f"r{i}")
+            specs.append(ReplicaSpec(rid, 0, tuple(_replica_argv(args, rid, endpoints_dir))))
+    config = RouterConfig(
+        probe_interval_s=args.probe_interval_s,
+        failover_retries=args.failover_retries,
+        hedge_ms=args.hedge_ms,
+        breaker_threshold=args.fleet_breaker_threshold,
+        breaker_reset_s=args.fleet_breaker_reset_s,
+        scope_field=None if args.cache_scope_field.lower() in ("none", "") else args.cache_scope_field,
+        stale_cache_ttl_s=args.stale_cache_ttl_s,
+    )
+    registry = ModelRegistry(os.path.join(base_dir, "fleet"))
+    split = None
+    if args.variants:
+        # without --variants nothing of the experiments package is imported
+        from predictionio_tpu_torch.experiments.split import SplitConfig, TrafficSplit
+
+        split = TrafficSplit(SplitConfig.parse(args.variants))
+        print("A/B experiment: " + ", ".join(f"{v.name}:{v.weight:g}" for v in split.config.variants)
+              + f" (sticky by {config.scope_field or 'whole-body hash'})", flush=True)
+    scale_cfg = None
+    if args.autoscale:
+        from predictionio_tpu_torch.fleet.autoscaler import Autoscaler, AutoscalerConfig
+
+        lo, _, hi = args.autoscale.partition(":")
+        try:
+            scale_cfg = AutoscalerConfig(
+                min_replicas=int(lo),
+                max_replicas=int(hi or lo),
+                scale_up_qps=args.scale_up_qps,
+                scale_up_p99_ms=args.scale_up_p99_ms,
+                scale_down_qps=args.scale_down_qps,
+                cooldown_s=args.scale_cooldown_s,
+            )
+        except ValueError as e:
+            raise SystemExit(f"--autoscale: {e}") from None
+    router = RouterService([], config, registry=registry, split=split, endpoint_registry=endpoint_registry)
+    router.start()
+    # the supervisor (and the autoscaler) start once the router is bound:
+    # the fleet state file is keyed by the bound port, as the stop token is
+    started: dict = {}
+    stopped = threading.Event()
+
+    def shutdown_fleet() -> None:
+        if stopped.is_set():
+            return
+        stopped.set()
+        if "autoscaler" in started:
+            started["autoscaler"].stop()
+        router.close()
+        if "supervisor" in started:
+            started["supervisor"].stop()
+
+    atexit.register(shutdown_fleet)
+
+    def wire_stop(server) -> None:
+        bound_port = server.server_address[1]
+        router.stop_token = commands.write_stop_token(bound_port)
+        if args.port == 0:  # before any replica prints its own
+            print(f"Bound port {bound_port}", flush=True)
+        if not args.router_only:
+            supervisor = started["supervisor"] = FleetSupervisor(
+                specs, fleet_state_path(base_dir, bound_port), bound_port
+            )
+            supervisor.start()
+            if scale_cfg is not None:
+                started["autoscaler"] = Autoscaler(
+                    router,
+                    supervisor,
+                    lambda rid: ReplicaSpec(_rid(rid), 0, tuple(_replica_argv(args, _rid(rid), endpoints_dir))),
+                    scale_cfg,
+                )
+                started["autoscaler"].start()
+
+        def stop_all() -> None:
+            def run() -> None:
+                shutdown_fleet()
+                server.shutdown()
+
+            threading.Thread(target=run, daemon=True).start()
+
+        router.stop_server = stop_all
+        # the first signal stops the fleet (each replica gets SIGTERM,
+        # drains per its own --drain-deadline-s, withdraws its registry
+        # entry and exits); the router's listener follows
+        signal.signal(signal.SIGTERM, lambda s, f: stop_all())
+        signal.signal(signal.SIGINT, lambda s, f: stop_all())
+        role = "HA router" if args.router_only else "router"
+        print(f"Fleet is deployed: {role} on {args.ip}:{bound_port}, {len(specs)} replica(s) self-reporting "
+              f"via {endpoints_dir}" + (f", autoscale {args.autoscale}" if scale_cfg is not None else ""),
+              flush=True)
+
+    serve(router.dispatch, args.ip, args.port, ssl_context=_ssl_from_args(args), ready_callback=wire_stop)
+    shutdown_fleet()
+    return 0
+
+
+def _start_announcer(args: argparse.Namespace, service, server) -> None:
+    """A replica's self-report: publish the address this server actually
+    bound (``--port 0``: the port is read off the live socket) into the
+    endpoint registry, heartbeat the lease, and withdraw on drain or exit
+    so a clean retirement leaves no entry to expire."""
+    import atexit
+
+    from predictionio_tpu_torch.fleet.registry import EndpointRegistry
+
+    host, port = args.announce_host, server.server_address[1]
+    rid = args.replica_id or f"pid{os.getpid()}"
+    registry = EndpointRegistry(args.announce_dir, lease_ttl_s=args.lease_ttl_s)
+    stop = threading.Event()
+
+    def generation() -> int:
+        try:
+            return int(getattr(service, "model_generation", 0) or 0)
+        except (TypeError, ValueError):
+            return 0
+
+    registry.announce(rid, host, port, generation=generation())
+    print(f"Announced replica {rid} at {host}:{port} in {args.announce_dir} (lease {args.lease_ttl_s:g}s)",
+          flush=True)
+
+    def heartbeat() -> None:
+        interval = max(0.05, args.lease_ttl_s / 3.0)
+        while not stop.wait(interval):
+            try:
+                registry.heartbeat(rid, host, port, generation=generation())
+            except OSError:
+                pass  # a shared-filesystem hiccup: the next beat renews the lease
+
+    threading.Thread(target=heartbeat, name="endpoint-heartbeat", daemon=True).start()
+
+    def withdraw() -> None:
+        stop.set()
+        try:
+            registry.withdraw(rid)
+        except OSError:
+            pass
+
+    # a drain withdraws first (routers reconcile this replica out before
+    # the listener closes); atexit covers exits without a drain
+    service.on_close.append(withdraw)
+    atexit.register(withdraw)
+
+
+def _promote_winner(router_url: str, result) -> dict:
+    """``pio eval --grid --promote-to URL``: map the sweep's winning
+    candidate index onto the router's variant order (``GET
+    /experiments.json`` lists them in ``--variants`` order, one variant a
+    candidate) and POST the promotion, which rolls the fleet. Any mismatch
+    is a ``SystemExit``: a mis-mapped promotion would roll the wrong
+    model fleet-wide."""
+    import urllib.error
+    import urllib.request
+
+    url = router_url.rstrip("/")
+    try:
+        with urllib.request.urlopen(url + "/experiments.json", timeout=10) as r:
+            experiments = json.load(r)
+    except (urllib.error.URLError, json.JSONDecodeError, OSError) as e:
+        raise SystemExit(f"--promote-to: cannot read {url}/experiments.json: {e}") from None
+    variants = [v.get("name") for v in experiments.get("variants", [])]
+    candidates = len(result.engine_params_scores)
+    if len(variants) != candidates:
+        raise SystemExit(
+            f"--promote-to: the router serves {len(variants)} variant(s) {variants} but the sweep scored "
+            f"{candidates} candidate(s) — refusing to guess the mapping; deploy --variants with one "
+            "variant per sweep candidate, in the same order"
+        )
+    winner = variants[result.best_index]
+    req = urllib.request.Request(
+        url + "/experiments/promote.json",
+        data=json.dumps({"variant": winner}).encode(),
+        headers={"Content-Type": "application/json"},
+        method="POST",
+    )
+    try:
+        # the promotion rolls every replica through /reload: budget it
+        # like a rolling reload, not like a GET
+        with urllib.request.urlopen(req, timeout=600) as r:
+            payload = json.load(r)
+            status = r.status
+    except urllib.error.HTTPError as e:
+        raise SystemExit(f"--promote-to: promotion of {winner!r} failed ({e.code}): {e.read()[:300]!r}") from None
+    except (urllib.error.URLError, json.JSONDecodeError, OSError) as e:
+        raise SystemExit(f"--promote-to: promotion of {winner!r} failed: {e}") from None
+    return {"promotedVariant": winner, "bestIndex": result.best_index, "status": status, "router": payload}
 
 
 def _online_from_args(args: argparse.Namespace):
@@ -607,7 +962,11 @@ def _eval(args: argparse.Namespace) -> None:
             generator = generator()
     else:
         generator = EngineParamsGenerator(getattr(evaluation, "engine_params_list", ()))
-    _, result = run_evaluation(
+    run = run_evaluation
+    if args.grid:
+        # without --grid nothing of the experiments package is imported
+        from predictionio_tpu_torch.experiments.sweep import run_grid_evaluation as run
+    _, result = run(
         evaluation,
         generator,
         local_context(args.device),
@@ -619,6 +978,8 @@ def _eval(args: argparse.Namespace) -> None:
     with open(args.output_path, "w") as f:
         json.dump(result.to_json(), f, indent=2, default=str)
     print(f"Best params written to {args.output_path}")
+    if args.promote_to:
+        print(json.dumps(_promote_winner(args.promote_to, result), indent=2, default=str))
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -682,7 +1043,7 @@ def main(argv: list[str] | None = None) -> int:
             )
             print(f"Training completed. Engine instance: {instance.id}")
         elif cmd == "deploy":
-            _deploy(args)
+            return _deploy(args)
         elif cmd == "undeploy":
             commands.undeploy(args.ip, args.port, args.https, args.insecure, token=args.token)
         elif cmd == "batchpredict":

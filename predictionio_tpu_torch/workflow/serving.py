@@ -47,10 +47,20 @@ keys carry the retrieval mode, so exact, ANN and int8 answers never serve
 each other. A build or quantization that fails fails the first load and
 degrades a ``/reload``, as a failing pin does.
 
-Differences from the JAX package: the fleet (replica ids, A/B variants),
-``--explore``, ``--aot`` and ``--shard-factors`` tiers are not here
-(ROADMAP queue 1); their routes answer as the JAX package's do with the
-tier off. ``/profiler/start`` and
+Experiments and the fleet (``explore=``, ``pio deploy --explore``;
+``replica_id=``, set by ``pio deploy --replicas`` on each replica): an
+:class:`~predictionio_tpu_torch.experiments.explore.Explorer` re-ranks
+``itemScores`` on the device thread before plugins and feedback see the
+answer; the router's ``X-PIO-Variant`` header namespaces the cache and
+singleflight keys and stamps feedback events; ``POST
+/experiments/reward.json`` feeds the explorer's posterior; a replica tags
+its answers with ``X-PIO-Replica`` and ``X-PIO-Generation``. With the
+options off, nothing under ``predictionio_tpu_torch.experiments`` is
+imported and answers carry no fleet headers.
+
+Differences from the JAX package: the ``--aot`` and ``--shard-factors``
+tiers are not here (ROADMAP queue 1 items 13 and 14); their routes answer
+as the JAX package's do with the tier off. ``/profiler/start`` and
 ``/profiler/stop`` drive ``torch.profiler`` on the device thread and
 write a Chrome trace.
 """
@@ -179,10 +189,17 @@ class QueryService:
         cache: CacheConfig | None = None,
         ann: AnnConfig | None = None,
         online: OnlineConfig | None = None,
+        explore=None,
+        replica_id: str | None = None,
     ):
         if cache is not None and cache.shard_factors:
             raise NotImplementedError("--shard-factors waits for ROADMAP queue 1 item 13")
         self.variant = variant
+        #: fleet identity (``pio deploy --replica-id``, set by the fleet
+        #: supervisor): reported on /readyz, /stats.json and as the
+        #: X-PIO-Replica / X-PIO-Generation headers of query answers.
+        #: None (every non-fleet deploy) adds no headers.
+        self.replica_id = replica_id
         self.ctx = ctx if ctx is not None else local_context()
         self.plugins = list(plugins)
         self.feedback = feedback
@@ -208,6 +225,19 @@ class QueryService:
         self._cache_mode = self.ann_config.cache_mode if self.ann_config is not None else "exact"
         if self.quantize:
             self._cache_mode = f"{self._cache_mode}+q{self.quantize}"
+        #: exploration (``pio deploy --explore``); None or a disabled
+        #: config imports nothing of the experiments package. The policy
+        #: joins the cache-mode tag, so re-ranked and greedy answers never
+        #: serve each other.
+        self.explore_config = explore if explore is not None and explore.enabled else None
+        #: the live Explorer, on the service's device (public: the online
+        #: runner feeds polled reward events into its posterior)
+        self.explorer = None
+        if self.explore_config is not None:
+            from predictionio_tpu_torch.experiments.explore import Explorer
+
+            self.explorer = Explorer(self.explore_config, self.ctx.device)
+            self._cache_mode = f"{self._cache_mode}+x{self.explore_config.policy}"
         #: the serving generation's IVF runtimes (``/stats.json`` ``ann``)
         self._ann_runtimes: list = []
         self._cache_stats: CacheStats | None = None
@@ -241,6 +271,9 @@ class QueryService:
         self.stop_server: Callable[[], None] | None = None
         #: when set, ``GET /stop`` requires this token
         self.stop_token: str | None = None
+        #: callbacks run first by :meth:`close` (and so by a drain), e.g.
+        #: the endpoint-registry withdraw of ``pio deploy --announce-dir``
+        self.on_close: list = []
         self._profiler = None
         self._feedback_queue: "queue.Queue | None" = None
         self._feedback_breaker = None
@@ -327,18 +360,29 @@ class QueryService:
             finally:
                 self._feedback_queue.task_done()
 
-    def _send_feedback(self, query_body: Any, payload: Any, pr_id: str | None) -> None:
+    def _send_feedback(
+        self, query_body: Any, payload: Any, pr_id: str | None, variant: str | None = None
+    ) -> None:
         """Async POST of the prediction as a ``predict`` event (parity: the
         feedback loop in CreateServer). The ``eventId`` derives from the
-        prediction id, so a redelivered event is a duplicate to the store."""
+        prediction id, so a redelivered event is a duplicate to the store.
+        The A/B ``variant`` and the exploration policy ride in the
+        properties, so reward joins are exact; the ``eventId`` stays
+        ``pio_fb_<prId>``, stamped or not."""
         fb = self.feedback
         assert fb is not None and self._feedback_queue is not None
+        properties: dict = {"query": query_body, "prediction": payload}
+        if variant is not None:
+            properties["variant"] = variant
+        explore_config = getattr(self, "explore_config", None)
+        if explore_config is not None:
+            properties["policy"] = explore_config.policy
         event = {
             "eventId": f"pio_fb_{pr_id}",
             "event": "predict",
             "entityType": "pio_pr",
             "entityId": pr_id or "",
-            "properties": {"query": query_body, "prediction": payload},
+            "properties": properties,
             "prId": pr_id,
             "eventTime": _dt.datetime.now(_dt.timezone.utc).isoformat(),
         }
@@ -465,12 +509,12 @@ class QueryService:
             raise ValueError("the query body must be a JSON object")
         return params_from_json(query_class, body)
 
-    def handle_query(self, body: Any) -> tuple[int, Any]:
-        """supplement -> each algorithm's predict -> serve -> plugins ->
-        feedback, on the device thread."""
-        return self.run_on_device(self._handle_query, body)
+    def handle_query(self, body: Any, variant: str | None = None) -> tuple[int, Any]:
+        """supplement -> each algorithm's predict -> serve -> explore ->
+        plugins -> feedback, on the device thread."""
+        return self.run_on_device(self._handle_query, body, variant)
 
-    def _handle_query(self, body: Any) -> tuple[int, Any]:
+    def _handle_query(self, body: Any, variant: str | None = None) -> tuple[int, Any]:
         # snapshot under the lock so a query is internally consistent
         # across a concurrent /reload
         with self._lock:
@@ -486,51 +530,66 @@ class QueryService:
             return 400, {"message": f"Invalid query: {e}"}
         query = serving.supplement_base(query)
         predictions = [algo.predict_base(model, query) for algo, model in pairs]
-        return self._finish_query(serving, body, query, predictions)
+        return self._finish_query(serving, body, query, predictions, variant)
 
     def _finish_query(
-        self, serving, body: Any, query: Any, predictions: Sequence[Any]
+        self, serving, body: Any, query: Any, predictions: Sequence[Any], variant: str | None = None
     ) -> tuple[int, Any]:
-        """serve -> plugins -> feedback -> count, shared by the single and
-        batch routes so they cannot diverge."""
+        """serve -> explore -> plugins -> feedback -> count, shared by the
+        single and batch routes so they cannot diverge."""
         payload = result_to_json(serving.serve_base(query, predictions))
         pr_id = None
         if self.feedback is not None:
             pr_id = uuid.uuid4().hex
             if isinstance(payload, dict):
                 payload = dict(payload, prId=pr_id)
+        if self.explorer is not None and isinstance(payload, dict):
+            # the policy's re-rank between scoring and the plugins:
+            # plugins and feedback see the order actually served
+            items = payload.get("itemScores")
+            if isinstance(items, list) and items:
+                payload = dict(payload, itemScores=self.explorer.rerank(items))
         for plugin in self.plugins:
             if plugin.plugin_type == "outputblocker":
                 payload = plugin.process(query, payload, self)
             else:
                 plugin.process(query, payload, self)
         if self.feedback is not None:
-            self._send_feedback(body, payload, pr_id)
+            self._send_feedback(body, payload, pr_id, variant)
         with self._lock:
             self.query_count += 1
         return 200, payload
 
     # ------------------------------------------------------- cached queries
-    def _scored_query(self, body: Any) -> tuple[int, Any]:
+    def _scored_query(self, body: Any, variant: str | None = None) -> tuple[int, Any]:
         """The uncached scoring path: the micro-batcher when one is
-        configured, else the per-request path."""
+        configured, else the per-request path. The micro-batched path
+        drops the variant tag (a batch mixes variants; its feedback
+        events carry no variant field), as in the JAX package."""
         if self.batcher is not None:
             return self.batcher.submit(body)
-        return self.handle_query(body)
+        if variant is None:  # the exact call of a deploy without experiments
+            return self.handle_query(body)
+        return self.handle_query(body, variant)
 
-    def handle_query_cached(self, body: Any) -> tuple[int, Any]:
+    def handle_query_cached(self, body: Any, variant: str | None = None) -> tuple[int, Any]:
         """/queries.json with the cache tiers applied: result-LRU lookup,
         then singleflight on a miss, then the winning computation's 200
         committed back unless an invalidation won the race. Uncacheable
         bodies bypass every tier; non-200 results are never cached but do
         coalesce."""
         if self._result_cache is None and self._singleflight is None:
-            return self._scored_query(body)  # pin-model-only config
+            return self._scored_query(body, variant)  # pin-model-only config
         key = canonical_key(body)
         if key is None:
             self._cache_stats.incr("uncacheable")
-            return self._scored_query(body)
+            return self._scored_query(body, variant)
         key = f"{self._cache_mode}|{key}"
+        if variant is not None:
+            # the router's X-PIO-Variant tag namespaces the result cache
+            # and the singleflight (its key embeds this one); a variant
+            # name cannot hold the "|" separator (experiments.split)
+            key = f"v={variant}|{key}"
         rc = self._result_cache
         scope = extract_scope(body, self.cache_config.scope_field)
         if rc is not None:
@@ -540,7 +599,7 @@ class QueryService:
 
         def compute() -> tuple[int, Any]:
             token = rc.reserve(key, scope) if rc is not None else None
-            result = self._scored_query(body)
+            result = self._scored_query(body, variant)
             if rc is not None and result[0] == 200:
                 rc.commit(token, result)
             return result
@@ -739,7 +798,7 @@ class QueryService:
         inst = self.instance
         return {
             "status": "alive",
-            "replicaId": None,
+            "replicaId": self.replica_id,
             "generation": self.model_generation,
             "engineId": self.variant.id,
             "engineVersion": self.variant.version,
@@ -758,7 +817,7 @@ class QueryService:
             "ann": self.ann_config is not None,
             "aot": False,
             "online": self.online is not None,
-            "explore": None,
+            "explore": self.explore_config.policy if self.explore_config is not None else None,
             "degraded": self.degraded,
             "lastReloadError": self.last_reload_error,
             "lastReloadAt": self.last_reload_at.isoformat() if self.last_reload_at else None,
@@ -780,7 +839,7 @@ class QueryService:
             generation = self._model_generation
         out: dict = {
             "queryCount": count,
-            "replicaId": None,
+            "replicaId": self.replica_id,
             "generation": generation,
             "startTime": self.start_time.isoformat(),
             "batching": self.batcher is not None,
@@ -793,6 +852,10 @@ class QueryService:
             out["batcher"] = self.batcher.stats.to_json()
         if self._cache_stats is not None:
             out["cache"] = self._cache_stats.to_json()
+        if self.explorer is not None:
+            # queries and explored counts, the cumulative model-score
+            # regret, the reward events fed to the posterior
+            out["explore"] = self.explorer.stats_json()
         if self.online is not None:
             # freshness: events folded, fold latency, watermark lag, and
             # the measured event->reflected-in-recs latency
@@ -839,14 +902,22 @@ class QueryService:
             batcher={"ok": batcher_ok},
         )
         report["degraded"] = degraded
-        report["replicaId"] = None
+        report["replicaId"] = self.replica_id
         report["generation"] = generation
         return report
 
     def close(self) -> None:
-        """Stop the online follower and trainer threads, release the
-        batcher's dispatcher (queued requests get a 503), then the device
-        thread. Safe to call more than once."""
+        """Run the ``on_close`` callbacks (the endpoint-registry withdraw
+        of ``--announce-dir``, so a draining replica leaves the ring
+        before its listener closes), stop the online follower and trainer
+        threads, release the batcher's dispatcher (queued requests get a
+        503), then the device thread. Safe to call more than once."""
+        callbacks, self.on_close = self.on_close, []
+        for cb in callbacks:
+            try:
+                cb()
+            except Exception as e:  # closing must never fail the drain
+                logger.warning("on_close callback failed: %s", e)
         if self.online is not None:
             self.online.stop()
             self.online = None
@@ -886,6 +957,15 @@ class QueryService:
         return path
 
     # ------------------------------------------------------------ dispatch
+    def _tag_replica(self, resp: Response) -> Response:
+        """A fleet replica's answer carries which replica and model
+        generation served it, so the router keeps one cache key on one
+        generation; outside a fleet the answer is untouched."""
+        if self.replica_id is None:
+            return resp
+        tags = {"X-PIO-Replica": self.replica_id, "X-PIO-Generation": str(self.model_generation)}
+        return dataclasses.replace(resp, headers={**(resp.headers or {}), **tags})
+
     def dispatch(
         self,
         method: str,
@@ -899,16 +979,24 @@ class QueryService:
         if path == "/" and method == "GET":
             return Response(200, self.status_json())
         if path == "/queries.json" and method == "POST":
+            # the fleet router tags routed queries with the A/B variant it
+            # assigned; no header (every non-experiment deploy) is None
+            variant = None
+            if headers:
+                variant = next((v for k, v in headers.items() if k.lower() == "x-pio-variant"), None) or None
             if self.cache_config is not None:
-                status, payload = self.handle_query_cached(body)
+                status, payload = self.handle_query_cached(body, variant)
             elif self.batcher is not None:
                 status, payload = self.batcher.submit(body)
             else:
-                return Response(*self.handle_query(body))
+                answer = self.handle_query(body) if variant is None else self.handle_query(body, variant)
+                return self._tag_replica(Response(*answer))
             # admission control: tell clients when to come back
             if status in (429, 503) and isinstance(payload, Mapping) and "retryAfterSeconds" in payload:
-                return Response(status, payload, headers={"Retry-After": str(payload["retryAfterSeconds"])})
-            return Response(status, payload)
+                return self._tag_replica(
+                    Response(status, payload, headers={"Retry-After": str(payload["retryAfterSeconds"])})
+                )
+            return self._tag_replica(Response(status, payload))
         if path == "/cache/invalidate.json" and method == "POST":
             # {"entityId": "u1"} / {"entityIds": [...]} / {"all": true} /
             # a list of event-server-shaped bodies
@@ -947,11 +1035,18 @@ class QueryService:
             except Exception as e:
                 return Response(500, {"message": str(e)[:300]})
         if path == "/experiments/reward.json" and method == "POST":
-            return Response(
-                404,
-                {"message": "Exploration is off on this deployment "
-                            "(enable with pio deploy --explore)."},
-            )
+            # the explorer's reward entry when online learning is off (with
+            # --online the follower feeds reward events); one event-server
+            # shaped event or a list of them
+            if self.explorer is None:
+                return Response(
+                    404,
+                    {"message": "Exploration is off on this deployment "
+                                "(enable with pio deploy --explore)."},
+                )
+            events = body if isinstance(body, list) else [body] if isinstance(body, Mapping) else []
+            matched = self.explorer.note_reward_events(events)
+            return Response(200, {"matched": matched, "explore": self.explorer.stats_json()})
         if path == "/reload" and method == "POST":
             try:
                 self.reload()

@@ -7,9 +7,16 @@
   to a stub event server, reports all of it on ``/stats.json``, and
   ``pio undeploy`` (the stop token from the base directory) stops it:
   exit 0 within 10 s.
-* The deploy flags of tiers the port does not have parse and are then
-  refused with an error naming their ROADMAP item, before any storage or
-  model is touched.
+* The deploy flags of tiers the port does not have (``--shard-factors``,
+  ``--aot``, ``--compilation-cache-dir``) parse and are then refused with
+  an error naming their ROADMAP item, before any storage or model is
+  touched.
+* The ``--explore*`` flags build the ``ExploreConfig`` the JAX console
+  builds; ``--variants`` builds the router's ``SplitConfig`` as the JAX
+  console does (both consoles' ``RouterService`` replaced by a recording
+  stub); ``--replicas``, ``--router-only`` and ``--autoscale`` reach the
+  console's ``_deploy_fleet`` (replaced by a recorder), and a replica's
+  argv runs the port's console with the fleet's ``--device``.
 * ``--ann*`` and ``--quantize int8`` build the ``AnnConfig`` and the
   ``CacheConfig`` the JAX console builds from the same command line
   (both consoles' ``QueryService`` replaced by a recording stub), and a
@@ -37,6 +44,7 @@ import pytest
 
 import predictionio_tpu.tools.console as jax_console
 import predictionio_tpu.workflow.serving as jax_serving
+import predictionio_tpu_torch.tools.console as port_console
 import predictionio_tpu_torch.workflow.serving as port_serving
 from predictionio_tpu.data.storage import Storage as JaxStorage
 from predictionio_tpu.online.follower import TailFollower as JaxTailFollower
@@ -157,15 +165,9 @@ def test_deploy_with_serving_flags_then_undeploy(tmp_path):
 @pytest.mark.parametrize(
     "flags, item",
     [
-        (["--explore-epsilon", "0.2"], "item 12"),
-        (["--explore", "epsilon"], "item 12"),
-        (["--variants", "a,b"], "item 12"),
         (["--shard-factors"], "item 13"),
         (["--aot"], "item 14"),
         (["--compilation-cache-dir", "x"], "item 14"),
-        (["--replicas", "2"], "fleet router"),
-        (["--router-only"], "fleet router"),
-        (["--autoscale", "1:3"], "fleet router"),
     ],
 )
 def test_flags_of_later_tiers_are_refused(flags, item, capsys):
@@ -176,6 +178,110 @@ def test_flags_of_later_tiers_are_refused(flags, item, capsys):
 
 class _Built(Exception):
     pass
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [
+        ["--explore", "epsilon"],
+        ["--explore", "thompson", "--explore-seed", "3", "--explore-reward-event", "buy"],
+        ["--explore", "epsilon", "--explore-epsilon", "0.25", "--replica-id", "r1"],
+        ["--explore-epsilon", "0.5"],  # without --explore: no config
+    ],
+)
+def test_explore_flags_build_the_jax_consoles_config(flags, tmp_path, monkeypatch):
+    """Both consoles parse one command line; each one's QueryService is
+    replaced by a stub that records its ``explore`` and ``replica_id``
+    arguments and stops the deploy there."""
+    engine_json = tmp_path / "engine.json"
+    engine_json.write_text(json.dumps(ENGINE))
+    built = {}
+
+    def stub(name):
+        def record(*args, **kwargs):
+            built[name] = (kwargs.get("explore"), kwargs.get("replica_id"))
+            raise _Built(name)
+        return record
+
+    monkeypatch.setattr(jax_serving, "QueryService", stub("jax"))
+    monkeypatch.setattr(port_serving, "QueryService", stub("torch"))
+    argv = ["deploy", "--engine-json", str(engine_json)] + flags
+    assert jax_console.main(argv) == 1 and main(argv + ["--device", "cpu"]) == 1
+    (jax_config, jax_rid), (port_config, port_rid) = built["jax"], built["torch"]
+    assert port_rid == jax_rid == ("r1" if "--replica-id" in flags else None)
+    if "--explore" not in flags:
+        assert jax_config is None and port_config is None
+        return
+    assert type(port_config).__module__ == "predictionio_tpu_torch.experiments.explore"
+    assert dataclasses.asdict(port_config) == dataclasses.asdict(jax_config) and port_config.enabled
+
+
+@pytest.mark.parametrize("spec", ["control:1,treatment:1", "a:2,b:1,c"])
+def test_variants_build_the_jax_consoles_split(spec, tmp_path, monkeypatch):
+    """``--replicas 2 --variants SPEC`` through both consoles: each one's
+    ``RouterService`` is replaced by a stub that records its ``split``
+    and stops the fleet before any replica is spawned."""
+    import predictionio_tpu.fleet as jax_fleet
+    import predictionio_tpu_torch.fleet as port_fleet
+
+    built = {}
+
+    def stub(name):
+        def record(*args, **kwargs):
+            built[name] = kwargs.get("split")
+            raise _Built(name)
+        return record
+
+    monkeypatch.setattr(jax_fleet, "RouterService", stub("jax"))
+    monkeypatch.setattr(port_fleet, "RouterService", stub("torch"))
+    argv = ["deploy", "--engine-json", "nowhere.json", "--replicas", "2", "--variants", spec]
+    JaxStorage.configure({"PIO_FS_BASEDIR": str(tmp_path / "jax")})
+    Storage.configure({"PIO_FS_BASEDIR": str(tmp_path / "torch")})
+    try:
+        assert jax_console.main(argv) == 1 and main(argv + ["--device", "cpu"]) == 1
+    finally:
+        JaxStorage.configure(None)
+        Storage.configure(None)
+    jax_split, port_split = built["jax"], built["torch"]
+    assert type(port_split).__module__ == "predictionio_tpu_torch.experiments.split"
+    assert dataclasses.asdict(port_split.config) == dataclasses.asdict(jax_split.config)
+    assert port_split.variant_names() == jax_split.variant_names()
+
+
+@pytest.mark.parametrize(
+    "flags, want",
+    [
+        (["--replicas", "2"], {"replicas": 2, "router_only": False, "autoscale": ""}),
+        (["--router-only", "--endpoint-registry", "shared"], {"replicas": 0, "router_only": True,
+                                                               "endpoint_registry": "shared"}),
+        (["--replicas", "1", "--autoscale", "1:3", "--scale-up-qps", "80"], {"replicas": 1, "autoscale": "1:3",
+                                                                           "scale_up_qps": 80.0}),
+        (["--replicas", "3", "--variants", "a,b", "--hedge-ms", "5"], {"replicas": 3, "variants": "a,b",
+                                                                      "hedge_ms": 5.0}),
+    ],
+)
+def test_fleet_flags_reach_deploy_fleet(flags, want, monkeypatch):
+    seen = []
+    monkeypatch.setattr(port_console, "_deploy_fleet", lambda args: seen.append(args) or 0)
+    assert main(["deploy", "--engine-json", "nowhere.json", "--device", "cpu"] + flags) == 0
+    (args,) = seen
+    assert {key: getattr(args, key) for key in want} == want and args.device == "cpu"
+
+
+def test_replica_argv_runs_the_ports_console_with_the_fleets_device():
+    args = port_console.build_parser().parse_args(
+        ["deploy", "--engine-json", "e.json", "--device", "cpu", "--replicas", "2", "--variants", "a,b",
+         "--batching", "--explore", "thompson", "--port", "8100", "--lease-ttl-s", "2"])
+    argv = port_console._replica_argv(args, "r1", "/reg")
+    assert argv[:3] == ["-m", "predictionio_tpu_torch.tools.console", "deploy"]
+    pairs = dict(zip(argv[3:], argv[4:]))
+    assert pairs["--device"] == "cpu" and pairs["--explore"] == "thompson" and "--batching" in argv
+    assert pairs["--port"] == "0" and pairs["--replica-id"] == "r1" and pairs["--announce-dir"] == "/reg"
+    assert pairs["--lease-ttl-s"] == "2.0"
+    assert "--replicas" not in argv and "--variants" not in argv
+    default = port_console._replica_argv(port_console.build_parser().parse_args(["deploy", "--replicas", "2"]),
+                                         "r0", "/reg")
+    assert "--device" not in default  # the default, the card, stays the default
 
 
 @pytest.mark.parametrize(

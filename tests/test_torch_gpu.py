@@ -39,7 +39,10 @@ top-k, the build bit-equal between two runs of one seed, and three
 ``/reload``s with ``--ann --quantize int8`` within 1 MiB of allocated
 memory. Similar-Product, E-Commerce and the classifiers pinned on the
 card answer as their CPU branch does (ids except near-ties of relative 1e-5, scores
-and confidences within 1e-5).
+and confidences within 1e-5). The batched grid of ``pio eval --grid`` on the
+card scores as on the CPU from the same starting factors, within one hit
+(1/(k·users)), and the explorer keeps its contract on the card: greedy at
+epsilon 0, the same items under Thompson, one seed one sequence.
 """
 
 import numpy as np
@@ -1022,3 +1025,46 @@ def test_templates_serve_on_card_as_on_the_cpu(cuda_device):
             a, b = card.predict(on_card, q), host.predict(on_host, q)
             assert a.label == b.label and abs(a.confidence - b.confidence) <= 1e-5
     assert torch_solve.gj_solve_cuda.launches == launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("implicit", [False, True], ids=["explicit", "implicit"])
+def test_grid_scores_on_card_as_on_the_cpu(cuda_device, implicit):
+    from predictionio_tpu_torch.experiments.sweep import grid_train_eval, initial_factors
+
+    rng = np.random.default_rng(9)
+    n, k = 32, 4
+    blocks = (np.arange(n)[:, None] % 2) == (np.arange(n)[None, :] % 2)
+    observed = rng.random((n, n)) < np.where(blocks, 0.6, 0.3)
+    R = np.where(observed, np.where(blocks, 5.0, 1.0), 0.0).astype(np.float32)
+    M = observed.astype(np.float32)
+    T = (blocks & ~observed).astype(np.float32)
+    arrays = (R, M, T, M.copy(), np.ones(n, np.float32), np.ones(n, np.float32))
+    regs, alphas, seeds = np.float32([0.01, 0.1, 1.0, 10.0]), np.float32([1.0, 2.0, 1.0, 0.5]), np.int64([0, 1, 2, 0])
+    init = initial_factors(seeds.tolist(), n, n, 6)
+    statics = dict(rank=6, iterations=5, implicit=implicit, k=k, init=init)
+    cpu = grid_train_eval(*arrays, regs, alphas, seeds, device="cpu", **statics).numpy()
+    card = grid_train_eval(*arrays, regs, alphas, seeds, device=cuda_device, **statics).cpu().numpy()
+    assert card.shape == (4,) and np.isfinite(card).all()
+    np.testing.assert_allclose(card, cpu, rtol=0, atol=1.0 / (k * n) + 1e-7)
+
+
+@pytest.mark.gpu
+def test_explorer_keeps_its_contract_on_card(cuda_device):
+    from predictionio_tpu_torch.experiments.explore import ExploreConfig, Explorer, _ItemStat
+
+    items = [{"item": f"i{j}", "score": 10.0 - j} for j in range(12)]
+    greedy = Explorer(ExploreConfig(policy="epsilon", epsilon=0.0), cuda_device)
+    assert all([e["item"] for e in greedy.rerank(items)] == [e["item"] for e in items] for _ in range(10))
+    runs = []
+    for _ in range(2):
+        ex = Explorer(ExploreConfig(policy="thompson", seed=4), cuda_device)
+        runs.append([[e["item"] for e in ex.rerank(items)] for _ in range(20)])
+        assert all(sorted(r) == sorted(e["item"] for e in items) for r in runs[-1])
+    assert runs[0] == runs[1]
+    narrow = Explorer(ExploreConfig(policy="thompson", seed=5), cuda_device)
+    for e in items:
+        narrow._items[e["item"]] = _ItemStat()
+        narrow._items[e["item"]].pulls = 10**8
+    assert [e["item"] for e in narrow.rerank(items)] == [e["item"] for e in items]
+    assert narrow.stats_json()["lastError"] is None and greedy.stats_json()["explored"] == 0

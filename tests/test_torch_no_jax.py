@@ -13,7 +13,10 @@ imports nothing of it. The approximate and int8 retrieval modules
 ``--ann`` or ``--quantize`` imports neither. So are the Similar-Product,
 E-Commerce, Classification and Text-Classification templates and the
 copies they run on (``ops/text.py``,
-``controller/cleaning.py``, ``e2/``)."""
+``controller/cleaning.py``, ``e2/``). The fleet (``fleet/``) and the A/B
+split (``experiments/split.py``) import neither torch nor jax (the router
+is a host process), and a default deploy imports neither the fleet nor
+the experiments package."""
 
 import ast
 import os
@@ -272,3 +275,73 @@ def test_template_modules_are_checked(name):
     Recommendation and Two-Tower, and the modules they run on: each is
     scanned and imported by the probe above."""
     assert PORT / name in SOURCES
+
+
+HOST_ONLY = sorted((PORT / "fleet").glob("*.py")) + [PORT / "experiments" / "split.py"]
+
+
+@pytest.mark.parametrize("path", HOST_ONLY, ids=lambda p: str(p.relative_to(ROOT)))
+def test_fleet_and_split_sources_import_neither_torch_nor_jax(path):
+    bad = [
+        f"{path.name}:{line} imports {name}"
+        for line, name in _imports(path)
+        if _forbidden(name) or name.split(".")[0] in ("torch", "numpy")
+    ]
+    assert not bad, bad
+
+
+def test_fleet_and_split_load_neither_torch_nor_jax():
+    """What the router process holds: the fleet package, a split, a
+    router with the split, a hash ring and the registries."""
+    probe = (
+        "import sys, tempfile\n"
+        "import predictionio_tpu_torch.fleet as fleet\n"
+        "from predictionio_tpu_torch.experiments.split import SplitConfig, TrafficSplit\n"
+        "split = TrafficSplit(SplitConfig.parse('a:1,b:2'))\n"
+        "assert split.assign('s:u1') in ('a', 'b')\n"
+        "d = tempfile.mkdtemp()\n"
+        "router = fleet.RouterService([], fleet.RouterConfig(), registry=fleet.ModelRegistry(d), split=split,\n"
+        "                             endpoint_registry=fleet.EndpointRegistry(d))\n"
+        "assert router.dispatch('GET', '/experiments.json', {}).status == 200\n"
+        "assert fleet.HashRing(['r0', 'r1']).owner('s:u1') in ('r0', 'r1')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'predictionio_tpu', 'torch'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    run = subprocess.run(
+        [sys.executable, "-c", probe], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert run.returncode == 0, run.stdout + run.stderr
+
+
+def test_default_deploy_imports_neither_fleet_nor_experiments():
+    """The port's counterpart of ``tests/test_ci_guards.py``'s
+    ``test_fleet_defaults_are_opt_in`` and
+    ``test_experiments_defaults_are_opt_in``: without ``--replicas``,
+    ``--explore`` or ``--variants`` (and without ``eval --grid``) the
+    console, the query server and both templates import nothing under
+    ``predictionio_tpu_torch.fleet`` or ``.experiments``; the flags
+    default off and a query server without a replica id adds no fleet
+    headers."""
+    probe = (
+        "import inspect, sys\n"
+        "import predictionio_tpu_torch.workflow.serving as serving\n"
+        "import predictionio_tpu_torch.templates.recommendation.engine\n"
+        "import predictionio_tpu_torch.templates.twotower.engine\n"
+        "from predictionio_tpu_torch.tools import console\n"
+        "args = console.build_parser().parse_args(['deploy', '--device', 'cpu', '--pin-model'])\n"
+        "assert args.replicas == 0 and args.replica_id is None and not args.router_only\n"
+        "assert args.explore is None and args.variants == '' and console._explore_from_args(args) is None\n"
+        "assert not console.build_parser().parse_args(['eval', 'm:e']).grid\n"
+        "sig = inspect.signature(serving.QueryService.__init__)\n"
+        "assert sig.parameters['explore'].default is None and sig.parameters['replica_id'].default is None\n"
+        "assert 'if self.replica_id is None' in inspect.getsource(serving.QueryService._tag_replica)\n"
+        "bad = sorted(m for m in sys.modules if m.startswith(('predictionio_tpu_torch.fleet',\n"
+        "                                                     'predictionio_tpu_torch.experiments')))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    run = subprocess.run(
+        [sys.executable, "-c", probe], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert run.returncode == 0, run.stdout + run.stderr
