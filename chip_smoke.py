@@ -58,6 +58,11 @@ the same solve kernel at rank 32), Classification and Text-Classification,
 each through ``pio template get``, ``pio import``, ``pio train``, ``pio
 deploy`` and (the classifiers) ``pio eval``.
 
+The sharded path: ``pio deploy --shard-factors`` — each factor table
+row-sharded over an 8-way mesh on the card — alone and with ``--quantize
+int8``, ``--ann`` and ``--online``, against the replicated tiers, and the
+JAX bench's sharded sweep up to 1,048,576 items.
+
 The approximate and int8 retrieval path: ``pio deploy --ann`` and
 ``--quantize int8`` on the same warm instance and on the Two-Tower
 quickstart's, the full probe held to exact retrieval to the bit, an
@@ -206,6 +211,50 @@ Phases, in order; any failure exits non-zero and prints no result:
    against f32 exact), int8-slab against f32-slab IVF (recall@10 within
    0.01), served bytes at least 3.5x smaller. No kernel is on this path:
    every count must read 0. ``[ann]`` lines.
+11b. sharded — ``--shard-factors`` on an 8-way mesh over the one card
+   (``sharding.local_devices([cuda:0] * 8)``, the reference's 8 host
+   devices), and over the real cards where there are two or more. The
+   JAX bench's sweep (``phase_sharded_sweep``; after ``[ann]``'s): 65,536
+   / 262,144 / 1,048,576 items, users max(1024, items / 2), rank 64,
+   4,096 queries in chunks of 512, k 16, seed 17, ``vf[1] = vf[0]``,
+   through the template's shard and quantize hooks: a mesh position's
+   bytes equal to ``sharded_table_bytes`` and at most replicated / 8 x
+   1.1 (int8: / (8 x 3.5)); sharded exact against the replicated
+   ``top_k_items_batch`` (ids equal, scores within rtol 1e-6, the bits
+   that differ counted), sharded int8 against replicated int8 and the
+   sharded full probe against exact (to the bit), sharded IVF at nprobe 8
+   against the unsharded probe (ids); queries/s of each; the plain GEMM's
+   bits whole against per shard (why the exact path scores through
+   ``ops/als.score_rows``); BENCH_r01's table as shape math. What
+   ``score_rows`` costs the replicated path (``phase_score_cost``): at
+   27,077 and 1,048,576 items the scoring and ``top_k_items_batch`` of a
+   512- and a 32-query batch, and one user's ``top_k_items``, against one
+   product; a slice's ``score_rows`` bit-equal to the whole table's at 1
+   to 512 queries. On the
+   workflow's store and warm instance (``phase_sharded_service``, after
+   ``[ann]``): first the serving phase's 32 x 100 load on a plain pinned
+   service with ``score_rows`` and with one product (legs A B B A); an
+   in-process ``QueryService`` with
+   ``CacheConfig(shard_factors=True, pin_model=True)`` behind
+   ``QueryServer`` under the serving phase's 32 x 100 load, each answer
+   float64 numpy's top-10 (near-tie rule) and a plain pinned service's
+   ids; ``factorShards`` 8, ``bytesPinned`` the padded tables; the load's
+   peak ``max_memory_allocated`` under the shards plus a replicated copy;
+   three reloads (each superseded generation's sharded tables collected,
+   ``memory_allocated`` flat within 1 MiB); ``--quantize int8`` and
+   ``--ann`` with shards under the same clients (25 and 10 queries a
+   client, ``SHD_INT8_REQUESTS`` and ``SHD_ANN_REQUESTS``; the unsharded tier's ids;
+   recall@10 at the ``[ann]`` sweep's bars, 0.99 and 0.95, or at the
+   unsharded tier's where it misses them here); ``--online`` under
+   the online phase's traffic, then by ``/online/fold.json`` a fresh user
+   into a padding slot, a burst past the padding into one re-layout, a
+   known user's update into its row alone (every other row bit-equal);
+   ``pio deploy --shard-factors --pin-model`` as a subprocess (one card:
+   the reference's one-device warning, ``factorShards`` 0). In the
+   Two-Tower quickstart's store (``phase_tt_sharded``): its instance
+   sharded under 8 x 50 queries against a plain pinned service and
+   float64 numpy without the seen items. No kernel is on this path.
+   ``[sharded]`` lines.
 12. templates — the four templates beside Recommendation and Two-Tower
    (``phase_templates``), through the console verbs in one temporary
    columnar store, each engine.json the one ``pio template get`` writes.
@@ -482,6 +531,49 @@ ANN_INC_RECALL_DELTA = 0.02
 ANN_FULL_PROBE_USERS = 1000
 ANN_FOLD_CHECK_USERS = 64
 ANN_RELOADS = 3
+
+#: sharded factor serving (``[sharded]``): the JAX bench's sweep
+#: (``bench.py::_bench_scale_sharded``, ``bench.py:3351-3530``): items
+#: 65,536 / 262,144 / 1,048,576, users max(1024, items / 2), rank 64,
+#: 4,096 queries in 512-query chunks, k 16, seed 17, ``vf[1] = vf[0]``;
+#: an 8-way mesh (the reference's 8 host devices, ``tests/conftest.py:23-25``)
+#: over the one card, and once more over the real devices where there are
+#: two or more. Bars: a mesh position holds at most replicated / S x 1.1
+#: (int8: replicated / (S x 3.5)); sharded exact scores within rtol 1e-6
+#: of the replicated ones (``tests/test_sharded.py:87-103``). BENCH_r01's
+#: table (``f32[64761856,64]`` against 17 GB) is shape math only
+SHD_SIZES = (65_536, 262_144, 1_048_576)
+SHD_RANK = 64
+SHD_QUERIES = 4096
+SHD_CHUNK = 512
+SHD_K = 16
+SHD_SEED = 17
+SHD_SHARDS = 8
+SHD_BYTES_SLACK = 1.1
+SHD_SCORE_RTOL = 1e-6
+SHD_IVF_ITERS = 4
+SHD_OOM_ROWS = 64_761_856
+SHD_OOM_HBM = 17 * 2**30
+SHD_RELOADS = 3
+SHD_FOLD_EVENTS = 2
+#: queries a client of the ``--shard-factors --quantize int8`` and
+#: ``--ann`` loads (the [serving] traffic's 32 clients at a quarter and a
+#: tenth of its ``SRV_REQUESTS``, to hold the script's length: on the one
+#: card a sharded int8 query holds the device thread ~10 ms and a sharded
+#: probe ~20 ms, 8 shards of launches each)
+SHD_INT8_REQUESTS = 25
+SHD_ANN_REQUESTS = 10
+#: what ``ops/als.score_rows`` costs the replicated exact path
+#: (``phase_score_cost``): the warm instance's catalog and the sweep's
+#: largest; a 512-query chunk (the sweep's) and a 32-query batch (the
+#: batcher's largest), each timed ``SCORE_COST_REPS`` calls twice a
+#: version (5 at a million items); ``SCORE_COST_CALLS`` single queries
+#: a version, interleaved; its contract held at SCORE_COST_CHECK_M queries
+SCORE_COST_ITEMS = (27_077, 1_048_576)
+SCORE_COST_BATCHES = (512, 32)
+SCORE_COST_REPS = 20
+SCORE_COST_CALLS = 200
+SCORE_COST_CHECK_M = (1, 3, 8, 13, 32, 100, 512)
 
 #: the templates phase (``[templates]``): SimilarProduct and ECommerce on
 #: one columnar app at the ML-20M shape (``ml20m_shaped``'s pairs as
@@ -3279,6 +3371,674 @@ def phase_tt_ann(device, ctx: dict, smi: str) -> dict:
     return out
 
 
+# ----------------------------------------------------------- 11b. sharded
+def sharded_meshes(device) -> list:
+    """The device lists of the ``[sharded]`` phase: ``SHD_SHARDS`` mesh
+    positions on the one card, then the real devices where there are two
+    or more."""
+    meshes = [("one card", [device] * SHD_SHARDS)]
+    if device.type == "cuda" and torch.cuda.device_count() >= 2:
+        meshes.append(("devices", [torch.device("cuda", i) for i in range(torch.cuda.device_count())]))
+    return meshes
+
+
+def timed_topk(fn, uidx: np.ndarray) -> tuple[dict, np.ndarray, np.ndarray]:
+    """``bench.py``'s ``timed()``: ``fn`` on one warm chunk, then on every
+    ``SHD_CHUNK``-query chunk of ``uidx``, each chunk's ids and scores to
+    the host; queries/s, and every row's ids and scores."""
+    fn(uidx[:SHD_CHUNK])[0].cpu()
+    ids, scores = [], []
+    t0 = time.perf_counter()
+    for lo in range(0, len(uidx), SHD_CHUNK):
+        i, s = fn(uidx[lo:lo + SHD_CHUNK])
+        ids.append(i.cpu().numpy().astype(np.int64))
+        scores.append(s.cpu().numpy())
+    wall = time.perf_counter() - t0
+    return {"queries_per_s": len(uidx) / wall, "wall_s": wall}, np.concatenate(ids), np.concatenate(scores)
+
+
+def bit_differences(a: np.ndarray, b: np.ndarray) -> tuple[int, int]:
+    """How many float32 entries of ``a`` and ``b`` differ in their bits, and
+    the most units in the last place between two of them."""
+    ai, bi = a.view(np.int32).astype(np.int64), b.view(np.int32).astype(np.int64)
+    differ = ai != bi
+    return int(differ.sum()), int(np.abs(ai - bi)[differ].max()) if differ.any() else 0
+
+
+def phase_sharded_sweep(device, smi: str) -> dict:
+    """The JAX bench's sharded sweep on the card (``SHD_*``): at each size
+    the tables through the template's ``shard_model_for_serving`` and
+    ``quantize_model_for_serving(shard=True)`` hooks, each mesh position's
+    bytes against ``sharded_table_bytes``; sharded exact against the
+    replicated ``top_k_items_batch`` (ids equal, scores within rtol 1e-6;
+    the bit differences counted), sharded int8 against replicated int8
+    (ids and scores to the bit), sharded IVF at nprobe ``ANN_NPROBE``
+    against the unsharded probe (ids) and at ``nprobe = nlist`` against
+    the replicated exact answer (to the bit); queries/s of each. The
+    plain ``[B,K]@[K,I]`` GEMM is compared with its per-shard products on
+    the first chunk: the input of the finding ``ops/als.score_rows``
+    answers. BENCH_r01's table is printed as shape math."""
+    from predictionio_tpu_torch.ops import ivf, quant
+    from predictionio_tpu_torch.ops.als import top_k_items_batch
+    from predictionio_tpu_torch.parallel import sharding
+    from predictionio_tpu_torch.templates.recommendation.engine import ALSAlgorithmParams, ALSModel
+
+    t_phase = time.perf_counter()
+    repl_oom = sharding.table_bytes(SHD_OOM_ROWS, SHD_RANK)
+    shard_oom = sharding.sharded_table_bytes(SHD_OOM_ROWS, SHD_RANK, SHD_SHARDS)
+    oom = {"rows": SHD_OOM_ROWS, "rank": SHD_RANK, "replicated_gib": repl_oom / 2**30,
+           "per_device_gib_8way": shard_oom / 2**30, "replicated_fits_17gb": 2 * repl_oom < SHD_OOM_HBM,
+           "sharded_fits_17gb": 2 * shard_oom < SHD_OOM_HBM}
+    log(f"[sharded] BENCH_r01 shape math (not allocated): f32[{SHD_OOM_ROWS},{SHD_RANK}] is "
+        f"{oom['replicated_gib']:.3f} GiB replicated, {oom['per_device_gib_8way']:.3f} GiB a device 8-way; two "
+        f"tables fit 17 GiB replicated: {oom['replicated_fits_17gb']}, sharded: {oom['sharded_fits_17gb']}")
+    algo = ALSAlgorithm(ALSAlgorithmParams(), device=device)
+    empty = BiMap.from_dict({})
+    points = []
+    for mesh_label, devs in sharded_meshes(device):
+        rng = np.random.default_rng(SHD_SEED)
+        with sharding.local_devices(devs):
+            for n_items in SHD_SIZES:
+                n_users = max(1024, n_items // 2)
+                uf = rng.standard_normal((n_users, SHD_RANK)).astype(np.float32)
+                vf = rng.standard_normal((n_items, SHD_RANK)).astype(np.float32)
+                vf[1] = vf[0]  # an exact tie must merge as the replicated path merges it
+                uidx = rng.integers(0, n_users, SHD_QUERIES)
+                point = {"mesh": mesh_label, "catalog_items": n_items, "catalog_users": n_users, "rank": SHD_RANK}
+                model, bytes_sharded = algo.shard_model_for_serving(ALSModel(uf, vf, empty, empty))
+                info = model._pio_shards
+                S = info.num_shards
+                repl = uf.nbytes + vf.nbytes
+                per_pos = sharding.per_device_bytes(model.user_factors) + sharding.per_device_bytes(model.item_factors)
+                math = sum(sharding.sharded_table_bytes(n, SHD_RANK, S) for n in (n_users, n_items))
+                if per_pos != math or per_pos > repl / S * SHD_BYTES_SLACK:
+                    raise RuntimeError(f"sharded: a mesh position holds {per_pos} bytes, sharded_table_bytes says "
+                                       f"{math}, replicated / {S} is {repl / S}")
+                # the plain GEMM across the two layouts, first chunk
+                uf_d, vf_d = torch.as_tensor(uf, device=device), torch.as_tensor(vf, device=device)
+                q = uf_d[torch.as_tensor(uidx[:SHD_CHUNK], device=device)]
+                whole = (q @ vf_d.T).cpu().numpy()
+                parts = torch.cat([(q.to(t.device) @ t.T).to(device) for t in model.item_factors.shards], 1)
+                plain = bit_differences(whole, parts[:, :n_items].cpu().numpy())
+                del whole, parts
+                shard_stats, s_ids, s_scores = timed_topk(lambda c: sharding.sharded_topk_users(
+                    c, model.user_factors, model.item_factors, SHD_K, n_items), uidx)
+                repl_stats, r_ids, r_scores = timed_topk(lambda c: top_k_items_batch(
+                    torch.as_tensor(c, device=device), uf_d, vf_d, SHD_K), uidx)
+                exact_bits = bit_differences(s_scores, r_scores)
+                if not np.array_equal(s_ids, r_ids) or not np.allclose(s_scores, r_scores, rtol=SHD_SCORE_RTOL, atol=0):
+                    raise RuntimeError(f"sharded: {int((s_ids != r_ids).sum())} ids of the sharded exact top-{SHD_K} "
+                                       f"differ from the replicated ones at {n_items} items ({mesh_label})")
+                # int8: sharded codes and scales against replicated ones
+                model_q, bytes_q = algo.quantize_model_for_serving(ALSModel(uf, vf, empty, empty), shard=True)
+                per_pos_q = (sharding.per_device_bytes_quantized(model_q.user_factors)
+                             + sharding.per_device_bytes_quantized(model_q.item_factors))
+                if per_pos_q > repl / (S * QZ_BYTES_RATIO):
+                    raise RuntimeError(f"sharded: an int8 mesh position holds {per_pos_q} bytes, over replicated / "
+                                       f"({S} x {QZ_BYTES_RATIO})")
+                ur, ir = quant.quantize_table(uf, device), quant.quantize_table(vf, device)
+                rrt = quant.QuantRuntime("int8", {}, 0)
+                q_stats, qs_ids, qs_scores = timed_topk(lambda c: quant.run_topk(
+                    model_q._pio_quant, model_q.user_factors, model_q.item_factors, c, SHD_K,
+                    shards=model_q._pio_shards), uidx)
+                q_repl_stats, qr_ids, qr_scores = timed_topk(lambda c: quant.run_topk(rrt, ur, ir, c, SHD_K), uidx)
+                if not np.array_equal(qs_ids, qr_ids) or bit_differences(qs_scores, qr_scores)[0]:
+                    raise RuntimeError(f"sharded: the sharded int8 top-{SHD_K} is not the replicated int8 one to the "
+                                       f"bit at {n_items} items ({mesh_label})")
+                algo.release_pinned_model(model_q)
+                del ur, ir, model_q
+                # IVF: the index laid out over the mesh, the model's sharded
+                # item table its full probe's
+                index, binfo = ivf.build_ivf(vf, nlist=0, seed=0, iters=SHD_IVF_ITERS, device=device, table=vf_d)
+                rt = ivf.AnnRuntime(index, ANN_NPROBE, binfo)
+                layout = ivf.shard_runtime(rt, info.mesh, model.item_factors, n_items)
+                ivf_stats, si_ids, _ = timed_topk(lambda c: sharding.sharded_ivf_topk(
+                    sharding.gather_rows(c, model.user_factors), rt.index, SHD_K, ANN_NPROBE), uidx)
+                ivf_repl_stats, ui_ids, _ = timed_topk(lambda c: ivf.ivf_topk_users(
+                    torch.as_tensor(c, device=device), uf_d, index, SHD_K, ANN_NPROBE), uidx)
+                full_stats, fi_ids, fi_scores = timed_topk(lambda c: sharding.sharded_ivf_topk(
+                    sharding.gather_rows(c, model.user_factors), rt.index, SHD_K, index.nlist), uidx)
+                if not np.array_equal(si_ids, ui_ids):
+                    raise RuntimeError(f"sharded: {int((si_ids != ui_ids).sum())} ids of the sharded IVF probe "
+                                       f"differ from the unsharded one at {n_items} items ({mesh_label})")
+                if not np.array_equal(fi_ids, r_ids) or bit_differences(fi_scores, r_scores)[0]:
+                    raise RuntimeError(f"sharded: the sharded full probe is not the exact top-{SHD_K} to the bit at "
+                                       f"{n_items} items ({mesh_label})")
+                point.update({
+                    "shards": S, "replicated_bytes": repl, "sharded_bytes_total": bytes_sharded,
+                    "per_position_bytes": per_pos, "sharded_table_bytes": math,
+                    "int8_bytes_total": bytes_q, "int8_per_position_bytes": per_pos_q,
+                    "plain_gemm_bits_differ": plain[0], "plain_gemm_max_ulps": plain[1],
+                    "exact_scores_bits_differ": exact_bits[0],
+                    "exact": {"sharded": shard_stats, "replicated": repl_stats},
+                    "int8": {"sharded": q_stats, "replicated": q_repl_stats},
+                    "ivf": {"nlist": index.nlist, "nprobe": ANN_NPROBE, "sharded": ivf_stats,
+                            "unsharded": ivf_repl_stats, "full_probe_sharded": full_stats,
+                            "bytes_index_per_position": layout["bytesIndexPerDevice"]},
+                })
+                log(f"[sharded] {mesh_label} x{S}, {n_items} items x {n_users} users, rank {SHD_RANK}: a position "
+                    f"holds {per_pos} bytes = sharded_table_bytes {math} (replicated {repl}, /S {repl / S:.0f}), int8 "
+                    f"{per_pos_q}; plain GEMM whole against per shard: {plain[0]} of {SHD_CHUNK * n_items} scores "
+                    f"differ (up to {plain[1]} ulps); exact sharded {shard_stats['queries_per_s']:.1f} queries/s, "
+                    f"replicated {repl_stats['queries_per_s']:.1f}: ids equal, {exact_bits[0]} scores differ in "
+                    f"their bits; int8 sharded {q_stats['queries_per_s']:.1f}, replicated "
+                    f"{q_repl_stats['queries_per_s']:.1f}: equal to the bit; IVF nlist {index.nlist} nprobe "
+                    f"{ANN_NPROBE} sharded {ivf_stats['queries_per_s']:.1f}, unsharded "
+                    f"{ivf_repl_stats['queries_per_s']:.1f}: ids equal; full probe sharded "
+                    f"{full_stats['queries_per_s']:.1f}: the exact answer to the bit; on {smi}")
+                algo.release_pinned_model(model)
+                del model, rt, index, uf_d, vf_d
+                points.append(point)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"oom_shape": oom, "sweep": points, "queries": SHD_QUERIES, "k": SHD_K, "card": smi,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def one_product(q: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The scoring of the port before ``ops/als.score_rows``: one
+    ``[M, K] @ [K, n]`` product, whose kernel (and bits) cuBLAS picks by
+    ``n``."""
+    return q @ table.T
+
+
+def copied_windows(q: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``score_rows``' first design, kept here to time it: a fresh
+    ``[M, SCORE_BLOCK]`` product a window, copied into the output, the
+    last window overlapping the one before, a short table padded."""
+    from predictionio_tpu_torch.ops.als import SCORE_BLOCK
+
+    n = table.shape[0]
+    if n <= SCORE_BLOCK:
+        pad = torch.cat([table, table.new_zeros((SCORE_BLOCK - n, table.shape[1]))])
+        return (q @ pad.T)[:, :n]
+    out = torch.empty((q.shape[0], n), dtype=torch.float32, device=q.device)
+    for lo in [*range(0, n - SCORE_BLOCK, SCORE_BLOCK), n - SCORE_BLOCK]:
+        out[:, lo:lo + SCORE_BLOCK] = q @ table[lo:lo + SCORE_BLOCK].T
+    return out
+
+
+def phase_score_cost(device, smi: str) -> dict:
+    """What ``ops/als.score_rows`` (every exact score of the port, in
+    products of ``SCORE_BLOCK`` rows written in place) costs the replicated
+    exact path against one product (``one_product``) and against its
+    first design (``copied_windows``), at the warm instance's catalog and
+    the sweep's largest (``SCORE_COST_ITEMS``): the scoring alone and
+    ``top_k_items_batch`` at a 512-query chunk and a 32-query batch (CUDA
+    events, each version timed twice, in the order A B C C B A), and one
+    user's ``top_k_items`` with its answer copied to the host, as a
+    per-request deploy asks (host clock, the versions interleaved call by
+    call, medians). First ``score_rows``' contract at ``SCORE_COST_CHECK_M``
+    queries: the scores of a slice of the table (one block; three and a
+    short one; a short one alone; the last rows) equal to the bit the
+    same items' scores in the whole table, whatever the batch count of
+    its products."""
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.ops.topk import top_k_scores
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SHD_SEED)
+    points = []
+    for n_items in SCORE_COST_ITEMS:
+        n_users = max(1024, n_items // 2)
+        uf = torch.as_tensor(rng.standard_normal((n_users, SHD_RANK)).astype(np.float32), device=device)
+        vf = torch.as_tensor(rng.standard_normal((n_items, SHD_RANK)).astype(np.float32), device=device)
+        point = {"catalog_items": n_items, "catalog_users": n_users, "rank": SHD_RANK, "batches": {}}
+        block = als.SCORE_BLOCK
+        slices = [(0, block), (0, 3 * block + 100), (block + 7, block + 7 + 3385), (n_items - 5000, n_items)]
+        for m in SCORE_COST_CHECK_M:
+            q = uf[:m]
+            whole = als.score_rows(q, vf)
+            for lo, hi in slices:
+                bits = int((als.score_rows(q, vf[lo:hi]).view(torch.int32)
+                            != whole[:, lo:hi].contiguous().view(torch.int32)).sum())
+                if bits:
+                    raise RuntimeError(f"score cost: {bits} scores of score_rows over rows {lo}:{hi} of {n_items} "
+                                       f"differ in their bits from the whole table's at M = {m}")
+            del whole
+        for m in SCORE_COST_BATCHES:
+            idx = torch.as_tensor(rng.integers(0, n_users, m), device=device)
+            q = uf[idx]
+            reps = SCORE_COST_REPS if n_items < 10**6 else 5
+            score_fns = {"one_product": lambda: one_product(q, vf), "copied_windows": lambda: copied_windows(q, vf),
+                         "score_rows": lambda: als.score_rows(q, vf)}
+            topk_fns = {"one_product": lambda: top_k_scores(one_product(uf[idx], vf), SHD_K),
+                        "score_rows": lambda: als.top_k_items_batch(idx, uf, vf, SHD_K)}
+            row = {}
+            for label, fns in (("score_ms", score_fns), ("top_k_items_batch_ms", topk_fns)):
+                order = list(fns) + list(fns)[::-1]
+                times = {name: [] for name in fns}
+                for name in order:
+                    times[name].append(time_ms(fns[name], reps))
+                row[label] = {name: sum(t) / len(t) for name, t in times.items()}
+            point["batches"][m] = row
+        # one user a call, its answer to the host: a per-request deploy's query
+        users = rng.integers(0, n_users, SCORE_COST_CALLS)
+        walls = {"one_product": [], "score_rows": []}
+        fns = {"one_product": lambda u: top_k_scores(vf @ uf[u], TOP_K),
+               "score_rows": lambda u: als.top_k_items(uf[u], vf, TOP_K)}
+        for name, fn in fns.items():
+            fn(int(users[0]))[0].cpu()
+        for i, u in enumerate(users):
+            for name in (("one_product", "score_rows") if i % 2 == 0 else ("score_rows", "one_product")):
+                t0 = time.perf_counter()
+                fns[name](int(u))[0].cpu()
+                walls[name].append((time.perf_counter() - t0) * 1e3)
+        point["per_request_ms_p50"] = {name: float(np.median(w)) for name, w in walls.items()}
+        b512, b32 = point["batches"][512], point["batches"][32]
+        log(f"[sharded] score_rows cost, {n_items} items, rank {SHD_RANK}: scoring a 512-query chunk "
+            f"{b512['score_ms']['score_rows']:.4f} ms against one product {b512['score_ms']['one_product']:.4f} "
+            f"(copied windows {b512['score_ms']['copied_windows']:.4f}); top_k_items_batch at 512 "
+            f"{b512['top_k_items_batch_ms']['score_rows']:.4f} ms against {b512['top_k_items_batch_ms']['one_product']:.4f}, "
+            f"at 32 {b32['top_k_items_batch_ms']['score_rows']:.4f} against "
+            f"{b32['top_k_items_batch_ms']['one_product']:.4f}; one user's top_k_items to the host p50 "
+            f"{point['per_request_ms_p50']['score_rows']:.4f} ms against {point['per_request_ms_p50']['one_product']:.4f} "
+            f"({SCORE_COST_CALLS} calls each, interleaved); score_rows over 4 slices bit-equal to the whole "
+            f"table's at M = {', '.join(map(str, SCORE_COST_CHECK_M))}; on {smi}")
+        points.append(point)
+        del uf, vf
+    torch.cuda.empty_cache()
+    return {"points": points, "card": smi, "phase_s": time.perf_counter() - t_phase}
+
+
+def padded_table_bytes(rows: int, rank: int, shards: int, itemsize: int) -> int:
+    from predictionio_tpu_torch.parallel import sharding
+
+    return sharding.padded_rows(rows, shards) * rank * itemsize
+
+
+def sharded_load(label: str, service: QueryService, picks: np.ndarray, user_index, clients: int, smi: str) -> dict:
+    """``clients`` x ``len(picks)/clients`` top-10 queries to ``service``
+    behind the port's HTTP server (``QueryServer``); every answer 200."""
+    with QueryServer(service) as server:
+        load = run_load(server.url, picks, user_index, clients, TOP_K)
+    load["answers"] = ok_answers(f"sharded {label}", load)
+    log(f"[sharded] {label}: {load['queries']} queries from {clients} keep-alive clients, "
+        f"{load['queries_per_s']:.1f} queries/s, p50 {load['p50_ms']:.3f} ms, p99 {load['p99_ms']:.3f} ms, all 200; "
+        f"on {smi}")
+    return load
+
+
+def score_rows_ab(service: QueryService, picks: np.ndarray, user_index, smi: str) -> dict:
+    """The ``[serving]`` uniform load (``SRV_CLIENTS`` clients, ``picks``)
+    on a per-request pinned ``service``, with the exact path's scoring as
+    it is (``ops/als.score_rows``) and as one product (``one_product``
+    patched in for ``als.score_rows``, the scoring before it): four legs
+    of half the picks in the order A B B A, so each version answers every
+    pick once, all 200. Returns each version's queries/s (its queries
+    over its legs' wall) and each leg's p50 / p99."""
+    from predictionio_tpu_torch.ops import als
+
+    original, half = als.score_rows, len(picks) // 2
+    legs = (("one_product", picks[:half]), ("score_rows", picks[:half]), ("score_rows", picks[half:]),
+            ("one_product", picks[half:]))
+    runs: dict = {"one_product": [], "score_rows": []}
+    with QueryServer(service) as server:
+        for name, part in legs:
+            als.score_rows = one_product if name == "one_product" else original
+            try:
+                load = run_load(server.url, part, user_index, SRV_CLIENTS, TOP_K)
+            finally:
+                als.score_rows = original
+            ok_answers(f"score_rows A/B {name}", load)
+            runs[name].append({key: load[key] for key in ("queries", "wall_s", "queries_per_s", "p50_ms", "p99_ms")})
+    out = {name: {"queries": sum(r["queries"] for r in legs_),
+                  "queries_per_s": sum(r["queries"] for r in legs_) / sum(r["wall_s"] for r in legs_),
+                  "legs": legs_} for name, legs_ in runs.items()}
+    p50 = {name: " / ".join(f"{r['p50_ms']:.3f}" for r in legs_) for name, legs_ in runs.items()}
+    log(f"[sharded] score_rows A/B on the plain pinned service, {SRV_CLIENTS} clients x {len(picks) // SRV_CLIENTS} "
+        f"uniform queries a version (legs A B B A): score_rows {out['score_rows']['queries_per_s']:.1f} queries/s "
+        f"(p50 {p50['score_rows']} ms), one product {out['one_product']['queries_per_s']:.1f} (p50 "
+        f"{p50['one_product']} ms), all 200; on {smi}")
+    return out
+
+
+def same_as_plain(label: str, answers: list, plain: QueryService, user_index, k: int) -> list:
+    """Every ``(user row, payload)`` answer's item ids equal to ``plain``'s
+    ``handle_query`` for the same body; raises otherwise. Returns
+    ``plain``'s answers, as ``(user row, payload)``."""
+    bad, theirs = [], []
+    for uidx, payload in answers:
+        status, want = plain.handle_query({"user": user_index.inverse(uidx), "num": k})
+        theirs.append((uidx, want))
+        if status != 200 or [s["item"] for s in payload["itemScores"]] != [s["item"] for s in want["itemScores"]]:
+            bad.append(uidx)
+    if bad:
+        raise RuntimeError(f"{label}: {len(bad)} of {len(answers)} answers differ from the plain pinned service's")
+    return theirs
+
+
+def phase_sharded_service(device, ctx: dict, smi: str) -> dict:
+    """``CacheConfig(shard_factors=True, pin_model=True)`` on the workflow's
+    warm instance, an 8-way mesh over the card (``SHD_SHARDS``), behind the
+    port's HTTP server. First the ``[serving]`` uniform load on the plain
+    ``--pin-model`` service with and without ``score_rows``
+    (:func:`score_rows_ab`). Then the sharded tier under that load
+    (``SRV_CLIENTS`` x ``SRV_REQUESTS``), every answer float64 numpy's
+    top-10 (near-tie rule) and the item ids of the plain service's for the
+    same user; ``factorShards`` and ``bytesPinned`` (the padded tables);
+    the load's peak ``max_memory_allocated`` below the shards plus a
+    replicated copy; ``SHD_RELOADS`` reloads, each generation's
+    ``ShardedTable``\\ s collectable after the next and
+    ``memory_allocated`` flat within 1 MiB; ``--quantize int8``
+    (``SHD_INT8_REQUESTS`` queries a client) and ``--ann``
+    (``SHD_ANN_REQUESTS``) with shards (the unsharded tier's ids; recall@10
+    at the ``[ann]`` sweep's bars, or at the unsharded tier's where it
+    misses them here); ``--online`` under
+    the ``[online]`` traffic through the event server's bulk route, then
+    three folds: a
+    fresh user into a padding slot, a burst past the padding into one
+    re-layout, a known user's update into its row alone (every other row
+    bit-equal); then ``pio deploy --shard-factors --pin-model`` as a
+    subprocess (one card: the JAX package's warning and ``factorShards``
+    0; more: the real mesh and each card's memory). No kernel launches."""
+    import gc
+    import weakref
+
+    from predictionio_tpu_torch.parallel import sharding
+    from predictionio_tpu_torch.serving import AnnConfig, CacheConfig
+
+    t_phase = time.perf_counter()
+    base, engine_json, dev_args = ctx["base"], ctx["engine_json"], ctx["dev_args"]
+    first = ctx["instance"]
+    stored = stored_model(first.id)
+    user_index, item_index = stored.user_index, stored.item_index
+    U64 = np.asarray(stored.user_factors, np.float64)
+    V64 = np.asarray(stored.item_factors, np.float64)
+    rank = stored.user_factors.shape[1]
+    del stored
+    n_users, n_items = len(user_index), len(item_index)
+    variant = load_engine_variant(str(engine_json))
+    picks = load_picks(SRV_CLIENTS * SRV_REQUESTS, n_users, seed=71)
+    out: dict = {"users": n_users, "items": n_items, "rank": rank, "shards": SHD_SHARDS, "card": smi}
+    reset_launch_counts()
+    plain = QueryService(variant, local_context(device), instance_id=first.id, cache=CacheConfig(pin_model=True))
+    on_card = device.type == "cuda"
+    try:
+        out["score_rows_ab"] = score_rows_ab(plain, picks, user_index, smi)
+        with sharding.local_devices([device] * SHD_SHARDS):
+            # the sharded exact tier; the load's peak on the card: the
+            # shards alone (no replicated pin before them)
+            if on_card:
+                torch.cuda.synchronize(device)
+                torch.cuda.reset_peak_memory_stats(device)
+            mem_before = torch.cuda.memory_allocated(device) if on_card else 0
+            service = QueryService(variant, local_context(device), instance_id=first.id,
+                                   cache=CacheConfig(shard_factors=True, pin_model=True))
+            if on_card:
+                torch.cuda.synchronize(device)
+            load_peak = torch.cuda.max_memory_allocated(device) - mem_before if on_card else 0
+            replicated_bytes = (n_users + n_items) * rank * 4
+            try:
+                load = sharded_load("--shard-factors --pin-model, uniform users", service, picks, user_index,
+                                    SRV_CLIENTS, smi)
+                checked = check_answers("sharded", load["answers"], U64, V64, item_index, TOP_K)
+                same = len(same_as_plain("sharded", load["answers"], plain, user_index, TOP_K))
+                stats, root = service.stats_json()["cache"], service.status_json()
+                want_bytes = sum(padded_table_bytes(n, rank, SHD_SHARDS, 4) for n in (n_users, n_items))
+                if stats["factorShards"] != SHD_SHARDS or stats["bytesPinned"] != want_bytes or not root["shardFactors"]:
+                    raise RuntimeError(f"sharded: factorShards {stats['factorShards']}, bytesPinned "
+                                       f"{stats['bytesPinned']} (padded tables {want_bytes}), shardFactors "
+                                       f"{root['shardFactors']}")
+                if load_peak >= want_bytes + replicated_bytes:
+                    raise RuntimeError(f"sharded: the load's peak {load_peak} bytes holds the shards ({want_bytes}) "
+                                       f"and a replicated copy ({replicated_bytes})")
+                # reloads: each generation's shards collectable, memory flat
+                if on_card:
+                    torch.cuda.synchronize(device)
+                mem_first = torch.cuda.memory_allocated(device) if on_card else 0
+                refs = []
+                for _ in range(SHD_RELOADS):
+                    (_, model), = service.snapshot_pairs()[0]
+                    refs += [weakref.ref(model.user_factors), weakref.ref(model.item_factors)]
+                    del model
+                    service.reload()
+                    gc.collect()
+                    alive = sum(r() is not None for r in refs)
+                    if alive:
+                        raise RuntimeError(f"sharded: {alive} ShardedTables of a superseded generation are alive "
+                                           "after /reload")
+                if on_card:
+                    torch.cuda.synchronize(device)
+                mem_last = torch.cuda.memory_allocated(device) if on_card else 0
+                if abs(mem_last - mem_first) > 1 << 20:
+                    raise RuntimeError(f"sharded: {SHD_RELOADS} reloads moved memory_allocated {mem_first} -> "
+                                       f"{mem_last}")
+            finally:
+                service.close()
+            run = {key: load[key] for key in ("queries", "wall_s", "queries_per_s", "p50_ms", "p99_ms")}
+            out["exact"] = dict(run, checked=checked, same_as_plain=same, factor_shards=stats["factorShards"],
+                                bytes_pinned=stats["bytesPinned"], reload_memory=[mem_first, mem_last],
+                                load_peak_bytes=load_peak, replicated_bytes=replicated_bytes)
+            log(f"[sharded] exact: {checked} answers float64 numpy's top-{TOP_K}, {same} the plain pinned "
+                f"service's ids; factorShards {stats['factorShards']}, bytesPinned {stats['bytesPinned']} = the "
+                f"padded tables; the load's peak max_memory_allocated {load_peak} bytes (the replicated tables "
+                f"{replicated_bytes}); {SHD_RELOADS} reloads: every superseded generation's shards collected, "
+                f"memory_allocated {mem_first} -> {mem_last}; on {smi}")
+            # int8 and IVF composed with shards, each against its unsharded tier
+            for label, flags, ann, bar, n in (
+                ("int8", {"quantize": "int8"}, None, QZ_RECALL_BAR, SRV_CLIENTS * SHD_INT8_REQUESTS),
+                ("ann", {"pin_model": True}, AnnConfig(enabled=True, nprobe=ANN_NPROBE), ANN_RECALL_BAR,
+                 SRV_CLIENTS * SHD_ANN_REQUESTS),
+            ):
+                service = QueryService(variant, local_context(device), instance_id=first.id,
+                                       cache=CacheConfig(shard_factors=True, **flags), ann=ann)
+                try:
+                    load = sharded_load(f"--shard-factors --{'quantize int8' if ann is None else 'ann'}", service,
+                                        picks[:n], user_index, SRV_CLIENTS, smi)
+                    stats = service.stats_json()
+                finally:
+                    service.close()
+                unsharded = QueryService(variant, local_context(device), instance_id=first.id,
+                                         cache=CacheConfig(**flags), ann=ann)
+                try:
+                    theirs = same_as_plain(f"sharded {label}", load["answers"], unsharded, user_index, TOP_K)
+                finally:
+                    unsharded.close()
+                recall = recall_vs_float64(load["answers"], U64, V64, item_index, TOP_K)
+                recall_unsharded = recall_vs_float64(theirs, U64, V64, item_index, TOP_K)
+                shards = stats["cache"]["factorShards"]
+                ann_shards = stats["ann"]["models"][0]["shards"] if ann is not None else SHD_SHARDS
+                # the [ann] sweep's bar, or the unsharded tier's own recall
+                # where that tier misses the bar on this instance
+                if recall < min(bar, recall_unsharded) or shards != SHD_SHARDS or ann_shards != SHD_SHARDS:
+                    raise RuntimeError(f"sharded {label}: recall@10 {recall:.4f} (bar {bar}, the unsharded tier "
+                                       f"{recall_unsharded:.4f}), factorShards {shards}, index shards {ann_shards}")
+                run = {key: load[key] for key in ("queries", "wall_s", "queries_per_s", "p50_ms", "p99_ms")}
+                out[label] = dict(run, recall_at_10=recall, recall_at_10_unsharded=recall_unsharded,
+                                  same_as_unsharded=len(theirs), bytes_pinned=stats["cache"]["bytesPinned"])
+                log(f"[sharded] {label} with shards: {len(theirs)} answers the unsharded tier's ids; recall@10 "
+                    f"against float64 numpy {recall:.4f}, the unsharded tier's {recall_unsharded:.4f} (the [ann] "
+                    f"sweep's bar {bar}: {'met' if recall >= bar else 'missed by both tiers on this instance'}); "
+                    f"factorShards {shards}; bytesPinned {stats['cache']['bytesPinned']}; on {smi}")
+            out["online"] = sharded_online(device, ctx, variant, user_index, item_index, rank, smi)
+    finally:
+        plain.close()
+    out["launches"] = read_launch_counts()
+    out["cli"] = sharded_cli(device, ctx, user_index, U64, V64, item_index, rank, smi)
+    if any(out["launches"].values()):
+        raise RuntimeError(f"sharded: launches {out['launches']}; the sharded path has no kernel")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def sharded_online(device, ctx: dict, variant, user_index, item_index, rank: int, smi: str) -> dict:
+    """``--online`` on sharded tables (inside ``phase_sharded_service``'s
+    mesh): the ``[online]`` traffic (``ONL_CLIENTS`` clients, known users;
+    ``ONL_INGEST_EPS`` events/s through the bulk route) against an
+    in-process ``QueryService(cache=CacheConfig(shard_factors=True,
+    pin_model=True), online=...)``, then its follower stopped and three
+    folds by ``POST /online/fold.json`` of events posted to the bulk
+    route, each held to its contract."""
+    from predictionio_tpu_torch.parallel import sharding
+    from predictionio_tpu_torch.serving import CacheConfig
+
+    base, first = ctx["base"], ctx["instance"]
+    app = Storage.get_meta_data_apps().get_by_name(WF_APP)
+    (access_key,) = Storage.get_meta_data_access_keys().get_by_appid(app.id)
+    rng = np.random.default_rng(72)
+    items = item_index.keys()
+    es_proc = None
+    service = QueryService(variant, local_context(device), instance_id=first.id,
+                           cache=CacheConfig(shard_factors=True, pin_model=True),
+                           online=OnlineConfig(enabled=True, interval_s=ONL_INTERVAL_S, batch_size=ONL_BATCH))
+    try:
+        es_proc, es_port = start_console_server("sharded", base, ["eventserver"], base / "es-sharded.stderr",
+                                                WF_SERVER_TIMEOUT_S)
+        es_url = f"http://127.0.0.1:{es_port}"
+        with QueryServer(service) as server:
+            traffic = online_traffic(server.url, es_url, access_key.key, user_index, item_index, False, seed=73)
+        service.online.stop()
+
+        def fold() -> dict:
+            response = service.dispatch("POST", "/online/fold.json", {}, None)
+            if response.status != 200:
+                raise RuntimeError(f"sharded online: /online/fold.json answered {response.status}")
+            return response.body
+
+        def user_table():
+            def read():
+                (_, model), = service.snapshot_pairs()[0]
+                return np.asarray(model.user_factors), model._pio_shards.rows["user"], model.user_index
+            return service.run_on_device(read)
+
+        fold()  # what the follower had not folded yet
+        before, logical, _ = user_table()
+        padded = before.shape[0]
+        # a fresh user: one padding slot, no re-layout
+        bulk_post(es_url, access_key.key, rate_events(rng, [], items, SHD_FOLD_EVENTS, "sharded-fresh-0"))
+        fold()
+        after, logical_1, index = user_table()
+        row = index["sharded-fresh-0"]
+        if (after.shape[0] != padded or logical_1 != logical + 1 or row != logical or not np.abs(after[row]).sum()
+                or not np.array_equal(after[:logical], before[:logical])):
+            raise RuntimeError(f"sharded online: the fresh user's fold: rows {before.shape[0]} -> {after.shape[0]}, "
+                               f"logical {logical} -> {logical_1}, its row {row}")
+        # a burst past the padding: one re-layout, GROW_STEP headroom
+        burst = padded - logical_1 + 1
+        bulk_post(es_url, access_key.key, [e for j in range(burst) for e in rate_events(
+            rng, [], items, SHD_FOLD_EVENTS, f"sharded-burst-{j}")])
+        fold()
+        grown, logical_2, _ = user_table()
+        want_rows = sharding.padded_rows(logical_1 + burst + sharding.GROW_STEP, SHD_SHARDS)
+        if (logical_2 != logical_1 + burst or grown.shape[0] != want_rows
+                or not np.array_equal(grown[:logical_1], after[:logical_1])):
+            raise RuntimeError(f"sharded online: the burst of {burst} users: logical {logical_2}, rows "
+                               f"{grown.shape[0]} (want {want_rows})")
+        # a known user's update: its row alone
+        known = user_index.inverse(7)
+        bulk_post(es_url, access_key.key, rate_events(rng, [], items, SHD_FOLD_EVENTS, known))
+        fold()
+        updated, _, _ = user_table()
+        r = user_index[known]
+        others = np.ones(updated.shape[0], bool)
+        others[r] = False
+        if np.array_equal(updated[r], grown[r]) or not np.array_equal(updated[others], grown[others]):
+            raise RuntimeError("sharded online: a known user's fold moved other rows, or not its own")
+        stats = service.stats_json()["online"]
+    finally:
+        service.close()
+        if es_proc is not None:
+            es_proc.send_signal(signal.SIGTERM)
+            try:
+                es_proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                es_proc.kill()
+                es_proc.wait(timeout=30)
+    out = {key: traffic[key] for key in ("queries", "wall_s", "queries_per_s", "p50_ms", "p99_ms", "ingested",
+                                         "ingest_events_per_s")}
+    out.update({"padded_rows": padded, "logical_rows": logical, "burst": burst, "relayout_rows": grown.shape[0],
+                "events_seen": stats["eventsSeen"], "folds": stats["folds"]})
+    log(f"[sharded] --online: {traffic['queries']} queries from {ONL_CLIENTS} keep-alive clients, "
+        f"{traffic['queries_per_s']:.1f} queries/s, p50 {traffic['p50_ms']:.3f} ms, p99 {traffic['p99_ms']:.3f} ms, "
+        f"all 200, while {traffic['ingested']} events ({traffic['ingest_events_per_s']:.1f}/s) arrived through "
+        f"/events/bulk.json; folds: a fresh user into padding slot {logical} of {padded} rows, a burst of {burst} "
+        f"users into one re-layout of {grown.shape[0]} rows, a known user's update into its row alone (every other "
+        f"row bit-equal); on {smi}")
+    return out
+
+
+def sharded_cli(device, ctx: dict, user_index, U64: np.ndarray, V64: np.ndarray, item_index, rank: int,
+                smi: str) -> dict:
+    """``pio deploy --shard-factors --pin-model`` as a subprocess: on one
+    card the JAX package's warning in its log and ``factorShards`` 0; on
+    two or more the real mesh (``factorShards`` the card count) and each
+    card's memory from ``nvidia-smi`` beside ``sharded_table_bytes``. 64
+    answers float64 numpy's top-10."""
+    from predictionio_tpu_torch.parallel import sharding
+
+    base, first = ctx["base"], ctx["instance"]
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    err = base / "deploy-sharded.stderr"
+    t0 = time.perf_counter()
+    proc, port = start_console_server(
+        "sharded", base, ["deploy", "--engine-json", str(ctx["engine_json"]), "--engine-instance-id", first.id,
+                          *ctx["dev_args"], "--shard-factors", "--pin-model"], err, QS_DEPLOY_TIMEOUT_S)
+    try:
+        start_s = time.perf_counter() - t0
+        url = f"http://127.0.0.1:{port}"
+        load = run_load(url, load_picks(64, len(user_index), seed=74), user_index, 4, TOP_K)
+        _, stats = _http_json(url + "/stats.json")
+        _, root = _http_json(url + "/")
+        memory = _smi("memory.used") if cards else ""
+        if cards >= 2:
+            memory = subprocess.run(["nvidia-smi", "--query-gpu=index,memory.used", "--format=csv,noheader"],
+                                    capture_output=True, text=True, timeout=60).stdout.strip().replace("\n", "; ")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=60)
+    checked = check_answers("sharded cli", ok_answers("sharded cli", load), U64, V64, item_index, TOP_K)
+    warned = "only one device is visible; falling back to --pin-model replication" in err.read_text()
+    want_shards = cards if cards >= 2 else 0
+    if stats["cache"]["factorShards"] != want_shards or not root["shardFactors"] or warned != (cards < 2):
+        raise RuntimeError(f"sharded cli: {cards} cards, factorShards {stats['cache']['factorShards']}, "
+                           f"shardFactors {root['shardFactors']}, the one-device warning logged: {warned}")
+    per_card = sum(sharding.sharded_table_bytes(n, rank, max(cards, 1)) for n in (len(user_index), len(item_index)))
+    log(f"[sharded] pio deploy --shard-factors --pin-model on {cards} card(s): started in {start_s:.3f} s, "
+        f"factorShards {stats['cache']['factorShards']}, the one-device warning logged: {warned}; {checked} answers "
+        f"float64 numpy's top-{TOP_K}; nvidia-smi memory.used {memory} beside sharded_table_bytes {per_card} a card; "
+        f"on {smi}")
+    return {"cards": cards, "factor_shards": stats["cache"]["factorShards"], "warned": warned, "start_s": start_s,
+            "memory_used": memory, "sharded_table_bytes": per_card}
+
+
+def phase_tt_sharded(device, ctx: dict, smi: str) -> dict:
+    """The Two-Tower quickstart's instance with ``CacheConfig(shard_factors=
+    True, pin_model=True)`` on the 8-way mesh behind the port's HTTP
+    server: ``SRV_TT_CLIENTS`` x ``SRV_TT_REQUESTS`` top-10 queries, each
+    float64 numpy's (without seen items; near-tie rule) and the item ids
+    of a plain pinned service's answer."""
+    from predictionio_tpu_torch.parallel import sharding
+    from predictionio_tpu_torch.serving import CacheConfig
+
+    model = ctx["model"]
+    variant = load_engine_variant(str(ctx["engine_json"]))
+    picks = load_picks(SRV_TT_CLIENTS * SRV_TT_REQUESTS, len(model.user_index), seed=75)
+    plain = QueryService(variant, local_context(device), cache=CacheConfig(pin_model=True))
+    try:
+        with sharding.local_devices([device] * SHD_SHARDS):
+            service = QueryService(variant, local_context(device), cache=CacheConfig(shard_factors=True,
+                                                                                       pin_model=True))
+            try:
+                load = sharded_load("two-tower --shard-factors", service, picks, model.user_index, SRV_TT_CLIENTS,
+                                    smi)
+                shards = service.stats_json()["cache"]["factorShards"]
+            finally:
+                service.close()
+        same = len(same_as_plain("tt sharded", load["answers"], plain, model.user_index, TOP_K))
+    finally:
+        plain.close()
+    checked = check_answers("tt sharded", load["answers"], model.user_vecs.astype(np.float64),
+                            model.item_vecs.astype(np.float64), model.item_index, TOP_K, model.seen, model.user_index)
+    if shards != SHD_SHARDS:
+        raise RuntimeError(f"tt sharded: factorShards {shards}")
+    log(f"[sharded] two-tower: {checked} answers float64 numpy's top-{TOP_K} without seen items, {same} the plain "
+        f"pinned service's ids; factorShards {shards}; on {smi}")
+    out = {key: load[key] for key in ("queries", "wall_s", "queries_per_s", "p50_ms", "p99_ms")}
+    out.update({"checked": checked, "same_as_plain": same, "card": smi})
+    return out
+
+
 # ---------------------------------------------------------- 12. templates
 def run_bodies(url: str, bodies: list, clients: int) -> dict:
     """``clients`` threads, each on one keep-alive connection, POST
@@ -3761,7 +4521,7 @@ def tpl_similarproduct(device, base: Path, smi: str, trained: dict, engine_json:
 
 def tpl_ecommerce(device, base: Path, smi: str, trained: dict, engine_json: Path, model, rows: np.ndarray,
                   cols: np.ndarray, unavailable: set, rng, n_queries: int, dev_args: list) -> dict:
-    """64 ECommerce queries — known users (their viewed and bought items
+    """``n_queries`` ECommerce queries — known users (their viewed and bought items
     must be absent), cold users ranked by popularity (ties by ascending
     row; a whiteList of tied items), categories and blackLists — under 1
     and 8 clients, each held to float64 numpy over the stored factors;
@@ -4971,8 +5731,9 @@ def main() -> int:
         device, TTQ_NNZ, TT_DIM, TT_BATCH, TT_EPOCHS, QUERIES, TOP_K, info["smi"],
         then=lambda ctx: (phase_tt_serving(device, ctx, SRV_TT_CLIENTS, SRV_TT_REQUESTS, TOP_K, info["smi"]),
                           phase_tt_online(device, ctx, info["smi"]),
-                          phase_tt_ann(device, ctx, info["smi"])))
-    tt_srv, tt_onl, tt_ann = ttq["serving"]
+                          phase_tt_ann(device, ctx, info["smi"]),
+                          phase_tt_sharded(device, ctx, info["smi"])))
+    tt_srv, tt_onl, tt_ann, tt_shd = ttq["serving"]
     # the serving tier, online learning, retrieval, the fleet and the
     # exploring deploys run on the workflow's store and warm instance
     # (their own launch counts inside)
@@ -4980,11 +5741,12 @@ def main() -> int:
         srv = phase_serving(device, ctx, SRV_CLIENTS, SRV_REQUESTS, TOP_K, SRV_BATCHPREDICT, info["smi"])
         onl = phase_online(device, ctx, info["smi"])
         ann = phase_ann(device, ctx, info["smi"])
+        shd = phase_sharded_service(device, ctx, info["smi"])
         flt = phase_fleet(device, ctx, srv["per_request"], info["smi"])
-        return srv, onl, ann, flt, phase_explore_deploy(device, ctx, info["smi"])
+        return srv, onl, ann, shd, flt, phase_explore_deploy(device, ctx, info["smi"])
 
     wf = phase_workflow(device, WF_NNZ, WF_BULK, QUERIES, TOP_K, info["smi"], then=on_workflow)
-    srv, onl, ann, flt, exp = wf["serving"]
+    srv, onl, ann, shd, flt, exp = wf["serving"]
     online_launches = onl["in_process"]["launches"]
     if any(online_launches.values()):
         raise RuntimeError(f"online: the fold launched kernels {online_launches}; its path has none")
@@ -4996,6 +5758,15 @@ def main() -> int:
         raise RuntimeError(f"ann: the sweeps launched kernels {sweep_launches}; their path has none")
     log(f"[ann] launches on the sweeps' path: {json.dumps(sweep_launches)}; the deploys' and in-process path: "
         f"{json.dumps(ann['launches'])}")
+    # sharded factor serving: the JAX bench's sweep on the card
+    reset_launch_counts()
+    shd_sweep = phase_sharded_sweep(device, info["smi"])
+    score_cost = phase_score_cost(device, info["smi"])
+    shd_launches = read_launch_counts()
+    if any(shd_launches.values()):
+        raise RuntimeError(f"sharded: the sweep launched kernels {shd_launches}; its path has none")
+    log(f"[sharded] launches on the sweep's path: {json.dumps(shd_launches)}; the services' path: "
+        f"{json.dumps(shd['launches'])}; {torch.cuda.device_count()} card(s)")
     # the four other templates (their own launch counts inside)
     tpl = phase_templates(device, info["smi"], TPL_NNZ, TPL_CLS_USERS, TPL_TEXT_DOCS, QUERIES)
 
@@ -5092,6 +5863,33 @@ def main() -> int:
                 "accuracy_nb", "accuracy_lr", "majority_rate", "nb", "lr")},
             "textclassification": {key: tpl["textclassification"][key] for key in ("chance", "nb", "lr")},
             "phase_s": tpl["phase_s"],
+        },
+        "sharded": {
+            "sweep": [{key: p[key] for key in ("mesh", "catalog_items", "shards", "per_position_bytes",
+                                                "sharded_table_bytes", "replicated_bytes", "int8_per_position_bytes",
+                                                "plain_gemm_bits_differ", "plain_gemm_max_ulps",
+                                                "exact_scores_bits_differ")}
+                      | {"exact_qps": p["exact"]["sharded"]["queries_per_s"],
+                         "replicated_qps": p["exact"]["replicated"]["queries_per_s"],
+                         "int8_qps": p["int8"]["sharded"]["queries_per_s"],
+                         "int8_replicated_qps": p["int8"]["replicated"]["queries_per_s"],
+                         "ivf_qps": p["ivf"]["sharded"]["queries_per_s"],
+                         "ivf_unsharded_qps": p["ivf"]["unsharded"]["queries_per_s"],
+                         "full_probe_qps": p["ivf"]["full_probe_sharded"]["queries_per_s"]}
+                      for p in shd_sweep["sweep"]],
+            "oom_shape": shd_sweep["oom_shape"],
+            "service": {label: {key: shd[label][key] for key in ("queries_per_s", "p50_ms", "p99_ms")}
+                        for label in ("exact", "int8", "ann", "online")},
+            "recall_at_10": {label: shd[label]["recall_at_10"] for label in ("int8", "ann")},
+            "reload_memory": shd["exact"]["reload_memory"], "bytes_pinned": shd["exact"]["bytes_pinned"],
+            "online": {key: shd["online"][key] for key in ("padded_rows", "logical_rows", "burst", "relayout_rows")},
+            "tt": {key: tt_shd[key] for key in ("queries_per_s", "p50_ms", "p99_ms", "checked")},
+            "cli": shd["cli"], "launches": shd["launches"],
+            "load_peak_bytes": shd["exact"]["load_peak_bytes"],
+            "score_rows_cost": [{key: p[key] for key in ("catalog_items", "batches", "per_request_ms_p50")}
+                                for p in score_cost["points"]],
+            "score_rows_ab": {name: run["queries_per_s"] for name, run in shd["score_rows_ab"].items()},
+            "phase_s": shd["phase_s"] + shd_sweep["phase_s"] + score_cost["phase_s"],
         },
         "fleet": {
             "single_process": flt["single_process"],

@@ -355,16 +355,20 @@ class Engine:
         engine_params: EngineParams,
         instance_id: str,
         model_blob: bytes,
+        prepare: bool = True,
     ) -> tuple[Serving, list[tuple[Algorithm, Any]]]:
         """Re-hydrate serving components + models from a completed train
         (parity: ``Engine.prepareDeploy``). Each algorithm is constructed on
         ``ctx.device`` and runs its ``prepare_model_for_serving`` (device
-        placement, warm-up)."""
+        placement, warm-up). ``prepare=False`` hands the models back as
+        the blob holds them, for a serving tier that places them itself
+        (``device_state.pin_pairs(prepared=False)``: the sharded and int8
+        tiers, which never hold a replicated f32 copy on the card)."""
         serving = create_doer(self.serving_class, engine_params.serving)
         algos = self._make_algorithms(engine_params, ctx)
         named = self.models_from_bytes(engine_params, instance_id, model_blob)
         return serving, [
-            (algo, algo.prepare_model_for_serving(model))
+            (algo, algo.prepare_model_for_serving(model) if prepare else model)
             for (_name, algo), (_n, model) in zip(algos, named)
         ]
 

@@ -125,7 +125,9 @@ def gram_yty(opposite):
     generation by implicit-model callers. A tensor table gives a tensor
     on its own device (an int8 table its dequantized rows'); a numpy
     table the JAX package's float32 numpy."""
-    if getattr(opposite, "is_quantized", False):
+    if not isinstance(opposite, (torch.Tensor, np.ndarray)):
+        # an int8 or a sharded table (the serving tiers): its rows as one
+        # tensor on its (lead) device
         opposite = opposite[:]
     if isinstance(opposite, torch.Tensor):
         Y = opposite.to(torch.float32)
@@ -141,12 +143,13 @@ def _solve_chunk(Y, idx, val, mask, pr, pw, reg, alpha, yty, implicit, n_real, d
     K = int(Y.shape[1])
     if isinstance(Y, np.ndarray):
         Yg = torch.from_numpy(np.asarray(Y, np.float32)[idx.reshape(-1)]).to(device)
-    elif getattr(Y, "is_quantized", False):
-        # an int8 table (--quantize): only the gathered rows dequantize
-        Yg = torch.as_tensor(Y[idx.reshape(-1)]).to(device=device, dtype=torch.float32)
-    else:
+    elif isinstance(Y, torch.Tensor):
         rows = Y.index_select(0, torch.from_numpy(idx.reshape(-1)).to(Y.device))
         Yg = rows.to(device=device, dtype=torch.float32)
+    else:
+        # an int8 table (--quantize: only the gathered rows dequantize) or a
+        # sharded one (--shard-factors: each row from its owner shard)
+        Yg = torch.as_tensor(Y[idx.reshape(-1)]).to(device=device, dtype=torch.float32)
 
     def placed(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(device)
@@ -184,8 +187,8 @@ def foldin_rows(
     device, and the card for a numpy table (the port's rule). ``run``
     runs each chunk's torch calls (default: on the calling thread)."""
     Y = opposite
-    if device is None and (isinstance(Y, torch.Tensor) or getattr(Y, "is_quantized", False)):
-        device = Y.device
+    if device is None and not isinstance(Y, np.ndarray):
+        device = Y.device  # a tensor's, an int8 table's, a sharded table's lead
     device = resolve_device(device)
     run = run or _direct
     B = len(entries)

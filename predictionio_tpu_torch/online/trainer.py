@@ -86,11 +86,16 @@ def inbatch_ce_grad(
 
 
 def _gather(table, idx: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Rows ``idx`` of a numpy or tensor table, gathered where the table
-    lives and placed on ``device`` as float32."""
+    """Rows ``idx`` of a numpy, tensor, int8 or sharded table, gathered
+    where the table lives (an int8 table dequantizes only those rows, a
+    sharded one takes each from its owner shard) and placed on ``device``
+    as float32."""
     if isinstance(table, np.ndarray):
         return torch.from_numpy(np.asarray(table[idx], np.float32)).to(device)
-    rows = table.index_select(0, torch.from_numpy(idx).to(table.device))
+    if isinstance(table, torch.Tensor):
+        rows = table.index_select(0, torch.from_numpy(idx).to(table.device))
+    else:
+        rows = table[idx]
     return rows.to(device=device, dtype=torch.float32)
 
 
@@ -120,7 +125,7 @@ def sgd_step(
     in several pairs), applies SGD and re-normalizes. Returns ``(unique
     user rows idx, updated rows, unique item rows idx, updated rows,
     loss)``."""
-    if device is None and isinstance(user_vecs, torch.Tensor):
+    if device is None and not isinstance(user_vecs, np.ndarray):
         device = user_vecs.device
     device = resolve_device(device)
     run = run or _direct

@@ -30,10 +30,13 @@ in the last bits from run to run.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.ops.solve import spd_solve
@@ -51,6 +54,9 @@ __all__ = [
     "train_als",
     "half_sweep",
     "als_sweep",
+    "SCORE_BLOCK",
+    "SCORE_QUERY_ROWS",
+    "score_rows",
     "predict_scores",
     "top_k_items",
     "top_k_items_batch",
@@ -584,9 +590,80 @@ def train_als(
 # ---------------------------------------------------------------------------
 
 
-def predict_scores(user_vec: torch.Tensor, item_factors: torch.Tensor) -> torch.Tensor:
-    """Scores of one user against all items: ``item_factors @ user_vec``."""
-    return item_factors @ user_vec
+#: item rows of every scoring product in :func:`score_rows`
+SCORE_BLOCK = 8192
+#: :func:`score_rows` pads the queries to a multiple of this many rows:
+#: below 8 rows cuBLAS's batched product picks its kernel by the batch
+#: count (``chip_smoke.py``'s ``phase_score_cost`` holds every count)
+SCORE_QUERY_ROWS = 8
+
+#: each scored table's last, short block as float32, zero-padded to
+#: ``SCORE_BLOCK`` rows: ``(table version, start row, block)`` while the
+#: table lives (a serving table is scored many times and never written in
+#: place; an out-of-place row swap is a new table)
+_TAILS: WeakIdKeyDictionary = WeakIdKeyDictionary()
+_TAILS_LOCK = threading.Lock()
+
+
+def _padded_tail(rows: torch.Tensor, start: int) -> torch.Tensor:
+    with _TAILS_LOCK:
+        hit = _TAILS.get(rows)
+    if hit is not None and hit[0] == rows._version and hit[1] == start:
+        return hit[2]
+    tail = torch.zeros((SCORE_BLOCK, rows.shape[1]), dtype=torch.float32, device=rows.device)
+    tail[: rows.shape[0] - start] = rows[start:]
+    with _TAILS_LOCK:
+        _TAILS[rows] = (rows._version, start, tail)
+    return tail
+
+
+def score_rows(q: torch.Tensor, table) -> torch.Tensor:
+    """``q [M, K] @ table.T`` as ``[M, n]`` scores, where each score's bits
+    do not depend on how many rows ``table`` has.
+
+    cuBLAS (and the CPU's BLAS at ``M = 1``) picks its kernel, and with
+    it the order of each dot product's sums, by the product's shape: the
+    same row scored in an ``I``-row and an ``I/8``-row product may differ
+    in its last bits (``chip_smoke.py``'s ``[sharded]`` phase counts how
+    many on the card). So the table is scored in blocks of
+    ``SCORE_BLOCK`` rows, as one batched product ``[blocks, M, K] @
+    [blocks, K, SCORE_BLOCK]`` written in place into one ``[M, w]``
+    buffer (``w`` the rows rounded up to the block), the last, short
+    block zero-padded (:func:`_padded_tail`, once a table) and scored as
+    a batch of one, and the queries zero-padded to a multiple of
+    ``SCORE_QUERY_ROWS`` rows. A replicated table and each shard of a
+    sharded one (``parallel/sharding.py``) then give every item the same
+    score, in two launches. ``table`` is a float32 tensor or an int8
+    :class:`~predictionio_tpu_torch.ops.quant.QuantizedTable` (``q @
+    codes.T`` then the row scales)."""
+    quantized = getattr(table, "is_quantized", False)
+    rows = table.codes if quantized else table
+    n, k = int(rows.shape[0]), int(rows.shape[1])
+    m = int(q.shape[0])
+    q = q.to(torch.float32)
+    if m % SCORE_QUERY_ROWS:
+        q = F.pad(q, (0, 0, 0, -m % SCORE_QUERY_ROWS))
+    mp = int(q.shape[0])
+    full, short = divmod(n, SCORE_BLOCK)
+    blocks = full + (short > 0)
+    out = torch.empty((mp, blocks * SCORE_BLOCK), dtype=torch.float32, device=q.device)
+    windows = out.view(mp, blocks, SCORE_BLOCK).transpose(0, 1)  # [blocks, M, SCORE_BLOCK]
+    if full:
+        head = rows[: full * SCORE_BLOCK].to(torch.float32).reshape(full, SCORE_BLOCK, k)
+        torch.bmm(q.expand(full, mp, k), head.transpose(1, 2), out=windows[:full])
+    if short:
+        tail = _padded_tail(rows, full * SCORE_BLOCK)
+        torch.bmm(q[None], tail.T[None], out=windows[full:])
+    scores = out[:m, :n]
+    if quantized:
+        scores.mul_(table.scales)
+    return scores
+
+
+def predict_scores(user_vec: torch.Tensor, item_factors) -> torch.Tensor:
+    """Scores of one user against all items (``item_factors @ user_vec``,
+    through :func:`score_rows`)."""
+    return score_rows(user_vec[None], item_factors)[0]
 
 
 def top_k_items(
@@ -597,7 +674,7 @@ def top_k_items(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k item ids + scores for one user; ``exclude_mask`` (bool [I])
     sends items to -inf."""
-    scores = item_factors @ user_vec
+    scores = predict_scores(user_vec, item_factors)
     if exclude_mask is not None:
         scores = scores.masked_fill(exclude_mask, float("-inf"))
     return top_k_scores(scores, k)
@@ -610,7 +687,6 @@ def top_k_items_batch(
     k: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k for a batch of users: gather the user rows, score every item
-    with one ``[B, K] @ [K, I]`` product, and take each row's top-k.
-    Returns ``([B, k] item ids, [B, k] scores)``."""
-    scores = user_factors[user_idx] @ item_factors.T
-    return top_k_scores(scores, k)
+    (:func:`score_rows`), and take each row's top-k. Returns ``([B, k]
+    item ids, [B, k] scores)``."""
+    return top_k_scores(score_rows(user_factors[user_idx], item_factors), k)

@@ -45,8 +45,15 @@ fixed order (``index_add_`` on CUDA sums floats in no fixed order);
 Incremental maintenance (:func:`update_ivf`, :meth:`AnnRuntime.update_items`)
 is the JAX package's host numpy mirror: nearest-centroid placement, spill
 to the nearest cluster with room, tombstones, capacity grown in
-:data:`_CAPACITY_STEP` steps, touched int8 lanes re-quantized. The
-sharded layout waits (ROADMAP queue 1 item 13).
+:data:`_CAPACITY_STEP` steps, touched int8 lanes re-quantized.
+
+Sharded (``pio deploy --shard-factors --ann``, :func:`shard_runtime`):
+the slabs, slab ids and lane scales shard over the serving mesh by
+cluster, the centroids stay on the lead device, and the full probe scores
+the model's row-sharded item table; queries take
+:func:`~predictionio_tpu_torch.parallel.sharding.sharded_ivf_topk`. An
+online update folds into the unsharded layout, kept on the host, and
+shards the result anew.
 """
 
 from __future__ import annotations
@@ -60,7 +67,7 @@ import torch
 
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.ops import quant
-from predictionio_tpu_torch.ops.als import top_k_items_batch
+from predictionio_tpu_torch.ops.als import score_rows, top_k_items_batch
 from predictionio_tpu_torch.ops.topk import bucket_k, top_k_host, top_k_permuted, top_k_scores
 
 __all__ = [
@@ -89,16 +96,15 @@ _ASSIGN_CHUNK = 16_384
 _SEED_SAMPLE_PER_LIST = 16
 _SEED_SAMPLE_MIN = 4096
 
-_SHARDED = "the sharded IVF layout waits for ROADMAP queue 1 item 13"
-
-
 class IVFIndex(NamedTuple):
     """Cluster-major retrieval state. ``slab_scales is None`` is the f32
     layout; with ``--quantize int8`` ``slabs`` holds int8 codes and
     ``slab_scales`` the per-lane scales. ``items`` is the id-ordered item
     table the full probe scores (a tensor, a
     :class:`~predictionio_tpu_torch.ops.quant.QuantizedTable` or a host
-    numpy array); it is not counted in the index's bytes."""
+    numpy array); it is not counted in the index's bytes. A sharded index
+    (:func:`shard_runtime`) holds :class:`~predictionio_tpu_torch.parallel.sharding.ShardedTable` tables,
+    and ``item_rows`` is its item table's logical row count."""
 
     centroids: Any  # [nlist, K] f32 (always f32: stage 1 stays exact)
     slabs: Any  # [nlist, W, K] f32 (or int8 codes), zero-padded
@@ -108,6 +114,7 @@ class IVFIndex(NamedTuple):
     slab_width: int
     slab_scales: Any = None  # [nlist, W] f32 per-lane scales (int8 mode)
     items: Any = None  # [num real items, K] id-ordered table
+    item_rows: int = 0  # logical rows of a sharded ``items`` (padding beyond)
 
     @property
     def device(self) -> torch.device:
@@ -532,14 +539,74 @@ def update_ivf(
     return new_index, state, info
 
 
-def _shard_index(index: IVFIndex, mesh) -> IVFIndex:
-    """The cluster-sharded slab layout (not in the port yet)."""
-    raise NotImplementedError(_SHARDED)
+def _shard_index(index: IVFIndex, mesh, items=None, item_rows: int = 0) -> IVFIndex:
+    """An index laid out over the serving mesh: ``nlist`` padded to a
+    multiple of the mesh (zero slabs, sentinel ids, masked by id), the
+    slabs, slab ids and lane scales sharded cluster-major, the centroids
+    (``[nlist, K]``, stage 1 runs on the lead) on the lead device, and
+    the id-ordered item table row-sharded: ``items`` (the model's sharded
+    table) when given, else the index's own table's rows as they are."""
+    from predictionio_tpu_torch.parallel import sharding
+
+    if items is None:
+        items = index.items
+        item_rows = item_rows or (int(items.shape[0]) if items is not None else 0)
+        if items is not None and not sharding.is_sharded(items):
+            items = sharding.shard_rows(items, mesh)
+    nlist_pad = sharding.padded_rows(index.nlist, len(mesh))
+    ids = index.slab_ids
+    if nlist_pad > index.nlist:
+        # padded clusters: sentinel ids (their zero lanes are masked by id)
+        pad = torch.full((nlist_pad - index.nlist, index.slab_width), index.num_items, dtype=ids.dtype,
+                         device=ids.device)
+        ids = torch.cat([ids, pad])
+    return IVFIndex(
+        centroids=index.centroids.to(mesh[0]),
+        slabs=sharding.shard_rows(index.slabs, mesh, nlist_pad),
+        slab_ids=sharding.shard_rows(ids, mesh),
+        num_items=index.num_items,
+        nlist=index.nlist,
+        slab_width=index.slab_width,
+        slab_scales=None if index.slab_scales is None else sharding.shard_rows(index.slab_scales, mesh, nlist_pad),
+        items=items,
+        item_rows=int(item_rows),
+    )
 
 
-def shard_runtime(runtime: "AnnRuntime", mesh) -> dict:
-    """``pio deploy --shard-factors --ann`` (not in the port yet)."""
-    raise NotImplementedError(_SHARDED)
+def _on_host(index: IVFIndex) -> IVFIndex:
+    """The unsharded layout kept for online updates: on the host, without
+    the item table (the model's sharded table takes its place), so the
+    card holds the index once."""
+    cpu = torch.device("cpu")
+    return index._replace(
+        centroids=index.centroids.to(cpu), slabs=index.slabs.to(cpu), slab_ids=index.slab_ids.to(cpu),
+        slab_scales=index.slab_scales.to(cpu) if index.slab_scales is not None else None, items=None,
+    )
+
+
+def shard_runtime(runtime: "AnnRuntime", mesh, items=None, item_rows: int = 0) -> dict:
+    """Lay a runtime's index out over the serving mesh (``pio deploy
+    --shard-factors --ann``): queries then take
+    :func:`~predictionio_tpu_torch.parallel.sharding.sharded_ivf_topk`.
+    ``items``/``item_rows`` are the model's row-sharded item table and
+    its logical rows (by default the index's own table, sharded). The
+    unsharded layout stays on the runtime, on the host, as ``host_index``
+    for :meth:`AnnRuntime.update_items`. Returns the info for
+    ``/stats.json`` (``shards``, ``bytesIndexPerDevice``)."""
+    with runtime._lock:
+        index = runtime.index
+    sharded = _shard_index(index, mesh, items, item_rows)
+    parts = [sharded.slabs, sharded.slab_ids, sharded.slab_scales]
+    per_device = sharded.centroids.numel() * sharded.centroids.element_size() + sum(
+        max(t.numel() * t.element_size() for t in p.shards) for p in parts if p is not None
+    )
+    delta = {"shards": len(mesh), "bytesIndexPerDevice": int(per_device)}
+    with runtime._lock:
+        runtime.host_index = _on_host(index)
+        runtime.index = sharded
+        runtime.shard_mesh = mesh
+        runtime.build_info.update(delta)
+    return delta
 
 
 # ---------------------------------------------------------------------------
@@ -549,7 +616,7 @@ def shard_runtime(runtime: "AnnRuntime", mesh) -> dict:
 
 def _full_probe(qvecs, index: IVFIndex, k: int):
     """Exact top-k over the index's id-ordered table (``nprobe >=
-    nlist``), through the exact path's own computation."""
+    nlist``), through the exact path's own computation (``score_rows``)."""
     items = index.items
     if isinstance(items, np.ndarray):
         # the host table: the numpy GEMM and top_k_host of the exact
@@ -558,10 +625,7 @@ def _full_probe(qvecs, index: IVFIndex, k: int):
         idx, vals = top_k_host(q @ items.T, min(k, items.shape[0]))
         return torch.from_numpy(idx), torch.from_numpy(np.ascontiguousarray(vals))
     q = torch.as_tensor(qvecs).to(device=index.device, dtype=torch.float32).contiguous()
-    if getattr(items, "is_quantized", False):
-        scores = (q @ items.codes.to(torch.float32).T) * items.scales[None, :]
-    else:
-        scores = q @ items.T
+    scores = score_rows(q, items)
     return top_k_scores(scores, min(k, scores.shape[-1]))
 
 
@@ -651,16 +715,32 @@ class AnnRuntime:
         self._update_state: dict | None = None
         self.incremental_updates = 0
         self.items_folded = 0
+        #: --shard-factors (:func:`shard_runtime`): the mesh, and the
+        #: unsharded host layout updates fold into; ``index`` is sharded
+        self.shard_mesh = None
+        self.host_index: IVFIndex | None = None
 
     def update_items(self, item_ids: np.ndarray, vectors: np.ndarray, total_items: int, table=None) -> dict:
         """Fold changed/new item vectors into the live index
         (:func:`update_ivf`) and swap ``self.index`` whole: a query that
-        already took the old index finishes on it."""
+        already took the old index finishes on it. Sharded, the update
+        folds into the host layout and the result is sharded anew, with
+        ``table`` (the model's sharded item table after the fold, of
+        ``total_items`` logical rows) as its item table."""
         with self._lock:
             state = self._update_state
-            index = self.index
-        new_index, state, info = update_ivf(index, item_ids, vectors, total_items, state, table=table)
+            mesh = self.shard_mesh
+            index = self.host_index if mesh is not None else self.index
+        new_index, state, info = update_ivf(
+            index, item_ids, vectors, total_items, state, table=table if mesh is None else None
+        )
+        if mesh is not None:
+            if table is None:
+                raise ValueError("a sharded index's update needs the model's sharded item table")
+            host_index, new_index = new_index, _shard_index(new_index, mesh, table, total_items)
         with self._lock:
+            if mesh is not None:
+                self.host_index = host_index
             self.index = new_index
             self._update_state = state
             self.incremental_updates += 1
@@ -715,7 +795,12 @@ def query_topk(runtime: AnnRuntime, qvec, k: int) -> tuple[list, list]:
         q = qvec.reshape(1, -1)
     else:
         q = torch.as_tensor(np.asarray(qvec, dtype=np.float32).reshape(1, -1))
-    ids, scores = ivf_topk_batch(q, index, kb, runtime.nprobe)
+    if runtime.shard_mesh is not None:
+        from predictionio_tpu_torch.parallel import sharding
+
+        ids, scores = sharding.sharded_ivf_topk(q, index, kb, runtime.nprobe)
+    else:
+        ids, scores = ivf_topk_batch(q, index, kb, runtime.nprobe)
     runtime.note_queries(1)
     ids_l, scores_l = trim_row(ids.cpu().numpy()[0], scores.cpu().numpy()[0], index.num_items)
     return ids_l[:k], scores_l[:k]

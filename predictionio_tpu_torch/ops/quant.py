@@ -25,7 +25,13 @@ The coarse scan (:func:`int8_matmul`) takes an f32 product of the cast
 codes: every code is an integer of at most 127 in magnitude, exact in
 f32 and in TF32, and every partial sum an integer below ``127² · K``,
 exact in f32 while that is below 2^24 (K ≤ 1040), whatever the order of
-the sums. The sharded tier waits (ROADMAP queue 1 item 13).
+the sums.
+
+Sharded (``pio deploy --shard-factors --quantize int8``): the codes and
+scales are :class:`~predictionio_tpu_torch.parallel.sharding.ShardedTable` tables
+and :func:`run_topk`/:func:`topk_users` take ``shards=`` (the model's
+``ShardInfo``) to
+:func:`~predictionio_tpu_torch.parallel.sharding.sharded_quantized_topk_users`.
 """
 
 from __future__ import annotations
@@ -63,8 +69,6 @@ _QMAX = 127.0
 _INV_QMAX = np.float32(1.0 / _QMAX)
 #: widest rank whose int8 code products sum exactly in f32 (127² · K < 2^24)
 MAX_EXACT_RANK = (1 << 24) // (127 * 127)
-
-_SHARDED = "the sharded int8 tier waits for ROADMAP queue 1 item 13"
 
 
 # ---------------------------------------------------------------------------
@@ -177,7 +181,8 @@ class QuantizedTable:
 
     @property
     def device(self) -> torch.device:
-        return self.codes.device if isinstance(self.codes, torch.Tensor) else torch.device("cpu")
+        """The codes' device (a sharded table's: its lead device)."""
+        return getattr(self.codes, "device", torch.device("cpu"))
 
     def __len__(self) -> int:
         return int(self.codes.shape[0])
@@ -310,15 +315,24 @@ def run_topk(runtime: QuantRuntime, user_qt: QuantizedTable, item_qt: QuantizedT
              shards=None) -> tuple[torch.Tensor, torch.Tensor]:
     """One chunk of the quantized serving path, results left on the
     device (callers stage chunks and cross to the host once). ``k`` is
-    the caller's bucketed fetch size; the over-fetch derives from it."""
-    if shards is not None:
-        raise NotImplementedError(_SHARDED)
+    the caller's bucketed fetch size; the over-fetch derives from it.
+    ``shards`` (a ``ShardInfo``) routes sharded tables through the sharded
+    kernel, over the logical item count."""
     idx = torch.as_tensor(np.asarray(user_idx, np.int64), device=item_qt.device)
-    num_items = int(item_qt.shape[0])
-    kp = overfetch(k, num_items)
-    ids, scores = quantized_topk_users(
-        idx, user_qt.codes, user_qt.scales, item_qt.codes, item_qt.scales, k, kp, num_items
-    )
+    if shards is not None:
+        from predictionio_tpu_torch.parallel import sharding
+
+        num_items = int(shards.rows["item"])
+        kp = overfetch(k, num_items)
+        ids, scores = sharding.sharded_quantized_topk_users(
+            idx, user_qt.codes, user_qt.scales, item_qt.codes, item_qt.scales, k, kp, num_items
+        )
+    else:
+        num_items = int(item_qt.shape[0])
+        kp = overfetch(k, num_items)
+        ids, scores = quantized_topk_users(
+            idx, user_qt.codes, user_qt.scales, item_qt.codes, item_qt.scales, k, kp, num_items
+        )
     runtime.note(int(idx.shape[0]), kp)
     return ids, scores
 
@@ -327,13 +341,11 @@ def topk_users(runtime: QuantRuntime, user_qt: QuantizedTable, item_qt: Quantize
                shards=None) -> tuple[np.ndarray, np.ndarray]:
     """Top-``k`` for a batch of user indices as numpy — the single-query
     predict path. ``k`` buckets to a power of two (floor 16), like every
-    other tier."""
-    if shards is not None:
-        raise NotImplementedError(_SHARDED)
-    num_items = int(item_qt.shape[0])
+    other tier; sharded tables (``shards``) rank their logical items."""
+    num_items = int(shards.rows["item"]) if shards is not None else int(item_qt.shape[0])
     k = max(1, min(int(k), num_items))
     kb = bucket_k(k, num_items)
-    ids, scores = run_topk(runtime, user_qt, item_qt, np.asarray(user_idx, np.int64), kb)
+    ids, scores = run_topk(runtime, user_qt, item_qt, np.asarray(user_idx, np.int64), kb, shards=shards)
     ids = ids.cpu().numpy()
     scores = scores.cpu().numpy()
     out_i, out_s = [], []

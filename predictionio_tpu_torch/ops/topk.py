@@ -68,15 +68,18 @@ def top_k_scores(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tens
 
 
 def sort_merge_topk(
-    scores: torch.Tensor, ids: torch.Tensor, k: int
+    scores: torch.Tensor, ids: torch.Tensor, k: int, total_order: bool = False
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Tie-stable top-k of an unordered candidate list: ``(ids [..., k],
     scores [..., k])`` by descending score, ties by ascending id — the
     JAX package's two-key ``lax.sort`` on ``(-score, id)``, exact for any
     id width. ``-0.0`` and ``0.0`` are one key (``scores + 0.0`` makes
-    the key; the returned scores keep their bits)."""
+    the key; the returned scores keep their bits). ``total_order=True``
+    keys on :func:`order_key` instead (``0.0`` above ``-0.0``), so merging
+    the :func:`top_k_scores` of a row's parts gives the
+    :func:`top_k_scores` of the whole row (``parallel/sharding.py``)."""
     by_id = torch.argsort(ids, dim=-1, stable=True)
-    key = (scores + 0.0).gather(-1, by_id)
+    key = (order_key(scores) if total_order else scores + 0.0).gather(-1, by_id)
     by_score = torch.argsort(key, dim=-1, descending=True, stable=True)
     pos = by_id.gather(-1, by_score[..., :k])
     return ids.gather(-1, pos), scores.gather(-1, pos)

@@ -40,8 +40,15 @@ switches: the deploy's device decides where a model serves.
   (:mod:`predictionio_tpu_torch.ops.ivf`, int8 slabs under
   ``--quantize``), and ``predict``/``batch_predict`` probe it; online
   folds update the index's touched items.
+* ``pio deploy --shard-factors`` (``shard_model_for_serving``, and
+  ``quantize_model_for_serving(shard=True)`` with ``--quantize``) serves
+  both tables row-sharded over the local devices
+  (:mod:`predictionio_tpu_torch.parallel.sharding`): the exact, int8 and
+  IVF routes take the sharded kernels, whose answers equal the
+  replicated ones; online folds gather the rows they read from their
+  owner shards and write each solved row there.
 
-Waiting: the multi-host read and the sharded and AOT serving tiers.
+Waiting: the multi-host read and the AOT serving tier.
 """
 
 from __future__ import annotations
@@ -86,6 +93,7 @@ from predictionio_tpu_torch.templates.serving_util import (
     pin_tables,
     quantize_tables,
     release_tables,
+    shard_tables,
 )
 from predictionio_tpu_torch.templates.results import ItemScore, PredictedResult
 
@@ -643,8 +651,20 @@ class ALSAlgorithm(TorchAlgorithm):
         reference, so their memory is freed at once. After an online
         update the pin-time host arrays are stale (``apply_online_update``
         dropped them), so the folded tables are copied back instead; int8
-        tables come back dequantized, as host f32."""
+        tables come back dequantized, as host f32; sharded tables gathered
+        from every shard, without their padding rows."""
         release_tables(model, "user_factors", "item_factors")
+
+    # ------------------------------------------------------ sharded serving
+    def shard_model_for_serving(self, model: ALSModel) -> tuple[ALSModel, int]:
+        """The ``--shard-factors`` tier (workflow/device_state.py): each
+        device of the serving mesh holds a ``[rows/S, K]`` part of each
+        factor table instead of a replica; predict/batch_predict take the
+        sharded kernels (``parallel/sharding.py``), whose answers equal
+        the replicated exact path's. With one device visible it logs the
+        JAX package's warning and pins replicated. Returns the model and
+        the bytes of the padded tables."""
+        return shard_tables(model, self.device, "user_factors", "item_factors")
 
     # ---------------------------------------------------- quantized serving
     def quantize_model_for_serving(
@@ -654,19 +674,20 @@ class ALSAlgorithm(TorchAlgorithm):
         and per-row f32 scales on :attr:`device` (``rank + 4`` bytes a row
         instead of ``4·rank``); predict/batch_predict then take the
         two-stage top-k (int8 coarse scan over-fetching ``max(4k, k+64)``,
-        f32 rescore, the shared tie rule). Returns ``(model, bytes
-        pinned)``."""
-        if shard:
-            raise NotImplementedError("--quantize with --shard-factors waits for ROADMAP queue 1 item 13")
-        return quantize_tables(model, "user_factors", "item_factors", self.device, mode)
+        f32 rescore, the shared tie rule). ``shard=True`` (with
+        ``--shard-factors``) shards the codes and scales over the serving
+        mesh. Returns ``(model, bytes pinned)``."""
+        return quantize_tables(model, "user_factors", "item_factors", self.device, mode, shard)
 
     # --------------------------------------------------- ANN retrieval
     def build_ann_for_serving(self, model: ALSModel, ann) -> tuple[ALSModel, dict]:
         """The ``--ann`` tier: cluster the item factors into an IVF index on
         :attr:`device` once per model generation (int8 slabs under
         ``--quantize``); predict/batch_predict then score only ``nprobe``
-        cluster slabs a query. Returns the model (``model._pio_ann``
-        attached) and the build info for ``/stats.json``."""
+        cluster slabs a query. Sharded tables: k-means over the logical
+        rows, then the index laid out over the mesh. Returns the model
+        (``model._pio_ann`` attached) and the build info for
+        ``/stats.json``."""
         return build_ann(model, "item_factors", ann, self.device, type(self).__name__)
 
     def release_ann_state(self, model: ALSModel) -> None:
@@ -845,6 +866,7 @@ class ALSAlgorithm(TorchAlgorithm):
             return PredictedResult(())
         ann = getattr(model, "_pio_ann", None)
         quantrt = getattr(model, "_pio_quant", None)
+        shards = getattr(model, "_pio_shards", None)
         if isinstance(model.item_factors, np.ndarray):
             self.check_host_serving()
         if ann is not None:
@@ -854,13 +876,22 @@ class ALSAlgorithm(TorchAlgorithm):
                 # int8 user table: only this row dequantizes
                 qvec = model.user_factors[np.asarray([uidx], np.int64)][0]
             else:
-                qvec = model.user_factors[uidx]
+                qvec = model.user_factors[uidx]  # sharded: from its owner shard
             pairs = zip(*ivf.query_topk(ann, qvec, k))
         elif quantrt is not None:
-            # int8 exact: coarse scan with over-fetch, f32 rescore
+            # int8 exact: coarse scan with over-fetch, f32 rescore (the
+            # sharded kernel under --shard-factors)
             from predictionio_tpu_torch.ops import quant
 
-            ids_b, scores_b = quant.topk_users(quantrt, model.user_factors, model.item_factors, [uidx], k)
+            ids_b, scores_b = quant.topk_users(
+                quantrt, model.user_factors, model.item_factors, [uidx], k, shards=shards
+            )
+            pairs = zip(ids_b[0].tolist(), scores_b[0].tolist())
+        elif shards is not None:
+            # sharded exact: each shard scores its items, S·k finalists merge
+            from predictionio_tpu_torch.parallel import sharding
+
+            ids_b, scores_b = sharding.topk_users(shards, model.user_factors, model.item_factors, [uidx], k)
             pairs = zip(ids_b[0].tolist(), scores_b[0].tolist())
         elif isinstance(model.item_factors, np.ndarray):
             # host branch (the CPU, asked for): one GEMV + partial sort,
@@ -909,6 +940,7 @@ class ALSAlgorithm(TorchAlgorithm):
         return chunked_topk(
             model.user_factors, model.item_factors, valid, chunk=self.BATCH_PREDICT_CHUNK,
             ann=getattr(model, "_pio_ann", None), quant=getattr(model, "_pio_quant", None),
+            shards=getattr(model, "_pio_shards", None),
         )
 
     def batch_predict_json(self, model: ALSModel, bodies: Sequence[Any]) -> list[str | None]:

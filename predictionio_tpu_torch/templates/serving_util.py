@@ -7,15 +7,16 @@ Counterpart of ``predictionio_tpu/templates/serving_util.py``:
   answers are equal to the bit wherever no tie straddles the k-th place
   (there the port keeps the lowest indices, as ``jax.lax.top_k`` does,
   and the reference's ``top_k_host`` arbitrary ones); its device branch
-  scores each chunk with one ``[B,K]@[K,I]`` product on the tensors'
-  device and crosses to the host once for the whole call. The IVF (``ann=``) and int8 (``quant=``)
-  branches keep that rule (:func:`_drain_staged`); the sharded and AOT
-  branches wait (ROADMAP queue 1 items 13 and 14) and raise
-  ``NotImplementedError`` naming their item.
+  scores each chunk (``ops/als.score_rows``) on the tensors' device and
+  crosses to the host once for the whole call. The IVF (``ann=``), int8
+  (``quant=``) and sharded (``shards=``) branches keep that rule
+  (:func:`_drain_staged`); the AOT branch waits (ROADMAP queue 1 item 14)
+  and raises ``NotImplementedError`` naming its item.
 * :func:`aligned_factor_init`, a copy: a warm retrain's carried rows.
-* :func:`pin_tables`, :func:`release_tables`, :func:`quantize_tables` and
-  :func:`build_ann`: the templates' pin and release of their tables, their
-  ``--quantize int8`` pin and their ``--ann`` index build.
+* :func:`pin_tables`, :func:`shard_tables`, :func:`release_tables`,
+  :func:`quantize_tables` and :func:`build_ann`: the templates' pin and
+  release of their tables, their ``--shard-factors`` and ``--quantize
+  int8`` pins and their ``--ann`` index build.
 * :func:`allowed_items` and :func:`masked_topk`: the business rules of the
   SimilarProduct and ECommerce templates (excluded items, ``whiteList``,
   ``blackList``, ``categories``; the category test done by item rows
@@ -29,6 +30,7 @@ never leaves the device without being asked (ROADMAP queue 3).
 
 from __future__ import annotations
 
+import logging
 from typing import Callable, Iterator, Sequence
 
 import numpy as np
@@ -39,9 +41,14 @@ from predictionio_tpu_torch.ops.topk import bucket_k, top_k_host, top_k_scores
 from predictionio_tpu_torch.templates.results import ItemScore, PredictedResult
 
 __all__ = [
-    "TOPK_CHUNK", "chunked_topk", "aligned_factor_init", "pin_tables", "release_tables", "quantize_tables",
-    "build_ann", "allowed_items", "masked_topk",
+    "TOPK_CHUNK", "chunked_topk", "aligned_factor_init", "pin_tables", "shard_tables", "release_tables",
+    "quantize_tables", "build_ann", "allowed_items", "masked_topk",
 ]
+
+logger = logging.getLogger(__name__)
+
+#: the JAX package's warning when --shard-factors finds one device
+_ONE_DEVICE = "--shard-factors requested but only one device is visible; falling back to --pin-model replication"
 
 #: queries per score product in :func:`chunked_topk` (the JAX package's
 #: value, so a host chunk's GEMM has the same shape in both packages)
@@ -96,18 +103,20 @@ def chunked_topk(
     chunk's own row count, so the full probe (``nprobe >= nlist``)
     computes exactly what the exact branch does for the same rows.
     ``quant`` (a :class:`~predictionio_tpu_torch.ops.quant.QuantRuntime`)
-    runs the two-stage int8 top-k on int8 tables. Both keep the
-    one-crossing rule and trim sentinel padding here."""
-    # the tiers not ported yet, by the ROADMAP queue 1 item each waits for
-    waiting = (("shards", shards, 13), ("aot", aot, 14))
-    for name, tier, item in waiting:
-        if tier is not None:
-            raise NotImplementedError(
-                f"chunked_topk({name}=...) waits for ROADMAP queue 1 item {item}"
-            )
+    runs the two-stage int8 top-k on int8 tables. ``shards`` (the model's
+    :class:`~predictionio_tpu_torch.parallel.sharding.ShardInfo`, ``pio
+    deploy --shard-factors``) means both tables are row-sharded: the exact
+    and int8 branches take the sharded kernels, the IVF branch gathers the
+    chunk's user rows from their owner shards and probes the
+    cluster-sharded index; the catalog is the logical item count. All keep
+    the one-crossing rule and trim sentinel padding here."""
+    if aot is not None:
+        raise NotImplementedError("chunked_topk(aot=...) waits for ROADMAP queue 1 item 14")
     if not valid:
         return
-    n_items = int(item_mat.shape[0])
+    # sharded tables are padded to an even split: the LOGICAL catalog
+    # lives on the ShardInfo
+    n_items = int(shards.rows["item"]) if shards is not None else int(item_mat.shape[0])
     k_max = bucket_k(max(k for _, _, k in valid), n_items)
     if ann is not None:
         from predictionio_tpu_torch.ops import ivf
@@ -119,7 +128,13 @@ def chunked_topk(
         for lo in range(0, len(valid), chunk):
             part = list(valid[lo : lo + chunk])
             uidx = np.fromiter((u for _, u, _ in part), np.int64, len(part))
-            if isinstance(user_mat, torch.Tensor):
+            if shards is not None:
+                from predictionio_tpu_torch.parallel import sharding
+
+                # the chunk's user rows from their owner shards (an int8
+                # table's dequantized), then the cluster-sharded probe
+                idx_b, score_b = sharding.sharded_ivf_topk(user_mat[uidx], index, k_max, ann.nprobe)
+            elif isinstance(user_mat, torch.Tensor):
                 idx_b, score_b = ivf.ivf_topk_users(
                     torch.as_tensor(uidx, device=user_mat.device), user_mat, index, k_max, ann.nprobe
                 )
@@ -138,7 +153,7 @@ def chunked_topk(
         for lo in range(0, len(valid), chunk):
             part = list(valid[lo : lo + chunk])
             uidx = np.fromiter((u for _, u, _ in part), np.int64, len(part))
-            idx_b, score_b = quant_ops.run_topk(quant, user_mat, item_mat, uidx, k_max)
+            idx_b, score_b = quant_ops.run_topk(quant, user_mat, item_mat, uidx, k_max, shards=shards)
             staged.append((part, idx_b, score_b))
         yield from _drain_staged(staged, n_items)
         return
@@ -157,7 +172,12 @@ def chunked_topk(
         uidx = torch.as_tensor(
             np.fromiter((u for _, u, _ in part), np.int64, len(part)), device=item_mat.device
         )
-        idx_b, score_b = top_k_items_batch(uidx, user_mat, item_mat, k_max)
+        if shards is not None:
+            from predictionio_tpu_torch.parallel import sharding
+
+            idx_b, score_b = sharding.sharded_topk_users(uidx, user_mat, item_mat, k_max, n_items)
+        else:
+            idx_b, score_b = top_k_items_batch(uidx, user_mat, item_mat, k_max)
         staged.append((part, idx_b, score_b))
     yield from _drain_staged(staged, n_items)
 
@@ -231,28 +251,65 @@ def pin_tables(model, device, *attrs: str) -> tuple[object, int]:
     return model, nbytes
 
 
+def shard_tables(model, device, user_attr: str, item_attr: str) -> tuple[object, int]:
+    """Both templates' ``shard_model_for_serving`` (``pio deploy
+    --shard-factors``): each table's rows split over the serving mesh
+    (``parallel/sharding.py``), a ``[rows/S, K]`` float32 part a device,
+    and ``model._pio_shards`` (the mesh, the logical row counts) set for
+    the sharded query paths. With fewer than two devices visible it logs
+    the JAX package's warning and pins replicated (:func:`pin_tables`).
+    Returns the model and the bytes of the padded tables."""
+    from predictionio_tpu_torch.parallel import sharding
+
+    mesh = sharding.serving_mesh(device=device)
+    if mesh is None:
+        logger.warning(_ONE_DEVICE)
+        return pin_tables(model, device, user_attr, item_attr)
+    host = (getattr(model, user_attr), getattr(model, item_attr))
+    rows = {"user": int(host[0].shape[0]), "item": int(host[1].shape[0])}
+    user, item = (sharding.shard_table(_host_f32(t), mesh) for t in host)
+    setattr(model, user_attr, user)
+    setattr(model, item_attr, item)
+    # the host arrays (the model's, or those a replicated pin kept), for
+    # release while no online update moved a row
+    model._pio_host = host if all(isinstance(t, np.ndarray) for t in host) else getattr(model, "_pio_host", None)
+    model._pio_shards = sharding.ShardInfo(mesh=mesh, rows=rows)
+    model._pio_pinned = True
+    nbytes = user.nbytes + item.nbytes
+    model._pio_bytes_by_dtype = {"float32": nbytes}
+    return model, nbytes
+
+
 def release_tables(model, *attrs: str) -> None:
-    """Release a model's pinned tables ``attrs`` (the templates'
-    ``release_pinned_model``): the pin-time host arrays come back while
-    they are current; once an online update dropped them as stale, the
-    updated tables are copied back to the host instead, so nothing that
-    reads the model later sees pre-update rows. An int8 table comes back
-    as its dequantized host f32, and the model's ``QuantRuntime`` goes
-    with it."""
+    """Release a model's pinned tables ``attrs`` (user, then item: the
+    templates' ``release_pinned_model``): the pin-time host arrays come
+    back while they are current; once an online update dropped them as
+    stale, the updated tables are copied back to the host instead, so
+    nothing that reads the model later sees pre-update rows. An int8
+    table comes back as its dequantized host f32, and the model's
+    ``QuantRuntime`` goes with it; a sharded table comes back gathered
+    from every shard, its padding stripped by the logical row counts, and
+    the ``ShardInfo`` goes with it, so no shard of any device stays
+    referenced."""
     host = getattr(model, "_pio_host", None)
+    shards = getattr(model, "_pio_shards", None)
     if host is not None:
         for attr, arr in zip(attrs, host):
             setattr(model, attr, arr)
     elif getattr(model, "_pio_pinned", False):
-        for attr in attrs:
+        for side, attr in zip(("user", "item"), attrs):
             table = getattr(model, attr)
             if isinstance(table, torch.Tensor):
-                setattr(model, attr, table.cpu().numpy())
-            elif getattr(table, "is_quantized", False):
-                setattr(model, attr, np.asarray(table))
+                table = table.cpu().numpy()
+            elif not isinstance(table, np.ndarray):
+                table = np.asarray(table)  # an int8 table dequantizes, a sharded one gathers
+                if shards is not None:
+                    table = table[: shards.rows[side]]
+            setattr(model, attr, table)
     model._pio_host = None
     model._pio_pinned = False
     model._pio_quant = None
+    model._pio_shards = None
 
 
 def _host_f32(table) -> np.ndarray:
@@ -261,19 +318,38 @@ def _host_f32(table) -> np.ndarray:
     return np.asarray(table, np.float32)
 
 
-def quantize_tables(model, user_attr: str, item_attr: str, device, mode: str = "int8") -> tuple[object, int]:
+def quantize_tables(model, user_attr: str, item_attr: str, device, mode: str = "int8",
+                    shard: bool = False) -> tuple[object, int]:
     """Both templates' ``quantize_model_for_serving``: the two tables
     become int8 codes and per-row scales on ``device`` (quantized there,
-    ``ops/quant``'s one rule). Sets the per-dtype byte ledger
-    (``model._pio_bytes_by_dtype``) and ``model._pio_quant`` (the
-    ``QuantRuntime``, with the item table's quantization error) and
+    ``ops/quant``'s one rule). ``shard=True`` (``--shard-factors
+    --quantize int8``) shards the codes and scales over the serving mesh
+    instead (quantized on the host, the same codes) and sets
+    ``model._pio_shards``; with fewer than two devices visible it logs the
+    JAX package's warning and quantizes replicated. Sets the per-dtype
+    byte ledger (``model._pio_bytes_by_dtype``) and ``model._pio_quant``
+    (the ``QuantRuntime``, with the item table's quantization error) and
     returns ``(model, bytes pinned)``."""
     from predictionio_tpu_torch.ops import quant
 
     if mode != "int8":
         raise ValueError(f"unsupported quantize mode {mode!r} (int8)")
     user_f, item_f = _host_f32(getattr(model, user_attr)), _host_f32(getattr(model, item_attr))
-    user, item = quant.quantize_table(user_f, device), quant.quantize_table(item_f, device)
+    mesh = None
+    if shard:
+        from predictionio_tpu_torch.parallel import sharding
+
+        mesh = sharding.serving_mesh(device=device)
+        if mesh is None:
+            logger.warning(_ONE_DEVICE)
+    if mesh is not None:
+        user, item = (sharding.shard_quantized_table(t, mesh) for t in (user_f, item_f))
+        model._pio_shards = sharding.ShardInfo(mesh=mesh, rows={"user": len(user_f), "item": len(item_f)})
+        # the error over the logical rows (the padding rows are exact zeros)
+        item_codes, item_scales = (np.asarray(t)[: len(item_f)] for t in (item.codes, item.scales))
+    else:
+        user, item = quant.quantize_table(user_f, device), quant.quantize_table(item_f, device)
+        item_codes, item_scales = item.codes, item.scales
     setattr(model, user_attr, user)
     setattr(model, item_attr, item)
     model._pio_host = None
@@ -288,7 +364,7 @@ def quantize_tables(model, user_attr: str, item_attr: str, device, mode: str = "
         bytes_by_dtype=breakdown,
         bytes_f32=user_f.nbytes + item_f.nbytes,
         # the item side's error is what reorders results
-        error=quant.quantization_error(item_f, item.codes, item.scales),
+        error=quant.quantization_error(item_f, item_codes, item_scales),
     )
     return model, sum(breakdown.values())
 
@@ -297,15 +373,27 @@ def build_ann(model, item_attr: str, ann, device, algorithm: str) -> tuple[objec
     """Both templates' ``build_ann_for_serving``: an IVF index over the
     item table on ``device`` (int8 slabs when the model serves int8),
     keeping the table itself for the full probe; attached as
-    ``model._pio_ann``. Returns ``(model, build info)``."""
+    ``model._pio_ann``. Sharded tables (``model._pio_shards``): k-means
+    runs on the logical item rows on the lead device, then the index is
+    laid out over the mesh (:func:`~predictionio_tpu_torch.ops.ivf.shard_runtime`,
+    the model's sharded table its full probe's). Returns ``(model, build
+    info)``."""
     from predictionio_tpu_torch.ops import ivf
 
     items = getattr(model, item_attr)
+    shards = getattr(model, "_pio_shards", None)
+    source = items
+    if shards is not None:
+        # the padding rows are no items: cluster the logical catalog
+        source = np.asarray(items)[: shards.rows["item"]]
+        device = shards.mesh[0]
     index, info = ivf.build_ivf(
-        items, nlist=ann.nlist, seed=ann.seed, iters=ann.kmeans_iters,
+        source, nlist=ann.nlist, seed=ann.seed, iters=ann.kmeans_iters,
         quantize=getattr(model, "_pio_quant", None) is not None, device=device, table=items,
     )
     model._pio_ann = ivf.AnnRuntime(index, ann.nprobe, info)
+    if shards is not None:
+        info = dict(info, **ivf.shard_runtime(model._pio_ann, shards.mesh, items, shards.rows["item"]))
     return model, dict(info, algorithm=algorithm, nprobe=model._pio_ann.nprobe)
 
 

@@ -23,10 +23,11 @@ DASE spine (:func:`engine_factory`):
   ``online_trainer_spec`` opts the towers into the streaming trainer,
   and ``apply_online_update`` swaps its rows into the live towers and
   grows the seen filter.
-* ``pio deploy --quantize int8`` and ``--ann`` take the Recommendation
-  template's hooks over the towers (``quantize_model_for_serving``,
+* ``pio deploy --shard-factors``, ``--quantize int8`` and ``--ann`` take
+  the Recommendation template's hooks over the towers
+  (``shard_model_for_serving``, ``quantize_model_for_serving``,
   ``build_ann_for_serving``); the seen filter keeps its over-fetch
-  (``num + |seen|`` candidates fetched before the merge) under both.
+  (``num + |seen|`` candidates fetched before the merge) under all three.
 
 engine.json is the JAX package's, byte for byte::
 
@@ -37,7 +38,7 @@ engine.json is the JAX package's, byte for byte::
                      "params": {"embeddingDim": 64, "batchSize": 512,
                                 "epochs": 5, "learningRate": 0.05}}]}
 
-Waiting: the multi-host read and the sharded and AOT serving tiers.
+Waiting: the multi-host read and the AOT serving tier.
 """
 
 from __future__ import annotations
@@ -75,6 +76,7 @@ from predictionio_tpu_torch.templates.serving_util import (
     pin_tables,
     quantize_tables,
     release_tables,
+    shard_tables,
 )
 
 __all__ = [
@@ -340,15 +342,21 @@ class TwoTowerAlgorithm(TorchAlgorithm):
         their last reference)."""
         release_tables(model, "user_vecs", "item_vecs")
 
+    def shard_model_for_serving(self, model: TwoTowerServingModel) -> tuple[TwoTowerServingModel, int]:
+        """The ``--shard-factors`` tier over the towers (the Recommendation
+        template's contract): row shards over the serving mesh, retrieval
+        through the sharded kernels; one device pins replicated, with the
+        JAX package's warning."""
+        return shard_tables(model, self.device, "user_vecs", "item_vecs")
+
     def quantize_model_for_serving(
         self, model: TwoTowerServingModel, mode: str = "int8", shard: bool = False
     ) -> tuple[TwoTowerServingModel, int]:
         """The ``--quantize int8`` tier over the towers (the Recommendation
         template's contract): int8 codes and per-row scales on
-        :attr:`device`, retrieval through the two-stage top-k."""
-        if shard:
-            raise NotImplementedError("--quantize with --shard-factors waits for ROADMAP queue 1 item 13")
-        return quantize_tables(model, "user_vecs", "item_vecs", self.device, mode)
+        :attr:`device`, retrieval through the two-stage top-k; ``shard=True``
+        shards the codes and scales over the serving mesh."""
+        return quantize_tables(model, "user_vecs", "item_vecs", self.device, mode, shard)
 
     def build_ann_for_serving(self, model: TwoTowerServingModel, ann) -> tuple[TwoTowerServingModel, dict]:
         """The ``--ann`` tier: an IVF index over the item tower on
@@ -434,6 +442,7 @@ class TwoTowerAlgorithm(TorchAlgorithm):
             return PredictedResult(())
         ann = getattr(model, "_pio_ann", None)
         quantrt = getattr(model, "_pio_quant", None)
+        shards = getattr(model, "_pio_shards", None)
         if isinstance(model.item_vecs, np.ndarray):
             self.check_host_serving()
         if ann is not None:
@@ -448,7 +457,12 @@ class TwoTowerAlgorithm(TorchAlgorithm):
         if quantrt is not None:
             from predictionio_tpu_torch.ops import quant
 
-            idx, vals = quant.topk_users(quantrt, model.user_vecs, model.item_vecs, [uidx], k)
+            idx, vals = quant.topk_users(quantrt, model.user_vecs, model.item_vecs, [uidx], k, shards=shards)
+            return self._unseen(model, idx[0].tolist(), vals[0].tolist(), seen, num)
+        if shards is not None:
+            from predictionio_tpu_torch.parallel import sharding
+
+            idx, vals = sharding.topk_users(shards, model.user_vecs, model.item_vecs, [uidx], k)
             return self._unseen(model, idx[0].tolist(), vals[0].tolist(), seen, num)
         if isinstance(model.item_vecs, np.ndarray):
             # host branch (the CPU, asked for): the JAX package's code
@@ -484,6 +498,7 @@ class TwoTowerAlgorithm(TorchAlgorithm):
         for part, idx_l, score_l in chunked_topk(
             model.user_vecs, model.item_vecs, valid,
             ann=getattr(model, "_pio_ann", None), quant=getattr(model, "_pio_quant", None),
+            shards=getattr(model, "_pio_shards", None),
         ):
             for (oi, _, k), ids, scs in zip(part, idx_l, score_l):
                 seen, num = seen_num[oi]

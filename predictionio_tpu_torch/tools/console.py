@@ -45,16 +45,16 @@ N``; SIGTERM or SIGINT stops either (after a drain when given
 ``--drain-deadline-s``), and so does ``pio undeploy`` for a deploy, with
 the stop token the deploy wrote under the base directory. ``deploy``
 takes the JAX console's flags: those of the serving tiers the port has
-(micro-batching, result cache, singleflight, pinned tables, int8 tables
-``--quantize int8``, IVF retrieval ``--ann*``, feedback, online
+(micro-batching, result cache, singleflight, pinned tables, sharded
+tables ``--shard-factors``, int8 tables ``--quantize int8``, IVF
+retrieval ``--ann*``, feedback, online
 learning, exploration ``--explore*``, storage resilience, TLS, drain,
 and the replica fleet: ``--replicas N`` spawns N port deploys behind a
 stdlib router on ``--port``, ``--variants`` splits its traffic into A/B
 variants, ``--router-only`` serves a second router on the same endpoint
 registry, ``--autoscale`` grows and shrinks the fleet) and, parsed and
 then refused with a ``ValueError`` naming their ROADMAP item, those of
-the tiers it does not (``--shard-factors``, ``--aot``,
-``--compilation-cache-dir``). A fleet's router process imports no
+the tier it does not (``--aot``, ``--compilation-cache-dir``). A fleet's router process imports no
 torch; each replica is ``python -m predictionio_tpu_torch.tools.console
 deploy`` with the fleet's other flags, ``--device`` among them. The data
 verbs and ``eventserver`` import no torch. ``eval`` takes import paths
@@ -89,7 +89,6 @@ __all__ = ["main", "build_parser"]
 #: (so a JAX package's deploy command line reads) and are then refused,
 #: naming what each waits for (ROADMAP queue 1)
 _WAITING_DEPLOY_FLAGS = {
-    "shard_factors": "queue 1 item 13, sharded serving",
     "aot": "queue 1 item 14, AOT serving",
     "compilation_cache_dir": "queue 1 item 14, AOT serving",
 }
@@ -266,8 +265,10 @@ def _add_deploy_flags(deploy: argparse.ArgumentParser) -> None:
                         help="replica: announce the bound address into this endpoint registry")
     deploy.add_argument("--announce-host", default="127.0.0.1", metavar="HOST",
                         help="replica: the address other hosts reach this replica at")
-    # later tiers: parsed, then refused
-    deploy.add_argument("--shard-factors", action="store_true")
+    deploy.add_argument("--shard-factors", action="store_true",
+                        help="pin each factor table row-sharded over the local devices (one part a card); "
+                        "answers equal the replicated tables'; one card pins replicated, with a warning")
+    # a later tier: parsed, then refused
     deploy.add_argument("--aot", action="store_true")
     deploy.add_argument("--compilation-cache-dir", default=None, metavar="DIR")
 
@@ -492,7 +493,7 @@ def _deploy(args: argparse.Namespace) -> int:
             warmup_body=json.loads(args.batch_warmup_query) if args.batch_warmup_query else None,
         )
     cache = None
-    if args.result_cache or args.coalesce or args.pin_model or args.quantize:
+    if args.result_cache or args.coalesce or args.pin_model or args.shard_factors or args.quantize:
         cache = CacheConfig(
             result_cache=args.result_cache,
             result_cache_entries=args.result_cache_entries,
@@ -500,6 +501,7 @@ def _deploy(args: argparse.Namespace) -> int:
             result_cache_max_bytes=int(args.result_cache_max_mb * 1024 * 1024),
             coalesce=args.coalesce,
             pin_model=args.pin_model,
+            shard_factors=args.shard_factors,
             quantize=args.quantize,
             scope_field=None if args.cache_scope_field.lower() in ("none", "") else args.cache_scope_field,
         )

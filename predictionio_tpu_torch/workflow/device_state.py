@@ -1,15 +1,19 @@
-"""Pinned serving state — the ``--pin-model``, ``--quantize`` and ``--ann`` tiers.
+"""Pinned serving state — the ``--pin-model``, ``--shard-factors``,
+``--quantize`` and ``--ann`` tiers.
 
 Counterpart of ``predictionio_tpu/workflow/device_state.py``
 (``pin_pairs``, ``build_ann_pairs``, ``release_pairs``,
-``bytes_by_dtype``). Each successful (re)load of a query server pins the
+``bytes_by_dtype``, ``shard_count``). Each successful (re)load of a query server pins the
 deployed models' scoring tables on the algorithm's device once per model
 generation, so every request scores against resident tensors.
 Algorithms opt in by implementing ``pin_model_for_serving(model) ->
 (model, bytes_pinned)`` and ``release_pinned_model(model)``; any other
-pair is served as it is. ``--quantize int8`` prefers the
-``quantize_model_for_serving(model, mode, shard)`` hook (int8 codes and
-per-row scales, ``ops/quant.py``); ``--ann`` asks each algorithm with a
+pair is served as it is. ``--shard-factors`` prefers the
+``shard_model_for_serving(model)`` hook (row shards over the serving
+mesh, ``parallel/sharding.py``); ``--quantize int8`` prefers the
+``quantize_model_for_serving(model, mode, shard)`` hook above both (int8
+codes and per-row scales, ``ops/quant.py``; sharded too with ``shard``);
+``--ann`` asks each algorithm with a
 ``build_ann_for_serving(model, ann_config)`` hook for an IVF index
 (``ops/ivf.py``) once per generation, and :func:`release_pairs` drops
 the superseded generation's pinned tables and index together. Nothing
@@ -17,9 +21,11 @@ here imports ``ops.quant`` or ``ops.ivf`` unless a table or a deploy
 asks for it.
 
 One difference from the JAX package, which the port's rules require: a
-pin, quantize or index-build hook that raises is not swallowed (the JAX
-package serves the pair unpinned, f32 or exact), and a deploy asking for
-``--quantize`` or ``--ann`` from an algorithm without the hook raises.
+pin, shard, quantize or index-build hook that raises is not swallowed
+(the JAX package serves the pair unpinned, replicated, f32 or exact), and
+a deploy asking for ``--quantize`` or ``--ann`` from an algorithm without
+the hook raises. An algorithm without a shard hook pins replicated, with
+a warning, as the JAX package does.
 The error reaches the caller, so a deploy's first load fails loudly and a
 ``/reload`` leaves the service degraded on its last-good generation;
 nothing falls back to the host, to f32 or to exact retrieval quietly.
@@ -32,8 +38,9 @@ whole, as in the JAX package. Pinned tensors update out of place
 ``QueryService.snapshot_pairs`` or an in-flight query holds never
 changes under it, as with JAX's ``.at[].set``. An int8 table re-quantizes
 only the rows touched or added (the host quantizer, bit-equal to the
-card's). A sharded table raises ``NotImplementedError``: that tier waits
-with ROADMAP queue 1 item 13, as does the AOT tier with item 14.
+card's). A sharded table routes each touched row to its owner shard;
+cold-start rows fill its padding first and re-lay it out past that
+(:func:`swap_side_rows`). The AOT tier waits for ROADMAP queue 1 item 14.
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ __all__ = [
     "pin_pairs",
     "release_pairs",
     "set_rows",
+    "shard_count",
     "swap_side_rows",
     "update_ann_items",
 ]
@@ -58,18 +66,39 @@ __all__ = [
 logger = logging.getLogger(__name__)
 
 
-def pin_pairs(pairs: Sequence, quantize: str | None = None) -> tuple[list, int]:
+def pin_pairs(
+    pairs: Sequence, shard: bool = False, quantize: str | None = None, prepared: bool = True
+) -> tuple[list, int]:
     """Pin every (algorithm, model) pair whose algorithm has the hook.
 
-    ``quantize`` (``pio deploy --quantize int8``) takes the
-    ``quantize_model_for_serving`` hook instead; an algorithm without it
-    raises (the module docstring). Returns ``(pairs, bytes_pinned)`` —
-    the pair list with the pinned models and the bytes of every table
-    they now hold on their device. A hook that raises propagates."""
+    ``shard`` (``pio deploy --shard-factors``) takes the
+    ``shard_model_for_serving`` hook (row shards over the serving mesh;
+    the hook pins replicated, with the JAX package's warning, when fewer
+    than two devices are visible); an algorithm without it pins
+    replicated, with a warning. ``quantize`` (``pio deploy --quantize
+    int8``) takes the ``quantize_model_for_serving(model, mode, shard)``
+    hook above both; an algorithm without it raises (the module
+    docstring). ``prepared=False``: the models come as the blob holds
+    them (``Engine.prepare_deploy(prepare=False)``), so a shard or
+    quantize hook builds its tables from the host arrays, with no
+    replicated f32 copy on the card first, and the algorithm's
+    ``warm_up`` runs after it; a pair no such hook takes goes through
+    ``prepare_model_for_serving`` first. Returns ``(pairs,
+    bytes_pinned)`` — the pair list with the pinned models and the bytes
+    of every table they now hold on their devices. A hook that raises
+    propagates."""
     out = []
     total = 0
     for algo, model in pairs:
         pin = getattr(algo, "pin_model_for_serving", None)
+        tier = None  # the shard or quantize hook, when one takes the pair
+        if shard:
+            tier = getattr(algo, "shard_model_for_serving", None)
+            if tier is None:
+                logger.warning(
+                    "--shard-factors: %s has no shard_model_for_serving hook; pinning replicated",
+                    type(algo).__name__,
+                )
         if quantize is not None:
             qhook = getattr(algo, "quantize_model_for_serving", None)
             if qhook is None:
@@ -77,12 +106,21 @@ def pin_pairs(pairs: Sequence, quantize: str | None = None) -> tuple[list, int]:
                     f"--quantize {quantize}: {type(algo).__name__} has no quantize_model_for_serving hook"
                 )
 
-            def pin(m, _q=qhook):
-                return _q(m, mode=quantize, shard=False)
+            def tier(m, _q=qhook):
+                return _q(m, mode=quantize, shard=shard)
 
-        if pin is not None:
-            model, nbytes = pin(model)
+        if tier is not None:
+            model, nbytes = tier(model)
             total += int(nbytes)
+            warm_up = getattr(algo, "warm_up", None)
+            if not prepared and warm_up is not None:
+                warm_up(model)
+        else:
+            if not prepared:
+                model = algo.prepare_model_for_serving(model)
+            if pin is not None:
+                model, nbytes = pin(model)
+                total += int(nbytes)
         out.append((algo, model))
     return out, total
 
@@ -124,24 +162,40 @@ def bytes_by_dtype(pairs: Sequence) -> dict:
     return agg
 
 
-def _check_plain(mat) -> None:
-    """Refuse the tables of a tier the port does not have: they must not
-    be treated as plain ones."""
-    if hasattr(mat, "placements"):  # a torch.distributed DTensor
-        raise NotImplementedError("online updates of sharded tables wait for ROADMAP queue 1 item 13")
+def shard_count(pairs: Sequence) -> int:
+    """The serving mesh's size across the served models (0 when nothing is
+    sharded) — ``cache.factorShards`` on ``/stats.json``."""
+    n = 0
+    for _, model in pairs:
+        shards = getattr(model, "_pio_shards", None)
+        if shards is not None:
+            n = max(n, shards.num_shards)
+    return n
+
+
+def _sharding(mat):
+    """``parallel.sharding`` when ``mat`` is a sharded table, else None —
+    without importing it for the other tiers."""
+    if type(mat).__name__ != "ShardedTable":
+        return None
+    from predictionio_tpu_torch.parallel import sharding
+
+    return sharding
 
 
 def get_rows(mat, idx) -> np.ndarray:
     """Rows ``idx`` of a factor table as host float32: a numpy fancy
     index, or one gather on the tensor's device and a ``len(idx)``-row
     copy — never the whole table. An int8 table dequantizes only those
-    rows."""
-    _check_plain(mat)
+    rows; a sharded table gathers them from their owner shards."""
     idx = np.asarray(idx, np.int64)
     if isinstance(mat, np.ndarray):
         return np.asarray(mat[idx], np.float32)
     import torch
 
+    sharding = _sharding(mat)
+    if sharding is not None:
+        return sharding.gather_rows(idx, mat).to(torch.float32).cpu().numpy()
     if getattr(mat, "is_quantized", False):
         rows = mat[idx]
         return rows.cpu().numpy() if isinstance(rows, torch.Tensor) else np.asarray(rows, np.float32)
@@ -160,10 +214,10 @@ def set_rows(mat, idx, rows):
     """Replace factor rows ``idx`` of ``mat`` with ``rows`` — the online
     fold-in's delta swap. A host array updates copy-on-write; a tensor
     out of place (``index_copy``), so only the touched rows cross to the
-    device and every holder of the old table keeps it intact. An int8
+    device and every holder of the old table keeps it intact; a sharded
+    table does that on each touched row's owner shard only. An int8
     table re-quantizes only the touched rows, then swaps its codes and
     scales through this same function."""
-    _check_plain(mat)
     if getattr(mat, "is_quantized", False):
         codes, scales = _quantized_parts(rows)
         return type(mat)(set_rows(mat.codes, idx, codes), set_rows(mat.scales, idx, scales))
@@ -171,6 +225,9 @@ def set_rows(mat, idx, rows):
         out = mat.copy()
         out[np.asarray(idx, np.int64)] = np.asarray(rows, mat.dtype)
         return out
+    sharding = _sharding(mat)
+    if sharding is not None:
+        return sharding.set_rows(mat, idx, rows)
     import torch
 
     index = torch.as_tensor(np.asarray(idx, np.int64)).to(mat.device)
@@ -181,8 +238,8 @@ def set_rows(mat, idx, rows):
 def append_rows(mat, rows):
     """Grow a factor table by cold-start rows (fold-in injection for
     never-seen entities); a new table on the same device. An int8 table
-    quantizes only the new rows and grows its codes and scales in step."""
-    _check_plain(mat)
+    quantizes only the new rows and grows its codes and scales in step.
+    (A sharded table grows in :func:`swap_side_rows`.)"""
     if getattr(mat, "is_quantized", False):
         codes, scales = _quantized_parts(rows)
         return type(mat)(append_rows(mat.codes, codes), append_rows(mat.scales, scales))
@@ -211,9 +268,14 @@ def swap_side_rows(
     factor table, so a new row must not become rankable before the index
     can translate it back to an item id.
 
+    Sharded (``model._pio_shards``), the tables are padded to an even
+    split: new rows first fill padding slots on their owner shards
+    (:func:`set_rows`); past the padding the table is laid out anew with
+    ``GROW_STEP`` rows of headroom. The logical row count on the
+    ``ShardInfo``, by which every sharded kernel masks, advances only
+    after the rows landed, so a slot becomes rankable with its row.
+
     Returns ``(rows updated, rows added)``."""
-    if getattr(model, "_pio_shards", None) is not None:
-        raise NotImplementedError("online updates of sharded tables wait for ROADMAP queue 1 item 13")
     index = getattr(model, index_attr)
     known = [(j, idx) for j, e in enumerate(ids) if (idx := index.get(e)) is not None]
     new = [j for j, e in enumerate(ids) if index.get(e) is None]
@@ -226,12 +288,32 @@ def swap_side_rows(
         )
     if new:
         new_ids = [ids[j] for j in new]
+        shards = getattr(model, "_pio_shards", None)
+        side = "user" if rows_before_index else "item"
+
+        def grow(mat):
+            if shards is None:
+                return append_rows(mat, rows[new])
+            from predictionio_tpu_torch.parallel import sharding
+
+            logical = int(shards.rows[side])
+            if logical + len(new) <= int(mat.shape[0]):
+                # padding slots on their owner shards; no re-layout
+                return set_rows(mat, list(range(logical, logical + len(new))), rows[new])
+            return sharding.relayout(mat, logical, rows[new], logical + len(new) + sharding.GROW_STEP)
+
+        def advance():
+            if shards is not None:
+                shards.rows[side] = int(shards.rows[side]) + len(new)
+
         if rows_before_index:
-            setattr(model, factors_attr, append_rows(getattr(model, factors_attr), rows[new]))
+            setattr(model, factors_attr, grow(getattr(model, factors_attr)))
+            advance()
             setattr(model, index_attr, index.extended(new_ids))
         else:
             setattr(model, index_attr, index.extended(new_ids))
-            setattr(model, factors_attr, append_rows(getattr(model, factors_attr), rows[new]))
+            setattr(model, factors_attr, grow(getattr(model, factors_attr)))
+            advance()
     return len(known), len(new)
 
 

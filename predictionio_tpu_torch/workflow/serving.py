@@ -58,9 +58,15 @@ its answers with ``X-PIO-Replica`` and ``X-PIO-Generation``. With the
 options off, nothing under ``predictionio_tpu_torch.experiments`` is
 imported and answers carry no fleet headers.
 
-Differences from the JAX package: the ``--aot`` and ``--shard-factors``
-tiers are not here (ROADMAP queue 1 items 13 and 14); their routes answer
-as the JAX package's do with the tier off. ``/profiler/start`` and
+Sharded tables (``CacheConfig(shard_factors=True)``, ``pio deploy
+--shard-factors``): each load pins the tables row-sharded over the local
+devices (``parallel/sharding.py``; replicated, with a warning, on one
+device); ``/stats.json`` ``cache.factorShards`` is the mesh's size and
+``GET /`` says ``shardFactors``.
+
+Differences from the JAX package: the ``--aot`` tier is not here (ROADMAP
+queue 1 item 14); its routes answer as the JAX package's do with the tier
+off. ``/profiler/start`` and
 ``/profiler/stop`` drive ``torch.profiler`` on the device thread and
 write a Chrome trace.
 """
@@ -192,8 +198,6 @@ class QueryService:
         explore=None,
         replica_id: str | None = None,
     ):
-        if cache is not None and cache.shard_factors:
-            raise NotImplementedError("--shard-factors waits for ROADMAP queue 1 item 13")
         self.variant = variant
         #: fleet identity (``pio deploy --replica-id``, set by the fleet
         #: supervisor): reported on /readyz, /stats.json and as the
@@ -211,10 +215,13 @@ class QueryService:
         self.cache_config = cache if cache is not None and cache.enabled else None
         #: ``pio deploy --quantize``'s mode (None: f32 tables)
         self.quantize = self.cache_config.quantize if self.cache_config is not None else None
-        #: pin on the card always; on the CPU only when --pin-model or
-        #: --quantize asks
+        #: ``pio deploy --shard-factors``: tables row-sharded over the mesh
+        self.shard_factors = self.cache_config is not None and self.cache_config.shard_factors
+        #: pin on the card always; on the CPU only when --pin-model,
+        #: --shard-factors or --quantize asks
         self._pin = self.ctx.device.type == "cuda" or (
-            self.cache_config is not None and (self.cache_config.pin_model or self.quantize is not None)
+            self.cache_config is not None
+            and (self.cache_config.pin_model or self.shard_factors or self.quantize is not None)
         )
         #: approximate retrieval (``pio deploy --ann``); None or a disabled
         #: config keeps every query on the exact path and imports nothing
@@ -445,12 +452,21 @@ class QueryService:
             blob = Storage.get_model_data_models().get(instance.id)
             if blob is None:
                 raise QueryServerError(f"No model blob for instance '{instance.id}'")
-            serving, pairs = engine.prepare_deploy(self.ctx, engine_params, instance.id, blob.models)
+            # the sharded and int8 tiers build their tables from the blob's
+            # host arrays: no replicated f32 pin on the card before them
+            tiered = self._pin and (self.shard_factors or self.quantize is not None)
+            serving, pairs = engine.prepare_deploy(
+                self.ctx, engine_params, instance.id, blob.models, prepare=not tiered
+            )
             if self._pin:
-                pairs, bytes_pinned = device_state.pin_pairs(pairs, quantize=self.quantize)
+                pairs, bytes_pinned = device_state.pin_pairs(
+                    pairs, shard=self.shard_factors, quantize=self.quantize, prepared=not tiered
+                )
                 if self._cache_stats is not None:
                     self._cache_stats.set_gauge("bytes_pinned", bytes_pinned)
                     self._cache_stats.set_gauge("bytes_by_dtype", device_state.bytes_by_dtype(pairs))
+                    if self.shard_factors:
+                        self._cache_stats.set_gauge("factor_shards", device_state.shard_count(pairs))
             if self.ann_config is not None:
                 # the IVF index of this generation, built here on the
                 # device thread; it hot-swaps with the pairs
@@ -809,7 +825,7 @@ class QueryService:
             "feedbackDropped": self.feedback_dropped,
             "batching": self.batcher is not None,
             "caching": self.cache_config is not None,
-            "shardFactors": False,
+            "shardFactors": self.shard_factors,
             "quantize": self.quantize,
             "bytesPinnedByDtype": (
                 self._cache_stats.to_json()["bytesByDtype"] if self._cache_stats is not None else {}

@@ -7,10 +7,10 @@
   to a stub event server, reports all of it on ``/stats.json``, and
   ``pio undeploy`` (the stop token from the base directory) stops it:
   exit 0 within 10 s.
-* The deploy flags of tiers the port does not have (``--shard-factors``,
-  ``--aot``, ``--compilation-cache-dir``) parse and are then refused with
-  an error naming their ROADMAP item, before any storage or model is
-  touched.
+* The deploy flags of the tier the port does not have (``--aot``,
+  ``--compilation-cache-dir``) parse and are then refused with an error
+  naming their ROADMAP item, before any storage or model is touched;
+  ``--shard-factors`` builds the ``CacheConfig`` the JAX console builds.
 * The ``--explore*`` flags build the ``ExploreConfig`` the JAX console
   builds; ``--variants`` builds the router's ``SplitConfig`` as the JAX
   console does (both consoles' ``RouterService`` replaced by a recording
@@ -165,7 +165,6 @@ def test_deploy_with_serving_flags_then_undeploy(tmp_path):
 @pytest.mark.parametrize(
     "flags, item",
     [
-        (["--shard-factors"], "item 13"),
         (["--aot"], "item 14"),
         (["--compilation-cache-dir", "x"], "item 14"),
     ],
@@ -178,6 +177,38 @@ def test_flags_of_later_tiers_are_refused(flags, item, capsys):
 
 class _Built(Exception):
     pass
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [
+        ["--shard-factors"],
+        ["--shard-factors", "--pin-model", "--result-cache"],
+        ["--shard-factors", "--quantize", "int8"],
+    ],
+)
+def test_shard_factors_builds_the_jax_consoles_cache_config(flags, tmp_path, monkeypatch):
+    """``--shard-factors`` is served now: both consoles parse one command
+    line into the same ``CacheConfig`` (``shard_factors`` on), each
+    one's QueryService replaced by a stub that records it."""
+    engine_json = tmp_path / "engine.json"
+    engine_json.write_text(json.dumps(ENGINE))
+    built = {}
+
+    def stub(name):
+        def record(*args, **kwargs):
+            built[name] = kwargs.get("cache")
+            raise _Built(name)
+        return record
+
+    monkeypatch.setattr(jax_serving, "QueryService", stub("jax"))
+    monkeypatch.setattr(port_serving, "QueryService", stub("torch"))
+    argv = ["deploy", "--engine-json", str(engine_json)] + flags
+    assert jax_console.main(argv) == 1 and main(argv + ["--device", "cpu"]) == 1
+    jax_config, port_config = built["jax"], built["torch"]
+    assert type(port_config).__module__ == "predictionio_tpu_torch.serving.cache"
+    assert port_config.shard_factors is True and port_config.enabled
+    assert dataclasses.asdict(port_config) == dataclasses.asdict(jax_config)
 
 
 @pytest.mark.parametrize(

@@ -37,7 +37,10 @@ The IVF and int8 tiers: the card's and the host's quantizers bit-equal
 int64 numpy, the full probe (``nprobe >= nlist``) bit-equal to the exact
 top-k, the build bit-equal between two runs of one seed, and three
 ``/reload``s with ``--ann --quantize int8`` within 1 MiB of allocated
-memory. Similar-Product, E-Commerce and the classifiers pinned on the
+memory. Sharded serving over an 8-way mesh on the one card: the exact
+and int8 top-k bit-equal to the replicated ones, the IVF probe's ids the
+unsharded probe's, its full probe bit-equal to the exact top-k.
+Similar-Product, E-Commerce and the classifiers pinned on the
 card answer as their CPU branch does (ids except near-ties of relative 1e-5, scores
 and confidences within 1e-5). The batched grid of ``pio eval --grid`` on the
 card scores as on the CPU from the same starting factors, within one hit
@@ -871,7 +874,7 @@ def test_full_probe_is_exact_to_the_bit_on_card(cuda_device, quantize):
     uidx = torch.arange(1000, device=cuda_device)
     if quantize:
         items = index.items
-        want = top_k_scores((q @ items.codes.float().T) * items.scales[None, :], 128)
+        want = top_k_scores(torch_als.score_rows(q, items), 128)  # the exact path's scoring
         assert isinstance(items, quant.QuantizedTable)
     else:
         want = torch_als.top_k_items_batch(uidx, q, index.items, 128)
@@ -880,6 +883,82 @@ def test_full_probe_is_exact_to_the_bit_on_card(cuda_device, quantize):
         assert torch.equal(got[0].long(), want[0].long()) and torch.equal(got[1], want[1])
         got = ivf.ivf_topk_batch(q, index, 128, nprobe)
         assert torch.equal(got[0].long(), want[0].long()) and torch.equal(got[1], want[1])
+
+
+@pytest.fixture
+def card_mesh(cuda_device):
+    """An 8-way serving mesh over the one card (``(cuda:0,)*8``), the
+    port's counterpart of the JAX package's 8 forced host devices."""
+    from predictionio_tpu_torch.parallel import sharding
+
+    with sharding.local_devices([cuda_device] * 8):
+        yield sharding.serving_mesh()
+
+
+def _sharded_inputs(cuda_device):
+    rng = np.random.default_rng(66)
+    uf = rng.standard_normal((3000, 64)).astype(np.float32)
+    vf = rng.standard_normal((20_003, 64)).astype(np.float32)
+    vf[1] = vf[0]  # an exact tie inside one shard
+    vf[19_000] = vf[0]  # and across shards
+    uf[0] = vf[0]
+    return uf, vf, torch.arange(512, device=cuda_device)
+
+
+@pytest.mark.gpu
+def test_sharded_exact_is_the_replicated_answer_on_card(cuda_device, card_mesh):
+    """Ids and scores to the bit at 20,003 items over 8 shards of one
+    card, for a 512-query chunk, one query (a per-request deploy's) and
+    three: each shard scores through ``score_rows``, whose products are
+    blocks of one shape whatever the table's rows."""
+    from predictionio_tpu_torch.parallel import sharding
+
+    uf, vf, idx = _sharded_inputs(cuda_device)
+    ut, it = sharding.shard_table(uf, card_mesh), sharding.shard_table(vf, card_mesh)
+    assert {t.device for t in it.shards} == {cuda_device} and it.shape == (20_008, 64)
+    for rows in (idx, idx[:1], idx[:3]):
+        for k in (1, 16, 128):
+            ids, scores = sharding.sharded_topk_users(rows, ut, it, k, 20_003)
+            want = torch_als.top_k_items_batch(rows, torch.as_tensor(uf, device=cuda_device),
+                                               torch.as_tensor(vf, device=cuda_device), k)
+            assert torch.equal(ids, want[0]) and torch.equal(scores, want[1]), (len(rows), k)
+        assert ids[0, :3].tolist() == [0, 1, 19_000]
+
+
+@pytest.mark.gpu
+def test_sharded_int8_is_the_replicated_answer_on_card(cuda_device, card_mesh):
+    from predictionio_tpu_torch.ops import quant
+    from predictionio_tpu_torch.parallel import sharding
+
+    uf, vf, idx = _sharded_inputs(cuda_device)
+    info = sharding.ShardInfo(card_mesh, {"user": 3000, "item": 20_003})
+    rt = quant.QuantRuntime("int8", {}, 0)
+    us, is_ = sharding.shard_quantized_table(uf, card_mesh), sharding.shard_quantized_table(vf, card_mesh)
+    ur, ir = quant.quantize_table(uf, cuda_device), quant.quantize_table(vf, cuda_device)
+    for k in (16, 128):
+        ids, scores = quant.run_topk(rt, us, is_, idx.cpu().numpy(), k, shards=info)
+        want = quant.run_topk(rt, ur, ir, idx.cpu().numpy(), k)
+        assert torch.equal(ids.long(), want[0].long()) and torch.equal(scores, want[1]), k
+
+
+@pytest.mark.gpu
+def test_sharded_ivf_is_the_unsharded_answer_on_card(cuda_device, card_mesh):
+    """At nprobe 8 the unsharded probe's ids; at the full probe the exact
+    answer, ids and scores to the bit."""
+    from predictionio_tpu_torch.ops import ivf
+    from predictionio_tpu_torch.parallel import sharding
+
+    uf, vf, idx = _sharded_inputs(cuda_device)
+    q = torch.as_tensor(uf[:512], device=cuda_device)
+    index, info = ivf.build_ivf(vf, nlist=0, seed=0, iters=4, device=cuda_device)
+    rt = ivf.AnnRuntime(index, 8, info)
+    assert ivf.shard_runtime(rt, card_mesh)["shards"] == 8
+    got, _ = sharding.sharded_ivf_topk(q, rt.index, 16, 8)
+    want, _ = ivf.ivf_topk_batch(q, index, 16, 8)
+    assert torch.equal(got.long(), want.long())
+    got = sharding.sharded_ivf_topk(q, rt.index, 16, index.nlist)
+    want = torch_als.top_k_items_batch(idx, q, torch.as_tensor(vf, device=cuda_device), 16)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.gpu

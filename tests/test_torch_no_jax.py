@@ -16,7 +16,8 @@ copies they run on (``ops/text.py``,
 ``controller/cleaning.py``, ``e2/``). The fleet (``fleet/``) and the A/B
 split (``experiments/split.py``) import neither torch nor jax (the router
 is a host process), and a default deploy imports neither the fleet nor
-the experiments package."""
+the experiments package. The sharded serving package (``parallel/``) is
+covered, and a deploy without ``--shard-factors`` imports nothing of it."""
 
 import ast
 import os
@@ -252,6 +253,40 @@ def test_default_deploy_imports_neither_ivf_nor_quant():
         "import predictionio_tpu_torch.templates.recommendation\n"
         "import predictionio_tpu_torch.templates.twotower\n"
         "bad = [m for m in ('predictionio_tpu_torch.ops.ivf', 'predictionio_tpu_torch.ops.quant') if m in sys.modules]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    run = subprocess.run(
+        [sys.executable, "-c", probe], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert run.returncode == 0, run.stdout + run.stderr
+
+
+SHARDED = ["parallel/__init__.py", "parallel/sharding.py"]
+
+
+@pytest.mark.parametrize("name", SHARDED)
+def test_sharded_serving_modules_are_checked(name):
+    """The port's ``parallel/`` package (``pio deploy --shard-factors``)
+    is scanned above and imported by the probes."""
+    assert PORT / name in SOURCES
+
+
+def test_default_deploy_imports_no_sharding():
+    """The port's counterpart of the JAX package's opt-in rule for
+    ``--shard-factors``: a deploy without it (the console, the query
+    server and both templates) imports nothing of ``parallel``; importing
+    ``parallel.sharding`` loads no jax."""
+    probe = (
+        "import sys\n"
+        "import predictionio_tpu_torch.tools.console\n"
+        "import predictionio_tpu_torch.workflow.serving\n"
+        "import predictionio_tpu_torch.templates.recommendation\n"
+        "import predictionio_tpu_torch.templates.twotower\n"
+        "bad = [m for m in sys.modules if m.startswith('predictionio_tpu_torch.parallel')]\n"
+        "assert not bad, bad\n"
+        "import predictionio_tpu_torch.parallel.sharding\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'predictionio_tpu'))\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))

@@ -12,8 +12,15 @@ is the card.
 
 ``TestIncrementalIVF`` runs on the port's ``ops.ivf`` (its ``build_ivf``
 bound to the CPU, ``jax.numpy.asarray`` making CPU tensors).
-``TestOnlineUnderShardFactors`` (sharded serving, ROADMAP queue 1 item
-13; red in the reference on this tree) waits with its item.
+``TestOnlineUnderShardFactors`` (``--shard-factors`` with fold-ins) runs
+``[torch]`` only, on the port's ``(cpu,)*8`` mesh (its
+``parallel.sharding.local_devices``): it is red in the reference on this
+tree, whose fold gathers the prior rows by a plain index of the
+row-sharded table and jax refuses that
+(``predictionio_tpu/templates/recommendation/engine.py:1093-1095``). Its
+assertion that the table is still a ``NamedSharding`` over the ``model``
+axis reads, on the port, that it is still a ``ShardedTable`` over the same
+mesh — the case's contract in the port's terms.
 """
 
 import functools
@@ -21,6 +28,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 import jax
@@ -45,15 +53,15 @@ import predictionio_tpu_torch.workflow.device_state as port_device_state
 import predictionio_tpu_torch.workflow.serving as port_serving
 import test_online as jax_cases
 from predictionio_tpu_torch.data.storage import Storage as PortStorage
-from test_online import columnar_env, online_service  # noqa: F401  (the cases' fixtures)
+from predictionio_tpu_torch.parallel import sharding as port_sharding
+from test_online import columnar_env, online_service, sharded_online_service  # noqa: F401  (the cases' fixtures)
 from torch_package_swap import PACKAGES, controller_module, cpu_module, memory_storage, tensor_numpy, use_port
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.fixture(params=PACKAGES, autouse=True)
-def package(request, monkeypatch):
-    if request.param == "torch":
+def _swap(package: str, request, monkeypatch) -> str:
+    if package == "torch":
         use_port(
             monkeypatch,
             jax_cases,
@@ -91,7 +99,12 @@ def package(request, monkeypatch):
             ivf = cpu_module("predictionio_tpu.ops.ivf", port_ivf, build_ivf=port_ivf.build_ivf)
             monkeypatch.setattr(jax_ops_package, "ivf", ivf, raising=False)
             monkeypatch.setattr(jax, "numpy", tensor_numpy())
-    return request.param
+    return package
+
+
+@pytest.fixture(params=PACKAGES, autouse=True)
+def package(request, monkeypatch):
+    return _swap(request.param, request, monkeypatch)
 
 
 @pytest.fixture()
@@ -121,6 +134,44 @@ class TestStreamingTrainer(jax_cases.TestStreamingTrainer):
 
 class TestIncrementalIVF(jax_cases.TestIncrementalIVF):
     pass
+
+
+class TestOnlineUnderShardFactors(jax_cases.TestOnlineUnderShardFactors):
+    """``[torch]`` only (red in the reference on this tree: the module
+    docstring)."""
+
+    @pytest.fixture(params=("torch",), autouse=True)
+    def package(self, request, monkeypatch):
+        with port_sharding.local_devices(["cpu"] * 8):
+            yield _swap(request.param, request, monkeypatch)
+
+    def test_fresh_user_folds_into_sharded_tables(self, sharded_online_service):  # noqa: F811
+        """The reference's case, its ``NamedSharding`` assertion read as
+        the port's: the table is still a ``ShardedTable`` over the same
+        8-way mesh after the fold, and the logical row count advanced."""
+        Storage, app_id, qs = sharded_online_service
+        pairs, _ = qs.snapshot_pairs()
+        _algo, model = pairs[0]
+        shards = model._pio_shards
+        assert shards is not None and shards.num_shards == 8
+        mesh = model.user_factors.mesh
+        assert jax_cases._query(qs, "fresh-su").body == {"itemScores": []}
+        Storage.get_l_events().insert_batch(
+            [jax_cases._rate("fresh-su", 1, 5.0, "s1"), jax_cases._rate("fresh-su", 2, 5.0, "s2")], app_id
+        )
+        r = qs.dispatch("POST", "/online/fold.json", {}, None)
+        assert r.status == 200
+        scores = jax_cases._query(qs, "fresh-su").body["itemScores"]
+        assert len(scores) == 4
+        # still row-sharded over the same mesh (the swap routed the rows
+        # to their owner shards), and the cold start advanced the count
+        assert isinstance(model.user_factors, port_sharding.ShardedTable)
+        assert model.user_factors.mesh == mesh
+        assert shards.rows["user"] > 30
+        uidx = model.user_index["fresh-su"]
+        assert uidx < shards.rows["user"]
+        row = np.asarray(model.user_factors)[uidx]
+        assert np.abs(row).sum() > 0
 
 
 class TestSatellites(jax_cases.TestSatellites):

@@ -21,8 +21,10 @@ users x 60 items):
   cold-start growth in both packages;
 * the port's row swaps leave a table taken earlier unchanged, re-quantize
   only the touched rows of an int8 table (where they refused it until
-  the int8 tier was ported), refuse the sharded tier, and a released
-  generation hands back its folded rows, not the pin-time ones.
+  the int8 tier was ported), fold into a sharded table as into a
+  replicated one (where they refused the sharded tier until it was
+  ported), and a released generation hands back its folded rows, not the
+  pin-time ones.
 """
 
 import datetime as dt
@@ -172,10 +174,13 @@ def test_row_swaps_leave_an_earlier_table_unchanged():
 
 
 def test_row_swaps_refuse_the_int8_and_sharded_tiers():
-    """The sharded tier is still refused. The int8 tier is served now (it
-    was refused until it was ported; the name is kept): a swap into an
-    int8 table re-quantizes only the touched rows and leaves the old
-    table as it was."""
+    """Both tiers are served now (they were refused until each was
+    ported; the name is kept). A swap into an int8 table re-quantizes only
+    the touched rows and leaves the old table as it was. A fold into a
+    model sharded over the ``(cpu,)*8`` mesh gives the rows, tables and
+    answers of the same fold into the replicated pinned model: a re-rate
+    of a known user, a known item's update, a fresh user in a padding
+    slot."""
     from predictionio_tpu_torch.ops import quant
 
     rng = np.random.default_rng(17)
@@ -189,10 +194,41 @@ def test_row_swaps_refuse_the_int8_and_sharded_tiers():
     np.testing.assert_array_equal(out.codes.numpy(), want_codes)
     np.testing.assert_array_equal(out.scales.numpy(), want_scales)
     assert torch.equal(table.codes, codes_before)
-    model = _Model()
-    model._pio_shards, model.user_index = object(), BiMap.string_index(["a"])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        device_state.swap_side_rows(model, ["a"], np.zeros((1, 4), np.float32), "user_factors", "user_index", True)
+    from predictionio_tpu_torch.online.types import EventDelta
+    from predictionio_tpu_torch.parallel import sharding
+    from predictionio_tpu_torch.templates.recommendation.engine import (
+        ALSAlgorithm,
+        ALSAlgorithmParams,
+        ALSModel,
+        Query,
+    )
+
+    uf = rng.standard_normal((30, 8)).astype(np.float32)
+    vf = rng.standard_normal((61, 8)).astype(np.float32)
+    algo = ALSAlgorithm(ALSAlgorithmParams(rank=8, lambda_=0.05), device="cpu")
+    deltas = [EventDelta("rate", "3", "7", 1, 5.0), EventDelta("rate", "3", "50", 2, 1.0),
+              EventDelta("rate", "fresh", "7", 3, 4.0), EventDelta("rate", "fresh", "12", 4, 2.0)]
+    folded = {}
+    with sharding.local_devices(["cpu"] * 8):
+        for shard in (False, True):
+            model = ALSModel(uf.copy(), vf.copy(), BiMap.string_index([str(i) for i in range(30)]),
+                             BiMap.string_index([str(i) for i in range(61)]))
+            model, _ = algo.shard_model_for_serving(model) if shard else algo.pin_model_for_serving(model)
+            upd = algo.online_foldin(model, deltas, {}, OnlineConfig(enabled=True))
+            info = algo.apply_online_update(model, upd)
+            assert (info["usersAdded"], info["usersUpdated"], info["itemsUpdated"]) == (1, 1, 2)
+            answers = [[s.item for s in algo.predict(model, Query(user=u, num=10)).item_scores]
+                       for u in ("3", "fresh", "0")]
+            folded[shard] = (upd, model, answers)
+    (upd_r, model_r, answers_r), (upd_s, model_s, answers_s) = folded[False], folded[True]
+    assert upd_s.user_ids == upd_r.user_ids and upd_s.item_ids == upd_r.item_ids
+    np.testing.assert_array_equal(upd_s.user_rows, upd_r.user_rows)
+    np.testing.assert_array_equal(upd_s.item_rows, upd_r.item_rows)
+    assert isinstance(model_s.user_factors, sharding.ShardedTable)
+    assert model_s._pio_shards.rows == {"user": 31, "item": 61} and model_s.user_factors.shape[0] == 32
+    np.testing.assert_array_equal(np.asarray(model_s.user_factors)[:31], model_r.user_factors.numpy())
+    np.testing.assert_array_equal(np.asarray(model_s.item_factors)[:61], model_r.item_factors.numpy())
+    assert answers_s == answers_r
 
 
 # ------------------------------------------------------- the query service
