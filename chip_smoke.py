@@ -26,7 +26,7 @@ numpy top-10 of the stored model, then ``pio eval`` of the engine with
 ``PrecisionAtK(10)`` over two folds.
 
 The Two-Tower quickstart path: the same verbs for the Two-Tower engine
-on 200,000 planted-preference ``view`` events (4,000 users x 2,000 items)
+on 100,000 planted-preference ``view`` events (2,000 users x 1,000 items)
 in the columnar event store, at dim 64, batch 8192, 10 epochs, so the
 fused-CE kernels run in ``pio train`` and in ``pio eval``
 (``RecallAtK(10)``).
@@ -98,7 +98,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    every item; a held-out pair may repeat a training pair, so the share
    of such pairs and the recall of the others are printed beside it);
    64 queries; one steady training step runs under torch.profiler.
-6. quickstart — in a temporary ``PIO_FS_BASEDIR``: ``console.main(["app",
+6. quickstart — in a child process (``phase_quickstart_group``, with the grid,
+   the A/B fleet and the bandit loop of phase 14) started after phase 5
+   and joined after phase 7, so it runs beside the Two-Tower quickstart's
+   phases; in a temporary ``PIO_FS_BASEDIR``: ``console.main(["app",
    "new", ...])``; ``console.main(["import", ...])`` of the events' NDJSON
    file, timed; the counts set to 0, ``console.main(["train", ...])`` on
    the default device, the counts read and checked against the plan; the
@@ -140,7 +143,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``pio deploy`` and a ``--batching --max-batch-size 32
    --max-batch-delay-ms 2 --pin-model --result-cache --coalesce
    --feedback`` one (warmed on every bucket; feedback into a ``pio
-   eventserver`` on the same store) under the same 32 x 100 uniform load,
+   eventserver`` on the same store) under the same 32 x 50 uniform load,
    then a Zipf(1.2) load: queries/s, p50, p99, the batch histogram,
    ``bucketMisses`` 0, the cache hit ratio, ``bytesPinned`` equal to the
    tables' bytes and the share of batched answers bit-equal to the
@@ -189,7 +192,7 @@ Phases, in order; any failure exits non-zero and prints no result:
 11. ann — approximate and int8 retrieval. On the workflow's store and
    warm instance (``phase_ann``): ``pio deploy --ann --ann-nprobe 8``,
    ``--quantize int8`` and ``--ann --quantize int8 --batching
-   --pin-model``, each under the serving phase's 32 x 100 uniform top-10
+   --pin-model``, each under the serving phase's 32 x 50 uniform top-10
    load (all 200; queries/s, p50/p99, recall@10 against float64 numpy,
    the ``/stats.json`` ``ann`` and ``quant`` sections; int8
    ``bytesPinned`` must be (users + items) x (rank + 4)); in process, a
@@ -232,11 +235,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    product; a slice's ``score_rows`` bit-equal to the whole table's at 1
    to 512 queries. On the
    workflow's store and warm instance (``phase_sharded_service``, after
-   ``[ann]``): first the serving phase's 32 x 100 load on a plain pinned
+   ``[ann]``): first the serving phase's 32 x 50 load on a plain pinned
    service with ``score_rows`` and with one product (legs A B B A); an
    in-process ``QueryService`` with
    ``CacheConfig(shard_factors=True, pin_model=True)`` behind
-   ``QueryServer`` under the serving phase's 32 x 100 load, each answer
+   ``QueryServer`` under the serving phase's 32 x 50 load, each answer
    float64 numpy's top-10 (near-tie rule) and a plain pinned service's
    ids; ``factorShards`` 8, ``bytesPinned`` the padded tables; the load's
    peak ``max_memory_allocated`` under the shards plus a replicated copy;
@@ -256,9 +259,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    float64 numpy without the seen items. No kernel is on this path.
    ``[sharded]`` lines.
 12. templates — the four templates beside Recommendation and Two-Tower
-   (``phase_templates``), through the console verbs in one temporary
+   (``phase_templates``, in a child process started before the workflow
+   phase and joined before the fleets, so it runs beside the workflow,
+   serving, online, ann and sharded phases), through
+   the console verbs in one temporary
    columnar store, each engine.json the one ``pio template get`` writes.
-   SimilarProduct and ECommerce on one app: ``ml20m_shaped(20_000_000,
+   SimilarProduct and ECommerce on one app: ``ml20m_shaped(5_000_000,
    seed=5)``'s pairs as ``view`` events and every 20th again as a ``buy``
    (``write_columns``), a ``$set`` of one of 20 categories per item and a
    ``constraint``/``unavailableItems`` of 100 popular items (``pio
@@ -287,7 +293,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    launch on these paths. ``[templates]`` lines.
 13. fleet — ``pio deploy --replicas N`` (``phase_fleet``) of the
    workflow's warm instance at N = 1, 2 and 4 under the [serving] phase's
-   32 x 100 uniform load: queries/s, p50 and p99 beside the single-process
+   32 x 50 uniform load: queries/s, p50 and p99 beside the single-process
    deploy's, the router's ``/stats.json``, the card memory by process;
    each fleet's ring must hold N healthy replicas before the load, and
    ``pio undeploy`` of the router must stop every replica. On the
@@ -322,7 +328,28 @@ Phases, in order; any failure exits non-zero and prints no result:
    one batched call against 16 single-candidate calls at the JAX bench's
    size (48 x 48, rank 8, 3 sweeps; at least 2x) and at full size.
    ``[experiments]`` lines.
-15. a ``[summary]`` line, the ``{"kernels": [...]}`` line, the card's
+15. aot — on the workflow's store (``phase_aot``, after every other
+   phase there): ``pio train --aot`` (``gj_solve`` launches = the plan;
+   the export's seconds, programs, bytes and fingerprint), ``pio status``
+   saying ``present``; a ``pio deploy --aot`` subprocess beside a plain
+   ``--pin-model`` one (start seconds of both; ``/stats.json`` ``aot``
+   tier 1 with every program loaded) under the bench's serving traffic,
+   32 clients x 100 uniform top-10, legs A B B A: every answer byte-equal to
+   the plain deploy's and float64 numpy's top-10, ``hits`` > 0,
+   ``serveTimeCompiles`` 0; in process, the programs against the eager
+   pinned path to the bit at 1, 3, 8, 13, 32 and 512 queries and for 64
+   single queries, one ``handle_batch`` of 1,000 users byte-equal,
+   ``handle_query`` p50 of both (A B B A); a foreign-fingerprint and a
+   corrupted copy of the set booting on the fallback tier with the
+   warning and the eager bytes; 3 reloads on tier 1 with
+   ``memory_allocated`` within 1 MiB and no extracted package left
+   behind; no kernel launch on the serving path. The same on the
+   Two-Tower quickstart's store (``phase_tt_aot``: fused-CE launches =
+   the plan, 8 x 50 queries, answers without seen items). ``[aot]``
+   lines.
+16. every process the phases left running stopped (the script is the
+   reaper of its descendants' orphans from its start), listed on a
+   ``[cleanup]`` line; a ``[summary]`` line, the ``{"kernels": [...]}`` line, the card's
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Imports only the port, torch, numpy and the standard library (and
@@ -422,6 +449,9 @@ TOP_K = 10
 #: 0.01, seed 3) and evaluated over QS_EVAL_K folds by precision@10; the
 #: deploy must bind within QS_DEPLOY_TIMEOUT_S seconds
 QS_APP = "quickstart"
+#: the longest a child process of phases (the quickstart's, the
+#: templates') may run past the phases beside it
+CHILD_TIMEOUT_S = 300
 QS_RANK = 64
 QS_SWEEPS = 10
 QS_EVAL_K = 2
@@ -429,13 +459,13 @@ QS_DEPLOY_TIMEOUT_S = 240
 QS_FACTORY = "predictionio_tpu.templates.recommendation:engine_factory"
 
 #: the Two-Tower quickstart path on the columnar event store: the
-#: planted-preference workload at 200,000 pairs (4,000 users x 2,000
-#: items, 10,000 held out), at the Two-Tower path's width. The pairs stay
-#: where the sqlite runs had them, so import and read compare with those;
-#: ``pio eval`` queries every user for the full ranking in Python, which
-#: grows as users x items and holds the size there
+#: planted-preference workload at 100,000 pairs (2,000 users x 1,000
+#: items, 5,000 held out), at the Two-Tower path's width. ``pio eval``
+#: queries every user for the full ranking in Python, which grows as users
+#: x items: 200,000 pairs (4,000 x 2,000, PRs 5-13) cost it ~39 s on the
+#: card's host, so the size was cut again to hold the script's length
 TTQ_APP = "ttquickstart"
-TTQ_NNZ = 200_000
+TTQ_NNZ = 100_000
 TTQ_FACTORY = "predictionio_tpu.templates.twotower:engine_factory"
 
 #: the workflow path (bench.py::_bench_workflow at the ML-20M shape): the
@@ -460,11 +490,13 @@ WF_DELTA_QUERIES = 8
 WF_SERVER_TIMEOUT_S = 120
 #: the serving phase, on the workflow's store and warm instance: the JAX
 #: bench's serving traffic (bench.py:740, :4155-4172: 32 keep-alive
-#: clients x 100 requests, max batch 32, 2 ms delay, Zipf(1.2) users);
-#: a 3-sweep warm start; 100,000 batchpredict queries, 1,000 of them
-#: checked; 5 in-process reloads; the Two-Tower deploy at 8 x 50
+#: clients x 100 requests, max batch 32, 2 ms delay, Zipf(1.2) users), at
+#: 50 requests a client in every phase but [aot] (cut to hold the
+#: script's length); a 3-sweep warm start; 100,000 batchpredict queries,
+#: 1,000 of them checked; 3 in-process reloads; the Two-Tower deploy at
+#: 8 x 50
 SRV_CLIENTS = 32
-SRV_REQUESTS = 100
+SRV_REQUESTS = 50
 SRV_MAX_BATCH = 32
 SRV_MAX_DELAY_MS = 2
 SRV_ZIPF_A = 1.2
@@ -472,7 +504,7 @@ SRV_WARM_SWEEPS = 3
 SRV_RELOAD_LEAD_S = 1.5
 SRV_BATCHPREDICT = 100_000
 SRV_BATCHPREDICT_SAMPLE = 1_000
-SRV_RELOADS = 5
+SRV_RELOADS = 3
 SRV_TT_CLIENTS = 8
 SRV_TT_REQUESTS = 50
 #: the app the batched deploy's feedback posts its ``predict`` events to,
@@ -587,7 +619,7 @@ SCORE_COST_CHECK_M = (1, 3, 8, 13, 32, 100, 512)
 #: TPL_TEXT_DOCS documents in TPL_TEXT_CLASSES classes (a class's own
 #: Zipf vocabulary, a shared one) at 4,096 hashed features
 TPL_APP = "tpl"
-TPL_NNZ = 20_000_000
+TPL_NNZ = 5_000_000
 TPL_BUY_EVERY = 20
 TPL_CATEGORIES = 20
 TPL_UNAVAILABLE = 100
@@ -679,6 +711,100 @@ KERNELS = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+#: ``prctl`` option that makes a process the parent of its descendants'
+#: orphans (Linux 3.4+)
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def adopt_orphans() -> None:
+    """Make this script the reaper of its descendants' orphans, so a
+    process that outlives the process that started it (a compile worker
+    of a ``deploy`` killed by signal, say) stays under this script, where
+    :func:`stop_descendants` finds it."""
+    try:
+        import ctypes
+
+        ctypes.CDLL(None, use_errno=True).prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0)
+    except (OSError, AttributeError):
+        pass
+
+
+def _descendants() -> list[int]:
+    """Every live process below this one, from ``/proc``."""
+    children: dict = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as fh:
+                fields = fh.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if fields[0] != "Z":
+            children.setdefault(int(fields[1]), []).append(int(entry))
+    found, todo = [], [os.getpid()]
+    while todo:
+        for pid in children.get(todo.pop(), ()):
+            found.append(pid)
+            todo.append(pid)
+    return found
+
+
+def _cmdline(pid: int) -> str:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as fh:
+            return fh.read().replace(b"\0", b" ").decode(errors="replace").strip()[:160]
+    except OSError:
+        return "?"
+
+
+def _reap() -> None:
+    while True:
+        try:
+            if os.waitpid(-1, os.WNOHANG)[0] == 0:
+                return
+        except ChildProcessError:
+            return
+
+
+def stop_descendants() -> list[str]:
+    """Stop every process this script started that still runs, and
+    return their command lines: Inductor's compile workers and
+    multiprocessing's resource tracker (which ignores SIGTERM) their own
+    way first, then SIGTERM, then SIGKILL after 5 s; every exited child
+    reaped. Nothing that runs after it may start a process."""
+    import gc
+    from multiprocessing import resource_tracker, util
+
+    lines = [f"{pid} {_cmdline(pid)}" for pid in _descendants()]
+    compile_pool = sys.modules.get("torch._inductor.async_compile")
+    if compile_pool is not None:
+        with contextlib.suppress(Exception):
+            compile_pool.shutdown_compile_workers()
+    # what exit would run, run now while the tracker lives: a semaphore
+    # finalized after the tracker stopped would start a new one
+    gc.collect()
+    util._run_finalizers(0)
+    with contextlib.suppress(Exception):
+        resource_tracker._resource_tracker._stop()
+    left = _descendants()
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in left:
+            with contextlib.suppress(ProcessLookupError, PermissionError):
+                os.kill(pid, sig)
+        deadline = time.monotonic() + 5.0
+        while True:
+            _reap()
+            left = _descendants()
+            if not left or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        if not left:
+            break
+    _reap()
+    return lines
 
 
 @contextlib.contextmanager
@@ -1052,6 +1178,27 @@ def phase_fused_kernel(device, exp_per_s: float) -> list:
         del ue, ie, rs, cs, due, die
         torch.cuda.empty_cache()
     return rows
+
+
+def rmse_f64(U64: np.ndarray, V64: np.ndarray, rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+             device) -> float:
+    """The float64 RMSE of ``U64[rows] . V64[cols]`` against ``vals``, on
+    ``device`` in chunks of 4M ratings (the host's float64 gathers of 18M
+    rows take tens of seconds a call); the blocks it cached are returned."""
+    U = torch.as_tensor(U64, dtype=torch.float64, device=device)
+    V = torch.as_tensor(V64, dtype=torch.float64, device=device)
+    se = torch.zeros((), dtype=torch.float64, device=device)
+    step = 1 << 22
+    for lo in range(0, len(rows), step):
+        r = torch.as_tensor(rows[lo:lo + step], dtype=torch.int64, device=device)
+        c = torch.as_tensor(cols[lo:lo + step], dtype=torch.int64, device=device)
+        v = torch.as_tensor(vals[lo:lo + step], dtype=torch.float64, device=device)
+        se += (((U[r] * V[c]).sum(dim=-1) - v) ** 2).sum()
+    out = float(torch.sqrt(se / len(rows)))
+    del U, V, r, c, v, se
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return out
 
 
 # ----------------------------------------------------------------- 4. ALS train
@@ -1814,7 +1961,8 @@ def phase_tt_quickstart(device, nnz: int, dim: int, batch: int, epochs: int, n_q
         log(f"[tt-quickstart] {json.dumps(out)}")
         if then is not None:
             out["serving"] = then({"base": base, "engine_json": engine_json, "dev_args": dev_args,
-                                   "model": model, "instance": instance.id})
+                                   "model": model, "instance": instance.id, "plan": expected,
+                                   "deploy_start_s": served["deploy_start_s"]})
         return out
 
 
@@ -1966,12 +2114,11 @@ def phase_workflow(device, nnz: int, bulk: dict, n_queries: int, k: int, smi: st
             raise RuntimeError("workflow: the cold model is not finite")
         if model.user_index.to_dict() != td_cold.user_index.to_dict():
             raise RuntimeError("workflow: the cold model's users differ from a full read's")
-        pred = np.einsum("nk,nk->n", U64[td_cold.rows], V64[td_cold.cols])
-        rmse = float(np.sqrt(np.mean((pred - td_cold.vals) ** 2)))
+        rmse = rmse_f64(U64, V64, td_cold.rows, td_cold.cols, td_cold.vals, device)
         mean_rmse = float(np.sqrt(np.mean((td_cold.vals.mean() - td_cold.vals) ** 2)))
         if not rmse < mean_rmse:
             raise RuntimeError(f"workflow: train RMSE {rmse} is not below the mean rating's {mean_rmse}")
-        del pred, U64, V64, model
+        del U64, V64, model
         cache_json = next((base / "train_cache").glob("*.json"))
         cold_payload = json.loads(cache_json.read_text())["payload_id"]
         log(f"[workflow] cold train: read {cold['read_s']:.3f} s, train:als {cold['train_als_s']:.3f} s, "
@@ -2351,7 +2498,7 @@ def phase_serving(device, ctx: dict, clients: int, per_client: int, k: int, batc
         def rmse(U, V, m) -> float:
             r = np.asarray([m.user_index[u] for u in td.user_index.keys()])[td.rows]
             c = np.asarray([m.item_index[i] for i in td.item_index.keys()])[td.cols]
-            return float(np.sqrt(np.mean((np.einsum("nk,nk->n", U[r], V[c]) - td.vals) ** 2)))
+            return rmse_f64(U, V, r, c, td.vals, device)
 
         rmse_before, rmse_after = rmse(U64, V64, model), rmse(U2, V2, new_model)
         if not rmse_after <= rmse_before:
@@ -3119,7 +3266,7 @@ def recall_vs_float64(answers: list, U64: np.ndarray, V64: np.ndarray, item_inde
 
 def phase_ann(device, ctx: dict, smi: str) -> dict:
     """``pio deploy --ann`` and ``--quantize int8`` on the workflow's warm
-    instance (``phase_serving``'s 32 x 100 uniform top-10 load on each of
+    instance (``phase_serving``'s 32 x 50 uniform top-10 load on each of
     ``--ann --ann-nprobe 8``, ``--quantize int8`` and ``--ann --quantize
     int8 --batching --pin-model``; every answer 200; int8 ``bytesPinned``
     must be the codes and scales), then in process: a full-probe
@@ -3784,6 +3931,9 @@ def phase_sharded_service(device, ctx: dict, smi: str) -> dict:
                     raise RuntimeError(f"sharded: the load's peak {load_peak} bytes holds the shards ({want_bytes}) "
                                        f"and a replicated copy ({replicated_bytes})")
                 # reloads: each generation's shards collectable, memory flat
+                # (earlier phases' garbage collected first: the loop's
+                # collections must not count it)
+                gc.collect()
                 if on_card:
                     torch.cuda.synchronize(device)
                 mem_first = torch.cuda.memory_allocated(device) if on_card else 0
@@ -4344,6 +4494,64 @@ def phase_templates(device, smi: str, nnz: int, cls_users: int, text_docs: int, 
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[templates] phase {out['phase_s']:.3f} s on {smi}")
     return out
+
+
+#: a phase function in a child process: ``python -c`` with this script
+#: imported; its arguments the function's name, the device, the card's
+#: line, the result file and the function's integer arguments
+CHILD_PHASES = """\
+import json, sys, torch, chip_smoke as c
+name, device, smi, path = sys.argv[1], torch.device(sys.argv[2]), sys.argv[3], sys.argv[4]
+out = getattr(c, name)(device, smi, *(int(a) for a in sys.argv[5:]))
+with open(path, "w") as fh:
+    json.dump(out, fh, default=lambda o: o.tolist() if hasattr(o, "tolist") else str(o))
+"""
+
+
+def phase_quickstart_group(device, smi: str) -> dict:
+    """The quickstart, the grid and the A/B fleet on its store, then the
+    bandit loop."""
+    qs = phase_quickstart(device, QUERIES, TOP_K, smi,
+                          then=lambda ctx: (phase_grid(device, ctx, smi), phase_fleet_ab(device, ctx, smi)))
+    return {"qs": qs, "loop": phase_explore_loop(device, smi)}
+
+
+def start_child(name: str, device, smi: str, *args: int) -> tuple:
+    """Start the phase function ``name`` in a child process, so that it
+    runs beside the phases that follow: its own stores, CUDA context and
+    launch counts (its launch checks run there). Its lines go to a file
+    that :func:`join_child` prints. Returns the name, the process and its
+    directory."""
+    root = str(Path(__file__).resolve().parent)
+    workdir = Path(tempfile.mkdtemp(prefix=f"pio-{name}-"))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    with open(workdir / "out.log", "w") as out, open(workdir / "err.log", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", CHILD_PHASES, name, str(device), smi, str(workdir / "result.json"),
+             *(str(a) for a in args)],
+            cwd=root, env=env, stdout=out, stderr=err,
+        )
+    return name, proc, workdir
+
+
+def join_child(name: str, proc, workdir: Path, timeout_s: float) -> dict:
+    """Wait for :func:`start_child`'s process, print its lines, and return
+    its result; raises when it failed."""
+    try:
+        rc = proc.wait(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+        rc = None
+    try:
+        sys.stdout.write((workdir / "out.log").read_text())
+        sys.stdout.flush()
+        if rc != 0:
+            raise RuntimeError(f"{name}: the child process ended with {rc}; stderr: "
+                               f"{(workdir / 'err.log').read_text()[-3000:]}")
+        return json.loads((workdir / "result.json").read_text())
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
 
 def phase_tpl_als(device, base: Path, smi: str, nnz: int, n_queries: int, dev_args: list) -> tuple:
@@ -5128,7 +5336,7 @@ class DrillClients:
 
 def phase_fleet(device, ctx: dict, plain: dict, smi: str) -> dict:
     """``pio deploy --replicas N`` of the workflow's warm instance at each
-    ``FLT_REPLICAS`` under the [serving] phase's 32 x 100 uniform load,
+    ``FLT_REPLICAS`` under the [serving] phase's 32 x 50 uniform load,
     beside its single-process deploy (``plain``); on the 2-replica fleet
     the SIGKILL drill and a rolling ``POST /reload`` under 16 clients.
     Every answer through a router is held to float64 numpy; the fleet
@@ -5676,6 +5884,457 @@ def phase_grid(device, ctx: dict, smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ 16. aot
+#: the query counts the tier-1 programs are held to the eager path at
+AOT_CHECK_QUERIES = (1, 3, 8, 13, 32, 512)
+#: users of the in-process handle_batch held to the eager service's
+AOT_BATCH_USERS = 1000
+#: single queries timed through each in-process service (legs A B B A)
+AOT_HANDLE_QUERIES = 400
+#: requests a client of the [aot] load (the bench's 100)
+AOT_REQUESTS = 100
+AOT_RELOADS = 3
+AOT_RELOAD_SLACK = 1 << 20
+AOT_FALLBACK_USERS = 64
+
+
+@contextlib.contextmanager
+def saved_env(*names: str):
+    """The variables ``names`` as they were before the block, after it."""
+    saved = {name: os.environ.get(name) for name in names}
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+
+
+def extracted_packages() -> int:
+    """Entries under the temporary directory, where ``aoti_load_package``
+    unpacks each program in some torch versions."""
+    return sum(1 for _ in Path(tempfile.gettempdir()).iterdir())
+
+
+def aot_train(label: str, ctx: dict, plan: dict, device) -> dict:
+    """``pio train --aot`` in process on the phase's store: its kernel
+    launches held to ``plan``, the artifact set's manifest read back and
+    ``pio status`` (``aot_artifact_status``) saying ``present`` for the
+    new generation."""
+    from predictionio_tpu_torch.fleet.registry import aot_artifact_dir, read_aot_manifest
+    from predictionio_tpu_torch.tools import commands
+
+    reset_launch_counts()
+    wall_s = console_ok(label, ["train", "--engine-json", str(ctx["engine_json"]), "--aot", *ctx["dev_args"]])
+    launches = read_launch_counts()
+    if device.type == "cuda":
+        check_launches(label, launches, plan)
+    instance = max(Storage.get_meta_data_engine_instances().get_all(), key=lambda i: i.start_time)
+    root = ctx["base"] / "fleet" / "aot"
+    manifest = read_aot_manifest(aot_artifact_dir(str(root), instance.id))
+    if manifest is None:
+        raise RuntimeError(f"{label}: pio train --aot wrote no artifact set for {instance.id}")
+    console_ok(label, ["status", *ctx["dev_args"]])
+    rows = commands.aot_artifact_status(out=lambda line: None, device=str(device))
+    row = next((r for r in rows or () if r["engineInstanceId"] == instance.id), None)
+    if row is None or row["artifacts"] != "present":
+        raise RuntimeError(f"{label}: pio status reports {row} for the exported generation")
+    entries = manifest["entries"]
+    out = {"instance": instance, "root": root, "manifest": manifest, "train_wall_s": wall_s,
+           "launches": {name: launches[name] for name in plan}, "planned": plan, "programs": len(entries),
+           "artifact_bytes": sum(e["bytes"] for e in entries), "export_s": manifest["exportSeconds"],
+           "export_workers": manifest.get("exportWorkers"), "fingerprint": manifest["fingerprint"],
+           "status": row["artifacts"]}
+    log(f"[aot] {label}: pio train --aot {wall_s:.3f} s, export {out['export_s']} s in "
+        f"{out['export_workers']} processes, {out['programs']} programs, {out['artifact_bytes']} bytes, "
+        f"slowest program {max(e['exportSeconds'] for e in entries)} s; launches {json.dumps(out['launches'])} "
+        f"(plan {json.dumps(plan)}); fingerprint {json.dumps(out['fingerprint'])}; pio status: {row['artifacts']}")
+    return out
+
+
+def aot_deploys_ab(label: str, ctx: dict, user_index, picks: np.ndarray, clients: int, k: int,
+                   expect_programs: int) -> dict:
+    """A plain ``--pin-model`` deploy and a ``--aot`` one of the phase's
+    instance, side by side, under ``clients`` keep-alive clients: four
+    legs of half the picks in the order A B B A (plain, aot, aot, plain),
+    so each answers every pick once. The ``--aot`` deploy must say tier 1
+    with every program loaded, answer every pick byte for byte as the
+    plain one, and have served through its programs (hits) with no
+    serve-time compile. Returns each deploy's start seconds, queries/s,
+    per-leg p50 / p99, its answers and the ``aot`` block."""
+    base, engine_json, dev_args = ctx["base"], ctx["engine_json"], ctx["dev_args"]
+    procs: dict = {}
+    try:
+        starts, urls = {}, {}
+        for name, extra in (("plain", ["--pin-model"]), ("aot", ["--aot"])):
+            t0 = time.perf_counter()
+            procs[name], port = start_console_server(
+                label, base, ["deploy", "--engine-json", str(engine_json), *dev_args, *extra],
+                base / f"deploy-{label}-{name}.stderr", QS_DEPLOY_TIMEOUT_S)
+            starts[name] = time.perf_counter() - t0
+            urls[name] = f"http://127.0.0.1:{port}"
+        _, booted = _http_json(urls["aot"] + "/stats.json")
+        block = booted.get("aot") or {}
+        if block.get("tier") != 1 or block.get("loaded") != expect_programs or block.get("problems"):
+            raise RuntimeError(f"{label}: the --aot deploy booted {block}, not tier 1 with {expect_programs} programs")
+        _, root_status = _http_json(urls["aot"] + "/")
+        if root_status.get("aot") is not True:
+            raise RuntimeError(f"{label}: GET / of the --aot deploy says aot {root_status.get('aot')}")
+        half = len(picks) // 2
+        runs: dict = {"plain": [], "aot": []}
+        answers: dict = {"plain": [], "aot": []}
+        for name, part in (("plain", picks[:half]), ("aot", picks[:half]), ("aot", picks[half:]),
+                           ("plain", picks[half:])):
+            load = run_load(urls[name], part, user_index, clients, k)
+            answers[name] += ok_answers(f"{label} {name}", load)
+            runs[name].append({key: load[key] for key in ("queries", "wall_s", "queries_per_s", "p50_ms", "p99_ms")})
+        _, served = _http_json(urls["aot"] + "/stats.json")
+        block = served["aot"]
+        for name, proc in list(procs.items()):
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+            del procs[name]
+            if rc != 0:
+                raise RuntimeError(f"{label}: the {name} deploy exited {rc} on SIGTERM")
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait(timeout=30)
+    plain_by_user = {u: json.dumps(p) for u, p in answers["plain"]}
+    differ = [u for u, p in answers["aot"] if json.dumps(p) != plain_by_user[u]]
+    if differ:
+        raise RuntimeError(f"{label}: {len(differ)} of {len(answers['aot'])} --aot answers differ from the plain "
+                           f"pinned deploy's bytes, users {differ[:5]}")
+    if block["hits"] <= 0 or block["serveTimeCompiles"] != 0 or block["disabled"] != 0:
+        raise RuntimeError(f"{label}: after the load the --aot deploy reports {block}")
+    out = {"deploy_start_s": starts, "block": block, "answers": answers["aot"]}
+    for name, legs in runs.items():
+        out[name] = {"queries": sum(r["queries"] for r in legs),
+                     "queries_per_s": sum(r["queries"] for r in legs) / sum(r["wall_s"] for r in legs),
+                     "p50_ms": [r["p50_ms"] for r in legs], "p99_ms": [r["p99_ms"] for r in legs]}
+    log(f"[aot] {label}: deploy start --aot {starts['aot']:.3f} s, --pin-model {starts['plain']:.3f} s; "
+        f"{clients} clients x {len(picks) // clients} uniform top-{k} a deploy (legs A B B A): --aot "
+        f"{out['aot']['queries_per_s']:.1f} queries/s (p50 {out['aot']['p50_ms']} ms, p99 {out['aot']['p99_ms']} ms), "
+        f"plain {out['plain']['queries_per_s']:.1f} (p50 {out['plain']['p50_ms']} ms, p99 {out['plain']['p99_ms']} ms); "
+        f"every --aot answer byte-equal to the plain deploy's; aot {json.dumps(block)}")
+    return out
+
+
+def aot_programs_vs_eager(label: str, eager_model, runtime, chunk: int, n_users: int, k: int) -> dict:
+    """The loaded programs against the eager pinned path on the same
+    tables: ``chunked_topk`` with and without ``aot=`` at
+    ``AOT_CHECK_QUERIES`` queries, and 64 single queries through
+    ``aot_predict``; ids and score bits must be equal."""
+    from predictionio_tpu_torch.ops.als import predict_scores
+    from predictionio_tpu_torch.ops.topk import top_k_scores
+    from predictionio_tpu_torch.templates.serving_util import aot_predict, chunked_topk
+
+    two_tower = hasattr(eager_model, "user_vecs")
+    users = eager_model.user_vecs if two_tower else eager_model.user_factors
+    items = eager_model.item_vecs if two_tower else eager_model.item_factors
+    rng = np.random.default_rng(43)
+    hits = runtime.stats()["hits"]
+    for n in AOT_CHECK_QUERIES:
+        valid = [(j, int(u), k) for j, u in enumerate(rng.integers(0, n_users, n))]
+        eager = list(chunked_topk(users, items, valid, chunk=chunk))
+        tier1 = list(chunked_topk(users, items, valid, chunk=chunk, aot=runtime))
+        if [i for _, i, _ in tier1] != [i for _, i, _ in eager] or [
+                np.asarray(s, np.float32).view(np.int32).tolist() for _, _, s in tier1] != [
+                np.asarray(s, np.float32).view(np.int32).tolist() for _, _, s in eager]:
+            raise RuntimeError(f"{label}: the batch program at {n} queries differs from the eager product")
+    n_items = int(items.shape[0])
+    for u in rng.integers(0, n_users, 64).tolist():
+        want = top_k_scores(predict_scores(users[u], items), k)
+        got = aot_predict(runtime, users[u], items, k, n_items)
+        if not (torch.equal(got[0], want[0][:k]) and torch.equal(got[1].view(torch.int32), want[1][:k].view(torch.int32))):
+            raise RuntimeError(f"{label}: the single-query programs differ from the eager path for user row {u}")
+    used = runtime.stats()["hits"] - hits
+    if used < len(AOT_CHECK_QUERIES) + 64 or runtime.stats()["disabled"]:
+        raise RuntimeError(f"{label}: the checks ran {used} programs, runtime {runtime.stats()}")
+    log(f"[aot] {label}: the programs equal the eager pinned path to the bit at {list(AOT_CHECK_QUERIES)} queries "
+        f"a batch and for 64 single queries")
+    return {"checked_batches": list(AOT_CHECK_QUERIES), "checked_singles": 64}
+
+
+def aot_handle_ab(services: dict, bodies: list) -> dict:
+    """``handle_query`` of ``bodies`` through each in-process service in
+    legs A B B A (eager, aot, aot, eager): p50 and queries/s each."""
+    half = len(bodies) // 2
+    lat: dict = {name: [] for name in services}
+    wall: dict = {name: 0.0 for name in services}
+    for name, part in (("eager", bodies[:half]), ("aot", bodies[:half]), ("aot", bodies[half:]),
+                       ("eager", bodies[half:])):
+        t_leg = time.perf_counter()
+        for body in part:
+            t0 = time.perf_counter()
+            status, _ = services[name].handle_query(body)
+            lat[name].append((time.perf_counter() - t0) * 1e3)
+            if status != 200:
+                raise RuntimeError(f"aot: handle_query answered {status}")
+        wall[name] += time.perf_counter() - t_leg
+    return {name: {"p50_ms": float(np.percentile(v, 50)), "p99_ms": float(np.percentile(v, 99)),
+                   "queries_per_s": len(v) / wall[name]} for name, v in lat.items()}
+
+
+def aot_fallback_drills(label: str, ctx: dict, variant, instance_id: str, root: Path, eager, user_index,
+                        device) -> dict:
+    """A foreign-fingerprint copy and a corrupted copy of the artifact
+    set: each boots an in-process ``--aot`` service on the fallback tier
+    with the loud warning, and serves ``AOT_FALLBACK_USERS`` queries with
+    the eager pinned service's bytes."""
+    from predictionio_tpu_torch.fleet.registry import aot_artifact_dir
+    from predictionio_tpu_torch.workflow.aot import AotConfig
+
+    out = {}
+    for kind in ("foreign", "corrupt"):
+        drill_root = ctx["base"] / f"aot-{kind}"
+        shutil.copytree(aot_artifact_dir(str(root), instance_id), aot_artifact_dir(str(drill_root), instance_id))
+        adir = Path(aot_artifact_dir(str(drill_root), instance_id))
+        manifest = json.loads((adir / "manifest.json").read_text())
+        if kind == "foreign":
+            manifest["fingerprint"]["torchVersion"] = "0.0.0-foreign"
+            (adir / "manifest.json").write_text(json.dumps(manifest))
+        else:
+            victim = adir / manifest["entries"][0]["file"]
+            blob = bytearray(victim.read_bytes())
+            blob[-8:] = bytes(8 * [0x5A])
+            victim.write_bytes(bytes(blob))
+        handler = RecordHandler()
+        aot_logger = logging.getLogger("predictionio_tpu_torch.workflow.aot")
+        aot_logger.addHandler(handler)
+        try:
+            service = QueryService(variant, local_context(device), instance_id=instance_id,
+                                   aot=AotConfig(enabled=True, root=str(drill_root)))
+        finally:
+            aot_logger.removeHandler(handler)
+        try:
+            block = service.stats_json()["aot"]
+            warned = [m for m in handler.messages if "falling back to tier" in m]
+            if block.get("tier") not in (2, 3) or not warned:
+                raise RuntimeError(f"{label} {kind}: booted {block}, warnings {handler.messages}")
+            rng = np.random.default_rng(47)
+            for u in rng.integers(0, len(user_index), AOT_FALLBACK_USERS).tolist():
+                body = {"user": user_index.inverse(u), "num": TOP_K}
+                if json.dumps(service.handle_query(dict(body))) != json.dumps(eager.handle_query(dict(body))):
+                    raise RuntimeError(f"{label} {kind}: the fallback tier changed the answer for user row {u}")
+        finally:
+            service.close()
+        out[kind] = {"tier": block["tier"], "problems": block["problems"], "warning": warned[0][:200]}
+        log(f"[aot] {label}: {kind} artifact set: tier {block['tier']} with the warning, "
+            f"{AOT_FALLBACK_USERS} answers byte-equal to the eager pinned service's; problems {block['problems']}")
+    return out
+
+
+def aot_reload_memory(label: str, service, device) -> dict:
+    """``AOT_RELOADS`` reloads of an in-process ``--aot`` service: each on
+    tier 1, every superseded generation's ``AotRuntime`` collected (its
+    loaded programs remove their unpacked package directories with
+    them), ``memory_allocated`` within ``AOT_RELOAD_SLACK`` of the first
+    generation's, and no entry added under the temporary directory."""
+    import gc
+    import weakref
+
+    def settled() -> int:
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            return torch.cuda.memory_allocated(device)
+        return 0
+
+    first, dirs_first = settled(), extracted_packages()
+    for _ in range(AOT_RELOADS):
+        (_, model), = service.snapshot_pairs()[0]
+        old = weakref.ref(model._pio_aot)
+        del model
+        service.reload()
+        gc.collect()
+        if old() is not None or service.stats_json()["aot"]["tier"] != 1:
+            raise RuntimeError(f"{label}: after a reload the superseded runtime is "
+                               f"{'alive' if old() is not None else 'gone'}, {service.stats_json()['aot']}")
+    last, dirs_last = settled(), extracted_packages()
+    if abs(last - first) > AOT_RELOAD_SLACK or dirs_last > dirs_first:
+        raise RuntimeError(f"{label}: after {AOT_RELOADS} reloads memory_allocated {first} -> {last}, entries "
+                           f"under the temporary directory {dirs_first} -> {dirs_last}")
+    log(f"[aot] {label}: {AOT_RELOADS} reloads on tier 1, each superseded generation's programs collected; "
+        f"memory_allocated {first} -> {last} bytes, entries under the temporary directory {dirs_first} -> "
+        f"{dirs_last}")
+    return {"memory_allocated_first": first, "memory_allocated_last": last, "packages_first": dirs_first,
+            "packages_last": dirs_last}
+
+
+def release_card_memory(device) -> None:
+    """Collect the phase's garbage and return its cached blocks, so no
+    later phase's memory reading counts them."""
+    import gc
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+
+
+def phase_aot(device, ctx: dict, smi: str) -> dict:
+    """AOT serving of the workflow's warm instance (ML-20M shape, rank 64):
+    ``pio train --aot`` (``gj_solve`` launches = the plan of a full read),
+    ``pio status`` saying ``present``; a ``--aot`` deploy beside a plain
+    ``--pin-model`` one under the bench's serving load (32 x 100 uniform
+    top-10, legs A B B A), every answer byte-equal to the plain deploy's
+    and float64 numpy's top-10 under the near-tie rule, tier 1, hits, no
+    serve-time compile; in process, the programs against the eager pinned
+    path to the bit, one ``handle_batch`` of 1,000 users, ``handle_query``
+    p50 of both; the fallback drills; three reloads with memory flat. No
+    kernel launches on the in-process serving path."""
+    from predictionio_tpu_torch.serving import CacheConfig
+    from predictionio_tpu_torch.workflow.aot import AotConfig
+
+    t_phase = time.perf_counter()
+    # the plan of a full read now: the online and explore phases wrote
+    # events to the store since the warm train
+    _, plan = ctx["full_read"]()
+    with saved_env("PIO_COMPILATION_CACHE_DIR", "TORCHINDUCTOR_CACHE_DIR", "TRITON_CACHE_DIR"):
+        trained = aot_train("als", ctx, {"gj_solve": plan}, device)
+        instance = trained["instance"]
+        model = stored_model(instance.id)
+        user_index, item_index = model.user_index, model.item_index
+        U64 = np.asarray(model.user_factors, np.float64)
+        V64 = np.asarray(model.item_factors, np.float64)
+        picks = load_picks(SRV_CLIENTS * AOT_REQUESTS, len(user_index), seed=41)
+        served = aot_deploys_ab("als", ctx, user_index, picks, SRV_CLIENTS, TOP_K, trained["programs"])
+        checked = check_answers("aot als", served.pop("answers"), U64, V64, item_index, TOP_K)
+        del U64, V64
+
+        variant = load_engine_variant(str(ctx["engine_json"]))
+        reset_launch_counts()
+        eager = QueryService(variant, local_context(device), instance_id=instance.id,
+                             cache=CacheConfig(pin_model=True))
+        tier1 = QueryService(variant, local_context(device), instance_id=instance.id,
+                             aot=AotConfig(enabled=True, root=str(trained["root"])))
+        try:
+            algo, tmodel = tier1._algo_model_pairs[0]
+            _, emodel = eager._algo_model_pairs[0]
+            runtime = tmodel._pio_aot
+            if runtime is None or tier1.stats_json()["aot"]["tier"] != 1:
+                raise RuntimeError(f"aot als: the in-process service booted {tier1.stats_json()['aot']}")
+            programs = aot_programs_vs_eager("als", emodel, runtime, algo.BATCH_PREDICT_CHUNK, len(user_index),
+                                             TOP_K)
+            rng = np.random.default_rng(45)
+            bodies = [{"user": user_index.inverse(u), "num": TOP_K}
+                      for u in rng.integers(0, len(user_index), AOT_BATCH_USERS).tolist()]
+            if json.dumps(tier1.handle_batch(bodies)) != json.dumps(eager.handle_batch(bodies)):
+                raise RuntimeError("aot als: handle_batch of the tier-1 service differs from the eager service's")
+            handle = aot_handle_ab({"eager": eager, "aot": tier1}, bodies[:AOT_HANDLE_QUERIES])
+            log(f"[aot] als: handle_batch of {AOT_BATCH_USERS} users byte-equal; handle_query p50 tier 1 "
+                f"{handle['aot']['p50_ms']:.4f} ms ({handle['aot']['queries_per_s']:.1f} queries/s), eager "
+                f"{handle['eager']['p50_ms']:.4f} ms ({handle['eager']['queries_per_s']:.1f} queries/s), legs A B B A; "
+                f"on {smi}")
+            drills = aot_fallback_drills("als", ctx, variant, instance.id, trained["root"], eager, user_index, device)
+            del algo, tmodel, emodel, runtime  # the generation's last references here: a reload frees it
+            reloads = aot_reload_memory("als", tier1, device)
+            block = tier1.stats_json()["aot"]
+            if block["serveTimeCompiles"] != 0:
+                raise RuntimeError(f"aot als: the in-process service compiled at serve time: {block}")
+        finally:
+            tier1.close()
+            eager.close()
+            del tier1, eager
+            release_card_memory(device)
+        launches = read_launch_counts()
+        if any(launches.values()):
+            raise RuntimeError(f"aot als: the serving path launched kernels {launches}; it has none")
+    out = {key: trained[key] for key in ("train_wall_s", "launches", "planned", "programs", "artifact_bytes",
+                                         "export_s", "export_workers", "fingerprint", "status")}
+    out.update({"deploy_start_s": served["deploy_start_s"], "aot": served["aot"], "plain": served["plain"],
+                "block": served["block"], "checked": checked, "programs_vs_eager": programs, "handle": handle,
+                "fallback": drills, "reloads": reloads, "serving_launches": launches,
+                "phase_s": time.perf_counter() - t_phase, "card": smi})
+    log(f"[aot] als: {json.dumps(out)}")
+    return out
+
+
+def phase_tt_aot(device, ctx: dict, smi: str) -> dict:
+    """AOT serving of the Two-Tower quickstart's instance: ``pio train
+    --aot`` (fused-CE launches = the plan), ``pio status`` ``present``; a
+    ``--aot`` deploy under the Two-Tower serving load (8 x 50), tier 1
+    with every program loaded, every answer byte-equal to the eager pinned
+    service's in process and float64 numpy's top-10 without the seen
+    items, ``hits`` > 0, no serve-time compile; in process, the programs
+    against the eager pinned path to the bit. Its start is printed beside
+    the quickstart's plain deploy's (the card pins without a flag)."""
+    from predictionio_tpu_torch.serving import CacheConfig
+    from predictionio_tpu_torch.templates.serving_util import TOPK_CHUNK
+    from predictionio_tpu_torch.workflow.aot import AotConfig
+
+    t_phase = time.perf_counter()
+    with saved_env("PIO_COMPILATION_CACHE_DIR", "TORCHINDUCTOR_CACHE_DIR", "TRITON_CACHE_DIR"):
+        trained = aot_train("two-tower", ctx, ctx["plan"], device)
+        instance = trained["instance"]
+        model = stored_model(instance.id)
+        picks = load_picks(SRV_TT_CLIENTS * SRV_TT_REQUESTS, len(model.user_index), seed=49)
+        t0 = time.perf_counter()
+        proc, port = start_console_server(
+            "aot two-tower", ctx["base"], ["deploy", "--engine-json", str(ctx["engine_json"]), *ctx["dev_args"],
+                                           "--aot"], ctx["base"] / "deploy-tt-aot.stderr", QS_DEPLOY_TIMEOUT_S)
+        start_s = time.perf_counter() - t0
+        try:
+            url = f"http://127.0.0.1:{port}"
+            _, booted = _http_json(url + "/stats.json")
+            if booted["aot"].get("tier") != 1 or booted["aot"].get("loaded") != trained["programs"]:
+                raise RuntimeError(f"aot two-tower: the --aot deploy booted {booted['aot']}")
+            load = run_load(url, picks, model.user_index, SRV_TT_CLIENTS, TOP_K)
+            answers = ok_answers("aot two-tower", load)
+            _, served = _http_json(url + "/stats.json")
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            proc.wait(timeout=60)
+        block = served["aot"]
+        if block["hits"] <= 0 or block["serveTimeCompiles"] != 0 or block["disabled"] != 0:
+            raise RuntimeError(f"aot two-tower: after the load the --aot deploy reports {block}")
+        checked = check_answers("aot two-tower", answers, model.user_vecs.astype(np.float64),
+                                model.item_vecs.astype(np.float64), model.item_index, TOP_K, model.seen,
+                                model.user_index)
+        variant = load_engine_variant(str(ctx["engine_json"]))
+        reset_launch_counts()
+        eager = QueryService(variant, local_context(device), instance_id=instance.id,
+                             cache=CacheConfig(pin_model=True))
+        tier1 = QueryService(variant, local_context(device), instance_id=instance.id,
+                             aot=AotConfig(enabled=True, root=str(trained["root"])))
+        try:
+            differ = [u for u, payload in answers if json.dumps(payload) != json.dumps(
+                eager.handle_query({"user": model.user_index.inverse(u), "num": TOP_K})[1])]
+            if differ:
+                raise RuntimeError(f"aot two-tower: {len(differ)} of {len(answers)} --aot answers differ from the "
+                                   f"eager pinned service's bytes, users {differ[:5]}")
+            _, tmodel = tier1._algo_model_pairs[0]
+            _, emodel = eager._algo_model_pairs[0]
+            if tmodel._pio_aot is None:
+                raise RuntimeError(f"aot two-tower: the in-process service booted {tier1.stats_json()['aot']}")
+            programs = aot_programs_vs_eager("two-tower", emodel, tmodel._pio_aot, TOPK_CHUNK,
+                                             len(model.user_index), TOP_K)
+            del tmodel, emodel
+        finally:
+            tier1.close()
+            eager.close()
+            del tier1, eager
+            release_card_memory(device)
+        launches = read_launch_counts()
+        if any(launches.values()):
+            raise RuntimeError(f"aot two-tower: the serving path launched kernels {launches}; it has none")
+    out = {key: trained[key] for key in ("train_wall_s", "launches", "planned", "programs", "artifact_bytes",
+                                         "export_s", "export_workers", "fingerprint", "status")}
+    out.update({"deploy_start_s": {"aot": start_s, "plain": ctx["deploy_start_s"]}, "block": block,
+                "aot": {key: load[key] for key in ("queries", "wall_s", "queries_per_s", "p50_ms", "p99_ms")},
+                "checked": checked, "programs_vs_eager": programs, "serving_launches": launches,
+                "phase_s": time.perf_counter() - t_phase, "card": smi})
+    log(f"[aot] two-tower: deploy start --aot {start_s:.3f} s (the quickstart's plain deploy "
+        f"{ctx['deploy_start_s']:.3f} s); {SRV_TT_CLIENTS} clients x {SRV_TT_REQUESTS} uniform top-{TOP_K}: "
+        f"{load['queries_per_s']:.1f} queries/s, p50 {load['p50_ms']:.3f} ms, p99 {load['p99_ms']:.3f} ms, every answer "
+        f"byte-equal to the eager pinned service's; aot {json.dumps(block)}")
+    log(f"[aot] two-tower: {json.dumps(out)}")
+    return out
+
+
 def check_launches(path: str, launches: dict, expected: dict) -> None:
     log(f"[{path}] launches on the path: {json.dumps({k: launches[k] for k in expected})}, "
         f"plan {json.dumps(expected)}")
@@ -5695,12 +6354,22 @@ def kernel_row(name: str, launches: int, m: dict) -> dict:
 
 def main() -> int:
     t_start = time.perf_counter()
+    last = [t_start]
+
+    def mark(label: str) -> None:
+        """A ``[timing]`` line: the seconds since the previous one, and into the run."""
+        now = time.perf_counter()
+        log(f"[timing] {label} {now - last[0]:.1f} s; {now - t_start:.1f} s into the run")
+        last[0] = now
+
     info = phase_device()
     device = torch.device("cuda", 0)
     phase_build()
+    mark("device and build")
     solve_rows = phase_kernel(device)
     phase_solve_widths(device)
     fused_rows = phase_fused_kernel(device, info["exp_per_s"])
+    mark("kernels")
 
     # the Recommendation path
     with temporary_store("pio-als-"):
@@ -5710,6 +6379,7 @@ def main() -> int:
         als_launches = read_launch_counts()
     check_launches("train", als_launches, {"gj_solve": trained["expected_launches"]})
     profile = phase_profile(*phase_half_sweep(trained, device, RANK), device)
+    mark("als")
 
     # the Two-Tower path
     with temporary_store("pio-tt-"):
@@ -5719,34 +6389,65 @@ def main() -> int:
         check_launches("tt-train", tt_launches, tt_trained["expected_launches"])
         tt_served = phase_tt_serve(tt_trained, device, QUERIES, TOP_K, info["kind"])
     tt_profile = phase_tt_profile(tt_trained, device)
+    mark("two-tower")
 
-    # the quickstart paths (their own launch counts inside); the grid and
-    # the A/B fleet on the quickstart's store
-    qs = phase_quickstart(device, QUERIES, TOP_K, info["smi"],
-                          then=lambda ctx: (phase_grid(device, ctx, info["smi"]),
-                                            phase_fleet_ab(device, ctx, info["smi"])))
+    # the quickstart paths, the grid, the A/B fleet and the bandit loop
+    # run in a child process beside the Two-Tower quickstart's phases
+    # (their own stores and launch counts); joined after them
+    quickstart_child = start_child("phase_quickstart_group", device, info["smi"])
+
+    def on_tt_quickstart(ctx: dict) -> tuple:
+        mark("two-tower quickstart")
+        tt_srv = phase_tt_serving(device, ctx, SRV_TT_CLIENTS, SRV_TT_REQUESTS, TOP_K, info["smi"])
+        tt_onl = phase_tt_online(device, ctx, info["smi"])
+        tt_ann = phase_tt_ann(device, ctx, info["smi"])
+        tt_shd = phase_tt_sharded(device, ctx, info["smi"])
+        mark("two-tower serving tiers")
+        tt_aot = phase_tt_aot(device, ctx, info["smi"])
+        mark("two-tower aot")
+        return tt_srv, tt_onl, tt_ann, tt_shd, tt_aot
+
+    ttq = phase_tt_quickstart(device, TTQ_NNZ, TT_DIM, TT_BATCH, TT_EPOCHS, QUERIES, TOP_K, info["smi"],
+                              then=on_tt_quickstart)
+    tt_srv, tt_onl, tt_ann, tt_shd, tt_aot = ttq["serving"]
+    quickstart = join_child(*quickstart_child, CHILD_TIMEOUT_S)
+    qs, loop = quickstart["qs"], quickstart["loop"]
     grid, fleet_ab = qs["then"]
-    loop = phase_explore_loop(device, info["smi"])
-    ttq = phase_tt_quickstart(
-        device, TTQ_NNZ, TT_DIM, TT_BATCH, TT_EPOCHS, QUERIES, TOP_K, info["smi"],
-        then=lambda ctx: (phase_tt_serving(device, ctx, SRV_TT_CLIENTS, SRV_TT_REQUESTS, TOP_K, info["smi"]),
-                          phase_tt_online(device, ctx, info["smi"]),
-                          phase_tt_ann(device, ctx, info["smi"]),
-                          phase_tt_sharded(device, ctx, info["smi"])))
-    tt_srv, tt_onl, tt_ann, tt_shd = ttq["serving"]
+    mark("waiting for the quickstart's child process")
     # the serving tier, online learning, retrieval, the fleet and the
     # exploring deploys run on the workflow's store and warm instance
     # (their own launch counts inside)
     def on_workflow(ctx: dict) -> tuple:
+        mark("workflow")
         srv = phase_serving(device, ctx, SRV_CLIENTS, SRV_REQUESTS, TOP_K, SRV_BATCHPREDICT, info["smi"])
+        mark("serving")
         onl = phase_online(device, ctx, info["smi"])
+        mark("online")
         ann = phase_ann(device, ctx, info["smi"])
+        mark("ann")
         shd = phase_sharded_service(device, ctx, info["smi"])
+        mark("sharded")
+        # the templates' child must be done before the fleets count the
+        # console processes on the host
+        templates_done.append(join_child(*templates_child, CHILD_TIMEOUT_S))
+        mark("waiting for the templates' child process")
         flt = phase_fleet(device, ctx, srv["per_request"], info["smi"])
-        return srv, onl, ann, shd, flt, phase_explore_deploy(device, ctx, info["smi"])
+        mark("fleet")
+        exp = phase_explore_deploy(device, ctx, info["smi"])
+        mark("explore deploys")
+        # last: pio train --aot makes the newest instance of the store
+        aot = phase_aot(device, ctx, info["smi"])
+        mark("aot")
+        return srv, onl, ann, shd, flt, exp, aot
 
+    # the four other templates run in a child process beside the
+    # workflow's phases (their own stores and launch counts), joined
+    # before the fleets
+    templates_child = start_child("phase_templates", device, info["smi"], TPL_NNZ, TPL_CLS_USERS, TPL_TEXT_DOCS,
+                                  QUERIES)
+    templates_done: list = []
     wf = phase_workflow(device, WF_NNZ, WF_BULK, QUERIES, TOP_K, info["smi"], then=on_workflow)
-    srv, onl, ann, shd, flt, exp = wf["serving"]
+    srv, onl, ann, shd, flt, exp, aot = wf["serving"]
     online_launches = onl["in_process"]["launches"]
     if any(online_launches.values()):
         raise RuntimeError(f"online: the fold launched kernels {online_launches}; its path has none")
@@ -5767,8 +6468,8 @@ def main() -> int:
         raise RuntimeError(f"sharded: the sweep launched kernels {shd_launches}; its path has none")
     log(f"[sharded] launches on the sweep's path: {json.dumps(shd_launches)}; the services' path: "
         f"{json.dumps(shd['launches'])}; {torch.cuda.device_count()} card(s)")
-    # the four other templates (their own launch counts inside)
-    tpl = phase_templates(device, info["smi"], TPL_NNZ, TPL_CLS_USERS, TPL_TEXT_DOCS, QUERIES)
+    mark("ann and sharded sweeps")
+    (tpl,) = templates_done
 
     main_fused = fused_rows[0]  # [8192, 64], the Two-Tower path's shape
     kernels = [
@@ -5912,8 +6613,23 @@ def main() -> int:
                                           "full_ratio")},
             "phase_s": exp["phase_s"] + grid["phase_s"],
         },
+        "aot": {
+            **{label: {key: run[key] for key in ("programs", "artifact_bytes", "export_s", "export_workers",
+                                                 "deploy_start_s", "launches")}
+                      | {"aot_qps": run["aot"]["queries_per_s"], "aot_p50_ms": run["aot"]["p50_ms"],
+                         "hits": run["block"]["hits"], "serve_time_compiles": run["block"]["serveTimeCompiles"]}
+               for label, run in (("als", aot), ("two_tower", tt_aot))},
+            "plain_qps": aot["plain"]["queries_per_s"], "plain_p50_ms": aot["plain"]["p50_ms"],
+            "handle_query_p50_ms": {name: aot["handle"][name]["p50_ms"] for name in ("aot", "eager")},
+            "fallback_tiers": {kind: aot["fallback"][kind]["tier"] for kind in ("foreign", "corrupt")},
+            "reload_memory": [aot["reloads"]["memory_allocated_first"], aot["reloads"]["memory_allocated_last"]],
+            "phase_s": aot["phase_s"] + tt_aot["phase_s"],
+        },
         "wall_s": time.perf_counter() - t_start,
     }
+    stopped = stop_descendants()
+    log(f"[cleanup] {len(stopped)} processes left running by the phases, now stopped: {json.dumps(stopped)}")
+    summary["stopped_at_end"] = len(stopped)
     log(f"[summary] {json.dumps(summary)}")
     log(json.dumps({"kernels": kernels}))
     log(info["smi"])
@@ -5922,4 +6638,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    adopt_orphans()
+    try:
+        code = main()
+    finally:
+        stop_descendants()
+    sys.exit(code)

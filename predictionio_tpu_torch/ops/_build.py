@@ -7,7 +7,9 @@ that owns a kernel declares its C signature. Nothing is built at import:
 the first call that needs a kernel builds it, so a fresh checkout builds
 inside its first run. A library is named by a hash of its source, every
 ``csrc/*.cuh`` header and the flags, so an edited source or header is
-never served a stale build.
+never served a stale build. Every nvcc run is counted
+(``analysis/jit_witness.py``: a build on the query path is a serve-time
+compile under ``pio deploy --aot``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+from predictionio_tpu_torch.analysis.jit_witness import note_compile
 
 __all__ = ["SOURCES", "BUILD_DIR", "build", "load", "lib_path", "cuda_tool"]
 
@@ -71,6 +75,7 @@ def build(name: str) -> str:
     # concurrent builds are safe: each writes its own temporary file,
     # renamed atomically
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    note_compile("nvcc")
     proc = subprocess.run(
         [cuda_tool("nvcc"), *_NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,

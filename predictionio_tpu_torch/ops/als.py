@@ -60,6 +60,10 @@ __all__ = [
     "predict_scores",
     "top_k_items",
     "top_k_items_batch",
+    "score_rows_program",
+    "PredictScoresProgram",
+    "TopKScoresProgram",
+    "TopKItemsBatchProgram",
 ]
 
 #: Segment widths: multiples of 8 at ~1.33-1.5x steps, so within-bucket
@@ -690,3 +694,72 @@ def top_k_items_batch(
     (:func:`score_rows`), and take each row's top-k. Returns ``([B, k]
     item ids, [B, k] scores)``."""
     return top_k_scores(score_rows(user_factors[user_idx], item_factors), k)
+
+
+# ---------------------------------------------------------------------------
+# The same scoring as programs for torch.export (``pio train --aot``)
+# ---------------------------------------------------------------------------
+
+
+def score_rows_program(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """:func:`score_rows` of a float32 table, written so that
+    ``torch.export`` can trace it (``workflow/aot.py``): the same batched
+    products on the same shapes and strides (``[full, M, K] @ [full, K,
+    SCORE_BLOCK]`` over the full blocks with the queries expanded, and
+    ``[1, M, K] @ [1, K, SCORE_BLOCK]`` over the zero-padded tail), so
+    every score has the eager path's bits. :func:`score_rows` writes the
+    products in place and caches the padded tail; neither traces, so
+    here the products come out whole and the tail is padded inside the
+    program. ``q`` must already have a multiple of ``SCORE_QUERY_ROWS``
+    rows; the result has every one of them."""
+    n, k = int(rows.shape[0]), int(rows.shape[1])
+    mp = q.shape[0]
+    full, short = divmod(n, SCORE_BLOCK)
+    parts = []
+    if full:
+        head = rows[: full * SCORE_BLOCK].reshape(full, SCORE_BLOCK, k)
+        parts.append(torch.bmm(q.expand(full, mp, k), head.transpose(1, 2)))
+    if short:
+        tail = F.pad(rows[full * SCORE_BLOCK :], (0, 0, 0, SCORE_BLOCK - short))
+        parts.append(torch.bmm(q[None], tail.T[None]))
+    out = torch.cat(parts) if len(parts) > 1 else parts[0]  # [blocks, M, SCORE_BLOCK]
+    return out.transpose(0, 1).reshape(mp, -1)[:, :n]
+
+
+class PredictScoresProgram(torch.nn.Module):
+    """:func:`predict_scores` for export: ``(user_vec [K], items [I, K])
+    -> scores [I]``, the vector padded to ``SCORE_QUERY_ROWS`` zero rows
+    as :func:`score_rows` pads it."""
+
+    def forward(self, user_vec: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
+        q = F.pad(user_vec[None], (0, 0, 0, SCORE_QUERY_ROWS - 1))
+        return score_rows_program(q, items)[0]
+
+
+class TopKScoresProgram(torch.nn.Module):
+    """:func:`top_k_scores` at a fixed ``k`` for export: ``scores [I] ->
+    (ids [k], scores [k])``."""
+
+    def __init__(self, k: int):
+        super().__init__()
+        self.k = int(k)
+
+    def forward(self, scores: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        return top_k_scores(scores, self.k)
+
+
+class TopKItemsBatchProgram(torch.nn.Module):
+    """:func:`top_k_items_batch` at a fixed ``k`` for export: ``(user_idx
+    [M], users [U, K], items [I, K]) -> ([M, k], [M, k])``. ``M`` is a
+    multiple of ``SCORE_QUERY_ROWS`` (the caller pads the ids; a padding
+    row's scores are computed and dropped, and no row's bits depend on
+    another row's values), so the product has the eager path's shape."""
+
+    def __init__(self, k: int):
+        super().__init__()
+        self.k = int(k)
+
+    def forward(
+        self, user_idx: torch.Tensor, users: torch.Tensor, items: torch.Tensor
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        return top_k_scores(score_rows_program(users[user_idx], items), self.k)

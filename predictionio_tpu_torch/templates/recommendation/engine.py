@@ -48,7 +48,12 @@ switches: the deploy's device decides where a model serves.
   replicated ones; online folds gather the rows they read from their
   owner shards and write each solved row there.
 
-Waiting: the multi-host read and the AOT serving tier.
+* ``pio train --aot`` / ``pio deploy --aot`` (``aot_export_for_serving``,
+  :mod:`predictionio_tpu_torch.workflow.aot`): the pinned exact serving
+  programs compiled ahead of time per k bucket; ``predict`` and
+  ``batch_predict`` run them where they fit, with the eager path's bits.
+
+Waiting: the multi-host read.
 """
 
 from __future__ import annotations
@@ -88,6 +93,8 @@ from predictionio_tpu_torch.templates.columnar_util import event_name_mask
 from predictionio_tpu_torch.templates.serving_util import (
     TOPK_CHUNK,
     aligned_factor_init,
+    aot_predict,
+    aot_serving_programs,
     build_ann,
     chunked_topk,
     pin_tables,
@@ -696,6 +703,24 @@ class ALSAlgorithm(TorchAlgorithm):
         if getattr(model, "_pio_ann", None) is not None:
             model._pio_ann = None
 
+    # ---------------------------------------------------- AOT serving export
+    def aot_export_for_serving(self, model: ALSModel, buckets: list) -> dict:
+        """The ``--aot`` tier (``workflow/aot.py``): the pinned exact
+        serving programs, the k-independent ``predict_scores`` and per
+        bucket the top-k of one score row and the batch product's top-k
+        over chunks of :attr:`BATCH_PREDICT_CHUNK` (:func:`aot_serving_programs`).
+        Scoring and selection stay two programs, as in the eager path, so
+        no bucket changes a score's bits. Sharded and int8 generations
+        export nothing."""
+        return aot_serving_programs(model, "user_factors", "item_factors", buckets, self.BATCH_PREDICT_CHUNK, self.device)
+
+    def aot_warm_serving(self, model: ALSModel) -> None:
+        """One query through the loaded programs at boot, on the serving
+        thread, so the first user's query finds the tier-1 path ready; a
+        model without pinned tables or programs is left as it is."""
+        if getattr(model, "_pio_pinned", False) and getattr(model, "_pio_aot", None) is not None and len(model.user_index):
+            self.predict(model, Query(user=model.user_index.keys()[0], num=4))
+
     # ------------------------------------------------------ online fold-in
     @staticmethod
     def _online_state(model: ALSModel, max_entities: int) -> dict:
@@ -900,9 +925,15 @@ class ALSAlgorithm(TorchAlgorithm):
             top, vals = top_k_host(scores, k)
             pairs = zip(top.tolist(), vals.tolist())
         else:
-            # pinned branch: the k-independent GEMV, then the stable sort
-            scores = predict_scores(model.user_factors[uidx], model.item_factors)
-            idx, vals = top_k_scores(scores, k)
+            # pinned branch: the k-independent GEMV, then the stable sort;
+            # under --aot the exported programs of k's bucket, sliced to k
+            aot = getattr(model, "_pio_aot", None)
+            top = None
+            if aot is not None:
+                top = aot_predict(aot, model.user_factors[uidx], model.item_factors, k, len(model.item_index))
+            if top is None:
+                top = top_k_scores(predict_scores(model.user_factors[uidx], model.item_factors), k)
+            idx, vals = top
             pairs = zip(idx.tolist(), vals.tolist())
         inverse = model.item_index.inverse
         return PredictedResult(tuple(ItemScore(item=inverse(i), score=s) for i, s in pairs))
@@ -940,7 +971,7 @@ class ALSAlgorithm(TorchAlgorithm):
         return chunked_topk(
             model.user_factors, model.item_factors, valid, chunk=self.BATCH_PREDICT_CHUNK,
             ann=getattr(model, "_pio_ann", None), quant=getattr(model, "_pio_quant", None),
-            shards=getattr(model, "_pio_shards", None),
+            shards=getattr(model, "_pio_shards", None), aot=getattr(model, "_pio_aot", None),
         )
 
     def batch_predict_json(self, model: ALSModel, bodies: Sequence[Any]) -> list[str | None]:

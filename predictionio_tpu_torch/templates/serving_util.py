@@ -10,8 +10,13 @@ Counterpart of ``predictionio_tpu/templates/serving_util.py``:
   scores each chunk (``ops/als.score_rows``) on the tensors' device and
   crosses to the host once for the whole call. The IVF (``ann=``), int8
   (``quant=``) and sharded (``shards=``) branches keep that rule
-  (:func:`_drain_staged`); the AOT branch waits (ROADMAP queue 1 item 14)
-  and raises ``NotImplementedError`` naming its item.
+  (:func:`_drain_staged`). Under ``pio deploy --aot`` (``aot=``, the
+  model's :class:`~predictionio_tpu_torch.workflow.aot.AotRuntime`) the
+  exact device branch runs each chunk through the exported batch program
+  of its bucket, the ids padded to the product's multiple of 8 rows as
+  ``score_rows`` pads the queries, so the answers keep the eager bits.
+* :func:`aot_serving_programs` and :func:`aot_predict`: both templates'
+  export hook and their pinned single-query path under ``--aot``.
 * :func:`aligned_factor_init`, a copy: a warm retrain's carried rows.
 * :func:`pin_tables`, :func:`shard_tables`, :func:`release_tables`,
   :func:`quantize_tables` and :func:`build_ann`: the templates' pin and
@@ -35,14 +40,15 @@ from typing import Callable, Iterator, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from predictionio_tpu_torch.ops.als import top_k_items_batch
+from predictionio_tpu_torch.ops.als import SCORE_QUERY_ROWS, top_k_items_batch
 from predictionio_tpu_torch.ops.topk import bucket_k, top_k_host, top_k_scores
 from predictionio_tpu_torch.templates.results import ItemScore, PredictedResult
 
 __all__ = [
     "TOPK_CHUNK", "chunked_topk", "aligned_factor_init", "pin_tables", "shard_tables", "release_tables",
-    "quantize_tables", "build_ann", "allowed_items", "masked_topk",
+    "quantize_tables", "build_ann", "allowed_items", "masked_topk", "aot_serving_programs", "aot_predict",
 ]
 
 logger = logging.getLogger(__name__)
@@ -109,9 +115,11 @@ def chunked_topk(
     and int8 branches take the sharded kernels, the IVF branch gathers the
     chunk's user rows from their owner shards and probes the
     cluster-sharded index; the catalog is the logical item count. All keep
-    the one-crossing rule and trim sentinel padding here."""
-    if aot is not None:
-        raise NotImplementedError("chunked_topk(aot=...) waits for ROADMAP queue 1 item 14")
+    the one-crossing rule and trim sentinel padding here. ``aot`` (the
+    model's :class:`~predictionio_tpu_torch.workflow.aot.AotRuntime`,
+    ``pio deploy --aot``) serves the exact device branch's chunks through
+    the exported ``top_k_items_batch_c{chunk}_b{k}`` program where one
+    fits (:func:`_aot_batch`), the eager product where none does."""
     if not valid:
         return
     # sharded tables are padded to an even split: the LOGICAL catalog
@@ -177,9 +185,71 @@ def chunked_topk(
 
             idx_b, score_b = sharding.sharded_topk_users(uidx, user_mat, item_mat, k_max, n_items)
         else:
-            idx_b, score_b = top_k_items_batch(uidx, user_mat, item_mat, k_max)
+            out = _aot_batch(aot, uidx, user_mat, item_mat, chunk, k_max) if aot is not None else None
+            idx_b, score_b = out if out is not None else top_k_items_batch(uidx, user_mat, item_mat, k_max)
         staged.append((part, idx_b, score_b))
     yield from _drain_staged(staged, n_items)
+
+
+def _aot_batch(aot, uidx: torch.Tensor, user_mat, item_mat, chunk: int, k: int):
+    """One chunk through the exported batch program of bucket ``k``:
+    ``([n, k], [n, k])``, or ``None`` when no program fits. The ids are
+    padded with row 0 to the multiple of ``SCORE_QUERY_ROWS`` that
+    ``score_rows`` pads the queries to, so the product, and every real
+    row's scores, are the eager path's; the padding rows are dropped."""
+    n = int(uidx.shape[0])
+    padded = F.pad(uidx, (0, -n % SCORE_QUERY_ROWS))
+    out = aot.run(f"top_k_items_batch_c{chunk}_b{k}", padded, user_mat, item_mat)
+    if out is None:
+        return None
+    idx_b, score_b = out
+    return idx_b[:n], score_b[:n]
+
+
+def aot_predict(aot, user_vec: torch.Tensor, items, k: int, n_items: int):
+    """Both templates' pinned single query under ``pio deploy --aot``:
+    the exported k-independent ``predict_scores``, then ``top_k_scores``
+    of ``k``'s bucket, sliced to ``k``. ``None`` (serve eagerly) when the
+    scoring program does not fit; a bucket without its program selects
+    eagerly from the program's scores, which are the eager path's bits."""
+    scores = aot.run("predict_scores", user_vec, items)
+    if scores is None:
+        return None
+    kb = bucket_k(k, n_items)
+    top = aot.run(f"top_k_scores_b{kb}", scores)
+    idx, vals = top if top is not None else top_k_scores(scores, kb)
+    return idx[:k], vals[:k]
+
+
+def aot_serving_programs(model, user_attr: str, item_attr: str, buckets: Sequence[int], chunk: int, device) -> dict:
+    """Both templates' ``aot_export_for_serving`` (``workflow/aot.py``):
+    the k-independent ``predict_scores``, then for each k bucket
+    ``top_k_scores_b{k}`` and ``top_k_items_batch_c{chunk}_b{k}`` (its
+    query rows any multiple of 8 up to the chunk), as
+    :class:`~predictionio_tpu_torch.workflow.aot.ServingProgram` s over
+    the model's f32 tables on their device (host tables go to
+    ``device``). Sharded and int8 generations export nothing: their
+    kernels read live runtime objects (the mesh, the codes)."""
+    if getattr(model, "_pio_shards", None) is not None or getattr(model, "_pio_quant", None) is not None:
+        return {}
+    from predictionio_tpu_torch.ops.als import PredictScoresProgram, TopKItemsBatchProgram, TopKScoresProgram
+    from predictionio_tpu_torch.workflow.aot import ServingProgram
+
+    users, items = (
+        t if isinstance(t, torch.Tensor) else torch.as_tensor(np.asarray(t, np.float32), device=device).contiguous()
+        for t in (getattr(model, user_attr), getattr(model, item_attr))
+    )
+    # at least 16 rows, so the exported row count is never specialised to 8
+    rows = max(2 * SCORE_QUERY_ROWS, -(-int(chunk) // SCORE_QUERY_ROWS) * SCORE_QUERY_ROWS)
+    uidx = torch.zeros(rows, dtype=torch.int64, device=users.device)
+    scores = torch.zeros(int(items.shape[0]), dtype=torch.float32, device=items.device)
+    out = {"predict_scores": ServingProgram(PredictScoresProgram(), (users[0], items))}
+    for kb in buckets:
+        out[f"top_k_scores_b{kb}"] = ServingProgram(TopKScoresProgram(kb), (scores,))
+        out[f"top_k_items_batch_c{chunk}_b{kb}"] = ServingProgram(
+            TopKItemsBatchProgram(kb), (uidx, users, items), {0: (0, SCORE_QUERY_ROWS, rows)}
+        )
+    return out
 
 
 def aligned_factor_init(
@@ -310,6 +380,8 @@ def release_tables(model, *attrs: str) -> None:
     model._pio_pinned = False
     model._pio_quant = None
     model._pio_shards = None
+    # the generation's AOT programs go with its tables (pio deploy --aot)
+    model._pio_aot = None
 
 
 def _host_f32(table) -> np.ndarray:

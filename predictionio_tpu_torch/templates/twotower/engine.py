@@ -28,6 +28,8 @@ DASE spine (:func:`engine_factory`):
   (``shard_model_for_serving``, ``quantize_model_for_serving``,
   ``build_ann_for_serving``); the seen filter keeps its over-fetch
   (``num + |seen|`` candidates fetched before the merge) under all three.
+* ``pio train --aot`` / ``pio deploy --aot`` (``aot_export_for_serving``):
+  the same programs as the Recommendation template's, over the towers.
 
 engine.json is the JAX package's, byte for byte::
 
@@ -70,7 +72,10 @@ from predictionio_tpu_torch.ops.twotower import TwoTowerConfig, train_two_tower
 from predictionio_tpu_torch.templates.columnar_util import aggregate_pairs, densify_pairs
 from predictionio_tpu_torch.templates.results import ItemScore, PredictedResult
 from predictionio_tpu_torch.templates.serving_util import (
+    TOPK_CHUNK,
     aligned_factor_init,
+    aot_predict,
+    aot_serving_programs,
     build_ann,
     chunked_topk,
     pin_tables,
@@ -368,6 +373,20 @@ class TwoTowerAlgorithm(TorchAlgorithm):
         if getattr(model, "_pio_ann", None) is not None:
             model._pio_ann = None
 
+    # ---------------------------------------------------- AOT serving export
+    def aot_export_for_serving(self, model: TwoTowerServingModel, buckets: list) -> dict:
+        """The ``--aot`` tier: the ALS template's programs over the towers
+        (``predict_scores``, per bucket the top-k of a score row and the
+        batch top-k over chunks of ``TOPK_CHUNK``). Sharded and int8
+        generations export nothing."""
+        return aot_serving_programs(model, "user_vecs", "item_vecs", buckets, TOPK_CHUNK, self.device)
+
+    def aot_warm_serving(self, model: TwoTowerServingModel) -> None:
+        """One query through the loaded programs at boot (the ALS
+        template's twin)."""
+        if getattr(model, "_pio_pinned", False) and getattr(model, "_pio_aot", None) is not None and len(model.user_index):
+            self.predict(model, Query(user=model.user_index.keys()[0], num=4))
+
     # ----------------------------------------------- online streaming SGD
     def online_trainer_spec(self, model: TwoTowerServingModel) -> dict:
         """Opt into the streaming mini-batch trainer (``pio deploy
@@ -469,8 +488,12 @@ class TwoTowerAlgorithm(TorchAlgorithm):
             scores = model.item_vecs @ np.asarray(model.user_vecs[uidx])
             idx, vals = top_k_host(scores, k)
         else:
-            scores = predict_scores(model.user_vecs[uidx], model.item_vecs)
-            idx, vals = top_k_scores(scores, bucket_k(k, n_items))
+            # under --aot the exported programs of k's bucket, sliced to k
+            aot = getattr(model, "_pio_aot", None)
+            top = aot_predict(aot, model.user_vecs[uidx], model.item_vecs, k, n_items) if aot is not None else None
+            if top is None:
+                top = top_k_scores(predict_scores(model.user_vecs[uidx], model.item_vecs), bucket_k(k, n_items))
+            idx, vals = top
         return self._unseen(model, idx[:k].tolist(), vals[:k].tolist(), seen, num)
 
     def batch_predict(
@@ -498,7 +521,7 @@ class TwoTowerAlgorithm(TorchAlgorithm):
         for part, idx_l, score_l in chunked_topk(
             model.user_vecs, model.item_vecs, valid,
             ann=getattr(model, "_pio_ann", None), quant=getattr(model, "_pio_quant", None),
-            shards=getattr(model, "_pio_shards", None),
+            shards=getattr(model, "_pio_shards", None), aot=getattr(model, "_pio_aot", None),
         ):
             for (oi, _, k), ids, scs in zip(part, idx_l, score_l):
                 seen, num = seen_num[oi]

@@ -520,11 +520,78 @@ def status_check(device: str | None = None, out: Out = _print) -> dict:
     for role, status in results.items():
         out(f"  {role:<10} {status}")
     fleets = fleet_status(out)
+    try:
+        aot_rows = aot_artifact_status(out, device)
+    except Exception as e:  # a torn registry must not fail the storage check
+        aot_rows = None
+        results["aotArtifacts"] = f"FAILED: {e}"
     out("(sanity check) All systems go!" if ok else "Storage check FAILED")
     results["ok"] = ok
     if fleets:
         results["fleets"] = fleets
+    if aot_rows is not None:
+        results["aotArtifacts"] = aot_rows
     return results
+
+
+def aot_artifact_status(out: Out = _print, device: str | None = None) -> list[dict] | None:
+    """Per-generation AOT artifact readiness for ``pio status``: will ``pio
+    deploy --aot`` boot tier 1 on ``device`` of this host? Read-only over
+    the fleet model registry and the artifact directories it stamps:
+
+    * ``present``: the manifest and every program verify (SHA-256) and the
+      recorded fingerprint matches this host's torch, CUDA, backend and
+      device;
+    * ``fingerprint-stale``: the programs verify but were compiled for
+      another environment (a boot falls back loudly to the eager path);
+    * ``missing``: stamped, but the directory is gone or torn;
+    * ``corrupt``: the manifest is there, but a program's size or digest
+      does not match it.
+
+    Generations published without ``pio train --aot`` show ``None``,
+    printed ``(jit)`` as the JAX console prints it (the port serves them
+    eagerly). Returns ``None``, and prints nothing, when no generation
+    carries an artifact stamp."""
+    from predictionio_tpu_torch.fleet.registry import ModelRegistry, read_aot_manifest, verify_aot_artifacts
+
+    registry = ModelRegistry(os.path.join(Storage.base_dir(), "fleet"))
+    records = []
+    cur = registry.current()
+    if cur is not None:
+        records.append(cur)
+    records.extend(registry.history())  # history[0] repeats current
+    if not any(r.artifacts for r in records):
+        return None
+    # only a stamped registry pays the fingerprint read (torch)
+    from predictionio_tpu_torch.workflow.aot import current_fingerprint, fingerprint_mismatches
+
+    live = current_fingerprint(device)
+    rows: list[dict] = []
+    seen: set[int] = set()
+    for rec in records:
+        if rec.generation in seen:
+            continue
+        seen.add(rec.generation)
+        row: dict = {"generation": rec.generation, "engineInstanceId": rec.engine_instance_id, "artifacts": None}
+        if rec.artifacts:
+            adir = rec.artifacts.get("dir", "")
+            verdict = verify_aot_artifacts(adir) if adir else {"ok": False, "fingerprint": None, "problems": []}
+            if not verdict["ok"]:
+                torn = not adir or read_aot_manifest(adir) is None
+                row["artifacts"] = "missing" if torn else "corrupt"
+                row["problems"] = verdict.get("problems", [])
+            else:
+                mismatches = fingerprint_mismatches(verdict.get("fingerprint") or {}, live)
+                if mismatches:
+                    row["artifacts"] = "fingerprint-stale"
+                    row["mismatches"] = mismatches
+                else:
+                    row["artifacts"] = "present"
+            row["dir"] = adir
+        rows.append(row)
+    for row in rows:
+        out(f"  aot        gen {row['generation']} {row['engineInstanceId']}: {row['artifacts'] or '(jit)'}")
+    return rows
 
 
 def fleet_status(out: Out = _print) -> list[dict]:

@@ -49,12 +49,17 @@ takes the JAX console's flags: those of the serving tiers the port has
 tables ``--shard-factors``, int8 tables ``--quantize int8``, IVF
 retrieval ``--ann*``, feedback, online
 learning, exploration ``--explore*``, storage resilience, TLS, drain,
-and the replica fleet: ``--replicas N`` spawns N port deploys behind a
-stdlib router on ``--port``, ``--variants`` splits its traffic into A/B
-variants, ``--router-only`` serves a second router on the same endpoint
-registry, ``--autoscale`` grows and shrinks the fleet) and, parsed and
-then refused with a ``ValueError`` naming their ROADMAP item, those of
-the tier it does not (``--aot``, ``--compilation-cache-dir``). A fleet's router process imports no
+AOT serving ``--aot``, and the replica fleet: ``--replicas N`` spawns N
+port deploys behind a stdlib router on ``--port``, ``--variants`` splits
+its traffic into A/B variants, ``--router-only`` serves a second router
+on the same endpoint registry, ``--autoscale`` grows and shrinks the
+fleet). ``train --aot`` compiles the trained instance's serving programs
+with AOTInductor into ``<basedir>/fleet/aot/<instance>/`` and stamps the
+set into the fleet model registry; ``deploy --aot`` boots by loading
+them (``workflow/aot.py``). ``--compilation-cache-dir DIR`` (train and
+deploy) puts Inductor's and Triton's caches under ``DIR`` (then
+``$PIO_COMPILATION_CACHE_DIR``, then ``<basedir>/torch_cache``; ``0``
+turns them off). A fleet's router process imports no
 torch; each replica is ``python -m predictionio_tpu_torch.tools.console
 deploy`` with the fleet's other flags, ``--device`` among them. The data
 verbs and ``eventserver`` import no torch. ``eval`` takes import paths
@@ -87,11 +92,8 @@ __all__ = ["main", "build_parser"]
 
 #: deploy flags of serving tiers the port does not have yet: they parse
 #: (so a JAX package's deploy command line reads) and are then refused,
-#: naming what each waits for (ROADMAP queue 1)
-_WAITING_DEPLOY_FLAGS = {
-    "aot": "queue 1 item 14, AOT serving",
-    "compilation_cache_dir": "queue 1 item 14, AOT serving",
-}
+#: naming what each waits for (ROADMAP queue 1); none is left
+_WAITING_DEPLOY_FLAGS: dict = {}
 
 
 def _int_at_least(floor: int):
@@ -268,9 +270,17 @@ def _add_deploy_flags(deploy: argparse.ArgumentParser) -> None:
     deploy.add_argument("--shard-factors", action="store_true",
                         help="pin each factor table row-sharded over the local devices (one part a card); "
                         "answers equal the replicated tables'; one card pins replicated, with a warning")
-    # a later tier: parsed, then refused
-    deploy.add_argument("--aot", action="store_true")
-    deploy.add_argument("--compilation-cache-dir", default=None, metavar="DIR")
+    deploy.add_argument("--aot", action="store_true",
+                        help="boot by loading the instance's `pio train --aot` programs (implies "
+                        "--pin-model); a missing, foreign or corrupt set falls back loudly to the "
+                        "eager path with the same answers; /stats.json grows an 'aot' block")
+    _add_cache_flag(deploy)
+
+
+def _add_cache_flag(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--compilation-cache-dir", default=None, metavar="DIR",
+                        help="persistent Inductor and Triton caches under DIR (default: "
+                        "$PIO_COMPILATION_CACHE_DIR or <basedir>/torch_cache; '0' turns them off)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -349,6 +359,11 @@ def build_parser() -> argparse.ArgumentParser:
         "(retrains converge in fewer sweeps)",
     )
     train.add_argument("--device", default="cuda", help="'cuda' (the card) or 'cpu'")
+    train.add_argument("--aot", action="store_true",
+                       help="after training, compile the instance's serving programs per pow2 k "
+                       "bucket (torch.export + AOTInductor) into <basedir>/fleet/aot/<instance>/ "
+                       "and stamp them into the fleet model registry, for `pio deploy --aot`")
+    _add_cache_flag(train)
 
     _add_deploy_flags(sub.add_parser("deploy", help="serve the latest trained instance"))
 
@@ -450,8 +465,94 @@ def _refuse_waiting_flags(args: argparse.Namespace) -> None:
             raise ValueError(f"deploy {flag} is not in the port yet; it waits for {waits_for} (ROADMAP.md)")
 
 
+def _setup_compilation_cache(explicit: str | None = None) -> None:
+    """Persistent Inductor and Triton caches for ``train`` and ``deploy``:
+    ``TORCHINDUCTOR_CACHE_DIR`` and ``TRITON_CACHE_DIR`` under one
+    directory. Precedence (the JAX console's): the
+    ``--compilation-cache-dir`` flag (``explicit``), then
+    ``PIO_COMPILATION_CACHE_DIR``, then ``<basedir>/torch_cache``, where
+    caches an operator already set win; ``0`` turns them off.
+    ``PIO_COMPILATION_CACHE_DIR`` is left naming what was configured.
+    The variables reach the replicas a fleet spawns. Under ``--aot`` a
+    configured cache makes a failed load report tier 2
+    (``workflow/aot.py``)."""
+    if explicit is None:
+        explicit = os.environ.get("PIO_COMPILATION_CACHE_DIR")
+    if explicit == "0":
+        os.environ["PIO_COMPILATION_CACHE_DIR"] = "0"
+        return
+    if explicit:
+        cache_dir = os.path.expanduser(explicit)
+        os.environ["TORCHINDUCTOR_CACHE_DIR"] = os.path.join(cache_dir, "inductor")
+        os.environ["TRITON_CACHE_DIR"] = os.path.join(cache_dir, "triton")
+    else:
+        from predictionio_tpu_torch.data.storage import Storage
+
+        cache_dir = os.path.join(Storage.base_dir(), "torch_cache")
+        os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", os.path.join(cache_dir, "inductor"))
+        os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(cache_dir, "triton"))
+    # what this process configured, for workflow/aot.py's fallback tier
+    os.environ["PIO_COMPILATION_CACHE_DIR"] = cache_dir
+
+
+def _aot_root() -> str:
+    from predictionio_tpu_torch.data.storage import Storage
+
+    return os.path.join(Storage.base_dir(), "fleet", "aot")
+
+
+def _train_aot_export(variant, ctx, instance) -> None:
+    """``pio train --aot``: rehydrate the trained instance as ``pio
+    deploy`` will (``prepare_deploy`` over the stored blob), pin it on the
+    train's device, compile its serving programs (``workflow/aot.py``) and
+    stamp the set into the fleet model registry beside the generation. A
+    failed export warns and never fails the train: deploy falls back
+    loudly to the eager path."""
+    from predictionio_tpu_torch.data.storage import Storage
+    from predictionio_tpu_torch.fleet.registry import ModelRegistry
+    from predictionio_tpu_torch.workflow import aot, device_state
+
+    blob = Storage.get_model_data_models().get(instance.id)
+    if blob is None:
+        print("WARNING: --aot: no model blob stored for this instance; nothing to export", file=sys.stderr)
+        return
+    root = _aot_root()
+    pairs: list = []
+    try:
+        engine = variant.build_engine()
+        _, pairs = engine.prepare_deploy(ctx, engine.params_from_json(variant.raw), instance.id, blob.models)
+        pairs, _ = device_state.pin_pairs(pairs)
+        manifest = aot.export_instance(pairs, instance.id, root)
+    except Exception as e:  # noqa: BLE001 - the artifacts are an optimisation; the train stands
+        print(f"WARNING: --aot: export failed ({type(e).__name__}: {e}); `pio deploy --aot` will "
+              f"fall back to the eager path", file=sys.stderr)
+        return
+    finally:
+        device_state.release_pairs(pairs)
+    if manifest is None:
+        print("WARNING: --aot: no algorithm exported a serving program (an algorithm without the "
+              "aot_export_for_serving hook contributes nothing); `pio deploy --aot` will fall back "
+              "to the eager path", file=sys.stderr)
+        return
+    entries = manifest.get("entries", [])
+    total = sum(int(e.get("bytes", 0)) for e in entries)
+    record = ModelRegistry(os.path.join(Storage.base_dir(), "fleet")).publish(
+        instance.id,
+        meta={"publisher": "train --aot"},
+        artifacts={
+            "dir": aot.artifact_dir(root, instance.id),
+            "programs": len(entries),
+            "bytes": total,
+            "fingerprint": manifest.get("fingerprint", {}),
+        },
+    )
+    print(f"AOT export: {len(entries)} programs ({total} bytes) in {manifest.get('exportSeconds')} s "
+          f"for instance {instance.id} (fleet generation {record.generation})")
+
+
 def _deploy(args: argparse.Namespace) -> int:
     _refuse_waiting_flags(args)
+    _setup_compilation_cache(args.compilation_cache_dir)
     if args.replicas > 0 or args.router_only:
         # the fleet: a router process and replica subprocesses (or a bare
         # HA router); a fleet-less deploy never imports the fleet package
@@ -514,6 +615,12 @@ def _deploy(args: argparse.Namespace) -> int:
             seed=args.ann_seed,
             kmeans_iters=args.ann_kmeans_iters,
         )
+    aot = None
+    if args.aot:
+        # without --aot nothing of workflow.aot is imported
+        from predictionio_tpu_torch.workflow.aot import AotConfig
+
+        aot = AotConfig(enabled=True, root=_aot_root())
     service = QueryService(
         load_engine_variant(args.engine_json),
         local_context(args.device),
@@ -525,6 +632,7 @@ def _deploy(args: argparse.Namespace) -> int:
         online=_online_from_args(args),
         explore=_explore_from_args(args),
         replica_id=args.replica_id,
+        aot=aot,
     )
     lifecycle = _lifecycle_from_args(args)
 
@@ -1032,9 +1140,12 @@ def main(argv: list[str] | None = None) -> int:
             from predictionio_tpu_torch.workflow.core import WorkflowParams, run_train
             from predictionio_tpu_torch.workflow.engine_json import load_engine_variant
 
+            _setup_compilation_cache(args.compilation_cache_dir)
+            variant = load_engine_variant(args.engine_json)
+            ctx = local_context(args.device)
             instance = run_train(
-                load_engine_variant(args.engine_json),
-                local_context(args.device),
+                variant,
+                ctx,
                 WorkflowParams(
                     batch=args.batch,
                     skip_sanity_check=args.skip_sanity_check,
@@ -1043,6 +1154,8 @@ def main(argv: list[str] | None = None) -> int:
                     warm_start=args.warm_start,
                 ),
             )
+            if args.aot:
+                _train_aot_export(variant, ctx, instance)
             print(f"Training completed. Engine instance: {instance.id}")
         elif cmd == "deploy":
             return _deploy(args)

@@ -40,7 +40,14 @@ changes under it, as with JAX's ``.at[].set``. An int8 table re-quantizes
 only the rows touched or added (the host quantizer, bit-equal to the
 card's). A sharded table routes each touched row to its owner shard;
 cold-start rows fill its padding first and re-lay it out past that
-(:func:`swap_side_rows`). The AOT tier waits for ROADMAP queue 1 item 14.
+(:func:`swap_side_rows`).
+
+The ``--aot`` tier (:func:`pin_pairs` with ``aot=``): after the pin, the
+generation's compiled serving programs are loaded and attached as
+``model._pio_aot`` (``workflow/aot.py``), with the load's tier report on
+``model._pio_aot_report`` (:func:`aot_stats`, ``/stats.json`` ``aot``).
+A load that fails is the JAX package's loud fallback to the eager path on
+the same device, never a quiet move off it.
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from typing import Sequence
 import numpy as np
 
 __all__ = [
+    "aot_stats",
     "append_rows",
     "build_ann_pairs",
     "bytes_by_dtype",
@@ -67,7 +75,8 @@ logger = logging.getLogger(__name__)
 
 
 def pin_pairs(
-    pairs: Sequence, shard: bool = False, quantize: str | None = None, prepared: bool = True
+    pairs: Sequence, shard: bool = False, quantize: str | None = None, prepared: bool = True,
+    aot=None, instance_id: str | None = None,
 ) -> tuple[list, int]:
     """Pin every (algorithm, model) pair whose algorithm has the hook.
 
@@ -86,7 +95,12 @@ def pin_pairs(
     ``prepare_model_for_serving`` first. Returns ``(pairs,
     bytes_pinned)`` — the pair list with the pinned models and the bytes
     of every table they now hold on their devices. A hook that raises
-    propagates."""
+    propagates.
+
+    ``aot`` (an enabled :class:`~predictionio_tpu_torch.workflow.aot.AotConfig`,
+    ``pio deploy --aot``) then loads instance ``instance_id``'s artifact
+    set from ``aot.root`` onto the pinned models' device
+    (:func:`_attach_aot`)."""
     out = []
     total = 0
     for algo, model in pairs:
@@ -122,7 +136,51 @@ def pin_pairs(
                 model, nbytes = pin(model)
                 total += int(nbytes)
         out.append((algo, model))
+    if aot is not None and aot.active:
+        _attach_aot(out, aot, instance_id)
     return out, total
+
+
+def _attach_aot(pairs: list, aot, instance_id: str | None) -> None:
+    """Load the generation's artifact set once and attach the runtime and
+    its tier report to every pinned model; a failed load is reported
+    (``workflow/aot.py``'s loud fallback) and the models serve eagerly.
+    Then each algorithm's ``aot_warm_serving`` hook runs one query through
+    the programs."""
+    from predictionio_tpu_torch.workflow import aot as aot_mod
+
+    pinned = [(algo, model) for algo, model in pairs if getattr(model, "_pio_pinned", False)]
+    if not pinned:
+        return
+    if not instance_id or not aot.root:
+        logger.warning("--aot requested but no engine instance id or artifact root is known; serving eagerly")
+        return
+    device = getattr(pinned[0][0], "device", None)
+    runtime, report = aot_mod.load_runtime(instance_id, aot.root, device=device)
+    for algo, model in pinned:
+        model._pio_aot = runtime
+        model._pio_aot_report = report
+        warm = getattr(algo, "aot_warm_serving", None)
+        if warm is not None and runtime is not None:
+            warm(model)
+
+
+def aot_stats(pairs: Sequence) -> dict | None:
+    """The ``aot`` block of ``/stats.json``: the load's tier report joined
+    with the live runtime's counters (hits, misses, disabled), or
+    ``None`` when no served model carries AOT state."""
+    report = runtime = None
+    for _, model in pairs:
+        if report is None:
+            report = getattr(model, "_pio_aot_report", None)
+        if runtime is None:
+            runtime = getattr(model, "_pio_aot", None)
+    if report is None and runtime is None:
+        return None
+    out = dict(report or {})
+    if runtime is not None:
+        out.update(runtime.stats())
+    return out
 
 
 def build_ann_pairs(pairs: Sequence, ann_config) -> tuple[list, list]:

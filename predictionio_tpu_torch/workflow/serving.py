@@ -64,9 +64,20 @@ devices (``parallel/sharding.py``; replicated, with a warning, on one
 device); ``/stats.json`` ``cache.factorShards`` is the mesh's size and
 ``GET /`` says ``shardFactors``.
 
-Differences from the JAX package: the ``--aot`` tier is not here (ROADMAP
-queue 1 item 14); its routes answer as the JAX package's do with the tier
-off. ``/profiler/start`` and
+AOT serving (``aot=``, ``pio deploy --aot``, which implies pinning): each
+load pins the tables, then loads the generation's compiled serving
+programs onto the same device (``workflow/aot.py`` through
+``device_state.pin_pairs``) and the templates' pinned paths run them
+where they fit, on the device thread like every other torch call of the
+query path. A missing, foreign or corrupt artifact set falls back loudly
+to the eager pinned path, with the same answers. ``GET /`` says ``aot``;
+``/stats.json`` grows an ``aot`` block (tier, loaded, problems, hits,
+misses, disabled, and ``serveTimeCompiles``: the compiles of this process
+since the last successful load, ``analysis/jit_witness.py``). With the
+option off nothing of ``workflow.aot`` or ``torch._inductor`` is
+imported.
+
+Differences from the JAX package: ``/profiler/start`` and
 ``/profiler/stop`` drive ``torch.profiler`` on the device thread and
 write a Chrome trace.
 """
@@ -197,6 +208,7 @@ class QueryService:
         online: OnlineConfig | None = None,
         explore=None,
         replica_id: str | None = None,
+        aot=None,
     ):
         self.variant = variant
         #: fleet identity (``pio deploy --replica-id``, set by the fleet
@@ -217,9 +229,19 @@ class QueryService:
         self.quantize = self.cache_config.quantize if self.cache_config is not None else None
         #: ``pio deploy --shard-factors``: tables row-sharded over the mesh
         self.shard_factors = self.cache_config is not None and self.cache_config.shard_factors
+        #: ``pio deploy --aot`` (a ``workflow.aot.AotConfig``); None or a
+        #: disabled config imports nothing of it. Each load boots the
+        #: generation's compiled programs, and the compile counter proves
+        #: the request path compiles nothing after it.
+        self.aot_config = aot if aot is not None and aot.active else None
+        self._serve_compiles = None
+        if self.aot_config is not None:
+            from predictionio_tpu_torch.analysis.jit_witness import ServeCompileCounter
+
+            self._serve_compiles = ServeCompileCounter.install()
         #: pin on the card always; on the CPU only when --pin-model,
-        #: --shard-factors or --quantize asks
-        self._pin = self.ctx.device.type == "cuda" or (
+        #: --shard-factors, --quantize or --aot asks
+        self._pin = self.ctx.device.type == "cuda" or self.aot_config is not None or (
             self.cache_config is not None
             and (self.cache_config.pin_model or self.shard_factors or self.quantize is not None)
         )
@@ -460,7 +482,8 @@ class QueryService:
             )
             if self._pin:
                 pairs, bytes_pinned = device_state.pin_pairs(
-                    pairs, shard=self.shard_factors, quantize=self.quantize, prepared=not tiered
+                    pairs, shard=self.shard_factors, quantize=self.quantize, prepared=not tiered,
+                    aot=self.aot_config, instance_id=instance.id,
                 )
                 if self._cache_stats is not None:
                     self._cache_stats.set_gauge("bytes_pinned", bytes_pinned)
@@ -511,6 +534,9 @@ class QueryService:
             # now, and none can start on it, so its tables and index go
             # at once
             device_state.release_pairs(old_pairs)
+        if self._serve_compiles is not None:
+            # every compile so far was boot work; from here on, serve-time
+            self._serve_compiles.mark_boot_complete()
         logger.info("Loaded engine instance %s (generation %d) on %s", instance.id, generation, self.device)
 
     # --------------------------------------------------------------- query
@@ -831,7 +857,7 @@ class QueryService:
                 self._cache_stats.to_json()["bytesByDtype"] if self._cache_stats is not None else {}
             ),
             "ann": self.ann_config is not None,
-            "aot": False,
+            "aot": self.aot_config is not None,
             "online": self.online is not None,
             "explore": self.explore_config.policy if self.explore_config is not None else None,
             "degraded": self.degraded,
@@ -887,6 +913,15 @@ class QueryService:
                 "dtype": self.quantize,
                 "models": [rt.stats_json() for _, model in q_pairs if (rt := getattr(model, "_pio_quant", None)) is not None],
             }
+        if self.aot_config is not None:
+            # which tier the load landed on (1: the compiled programs, 2/3:
+            # the eager fallback), program hits and misses, and the
+            # compiles since the load, which the --aot contract keeps at 0
+            with self._lock:
+                a_pairs = list(self._algo_model_pairs)
+            block = device_state.aot_stats(a_pairs) or {"tier": None, "loaded": 0}
+            block["serveTimeCompiles"] = self._serve_compiles.serve_time_compiles()
+            out["aot"] = block
         if self.ann_config is not None:
             # the effective nlist/nprobe and, per index, the clusters
             # scored and the share of the catalog each query paid for

@@ -7,9 +7,10 @@
   to a stub event server, reports all of it on ``/stats.json``, and
   ``pio undeploy`` (the stop token from the base directory) stops it:
   exit 0 within 10 s.
-* The deploy flags of the tier the port does not have (``--aot``,
-  ``--compilation-cache-dir``) parse and are then refused with an error
-  naming their ROADMAP item, before any storage or model is touched;
+* No deploy flag is refused any more: ``--aot`` and
+  ``--compilation-cache-dir`` (ROADMAP queue 1 item 14) build the port's
+  ``AotConfig`` (root ``<basedir>/fleet/aot``) and set the Inductor and
+  Triton cache variables, and a replica's argv carries both;
   ``--shard-factors`` builds the ``CacheConfig`` the JAX console builds.
 * The ``--explore*`` flags build the ``ExploreConfig`` the JAX console
   builds; ``--variants`` builds the router's ``SplitConfig`` as the JAX
@@ -169,10 +170,106 @@ def test_deploy_with_serving_flags_then_undeploy(tmp_path):
         (["--compilation-cache-dir", "x"], "item 14"),
     ],
 )
-def test_flags_of_later_tiers_are_refused(flags, item, capsys):
+def test_flags_of_later_tiers_are_refused(flags, item, capsys, monkeypatch):
+    """The flags refused until ROADMAP queue 1 ``item`` landed are served
+    now: nothing is left to refuse, and the deploy goes on to read its
+    engine.json (missing here), so it fails on that instead."""
+    _scrub_cache_env(monkeypatch)
+    assert port_console._WAITING_DEPLOY_FLAGS == {}
     assert main(["deploy", "--engine-json", "nowhere.json", "--device", "cpu"] + flags) == 1
     err = capsys.readouterr().err
-    assert item in err and "not in the port yet" in err and flags[0] in err
+    assert "not in the port yet" not in err and item not in err and "nowhere.json" in err
+
+
+def _scrub_cache_env(monkeypatch) -> None:
+    """No compilation cache variable set, and what a case sets undone."""
+    for name in ("PIO_COMPILATION_CACHE_DIR", "TORCHINDUCTOR_CACHE_DIR", "TRITON_CACHE_DIR"):
+        monkeypatch.setenv(name, "")
+        monkeypatch.delenv(name)
+
+
+@pytest.mark.parametrize("flags", [["--aot"], ["--aot", "--pin-model", "--batching"]])
+def test_aot_builds_the_ports_aot_config(flags, tmp_path, monkeypatch):
+    """``deploy --aot`` hands the query server the port's ``AotConfig``,
+    enabled, its root ``<basedir>/fleet/aot`` (the JAX console's layout)."""
+    engine_json = tmp_path / "engine.json"
+    engine_json.write_text(json.dumps(ENGINE))
+    _scrub_cache_env(monkeypatch)
+    monkeypatch.setenv("PIO_FS_BASEDIR", str(tmp_path / "base"))
+    built = {}
+
+    def record(*args, **kwargs):
+        built.update(kwargs)
+        raise _Built("torch")
+
+    monkeypatch.setattr(port_serving, "QueryService", record)
+    Storage.configure(None)
+    try:
+        assert main(["deploy", "--engine-json", str(engine_json), "--device", "cpu"] + flags) == 1
+    finally:
+        Storage.configure(None)
+    aot = built["aot"]
+    assert type(aot).__module__ == "predictionio_tpu_torch.workflow.aot"
+    assert aot.enabled and aot.active and aot.root == str(tmp_path / "base" / "fleet" / "aot")
+
+
+def test_deploy_without_aot_builds_no_aot_config(tmp_path, monkeypatch):
+    engine_json = tmp_path / "engine.json"
+    engine_json.write_text(json.dumps(ENGINE))
+    _scrub_cache_env(monkeypatch)
+    built = {}
+
+    def record(*args, **kwargs):
+        built.update(kwargs)
+        raise _Built("torch")
+
+    monkeypatch.setattr(port_serving, "QueryService", record)
+    assert main(["deploy", "--engine-json", str(engine_json), "--device", "cpu"]) == 1
+    assert built["aot"] is None
+
+
+@pytest.mark.parametrize("how", ["flag", "env", "default", "off"])
+def test_compilation_cache_dir_sets_the_inductor_and_triton_caches(how, tmp_path, monkeypatch):
+    """``--compilation-cache-dir DIR``, then ``PIO_COMPILATION_CACHE_DIR``,
+    then ``<basedir>/torch_cache``: ``TORCHINDUCTOR_CACHE_DIR`` and
+    ``TRITON_CACHE_DIR`` under it; ``0`` sets neither."""
+    _scrub_cache_env(monkeypatch)
+    monkeypatch.setenv("PIO_FS_BASEDIR", str(tmp_path / "base"))
+    monkeypatch.setattr(port_serving, "QueryService", lambda *a, **k: (_ for _ in ()).throw(_Built("torch")))
+    flags, want = [], None
+    if how == "flag":
+        flags, want = ["--compilation-cache-dir", str(tmp_path / "dir")], tmp_path / "dir"
+    elif how == "env":
+        monkeypatch.setenv("PIO_COMPILATION_CACHE_DIR", str(tmp_path / "env"))
+        want = tmp_path / "env"
+    elif how == "default":
+        want = tmp_path / "base" / "torch_cache"
+    else:
+        flags = ["--compilation-cache-dir", "0"]
+    engine_json = tmp_path / "engine.json"
+    engine_json.write_text(json.dumps(ENGINE))
+    Storage.configure(None)
+    try:
+        assert main(["deploy", "--engine-json", str(engine_json), "--device", "cpu"] + flags) == 1
+    finally:
+        Storage.configure(None)
+    if want is None:
+        assert "TORCHINDUCTOR_CACHE_DIR" not in os.environ and "TRITON_CACHE_DIR" not in os.environ
+    else:
+        assert os.environ["TORCHINDUCTOR_CACHE_DIR"] == str(want / "inductor")
+        assert os.environ["TRITON_CACHE_DIR"] == str(want / "triton")
+
+
+def test_replica_argv_carries_aot_and_the_cache_dir():
+    """``pio deploy --replicas N --aot --compilation-cache-dir DIR``: every
+    replica boots from the artifacts, with the same cache."""
+    args = port_console.build_parser().parse_args(
+        ["deploy", "--replicas", "2", "--device", "cpu", "--aot", "--compilation-cache-dir", "/cache"])
+    argv = port_console._replica_argv(args, "r0", "/reg")
+    assert "--aot" in argv and argv[argv.index("--compilation-cache-dir") + 1] == "/cache"
+    plain = port_console._replica_argv(port_console.build_parser().parse_args(["deploy", "--replicas", "2"]),
+                                       "r0", "/reg")
+    assert "--aot" not in plain and "--compilation-cache-dir" not in plain
 
 
 class _Built(Exception):

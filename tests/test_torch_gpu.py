@@ -45,7 +45,9 @@ card answer as their CPU branch does (ids except near-ties of relative 1e-5, sco
 and confidences within 1e-5). The batched grid of ``pio eval --grid`` on the
 card scores as on the CPU from the same starting factors, within one hit
 (1/(k·users)), and the explorer keeps its contract on the card: greedy at
-epsilon 0, the same items under Thompson, one seed one sequence.
+epsilon 0, the same items under Thompson, one seed one sequence. The
+AOTInductor serving programs of ``pio train --aot`` answer with the eager
+pinned path's ids and score bits.
 """
 
 import numpy as np
@@ -1147,3 +1149,45 @@ def test_explorer_keeps_its_contract_on_card(cuda_device):
         narrow._items[e["item"]].pulls = 10**8
     assert [e["item"] for e in narrow.rerank(items)] == [e["item"] for e in items]
     assert narrow.stats_json()["lastError"] is None and greedy.stats_json()["explored"] == 0
+
+
+@pytest.mark.gpu
+def test_aot_programs_are_the_eager_pinned_path_on_card(cuda_device, tmp_path):
+    """The AOTInductor programs of ``pio train --aot`` against the eager
+    pinned path on ``cuda:0``: ``predict_scores`` and the bucket's top-k
+    for single queries, the batch program at 1, 8, 13 and 512 queries
+    (ids padded to the product's multiple of 8), ids and score bits equal."""
+    import types
+
+    from predictionio_tpu_torch.ops.topk import top_k_scores
+    from predictionio_tpu_torch.templates.serving_util import aot_predict, aot_serving_programs, chunked_topk
+    from predictionio_tpu_torch.workflow import aot
+
+    rng = np.random.default_rng(14)
+    users = torch.as_tensor(rng.standard_normal((3000, 64)).astype(np.float32), device=cuda_device)
+    items = torch.as_tensor(rng.standard_normal((9000, 64)).astype(np.float32), device=cuda_device)
+    model = types.SimpleNamespace(user_factors=users, item_factors=items)
+    programs = aot_serving_programs(model, "user_factors", "item_factors", [16], 512, cuda_device)
+    algo = types.SimpleNamespace(aot_export_for_serving=lambda m, b: programs)
+    manifest = aot.export_instance([(algo, model)], "card", str(tmp_path))
+    assert manifest["fingerprint"]["backend"] == "cuda" and len(manifest["entries"]) == 3
+    runtime, report = aot.load_runtime("card", str(tmp_path), device=cuda_device)
+    assert runtime is not None, report
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    for u in range(0, 3000, 97):
+        want = top_k_scores(torch_als.predict_scores(users[u], items), 10)
+        got = aot_predict(runtime, users[u], items, 10, 9000)
+        assert torch.equal(got[0], want[0][:10]) and torch.equal(bits(got[1]), bits(want[1][:10]))
+    for n in (1, 8, 13, 512):
+        valid = [(j, int(u), 16) for j, u in enumerate(rng.integers(0, 3000, n))]
+        eager = list(chunked_topk(users, items, valid, chunk=512))
+        tier1 = list(chunked_topk(users, items, valid, chunk=512, aot=runtime))
+        assert [i for _, i, _ in tier1] == [i for _, i, _ in eager]
+        assert [np.asarray(s, np.float32).view(np.int32).tolist() for _, _, s in tier1] == [
+            np.asarray(s, np.float32).view(np.int32).tolist() for _, _, s in eager
+        ]
+    stats = runtime.stats()
+    assert stats["disabled"] == 0 and stats["misses"] == 0 and stats["hits"] > 60

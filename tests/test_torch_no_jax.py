@@ -17,7 +17,11 @@ copies they run on (``ops/text.py``,
 split (``experiments/split.py``) import neither torch nor jax (the router
 is a host process), and a default deploy imports neither the fleet nor
 the experiments package. The sharded serving package (``parallel/``) is
-covered, and a deploy without ``--shard-factors`` imports nothing of it."""
+covered, and a deploy without ``--shard-factors`` imports nothing of it.
+The AOT tier (``workflow/aot.py``) and the compile counter
+(``analysis/``, stdlib only) are covered, and a deploy without ``--aot``
+imports none of ``workflow.aot``, ``torch._inductor`` and
+``torch.export``'s tracer."""
 
 import ast
 import os
@@ -373,6 +377,70 @@ def test_default_deploy_imports_neither_fleet_nor_experiments():
         "assert 'if self.replica_id is None' in inspect.getsource(serving.QueryService._tag_replica)\n"
         "bad = sorted(m for m in sys.modules if m.startswith(('predictionio_tpu_torch.fleet',\n"
         "                                                     'predictionio_tpu_torch.experiments')))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    run = subprocess.run(
+        [sys.executable, "-c", probe], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert run.returncode == 0, run.stdout + run.stderr
+
+
+AOT = ["workflow/aot.py", "analysis/__init__.py", "analysis/jit_witness.py"]
+
+
+@pytest.mark.parametrize("name", AOT)
+def test_aot_modules_are_checked(name):
+    """The AOT tier (``pio train --aot`` / ``pio deploy --aot``) and the
+    serve-time compile counter are scanned above."""
+    assert PORT / name in SOURCES
+
+
+@pytest.mark.parametrize("path", sorted((PORT / "analysis").glob("*.py")), ids=lambda p: p.name)
+def test_the_compile_counter_imports_neither_torch_nor_jax(path):
+    """``analysis/`` is stdlib only: ``ops/_build.py`` counts its nvcc runs
+    through it, and it reads torch's counters only where torch loaded them."""
+    bad = [f"{path.name}:{line} imports {name}" for line, name in _imports(path)
+           if _forbidden(name) or name.split(".")[0] == "torch"]
+    assert not bad, bad
+
+
+def test_a_deploy_without_aot_imports_nothing_of_it(tmp_path):
+    """A deploy without ``--aot`` — the console's deploy flags, a trained
+    instance served by the query server on the CPU, a query — imports none
+    of ``workflow.aot``, ``torch._inductor`` and ``torch.export``'s tracer
+    (``torch.export._trace``; ``import torch`` itself loads the
+    ``torch.export`` package)."""
+    probe = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from predictionio_tpu_torch.tools import console\n"
+        "args = console.build_parser().parse_args(['deploy', '--device', 'cpu', '--pin-model'])\n"
+        "assert args.aot is False\n"
+        "from predictionio_tpu_torch.controller.context import local_context\n"
+        "from predictionio_tpu_torch.data.event import DataMap, Event\n"
+        "from predictionio_tpu_torch.data.storage import Storage\n"
+        "from predictionio_tpu_torch.data.storage.base import App\n"
+        "from predictionio_tpu_torch.serving import CacheConfig\n"
+        "from predictionio_tpu_torch.workflow import load_engine_variant, run_train\n"
+        "from predictionio_tpu_torch.workflow.serving import QueryService\n"
+        f"Storage.configure({{'PIO_FS_BASEDIR': {str(tmp_path)!r}}})\n"
+        "app = Storage.get_meta_data_apps().insert(App(id=0, name='a'))\n"
+        "Storage.get_p_events().write((Event(event='rate', entity_type='user', entity_id=str(i % 7),\n"
+        "    target_entity_type='item', target_entity_id=str(i % 11), properties=DataMap({'rating': 3.0}))\n"
+        "    for i in range(60)), app)\n"
+        "v = load_engine_variant({'id': 'e', 'version': '1',\n"
+        "    'engineFactory': 'predictionio_tpu.templates.recommendation:engine_factory',\n"
+        "    'datasource': {'params': {'appName': 'a'}},\n"
+        "    'algorithms': [{'name': 'als', 'params': {'rank': 4, 'numIterations': 1, 'lambda': 0.1, 'seed': 1}}]})\n"
+        "run_train(v, local_context('cpu'))\n"
+        "qs = QueryService(v, local_context('cpu'), cache=CacheConfig(pin_model=True))\n"
+        "status, answer = qs.handle_query({'user': '1', 'num': 3})\n"
+        "qs.close()\n"
+        "assert status == 200 and len(answer['itemScores']) == 3, answer\n"
+        "assert 'aot' not in qs.stats_json() and qs.status_json()['aot'] is False\n"
+        "bad = [m for m in ('predictionio_tpu_torch.workflow.aot', 'torch._inductor', 'torch.export._trace')\n"
+        "       if m in sys.modules]\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
