@@ -63,6 +63,15 @@ row-sharded over an 8-way mesh on the card — alone and with ``--quantize
 int8``, ``--ann`` and ``--online``, against the replicated tiers, and the
 JAX bench's sharded sweep up to 1,048,576 items.
 
+The training mesh and the multi-process tier (``[multihost]``): the ALS
+path's ratings trained on a ``(data=2, model=4)`` mesh of the card
+repeated, held to the single-device factors, with a checkpointed run
+resumed on ``(4, 2)``; two ranks sharing the card through the
+``PIO_COORDINATOR_*`` triplet (gloo), each with its round-robin half of
+the ratings, and a one-rank NCCL group; ``pio export --sharded 2`` and two
+``pio train --mesh data=1`` processes on the quickstart's events; a
+Two-Tower epoch on a ``(2, 4)`` mesh.
+
 The approximate and int8 retrieval path: ``pio deploy --ann`` and
 ``--quantize int8`` on the same warm instance and on the Two-Tower
 quickstart's, the full probe held to exact retrieval to the bit, an
@@ -92,6 +101,32 @@ Phases, in order; any failure exits non-zero and prints no result:
    checked against the bucket plan; then one user half-sweep is held
    against the same half-sweep with the plain solve, and one more sweep
    runs under torch.profiler: device time by kernel and busy share.
+4b. multihost — after phase 4, beside it the child processes of (b) and
+   (c), joined after phase 5. (a) ``train_als(mesh=)`` of phase 4's
+   ratings on ``MH_MESH`` over ``(cuda:0,)*8``: train RMSE within
+   ``MH_RMSE_RTOL`` (relative) of phase 4's stored factors, the top-10 of
+   64 users under the near-tie rule at ``MH_TIE_RTOL`` (the two sum in
+   other orders; the largest gap printed), the largest relative factor
+   difference printed, ``gj_solve`` launches = the mesh plan
+   (``planned_solves(data=)``), each position's bytes of both tables =
+   ``sharded_table_bytes``; a 4-sweep run checkpointing every 2 sweeps,
+   resumed to 6 on ``MH_RESUME_MESH``, within ``MH_CKPT_RTOL`` of the
+   uninterrupted run's sweep 6. (b) ``phase_mh_rank`` twice with the
+   triplet on a free port: the rule takes gloo (two ranks, one card),
+   each rank its ``rows[r::2]``, launches = the multi-process plan, the
+   bytes it receives at most ``MH_TRAFFIC_SLACK`` × the ratings it owns;
+   rank 0's factors held to phase 4's as in (a); ``phase_mh_nccl``, a
+   one-rank group that the rule puts on NCCL, runs one all-gather; an
+   NCCL request for two ranks on one card raises. (c) ``phase_mh_cli``:
+   the quickstart's 100,000 events in sqlite, ``pio export --sharded 2``
+   (the shard files complete), a single-process ``pio train`` and two
+   ``pio train --mesh data=1`` processes (launches = their plans), process
+   0's blob against the single one for every user's top-10 (near-tie
+   rule at ``MH_TIE_RTOL``), its
+   ``mesh_conf`` naming 2 processes and gloo. (d) one Two-Tower epoch on
+   ``MH_TT_MESH``: 0 fused-CE launches, every logged loss within
+   ``MH_TT_LOSS_RTOL`` of the single-device unfused run's. ``[multihost]``
+   lines.
 5. Two-Tower — the same for the towers: the counts checked against the
    step plan; the stored loss must fall below 0.8x its first value and
    recall@10 on held-out pairs exceed 5x random (the user's top-10 over
@@ -368,6 +403,7 @@ import queue
 import re
 import shutil
 import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -381,7 +417,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from predictionio_tpu_torch.controller.context import local_context
+from predictionio_tpu_torch.controller.context import local_context, mesh_context
 from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.data.event import format_event_time
 from predictionio_tpu_torch.data.storage import Storage
@@ -393,6 +429,7 @@ from predictionio_tpu_torch.ops.als import (
     half_sweep,
     planned_solves,
     to_device_buckets,
+    train_als,
 )
 from predictionio_tpu_torch.ops.fused_ce import (
     fused_ce_bwd_cuda,
@@ -408,13 +445,21 @@ from predictionio_tpu_torch.ops.solve import (
     gj_solve_plan,
     gj_solve_reference,
 )
-from predictionio_tpu_torch.ops.twotower import AdamState, TwoTowerConfig, inbatch_loss, l2_normalize, train_step
+from predictionio_tpu_torch.ops.twotower import (
+    AdamState,
+    TwoTowerConfig,
+    inbatch_loss,
+    l2_normalize,
+    train_step,
+    train_two_tower,
+)
 from predictionio_tpu_torch.online import OnlineConfig
 from predictionio_tpu_torch.online.foldin import MAX_WIDTH
 from predictionio_tpu_torch.online.follower import TailFollower, to_deltas
 from predictionio_tpu_torch.templates import twotower as tt
 from predictionio_tpu_torch.templates.recommendation.engine import ALSAlgorithm, TrainingData
 from predictionio_tpu_torch.tools import console
+from predictionio_tpu_torch.utils.checkpoint import CheckpointManager
 from predictionio_tpu_torch.utils.movielens import ml20m_shaped, synthesize_ml100k
 from predictionio_tpu_torch.utils.serialization import loads_model
 from predictionio_tpu_torch.utils.synthetic import distinct_pairs, planted_pairs
@@ -686,6 +731,43 @@ FUSED_SUM_RTOL = 2e-3
 FUSED_SUM_MEAN_RTOL = 5e-5
 FUSED_GRAD_ATOL = 5e-3
 
+#: [multihost]: the training mesh and the multi-process tier. (a) the ALS
+#: path's ML-20M-shaped ratings on an in-process (data, model) mesh of the
+#: one card repeated, a checkpointed run resumed on another shape; (b) two
+#: ranks through the PIO_COORDINATOR_* triplet sharing the card (gloo),
+#: each with its round-robin half of the ratings, and a one-rank NCCL
+#: group; (c) `pio export --sharded` and two `pio train --mesh data=1`
+#: processes on the quickstart's ML-100K store; (d) a Two-Tower epoch on
+#: the (data, model) mesh. (b) and (c) run as child processes beside (a)
+#: and (d) and the Two-Tower path.
+MH_MESH = (2, 4)
+MH_RESUME_MESH = (4, 2)
+MH_CKPT_SWEEPS = 4
+MH_CKPT_EVERY = 2
+MH_RESUME_SWEEPS = 6
+MH_RANKS = 2
+MH_TOP_USERS = 64
+#: train RMSE of the mesh's factors against the single device's, relative
+MH_RMSE_RTOL = 1e-5
+#: the near-tie rule between two trains of one problem whose sums run in
+#: other orders (a mesh or processes against one device): they agree to
+#: rounding, which the sweeps amplify, so their top-10s may swap two
+#: items whose float64 scores are this close (relative). The JAX
+#: package's own multi-process band on the factors (rtol 2e-4,
+#: tests/test_multihost_als.py), taken for both factors of a score u.v
+MH_TIE_RTOL = 4e-4
+#: a resumed run's factors against the uninterrupted run's: the largest
+#: difference over the largest value
+MH_CKPT_RTOL = 1e-5
+#: bytes a rank may receive in the re-partition, over the bytes of the
+#: ratings it owns (two int64 ids and a float32 each)
+MH_TRAFFIC_SLACK = 1.1
+MH_TT_MESH = (2, 4)
+MH_TT_EPOCHS = 1
+MH_TT_LOSS_RTOL = 1e-3
+MH_CHILD_TIMEOUT_S = 600
+MH_ENGINE_APP = "mhqs"
+
 #: the kernels of both paths: wrapper, plain version, library call
 KERNELS = {
     "gj_solve": {
@@ -713,26 +795,55 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-#: ``prctl`` option that makes a process the parent of its descendants'
-#: orphans (Linux 3.4+)
+#: ``prctl`` options that make a process the parent of its descendants'
+#: orphans, and read that back (Linux 3.4+)
 PR_SET_CHILD_SUBREAPER = 36
+PR_GET_CHILD_SUBREAPER = 37
+
+#: the environment variable that marks every process this script starts:
+#: set once at start and inherited, it finds a descendant that was
+#: reparented elsewhere, where the sandbox does not honour the subreaper
+RUN_MARK = "PIO_CHIP_SMOKE_RUN"
+
+#: whether the kernel took :func:`adopt_orphans`' subreaper (None where
+#: the script was not run as the main program)
+SUBREAPER: bool | None = None
 
 
-def adopt_orphans() -> None:
+def adopt_orphans() -> bool:
     """Make this script the reaper of its descendants' orphans, so a
     process that outlives the process that started it (a compile worker
     of a ``deploy`` killed by signal, say) stays under this script, where
-    :func:`stop_descendants` finds it."""
+    :func:`stop_descendants` finds it; and mark this run in the
+    environment that every process it starts inherits. Returns whether
+    the kernel took the subreaper."""
+    os.environ[RUN_MARK] = f"{os.getpid()}-{time.time_ns()}"
     try:
         import ctypes
 
-        ctypes.CDLL(None, use_errno=True).prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0)
+        libc = ctypes.CDLL(None, use_errno=True)
+        flag = ctypes.c_int(0)
+        libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0)
+        libc.prctl(PR_GET_CHILD_SUBREAPER, ctypes.byref(flag), 0, 0, 0)
+        return flag.value == 1
     except (OSError, AttributeError):
-        pass
+        return False
+
+
+def _marked(pid: int, mark: bytes) -> bool:
+    try:
+        with open(f"/proc/{pid}/environ", "rb") as fh:
+            return mark in fh.read().split(b"\0")
+    except OSError:
+        return False
 
 
 def _descendants() -> list[int]:
-    """Every live process below this one, from ``/proc``."""
+    """Every live process below this one, from ``/proc``, and every other
+    live process that carries this run's :data:`RUN_MARK`."""
+    me = os.getpid()
+    value = os.environ.get(RUN_MARK)
+    mark = f"{RUN_MARK}={value}".encode() if value else None
     children: dict = {}
     for entry in os.listdir("/proc"):
         if not entry.isdigit():
@@ -744,11 +855,15 @@ def _descendants() -> list[int]:
             continue
         if fields[0] != "Z":
             children.setdefault(int(fields[1]), []).append(int(entry))
-    found, todo = [], [os.getpid()]
+    found, todo = [], [me]
     while todo:
         for pid in children.get(todo.pop(), ()):
             found.append(pid)
             todo.append(pid)
+    if mark is not None:
+        seen = set(found) | {me}
+        found += [pid for kids in children.values() for pid in kids
+                  if pid not in seen and _marked(pid, mark)]
     return found
 
 
@@ -774,7 +889,8 @@ def stop_descendants() -> list[str]:
     return their command lines: Inductor's compile workers and
     multiprocessing's resource tracker (which ignores SIGTERM) their own
     way first, then SIGTERM, then SIGKILL after 5 s; every exited child
-    reaped. Nothing that runs after it may start a process."""
+    reaped. Nothing that runs after it may start a process, which is why
+    the script ends in :func:`exit_clean`."""
     import gc
     from multiprocessing import resource_tracker, util
 
@@ -790,11 +906,12 @@ def stop_descendants() -> list[str]:
     with contextlib.suppress(Exception):
         resource_tracker._resource_tracker._stop()
     left = _descendants()
-    for sig in (signal.SIGTERM, signal.SIGKILL):
+    # a killed process that held the card can take a while to go
+    for sig, wait_s in ((signal.SIGTERM, 5.0), (signal.SIGKILL, 60.0)):
         for pid in left:
             with contextlib.suppress(ProcessLookupError, PermissionError):
                 os.kill(pid, sig)
-        deadline = time.monotonic() + 5.0
+        deadline = time.monotonic() + wait_s
         while True:
             _reap()
             left = _descendants()
@@ -804,6 +921,9 @@ def stop_descendants() -> list[str]:
         if not left:
             break
     _reap()
+    if left:
+        print(f"chip_smoke: processes still running after SIGKILL: "
+              f"{[f'{pid} {_cmdline(pid)}' for pid in left]}", file=sys.stderr, flush=True)
     return lines
 
 
@@ -4516,15 +4636,16 @@ def phase_quickstart_group(device, smi: str) -> dict:
     return {"qs": qs, "loop": phase_explore_loop(device, smi)}
 
 
-def start_child(name: str, device, smi: str, *args: int) -> tuple:
+def start_child(name: str, device, smi: str, *args: int, env: dict | None = None) -> tuple:
     """Start the phase function ``name`` in a child process, so that it
     runs beside the phases that follow: its own stores, CUDA context and
-    launch counts (its launch checks run there). Its lines go to a file
-    that :func:`join_child` prints. Returns the name, the process and its
-    directory."""
+    launch counts (its launch checks run there), with ``env`` added to its
+    environment. Its lines go to a file that :func:`join_child` prints.
+    Returns the name, the process and its directory."""
     root = str(Path(__file__).resolve().parent)
     workdir = Path(tempfile.mkdtemp(prefix=f"pio-{name}-"))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    env = dict(os.environ, **(env or {}),
+               PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p))
     with open(workdir / "out.log", "w") as out, open(workdir / "err.log", "w") as err:
         proc = subprocess.Popen(
             [sys.executable, "-c", CHILD_PHASES, name, str(device), smi, str(workdir / "result.json"),
@@ -6335,6 +6456,396 @@ def phase_tt_aot(device, ctx: dict, smi: str) -> dict:
     return out
 
 
+# ----------------------------------------------------------- 17. multihost
+def rel_diff(a: np.ndarray, b: np.ndarray) -> float:
+    """The largest difference over the largest value of ``b``."""
+    return float(np.abs(np.asarray(a, np.float64) - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def tie_gaps(U_ref: np.ndarray, V_ref: np.ndarray, U: np.ndarray, V: np.ndarray, users) -> dict:
+    """For each of ``users`` whose top-10 by ``(U, V)`` is not the float64
+    top-10 of ``(U_ref, V_ref)``: the largest relative gap between the
+    reference scores of two items the two place differently."""
+    U64, V64 = np.asarray(U_ref, np.float64), np.asarray(V_ref, np.float64)
+    Ug, Vg = np.asarray(U, np.float64), np.asarray(V, np.float64)
+    gaps = {}
+    for u in users:
+        ref, scores = reference_top(U64, V64, int(u), TOP_K)
+        got, _ = reference_top(Ug, Vg, int(u), TOP_K)
+        diff = [abs(scores[g] - scores[r]) / max(abs(scores[r]), 1e-12) for g, r in zip(got, ref) if g != r]
+        if diff:
+            gaps[int(u)] = max(diff)
+    return gaps
+
+
+def top_disagreements(label: str, U_ref, V_ref, U, V, users) -> dict:
+    """The top-10s of ``users`` by ``(U, V)`` held to ``(U_ref, V_ref)``'s
+    under the near-tie rule at ``MH_TIE_RTOL``; raises beyond it. Returns
+    how many differ and the largest gap."""
+    gaps = tie_gaps(U_ref, V_ref, U, V, users)
+    bad = sorted(u for u, g in gaps.items() if g > MH_TIE_RTOL)
+    if bad:
+        raise RuntimeError(f"{label}: top-10 of users {bad[:8]} differ from the single device's beyond near-ties "
+                           f"(gaps {[gaps[u] for u in bad[:8]]}, limit {MH_TIE_RTOL})")
+    return {"top10_users": len(users), "top10_differing": len(gaps), "tie_gap_max": max(gaps.values(), default=0.0)}
+
+
+def held_to_single(label: str, U: np.ndarray, V: np.ndarray, single, td, device) -> dict:
+    """A mesh or multi-process run's factors against the single-device
+    run's: train RMSE within ``MH_RMSE_RTOL`` (relative), the top-10 of
+    ``MH_TOP_USERS`` users under the near-tie rule, the largest relative
+    factor difference reported."""
+    if not (np.isfinite(U).all() and np.isfinite(V).all()) or U.shape != single.user_factors.shape \
+            or V.shape != single.item_factors.shape:
+        raise RuntimeError(f"{label}: factors {U.shape}, {V.shape} not finite or not the single run's shapes")
+    r, c, v = (torch.as_tensor(a, device=device) for a in (td.rows, td.cols, td.vals))
+    rmse = train_rmse(torch.as_tensor(U, device=device), torch.as_tensor(V, device=device), r, c, v)
+    rmse_single = train_rmse(torch.as_tensor(single.user_factors, device=device),
+                             torch.as_tensor(single.item_factors, device=device), r, c, v)
+    del r, c, v
+    users = np.random.default_rng(13).choice(U.shape[0], MH_TOP_USERS, replace=False)
+    out = {
+        "rmse": rmse, "rmse_single": rmse_single, "rmse_rel_diff": abs(rmse - rmse_single) / rmse_single,
+        "factor_rel_diff": max(rel_diff(U, single.user_factors), rel_diff(V, single.item_factors)),
+    }
+    if out["rmse_rel_diff"] > MH_RMSE_RTOL:
+        raise RuntimeError(f"{label}: train RMSE {rmse} against the single device's {rmse_single}")
+    out.update(top_disagreements(label, single.user_factors, single.item_factors, U, V, users))
+    return out
+
+
+def phase_mh_mesh(device, trained: dict, smi: str) -> dict:
+    """(a) The ALS path's ratings on an in-process ``MH_MESH`` mesh of the
+    card repeated: the factors held to ``phase_train``'s, the solve
+    launches to the mesh plan, each position's bytes to its part of the
+    tables; a run checkpointed every ``MH_CKPT_EVERY`` sweeps for
+    ``MH_CKPT_SWEEPS``, resumed to ``MH_RESUME_SWEEPS`` on
+    ``MH_RESUME_MESH``, against the uninterrupted run at that sweep."""
+    from predictionio_tpu_torch.parallel import sharding
+
+    t_phase = time.perf_counter()
+    td, single = trained["td"], trained["model"]
+    rows, cols, vals = td.rows, td.cols, td.vals
+    num_users, num_items = len(td.user_index), len(td.item_index)
+    cfg = ALSConfig(rank=RANK, iterations=SWEEPS, reg=0.01, seed=3)
+
+    def mesh_of(shape):
+        with sharding.local_devices([device] * (shape[0] * shape[1])):
+            return mesh_context(shape).mesh
+
+    def plan(sweeps: int, data: int) -> int:
+        return sweeps * (planned_solves(rows, num_users, cfg, data=data)
+                         + planned_solves(cols, num_items, cfg, data=data))
+
+    held: dict = {}
+
+    def on_sweep(step: int, user, item) -> None:
+        if step == 0:
+            held["bytes"] = (sharding.per_device_bytes(user), sharding.per_device_bytes(item), len(user.shards))
+        if step + 1 == MH_RESUME_SWEEPS:
+            held["resume_point"] = (np.asarray(user)[:num_users], np.asarray(item)[:num_items])
+
+    mesh = mesh_of(MH_MESH)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    factors = train_als(rows, cols, vals, num_users, num_items, cfg, mesh=mesh, on_sweep=on_sweep)
+    torch.cuda.synchronize(device)
+    mesh_s = time.perf_counter() - t0
+    launches = read_launch_counts()
+    if device.type == "cuda":
+        check_launches("multihost mesh", launches, {"gj_solve": plan(SWEEPS, MH_MESH[0])})
+    held_single = held_to_single("multihost mesh", factors.user.numpy(), factors.item.numpy(), single, td, device)
+    want = (sharding.sharded_table_bytes(num_users + 1, RANK, MH_MESH[1]),
+            sharding.sharded_table_bytes(num_items + 1, RANK, MH_MESH[1]), MH_MESH[1])
+    if held["bytes"] != want:
+        raise RuntimeError(f"multihost mesh: a position holds {held['bytes']} (bytes, bytes, shards), want {want}")
+
+    ckdir = tempfile.mkdtemp(prefix="pio-mh-ckpt-")
+    try:
+        ck = dict(rank=RANK, reg=0.01, seed=3, checkpoint_dir=ckdir, checkpoint_interval=MH_CKPT_EVERY)
+        t0 = time.perf_counter()
+        train_als(rows, cols, vals, num_users, num_items, ALSConfig(iterations=MH_CKPT_SWEEPS, **ck), mesh=mesh)
+        ckpt_s = time.perf_counter() - t0
+        steps = CheckpointManager(ckdir).all_steps()
+        if steps != list(range(MH_CKPT_EVERY, MH_CKPT_SWEEPS + 1, MH_CKPT_EVERY)):
+            raise RuntimeError(f"multihost checkpoint: steps {steps}")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        resumed = train_als(rows, cols, vals, num_users, num_items, ALSConfig(iterations=MH_RESUME_SWEEPS, **ck),
+                            mesh=mesh_of(MH_RESUME_MESH))
+        resume_s = time.perf_counter() - t0
+        if device.type == "cuda":
+            check_launches("multihost resume", read_launch_counts(),
+                           {"gj_solve": plan(MH_RESUME_SWEEPS - MH_CKPT_SWEEPS, MH_RESUME_MESH[0])})
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    U6, V6 = held["resume_point"]
+    resume_rel = max(rel_diff(resumed.user.numpy(), U6), rel_diff(resumed.item.numpy(), V6))
+    if not resume_rel <= MH_CKPT_RTOL:
+        raise RuntimeError(f"multihost checkpoint: the resumed run is {resume_rel} from the uninterrupted one")
+    out = {
+        "mesh": list(MH_MESH), "sweeps": SWEEPS, "train_s": mesh_s, "single_train_s": trained["train_s"],
+        "gj_solve_launches": launches["gj_solve"], "plan": plan(SWEEPS, MH_MESH[0]),
+        "position_bytes": list(held["bytes"][:2]),
+        "replicated_bytes": [sharding.table_bytes(num_users + 1, RANK), sharding.table_bytes(num_items + 1, RANK)],
+        **held_single,
+        "checkpoint_steps": steps, "checkpoint_run_s": ckpt_s, "resume_mesh": list(MH_RESUME_MESH),
+        "resume_s": resume_s, "resume_rel_diff": resume_rel, "phase_s": time.perf_counter() - t_phase, "card": smi,
+    }
+    log(f"[multihost] mesh {json.dumps(out)}")
+    return out
+
+
+def phase_mh_tt(device, smi: str) -> dict:
+    """(d) One Two-Tower epoch at the path's width on an in-process
+    ``MH_TT_MESH`` mesh against the single-device unfused run from the
+    same draw: no fused-CE launch on the mesh, every logged loss within
+    ``MH_TT_LOSS_RTOL``."""
+    from predictionio_tpu_torch.parallel import sharding
+
+    t_phase = time.perf_counter()
+    td, _, _, num_items = tt_training_data(TT_NNZ)
+    num_users = len(td.user_index)
+    cfg = TwoTowerConfig(dim=TT_DIM, batch_size=TT_BATCH, epochs=MH_TT_EPOCHS, learning_rate=0.05,
+                         temperature=1.0 / TT_INV_TEMP, seed=2, fused_ce="off")
+    t0 = time.perf_counter()
+    single = train_two_tower(td.rows, td.cols, num_users, num_items, cfg, device=device)
+    single_s = time.perf_counter() - t0
+    with sharding.local_devices([device] * (MH_TT_MESH[0] * MH_TT_MESH[1])):
+        mesh = mesh_context(MH_TT_MESH).mesh
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    meshed = train_two_tower(td.rows, td.cols, num_users, num_items, dataclasses.replace(cfg, fused_ce="auto"),
+                             mesh=mesh)
+    mesh_s = time.perf_counter() - t0
+    launches = read_launch_counts()
+    if launches["fused_ce_fwd"] or launches["fused_ce_bwd"]:
+        raise RuntimeError(f"multihost two-tower: the mesh launched the fused CE {launches}")
+    steps = [s for s, _ in meshed.loss_history]
+    if steps != [s for s, _ in single.loss_history]:
+        raise RuntimeError("multihost two-tower: the logged steps differ")
+    loss_rel = max(abs(a - b) / abs(b) for (_, a), (_, b) in zip(meshed.loss_history, single.loss_history))
+    if not loss_rel <= MH_TT_LOSS_RTOL:
+        raise RuntimeError(f"multihost two-tower: losses {meshed.loss_history} against {single.loss_history}")
+    out = {
+        "mesh": list(MH_TT_MESH), "pairs": int(td.rows.size), "epochs": MH_TT_EPOCHS, "steps": steps[-1] + 1,
+        "loss_first": meshed.loss_history[0][1], "loss_last": meshed.loss_history[-1][1], "loss_rel_diff": loss_rel,
+        "tower_rel_diff": max(rel_diff(meshed.user_vecs, single.user_vecs), rel_diff(meshed.item_vecs, single.item_vecs)),
+        "fused_ce_launches": launches["fused_ce_fwd"] + launches["fused_ce_bwd"], "train_s": mesh_s,
+        "single_train_s": single_s, "phase_s": time.perf_counter() - t_phase, "card": smi,
+    }
+    log(f"[multihost] two-tower {json.dumps(out)}")
+    return out
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def triplet_env(port: int, processes: int, rank: int, **extra: str) -> dict:
+    return {"PIO_COORDINATOR_ADDRESS": f"127.0.0.1:{port}", "PIO_NUM_PROCESSES": str(processes),
+            "PIO_PROCESS_ID": str(rank), **extra}
+
+
+def phase_mh_rank(device, smi: str, nnz: int, sweeps: int, rank: int) -> dict:
+    """(b) One rank of the two sharing the card: the process group from the
+    triplet (the rule takes gloo), its round-robin share of the ALS path's
+    ratings, ``sweeps`` at ``rank`` on the job's ``data`` axis (one
+    position a rank); the launches against the multi-process plan, the
+    exchange's bytes against the ratings the rank owns; rank 0 writes its
+    factors to ``$PIO_MH_FACTORS``."""
+    from predictionio_tpu_torch.parallel import distributed, exchange
+
+    t_phase = time.perf_counter()
+    if not distributed.initialize_from_env(device=device):
+        raise RuntimeError("multihost rank: PIO_COORDINATOR_* is not set")
+    P, me = distributed.process_count(), distributed.process_index()
+    rows, cols, vals, num_users, num_items = ml20m_shaped(nnz, seed=5)
+    owned = 20 * int(np.count_nonzero(rows % P == me) + np.count_nonzero(cols % P == me))
+    ctx = mesh_context(device=device)
+    cfg = ALSConfig(rank=rank, iterations=sweeps, reg=0.01, seed=3)
+    plan = sweeps * (planned_solves(rows, num_users, cfg, data=1, processes=P)
+                     + planned_solves(cols, num_items, cfg, data=1, processes=P))
+    exchange.reset_exchange_traffic()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    factors = train_als(rows[me::P], cols[me::P], vals[me::P], num_users, num_items, cfg, mesh=ctx.mesh)
+    train_s = time.perf_counter() - t0
+    launches = read_launch_counts()["gj_solve"]
+    traffic = exchange.exchange_traffic()
+    out = {
+        "process": me, "processes": P, "backend": distributed.backend(), "device": str(distributed.local_device()),
+        "mesh_conf": ctx.mesh_conf(), "ratings": int(rows[me::P].size), "train_s": train_s,
+        "gj_solve_launches": launches, "plan": plan, "traffic": traffic, "owned_bytes": owned,
+        "received_over_owned": traffic["p2p_received"] / owned, "phase_s": time.perf_counter() - t_phase,
+    }
+    if me == 0:
+        np.savez(os.environ["PIO_MH_FACTORS"], user=factors.user.numpy(), item=factors.item.numpy())
+    distributed.shutdown()
+    log(f"[multihost] rank {json.dumps(out)}")
+    if device.type == "cuda" and (launches != plan or launches == 0):
+        raise RuntimeError(f"multihost rank {me}: gj_solve launched {launches} times, the plan says {plan}")
+    if not 0 < traffic["p2p_received"] <= MH_TRAFFIC_SLACK * owned or traffic["allgather_received"]:
+        raise RuntimeError(f"multihost rank {me}: received {traffic} for {owned} bytes of owned ratings")
+    return out
+
+
+def phase_mh_nccl(device, smi: str) -> dict:
+    """(b) A one-rank group on the card: the rule takes NCCL (every rank
+    drives a card of its own), and one all-gather runs through it."""
+    from predictionio_tpu_torch.parallel import distributed
+
+    if not distributed.initialize_from_env(device=device):
+        raise RuntimeError("multihost nccl: PIO_COORDINATOR_* is not set")
+    backend = distributed.backend()
+    got = distributed.all_gather_tensor(torch.arange(4.0, device=device) + 1)
+    distributed.shutdown()
+    out = {"backend": backend, "gathered": [t.tolist() for t in got]}
+    if backend != "nccl" or out["gathered"] != [[1.0, 2.0, 3.0, 4.0]]:
+        raise RuntimeError(f"multihost nccl: {out}")
+    log(f"[multihost] nccl {json.dumps(out)}")
+    return out
+
+
+def phase_mh_cli_rank(device, smi: str) -> dict:
+    """(c) One ``pio train --mesh data=1`` process of the two: the console
+    in this process (so its launches are counted here)."""
+    dev_args = [] if device.type == "cuda" else ["--device", device.type]
+    reset_launch_counts()
+    console_ok("multihost cli", ["train", "--engine-json", os.environ["PIO_MH_ENGINE_JSON"], "--mesh", "data=1",
+                                 *dev_args])
+    return {"gj_solve_launches": read_launch_counts()["gj_solve"]}
+
+
+def phase_mh_cli(device, smi: str) -> dict:
+    """(c) The quickstart's ML-100K events in a sqlite store: ``pio export
+    --sharded 2`` (the shard files complete), a single-process ``pio
+    train``, then two ``pio train --mesh data=1`` processes through the
+    triplet. Process 0's blob held to the single-process one (the same
+    BiMaps, every user's top-10 under the near-tie rule), both trains'
+    launches to their plans, the lineage recording the processes and the
+    backend."""
+    from predictionio_tpu_torch.parallel.reader import read_event_shards, shard_paths
+    from predictionio_tpu_torch.templates.recommendation.engine import DataSourceParams, RecommendationDataSource
+
+    t_phase = time.perf_counter()
+    dev_args = [] if device.type == "cuda" else ["--device", device.type]
+    with temporary_store("pio-mh-cli-") as base:
+        console_ok("multihost cli", ["app", "new", MH_ENGINE_APP])
+        users, items, ratings, stamps = synthesize_ml100k(42)
+        events = base / "events.json"
+        write_ndjson(events, (
+            {"event": "rate", "entityType": "user", "entityId": str(u), "targetEntityType": "item",
+             "targetEntityId": str(i), "properties": {"rating": float(r)},
+             "eventTime": format_event_time(dt.datetime.fromtimestamp(t, dt.timezone.utc))}
+            for u, i, r, t in zip(users.tolist(), items.tolist(), ratings.tolist(), stamps.tolist())
+        ))
+        console_ok("multihost cli", ["import", "--appname", MH_ENGINE_APP, "--input", str(events)])
+        t0 = time.perf_counter()
+        console_ok("multihost cli", ["export", "--appname", MH_ENGINE_APP, "--output", str(base / "shards"),
+                                     "--sharded", str(MH_RANKS)])
+        export_s = time.perf_counter() - t0
+        shard_counts = [sum(1 for _ in read_event_shards(str(base / "shards"), h, MH_RANKS)) for h in range(MH_RANKS)]
+        if len(shard_paths(str(base / "shards"))) != MH_RANKS or sum(shard_counts) != users.size:
+            raise RuntimeError(f"multihost cli: shard files hold {shard_counts} events of {users.size}")
+        engine_json = base / "engine.json"
+        engine_json.write_text(json.dumps({
+            "id": MH_ENGINE_APP, "version": "1", "engineFactory": QS_FACTORY,
+            "datasource": {"params": {"appName": MH_ENGINE_APP}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": QS_RANK, "numIterations": QS_SWEEPS, "lambda": 0.01, "seed": 3}}],
+        }))
+        td = RecommendationDataSource(DataSourceParams(app_name=MH_ENGINE_APP)).read_training(local_context(device))
+        if td.user_index.keys() != sorted(td.user_index.keys()) or td.item_index.keys() != sorted(td.item_index.keys()):
+            raise RuntimeError("multihost cli: the single-process BiMaps are not the sorted vocabularies")
+        cfg = ALSConfig(rank=QS_RANK)
+        U, I = len(td.user_index), len(td.item_index)
+        plan_single = QS_SWEEPS * (planned_solves(td.rows, U, cfg) + planned_solves(td.cols, I, cfg))
+        plan_rank = QS_SWEEPS * (planned_solves(td.rows, U, cfg, data=1, processes=MH_RANKS)
+                                 + planned_solves(td.cols, I, cfg, data=1, processes=MH_RANKS))
+
+        reset_launch_counts()
+        single_s = console_ok("multihost cli", ["train", "--engine-json", str(engine_json), *dev_args])
+        if device.type == "cuda":
+            check_launches("multihost cli single", read_launch_counts(), {"gj_solve": plan_single})
+        (first,) = Storage.get_meta_data_engine_instances().get_all()
+
+        port = free_port()
+        t0 = time.perf_counter()
+        ranks = [start_child("phase_mh_cli_rank", device, smi,
+                             env=triplet_env(port, MH_RANKS, r, PIO_MH_ENGINE_JSON=str(engine_json)))
+                 for r in range(MH_RANKS)]
+        results = [join_child(*child, MH_CHILD_TIMEOUT_S) for child in ranks]
+        ranks_s = time.perf_counter() - t0
+        if device.type == "cuda":
+            for r, res in enumerate(results):
+                check_launches(f"multihost cli rank {r}", {"gj_solve": res["gj_solve_launches"]},
+                               {"gj_solve": plan_rank})
+        instances = [i for i in Storage.get_meta_data_engine_instances().get_all() if i.id != first.id]
+        if len(instances) != 1 or instances[0].status != "COMPLETED":
+            raise RuntimeError(f"multihost cli: process 0 wrote {[(i.id, i.status) for i in instances]}")
+        (second,) = instances
+        conf = second.mesh_conf
+        if conf.get("processes") != str(MH_RANKS) or conf.get("backend") != "gloo":
+            raise RuntimeError(f"multihost cli: mesh_conf {conf}")
+        one, two = stored_model(first.id), stored_model(second.id)
+        if one.user_index.keys() != two.user_index.keys() or one.item_index.keys() != two.item_index.keys():
+            raise RuntimeError("multihost cli: the two blobs' BiMaps differ")
+        tops = top_disagreements("multihost cli", one.user_factors, one.item_factors, two.user_factors,
+                                 two.item_factors, range(U))
+        out = {
+            "events": int(users.size), "shards": shard_counts, "export_s": export_s, "single_train_s": single_s,
+            "ranks_wall_s": ranks_s, "rank_launches": [r["gj_solve_launches"] for r in results],
+            "plan_rank": plan_rank, "plan_single": plan_single, "mesh_conf": conf, **tops,
+            "factor_rel_diff": max(rel_diff(two.user_factors, one.user_factors),
+                                   rel_diff(two.item_factors, one.item_factors)),
+            "phase_s": time.perf_counter() - t_phase, "card": smi,
+        }
+        log(f"[multihost] cli {json.dumps(out)}")
+        return out
+
+
+def start_multihost(device, trained: dict, smi: str, workdir: Path) -> list:
+    """Start (b)'s two ranks and its one-rank NCCL group (on a card), and
+    (c), as child processes; returns them for :func:`join_multihost`."""
+    port = free_port()
+    factors = workdir / "rank0.npz"
+    children = [start_child("phase_mh_rank", device, smi, NNZ, SWEEPS, RANK,
+                            env=triplet_env(port, MH_RANKS, r, PIO_MH_FACTORS=str(factors)))
+                for r in range(MH_RANKS)]
+    children.append(start_child("phase_mh_cli", device, smi))
+    if device.type == "cuda":
+        children.append(start_child("phase_mh_nccl", device, smi, env=triplet_env(free_port(), 1, 0)))
+    return children
+
+
+def join_multihost(children: list, trained: dict, device, workdir: Path) -> dict:
+    """Join :func:`start_multihost`'s children and hold rank 0's factors to
+    the single-device run's."""
+    from predictionio_tpu_torch.parallel import distributed
+
+    results = [join_child(*child, MH_CHILD_TIMEOUT_S) for child in children]
+    ranks, cli = results[:MH_RANKS], results[MH_RANKS]
+    nccl = results[MH_RANKS + 1] if len(results) > MH_RANKS + 1 else {"backend": "not run on the CPU"}
+    if any(r["backend"] != "gloo" for r in ranks):
+        raise RuntimeError(f"multihost: two ranks on one card ran {[r['backend'] for r in ranks]}, not gloo")
+    with np.load(workdir / "rank0.npz") as z:
+        held = held_to_single("multihost ranks", z["user"], z["item"], trained["model"], trained["td"], device)
+    # the rule refuses NCCL for two ranks on one card
+    published = [{"host": "h", "type": "cuda", "index": None, "count": 1}] * MH_RANKS
+    try:
+        distributed.choose_backend(published, require_nccl=True)
+    except ValueError as exc:
+        refused = str(exc)
+    else:
+        raise RuntimeError("multihost: an NCCL request on a shared card was not refused")
+    out = {"ranks": ranks, "rank0": held, "nccl": nccl, "nccl_on_shared_card": refused, "cli": cli}
+    log(f"[multihost] ranks {json.dumps({'rank0': held, 'backend': [r['backend'] for r in ranks], 'traffic': [r['traffic'] for r in ranks], 'received_over_owned': [r['received_over_owned'] for r in ranks], 'nccl_on_shared_card': refused})}")
+    return out
+
+
 def check_launches(path: str, launches: dict, expected: dict) -> None:
     log(f"[{path}] launches on the path: {json.dumps({k: launches[k] for k in expected})}, "
         f"plan {json.dumps(expected)}")
@@ -6381,6 +6892,15 @@ def main() -> int:
     profile = phase_profile(*phase_half_sweep(trained, device, RANK), device)
     mark("als")
 
+    # the training mesh and the multi-process tier: (b) the two ranks and
+    # the NCCL group, and (c) the CLI's processes, as child processes
+    # beside (a), (d) and the Two-Tower path; joined after it
+    mh_dir = Path(tempfile.mkdtemp(prefix="pio-mh-"))
+    mh_children = start_multihost(device, trained, info["smi"], mh_dir)
+    mh_mesh = phase_mh_mesh(device, trained, info["smi"])
+    mh_tt = phase_mh_tt(device, info["smi"])
+    mark("multihost in process")
+
     # the Two-Tower path
     with temporary_store("pio-tt-"):
         reset_launch_counts()
@@ -6390,6 +6910,9 @@ def main() -> int:
         tt_served = phase_tt_serve(tt_trained, device, QUERIES, TOP_K, info["kind"])
     tt_profile = phase_tt_profile(tt_trained, device)
     mark("two-tower")
+    mh_procs = join_multihost(mh_children, trained, device, mh_dir)
+    shutil.rmtree(mh_dir, ignore_errors=True)
+    mark("waiting for the multihost child processes")
 
     # the quickstart paths, the grid, the A/B fleet and the bandit loop
     # run in a child process beside the Two-Tower quickstart's phases
@@ -6625,10 +7148,25 @@ def main() -> int:
             "reload_memory": [aot["reloads"]["memory_allocated_first"], aot["reloads"]["memory_allocated_last"]],
             "phase_s": aot["phase_s"] + tt_aot["phase_s"],
         },
+        "multihost": {
+            "mesh": {key: mh_mesh[key] for key in (
+                "mesh", "train_s", "gj_solve_launches", "plan", "position_bytes", "replicated_bytes", "rmse",
+                "rmse_single", "rmse_rel_diff", "top10_differing", "tie_gap_max", "factor_rel_diff", "resume_mesh",
+                "resume_rel_diff", "phase_s")},
+            "ranks": [{key: r[key] for key in ("backend", "train_s", "gj_solve_launches", "plan",
+                                                "received_over_owned")} for r in mh_procs["ranks"]],
+            "rank0": mh_procs["rank0"], "nccl": mh_procs["nccl"]["backend"],
+            "cli": {key: mh_procs["cli"][key] for key in (
+                "shards", "single_train_s", "ranks_wall_s", "rank_launches", "plan_rank", "top10_differing",
+                "tie_gap_max", "factor_rel_diff", "phase_s")},
+            "tt": {key: mh_tt[key] for key in ("mesh", "steps", "loss_rel_diff", "tower_rel_diff",
+                                               "fused_ce_launches", "train_s", "single_train_s")},
+        },
         "wall_s": time.perf_counter() - t_start,
     }
     stopped = stop_descendants()
-    log(f"[cleanup] {len(stopped)} processes left running by the phases, now stopped: {json.dumps(stopped)}")
+    log(f"[cleanup] {len(stopped)} processes left running by the phases, now stopped: {json.dumps(stopped)}; "
+        f"this script the subreaper of its orphans: {SUBREAPER}")
     summary["stopped_at_end"] = len(stopped)
     log(f"[summary] {json.dumps(summary)}")
     log(json.dumps({"kernels": kernels}))
@@ -6637,10 +7175,38 @@ def main() -> int:
     return 0
 
 
+def exit_clean(code: int) -> None:
+    """Run the exit handlers now, stop whatever they or the phases left,
+    and end the process without the interpreter's own exit: a handler or
+    a finalizer that ran after the last check could start a process (a
+    semaphore's finalizer restarts multiprocessing's resource tracker)."""
+    import atexit
+    import gc
+
+    with contextlib.suppress(BaseException):
+        atexit._run_exitfuncs()
+    gc.collect()
+    stop_descendants()
+    if _descendants():
+        code = code or 1
+    with contextlib.suppress(BaseException):
+        sys.stdout.flush()
+        sys.stderr.flush()
+    os._exit(code)
+
+
 if __name__ == "__main__":
-    adopt_orphans()
+    SUBREAPER = adopt_orphans()
+    code = 1
     try:
         code = main()
+    except SystemExit as exc:
+        if exc.code is not None and not isinstance(exc.code, int):
+            print(exc.code, file=sys.stderr)
+        code = exc.code if isinstance(exc.code, int) else 1
+    except BaseException:
+        import traceback
+
+        traceback.print_exc()
     finally:
-        stop_descendants()
-    sys.exit(code)
+        exit_clean(code)

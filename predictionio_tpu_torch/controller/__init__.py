@@ -9,7 +9,9 @@ from here:
         AverageMetric, Evaluation, EngineParamsGenerator,
     )
 
-``mesh_context`` waits with the port's distributed path.
+``mesh_context`` arranges one process's devices as a ``(data, model)``
+training mesh (``pio train --mesh``); the data axis spans the processes
+of a multi-process job.
 """
 
 from predictionio_tpu_torch.controller.base import create_doer
@@ -25,7 +27,7 @@ from predictionio_tpu_torch.controller.components import (
     Serving,
     TorchAlgorithm,
 )
-from predictionio_tpu_torch.controller.context import WorkflowContext, local_context
+from predictionio_tpu_torch.controller.context import TrainingMesh, WorkflowContext, local_context, mesh_context
 from predictionio_tpu_torch.controller.engine import (
     Engine,
     EngineFactory,
@@ -87,10 +89,12 @@ __all__ = [
     "StdevMetric",
     "SumMetric",
     "TorchAlgorithm",
+    "TrainingMesh",
     "WorkflowContext",
     "ZeroMetric",
     "create_doer",
     "local_context",
+    "mesh_context",
     "params_from_json",
     "params_to_json",
     "resolve_engine_factory",

@@ -1,8 +1,8 @@
-"""Alternating Least Squares on one device, in PyTorch.
+"""Alternating Least Squares in PyTorch, on one device or a mesh.
 
-Counterpart of ``predictionio_tpu/ops/als.py`` (single device: no mesh,
-no multi-host, no checkpoint, host bucketing only). The algorithm and
-its memory-bounded layout are the JAX package's:
+Counterpart of ``predictionio_tpu/ops/als.py`` (host bucketing only; the
+JAX package's on-device bucketing, ``build_buckets_device``, waits). The
+algorithm and its memory-bounded layout are the JAX package's:
 
 * **Segmented bucketing** (host, numpy) — every row's ratings are split
   into fixed-width segments; rows hotter than the widest bucket span
@@ -21,15 +21,59 @@ Both MLlib objectives: explicit (squared error, λ scaled by each row's
 rating count) and implicit (Hu-Koren-Volinsky: ``c = 1 + α|r|``,
 ``p = [r > 0]``, a shared ``YᵀY`` per half-sweep).
 
+The mesh (``train_als(mesh=...)``, a
+:class:`~predictionio_tpu_torch.controller.context.TrainingMesh` of
+``(data, model)`` positions; the JAX package's ``_half_sweep`` under
+GSPMD):
+
+* **Chunk rows split over the data positions** — every chunk's ``C`` rows
+  (a multiple of ``lcm(8, data)``) go to the data positions in equal
+  parts; each position's part is its own batch of normal equations.
+* **Tables sharded over the model positions** — every position holds only
+  its ``[rows/model, K]`` part of both tables
+  (:class:`~predictionio_tpu_torch.parallel.sharding.ShardedTable`, one a
+  data position). For a chunk part each model position gathers only the
+  entries its shard owns (the others masked to zero); the gathers are
+  summed over the model positions (exact: an entry has one owner) and
+  the Gramians formed on the data position: the table never moves.
+* **The solve on each position** — ``_finish_solve`` through
+  :func:`~predictionio_tpu_torch.ops.solve.spd_solve`, so the
+  Gauss-Jordan kernel takes each data position's batch on the card (the
+  JAX package drops to Cholesky on a mesh, its Pallas kernel not being
+  shard_map-wrapped). Hot-row Gramians are summed over the data
+  positions before their one solve.
+* **The solved rows all-gathered** into every position's shards after
+  each half-sweep: copies in process, ``torch.distributed`` across
+  processes.
+* **Multi-process** (a mesh over the processes' positions): each process
+  holds its shard of the ratings; rows are re-partitioned to their owner
+  ``row % P`` through the bounded exchange
+  (:func:`~predictionio_tpu_torch.parallel.exchange.exchange_by_owner`),
+  every process packs equal-shaped chunk blocks, and the rated masks are
+  OR-ed (:func:`_multihost_bucketed`). Without a mesh, the processes
+  gather the whole COO and each trains it alone (:func:`_allgather_coo`).
+* A mesh of one position is the single-device path.
+
+Step checkpoints (``ALSConfig.checkpoint_dir``, every
+``checkpoint_interval`` sweeps, :mod:`predictionio_tpu_torch.utils.checkpoint`)
+hold the tables at the canonical ``(rows + 1, K)`` shape, so a run resumes
+on another mesh shape.
+
 All arithmetic is float32 with TF32 off (the JAX package's
-``precision="highest"``). ``index_add_`` on CUDA sums in no fixed order,
-so hot-row Gramians — and the factors that depend on them — may differ
-in the last bits from run to run.
+``precision="highest"``). On one device ``index_add_`` on CUDA sums in no
+fixed order, so hot-row Gramians — and the factors that depend on them —
+may differ in the last bits from run to run. The mesh sums in a fixed
+order instead (:func:`_accumulate_in_order`, and every Gramian product
+on ``GRAM_ROWS`` rows), so a mesh train gives the same bits on every
+mesh shape and number of processes, which a resume on another shape
+needs; it agrees with one device's train to rounding.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import math
 import threading
 from typing import Any, Callable, NamedTuple, Sequence
 
@@ -54,6 +98,11 @@ __all__ = [
     "train_als",
     "half_sweep",
     "als_sweep",
+    "MeshBuckets",
+    "mesh_buckets",
+    "mesh_tables",
+    "mesh_half_sweep",
+    "mesh_sweep",
     "SCORE_BLOCK",
     "SCORE_QUERY_ROWS",
     "score_rows",
@@ -96,6 +145,10 @@ class ALSConfig:
     chunk_entries: int = _DEFAULT_CHUNK_ENTRIES
     #: max hot rows per Gramian-accumulator group
     hot_group_slots: int = 2048
+    #: step-checkpoint directory ("" = off); training resumes from the
+    #: latest step found there (resume-on-preemption, SURVEY.md 6.4)
+    checkpoint_dir: str = ""
+    checkpoint_interval: int = 5
 
 
 class ALSFactors(NamedTuple):
@@ -281,6 +334,30 @@ def _check_coo(rows, cols, vals, num_rows: int, num_cols: int) -> tuple:
     return rows, cols, vals
 
 
+class _Segments(NamedTuple):
+    """Host-side segmentation of one COO shard (pre-padding layout)."""
+
+    plan: dict  # _plan_segments' per-width and hot segments
+    w_max: int
+    cols_s: np.ndarray  # row-sorted column ids
+    vals_s: np.ndarray  # row-sorted values
+    rated: np.ndarray  # bool [num_rows] — rows present in this shard
+
+
+def _segment(rows, cols, vals, num_rows: int, num_cols: int, widths: Sequence[int],
+             by_column: bool = False) -> _Segments:
+    """Validate and row-sort one COO shard and split every row into
+    fixed-width segments (the JAX package's ``_segment``). Within a row
+    the entries keep their COO order, or with ``by_column`` go in column
+    order (repeats of a column by value)."""
+    rows, cols, vals = _check_coo(rows, cols, vals, num_rows, num_cols)
+    usable = _usable_widths(widths)
+    order = np.lexsort((vals, cols, rows)) if by_column else np.argsort(rows, kind="stable")
+    counts_all = np.bincount(rows, minlength=num_rows)
+    plan = _plan_segments(*_row_offsets(counts_all), usable)
+    return _Segments(plan, usable[-1], cols[order], vals[order], counts_all > 0)
+
+
 def build_buckets(
     rows: np.ndarray,
     cols: np.ndarray,
@@ -297,27 +374,23 @@ def build_buckets(
     Rows with at most ``max(widths)`` ratings go to the smallest width
     that fits; hotter rows are split into ``max(widths)``-wide segments.
     Every bucket is laid out as ``[n_chunks, C, L]`` with
-    ``C·L <= chunk_entries`` and ``C`` a multiple of ``row_multiple``.
-    Rows with zero ratings are absent (``train_als`` zeroes them)."""
-    rows, cols, vals = _check_coo(rows, cols, vals, num_rows, num_cols)
-    usable = _usable_widths(widths)
-    order = np.argsort(rows, kind="stable")
-    cols_s, vals_s = cols[order], vals[order]
-    uniq, starts, counts = _row_offsets(np.bincount(rows, minlength=num_rows))
-    plan = _plan_segments(uniq, starts, counts, usable)
-
+    ``C·L <= chunk_entries`` and ``C`` a multiple of ``row_multiple``
+    (keep that a multiple of the mesh's data positions, so chunk rows
+    split evenly). Rows with zero ratings are absent (``train_als``
+    zeroes them)."""
+    seg = _segment(rows, cols, vals, num_rows, num_cols, widths)
     padded_nnz = 0
     normal_chunks: list = []
     hot_chunks: list = []
     hot_rows_groups: list = []
     for seg_row, seg_start, seg_len, width, sentinel, hr in _bucket_defs(
-        plan, num_rows, usable[-1], hot_group_slots
+        seg.plan, num_rows, seg.w_max, hot_group_slots
     ):
         n_seg = int(seg_row.size)
         c, n_chunks, n_pad = _chunk_plan(n_seg, width, row_multiple, chunk_entries)
         padded_nnz += n_pad * width
         arrs = _fill_bucket(
-            n_seg, n_pad, width, seg_row, seg_start, seg_len, cols_s, vals_s, sentinel
+            n_seg, n_pad, width, seg_row, seg_start, seg_len, seg.cols_s, seg.vals_s, sentinel
         )
         chunked = _chunk(arrs, n_chunks, c, width)
         if hr is None:
@@ -327,25 +400,56 @@ def build_buckets(
             hot_rows_groups.append(hr)
     return BucketedRatings(
         tuple(normal_chunks), tuple(hot_chunks), tuple(hot_rows_groups),
-        num_rows, num_cols, int(rows.size), padded_nnz,
+        num_rows, num_cols, int(np.asarray(rows).size), padded_nnz,
     )
 
 
+def _mh_chunk_plan(width: int, n_seg_max: int, processes: int, m: int, chunk_entries: int) -> tuple[int, int]:
+    """``(c_local, n_chunks)`` of one bucket in the multi-process layout:
+    every process pads its block to ``n_chunks · c_local`` rows, ``c_local``
+    a multiple of ``m``; a chunk holds ``processes · c_local`` rows."""
+    budget = max(1, chunk_entries // (width * processes))
+    c_local = max(m, budget // m * m)
+    c_local = min(c_local, -(-max(n_seg_max, 1) // m) * m)
+    return c_local, -(-max(n_seg_max, 1) // c_local)
+
+
 def planned_solves(
-    rows: np.ndarray, num_rows: int, config: ALSConfig, row_multiple: int = 8
+    rows: np.ndarray, num_rows: int, config: ALSConfig, row_multiple: int = 8,
+    data: int = 1, processes: int = 1,
 ) -> int:
-    """Batched SPD solves one half-sweep over this side runs: one per
-    normal-bucket chunk plus one per hot group — computed from the
-    per-row counts alone, without building the buckets."""
+    """Batched SPD solves one half-sweep over this side runs in ONE
+    process: one per normal-bucket chunk and data position plus one per
+    hot group — computed from the per-row counts alone, without building
+    the buckets. ``data`` is a process's data positions on a mesh (chunk
+    rows then a multiple of ``lcm(row_multiple, data)``); with
+    ``processes > 1``, ``rows`` are the JOB's rows, re-partitioned to
+    ``row % processes`` as the multi-process mesh does."""
     usable = _usable_widths(config.bucket_widths)
-    counts_all = np.bincount(np.asarray(rows, np.int64), minlength=num_rows)
+    rows = np.asarray(rows, np.int64)
+    if processes > 1:
+        m = math.lcm(8, int(data))
+        per_width: dict = {}
+        num_hot = 0
+        for p in range(processes):
+            counts_all = np.bincount(rows[rows % processes == p], minlength=num_rows)
+            plan = _plan_segments(*_row_offsets(counts_all), usable)
+            num_hot += int(plan["hot_rows"].size)
+            for w, (seg_row, _, _) in plan["per_width"].items():
+                per_width[w] = max(per_width.get(w, 0), int(seg_row.size))
+        normal = sum(
+            _mh_chunk_plan(w, n, processes, m, config.chunk_entries)[1] for w, n in per_width.items()
+        )
+        return int(data) * normal + -(-num_hot // config.hot_group_slots)
+    row_multiple = math.lcm(int(row_multiple), int(data))
+    counts_all = np.bincount(rows, minlength=num_rows)
     plan = _plan_segments(*_row_offsets(counts_all), usable)
     n = 0
     for seg_row, _, _, width, _, hr in _bucket_defs(
         plan, num_rows, usable[-1], config.hot_group_slots
     ):
         if hr is None:
-            n += _chunk_plan(int(seg_row.size), width, row_multiple, config.chunk_entries)[1]
+            n += int(data) * _chunk_plan(int(seg_row.size), width, row_multiple, config.chunk_entries)[1]
         else:
             n += 1
     return n
@@ -381,6 +485,147 @@ def to_device_buckets(b: BucketedRatings, device: torch.device) -> BucketedRatin
         tuple(torch.from_numpy(np.asarray(hr, np.int64)).to(device) for hr in b.hot_rows),
         b.num_rows, b.num_cols, b.nnz, b.padded_nnz,
     )
+
+
+# ---------------------------------------------------------------------------
+# Multi-process layouts
+# ---------------------------------------------------------------------------
+
+
+def _multihost_bucketed(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    num_rows: int,
+    num_cols: int,
+    data: int,
+    widths: Sequence[int],
+    chunk_entries: int,
+    hot_group_slots: int = 2048,
+) -> tuple[BucketedRatings, np.ndarray]:
+    """Multi-process: this process's COO shard -> its block of the job's
+    chunk layout, without any process holding the job's ratings (the JAX
+    package's ``_multihost_bucketed``).
+
+    1. All-to-all the shard so process ``p`` owns every rating of rows
+       with ``row % P == p`` (the bounded exchange).
+    2. Segment the owned rows locally (complete rows give correct
+       counts; within a row in column order), then agree on per-width
+       block shapes (a tiny metadata all-gather) so every process packs
+       an identically shaped block per bucket: ``[n_chunks, c_local,
+       L]``, ``c_local`` a multiple of
+       ``lcm(8, data)`` so it splits over this process's ``data``
+       positions. The job's chunk is the processes' blocks side by side,
+       process-contiguous along the data axis.
+    3. Hot rows take GLOBAL slots (process order); every process packs a
+       (possibly empty) block for every group and holds every group's
+       slot map.
+
+    Returns (this process's block, this process's rated mask — OR it
+    across processes for the job's)."""
+    from predictionio_tpu_torch.parallel.distributed import process_count, process_index
+    from predictionio_tpu_torch.parallel.exchange import allgather_objects, exchange_by_owner
+
+    P = process_count()
+    me = process_index()
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    vals = np.asarray(vals, dtype=np.float32)
+    # validate BEFORE the exchange and agree on the verdict: a lone raise
+    # would strand the peers in the next collective
+    err = ""
+    if rows.size and (rows.min() < 0 or rows.max() >= num_rows):
+        err = f"process {me}: row index out of range"
+    elif cols.size and (cols.min() < 0 or cols.max() >= num_cols):
+        err = f"process {me}: column index out of range"
+    errors = [e for e in allgather_objects(err) if e]
+    if errors:
+        raise ValueError("; ".join(errors))
+
+    rows, cols, vals = exchange_by_owner([rows, cols, vals], rows % P)
+    # the exchange interleaves the processes' shards: column order is the
+    # canonical order within a row (the order of a (row, col)-sorted COO,
+    # as the DataSources hand one process; repeats of a pair by value)
+    seg = _segment(rows, cols, vals, num_rows, num_cols, widths, by_column=True)
+    m = math.lcm(8, int(data))
+
+    local_meta = {
+        "widths": {w: int(v[0].size) for w, v in seg.plan["per_width"].items()},
+        "num_hot": int(seg.plan["hot_rows"].size),
+        "nnz": int(rows.size),
+    }
+    metas = allgather_objects(local_meta)
+    all_widths = sorted({w for mt in metas for w in mt["widths"]})
+    hot_counts = [mt["num_hot"] for mt in metas]
+    hot_offset = int(np.sum(hot_counts[:me]))
+    num_hot_tot = int(np.sum(hot_counts))
+    nnz_global = int(np.sum([mt["nnz"] for mt in metas]))
+    padded_global = 0
+
+    def pack(seg_row, seg_start, seg_len, width, sentinel, n_seg_max):
+        nonlocal padded_global
+        c_local, n_chunks = _mh_chunk_plan(width, n_seg_max, P, m, chunk_entries)
+        n_pad = n_chunks * c_local
+        padded_global += n_pad * width * P
+        arrs = _fill_bucket(
+            int(seg_row.size), n_pad, width, seg_row, seg_start, seg_len, seg.cols_s, seg.vals_s, sentinel
+        )
+        return _chunk(arrs, n_chunks, c_local, width)
+
+    empty_i64 = np.zeros(0, np.int64)
+    normal_chunks = []
+    for w in all_widths:
+        n_seg_max = max(mt["widths"].get(w, 0) for mt in metas)
+        seg_row, seg_start, seg_len = seg.plan["per_width"].get(w, (np.zeros(0, np.int32), empty_i64, empty_i64))
+        normal_chunks.append(pack(seg_row, seg_start, seg_len, w, num_rows, n_seg_max))
+
+    hot_chunks = []
+    hot_rows_groups = []
+    if num_hot_tot:
+        H = hot_group_slots
+        n_groups = -(-num_hot_tot // H)
+        g_slot = seg.plan["hot_slot"].astype(np.int64) + hot_offset
+        my_counts = [int(np.count_nonzero((g_slot >= g * H) & (g_slot < (g + 1) * H))) for g in range(n_groups)]
+        all_counts = allgather_objects(my_counts)
+        hot_rows_all = np.concatenate(
+            [np.asarray(h, np.int32) for h in allgather_objects(seg.plan["hot_rows"].tolist())]
+        )
+        for g in range(n_groups):
+            sel = (g_slot >= g * H) & (g_slot < (g + 1) * H)
+            h_g = min(H, num_hot_tot - g * H)
+            hot_chunks.append(pack(
+                (g_slot[sel] - g * H).astype(np.int32), seg.plan["hot_start"][sel], seg.plan["hot_len"][sel],
+                seg.w_max, h_g, max(c[g] for c in all_counts),
+            ))
+            hr = np.full(h_g + 1, num_rows, dtype=np.int32)
+            hr[:h_g] = hot_rows_all[g * H : g * H + h_g]
+            hot_rows_groups.append(hr)
+
+    bucketed = BucketedRatings(
+        tuple(normal_chunks), tuple(hot_chunks), tuple(hot_rows_groups),
+        num_rows, num_cols, nnz_global, padded_global,
+    )
+    return bucketed, seg.rated
+
+
+def _allgather_coo(rows, cols, vals) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Mesh-less multi-process training: every process gathers every
+    process's COO shard (process order), so each holds the job's ratings
+    and trains them alone (the JAX package's ``_allgather_coo``)."""
+    from predictionio_tpu_torch.parallel.exchange import allgather_objects
+
+    parts = allgather_objects(
+        (np.asarray(rows, np.int64), np.asarray(cols, np.int64), np.asarray(vals, np.float32))
+    )
+    return tuple(np.concatenate([p[k] for p in parts]) for k in range(3))
+
+
+def _global_rated(rated: np.ndarray) -> np.ndarray:
+    """The OR of every process's rated mask."""
+    from predictionio_tpu_torch.parallel.exchange import allgather_objects
+
+    packed = np.bitwise_or.reduce(allgather_objects(np.packbits(rated)))
+    return np.unpackbits(packed, count=rated.size).astype(bool)
 
 
 # ---------------------------------------------------------------------------
@@ -501,12 +746,235 @@ def als_sweep(
     return user_factors, item_factors
 
 
+# ---------------------------------------------------------------------------
+# The sweep on a mesh
+# ---------------------------------------------------------------------------
+
+
+class MeshBuckets(NamedTuple):
+    """One side's buckets on a mesh: ``normal[k][d][m]`` is bucket ``k``'s
+    chunk arrays for data position ``d`` (its ``C/data`` rows of every
+    chunk) on model position ``m``'s device; ``hot`` likewise per group;
+    ``hot_rows[g]`` the group's slot map on the lead device."""
+
+    normal: tuple
+    hot: tuple
+    hot_rows: tuple
+    num_rows: int
+
+
+def mesh_buckets(b: BucketedRatings, mesh, model_axis: str = "model") -> MeshBuckets:
+    """Place host buckets on ``mesh``: every chunk's rows split in equal
+    parts over the data positions, each part on its row's devices (one
+    tensor a device: a repeated device shares it)."""
+    D = len(mesh.devices) // mesh.local(model_axis)
+
+    def split(ch: _Chunked) -> tuple:
+        C = ch.row_id.shape[1]
+        if C % D:
+            raise ValueError(f"chunk rows ({C}) do not split over {D} data positions")
+        per = C // D
+        parts = []
+        for d in range(D):
+            sl = slice(d * per, (d + 1) * per)
+            row = mesh.row(d, model_axis)
+            base = _Chunked(
+                torch.from_numpy(np.ascontiguousarray(ch.row_id[:, sl], np.int64)).to(row[0]),
+                torch.from_numpy(np.ascontiguousarray(ch.idx[:, sl])).to(row[0]),
+                torch.from_numpy(np.ascontiguousarray(ch.val[:, sl])).to(row[0]),
+                torch.from_numpy(np.ascontiguousarray(ch.mask[:, sl])).to(row[0]),
+            )
+            parts.append(tuple(_Chunked(*(t.to(dev) for t in base)) for dev in row))
+        return tuple(parts)
+
+    lead = mesh.devices[0]
+    return MeshBuckets(
+        tuple(split(ch) for ch in b.normal),
+        tuple(split(ch) for ch in b.hot),
+        tuple(torch.from_numpy(np.asarray(hr, np.int64)).to(lead) for hr in b.hot_rows),
+        b.num_rows,
+    )
+
+
+def mesh_tables(host: np.ndarray, mesh, model_axis: str = "model") -> tuple:
+    """A ``[rows + 1, K]`` host table laid out on ``mesh``: for each data
+    position a :class:`~predictionio_tpu_torch.parallel.sharding.ShardedTable`
+    over its model positions, each holding ``[rows/model, K]`` (zero rows
+    pad the split)."""
+    from predictionio_tpu_torch.parallel.sharding import ServingMesh, shard_table
+
+    D = len(mesh.devices) // mesh.local(model_axis)
+    return tuple(shard_table(host, ServingMesh(mesh.row(d, model_axis))) for d in range(D))
+
+
+#: rows of every batched Gramian product on a mesh: cuBLAS picks its
+#: kernel, and with it the order of each product's sums, by the batch
+#: count too, so a data position's part of a chunk is formed in blocks of
+#: this many rows (the last one zero-padded), and a row's Gramian has the
+#: same bits whichever mesh shape, data position or process holds it
+GRAM_ROWS = 1024
+
+
+def _partials_in_blocks(
+    Q: torch.Tensor, val: torch.Tensor, mask: torch.Tensor, implicit: bool, alpha: float
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`_partials` on ``GRAM_ROWS`` rows at a time."""
+    C = Q.shape[0]
+    parts = []
+    for lo in range(0, C, GRAM_ROWS):
+        hi = min(lo + GRAM_ROWS, C)
+        q, v, m = Q[lo:hi], val[lo:hi], mask[lo:hi]
+        if hi - lo < GRAM_ROWS:
+            pad = GRAM_ROWS - (hi - lo)
+            q, v, m = F.pad(q, (0, 0, 0, 0, 0, pad)), F.pad(v, (0, 0, 0, pad)), F.pad(m, (0, 0, 0, pad))
+        parts.append(tuple(t[: hi - lo] for t in _partials(q, v, m, implicit, alpha)))
+    return tuple(torch.cat(ts) for ts in zip(*parts))
+
+
+def _hot_accumulators(num_slots: int, K: int, device) -> tuple:
+    """Zeroed ``(A [S, K, K], [b | n] [S, K + 1])`` for one hot group."""
+    return (torch.zeros((num_slots, K, K), device=device), torch.zeros((num_slots, K + 1), device=device))
+
+
+def _accumulate_in_order(acc: tuple, slot: torch.Tensor, A: torch.Tensor, b: torch.Tensor, n: torch.Tensor) -> None:
+    """``acc[slot] += (A, b, n)`` into a hot group's accumulators
+    (:func:`_hot_accumulators`), repeats of a slot summed in ``slot``'s
+    order. On CUDA ``index_add_`` adds them by atomics in no fixed order,
+    while ``index_put_`` with ``accumulate`` sorts the indices (stably)
+    and sums each slot's rows one after the other; on the CPU
+    ``index_add_`` adds in order (and ``index_put_`` does not). ``b`` and
+    ``n`` share one accumulator, and so one sort."""
+    A_acc, bn_acc = acc
+    bn = torch.cat([b, n[:, None]], dim=1)
+    if A_acc.device.type == "cuda":
+        A_acc.index_put_((slot,), A, accumulate=True)
+        bn_acc.index_put_((slot,), bn, accumulate=True)
+    else:
+        A_acc.index_add_(0, slot, A)
+        bn_acc.index_add_(0, slot, bn)
+
+
+def _solve_accumulated(acc: tuple, reg: float, yty, solver: str) -> torch.Tensor:
+    A_acc, bn_acc = acc
+    K = A_acc.shape[-1]
+    return _finish_solve(A_acc, bn_acc[:, :K], bn_acc[:, K], reg, yty, solver)
+
+
+def _gram_sharded(other, parts: tuple, c: int, implicit: bool, alpha: float, out: torch.device) -> tuple:
+    """Partial normal equations of one data position's part of chunk
+    ``c`` against a model-sharded opposite table: each model position
+    gathers only the entries its shard owns (the others masked to zero),
+    the gathers are summed over the model positions on ``out`` (every
+    entry has one owner, so the sum is the unsharded gather to the bit),
+    and the Gramians are formed there — the JAX package's ``_gram_chunk``
+    under ``shard_map``, whose ``psum`` runs over the Gramians instead."""
+    rps = other.rows_per_shard
+    Q = None
+    for m, (shard, ch) in enumerate(zip(other.shards, parts)):
+        idx = ch.idx[c]
+        C, L = idx.shape
+        local = idx - m * rps
+        inr = (local >= 0) & (local < rps)
+        part = shard.index_select(0, torch.where(inr, local, 0).reshape(-1)).view(C, L, -1)
+        part = (part * (ch.mask[c] * inr)[..., None]).to(out)
+        Q = part if Q is None else Q.add_(part)
+    lead = parts[0]
+    return _partials_in_blocks(Q, lead.val[c], lead.mask[c], implicit, alpha)
+
+
+def _write_rows(tables: tuple, ids: torch.Tensor, x: torch.Tensor, num_rows: int) -> None:
+    """Rows ``ids`` (global) of every data position's sharded table set to
+    ``x``, each row in its owner shard; the sentinel row re-zeroed."""
+    for tbl in tables:
+        rps = tbl.rows_per_shard
+        owner = torch.div(ids, rps, rounding_mode="floor")
+        for m, shard in enumerate(tbl.shards):
+            sel = owner == m
+            shard.index_copy_(0, (ids[sel] - m * rps).to(shard.device), x[sel].to(shard.device))
+        s, r = divmod(num_rows, rps)
+        tbl.shards[s][r].zero_()
+
+
+def mesh_half_sweep(
+    tables: tuple,  # per data position: the updated side's ShardedTable, in place
+    others: tuple,  # per data position: the opposite side's ShardedTable
+    side: MeshBuckets,
+    reg: float,
+    implicit: bool,
+    alpha: float,
+    solver: str,
+) -> tuple:
+    """One half-sweep on a mesh (the JAX package's ``_half_sweep`` with a
+    mesh): every data position solves its part of every normal chunk on
+    its device; hot-row Gramians are summed over the data positions (and
+    the processes) before their solve; then the solved rows are gathered
+    from every position (and process) into every position's shards."""
+    from predictionio_tpu_torch.parallel import distributed
+
+    lead = tables[0].mesh[0]
+    yty = None
+    if implicit:  # padding and sentinel rows are zero: no-op terms
+        for shard in others[0].shards:
+            part = (shard.T @ shard).to(lead)
+            yty = part if yty is None else yty + part
+
+    ids_parts, x_parts = [], []
+    for bucket in side.normal:
+        for c in range(bucket[0][0].row_id.shape[0]):
+            for d, parts in enumerate(bucket):
+                dev = tables[d].mesh[0]
+                A, b, n = _gram_sharded(others[d], parts, c, implicit, alpha, dev)
+                x = _finish_solve(A, b, n, reg, None if yty is None else yty.to(dev), solver)
+                ids_parts.append(parts[0].row_id[c].to(lead))
+                x_parts.append(x.to(lead))
+    K = tables[0].shape[1]
+    ids = torch.cat(ids_parts) if ids_parts else torch.zeros(0, dtype=torch.int64, device=lead)
+    xs = torch.cat(x_parts) if x_parts else torch.zeros((0, K), dtype=torch.float32, device=lead)
+    if distributed.is_multihost():
+        ids = torch.cat(distributed.all_gather_tensor(ids))
+        xs = torch.cat(distributed.all_gather_tensor(xs))
+
+    hot_ids, hot_xs = [], []
+    for bucket, hot_rows_g in zip(side.hot, side.hot_rows):
+        acc = _hot_accumulators(int(hot_rows_g.shape[0]), K, lead)  # H_g + sentinel slots
+        # the psum over the data positions, in chunk order and within a
+        # chunk in data-position order (a chunk's rows in their order),
+        # then over the processes
+        for c in range(bucket[0][0].row_id.shape[0]):
+            for d, parts in enumerate(bucket):
+                partial = _gram_sharded(others[d], parts, c, implicit, alpha, tables[d].mesh[0])
+                _accumulate_in_order(acc, parts[0].row_id[c].to(lead), *(p.to(lead) for p in partial))
+        for t in acc:
+            distributed.all_reduce_(t)
+        hot_ids.append(hot_rows_g)
+        hot_xs.append(_solve_accumulated(acc, reg, yty, solver))
+
+    _write_rows(tables, torch.cat([ids, *hot_ids]), torch.cat([xs, *hot_xs]), side.num_rows)
+    return tables
+
+
+def mesh_sweep(user_tables: tuple, item_tables: tuple, user_side: MeshBuckets, item_side: MeshBuckets,
+               reg: float, implicit: bool, alpha: float) -> tuple:
+    """One full ALS iteration on a mesh, in place (:func:`mesh_half_sweep`
+    for the users, then the items), each solve through
+    ``spd_solve(method="auto")``."""
+    with torch.no_grad():
+        mesh_half_sweep(user_tables, item_tables, user_side, reg, implicit, alpha, "auto")
+        mesh_half_sweep(item_tables, user_tables, item_side, reg, implicit, alpha, "auto")
+    return user_tables, item_tables
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
 def seed_factors(num_rows: int, rank: int, seed: int, implicit: bool) -> np.ndarray:
     """The cold-start draw, ``[num_rows, rank]`` float32 on the host:
     ``|N(0,1)|`` rows from a ``torch.Generator`` seeded with ``seed``,
     scaled by ``1/sqrt(rank)`` (explicit) or normalized to unit L2
-    (implicit, MLlib's init). Made on the CPU so every device starts
-    from the same numbers."""
+    (implicit, MLlib's init). Made on the CPU so every device and every
+    process starts from the same numbers."""
     gen = torch.Generator(device="cpu").manual_seed(int(seed))
     draw = torch.randn((num_rows, rank), generator=gen, dtype=torch.float32).abs()
     if implicit:
@@ -516,9 +984,9 @@ def seed_factors(num_rows: int, rank: int, seed: int, implicit: bool) -> np.ndar
     return draw.numpy()
 
 
-def _table(init: np.ndarray, num_rows: int, rank: int, rated: np.ndarray, device) -> torch.Tensor:
-    """[num_rows + 1, rank] table from an init (sentinel row and unrated
-    rows zero; a narrower init fills the leading columns)."""
+def _host_table(init: np.ndarray, num_rows: int, rank: int, rated: np.ndarray) -> np.ndarray:
+    """The canonical ``[num_rows + 1, rank]`` table from an init (sentinel
+    row and unrated rows zero; a narrower init fills the leading columns)."""
     init = np.asarray(init, dtype=np.float32)
     if init.shape[0] != num_rows:
         raise ValueError(f"init has {init.shape[0]} rows, expected {num_rows}")
@@ -526,7 +994,26 @@ def _table(init: np.ndarray, num_rows: int, rank: int, rated: np.ndarray, device
     k = min(rank, init.shape[1])
     table[:num_rows, :k] = init[:, :k]
     table[:num_rows][~rated] = 0.0
-    return torch.from_numpy(table).to(device)
+    return table
+
+
+def _resume(manager, num_users: int, num_items: int, rank: int, iterations: int):
+    """``(step, {"user", "item"} canonical host tensors)`` of the latest
+    compatible checkpoint, or ``(0, None)``."""
+    latest = manager.latest_step()
+    if latest is None:
+        return 0, None
+    like = {"user": torch.empty((num_users + 1, rank)), "item": torch.empty((num_items + 1, rank))}
+    try:
+        state = manager.restore(latest, like=like)
+    except ValueError as exc:
+        # shape drift only (another rank or catalog); I/O errors propagate
+        logging.getLogger(__name__).warning(
+            "Checkpoint step %d is incompatible with this run (%s); starting fresh", latest, exc
+        )
+        return 0, None
+    logging.getLogger(__name__).info("Resumed ALS from checkpoint step %d", latest)
+    return min(latest, iterations), state
 
 
 def train_als(
@@ -539,54 +1026,122 @@ def train_als(
     init_user: np.ndarray | None = None,
     init_item: np.ndarray | None = None,
     device: str | torch.device | None = None,
-    on_sweep: Callable[[int, torch.Tensor, torch.Tensor], None] | None = None,
+    on_sweep: Callable[[int, Any, Any], None] | None = None,
+    mesh=None,
+    data_axis: str = "data",
+    model_axis: str = "model",
 ) -> ALSFactors:
-    """Train factor matrices from COO ratings on ``device`` (default: the card).
+    """Train factor matrices from COO ratings on ``device`` (default: the
+    card) or on ``mesh`` (a
+    :class:`~predictionio_tpu_torch.controller.context.TrainingMesh`; a
+    mesh of one position is the single-device path on that position).
+
+    In a multi-process job ``rows/cols/vals`` are this process's shard of
+    the ratings: with a mesh they are re-partitioned by row through the
+    bounded exchange (:func:`_multihost_bucketed`), without one gathered
+    whole onto every process (:func:`_allgather_coo`).
 
     ``init_user``/``init_item`` (``[num_users, K]`` / ``[num_items, K]``)
     replace the cold-start draw of :func:`seed_factors`; unrated rows are
-    zeroed either way. ``on_sweep(step, user, item)`` is called after
-    each sweep with views of the current tables (no sentinel row).
+    zeroed either way, and a checkpoint resume (``config.checkpoint_dir``)
+    takes precedence. ``on_sweep(step, user, item)`` is called after each
+    sweep: single-device with views of the tables (no sentinel row), on a
+    mesh with data position 0's
+    :class:`~predictionio_tpu_torch.parallel.sharding.ShardedTable`\\ s
+    (padding rows included).
 
-    Returns ``ALSFactors`` on ``device``: ``user [num_users, K]``,
-    ``item [num_items, K]``.
+    Returns ``ALSFactors``: ``user [num_users, K]``, ``item [num_items,
+    K]``, on ``device``, or (mesh) on the host, assembled from the shards.
     """
-    dev = resolve_device(device)
-    if dev.type == "cuda":
+    from predictionio_tpu_torch.parallel import distributed
+
+    if mesh is not None and mesh.size == 1:
+        device, mesh = mesh.devices[0], None
+    devices = mesh.devices if mesh is not None else (resolve_device(device),)
+    dev = resolve_device(devices[0])
+    if any(d.type == "cuda" for d in devices):
         # full f32 products, as the JAX package's precision="highest":
         # TF32 keeps ~3 decimal digits and would move the factors
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
 
-    kw = dict(
-        widths=config.bucket_widths, chunk_entries=config.chunk_entries,
-        hot_group_slots=config.hot_group_slots,
-    )
-    user_b = build_buckets(rows, cols, vals, num_users, num_items, **kw)
-    item_b = build_buckets(cols, rows, vals, num_items, num_users, **kw)
-    u_rated = rated_row_mask(user_b)
-    i_rated = rated_row_mask(item_b)
-    user_bucketed = to_device_buckets(user_b, dev)
-    item_bucketed = to_device_buckets(item_b, dev)
-    del user_b, item_b
+    multihost = distributed.is_multihost()
+    kw = dict(widths=config.bucket_widths, chunk_entries=config.chunk_entries,
+              hot_group_slots=config.hot_group_slots)
+    if mesh is None and multihost:
+        rows, cols, vals = _allgather_coo(rows, cols, vals)
+    if mesh is not None and multihost:
+        data = mesh.local(data_axis)
+        user_b, u_rated = _multihost_bucketed(rows, cols, vals, num_users, num_items, data, **kw)
+        item_b, i_rated = _multihost_bucketed(cols, rows, vals, num_items, num_users, data, **kw)
+        u_rated, i_rated = _global_rated(u_rated), _global_rated(i_rated)
+    else:
+        row_multiple = 8 if mesh is None else math.lcm(8, mesh.local(data_axis))
+        user_b = build_buckets(rows, cols, vals, num_users, num_items, row_multiple=row_multiple, **kw)
+        item_b = build_buckets(cols, rows, vals, num_items, num_users, row_multiple=row_multiple, **kw)
+        u_rated, i_rated = rated_row_mask(user_b), rated_row_mask(item_b)
 
     rank = config.rank
     if init_user is None:
         init_user = seed_factors(num_users, rank, config.seed, config.implicit)
     if init_item is None:
         init_item = seed_factors(num_items, rank, config.seed + 1, config.implicit)
-    uf = _table(init_user, num_users, rank, u_rated, dev)
-    vf = _table(init_item, num_items, rank, i_rated, dev)
+    uh = _host_table(init_user, num_users, rank, u_rated)
+    vh = _host_table(init_item, num_items, rank, i_rated)
 
-    for step in range(config.iterations):
-        als_sweep(
-            uf, vf, user_bucketed, item_bucketed,
-            reg=config.reg, implicit=config.implicit, alpha=config.alpha,
-        )
+    manager = None
+    start = 0
+    if config.checkpoint_dir:
+        from predictionio_tpu_torch.utils.checkpoint import CheckpointManager
+
+        manager = CheckpointManager(config.checkpoint_dir)
+        start, state = _resume(manager, num_users, num_items, rank, config.iterations)
+        if state is not None:
+            uh, vh = state["user"].numpy(), state["item"].numpy()
+
+    if mesh is None:
+        user_side, item_side = to_device_buckets(user_b, dev), to_device_buckets(item_b, dev)
+        uf, vf = torch.from_numpy(uh).to(dev), torch.from_numpy(vh).to(dev)
+
+        def sweep() -> None:
+            als_sweep(uf, vf, user_side, item_side, config.reg, config.implicit, config.alpha)
+
+        def canonical() -> dict:
+            return {"user": uf, "item": vf}
+
+        def views() -> tuple:
+            return uf[:num_users], vf[:num_items]
+    else:
+        user_side = mesh_buckets(user_b, mesh, model_axis)
+        item_side = mesh_buckets(item_b, mesh, model_axis)
+        uf, vf = mesh_tables(uh, mesh, model_axis), mesh_tables(vh, mesh, model_axis)
+
+        def sweep() -> None:
+            mesh_sweep(uf, vf, user_side, item_side, config.reg, config.implicit, config.alpha)
+
+        def canonical() -> dict:
+            return {
+                "user": torch.from_numpy(np.asarray(uf[0])[: num_users + 1]),
+                "item": torch.from_numpy(np.asarray(vf[0])[: num_items + 1]),
+            }
+
+        def views() -> tuple:
+            return uf[0], vf[0]
+    del user_b, item_b
+
+    for step in range(start, config.iterations):
+        sweep()
         if on_sweep is not None:
-            on_sweep(step, uf[:num_users], vf[:num_items])
-    return ALSFactors(user=uf[:num_users], item=vf[:num_items])
+            on_sweep(step, *views())
+        if manager is not None and (
+            (step + 1) % config.checkpoint_interval == 0 or step + 1 == config.iterations
+        ):
+            manager.save(step + 1, canonical())
+    if mesh is None:
+        return ALSFactors(user=uf[:num_users], item=vf[:num_items])
+    final = canonical()
+    return ALSFactors(user=final["user"][:num_users], item=final["item"][:num_items])
 
 
 # ---------------------------------------------------------------------------

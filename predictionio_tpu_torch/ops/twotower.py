@@ -1,8 +1,7 @@
-"""Two-tower retrieval training on one device, in PyTorch.
+"""Two-tower retrieval training in PyTorch, on one device or a mesh.
 
-Counterpart of ``predictionio_tpu/ops/twotower.py`` (single device: no
-mesh, no sharded embedding lookup). The model and its training are the
-JAX package's:
+Counterpart of ``predictionio_tpu/ops/twotower.py``. The model and its
+training are the JAX package's:
 
 * **Towers** — a user and an item embedding table ``[N, D]``, cold-drawn
   from a seeded normal scaled by ``1/√D`` (or injected); the tower output
@@ -20,6 +19,27 @@ JAX package's:
 
 The epoch is a Python loop of eager steps (the JAX package scans a jitted
 step); losses stay on the device and are read back once per epoch.
+
+On a mesh (``train_two_tower(mesh=...)``, a
+:class:`~predictionio_tpu_torch.controller.context.TrainingMesh`):
+
+* **Sharded embedding tables** — both tables row-sharded over the model
+  positions (one
+  :class:`~predictionio_tpu_torch.parallel.sharding.ShardedTable` a data
+  position); :func:`sharded_embedding_lookup` gathers each id from its
+  owner shard, and its backward scatter-adds into each shard's own rows,
+  so no gradient holds the whole table.
+* **Data-sharded batches** — each data position (of every process) takes
+  its slice of the global batch; the loss needs every negative, so the
+  other slices' embeddings join each position's logits (copies in
+  process; across processes each process looks the other slices up in
+  its own tables, which hold every row, as the model axis lives within a
+  process). The table gradients are summed over the data positions and
+  all-reduced across processes before one Adam step a position.
+* The mesh path takes the unfused loss, as the JAX package's does
+  (its in-batch negatives are global); the shard padding keeps the
+  canonical draw: the tables are drawn at their unpadded shape and
+  zero rows pad the split.
 """
 
 from __future__ import annotations
@@ -47,6 +67,7 @@ __all__ = [
     "inbatch_loss",
     "uses_fused_ce",
     "train_step",
+    "sharded_embedding_lookup",
     "train_two_tower",
 ]
 
@@ -134,6 +155,16 @@ def uses_fused_ce(B: int, D: int, inv_temp: float, gemm_dtype: str, fused_ce: st
     return gemm_dtype == "bfloat16" and fused_ce != "off" and fused_ce_supported(B, D, inv_temp)
 
 
+def _logits(a: torch.Tensor, b: torch.Tensor, inv_temp: float, gemm_dtype: str) -> torch.Tensor:
+    """``a @ b.T · inv_temp`` from ``gemm_dtype`` operands, f32 results."""
+    if gemm_dtype == "bfloat16":
+        # a product of two bf16 values is exact in f32: this is the bf16
+        # product with f32 accumulation
+        a = a.to(torch.bfloat16).to(torch.float32)
+        b = b.to(torch.bfloat16).to(torch.float32)
+    return (a @ b.T) * inv_temp
+
+
 def inbatch_loss(
     ue: torch.Tensor, ie: torch.Tensor, inv_temp: float,
     gemm_dtype: str = "bfloat16", fused_ce: str = "auto",
@@ -146,17 +177,11 @@ def inbatch_loss(
     B, D = ue.shape
     if uses_fused_ce(B, D, inv_temp, gemm_dtype, fused_ce):
         return fused_inbatch_ce(ue, ie, inv_temp, "interpret" if fused_ce == "interpret" else "auto")
-
-    def logits(a, b):
-        if gemm_dtype == "bfloat16":
-            # a product of two bf16 values is exact in f32: this is the
-            # bf16 product with f32 accumulation
-            a = a.to(torch.bfloat16).to(torch.float32)
-            b = b.to(torch.bfloat16).to(torch.float32)
-        return (a @ b.T) * inv_temp
-
     labels = torch.arange(B, device=ue.device)
-    return 0.5 * (F.cross_entropy(logits(ue, ie), labels) + F.cross_entropy(logits(ie, ue), labels))
+    return 0.5 * (
+        F.cross_entropy(_logits(ue, ie, inv_temp, gemm_dtype), labels)
+        + F.cross_entropy(_logits(ie, ue, inv_temp, gemm_dtype), labels)
+    )
 
 
 def train_step(
@@ -178,6 +203,116 @@ def train_step(
     return loss.detach()
 
 
+class _ShardedLookup(torch.autograd.Function):
+    """Rows ``ids`` of a row-sharded table: each shard gathers the ids it
+    owns (the others read its row 0 and are masked to zero) and the parts
+    are summed on ``out``; the backward scatter-adds each shard's rows of
+    the gradient into a ``[rows/S, D]`` tensor of its own."""
+
+    @staticmethod
+    def forward(ctx, ids: torch.Tensor, out: torch.device, rps: int, *shards: torch.Tensor) -> torch.Tensor:
+        emb = None
+        for s, shard in enumerate(shards):
+            local = ids.to(shard.device) - s * rps
+            inr = (local >= 0) & (local < rps)
+            part = (shard.index_select(0, torch.where(inr, local, 0)) * inr[:, None]).to(out)
+            emb = part if emb is None else emb + part
+        ctx.save_for_backward(ids)
+        ctx.rps = rps
+        ctx.shapes = [(shard.shape, shard.device, shard.dtype) for shard in shards]
+        return emb
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (ids,) = ctx.saved_tensors
+        grads = []
+        for s, (shape, device, dtype) in enumerate(ctx.shapes):
+            local = ids.to(device) - s * ctx.rps
+            inr = (local >= 0) & (local < ctx.rps)
+            g = torch.zeros(shape, device=device, dtype=dtype)
+            g.index_add_(0, local[inr], grad.to(device)[inr])
+            grads.append(g)
+        return (None, None, None, *grads)
+
+
+def sharded_embedding_lookup(table, ids: torch.Tensor) -> torch.Tensor:
+    """Differentiable embedding lookup (the JAX package's
+    ``sharded_embedding_lookup``): a plain tensor is ``table[ids]``; a
+    :class:`~predictionio_tpu_torch.parallel.sharding.ShardedTable` gathers
+    each id from its owner shard onto the table's lead device, and the
+    gradient of each shard holds only that shard's rows. The values are
+    the stored ones: every id has exactly one owner, the other shards add
+    zeros."""
+    if isinstance(table, torch.Tensor):
+        return table[ids]
+    return _ShardedLookup.apply(ids, table.mesh[0], table.rows_per_shard, *table.shards)
+
+
+def _mesh_step(
+    tables: Sequence[tuple],
+    states: Sequence[AdamState],
+    u_ids: torch.Tensor,
+    i_ids: torch.Tensor,
+    config: TwoTowerConfig,
+    B: int,
+) -> torch.Tensor:
+    """One training step on a mesh: ``tables[d]`` is data position ``d``'s
+    ``(user, item)`` sharded tables (identical on every position),
+    ``u_ids``/``i_ids`` the global batch on the lead device. Each local
+    data position takes its slice of the batch; its logits see the whole
+    batch (the other local slices' embeddings copied in, other processes'
+    looked up in its own tables); the table gradients are summed over the
+    data positions and all-reduced across the processes, then every
+    position takes the same Adam step. Returns the job's loss (lead)."""
+    from predictionio_tpu_torch.parallel import distributed
+
+    P, me = distributed.process_count(), distributed.process_index()
+    D = len(tables)
+    G = P * D
+    Bp = B // G
+    lead = tables[0][0].mesh[0]
+    inv_temp = 1.0 / config.temperature
+
+    def embed(d: int, g: int) -> tuple:
+        ut, it = tables[d]
+        dev = ut.mesh[0]
+        sl = slice(g * Bp, (g + 1) * Bp)
+        return (l2_normalize(sharded_embedding_lookup(ut, u_ids[sl].to(dev))),
+                l2_normalize(sharded_embedding_lookup(it, i_ids[sl].to(dev))))
+
+    own = [embed(d, me * D + d) for d in range(D)]
+    loss = None
+    for d in range(D):
+        dev = tables[d][0].mesh[0]
+        cols = [
+            tuple(e.to(dev) for e in own[g - me * D]) if g // D == me else embed(d, g)
+            for g in range(G)
+        ]
+        ue_all = torch.cat([c[0] for c in cols])
+        ie_all = torch.cat([c[1] for c in cols])
+        g = me * D + d
+        labels = torch.arange(g * Bp, (g + 1) * Bp, device=dev)
+        ue, ie = own[d]
+        part = (
+            F.cross_entropy(_logits(ue, ie_all, inv_temp, config.gemm_dtype), labels, reduction="sum")
+            + F.cross_entropy(_logits(ie, ue_all, inv_temp, config.gemm_dtype), labels, reduction="sum")
+        ) * (0.5 / B)
+        loss = part.to(lead) if loss is None else loss + part.to(lead)
+    leaves = [[s for tbl in tables[d] for s in tbl.shards] for d in range(D)]
+    grads = torch.autograd.grad(loss, [leaf for row in leaves for leaf in row])
+    n = len(leaves[0])
+    summed = []
+    for k in range(n):  # the psum over the data positions, then the processes
+        g = grads[k]
+        for d in range(1, D):
+            g = g + grads[d * n + k].to(g.device)
+        summed.append(distributed.all_reduce_(g))
+    for d in range(D):
+        adam_update(leaves[d], [g.to(leaf.device) for g, leaf in zip(summed, leaves[d])], states[d],
+                    config.learning_rate)
+    return distributed.all_reduce_(loss.detach().clone())
+
+
 def _pad_rows(n: int, mult: int) -> int:
     return -(-n // mult) * mult
 
@@ -196,12 +331,20 @@ def train_two_tower(
     init_user: np.ndarray | None = None,
     init_item: np.ndarray | None = None,
     device: str | torch.device | None = None,
+    mesh=None,
+    data_axis: str = "data",
+    model_axis: str = "model",
 ) -> TwoTowerModel:
-    """Train user/item towers from implicit interaction pairs.
+    """Train user/item towers from implicit interaction pairs, on
+    ``device`` (default: the card) or on ``mesh`` (a
+    :class:`~predictionio_tpu_torch.controller.context.TrainingMesh`; one
+    position is the single-device path there).
 
-    ``rows[i]``/``cols[i]`` is one (user, item) interaction. Returns
-    L2-normalised tower vectors as host numpy. ``init_user``/``init_item``
-    (``[num_users, D]`` / ``[num_items, D]``) replace the cold draw."""
+    ``rows[i]``/``cols[i]`` is one (user, item) interaction; in a
+    multi-process job every process holds the same pairs (the batches are
+    global, the tables are what shard). Returns L2-normalised tower
+    vectors as host numpy. ``init_user``/``init_item`` (``[num_users, D]``
+    / ``[num_items, D]``) replace the cold draw."""
     rows = np.asarray(rows, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
     if rows.shape != cols.shape or rows.ndim != 1:
@@ -216,17 +359,21 @@ def train_two_tower(
         raise ValueError(f"gemm_dtype must be one of {GEMM_DTYPES}, got {config.gemm_dtype!r}")
     if config.fused_ce not in FUSED_CE_SETTINGS:
         raise ValueError(f"fused_ce must be one of {FUSED_CE_SETTINGS}, got {config.fused_ce!r}")
-    dev = resolve_device(device)
+    if mesh is not None and mesh.size == 1:
+        device, mesh = mesh.devices[0], None
+    dev = resolve_device(device if mesh is None else mesh.devices[0])
     if dev.type == "cuda":
         # f32 products in full f32, as the JAX package's default precision
         torch.backends.cuda.matmul.allow_tf32 = False
     D, B = config.dim, config.batch_size
+    if mesh is not None:
+        B = _pad_rows(B, mesh.shape.get(data_axis, 1))
 
     # cold init at the unpadded shape from an explicit generator, on the
-    # host so the card and the CPU draw the same tables
+    # host so the card and the CPU (and every process) draw the same tables
     gen = torch.Generator().manual_seed(config.seed)
     scale = 1.0 / np.sqrt(D)
-    tables = []
+    host = []
     for name, init, n in (("user", init_user, num_users), ("item", init_item, num_items)):
         base = torch.randn((n, D), generator=gen, dtype=torch.float32) * scale
         if init is not None:
@@ -234,8 +381,22 @@ def train_two_tower(
             if init.shape != (n, D):
                 raise ValueError(f"init_{name} must have shape {(n, D)}, got {init.shape}")
             base = torch.from_numpy(init.copy())
-        tables.append(base.to(dev).requires_grad_(True))
-    state = AdamState(tables)
+        host.append(base)
+    if mesh is None:
+        tables = [t.to(dev).requires_grad_(True) for t in host]
+        state = AdamState(tables)
+    else:
+        from predictionio_tpu_torch.parallel.sharding import ServingMesh, shard_table
+
+        positions = []
+        for d in range(mesh.local_size // mesh.local(model_axis)):
+            row = ServingMesh(mesh.row(d, model_axis))
+            pair = tuple(shard_table(t.numpy(), row) for t in host)  # zero rows pad the split
+            for tbl in pair:
+                for shard in tbl.shards:
+                    shard.requires_grad_(True)
+            positions.append(pair)
+        states = [AdamState([s for tbl in pair for s in tbl.shards]) for pair in positions]
 
     # pad to a whole number of batches by resampling real pairs (padding
     # with a sentinel would inject a fake item); upload once
@@ -261,7 +422,10 @@ def train_two_tower(
         r_all, c_all = r_base[perm], c_base[perm]
         for step in range(steps_per_epoch):
             sl = slice(step * B, (step + 1) * B)
-            losses[step] = train_step(tables, state, r_all[sl], c_all[sl], config)
+            if mesh is None:
+                losses[step] = train_step(tables, state, r_all[sl], c_all[sl], config)
+            else:
+                losses[step] = _mesh_step(positions, states, r_all[sl], c_all[sl], config, B)
         for i, loss in enumerate(losses.tolist()):  # one readback per epoch
             step = epoch * steps_per_epoch + i
             if step % config.log_every == 0 or step == total_steps - 1:
@@ -271,8 +435,12 @@ def train_two_tower(
 
     t_final = time.perf_counter()
     with torch.no_grad():
-        user_vecs = l2_normalize(tables[0]).cpu().numpy()
-        item_vecs = l2_normalize(tables[1]).cpu().numpy()
+        if mesh is None:
+            user_vecs = l2_normalize(tables[0]).cpu().numpy()
+            item_vecs = l2_normalize(tables[1]).cpu().numpy()
+        else:  # assembled on the host from data position 0's shards
+            user_vecs = l2_normalize(torch.from_numpy(np.asarray(positions[0][0]))).numpy()[:num_users]
+            item_vecs = l2_normalize(torch.from_numpy(np.asarray(positions[0][1]))).numpy()[:num_items]
     t_final = time.perf_counter() - t_final
     return TwoTowerModel(
         user_vecs=user_vecs,

@@ -6,9 +6,10 @@ each device of a one-axis ``model`` mesh holds a ``[rows/S, K]`` slice of
 each table, so a device's factor memory is ``O((U+I)·K / S)`` and the
 largest servable catalog grows with the mesh.
 
-The mesh is the local devices of one process, addressed one by one (no
-``torch.distributed``; the multi-process tier waits for ROADMAP queue 1
-item 15):
+The serving mesh is the local devices of one process, addressed one by
+one (the training mesh, ``controller/context.py``'s ``mesh_context``,
+spans the processes of a job; its tables are :class:`ShardedTable`\\ s
+too):
 
 * :class:`ServingMesh` — an ordered tuple of ``torch.device``\\ s, one per
   shard. The first leads: query rows, finalists and results land there.

@@ -25,7 +25,9 @@ Counterpart of ``predictionio_tpu/templates/ecommerce/engine.py``
 Query ``{"user": "u1", "num": 4, "categories"?, "whiteList"?,
 "blackList"?}`` -> ``{"itemScores": [...]}``.
 
-Waiting: the multi-host read (ROADMAP queue 1 item 15).
+Multi-process (``PIO_COORDINATOR_*``): the SimilarProduct template's
+sharded read with buys weighing 5, and the popularity summed across
+processes; ``train`` runs on the context's mesh.
 """
 
 from __future__ import annotations
@@ -51,7 +53,12 @@ from predictionio_tpu_torch.data.store import LEventStore, PEventStore
 from predictionio_tpu_torch.templates.columnar_util import aggregate_pairs, densify_pairs, event_name_mask
 from predictionio_tpu_torch.templates.results import PredictedResult
 from predictionio_tpu_torch.templates.serving_util import allowed_items, masked_topk, pin_tables, release_tables
-from predictionio_tpu_torch.templates.similarproduct.engine import MULTI_HOST, implicit_als, read_categories
+from predictionio_tpu_torch.templates.similarproduct.engine import (
+    implicit_als,
+    keyed_coo,
+    read_categories,
+    sharded_pair_counts,
+)
 
 __all__ = [
     "Query",
@@ -111,15 +118,25 @@ class ECommerceDataSource(DataSource):
 
     def read_training(self, ctx: WorkflowContext) -> TrainingData:
         """Columnar bulk scan + grouped weighted sums (the JAX package's
-        single-host read)."""
-        if ctx.num_hosts != 1:
-            raise NotImplementedError(MULTI_HOST)
+        single-host read). Multi-process: this process's shard of the
+        events, the weighted counts summed across processes, the job's
+        BiMaps, and the popularity summed over every process's pairs."""
         p = self.params
+        categories = read_categories(p.app_name, p.item_entity_type)
+        if ctx.num_hosts != 1:
+            from predictionio_tpu_torch.parallel.exchange import global_sum_array
+
+            # a buy is a much stronger signal than a view
+            counts = sharded_pair_counts(ctx, p.app_name, {p.view_event: 1.0, p.buy_event: 5.0})
+            rows, cols, vals, user_index, item_index = keyed_coo(counts, categories)
+            popularity = np.zeros(len(item_index), dtype=np.float32)
+            np.add.at(popularity, cols, vals)
+            return TrainingData(rows, cols, vals, user_index, item_index, categories,
+                                global_sum_array(popularity))
         cols_batch = PEventStore.find_columns(app_name=p.app_name, event_names=[p.view_event, p.buy_event])
         weights = np.ones(len(cols_batch), np.float32)
         weights[event_name_mask(cols_batch, p.buy_event)] = 5.0
         u_sel, i_sel, vals = aggregate_pairs(cols_batch, weights)
-        categories = read_categories(p.app_name, p.item_entity_type)
         rows, cols_idx, user_vocab, item_vocab = densify_pairs(cols_batch, u_sel, i_sel, extra_items=categories)
         item_index = BiMap.string_index(item_vocab)
         popularity = np.zeros(len(item_index), dtype=np.float32)
@@ -178,7 +195,7 @@ class ECommAlgorithm(TorchAlgorithm):
         super().__init__(params, device)
 
     def train(self, ctx: WorkflowContext, pd: TrainingData) -> ECommModel:
-        factors = implicit_als(self, pd, self.params)
+        factors = implicit_als(self, pd, self.params, ctx.mesh)
         return ECommModel(
             user_factors=factors.user.cpu().numpy(),
             item_factors=factors.item.cpu().numpy(),

@@ -53,7 +53,13 @@ switches: the deploy's device decides where a model serves.
   programs compiled ahead of time per k bucket; ``predict`` and
   ``batch_predict`` run them where they fit, with the eager path's bits.
 
-Waiting: the multi-host read.
+* multi-process (``PIO_COORDINATOR_*``): each process reads its shard of
+  the events (``PEventStore.find(shard_index=, num_shards=)``), the
+  latest-wins rule is applied across processes by
+  :func:`~predictionio_tpu_torch.parallel.exchange.merge_keyed`, and every
+  process builds the same BiMaps from
+  :func:`~predictionio_tpu_torch.parallel.exchange.global_vocab`; the COO
+  stays each process's own, and ``train`` passes the context's mesh.
 """
 
 from __future__ import annotations
@@ -439,9 +445,11 @@ class RecommendationDataSource(DataSource):
         per-event Python. On a store with ``scan_state`` (the columnar
         driver) and ``incremental`` on, a repeat train reads only the new
         segments/tail through :meth:`_try_incremental`, and every read
-        leaves the cache for the next one."""
+        leaves the cache for the next one. Multi-process: this process's
+        shard of the events, merged across processes
+        (:meth:`_read_ratings_stream`), with the job's BiMaps."""
         if ctx.num_hosts != 1:
-            raise NotImplementedError("the port reads events on one host only")
+            return self._to_training_data(self._read_ratings_stream(ctx), ctx)
         p = self.params
         pe = Storage.get_p_events()
         if not (p.incremental and hasattr(pe, "scan_state")):
@@ -467,9 +475,10 @@ class RecommendationDataSource(DataSource):
 
     def _read_ratings(self, ctx: WorkflowContext) -> list[tuple[str, str, float]]:
         """``(user, item, rating)`` per distinct pair, from a full columnar
-        read (read_eval's input; it neither reads nor writes the cache)."""
+        read (read_eval's input; it neither reads nor writes the cache), or
+        multi-process from :meth:`_read_ratings_stream`."""
         if ctx.num_hosts != 1:
-            raise NotImplementedError("the port reads events on one host only")
+            return self._read_ratings_stream(ctx)
         td = self._read_full()[0]
         users = td.user_index.keys()
         items = td.item_index.keys()
@@ -478,10 +487,52 @@ class RecommendationDataSource(DataSource):
             for r, c, v in zip(td.rows.tolist(), td.cols.tolist(), td.vals.tolist())
         ]
 
+    def _read_ratings_stream(self, ctx: WorkflowContext) -> list[tuple[str, str, float]]:
+        """The per-event read of this process's shard of the store (the JAX
+        package's multi-host path): the latest event per (user, item) wins,
+        equal times go to the higher rating, and the same rule folds the
+        processes' maps together (:func:`merge_keyed`, by user), so every
+        pair lands on one process."""
+        p = self.params
+        ratings: dict[tuple[str, str], tuple[Any, float]] = {}
+        for e in PEventStore.find(
+            app_name=p.app_name,
+            entity_type="user",
+            event_names=[p.rate_event, p.buy_event],
+            shard_index=ctx.host_index,
+            num_shards=ctx.num_hosts,
+        ):
+            if e.target_entity_id is None:
+                continue
+            if e.event == p.buy_event:
+                rating = p.buy_rating
+            else:
+                rating = float(e.properties.get_as("rating", float))
+            key = (e.entity_id, e.target_entity_id)
+            prev = ratings.get(key)
+            if prev is None or (e.event_time, rating) >= prev:
+                ratings[key] = (e.event_time, rating)
+        if ctx.num_hosts > 1:
+            from predictionio_tpu_torch.parallel.exchange import merge_keyed
+
+            ratings = merge_keyed(ratings, combine=max)
+        # float32, as training and the columnar read hold ratings
+        return [(u, i, float(np.float32(r))) for (u, i), (_, r) in ratings.items()]
+
     @staticmethod
-    def _to_training_data(triples: Sequence[tuple[str, str, float]]) -> TrainingData:
-        user_index = BiMap.string_index(u for u, _, _ in triples)
-        item_index = BiMap.string_index(i for _, i, _ in triples)
+    def _to_training_data(
+        triples: Sequence[tuple[str, str, float]], ctx: WorkflowContext | None = None
+    ) -> TrainingData:
+        if ctx is not None and ctx.num_hosts > 1:
+            # every process builds the SAME BiMaps: only the sorted
+            # vocabularies are all-gathered
+            from predictionio_tpu_torch.parallel.exchange import global_vocab
+
+            user_index = BiMap.string_index(global_vocab(u for u, _, _ in triples))
+            item_index = BiMap.string_index(global_vocab(i for _, i, _ in triples))
+        else:
+            user_index = BiMap.string_index(u for u, _, _ in triples)
+            item_index = BiMap.string_index(i for _, i, _ in triples)
         rows = np.fromiter((user_index[u] for u, _, _ in triples), np.int64, len(triples))
         cols = np.fromiter((item_index[i] for _, i, _ in triples), np.int64, len(triples))
         vals = np.fromiter((r for _, _, r in triples), np.float32, len(triples))
@@ -583,7 +634,8 @@ class ALSAlgorithm(TorchAlgorithm):
 
     def train(self, ctx: WorkflowContext, pd: TrainingData) -> ALSModel:
         """ALS on :attr:`device` (the engine builds the algorithm on
-        ``ctx.device``); the model comes back as host numpy. With a
+        ``ctx.device``), or on ``ctx.mesh`` when the context has one; the
+        model comes back as host numpy. With a
         previous model in ``ctx.warm_model`` (``pio train --warm-start``)
         the users and items present in both id spaces start from their
         previous rows (:func:`aligned_factor_init`), the others from the
@@ -621,6 +673,7 @@ class ALSAlgorithm(TorchAlgorithm):
             init_item=init_item,
             device=self.device,
             on_sweep=self.on_sweep,
+            mesh=ctx.mesh,
         )
         return ALSModel(
             user_factors=factors.user.cpu().numpy(),

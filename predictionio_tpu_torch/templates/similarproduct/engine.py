@@ -31,7 +31,10 @@ Counterpart of ``predictionio_tpu/templates/similarproduct/engine.py``
 Query ``{"items": ["i1"], "num": 4, "categories"?: [...], "whiteList"?:
 [...], "blackList"?: [...]}`` -> ``{"itemScores": [...]}``.
 
-Waiting: the multi-host read (ROADMAP queue 1 item 15).
+Multi-process (``PIO_COORDINATOR_*``): each process reads its shard of
+the events; the view counts are summed across processes by user and
+every process builds the same sorted BiMaps (``sharded_pair_counts``,
+``keyed_coo``); ``train`` runs on the context's mesh.
 """
 
 from __future__ import annotations
@@ -75,10 +78,6 @@ __all__ = [
     "ALSAlgorithm",
     "engine_factory",
 ]
-
-#: the multi-host read's ROADMAP item
-MULTI_HOST = "the multi-host read waits for ROADMAP queue 1 item 15"
-
 
 @dataclasses.dataclass(frozen=True)
 class Query:
@@ -129,13 +128,17 @@ class SimilarProductDataSource(DataSource):
     def read_training(self, ctx: WorkflowContext) -> TrainingData:
         """Columnar bulk scan + numpy per-pair view counting (the JAX
         package's single-host read); user vocab: viewed users only; item
-        vocab: viewed + ``$set``-only."""
-        if ctx.num_hosts != 1:
-            raise NotImplementedError(MULTI_HOST)
+        vocab: viewed + ``$set``-only. Multi-process: this process's shard
+        of the events, the counts summed across processes by user
+        (:func:`~predictionio_tpu_torch.parallel.exchange.merge_keyed`) and
+        the job's BiMaps (:func:`~predictionio_tpu_torch.parallel.exchange.global_vocab`)."""
         p = self.params
+        categories = read_categories(p.app_name, p.item_entity_type)
+        if ctx.num_hosts != 1:
+            counts = sharded_pair_counts(ctx, p.app_name, {p.view_event: 1.0})
+            return TrainingData(*keyed_coo(counts, categories), categories)
         cols = PEventStore.find_columns(app_name=p.app_name, event_names=[p.view_event])
         u_sel, i_sel, counts = aggregate_pairs(cols)
-        categories = read_categories(p.app_name, p.item_entity_type)
         rows, cols_idx, user_vocab, item_vocab = densify_pairs(cols, u_sel, i_sel, extra_items=categories)
         return TrainingData(
             rows=rows,
@@ -145,6 +148,40 @@ class SimilarProductDataSource(DataSource):
             item_index=BiMap.string_index(item_vocab),
             categories=categories,
         )
+
+
+def sharded_pair_counts(ctx: WorkflowContext, app_name: str, weights: dict) -> dict:
+    """Multi-process read of both ALS templates: this process's shard of
+    the events, each (user, item) pair's weighted count, summed across
+    the processes by user (every pair then lives on one process)."""
+    import operator
+
+    from predictionio_tpu_torch.parallel.exchange import merge_keyed
+
+    counts: dict[tuple[str, str], float] = {}
+    for e in PEventStore.find(
+        app_name=app_name, event_names=list(weights), shard_index=ctx.host_index, num_shards=ctx.num_hosts,
+    ):
+        if e.target_entity_id is None:
+            continue
+        key = (e.entity_id, e.target_entity_id)
+        counts[key] = counts.get(key, 0.0) + weights[e.event]
+    return merge_keyed(counts, combine=operator.add)
+
+
+def keyed_coo(counts: dict, categories: dict) -> tuple:
+    """``(rows, cols, vals, user_index, item_index)`` of this process's
+    merged counts, in the job's BiMaps: every process builds the same ones
+    from the sorted vocabularies (items: counted and ``$set``-only)."""
+    from predictionio_tpu_torch.parallel.exchange import global_vocab
+
+    user_index = BiMap.string_index(global_vocab(u for u, _ in counts))
+    item_index = BiMap.string_index(global_vocab(list(i for _, i in counts) + list(categories)))
+    n = len(counts)
+    rows = np.fromiter((user_index[u] for u, _ in counts), np.int64, n)
+    cols = np.fromiter((item_index[i] for _, i in counts), np.int64, n)
+    vals = np.fromiter(counts.values(), np.float32, n)
+    return rows, cols, vals, user_index, item_index
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,9 +204,9 @@ class SimilarProductModel:
     categories: dict
 
 
-def implicit_als(algo: TorchAlgorithm, pd, p) -> Any:
-    """Implicit ALS of the two ALS templates on ``algo.device`` (the
-    JAX package's ``ALSConfig``; ``algo.on_sweep`` goes to
+def implicit_als(algo: TorchAlgorithm, pd, p, mesh=None) -> Any:
+    """Implicit ALS of the two ALS templates on ``algo.device``, or on
+    ``mesh`` (the JAX package's ``ALSConfig``; ``algo.on_sweep`` goes to
     :func:`train_als`)."""
     return train_als(
         pd.rows, pd.cols, pd.vals,
@@ -180,6 +217,7 @@ def implicit_als(algo: TorchAlgorithm, pd, p) -> Any:
         ),
         device=algo.device,
         on_sweep=algo.on_sweep,
+        mesh=mesh,
     )
 
 
@@ -194,7 +232,7 @@ class ALSAlgorithm(TorchAlgorithm):
         super().__init__(params, device)
 
     def train(self, ctx: WorkflowContext, pd: TrainingData) -> SimilarProductModel:
-        item = implicit_als(self, pd, self.params).item.cpu().numpy()
+        item = implicit_als(self, pd, self.params, ctx.mesh).item.cpu().numpy()
         norms = np.linalg.norm(item, axis=1, keepdims=True)
         norms[norms == 0] = 1.0
         return SimilarProductModel(item_factors=item / norms, item_index=pd.item_index, categories=pd.categories)

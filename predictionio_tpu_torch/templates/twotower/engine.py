@@ -12,7 +12,8 @@ DASE spine (:func:`engine_factory`):
 * :class:`TwoTowerAlgorithm` trains the towers with
   :func:`predictionio_tpu_torch.ops.twotower.train_two_tower` on the
   context's device (the fused softmax-CE kernels on the card; from a
-  previous model's aligned towers under ``pio train --warm-start``).
+  previous model's aligned towers under ``pio train --warm-start``), or
+  on its mesh (``pio train --mesh``: sharded tables, the unfused loss).
   ``prepare_model_for_serving`` pins the towers on the card, or keeps
   them host numpy on the CPU (the JAX package's host branch), and
   ``predict``/``batch_predict`` rank the catalog there by cosine score
@@ -40,7 +41,9 @@ engine.json is the JAX package's, byte for byte::
                      "params": {"embeddingDim": 64, "batchSize": 512,
                                 "epochs": 5, "learningRate": 0.05}}]}
 
-Waiting: the multi-host read and the AOT serving tier.
+Multi-process (``PIO_COORDINATOR_*``): each process reads its shard of
+the events, and the distinct pairs are all-gathered, so every process
+trains on the job's pairs.
 """
 
 from __future__ import annotations
@@ -145,17 +148,35 @@ class TwoTowerDataSource(DataSource):
         super().__init__(params)
 
     def _columns(self, ctx: WorkflowContext):
-        if ctx.num_hosts != 1:
-            raise NotImplementedError("the port reads events on one host only")
         p = self.params
         return PEventStore.find_columns(app_name=p.app_name, event_names=list(p.event_names))
 
     def _read_pairs(self, ctx: WorkflowContext) -> list:
-        """Sorted distinct (user, item) id pairs; the dedup runs over code
-        arrays, so the remaining Python is O(distinct pairs)."""
-        cols = self._columns(ctx)
-        u_sel, i_sel, _ = aggregate_pairs(cols)
-        return sorted(zip(cols.entity_vocab[u_sel].tolist(), cols.target_vocab[i_sel].tolist()))
+        """Sorted distinct (user, item) id pairs — the JOB's set on every
+        process: the batches are global and the seen filter must cover
+        every user, so a multi-process read all-gathers each process's
+        shard of the pairs (two ids each, small next to the events they
+        dedup). One process: the dedup runs over code arrays, so the
+        remaining Python is O(distinct pairs)."""
+        if ctx.num_hosts == 1:
+            cols = self._columns(ctx)
+            u_sel, i_sel, _ = aggregate_pairs(cols)
+            return sorted(zip(cols.entity_vocab[u_sel].tolist(), cols.target_vocab[i_sel].tolist()))
+        from predictionio_tpu_torch.parallel.exchange import allgather_objects
+
+        p = self.params
+        pairs = {
+            (e.entity_id, e.target_entity_id)
+            for e in PEventStore.find(
+                app_name=p.app_name, event_names=list(p.event_names),
+                shard_index=ctx.host_index, num_shards=ctx.num_hosts,
+            )
+            if e.target_entity_id is not None
+        }
+        merged: set = set()
+        for contrib in allgather_objects(sorted(pairs)):
+            merged.update(tuple(pr) for pr in contrib)
+        return sorted(merged)
 
     @staticmethod
     def _to_training_data(pairs: Sequence) -> TrainingData:
@@ -172,7 +193,10 @@ class TwoTowerDataSource(DataSource):
     def read_training(self, ctx: WorkflowContext) -> TrainingData:
         """Vectorized read: the columnar bulk scan and a grouped pair
         dedup, no per-event Python; the seen filter is built from the
-        (much smaller) distinct pairs."""
+        (much smaller) distinct pairs. Multi-process: the job's pairs on
+        every process (:meth:`_read_pairs`)."""
+        if ctx.num_hosts != 1:
+            return self._to_training_data(self._read_pairs(ctx))
         cols = self._columns(ctx)
         u_sel, i_sel, _counts = aggregate_pairs(cols)
         rows, cols_idx, user_vocab, item_vocab = densify_pairs(cols, u_sel, i_sel)
@@ -311,6 +335,7 @@ class TwoTowerAlgorithm(TorchAlgorithm):
             init_user=init_user,
             init_item=init_item,
             device=self.device,
+            mesh=ctx.mesh,
         )
         self.train_timings = dict(model.timings)
         return TwoTowerServingModel(

@@ -349,12 +349,12 @@ def export_events(
     format: str = "json",
     out: Out = _print,
 ) -> int:
-    """``pio export`` — event store -> JSON-lines file, or a columnar
+    """``pio export`` — event store -> JSON-lines file, a directory of
+    round-robin shard files (``num_shards > 0``, for multi-host training
+    reads: :mod:`predictionio_tpu_torch.parallel.reader`), or a columnar
     segment directory (``format="columnar"`` — the reference's ``--format
     parquet`` analog: dictionary-encoded, read back at array speed)
-    (parity: ``tools/export/EventsToFile.scala``). The JAX package's
-    ``num_shards > 0`` (round-robin shard files for multi-host reads)
-    waits for the port's parallel reader and raises ``ValueError``."""
+    (parity: ``tools/export/EventsToFile.scala``)."""
     app_id, channel_id = resolve_app(app_name, channel)
     events = Storage.get_p_events().find(app_id, channel_id)
     if format == "columnar":
@@ -385,10 +385,11 @@ def export_events(
     if format != "json":
         raise ValueError(f"unknown export format {format!r} (json|columnar)")
     if num_shards > 0:
-        raise ValueError(
-            "--sharded waits for the port's parallel reader "
-            "(parallel/reader.py); export one JSON-lines file"
-        )
+        from predictionio_tpu_torch.parallel.reader import write_event_shards
+
+        paths = write_event_shards(events, output_path, num_shards=num_shards)
+        out(f"Exported {len(paths)} shards to {output_path}.")
+        return len(paths)
     n = 0
     with open(output_path, "w") as f:
         for event in events:

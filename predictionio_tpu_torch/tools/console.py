@@ -17,7 +17,7 @@ Counterpart of ``predictionio_tpu/tools/console.py`` (parity:
                [--cert PEM --key PEM] [--drain-deadline-s S]
     pio train  --engine-json FILE [--batch B] [--skip-sanity-check]
                [--stop-after-read] [--stop-after-prepare] [--warm-start]
-               [--device D]
+               [--device D] [--mesh auto|none|data=N,model=M] [--aot]
     pio deploy --engine-json FILE [--ip IP] [--port N]
                [--engine-instance-id ID] [--device D]
                [--batching ...] [--result-cache ...] [--coalesce]
@@ -37,9 +37,9 @@ Counterpart of ``predictionio_tpu/tools/console.py`` (parity:
                [--output-path FILE] [--device D] [--grid] [--promote-to URL]
     pio template list | get NAME DIRECTORY [--appname APP]
 
-Where the JAX console takes ``--mesh``, ``train``, ``deploy``,
-``batchpredict`` and ``eval`` take ``--device``: ``cuda`` (the default,
-the card; it fails where there is none) or ``cpu``. ``deploy --port 0``
+``train``, ``deploy``, ``batchpredict`` and ``eval`` take ``--device``
+as well: ``cuda`` (the default, the card; it fails where there is none)
+or ``cpu``. ``deploy --port 0``
 and ``eventserver --port 0`` bind a free port and print ``Bound port
 N``; SIGTERM or SIGINT stops either (after a drain when given
 ``--drain-deadline-s``), and so does ``pio undeploy`` for a deploy, with
@@ -72,7 +72,16 @@ ALS candidates as one batched program a fold on ``--device``, and
 with one variant a candidate. Run as ``python -m
 predictionio_tpu_torch.tools.console``.
 
-Waiting: ``export --sharded`` (item 15) and the verbs of item 19.
+``train --mesh`` (default ``auto``: every local position on the data
+axis; ``none``; ``data=N,model=M``) trains on a mesh of this process's
+devices. With ``PIO_COORDINATOR_ADDRESS``, ``PIO_NUM_PROCESSES`` and
+``PIO_PROCESS_ID`` set, ``train`` first joins the ``torch.distributed``
+process group (``parallel/distributed.py``); every process runs the same
+command on its shard of the events, the data axis spans the processes,
+and process 0 writes the instance and the blob. ``export --sharded N``
+writes N round-robin shard files (``parallel/reader.py``).
+
+Waiting: the verbs of item 19.
 """
 
 from __future__ import annotations
@@ -335,8 +344,8 @@ def build_parser() -> argparse.ArgumentParser:
         type=int,
         default=0,
         metavar="N",
-        help="N round-robin shard files for multi-host reads (waits for the "
-        "port's parallel reader; refused)",
+        help="write N round-robin shard files (events-0000i-of-0000N.jsonl) "
+        "into --output, for multi-host reads",
     )
     exp.add_argument(
         "--format",
@@ -359,6 +368,13 @@ def build_parser() -> argparse.ArgumentParser:
         "(retrains converge in fewer sweeps)",
     )
     train.add_argument("--device", default="cuda", help="'cuda' (the card) or 'cpu'")
+    train.add_argument(
+        "--mesh",
+        default="auto",
+        help="'auto' (every local position on the data axis), 'none' (one device), or "
+        "'data=N,model=M' axis sizes of this process's positions; under PIO_COORDINATOR_* "
+        "the data axis spans the processes",
+    )
     train.add_argument("--aot", action="store_true",
                        help="after training, compile the instance's serving programs per pow2 k "
                        "bucket (torch.export + AOTInductor) into <basedir>/fleet/aot/<instance>/ "
@@ -499,6 +515,60 @@ def _aot_root() -> str:
     from predictionio_tpu_torch.data.storage import Storage
 
     return os.path.join(Storage.base_dir(), "fleet", "aot")
+
+
+def _parse_mesh(spec: str, device: str):
+    """``pio train --mesh``: the training context. ``none`` is one device;
+    ``auto`` every local position on the data axis; ``data=N,model=M``
+    this process's axis sizes. Under a process group the process's device
+    is the one the group gave it."""
+    from predictionio_tpu_torch.controller.context import local_context, mesh_context
+    from predictionio_tpu_torch.parallel import distributed
+
+    dev = distributed.local_device() or device
+    if spec == "none":
+        return local_context(dev)
+    if spec == "auto":
+        return mesh_context(device=dev)
+    sizes = {}
+    for part in spec.split(","):
+        axis, _, n = part.partition("=")
+        if not n.strip().isdigit():
+            raise ValueError(f"--mesh {spec!r}: expected 'auto', 'none' or 'data=N,model=M'")
+        sizes[axis.strip()] = int(n)
+    return mesh_context(axis_sizes=list(sizes.values()), axis_names=list(sizes), device=dev)
+
+
+def _train(args) -> None:
+    """``pio train``: the process group first when ``PIO_COORDINATOR_*`` is
+    set (every process runs the same command; process 0 writes), then the
+    workflow on ``--mesh``."""
+    from predictionio_tpu_torch.parallel import distributed
+    from predictionio_tpu_torch.workflow.core import WorkflowParams, run_train
+    from predictionio_tpu_torch.workflow.engine_json import load_engine_variant
+
+    started = not distributed.is_multihost() and distributed.initialize_from_env(device=args.device)
+    try:
+        _setup_compilation_cache(args.compilation_cache_dir)
+        variant = load_engine_variant(args.engine_json)
+        ctx = _parse_mesh(args.mesh, args.device)
+        instance = run_train(
+            variant,
+            ctx,
+            WorkflowParams(
+                batch=args.batch,
+                skip_sanity_check=args.skip_sanity_check,
+                stop_after_read=args.stop_after_read,
+                stop_after_prepare=args.stop_after_prepare,
+                warm_start=args.warm_start,
+            ),
+        )
+        if args.aot and ctx.host_index == 0:
+            _train_aot_export(variant, ctx, instance)
+        print(f"Training completed. Engine instance: {instance.id}")
+    finally:
+        if started:
+            distributed.shutdown()
 
 
 def _train_aot_export(variant, ctx, instance) -> None:
@@ -1136,27 +1206,7 @@ def main(argv: list[str] | None = None) -> int:
         elif cmd == "eventserver":
             _eventserver(args)
         elif cmd == "train":
-            from predictionio_tpu_torch.controller.context import local_context
-            from predictionio_tpu_torch.workflow.core import WorkflowParams, run_train
-            from predictionio_tpu_torch.workflow.engine_json import load_engine_variant
-
-            _setup_compilation_cache(args.compilation_cache_dir)
-            variant = load_engine_variant(args.engine_json)
-            ctx = local_context(args.device)
-            instance = run_train(
-                variant,
-                ctx,
-                WorkflowParams(
-                    batch=args.batch,
-                    skip_sanity_check=args.skip_sanity_check,
-                    stop_after_read=args.stop_after_read,
-                    stop_after_prepare=args.stop_after_prepare,
-                    warm_start=args.warm_start,
-                ),
-            )
-            if args.aot:
-                _train_aot_export(variant, ctx, instance)
-            print(f"Training completed. Engine instance: {instance.id}")
+            _train(args)
         elif cmd == "deploy":
             return _deploy(args)
         elif cmd == "undeploy":

@@ -6,8 +6,10 @@ models, insert COMPLETED ``EngineInstance`` with timings;
 ``runEvaluation``) and the argument surface of
 ``core/workflow/WorkflowParams.scala``.
 
-One host, one device. The multi-host exchanges wait with the port's
-distributed path.
+In a multi-process job (``PIO_COORDINATOR_*``) every process trains —
+the collectives need all of them — but only process 0 (the coordinator,
+the Spark-driver role) writes the instance and the model blob, and a warm
+start seeds every process from process 0's predecessor or from none.
 """
 
 from __future__ import annotations
@@ -88,6 +90,7 @@ def run_train(
     engine = variant.build_engine()
     engine_params = variant.engine_params(engine)
     instances = Storage.get_meta_data_engine_instances()
+    is_writer = ctx.host_index == 0
     instance = EngineInstance(
         id=uuid.uuid4().hex,
         status="TRAINING",
@@ -98,10 +101,11 @@ def run_train(
         engine_variant=variant.id,
         engine_factory=variant.engine_factory,
         batch=workflow_params.batch,
-        mesh_conf={"device": str(ctx.device)},
+        mesh_conf=ctx.mesh_conf(),
         **params_json(engine_params),
     )
-    instances.insert(instance)
+    if is_writer:
+        instances.insert(instance)
     try:
         warm_models = None
         warm_from = None
@@ -109,6 +113,16 @@ def run_train(
             prev = instances.get_latest_completed(
                 instance.engine_id, instance.engine_version, instance.engine_variant
             )
+            if ctx.num_hosts > 1:
+                # every process seeds from the SAME predecessor: process
+                # 0's choice wins, through the process group
+                from predictionio_tpu_torch.parallel.exchange import allgather_objects
+
+                prev_id = allgather_objects(prev.id if (is_writer and prev is not None) else None)[0]
+                if prev_id is None:
+                    prev = None
+                elif prev is None or prev.id != prev_id:
+                    prev = instances.get(prev_id)
             blob = Storage.get_model_data_models().get(prev.id) if prev is not None else None
             if blob is not None:
                 try:
@@ -128,6 +142,18 @@ def run_train(
                     "--warm-start requested but no completed instance with a "
                     "stored model exists for this engine/variant; cold start"
                 )
+            if ctx.num_hosts > 1:
+                # all processes warm-start from the same blob, or none does
+                from predictionio_tpu_torch.parallel.exchange import allgather_objects
+
+                have = allgather_objects(warm_from)
+                if any(h != have[0] for h in have):
+                    logger.warning(
+                        "--warm-start: not every process could load the predecessor model (%s); "
+                        "cold start everywhere", have,
+                    )
+                    warm_models = None
+                    warm_from = None
             if warm_from is not None:
                 logger.info("Warm-starting from completed instance %s", warm_from)
         timings: dict = {}
@@ -144,16 +170,19 @@ def run_train(
             # debugging run — nothing to persist (parity: reference aborts
             # after printing the data); record it as not-completed.
             instance = instance.with_status("STOPPED", end_time=_now())
-            instances.update(instance)
+            if is_writer:
+                instances.update(instance)
             return instance
-        blob = engine.models_to_bytes(instance.id, engine_params, models)
-        Storage.get_model_data_models().insert(Model(id=instance.id, models=blob))
-        logger.info("Saved model blob for instance %s (%d bytes)", instance.id, len(blob))
+        if is_writer:
+            blob = engine.models_to_bytes(instance.id, engine_params, models)
+            Storage.get_model_data_models().insert(Model(id=instance.id, models=blob))
+            logger.info("Saved model blob for instance %s (%d bytes)", instance.id, len(blob))
         env = {**instance.env, "phase_timings": json.dumps(timings)}
         if warm_from is not None:
             env["warm_start_from"] = warm_from
         instance = dataclasses.replace(instance, status="COMPLETED", end_time=_now(), env=env)
-        instances.update(instance)
+        if is_writer:
+            instances.update(instance)
         logger.info(
             "Training completed: instance %s in %.1fs",
             instance.id,
@@ -161,7 +190,8 @@ def run_train(
         )
         return instance
     except Exception:
-        instances.update(instance.with_status("FAILED", end_time=_now()))
+        if is_writer:
+            instances.update(instance.with_status("FAILED", end_time=_now()))
         raise
 
 

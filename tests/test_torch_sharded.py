@@ -13,8 +13,9 @@ template, ``QueryService``, the workflow and the event and storage
 classes. The port's mesh is ``(cpu,)*8``, set by its own
 :func:`~predictionio_tpu_torch.parallel.sharding.local_devices` for each
 case — the counterpart of the 8 host devices ``tests/conftest.py`` gives
-JAX. ``TestTrainingParity1x8`` (the training mesh) waits for ROADMAP
-queue 1 item 15.
+JAX. ``TestTrainingParity1x8`` (the training mesh) is held by
+``tests/test_torch_mesh_train.py``, whose ALS and Two-Tower cases run the
+``(1, 8)`` mesh among the others against the JAX package's.
 
 Then the same seeded factors through the JAX package's sharded kernels
 (its 8 CPU devices) and the port's, and the port's own contracts: the
