@@ -98,9 +98,19 @@ Phases, in order; any failure exits non-zero and prints no result:
 4. ALS    — in a temporary ``PIO_FS_BASEDIR``: the launch counts are set to
    0, ``run_train`` trains on the card, a ``QueryService`` of the stored
    instance answers 64 queries over HTTP, and the counts are read and
-   checked against the bucket plan; then one user half-sweep is held
-   against the same half-sweep with the plain solve, and one more sweep
-   runs under torch.profiler: device time by kernel and busy share.
+   checked against the bucket plan; ``ALSConfig.bucketing="auto"`` must
+   bucket both sides on the card (``build_buckets_device``, each timed to
+   a synchronise; sweep 1 timed from its end). ``[bucketing]``: both
+   sides bucketed on the host and on the card from the same arrays, every
+   array ``torch.equal``, the host and device seconds, the bytes sent up
+   and the readbacks (an aten-level count). Then one user half-sweep is
+   held against the same half-sweep with the plain solve, and one more
+   sweep runs under torch.profiler: device time by kernel and busy share.
+   ``[als-config]``: small trains on the quickstart's ratings with
+   ``solver="cholesky"`` (0 launches, the cross-solver band of "auto"),
+   ``rank_pad_multiple=8`` at rank 10 (K 16, launches = plan) and
+   ``precision="high"`` (train RMSE within 1e-3 of "highest"), the matmul
+   settings as they were after each.
 4b. multihost — after phase 4, beside it the child processes of (b) and
    (c), joined after phase 5. (a) ``train_als(mesh=)`` of phase 4's
    ratings on ``MH_MESH`` over ``(cuda:0,)*8``: train RMSE within
@@ -125,8 +135,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    rule at ``MH_TIE_RTOL``), its
    ``mesh_conf`` naming 2 processes and gloo. (d) one Two-Tower epoch on
    ``MH_TT_MESH``: 0 fused-CE launches, every logged loss within
-   ``MH_TT_LOSS_RTOL`` of the single-device unfused run's. ``[multihost]``
-   lines.
+   ``MH_TT_LOSS_RTOL`` of the single-device unfused run's; the towers'
+   difference printed, and again for both runs with float32 logit
+   products, which must stay in the band of ``MH_TT_TOWER_*``.
+   ``[multihost]`` lines.
 5. Two-Tower — the same for the towers: the counts checked against the
    step plan; the stored loss must fall below 0.8x its first value and
    recall@10 on held-out pairs exceed 5x random (the user's top-10 over
@@ -135,8 +147,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    64 queries; one steady training step runs under torch.profiler.
 6. quickstart — in a child process (``phase_quickstart_group``, with the grid,
    the A/B fleet and the bandit loop of phase 14) started after phase 5
-   and joined after phase 7, so it runs beside the Two-Tower quickstart's
-   phases; in a temporary ``PIO_FS_BASEDIR``: ``console.main(["app",
+   beside phase 7's and phase 12's children and joined before the fleets
+   of phase 13, so it runs beside the workflow's phases; in a temporary ``PIO_FS_BASEDIR``: ``console.main(["app",
    "new", ...])``; ``console.main(["import", ...])`` of the events' NDJSON
    file, timed; the counts set to 0, ``console.main(["train", ...])`` on
    the default device, the counts read and checked against the plan; the
@@ -148,7 +160,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    plans (from the port's ``read_eval``), the score above the precision of
    a random ranking, the ``EvaluationInstance`` EVALCOMPLETED; one
    ``[quickstart]`` line.
-7. Two-Tower quickstart — the same verbs for the Two-Tower engine in its
+7. Two-Tower quickstart — in a child process (``phase_tt_group``, with
+   the Two-Tower tiers of phases 9, 10, 11, 11b and 15), started and
+   joined with phase 6's: the same verbs for the Two-Tower engine in its
    own temporary ``PIO_FS_BASEDIR``, the fused-CE launches of ``train`` and
    of ``eval`` checked against their step plans, the stored loss and
    recall@10 held to phase 5's bars, the deploy's top-10s to float64 numpy
@@ -241,8 +255,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    tables), and an incrementally updated index must keep recall@10 within
    0.02 of a rebuild on the same factors. In the Two-Tower quickstart's
    store (``phase_tt_ann``): ``--ann --quantize int8`` under 8 x 50, no
-   seen item in an answer. Then the JAX bench's sweeps
-   (``phase_ann_sweep``) over clustered catalogs of 27,000, 65,536 and
+   seen item in an answer. The JAX bench's sweeps (``phase_sweeps``, a
+   child process beside phase 15's export, which leaves the card idle,
+   joined before its deploys; ``phase_ann_sweep``) over clustered catalogs of 27,000, 65,536 and
    262,144 items at dim 64: exact against IVF (nprobe 8) on 8,192 queries
    in chunks of 512, recall@10 at least 0.95 and the full probe equal to
    exact to the bit; the two-stage int8 top-10 (recall@10 at least 0.99
@@ -416,6 +431,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from predictionio_tpu_torch.controller.context import local_context, mesh_context
 from predictionio_tpu_torch.data.bimap import BiMap
@@ -426,8 +442,10 @@ from predictionio_tpu_torch.ops.als import (
     ALSConfig,
     als_sweep,
     build_buckets,
+    build_buckets_device,
     half_sweep,
     planned_solves,
+    rated_row_mask,
     to_device_buckets,
     train_als,
 )
@@ -487,6 +505,10 @@ SWEEPS = 10
 RANK = 64
 QUERIES = 64
 TOP_K = 10
+#: the rest of ALSConfig on the quickstart's ratings: 3 sweeps, as the
+#: JAX package's cross-solver test (tests/test_als.py), and its band
+KNOB_SWEEPS = 3
+KNOB_RTOL, KNOB_ATOL = 5e-3, 5e-4
 
 #: the quickstart path: the ML-100K replica (synthesize_ml100k(42), the
 #: data of tests/test_ml100k_parity.py) imported into the event store,
@@ -765,6 +787,13 @@ MH_TRAFFIC_SLACK = 1.1
 MH_TT_MESH = (2, 4)
 MH_TT_EPOCHS = 1
 MH_TT_LOSS_RTOL = 1e-3
+#: the CPU test's band for the mesh's towers (tests/test_torch_mesh_train.py),
+#: held with float32 logit products: the largest difference within RTOL of
+#: the largest value, and at most SHARE of the entries outside the band
+#: (an entry whose gradient sums near 0 takes another Adam step; with
+#: bf16 operands three quarters move: an f32 ulp from another sum order
+#: turns into a bf16 ulp at a rounding boundary)
+MH_TT_TOWER_RTOL, MH_TT_TOWER_ATOL, MH_TT_TOWER_SHARE = 1e-3, 1e-4, 1e-4
 MH_CHILD_TIMEOUT_S = 600
 MH_ENGINE_APP = "mhqs"
 
@@ -1331,6 +1360,52 @@ def train_rmse(U: torch.Tensor, V: torch.Tensor, r: torch.Tensor, c: torch.Tenso
     return float(torch.sqrt(se / r.numel()))
 
 
+@contextlib.contextmanager
+def timed_bucketing(device, spans: list):
+    """``(seconds, end)`` of every ``build_buckets_device`` call that
+    ``ops.als`` makes in the block, each ended by a synchronise (its name
+    there is swapped for a timer that calls it)."""
+    from predictionio_tpu_torch.ops import als as als_module
+
+    real = als_module.build_buckets_device
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize(device)
+        spans.append((time.perf_counter() - t0, time.perf_counter()))
+        return out
+
+    als_module.build_buckets_device = timed
+    try:
+        yield spans
+    finally:
+        als_module.build_buckets_device = real
+
+
+class Transfers(TorchDispatchMode):
+    """The copies between the host and the card that the block's aten ops
+    make: readbacks (device to host, a scalar's included) and the bytes
+    that go up."""
+
+    def __init__(self):
+        super().__init__()
+        self.readbacks, self.up_bytes = 0, 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        copy = func is torch.ops.aten.copy_.default
+        if copy or func is torch.ops.aten._to_copy.default:
+            src, dst = (args[1], args[0]) if copy else (args[0], out)
+            if src.device.type == "cuda" and dst.device.type == "cpu":
+                self.readbacks += 1
+            elif src.device.type == "cpu" and dst.device.type == "cuda":
+                self.up_bytes += src.nbytes
+        elif func is torch.ops.aten._local_scalar_dense.default and args[0].device.type == "cuda":
+            self.readbacks += 1
+        return out
+
+
 def phase_train(device, nnz: int, sweeps: int, rank: int) -> dict:
     """``run_train`` of the ALS arrays engine on the card into the current
     store, with the train RMSE after every sweep."""
@@ -1352,15 +1427,16 @@ def phase_train(device, nnz: int, sweeps: int, rank: int) -> dict:
     v_d = torch.as_tensor(vals, device=device)
     marks: list = []  # (step, time at sweep end, rmse)
     clock = {"t": None}
+    spans: list = []  # (seconds, end) of each side's build_buckets_device
 
     def on_sweep(step: int, U: torch.Tensor, V: torch.Tensor) -> None:
         torch.cuda.synchronize(device)
         t_end = time.perf_counter()
         rmse = train_rmse(U, V, r_d, c_d, v_d)
-        sweep_s = None if clock["t"] is None else t_end - clock["t"]
+        # sweep 1 from the end of the bucketing
+        sweep_s = t_end - (spans[-1][1] if clock["t"] is None else clock["t"])
         marks.append({"sweep": step + 1, "seconds": sweep_s, "rmse": rmse})
-        log(f"[train] sweep {step + 1}: rmse {rmse:.6f}"
-            + ("" if sweep_s is None else f", {sweep_s:.4f} s"))
+        log(f"[train] sweep {step + 1}: rmse {rmse:.6f}, {sweep_s:.4f} s")
         clock["t"] = time.perf_counter()
 
     class SweepLoggedALS(ALSAlgorithm):
@@ -1372,8 +1448,11 @@ def phase_train(device, nnz: int, sweeps: int, rank: int) -> dict:
                              {"rank": rank, "numIterations": sweeps, "lambda": 0.01, "seed": 3})
     torch.cuda.reset_peak_memory_stats(device)
     t1 = time.perf_counter()
-    instance = run_train(variant, local_context(device))
+    with timed_bucketing(device, spans):
+        instance = run_train(variant, local_context(device))
     wall_s = time.perf_counter() - t1
+    if len(spans) != 2:
+        raise RuntimeError(f"train: bucketing='auto' bucketed {len(spans)} sides on the card, not 2")
     peak = torch.cuda.max_memory_allocated(device)
     timings = json.loads(instance.env["phase_timings"])
     model = stored_model(instance.id)
@@ -1384,14 +1463,16 @@ def phase_train(device, nnz: int, sweeps: int, rank: int) -> dict:
         raise RuntimeError(f"train: factor shapes {U.shape}, {V.shape}")
     if not marks[-1]["rmse"] < marks[0]["rmse"]:
         raise RuntimeError(f"train: rmse did not fall ({marks[0]['rmse']} -> {marks[-1]['rmse']})")
-    steady = [m["seconds"] for m in marks if m["seconds"] is not None]
+    steady = [m["seconds"] for m in marks[1:]]
     train_s = timings["train:"]
-    log(f"[train] {sweeps} sweeps at rank {rank} in {train_s:.3f} s "
-        f"(sweep 1 incl. bucketing and upload; later sweeps {steady}); run_train {wall_s:.3f} s "
-        f"with the blob stored; peak device memory {peak / 2**30:.3f} GiB")
+    bucketing_s = [t for t, _ in spans]
+    log(f"[train] {sweeps} sweeps at rank {rank} in {train_s:.3f} s: bucketing on the card (build_buckets_device, "
+        f"synchronised) users {bucketing_s[0]:.4f} s, items {bucketing_s[1]:.4f} s; sweep 1 after it "
+        f"{marks[0]['seconds']:.4f} s; later sweeps {steady}; run_train {wall_s:.3f} s with the blob stored; "
+        f"peak device memory {peak / 2**30:.3f} GiB")
     return {
         "variant": variant, "instance": instance, "model": model, "td": td, "expected_launches": expected,
-        "sweeps": marks, "train_s": train_s, "run_train_s": wall_s, "peak_bytes": peak,
+        "sweeps": marks, "train_s": train_s, "run_train_s": wall_s, "peak_bytes": peak, "bucketing_s": bucketing_s,
         "ratings_per_s": rows.size * len(steady) / sum(steady) if steady else None,
     }
 
@@ -1473,7 +1554,51 @@ def phase_als_serve(trained: dict, device, n_queries: int, k: int, card: str) ->
     return phase_serve(service, trained["td"], U64, V64, n_queries, k, card)
 
 
-def phase_half_sweep(trained: dict, device, rank: int) -> tuple:
+def same_buckets(a, b) -> bool:
+    """Every array of two sides' buckets equal (``torch.equal``), and their counts."""
+    arrays = [(x, y) for ca, cb in zip(a.normal + a.hot, b.normal + b.hot) for x, y in zip(ca, cb)]
+    arrays += list(zip(a.hot_rows, b.hot_rows))
+    return ((a.nnz, a.padded_nnz, len(a.normal), len(a.hot)) == (b.nnz, b.padded_nnz, len(b.normal), len(b.hot))
+            and all(x.dtype == y.dtype and torch.equal(x, y) for x, y in arrays))
+
+
+def phase_bucketing(td, device, kw: dict, smi: str) -> tuple:
+    """Both sides of the ratings bucketed on the host (``build_buckets``,
+    then ``to_device_buckets``) and on the card (``build_buckets_device``
+    of the same numpy arrays, synchronised; its copies counted in a
+    second call): every array, ``nnz``, ``padded_nnz`` and the rated
+    masks equal. Returns the host path's device buckets."""
+    U, I = len(td.user_index), len(td.item_index)
+    out, sides = {"card": smi}, []
+    for side, args in (("user", (td.rows, td.cols, td.vals, U, I)), ("item", (td.cols, td.rows, td.vals, I, U))):
+        t0 = time.perf_counter()
+        host_b = build_buckets(*args, **kw)
+        t1 = time.perf_counter()
+        host = to_device_buckets(host_b, device)
+        torch.cuda.synchronize(device)
+        t2 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        got, rated = build_buckets_device(*args, **kw, device=device)
+        torch.cuda.synchronize(device)
+        t3 = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated(device) - base
+        if not (same_buckets(got, host) and np.array_equal(rated, rated_row_mask(host_b))):
+            raise RuntimeError(f"bucketing: the {side} side's device buckets differ from the host's")
+        # counted in a call of its own: a dispatch mode's first entry
+        # costs seconds of one-time setup
+        with Transfers() as moved:
+            build_buckets_device(*args, **kw, device=device)
+        out[side] = {"host_s": t1 - t0, "upload_s": t2 - t1, "device_s": t3 - t2, "up_bytes": moved.up_bytes,
+                     "readbacks": moved.readbacks, "peak_bytes_over_start": peak,
+                     "nnz": got.nnz, "padded_nnz": got.padded_nnz, "buckets": [len(got.normal), len(got.hot)]}
+        sides.append(host)
+        del got, host_b
+    log(f"[bucketing] both sides at the ML-20M shape, device buckets torch.equal to the host's: {json.dumps(out)}")
+    return tuple(sides)
+
+
+def phase_half_sweep(trained: dict, device, rank: int, smi: str) -> tuple:
     """One user half-sweep from the trained factors: kernel solve vs the
     plain solve on the card (rtol 5e-3, atol 5e-4). Returns the factor
     tables (with the zero sentinel row) and both sides' device buckets."""
@@ -1481,9 +1606,7 @@ def phase_half_sweep(trained: dict, device, rank: int) -> tuple:
     cfg = ALSConfig(rank=rank)
     kw = dict(widths=cfg.bucket_widths, chunk_entries=cfg.chunk_entries,
               hot_group_slots=cfg.hot_group_slots)
-    U, I = len(td.user_index), len(td.item_index)
-    ub = to_device_buckets(build_buckets(td.rows, td.cols, td.vals, U, I, **kw), device)
-    ib = to_device_buckets(build_buckets(td.cols, td.rows, td.vals, I, U, **kw), device)
+    ub, ib = phase_bucketing(td, device, kw, smi)
     model = trained["model"]
     zero = torch.zeros((1, rank), device=device)
     uf = torch.cat([torch.as_tensor(model.user_factors, device=device), zero])
@@ -1495,6 +1618,51 @@ def phase_half_sweep(trained: dict, device, rank: int) -> tuple:
     torch.testing.assert_close(got, ref, rtol=5e-3, atol=5e-4)
     log(f"[train] user half-sweep, kernel vs plain solve: max abs diff {float((got - ref).abs().max()):.3g}")
     return uf, vf, ub, ib
+
+
+def phase_knobs(device, smi: str) -> dict:
+    """The rest of ``ALSConfig`` on the quickstart's ratings at rank
+    ``RANK`` and ``KNOB_SWEEPS`` sweeps, through ``train_als`` on the card:
+    "auto" launches its plan; ``solver="cholesky"`` no ``gj_solve`` and
+    factors within ``KNOB_RTOL``/``KNOB_ATOL`` of "auto";
+    ``rank_pad_multiple=8`` at rank 10 trains at K = 16 with the plan's
+    launches; ``precision="high"`` a train RMSE within 1e-3 (relative)
+    of "highest"; the matmul precision and TF32 flag as before each run."""
+    u, i, r, _ = synthesize_ml100k(42)
+    U, I = int(u.max()) + 1, int(i.max()) + 1
+    base = ALSConfig(rank=RANK, iterations=KNOB_SWEEPS, reg=0.1, seed=1)
+    plan = KNOB_SWEEPS * (planned_solves(u, U, base) + planned_solves(i, I, base))
+    r_d, c_d, v_d = (torch.as_tensor(a, device=device) for a in (u, i, r))
+    out, runs = {"card": smi, "plan": plan}, {}
+    for label, cfg in (("auto", base), ("cholesky", dataclasses.replace(base, solver="cholesky")),
+                       ("rank_pad_multiple", dataclasses.replace(base, rank=10, rank_pad_multiple=8)),
+                       ("high", dataclasses.replace(base, precision="high"))):
+        before = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        runs[label] = f = train_als(u, i, r, U, I, cfg, device=device)
+        torch.cuda.synchronize(device)
+        out[label] = {"train_s": time.perf_counter() - t0, "gj_solve_launches": read_launch_counts()["gj_solve"],
+                      "K": int(f.user.shape[1]), "rmse": train_rmse(f.user, f.item, r_d, c_d, v_d)}
+        after = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32)
+        if after != before:
+            raise RuntimeError(f"als-config {label}: matmul settings {before} became {after}")
+    diff = max(float((runs["cholesky"].user - runs["auto"].user).abs().max()),
+               float((runs["cholesky"].item - runs["auto"].item).abs().max()))
+    out["cholesky"]["max_abs_diff_to_auto"] = diff
+    out["high"]["rmse_rel_diff"] = abs(out["high"]["rmse"] - out["auto"]["rmse"]) / out["auto"]["rmse"]
+    log(f"[als-config] {json.dumps(out)}")
+    if not out["auto"]["gj_solve_launches"] == plan == out["high"]["gj_solve_launches"]:
+        raise RuntimeError(f"als-config: launches {out}, plan {plan}")
+    if out["cholesky"]["gj_solve_launches"] or not all(
+        torch.allclose(runs["cholesky"][k], runs["auto"][k], rtol=KNOB_RTOL, atol=KNOB_ATOL) for k in (0, 1)
+    ):
+        raise RuntimeError("als-config: solver='cholesky' launched the kernel or left the band of 'auto'")
+    if (out["rank_pad_multiple"]["K"], out["rank_pad_multiple"]["gj_solve_launches"]) != (16, plan):
+        raise RuntimeError(f"als-config: rank_pad_multiple=8 at rank 10 gave {out['rank_pad_multiple']}")
+    if not out["high"]["rmse_rel_diff"] <= 1e-3:
+        raise RuntimeError(f"als-config: precision='high' RMSE {out['high']['rmse_rel_diff']} from 'highest'")
+    return out
 
 
 def profile_once(fn, label: str) -> dict:
@@ -3975,6 +4143,25 @@ def same_as_plain(label: str, answers: list, plain: QueryService, user_index, k:
     return theirs
 
 
+def spare_blas_handles(device, n: int = 2) -> None:
+    """Leave ``n`` cuBLAS handles with their workspaces free for the next
+    threads' first products: a thread that finds none takes a new handle,
+    whose workspace (32 MiB here) comes from the caching allocator and
+    would count in a load's peak. ``n`` threads hold one each at once;
+    a thread's handles go back to the pool when it ends."""
+    together = threading.Barrier(n)
+
+    def product() -> None:
+        torch.ones(8, 8, device=device) @ torch.ones(8, 8, device=device)
+        together.wait(timeout=60)
+
+    workers = [threading.Thread(target=product, daemon=True) for _ in range(n)]
+    for worker in workers:
+        worker.start()
+    for worker in workers:
+        worker.join()
+
+
 def phase_sharded_service(device, ctx: dict, smi: str) -> dict:
     """``CacheConfig(shard_factors=True, pin_model=True)`` on the workflow's
     warm instance, an 8-way mesh over the card (``SHD_SHARDS``), behind the
@@ -4027,6 +4214,7 @@ def phase_sharded_service(device, ctx: dict, smi: str) -> dict:
             # the sharded exact tier; the load's peak on the card: the
             # shards alone (no replicated pin before them)
             if on_card:
+                spare_blas_handles(device)
                 torch.cuda.synchronize(device)
                 torch.cuda.reset_peak_memory_stats(device)
             mem_before = torch.cuda.memory_allocated(device) if on_card else 0
@@ -4634,6 +4822,33 @@ def phase_quickstart_group(device, smi: str) -> dict:
     qs = phase_quickstart(device, QUERIES, TOP_K, smi,
                           then=lambda ctx: (phase_grid(device, ctx, smi), phase_fleet_ab(device, ctx, smi)))
     return {"qs": qs, "loop": phase_explore_loop(device, smi)}
+
+
+def phase_tt_group(device, smi: str) -> dict:
+    """The Two-Tower quickstart, then on its store its serving tiers and
+    its AOT serving (``"serving"``: the five phases' outputs)."""
+    def on_store(ctx: dict) -> tuple:
+        return (phase_tt_serving(device, ctx, SRV_TT_CLIENTS, SRV_TT_REQUESTS, TOP_K, smi),
+                phase_tt_online(device, ctx, smi), phase_tt_ann(device, ctx, smi),
+                phase_tt_sharded(device, ctx, smi), phase_tt_aot(device, ctx, smi))
+
+    return phase_tt_quickstart(device, TTQ_NNZ, TT_DIM, TT_BATCH, TT_EPOCHS, QUERIES, TOP_K, smi, then=on_store)
+
+
+def phase_sweeps(device, smi: str) -> dict:
+    """The JAX bench's IVF and int8 sweeps, its sharded sweep and what
+    ``score_rows`` costs, each path held to 0 kernel launches."""
+    out = {}
+    for label, run in (("ann", lambda: {"ann_sweep": phase_ann_sweep(device, smi)}),
+                       ("sharded", lambda: {"shd_sweep": phase_sharded_sweep(device, smi),
+                                            "score_cost": phase_score_cost(device, smi)})):
+        reset_launch_counts()
+        out.update(run())
+        launches = read_launch_counts()
+        if any(launches.values()):
+            raise RuntimeError(f"{label}: the sweeps launched kernels {launches}; their path has none")
+        log(f"[{label}] launches on the sweeps' path: {json.dumps(launches)}; {torch.cuda.device_count()} card(s)")
+    return out
 
 
 def start_child(name: str, device, smi: str, *args: int, env: dict | None = None) -> tuple:
@@ -6013,7 +6228,7 @@ AOT_BATCH_USERS = 1000
 #: single queries timed through each in-process service (legs A B B A)
 AOT_HANDLE_QUERIES = 400
 #: requests a client of the [aot] load (the bench's 100)
-AOT_REQUESTS = 100
+AOT_REQUESTS = 50
 AOT_RELOADS = 3
 AOT_RELOAD_SLACK = 1 << 20
 AOT_FALLBACK_USERS = 64
@@ -6296,7 +6511,7 @@ def release_card_memory(device) -> None:
         torch.cuda.empty_cache()
 
 
-def phase_aot(device, ctx: dict, smi: str) -> dict:
+def phase_aot(device, ctx: dict, smi: str, after_export=None) -> dict:
     """AOT serving of the workflow's warm instance (ML-20M shape, rank 64):
     ``pio train --aot`` (``gj_solve`` launches = the plan of a full read),
     ``pio status`` saying ``present``; a ``--aot`` deploy beside a plain
@@ -6306,7 +6521,8 @@ def phase_aot(device, ctx: dict, smi: str) -> dict:
     serve-time compile; in process, the programs against the eager pinned
     path to the bit, one ``handle_batch`` of 1,000 users, ``handle_query``
     p50 of both; the fallback drills; three reloads with memory flat. No
-    kernel launches on the in-process serving path."""
+    kernel launches on the in-process serving path. ``after_export()``,
+    when given, runs once the export is done, before the deploys."""
     from predictionio_tpu_torch.serving import CacheConfig
     from predictionio_tpu_torch.workflow.aot import AotConfig
 
@@ -6316,6 +6532,8 @@ def phase_aot(device, ctx: dict, smi: str) -> dict:
     _, plan = ctx["full_read"]()
     with saved_env("PIO_COMPILATION_CACHE_DIR", "TORCHINDUCTOR_CACHE_DIR", "TRITON_CACHE_DIR"):
         trained = aot_train("als", ctx, {"gj_solve": plan}, device)
+        if after_export is not None:
+            after_export()
         instance = trained["instance"]
         model = stored_model(instance.id)
         user_index, item_index = model.user_index, model.item_index
@@ -6596,6 +6814,16 @@ def phase_mh_mesh(device, trained: dict, smi: str) -> dict:
     return out
 
 
+def tower_diff(got, ref) -> dict:
+    """Both towers of ``got`` against ``ref``'s: the largest difference over
+    the largest value, and the entries outside ``MH_TT_TOWER_RTOL`` /
+    ``MH_TT_TOWER_ATOL``."""
+    pairs = ((got.user_vecs, ref.user_vecs), (got.item_vecs, ref.item_vecs))
+    outside = sum(int((np.abs(a - b) > MH_TT_TOWER_ATOL + MH_TT_TOWER_RTOL * np.abs(b)).sum()) for a, b in pairs)
+    return {"rel": max(rel_diff(a, b) for a, b in pairs), "outside_band": outside,
+            "entries": sum(int(b.size) for _, b in pairs)}
+
+
 def phase_mh_tt(device, smi: str) -> dict:
     """(d) One Two-Tower epoch at the path's width on an in-process
     ``MH_TT_MESH`` mesh against the single-device unfused run from the
@@ -6627,14 +6855,22 @@ def phase_mh_tt(device, smi: str) -> dict:
     loss_rel = max(abs(a - b) / abs(b) for (_, a), (_, b) in zip(meshed.loss_history, single.loss_history))
     if not loss_rel <= MH_TT_LOSS_RTOL:
         raise RuntimeError(f"multihost two-tower: losses {meshed.loss_history} against {single.loss_history}")
+    # the same two epochs with float32 logit products: what is left of
+    # the towers' difference without bf16's rounding
+    f32 = dataclasses.replace(cfg, gemm_dtype="float32")
+    single32 = train_two_tower(td.rows, td.cols, num_users, num_items, f32, device=device)
+    meshed32 = train_two_tower(td.rows, td.cols, num_users, num_items, f32, mesh=mesh)
     out = {
         "mesh": list(MH_TT_MESH), "pairs": int(td.rows.size), "epochs": MH_TT_EPOCHS, "steps": steps[-1] + 1,
         "loss_first": meshed.loss_history[0][1], "loss_last": meshed.loss_history[-1][1], "loss_rel_diff": loss_rel,
-        "tower_rel_diff": max(rel_diff(meshed.user_vecs, single.user_vecs), rel_diff(meshed.item_vecs, single.item_vecs)),
+        "tower_rel_diff": tower_diff(meshed, single), "tower_rel_diff_f32": tower_diff(meshed32, single32),
         "fused_ce_launches": launches["fused_ce_fwd"] + launches["fused_ce_bwd"], "train_s": mesh_s,
         "single_train_s": single_s, "phase_s": time.perf_counter() - t_phase, "card": smi,
     }
     log(f"[multihost] two-tower {json.dumps(out)}")
+    f32_diff = out["tower_rel_diff_f32"]
+    if not (f32_diff["rel"] <= MH_TT_TOWER_RTOL and f32_diff["outside_band"] <= MH_TT_TOWER_SHARE * f32_diff["entries"]):
+        raise RuntimeError(f"multihost two-tower: float32 towers {f32_diff} from one device's")
     return out
 
 
@@ -6889,7 +7125,8 @@ def main() -> int:
         served = phase_als_serve(trained, device, QUERIES, TOP_K, info["kind"])
         als_launches = read_launch_counts()
     check_launches("train", als_launches, {"gj_solve": trained["expected_launches"]})
-    profile = phase_profile(*phase_half_sweep(trained, device, RANK), device)
+    profile = phase_profile(*phase_half_sweep(trained, device, RANK, info["smi"]), device)
+    phase_knobs(device, info["smi"])
     mark("als")
 
     # the training mesh and the multi-process tier: (b) the two ranks and
@@ -6914,29 +7151,16 @@ def main() -> int:
     shutil.rmtree(mh_dir, ignore_errors=True)
     mark("waiting for the multihost child processes")
 
-    # the quickstart paths, the grid, the A/B fleet and the bandit loop
-    # run in a child process beside the Two-Tower quickstart's phases
-    # (their own stores and launch counts); joined after them
-    quickstart_child = start_child("phase_quickstart_group", device, info["smi"])
+    # the quickstart paths with the grid, the A/B fleet and the bandit
+    # loop, the Two-Tower quickstart with its serving tiers and AOT serving,
+    # and the four other templates run in child processes beside the
+    # workflow's phases (their own stores and launch counts); joined
+    # before the fleets count the console processes on the host
+    children = [start_child("phase_quickstart_group", device, info["smi"]),
+                start_child("phase_tt_group", device, info["smi"]),
+                start_child("phase_templates", device, info["smi"], TPL_NNZ, TPL_CLS_USERS, TPL_TEXT_DOCS, QUERIES)]
+    joined: list = []
 
-    def on_tt_quickstart(ctx: dict) -> tuple:
-        mark("two-tower quickstart")
-        tt_srv = phase_tt_serving(device, ctx, SRV_TT_CLIENTS, SRV_TT_REQUESTS, TOP_K, info["smi"])
-        tt_onl = phase_tt_online(device, ctx, info["smi"])
-        tt_ann = phase_tt_ann(device, ctx, info["smi"])
-        tt_shd = phase_tt_sharded(device, ctx, info["smi"])
-        mark("two-tower serving tiers")
-        tt_aot = phase_tt_aot(device, ctx, info["smi"])
-        mark("two-tower aot")
-        return tt_srv, tt_onl, tt_ann, tt_shd, tt_aot
-
-    ttq = phase_tt_quickstart(device, TTQ_NNZ, TT_DIM, TT_BATCH, TT_EPOCHS, QUERIES, TOP_K, info["smi"],
-                              then=on_tt_quickstart)
-    tt_srv, tt_onl, tt_ann, tt_shd, tt_aot = ttq["serving"]
-    quickstart = join_child(*quickstart_child, CHILD_TIMEOUT_S)
-    qs, loop = quickstart["qs"], quickstart["loop"]
-    grid, fleet_ab = qs["then"]
-    mark("waiting for the quickstart's child process")
     # the serving tier, online learning, retrieval, the fleet and the
     # exploring deploys run on the workflow's store and warm instance
     # (their own launch counts inside)
@@ -6950,49 +7174,33 @@ def main() -> int:
         mark("ann")
         shd = phase_sharded_service(device, ctx, info["smi"])
         mark("sharded")
-        # the templates' child must be done before the fleets count the
-        # console processes on the host
-        templates_done.append(join_child(*templates_child, CHILD_TIMEOUT_S))
-        mark("waiting for the templates' child process")
+        joined.extend(join_child(*child, CHILD_TIMEOUT_S) for child in children)
+        mark("waiting for the quickstart's, the Two-Tower's and the templates' child processes")
         flt = phase_fleet(device, ctx, srv["per_request"], info["smi"])
         mark("fleet")
         exp = phase_explore_deploy(device, ctx, info["smi"])
         mark("explore deploys")
-        # last: pio train --aot makes the newest instance of the store
-        aot = phase_aot(device, ctx, info["smi"])
-        mark("aot")
+        # last: pio train --aot makes the newest instance of the store; the
+        # bench's sweeps run in a child process beside its export, which
+        # leaves the card idle, and are joined before its deploys
+        sweeps_child = start_child("phase_sweeps", device, info["smi"])
+        aot = phase_aot(device, ctx, info["smi"],
+                        after_export=lambda: joined.append(join_child(*sweeps_child, CHILD_TIMEOUT_S)))
+        mark("aot, the sweeps beside its export")
         return srv, onl, ann, shd, flt, exp, aot
 
-    # the four other templates run in a child process beside the
-    # workflow's phases (their own stores and launch counts), joined
-    # before the fleets
-    templates_child = start_child("phase_templates", device, info["smi"], TPL_NNZ, TPL_CLS_USERS, TPL_TEXT_DOCS,
-                                  QUERIES)
-    templates_done: list = []
     wf = phase_workflow(device, WF_NNZ, WF_BULK, QUERIES, TOP_K, info["smi"], then=on_workflow)
     srv, onl, ann, shd, flt, exp, aot = wf["serving"]
     online_launches = onl["in_process"]["launches"]
     if any(online_launches.values()):
         raise RuntimeError(f"online: the fold launched kernels {online_launches}; its path has none")
-    # approximate and int8 retrieval: the JAX bench's sweeps on the card
-    reset_launch_counts()
-    ann_sweep = phase_ann_sweep(device, info["smi"])
-    sweep_launches = read_launch_counts()
-    if any(sweep_launches.values()):
-        raise RuntimeError(f"ann: the sweeps launched kernels {sweep_launches}; their path has none")
-    log(f"[ann] launches on the sweeps' path: {json.dumps(sweep_launches)}; the deploys' and in-process path: "
-        f"{json.dumps(ann['launches'])}")
-    # sharded factor serving: the JAX bench's sweep on the card
-    reset_launch_counts()
-    shd_sweep = phase_sharded_sweep(device, info["smi"])
-    score_cost = phase_score_cost(device, info["smi"])
-    shd_launches = read_launch_counts()
-    if any(shd_launches.values()):
-        raise RuntimeError(f"sharded: the sweep launched kernels {shd_launches}; its path has none")
-    log(f"[sharded] launches on the sweep's path: {json.dumps(shd_launches)}; the services' path: "
-        f"{json.dumps(shd['launches'])}; {torch.cuda.device_count()} card(s)")
-    mark("ann and sharded sweeps")
-    (tpl,) = templates_done
+    log(f"[ann] launches on the deploys' and in-process path: {json.dumps(ann['launches'])}; [sharded] on the "
+        f"services' path: {json.dumps(shd['launches'])}")
+    quickstart, ttq, tpl, sweeps = joined
+    qs, loop = quickstart["qs"], quickstart["loop"]
+    grid, fleet_ab = qs["then"]
+    tt_srv, tt_onl, tt_ann, tt_shd, tt_aot = ttq["serving"]
+    ann_sweep, shd_sweep, score_cost = sweeps["ann_sweep"], sweeps["shd_sweep"], sweeps["score_cost"]
 
     main_fused = fused_rows[0]  # [8192, 64], the Two-Tower path's shape
     kernels = [
@@ -7004,6 +7212,7 @@ def main() -> int:
         "card": info["smi"], "nnz": NNZ, "rank": RANK, "sweeps": len(trained["sweeps"]),
         "rmse_first": trained["sweeps"][0]["rmse"], "rmse_last": trained["sweeps"][-1]["rmse"],
         "train_s": trained["train_s"], "run_train_s": trained["run_train_s"],
+        "bucketing_s": trained["bucketing_s"], "sweep1_s": trained["sweeps"][0]["seconds"],
         "ratings_per_s": trained["ratings_per_s"],
         "peak_gib": trained["peak_bytes"] / 2**30,
         "p50_ms": served["p50_ms"], "p99_ms": served["p99_ms"],
@@ -7160,7 +7369,8 @@ def main() -> int:
                 "shards", "single_train_s", "ranks_wall_s", "rank_launches", "plan_rank", "top10_differing",
                 "tie_gap_max", "factor_rel_diff", "phase_s")},
             "tt": {key: mh_tt[key] for key in ("mesh", "steps", "loss_rel_diff", "tower_rel_diff",
-                                               "fused_ce_launches", "train_s", "single_train_s")},
+                                               "tower_rel_diff_f32", "fused_ce_launches", "train_s",
+                                               "single_train_s")},
         },
         "wall_s": time.perf_counter() - t_start,
     }

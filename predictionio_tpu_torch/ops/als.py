@@ -1,13 +1,20 @@
 """Alternating Least Squares in PyTorch, on one device or a mesh.
 
-Counterpart of ``predictionio_tpu/ops/als.py`` (host bucketing only; the
-JAX package's on-device bucketing, ``build_buckets_device``, waits). The
-algorithm and its memory-bounded layout are the JAX package's:
+Counterpart of ``predictionio_tpu/ops/als.py``. The algorithm and its
+memory-bounded layout are the JAX package's:
 
-* **Segmented bucketing** (host, numpy) — every row's ratings are split
-  into fixed-width segments; rows hotter than the widest bucket span
-  several max-width segments ("hot" rows). Each bucket is laid out as
-  ``[n_chunks, C, L]`` chunks with ``C·L <= chunk_entries``.
+* **Segmented bucketing** — every row's ratings are split into
+  fixed-width segments; rows hotter than the widest bucket span several
+  max-width segments ("hot" rows). Each bucket is laid out as
+  ``[n_chunks, C, L]`` chunks with ``C·L <= chunk_entries``. Two paths
+  share one plan (``_plan_segments``, ``_bucket_defs``, ``_chunk_plan``
+  on the per-row counts) and give the same arrays to the bit:
+  :func:`build_buckets` sorts and fills in numpy on the host;
+  :func:`build_buckets_device` uploads the COO once, sorts and counts on
+  the device, reads back only the counts and gather-fills every bucket
+  there. ``ALSConfig.bucketing="auto"`` takes the device path for a
+  one-device train on the card; the mesh and the multi-process layouts
+  bucket on the host.
 * **Chunk loop** — for each chunk the opposite factors are gathered,
   the masked Gramians ``QᵀQ``/``Qᵀr`` formed, the ALS-WR ridge added and
   the batched SPD solve run (:func:`~predictionio_tpu_torch.ops.solve.spd_solve`,
@@ -59,9 +66,11 @@ Step checkpoints (``ALSConfig.checkpoint_dir``, every
 hold the tables at the canonical ``(rows + 1, K)`` shape, so a run resumes
 on another mesh shape.
 
-All arithmetic is float32 with TF32 off (the JAX package's
-``precision="highest"``). On one device ``index_add_`` on CUDA sums in no
-fixed order, so hot-row Gramians — and the factors that depend on them —
+All arithmetic is float32 with TF32 off during the sweeps (the JAX
+package's ``precision="highest"``; ``ALSConfig.precision`` allows TF32 or
+bf16 passes, and the process's settings come back after each sweep). On
+one device ``index_add_`` on CUDA sums in no fixed order, so hot-row
+Gramians — and the factors that depend on them —
 may differ in the last bits from run to run. The mesh sums in a fixed
 order instead (:func:`_accumulate_in_order`, and every Gramian product
 on ``GRAM_ROWS`` rows), so a mesh train gives the same bits on every
@@ -71,6 +80,7 @@ needs; it agrees with one device's train to rounding.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import math
@@ -91,6 +101,7 @@ __all__ = [
     "ALSFactors",
     "BucketedRatings",
     "build_buckets",
+    "build_buckets_device",
     "rated_row_mask",
     "to_device_buckets",
     "planned_solves",
@@ -139,6 +150,9 @@ class ALSConfig:
     implicit: bool = False
     alpha: float = 1.0
     seed: int = 0
+    #: pad the rank up to a multiple of this (0 = the exact rank): rank 10
+    #: at 8 trains at K = 16, which the Gauss-Jordan kernel takes
+    rank_pad_multiple: int = 0
     #: segment widths for bucketing (see build_buckets)
     bucket_widths: tuple = _DEFAULT_BUCKET_WIDTHS
     #: max padded entries per chunk — the device-memory knob
@@ -149,6 +163,25 @@ class ALSConfig:
     #: latest step found there (resume-on-preemption, SURVEY.md 6.4)
     checkpoint_dir: str = ""
     checkpoint_interval: int = 5
+    #: where the O(nnz) bucketing runs: "auto" sorts and fills on the card
+    #: when training on one CUDA device (build_buckets_device), on the
+    #: host otherwise; "host" / "device" force a path. The mesh and the
+    #: multi-process layouts always bucket on the host.
+    bucketing: str = "auto"
+    #: float32 products of the sweep on the card: "highest" (full f32),
+    #: "high" (TF32) or "default" (bf16 passes); restored after the train
+    precision: str = "highest"
+    #: SPD solver: "auto" (the Gauss-Jordan kernel on CUDA at K % 8 == 0,
+    #: else Cholesky), "cholesky", "pallas" (the kernel; raises on the
+    #: CPU) or "pallas_interpret" (the kernel's plain mirror)
+    solver: str = "auto"
+
+
+#: ``ALSConfig.precision`` -> ``torch.set_float32_matmul_precision``
+_PRECISIONS = {"default": "medium", "high": "high", "highest": "highest"}
+
+#: ``ALSConfig.solver`` -> the :func:`spd_solve` method
+_SOLVERS = {"auto": "auto", "cholesky": "cholesky", "pallas": "kernel", "pallas_interpret": "plain"}
 
 
 class ALSFactors(NamedTuple):
@@ -488,6 +521,137 @@ def to_device_buckets(b: BucketedRatings, device: torch.device) -> BucketedRatin
 
 
 # ---------------------------------------------------------------------------
+# Device bucketing
+# ---------------------------------------------------------------------------
+
+
+#: indices at or above this take the host path: the device sorts int32
+_INT32_LIMIT = 2**31
+
+
+def _device_coo(rows, cols, vals, num_rows: int, num_cols: int, device) -> tuple | None:
+    """Validated ``(rows int32, cols int32, vals f32)`` on the device, or
+    ``None`` for the reference's host cases: no ratings, or more than
+    int32 can index. Numpy input is checked on the host before the int32
+    cast and goes up once; tensors stay where they are and are checked
+    with one min/max readback before anything indexes with them (an
+    out-of-range index on CUDA is a device-side assert, not an error)."""
+    if all(isinstance(a, torch.Tensor) for a in (rows, cols, vals)):
+        if not (rows.dim() == 1 and rows.shape == cols.shape == vals.shape):
+            raise ValueError("rows/cols/vals must be 1-D arrays of equal length")
+        nnz = rows.numel()
+        if nnz and nnz < _INT32_LIMIT and max(num_rows, num_cols) < _INT32_LIMIT:
+            lo_r, hi_r, lo_c, hi_c = torch.stack(
+                [rows.min().long(), rows.max().long(), cols.min().long(), cols.max().long()]
+            ).tolist()
+            if lo_r < 0 or hi_r >= num_rows:
+                raise ValueError("row index out of range")
+            if lo_c < 0 or hi_c >= num_cols:
+                raise ValueError("column index out of range")
+            return rows.to(torch.int32), cols.to(torch.int32), vals.to(torch.float32)
+        rows, cols, vals = (a.cpu().numpy() for a in (rows, cols, vals))
+    rows, cols, vals = _check_coo(rows, cols, vals, num_rows, num_cols)
+    if rows.size == 0 or rows.size >= _INT32_LIMIT or max(num_rows, num_cols) >= _INT32_LIMIT:
+        return None
+    dev = resolve_device(device)
+    return tuple(torch.from_numpy(a).to(dev) for a in (rows.astype(np.int32), cols.astype(np.int32), vals))
+
+
+def _fill_on_device(
+    rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor, num_rows: int, num_cols: int,
+    widths: Sequence[int], row_multiple: int, chunk_entries: int, hot_group_slots: int,
+) -> tuple[BucketedRatings, np.ndarray]:
+    """The device half of :func:`build_buckets_device` on validated
+    tensors: a stable sort by row and the per-row counts on the device,
+    one readback of the counts, the host's plan from them, one upload of
+    every bucket's ``(row id, start, length)`` and hot slot map, then a
+    gather-fill per bucket."""
+    usable = _usable_widths(widths)
+    dev = rows.device
+    order = torch.sort(rows, stable=True).indices
+    cols_s, vals_s = cols[order], vals[order]
+    del order
+    counts_all = torch.bincount(rows, minlength=num_rows).cpu().numpy().astype(np.int64)
+    plan = _plan_segments(*_row_offsets(counts_all), usable)
+
+    shapes: list = []  # (width, rows per chunk, n_chunks, is a hot group)
+    meta: list = []
+    hot_maps: list = []
+    padded_nnz = 0
+    for seg_row, seg_start, seg_len, width, sentinel, hr in _bucket_defs(
+        plan, num_rows, usable[-1], hot_group_slots
+    ):
+        n_seg = int(seg_row.size)
+        c, n_chunks, n_pad = _chunk_plan(n_seg, width, row_multiple, chunk_entries)
+        padded_nnz += n_pad * width
+        block = np.zeros((3, n_pad), np.int64)
+        block[0] = sentinel
+        block[:, :n_seg] = seg_row, seg_start, seg_len
+        meta.append(block.ravel())
+        shapes.append((width, c, n_chunks, hr is not None))
+        if hr is not None:
+            hot_maps.append(hr)
+    meta_d = torch.from_numpy(np.concatenate(meta + hot_maps, dtype=np.int64)).to(dev)
+
+    normal, hot = [], []
+    off = 0
+    for width, c, n_chunks, is_hot in shapes:
+        n_pad = c * n_chunks
+        row_id, start, length = meta_d[off : off + 3 * n_pad].view(3, n_pad)
+        off += 3 * n_pad
+        lane = torch.arange(width, device=dev)
+        real = lane < length[:, None]
+        # padded lanes read entry 0, not past the row's last entry
+        src = torch.where(real, start[:, None] + lane, 0)
+        chunked = _Chunked(
+            row_id.view(n_chunks, c),
+            torch.where(real, cols_s[src], 0).view(n_chunks, c, width),
+            torch.where(real, vals_s[src], 0.0).view(n_chunks, c, width),
+            real.to(torch.float32).view(n_chunks, c, width),
+        )
+        (hot if is_hot else normal).append(chunked)
+    hot_rows = meta_d[off:].split([hr.size for hr in hot_maps])
+    bucketed = BucketedRatings(
+        tuple(normal), tuple(hot), tuple(hot_rows), num_rows, num_cols, int(rows.numel()), padded_nnz
+    )
+    return bucketed, counts_all > 0
+
+
+def build_buckets_device(
+    rows,
+    cols,
+    vals,
+    num_rows: int,
+    num_cols: int,
+    widths: Sequence[int] = _DEFAULT_BUCKET_WIDTHS,
+    row_multiple: int = 8,
+    chunk_entries: int = _DEFAULT_CHUNK_ENTRIES,
+    hot_group_slots: int = 2048,
+    device: str | torch.device | None = None,
+) -> tuple[BucketedRatings, np.ndarray]:
+    """:func:`build_buckets` with every O(nnz) step on the device (the JAX
+    package's ``build_buckets_device``): ``(buckets as`` :func:`to_device_buckets`
+    ``gives them, rated-row mask)``.
+
+    ``rows/cols/vals`` are numpy arrays, which go up to ``device`` (the
+    card by default) once as int32 indices and float32 values, or tensors,
+    which are bucketed where they lie. Only the per-row counts come back.
+    The plan is the host path's (``_plan_segments``, ``_bucket_defs``,
+    ``_chunk_plan``), and the stable sort keeps each row's COO order, so
+    every array equals the host path's to the bit. No ratings, or more
+    than int32 can index, take the host path (the reference's rule)."""
+    coo = _device_coo(rows, cols, vals, num_rows, num_cols, device)
+    if coo is None:
+        if isinstance(rows, torch.Tensor):
+            device = rows.device
+            rows, cols, vals = (a.cpu().numpy() for a in (rows, cols, vals))
+        b = build_buckets(rows, cols, vals, num_rows, num_cols, widths, row_multiple, chunk_entries,
+                          hot_group_slots)
+        return to_device_buckets(b, resolve_device(device)), rated_row_mask(b)
+    return _fill_on_device(*coo, num_rows, num_cols, widths, row_multiple, chunk_entries, hot_group_slots)
+
+
+# ---------------------------------------------------------------------------
 # Multi-process layouts
 # ---------------------------------------------------------------------------
 
@@ -736,13 +900,14 @@ def als_sweep(
     reg: float,
     implicit: bool,
     alpha: float,
+    solver: str = "auto",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One full ALS iteration, in place: users given items, then items
-    given users, each solve through ``spd_solve(method="auto")``. Tables
+    given users, each solve through ``spd_solve(method=solver)``. Tables
     carry the zero sentinel row."""
     with torch.no_grad():
-        half_sweep(user_factors, item_factors, user_bucketed, reg, implicit, alpha, "auto")
-        half_sweep(item_factors, user_factors, item_bucketed, reg, implicit, alpha, "auto")
+        half_sweep(user_factors, item_factors, user_bucketed, reg, implicit, alpha, solver)
+        half_sweep(item_factors, user_factors, item_bucketed, reg, implicit, alpha, solver)
     return user_factors, item_factors
 
 
@@ -954,13 +1119,13 @@ def mesh_half_sweep(
 
 
 def mesh_sweep(user_tables: tuple, item_tables: tuple, user_side: MeshBuckets, item_side: MeshBuckets,
-               reg: float, implicit: bool, alpha: float) -> tuple:
+               reg: float, implicit: bool, alpha: float, solver: str = "auto") -> tuple:
     """One full ALS iteration on a mesh, in place (:func:`mesh_half_sweep`
     for the users, then the items), each solve through
-    ``spd_solve(method="auto")``."""
+    ``spd_solve(method=solver)``."""
     with torch.no_grad():
-        mesh_half_sweep(user_tables, item_tables, user_side, reg, implicit, alpha, "auto")
-        mesh_half_sweep(item_tables, user_tables, item_side, reg, implicit, alpha, "auto")
+        mesh_half_sweep(user_tables, item_tables, user_side, reg, implicit, alpha, solver)
+        mesh_half_sweep(item_tables, user_tables, item_side, reg, implicit, alpha, solver)
     return user_tables, item_tables
 
 
@@ -982,6 +1147,25 @@ def seed_factors(num_rows: int, rank: int, seed: int, implicit: bool) -> np.ndar
     else:
         draw = draw * (1.0 / np.sqrt(rank))
     return draw.numpy()
+
+
+@contextlib.contextmanager
+def _matmul_precision(precision: str, cuda: bool):
+    """float32 products at ``ALSConfig.precision`` on the card while the
+    block runs ("highest": TF32 off, the JAX package's default), and the
+    process's settings as they were after it, whether it returns or
+    raises: a server in the same process relies on full f32 products."""
+    if not cuda:
+        yield
+        return
+    tf32, saved = torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(_PRECISIONS[precision])
+    try:
+        yield
+    finally:
+        # the flag first: setting it rewrites the precision ("medium" too)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.set_float32_matmul_precision(saved)
 
 
 def _host_table(init: np.ndarray, num_rows: int, rank: int, rated: np.ndarray) -> np.ndarray:
@@ -1050,28 +1234,49 @@ def train_als(
     :class:`~predictionio_tpu_torch.parallel.sharding.ShardedTable`\\ s
     (padding rows included).
 
+    ``config.bucketing`` picks where the ratings are bucketed (one device
+    on the card: :func:`build_buckets_device` on the COO uploaded once;
+    otherwise :func:`build_buckets`), ``config.solver`` the
+    :func:`spd_solve` method (on a mesh too), ``config.precision`` the
+    sweeps' float32 products, and ``config.rank_pad_multiple`` pads K.
+
     Returns ``ALSFactors``: ``user [num_users, K]``, ``item [num_items,
-    K]``, on ``device``, or (mesh) on the host, assembled from the shards.
+    K]`` (K the padded rank), on ``device``, or (mesh) on the host,
+    assembled from the shards.
     """
     from predictionio_tpu_torch.parallel import distributed
 
+    if config.precision not in _PRECISIONS:
+        raise ValueError(f"ALSConfig.precision must be one of {sorted(_PRECISIONS)}, got {config.precision!r}")
+    if config.solver not in _SOLVERS:
+        raise ValueError(
+            f"ALSConfig.solver must be 'auto', 'cholesky', 'pallas' or 'pallas_interpret', got {config.solver!r}"
+        )
+    if config.bucketing not in ("auto", "host", "device"):
+        raise ValueError(f"ALSConfig.bucketing must be 'auto', 'host' or 'device', got {config.bucketing!r}")
+    solver = _SOLVERS[config.solver]
     if mesh is not None and mesh.size == 1:
         device, mesh = mesh.devices[0], None
     devices = mesh.devices if mesh is not None else (resolve_device(device),)
     dev = resolve_device(devices[0])
-    if any(d.type == "cuda" for d in devices):
-        # full f32 products, as the JAX package's precision="highest":
-        # TF32 keeps ~3 decimal digits and would move the factors
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        torch.set_float32_matmul_precision("highest")
+    cuda = any(d.type == "cuda" for d in devices)
 
     multihost = distributed.is_multihost()
     kw = dict(widths=config.bucket_widths, chunk_entries=config.chunk_entries,
               hot_group_slots=config.hot_group_slots)
     if mesh is None and multihost:
         rows, cols, vals = _allgather_coo(rows, cols, vals)
-    if mesh is not None and multihost:
+    coo = None
+    if mesh is None and not multihost and (
+        config.bucketing == "device" or (config.bucketing == "auto" and dev.type == "cuda")
+    ):
+        # one upload for both sides; None: the host cases
+        coo = _device_coo(rows, cols, vals, num_users, num_items, dev)
+    if coo is not None:
+        user_side, u_rated = build_buckets_device(*coo, num_users, num_items, **kw)
+        item_side, i_rated = build_buckets_device(coo[1], coo[0], coo[2], num_items, num_users, **kw)
+        del coo
+    elif mesh is not None and multihost:
         data = mesh.local(data_axis)
         user_b, u_rated = _multihost_bucketed(rows, cols, vals, num_users, num_items, data, **kw)
         item_b, i_rated = _multihost_bucketed(cols, rows, vals, num_items, num_users, data, **kw)
@@ -1081,8 +1286,13 @@ def train_als(
         user_b = build_buckets(rows, cols, vals, num_users, num_items, row_multiple=row_multiple, **kw)
         item_b = build_buckets(cols, rows, vals, num_items, num_users, row_multiple=row_multiple, **kw)
         u_rated, i_rated = rated_row_mask(user_b), rated_row_mask(item_b)
+        if mesh is None:
+            user_side, item_side = to_device_buckets(user_b, dev), to_device_buckets(item_b, dev)
+            del user_b, item_b
 
     rank = config.rank
+    if config.rank_pad_multiple:
+        rank = -(-rank // config.rank_pad_multiple) * config.rank_pad_multiple
     if init_user is None:
         init_user = seed_factors(num_users, rank, config.seed, config.implicit)
     if init_item is None:
@@ -1101,11 +1311,10 @@ def train_als(
             uh, vh = state["user"].numpy(), state["item"].numpy()
 
     if mesh is None:
-        user_side, item_side = to_device_buckets(user_b, dev), to_device_buckets(item_b, dev)
         uf, vf = torch.from_numpy(uh).to(dev), torch.from_numpy(vh).to(dev)
 
         def sweep() -> None:
-            als_sweep(uf, vf, user_side, item_side, config.reg, config.implicit, config.alpha)
+            als_sweep(uf, vf, user_side, item_side, config.reg, config.implicit, config.alpha, solver)
 
         def canonical() -> dict:
             return {"user": uf, "item": vf}
@@ -1115,10 +1324,11 @@ def train_als(
     else:
         user_side = mesh_buckets(user_b, mesh, model_axis)
         item_side = mesh_buckets(item_b, mesh, model_axis)
+        del user_b, item_b
         uf, vf = mesh_tables(uh, mesh, model_axis), mesh_tables(vh, mesh, model_axis)
 
         def sweep() -> None:
-            mesh_sweep(uf, vf, user_side, item_side, config.reg, config.implicit, config.alpha)
+            mesh_sweep(uf, vf, user_side, item_side, config.reg, config.implicit, config.alpha, solver)
 
         def canonical() -> dict:
             return {
@@ -1128,10 +1338,10 @@ def train_als(
 
         def views() -> tuple:
             return uf[0], vf[0]
-    del user_b, item_b
 
     for step in range(start, config.iterations):
-        sweep()
+        with _matmul_precision(config.precision, cuda):
+            sweep()
         if on_sweep is not None:
             on_sweep(step, *views())
         if manager is not None and (

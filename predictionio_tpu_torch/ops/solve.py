@@ -18,7 +18,8 @@ Counterpart of ``predictionio_tpu/ops/solve.py``:
   is the same solve without the error check's host sync (the online
   fold-in's, ``online/foldin.py``).
 * :func:`spd_solve` — the JAX package's shape dispatch: K a multiple of 8
-  and K <= 256 go to Gauss-Jordan, everything else to Cholesky.
+  and K <= 256 go to Gauss-Jordan, everything else to Cholesky; a method
+  forces the kernel, its plain mirror or Cholesky (``ALSConfig.solver``).
 
 Gauss-Jordan without pivoting is safe here: every ALS normal matrix is
 SPD with an ALS-WR ridge (λ·max(n,1)·I), so the pivots stay away from 0.
@@ -56,8 +57,9 @@ MAX_GJ_K = 256
 WARP_MAX_K = 64
 
 #: ``spd_solve`` methods: "auto" (kernel on CUDA, plain GJ on CPU),
-#: "plain" (the plain GJ on any device)
-SPD_METHODS = ("auto", "plain")
+#: "plain" (the plain GJ on any device), "kernel" (the kernel; a CPU
+#: tensor raises), "cholesky" (Cholesky at every K)
+SPD_METHODS = ("auto", "plain", "kernel", "cholesky")
 
 
 def cholesky_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -208,12 +210,15 @@ def spd_solve(A: torch.Tensor, b: torch.Tensor, method: str = "auto") -> torch.T
 
     K a multiple of 8 and at most 256 goes to Gauss-Jordan: the CUDA
     kernel on a CUDA tensor, the plain mirror on the CPU, or the plain
-    mirror everywhere when ``method="plain"``. Any other K takes
-    :func:`cholesky_solve`."""
+    mirror everywhere when ``method="plain"``; ``method="kernel"`` takes
+    the kernel and raises on a CPU tensor. Any other K, and every K with
+    ``method="cholesky"``, takes :func:`cholesky_solve`."""
     if method not in SPD_METHODS:
         raise ValueError(f"spd_solve method must be one of {SPD_METHODS}, got {method!r}")
+    if method == "kernel" and A.device.type != "cuda":
+        raise ValueError(f"spd_solve method 'kernel' launches the CUDA kernel; A is on {A.device}")
     K = A.shape[-1]
-    if K % PIVOT_BLOCK == 0 and K <= MAX_GJ_K:
+    if method != "cholesky" and K % PIVOT_BLOCK == 0 and K <= MAX_GJ_K:
         A2 = A.reshape(-1, K, K).contiguous()
         b2 = b.reshape(-1, K).contiguous()
         solve = gj_solve_reference if method == "plain" else gj_solve_cuda

@@ -1,5 +1,9 @@
-"""MovieLens-shaped datasets, made from a seed.
+"""MovieLens datasets: the ML-100K file, and shaped replicas made from a seed.
 
+* :func:`load_ml100k` — parses a real ``u.data`` (tab-separated ``user
+  item rating timestamp``) that the user names; :func:`ml100k_dataset`
+  reads the file ``ML100K_PATH`` names, else the replica below (the JAX
+  package's loader, ``predictionio_tpu/utils/movielens.py``).
 * :func:`synthesize_ml100k` — the JAX package's deterministic ML-100K
   structural replica (``predictionio_tpu/utils/movielens.py``): 943 users,
   1682 items, 100,000 ratings with the real rating histogram, >= 20
@@ -13,6 +17,8 @@
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 __all__ = [
@@ -20,7 +26,9 @@ __all__ = [
     "ML100K_ITEMS",
     "ML100K_RATINGS",
     "ML100K_HISTOGRAM",
+    "load_ml100k",
     "synthesize_ml100k",
+    "ml100k_dataset",
     "ml20m_shaped",
 ]
 
@@ -29,6 +37,20 @@ ML100K_ITEMS = 1682
 ML100K_RATINGS = 100_000
 #: the real dataset's rating-value counts for 1..5 stars
 ML100K_HISTOGRAM = (6_110, 11_370, 27_145, 34_174, 21_201)
+
+
+def load_ml100k(path: str):
+    """Parse a real ``u.data``: returns (users, items, ratings,
+    timestamps) as numpy arrays with 0-based user/item indices."""
+    data = np.loadtxt(path, dtype=np.int64)
+    if data.shape[1] != 4:
+        raise ValueError(f"{path} is not a MovieLens u.data file")
+    return (
+        data[:, 0] - 1,
+        data[:, 1] - 1,
+        data[:, 2].astype(np.float32),
+        data[:, 3],
+    )
 
 
 def synthesize_ml100k(seed: int = 42):
@@ -77,6 +99,18 @@ def synthesize_ml100k(seed: int = 42):
         lo = hi
     timestamps = 874_724_710 + rng.integers(0, 190 * 86_400, N)
     return users, items, ratings, timestamps.astype(np.int64)
+
+
+def ml100k_dataset():
+    """The parity dataset: the real file when ``ML100K_PATH`` names one,
+    the deterministic replica otherwise. Returns (users, items, ratings,
+    timestamps, source_label)."""
+    path = os.environ.get("ML100K_PATH")
+    if path and os.path.exists(path):
+        u, i, r, t = load_ml100k(path)
+        return u, i, r, t, "movielens-100k (real)"
+    u, i, r, t = synthesize_ml100k()
+    return u, i, r, t, "ml-100k structural replica (deterministic)"
 
 
 def ml20m_shaped(nnz: int = 20_000_000, seed: int = 5):

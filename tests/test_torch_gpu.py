@@ -249,6 +249,27 @@ def test_train_als_on_card_matches_cpu(cuda_device, implicit):
 
 
 @pytest.mark.gpu
+def test_device_bucketing_on_card_equals_host(cuda_device):
+    """``build_buckets_device`` on the card gives the host path's arrays
+    to the bit; a ``precision="high"`` train leaves the matmul settings
+    as it found them."""
+    rows, cols, vals = _ratings()
+    kw = dict(widths=(4, 8, 16), chunk_entries=1 << 7, hot_group_slots=4)
+    for args in ((rows, cols, vals, 48, 32), (cols, rows, vals, 32, 48)):
+        host_b = torch_als.build_buckets(*args, **kw)
+        host = torch_als.to_device_buckets(host_b, cuda_device)
+        got, rated = torch_als.build_buckets_device(*args, **kw, device=cuda_device)
+        assert (got.nnz, got.padded_nnz, len(got.hot)) == (host.nnz, host.padded_nnz, len(host.hot))
+        for g_ch, h_ch in zip(got.normal + got.hot + (got.hot_rows,), host.normal + host.hot + (host.hot_rows,)):
+            assert all(g.dtype == h.dtype and torch.equal(g, h) for g, h in zip(g_ch, h_ch))
+        np.testing.assert_array_equal(rated, torch_als.rated_row_mask(host_b))
+    before = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32)
+    torch_als.train_als(rows, cols, vals, 48, 32, torch_als.ALSConfig(rank=16, iterations=1, precision="high"),
+                        device=cuda_device)
+    assert (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32) == before
+
+
+@pytest.mark.gpu
 def test_engine_serves_from_the_card(cuda_device):
     rows, cols, vals = _ratings()
     td = TrainingData(
