@@ -397,7 +397,34 @@ Phases, in order; any failure exits non-zero and prints no result:
    Two-Tower quickstart's store (``phase_tt_aot``: fused-CE launches =
    the plan, 8 x 50 queries, answers without seen items). ``[aot]``
    lines.
-16. every process the phases left running stopped (the script is the
+16. storage — in a child process beside the workflow's phases
+   (``phase_storage``): (a) the JAX bench's partitioned drill's layout,
+   a columnar store with ``PARTITIONS=4``, ``REPLICATION=2``,
+   ``ACK_QUORUM=2``, ``FSYNC=true``, holding 100,000 ML-20M-shaped
+   ratings written as columns; ``pio train`` at rank 64 (``gj_solve``
+   launches = the plan, train RMSE below the mean rating's); ``pio
+   eventserver --stats`` taking the workflow's 200,000-event bulk delta
+   and then all of it again (all duplicates), each partition's leader
+   then holding exactly its crc32-routed share, ``/stats.json`` with
+   ``partitions.count`` 4 and every quorum met, ``/readyz`` 200 with its
+   ``replication`` check, the followers' catch-up seconds; then on a
+   ``PARTITIONS=4`` store of the same ratings (a second process that
+   opens a replicated store writes its followers too, so the deploy
+   does not share one with the event server) ``pio deploy --online``
+   with 4 followers under the [online] traffic (8 clients, 500
+   events/s): every answer 200, no freshness probe past 30 s,
+   ``eventsSeen`` = the events stored, the same events folded in process
+   within 1e-4 of float64 numpy with no kernel launch. (b) ``pio storageserver`` over sqlite with all three roles
+   ``TYPE=remote``: ``pio import`` of the quickstart's 100,000 events,
+   ``pio train`` (launches = the plan; the read's pages), ``pio deploy``
+   answering 64 queries with float64 numpy's top-10; then the JAX bench's
+   outage drill (retries 1, breaker 3, reset 0.5 s): the server killed
+   for 3 s and restarted on its port under 8 query clients, every answer
+   200 and float64's, ``/readyz`` 503 and 200 again, a ``/reload`` in
+   the outage 503 ``degraded``. (c) ``MODELDATA`` on a ``TYPE=sharedfs``
+   path: ``pio train`` in one process, ``pio deploy`` in another, 64
+   answers float64 numpy's top-10. ``[storage]`` lines.
+17. every process the phases left running stopped (the script is the
    reaper of its descendants' orphans from its start), listed on a
    ``[cleanup]`` line; a ``[summary]`` line, the ``{"kernels": [...]}`` line, the card's
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
@@ -797,6 +824,35 @@ MH_TT_TOWER_RTOL, MH_TT_TOWER_ATOL, MH_TT_TOWER_SHARE = 1e-3, 1e-4, 1e-4
 MH_CHILD_TIMEOUT_S = 600
 MH_ENGINE_APP = "mhqs"
 
+#: [storage]: the distributed storage drivers, in a child process beside
+#: the workflow's phases. (1) the JAX bench's partitioned drill's layout
+#: (bench.py:2485-2640: 4 partitions, 2 replicas, ack quorum 2, fsync) at
+#: the ML-20M shape, cut to STG_NNZ ratings (0.5 % of ML-20M): every process
+#: that opens a replicated store replays the leader's whole stream into
+#: its replicas through decoded events (replication.py's catch-up), whose
+#: seconds the phase reports, and writes them there, so one process at a
+#: time holds it; the workflow's bulk delta through the event server, and
+#: the [online] traffic on a PARTITIONS=4 store of the same ratings;
+#: (2) the quickstart's events on TYPE=remote through a pio storageserver
+#: process, with the JAX bench's storage outage drill (bench.py:1232-1512:
+#: retries 1, breaker threshold 3, reset 0.5 s); (3) a TYPE=sharedfs model
+#: mount between a pio train and a pio deploy process
+STG_APP = "stg"
+STG_REMOTE_APP = "stgremote"
+STG_SHARED_APP = "stgshared"
+STG_NNZ = 100_000
+STG_PARTITIONS = 4
+STG_REPLICATION = 2
+STG_ACK_QUORUM = 2
+STG_REMOTE_RETRIES = 1
+STG_BREAKER_THRESHOLD = 3
+STG_BREAKER_RESET_S = 0.5
+STG_OUTAGE_S = 3.0
+STG_CLIENTS = 8
+STG_RECOVER_TIMEOUT_S = 60.0
+STG_CHILD_TIMEOUT_S = 600
+STG_CATCH_UP_TIMEOUT_S = 300.0
+
 #: the kernels of both paths: wrapper, plain version, library call
 KERNELS = {
     "gj_solve": {
@@ -957,13 +1013,13 @@ def stop_descendants() -> list[str]:
 
 
 @contextlib.contextmanager
-def temporary_store(prefix: str, driver: str = "sqlite"):
+def temporary_store(prefix: str, driver: str = "sqlite", extra: dict | None = None):
     """A fresh ``PIO_FS_BASEDIR`` for the block, removed after it, and the
     storage registry pointed at it: metadata in sqlite and models in
     localfs, the events in sqlite or, with ``driver="columnar"``, in a
-    columnar store under ``<base>/events``. The settings go into
-    ``os.environ``, so the ``deploy`` and ``eventserver`` subprocesses see
-    the same store."""
+    columnar store under ``<base>/events``; ``extra`` settings on top. The
+    settings go into ``os.environ``, so the ``deploy`` and ``eventserver``
+    subprocesses see the same store."""
     base = tempfile.mkdtemp(prefix=prefix)
     env = {"PIO_FS_BASEDIR": base}
     if driver == "columnar":
@@ -974,6 +1030,7 @@ def temporary_store(prefix: str, driver: str = "sqlite"):
         })
     elif driver != "sqlite":
         raise ValueError(f"unknown event store {driver!r}")
+    env.update(extra or {})
     saved = {key: os.environ.get(key) for key in env}
     os.environ.update(env)
     Storage.configure(None)
@@ -4807,6 +4864,555 @@ def phase_templates(device, smi: str, nnz: int, cls_users: int, text_docs: int, 
 #: a phase function in a child process: ``python -c`` with this script
 #: imported; its arguments the function's name, the device, the card's
 #: line, the result file and the function's integer arguments
+# ------------------------------------------------------------ 15. storage
+def http_status(url: str, body: dict | None = None) -> tuple[int, dict]:
+    """:func:`_http_json` that returns an error status with its body
+    instead of raising."""
+    try:
+        return _http_json(url, body)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def stop_server(label: str, proc, sig: int = signal.SIGTERM) -> None:
+    """Stop a console server; with SIGTERM it must exit 0."""
+    proc.send_signal(sig)
+    try:
+        rc = proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+        raise RuntimeError(f"{label}: the server did not stop on signal {sig}") from None
+    if sig == signal.SIGTERM and rc != 0:
+        raise RuntimeError(f"{label}: the server exited {rc} on SIGTERM")
+
+
+def start_storage_server(base: Path, port: int = 0) -> tuple:
+    """``pio storageserver`` over a sqlite+localfs store at ``base`` (the
+    registry's default), as a subprocess whose environment names no other
+    store; ``port`` 0 binds a free one. Returns the process and its port
+    once it accepts connections."""
+    root = str(Path(__file__).resolve().parent)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PIO_STORAGE_")}
+    env.update(PIO_FS_BASEDIR=str(base), PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    with open(base / "storageserver.stderr", "a") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch.tools.console", "storageserver", "--ip", "127.0.0.1",
+             "--port", str(port), "--drain-deadline-s", "5"], cwd=root, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+    lines: queue.Queue = queue.Queue()
+
+    def pump() -> None:
+        for line in proc.stdout:
+            lines.put(line.strip())
+        lines.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    try:
+        line = _await_line(lines, "Bound port" if port == 0 else "Storage server is listening", WF_SERVER_TIMEOUT_S)
+        port = port or int(line.split()[-1])
+        deadline = time.perf_counter() + 30
+        while True:
+            try:
+                socket.create_connection(("127.0.0.1", port), timeout=0.5).close()
+                return proc, port
+            except OSError:
+                if time.perf_counter() > deadline:
+                    raise RuntimeError(f"nothing accepts on port {port}") from None
+                time.sleep(0.05)
+    except RuntimeError as e:
+        proc.kill()
+        proc.wait(timeout=30)
+        raise RuntimeError(f"storage: the storage server: {e}; stderr: "
+                           f"{(base / 'storageserver.stderr').read_text()[-2000:]}") from None
+
+
+def storage_engine_json(base: Path, app: str, rank: int, sweeps: int, reg: float, seed: int) -> Path:
+    path = base / "engine.json"
+    path.write_text(json.dumps({
+        "id": app, "version": "1", "engineFactory": WF_FACTORY, "datasource": {"params": {"appName": app}},
+        "algorithms": [{"name": "als", "params": {"rank": rank, "numIterations": sweeps, "lambda": reg,
+                                                 "seed": seed}}],
+    }))
+    return path
+
+
+def storage_train(label: str, app: str, engine_json: Path, sweeps: int, rank: int, device, dev_args: list) -> dict:
+    """``pio train`` in process with its launch count, the plan of a full
+    read's TrainingData, and the stored model's train RMSE (float64, on
+    the card) against the mean rating's, which it must be below."""
+    from predictionio_tpu_torch.templates.recommendation.engine import DataSourceParams, RecommendationDataSource
+
+    reset_launch_counts()
+    wall_s = console_ok(label, ["train", "--engine-json", str(engine_json), *dev_args])
+    launches = read_launch_counts()["gj_solve"]
+    instance = max(Storage.get_meta_data_engine_instances().get_all(), key=lambda i: i.start_time)
+    if instance.status != "COMPLETED":
+        raise RuntimeError(f"{label}: engine instance {instance.id} is {instance.status}")
+    timings = json.loads(instance.env["phase_timings"])
+    td = RecommendationDataSource(DataSourceParams(app_name=app, incremental=False)).read_training(
+        local_context(device))
+    cfg = ALSConfig(rank=rank)
+    plan = sweeps * (planned_solves(td.rows, len(td.user_index), cfg) + planned_solves(td.cols, len(td.item_index), cfg))
+    if device.type == "cuda":
+        check_launches(label, {"gj_solve": launches}, {"gj_solve": plan})
+    model = stored_model(instance.id)
+    U64, V64 = np.asarray(model.user_factors, np.float64), np.asarray(model.item_factors, np.float64)
+    if model.user_index.to_dict() != td.user_index.to_dict() or not (np.isfinite(U64).all() and np.isfinite(V64).all()):
+        raise RuntimeError(f"{label}: the stored model is not finite or not a full read's users")
+    rmse = rmse_f64(U64, V64, td.rows, td.cols, td.vals, device)
+    mean_rmse = float(np.sqrt(np.mean((td.vals.mean() - td.vals) ** 2)))
+    if not rmse < mean_rmse:
+        raise RuntimeError(f"{label}: train RMSE {rmse} is not below the mean rating's {mean_rmse}")
+    return {"instance": instance, "model": model, "U64": U64, "V64": V64, "wall_s": wall_s,
+            "read_s": timings["read"], "train_als_s": timings["train:als"], "launches": launches, "plan": plan,
+            "train_rmse": rmse, "mean_rmse": mean_rmse, "pairs": int(td.rows.size)}
+
+
+def fold_rows_check(device, engine_json: Path, instance, events: list) -> dict:
+    """The events folded in process through the template's hooks
+    (``ONL_BATCH`` a fold): ``ONL_CHECK_ROWS`` rows of the last fold held
+    to the float64 numpy solve of their normal equations
+    (:func:`fold_reference`); returns the worst error and the launches."""
+    deltas = to_deltas(events)
+    config = OnlineConfig(enabled=True, interval_s=ONL_INTERVAL_S, batch_size=ONL_BATCH)
+    service = QueryService(load_engine_variant(str(engine_json)), local_context(device), instance_id=instance.id)
+    try:
+        (algo, model), = service.snapshot_pairs()[0]
+        generation = service.model_generation
+        ds_params = json.loads(instance.datasource_params)
+        reset_launch_counts()
+        worst = 0.0
+        for lo in range(0, len(deltas), ONL_BATCH):
+            upd = algo.online_foldin(model, deltas[lo:lo + ONL_BATCH], ds_params, config, run=service.run_on_device)
+            if lo + ONL_BATCH >= len(deltas):
+                U, V = (service.run_on_device(lambda t=t: (t.cpu().numpy() if isinstance(t, torch.Tensor)
+                                                           else np.asarray(t)).astype(np.float64))
+                        for t in (model.user_factors, model.item_factors))
+                rng = np.random.default_rng(53)
+                for side, ids, rows, own, opp in (("users", upd.user_ids, upd.user_rows, U, V),
+                                                  ("items", upd.item_ids, upd.item_rows, V, U)):
+                    for j in rng.choice(len(ids), min(ONL_CHECK_ROWS // 2, len(ids)), replace=False).tolist():
+                        ref = fold_reference(model, side, ids[j], algo.params.lambda_, config.prior_weight, own, opp)
+                        worst = max(worst, float(np.linalg.norm(rows[j] - ref) / np.linalg.norm(ref)))
+            if not service.apply_online_update([(0, upd)], generation=generation)["applied"]:
+                raise RuntimeError("storage: an in-process fold was not applied")
+        launches = read_launch_counts()
+    finally:
+        service.close()
+    if worst > ONL_FOLD_RTOL:
+        raise RuntimeError(f"storage: a folded row is {worst:.3g} from float64 numpy (limit {ONL_FOLD_RTOL:g})")
+    if any(launches.values()):
+        raise RuntimeError(f"storage: the fold launched kernels {launches}; its path has none")
+    return {"events": len(deltas), "worst_rel_err": worst, "launches": launches}
+
+
+def in_sync(health: list) -> bool:
+    """Every follower replica of every partition caught up with its leader."""
+    return all(h.get("lag") and all(v["inSync"] for v in h["lag"].values()) for h in health)
+
+
+def write_ml20m_shaped(app_id: int, nnz: int) -> tuple:
+    """``nnz`` ML-20M-shaped ratings (seed 5) written as columns into the
+    registry's event store; returns the seconds, the ratings' user codes
+    and the user and item counts."""
+    rows, cols, vals, num_users, num_items = ml20m_shaped(nnz, seed=5)
+    t_us = (1_600_000_000_000_000 + np.random.default_rng(9).integers(0, 10**9, nnz)).astype(np.int64)
+    t0 = time.perf_counter()
+    written = Storage.get_p_events().write_columns(
+        app_id, event="rate", entity_type="user", entity_codes=rows,
+        entity_vocab=np.asarray([str(i) for i in range(num_users)]), target_entity_type="item",
+        target_codes=cols, target_vocab=np.asarray([str(i) for i in range(num_items)]),
+        event_time_us=t_us, props={"rating": vals.astype(np.float64)})
+    write_s = time.perf_counter() - t0
+    if written != nnz:
+        raise RuntimeError(f"storage: write_columns wrote {written} of {nnz} events")
+    return write_s, rows, cols, num_users, num_items
+
+
+def storage_replicated(device, smi: str) -> dict:
+    """(1) ``bench.py:2485-2640``'s layout, ``pio chaos-ingest --partitions
+    4 --replication 2 --ack-quorum 2``: a columnar store with
+    ``PARTITIONS``, ``REPLICATION``, ``ACK_QUORUM`` and ``FSYNC``, holding
+    ``STG_NNZ`` ML-20M-shaped ratings written as columns; ``pio train``;
+    then, with this process's handle closed (a process that opens a
+    replicated store writes its followers), ``pio eventserver --stats``
+    taking the workflow's bulk delta and its whole retransmit (all
+    duplicates): each partition's leader then holds exactly its
+    crc32-routed share, ``/stats.json`` has ``partitions`` and
+    ``replication`` with every quorum met, ``/readyz`` its
+    ``replication`` check; the event server's catch-up seconds."""
+    from predictionio_tpu_torch.data.storage.columnar import _ColumnarEvents
+    from predictionio_tpu_torch.data.storage.partitioned import partition_of
+
+    t_part = time.perf_counter()
+    dev_args = [] if device.type == "cuda" else ["--device", device.type]
+    P, R = STG_PARTITIONS, STG_REPLICATION
+    props = {"PIO_STORAGE_SOURCES_COL_PARTITIONS": str(P), "PIO_STORAGE_SOURCES_COL_REPLICATION": str(R),
+             "PIO_STORAGE_SOURCES_COL_ACK_QUORUM": str(STG_ACK_QUORUM), "PIO_STORAGE_SOURCES_COL_FSYNC": "true"}
+    with temporary_store("pio-stg-rep-", "columnar", props) as base:
+        console_ok("storage", ["app", "new", STG_APP])
+        app = Storage.get_meta_data_apps().get_by_name(STG_APP)
+        (access_key,) = Storage.get_meta_data_access_keys().get_by_appid(app.id)
+        key = access_key.key
+        le = Storage.get_l_events()
+        if le.partition_count != P or len(le.replication_health()) != P:
+            raise RuntimeError(f"storage: the store opened with {le.partition_count} partitions")
+        write_s, rows, cols, num_users, num_items = write_ml20m_shaped(app.id, STG_NNZ)
+        user_part = np.fromiter((partition_of("user", str(u), P) for u in range(num_users)), np.int64, num_users)
+        expected = np.bincount(user_part[rows], minlength=P)
+        delta = bulk_delta(rows, cols, num_users, num_items, WF_BULK, seed=21)
+        for obj in delta:
+            expected[partition_of("user", obj["entityId"], P)] += 1
+        del rows, cols
+        lines = [(json.dumps(obj) + "\n").encode() for obj in delta]
+        engine_json = storage_engine_json(base, STG_APP, WF_RANK, WF_SWEEPS, WF_LAMBDA, WF_SEED)
+        trained = storage_train("storage train", STG_APP, engine_json, WF_SWEEPS, WF_RANK, device, dev_args)
+        Storage.configure(None)  # closes the store: its catch-up threads stop
+        log(f"[storage] replicated: {STG_NNZ} events written as columns in {write_s:.3f} s into {P} partitions x "
+            f"{R} replicas (ack quorum {STG_ACK_QUORUM}, fsync); pio train: read {trained['read_s']:.3f} s (cold), "
+            f"train:als {trained['train_als_s']:.3f} s, wall {trained['wall_s']:.3f} s, {trained['launches']} "
+            f"gj_solve launches (plan {trained['plan']}), rmse {trained['train_rmse']:.6f} (mean rating's "
+            f"{trained['mean_rmse']:.6f}) on {smi}")
+        es_proc = None
+        try:
+            t_es = time.perf_counter()
+            es_proc, es_port = start_console_server("storage", base, ["eventserver", "--stats", "--drain-deadline-s",
+                                                                      "30"], base / "es.stderr", WF_SERVER_TIMEOUT_S)
+            es_url = f"http://127.0.0.1:{es_port}"
+
+            def caught_up(since: float) -> tuple:
+                """Seconds since ``since`` until the event server's followers
+                are in sync (its catch-up replays the leaders' streams;
+                report, not gate), and its last ``/stats.json``."""
+                while True:
+                    _, stats = _http_json(f"{es_url}/stats.json?accessKey={key}")
+                    if in_sync(stats.get("replication") or []):
+                        return time.perf_counter() - since, stats
+                    if time.perf_counter() - since > STG_CATCH_UP_TIMEOUT_S:
+                        raise RuntimeError(f"storage: the replicas did not catch up in {STG_CATCH_UP_TIMEOUT_S} s: "
+                                           f"{stats.get('replication')}")
+                    time.sleep(0.2)
+
+            replay_s, _ = caught_up(t_es)
+            t0 = time.perf_counter()
+            status, body = _post_bytes(f"{es_url}/events/bulk.json?accessKey={key}", b"".join(lines),
+                                       "application/x-ndjson")
+            bulk_s = time.perf_counter() - t0
+            summary = json.loads(body.splitlines()[-1])
+            if status != 200 or not summary.get("ok") or summary["stored"] != len(lines) or summary["duplicates"]:
+                raise RuntimeError(f"storage: the bulk POST answered {status} {summary}")
+            t0 = time.perf_counter()
+            status, body = _post_bytes(f"{es_url}/events/bulk.json?accessKey={key}", b"".join(lines),
+                                       "application/x-ndjson")
+            resend_s = time.perf_counter() - t0
+            resent = json.loads(body.splitlines()[-1])
+            if status != 200 or resent["stored"] != 0 or resent["duplicates"] != len(lines):
+                raise RuntimeError(f"storage: the retransmit answered {status} {resent}")
+            t_sent = time.perf_counter()
+            catchup_s, stats = caught_up(t_sent)
+            rep = stats.get("replication") or []
+            status, ready = http_status(es_url + "/readyz")
+            if (stats.get("partitions", {}).get("count") != P or len(rep) != P
+                    or not all(r.get("quorumOk") for r in rep) or status != 200
+                    or ready["checks"].get("replication", {}).get("ok") is not True):
+                raise RuntimeError(f"storage: /stats.json partitions {stats.get('partitions', {}).get('count')}, "
+                                   f"replication {rep}; /readyz {status} {ready}; a quorum lost with no replica "
+                                   "killed fails the run")
+            stop_server("storage eventserver", es_proc)
+            es_proc = None
+        finally:
+            if es_proc is not None:
+                es_proc.kill()
+                es_proc.wait(timeout=30)
+        # each partition's leader, read as a plain stream (no replication threads)
+        held = [len(_ColumnarEvents(str(base / "events" / "pio_events" / f"part_{p:02d}" / f"replica_{p % R}"),
+                                    STG_NNZ, False).find_columns(app.id)) for p in range(P)]
+        if held != expected.tolist():
+            raise RuntimeError(f"storage: the partitions hold {held} events, their routed shares are "
+                               f"{expected.tolist()}")
+        log(f"[storage] replicated: eventserver {len(lines)} events in {bulk_s:.3f} s through /events/bulk.json "
+            f"({len(lines) / bulk_s:.1f} events/s), the retransmit all {resent['duplicates']} duplicates in "
+            f"{resend_s:.3f} s; the event server's followers in sync {replay_s:.3f} s after its start and "
+            f"{catchup_s:.3f} s after the retransmit; the "
+            f"leaders hold {held} = their crc32-routed shares; /stats.json partitions.count {P}, every quorum "
+            f"met; /readyz 200 with its replication check on {smi}")
+        return {"events": STG_NNZ, "partitions": P, "replication": R, "ack_quorum": STG_ACK_QUORUM,
+                "write_s": write_s, "cold_read_s": trained["read_s"], "train_als_s": trained["train_als_s"],
+                "train_wall_s": trained["wall_s"], "gj_solve_launches": trained["launches"],
+                "plan": trained["plan"], "train_rmse": trained["train_rmse"], "mean_rmse": trained["mean_rmse"],
+                "bulk_events": len(lines), "bulk_events_per_s": len(lines) / bulk_s, "resend_s": resend_s,
+                "duplicates": resent["duplicates"], "replay_s": replay_s, "catchup_s": catchup_s, "held": held,
+                "phase_s": time.perf_counter() - t_part}
+
+
+def storage_followers(device, smi: str) -> dict:
+    """(1, served) ``pio deploy --online`` over a ``PARTITIONS=4`` store
+    of ``STG_NNZ`` ML-20M-shaped ratings, one follower a partition, under
+    the [online] traffic through ``pio eventserver``: every answer 200,
+    freshness probes, ``eventsSeen`` = the events stored; the same events
+    folded in process."""
+    t_part = time.perf_counter()
+    dev_args = [] if device.type == "cuda" else ["--device", device.type]
+    P = STG_PARTITIONS
+    with temporary_store("pio-stg-part-", "columnar", {"PIO_STORAGE_SOURCES_COL_PARTITIONS": str(P)}) as base:
+        console_ok("storage", ["app", "new", STG_APP])
+        app = Storage.get_meta_data_apps().get_by_name(STG_APP)
+        (access_key,) = Storage.get_meta_data_access_keys().get_by_appid(app.id)
+        write_ml20m_shaped(app.id, STG_NNZ)
+        engine_json = storage_engine_json(base, STG_APP, WF_RANK, WF_SWEEPS, WF_LAMBDA, WF_SEED)
+        trained = storage_train("storage online train", STG_APP, engine_json, WF_SWEEPS, WF_RANK, device, dev_args)
+        user_index, item_index = trained["model"].user_index, trained["model"].item_index
+        es_proc = dep_proc = None
+        try:
+            es_proc, es_port = start_console_server("storage", base, ["eventserver", "--drain-deadline-s", "30"],
+                                                    base / "es.stderr", WF_SERVER_TIMEOUT_S)
+            es_url = f"http://127.0.0.1:{es_port}"
+            # anchored now, as the deploy's followers are
+            followers = [TailFollower(STG_APP, state_dir=str(base / "online-check"), partition=p) for p in range(P)]
+            t0 = time.perf_counter()
+            dep_proc, port = start_console_server(
+                "storage", base, ["deploy", "--engine-json", str(engine_json), *dev_args, "--online",
+                                  "--online-interval-s", str(ONL_INTERVAL_S), "--online-batch", str(ONL_BATCH)],
+                base / "deploy.stderr", QS_DEPLOY_TIMEOUT_S)
+            start_s = time.perf_counter() - t0
+            url = f"http://127.0.0.1:{port}"
+            for u in range(10):
+                _http_json(url + "/queries.json", {"user": user_index.inverse(u), "num": TOP_K})
+            run = online_traffic(url, es_url, access_key.key, user_index, item_index, True, seed=51)
+            accepted = run["ingested"] + run["probe_events"]
+            deadline = time.perf_counter() + ONL_CATCH_UP_S
+            while True:
+                _, dstats = _http_json(url + "/stats.json")
+                if dstats["online"]["eventsSeen"] >= accepted or time.perf_counter() > deadline:
+                    break
+                time.sleep(0.1)
+            onl = dstats["online"]
+            fr = run["freshness"]
+            marks = [w.get("partition") for w in onl.get("watermarks", ())]
+            if (onl["eventsSeen"] != accepted or onl["lastError"] or marks != list(range(P)) or fr["timeouts"]
+                    or not fr["samples"]):
+                raise RuntimeError(f"storage: --online eventsSeen {onl['eventsSeen']} of {accepted} stored, "
+                                   f"followers {marks}, lastError {onl['lastError']}, freshness {fr}")
+            stop_server("storage deploy", dep_proc)
+            dep_proc = None
+            stop_server("storage eventserver", es_proc)
+            es_proc = None
+        finally:
+            for p in (dep_proc, es_proc):
+                if p is not None:
+                    p.kill()
+                    p.wait(timeout=30)
+        events = [e for f in followers for e in f.poll()]
+        if len(events) != accepted:
+            raise RuntimeError(f"storage: the partitions hold {len(events)} events of the online run, the event "
+                               f"server stored {accepted}")
+        fold = fold_rows_check(device, engine_json, trained["instance"], events)
+        log(f"[storage] followers: pio deploy --online with {P} followers started in {start_s:.3f} s; "
+            f"{run['queries']} queries from {ONL_CLIENTS} keep-alive clients, {run['queries_per_s']:.1f} queries/s, "
+            f"p50 {run['p50_ms']:.3f} ms, p99 {run['p99_ms']:.3f} ms, all 200; {run['ingested']} events ingested "
+            f"({run['ingest_events_per_s']:.1f} events/s); freshness p50 {fr['p50_s']:.3f} s, max "
+            f"{fr['max_s']:.3f} s over {fr['samples']} probes; eventsSeen {onl['eventsSeen']} = {accepted} events "
+            f"stored; foldMs p50 {onl['foldMs']['p50']} p95 {onl['foldMs']['p95']}; in process {fold['events']} "
+            f"events folded, rows within {fold['worst_rel_err']:.3g} of float64 numpy, launches "
+            f"{json.dumps(fold['launches'])}; train launches {trained['launches']} (plan {trained['plan']}) on {smi}")
+        return {"events": STG_NNZ, "partitions": P, "gj_solve_launches": trained["launches"], "plan": trained["plan"],
+                "deploy_start_s": start_s, "queries_per_s": run["queries_per_s"], "p50_ms": run["p50_ms"],
+                "p99_ms": run["p99_ms"], "freshness": fr, "fold_ms": onl["foldMs"], "events_seen": onl["eventsSeen"],
+                "accepted": accepted, "fold": fold, "phase_s": time.perf_counter() - t_part}
+
+
+def storage_remote(device, smi: str) -> dict:
+    """(2) All three roles ``TYPE=remote`` on a ``pio storageserver``
+    process over sqlite: ``pio import`` of the quickstart's events, ``pio
+    train`` (the read paged through the server), ``pio deploy`` reading
+    the blob through it and answering float64 numpy's top-10; then
+    ``bench.py:1232-1512``'s outage drill: the server killed for
+    ``STG_OUTAGE_S`` seconds and restarted on its port while
+    ``STG_CLIENTS`` clients query: every answer 200, ``/readyz`` 503 then
+    200, a ``/reload`` inside the outage 503 ``degraded``."""
+    from predictionio_tpu_torch.data.storage import remote
+
+    t_part = time.perf_counter()
+    dev_args = [] if device.type == "cuda" else ["--device", device.type]
+    srv_base = Path(tempfile.mkdtemp(prefix="pio-stg-srv-"))
+    srv, srv_port = start_storage_server(srv_base)
+    net = {f"PIO_STORAGE_REPOSITORIES_{role}_SOURCE": "NET" for role in ("METADATA", "EVENTDATA", "MODELDATA")}
+    net.update({"PIO_STORAGE_SOURCES_NET_TYPE": "remote", "PIO_STORAGE_SOURCES_NET_HOSTS": "127.0.0.1",
+                "PIO_STORAGE_SOURCES_NET_PORTS": str(srv_port),
+                "PIO_STORAGE_SOURCES_NET_RETRIES": str(STG_REMOTE_RETRIES),
+                "PIO_STORAGE_SOURCES_NET_BREAKER_THRESHOLD": str(STG_BREAKER_THRESHOLD),
+                "PIO_STORAGE_SOURCES_NET_BREAKER_RESET_S": str(STG_BREAKER_RESET_S)})
+    dep_proc = None
+    try:
+        with temporary_store("pio-stg-remote-", "sqlite", net) as base:
+            console_ok("storage remote", ["app", "new", STG_REMOTE_APP])
+            users, items, ratings, stamps = synthesize_ml100k(42)
+            write_ndjson(base / "events.json", (
+                {"event": "rate", "entityType": "user", "entityId": str(u), "targetEntityType": "item",
+                 "targetEntityId": str(i), "properties": {"rating": float(r)},
+                 "eventTime": format_event_time(dt.datetime.fromtimestamp(t, dt.timezone.utc))}
+                for u, i, r, t in zip(users.tolist(), items.tolist(), ratings.tolist(), stamps.tolist())))
+            import_s = console_ok("storage remote", ["import", "--appname", STG_REMOTE_APP, "--input",
+                                                     str(base / "events.json")])
+            engine_json = storage_engine_json(base, STG_REMOTE_APP, QS_RANK, QS_SWEEPS, 0.01, 3)
+            pages = []
+            call = remote._Rpc.call
+
+            def counted(self, repo, method, *args, **kw):
+                if method == "find_page":
+                    pages.append(1)
+                return call(self, repo, method, *args, **kw)
+
+            remote._Rpc.call = counted
+            try:
+                trained = storage_train("storage remote train", STG_REMOTE_APP, engine_json, QS_SWEEPS, QS_RANK,
+                                        device, dev_args)
+            finally:
+                remote._Rpc.call = call
+            train_pages = len(pages) // 2  # the train's read, then the plan's full read
+            model, U64, V64 = trained["model"], trained["U64"], trained["V64"]
+            log(f"[storage] remote: pio import {users.size} events in {import_s:.3f} s through the storage server; "
+                f"pio train read {trained['read_s']:.3f} s in {train_pages} pages, train:als "
+                f"{trained['train_als_s']:.3f} s, {trained['launches']} gj_solve launches (plan {trained['plan']}), "
+                f"rmse {trained['train_rmse']:.6f} on {smi}")
+
+            t0 = time.perf_counter()
+            dep_proc, port = start_console_server("storage remote", base, ["deploy", "--engine-json",
+                                                                             str(engine_json), *dev_args],
+                                                  base / "deploy.stderr", QS_DEPLOY_TIMEOUT_S)
+            start_s = time.perf_counter() - t0
+            url = f"http://127.0.0.1:{port}"
+            picks = np.random.default_rng(13).choice(len(model.user_index), QUERIES, replace=False)
+            check_answers("storage remote deploy", ok_answers("storage remote deploy", run_load(
+                url, picks, model.user_index, 1, TOP_K)), U64, V64, model.item_index, TOP_K)
+            if http_status(url + "/readyz")[0] != 200:
+                raise RuntimeError("storage: the remote deploy is not ready before the outage")
+
+            # the outage drill
+            stop = threading.Event()
+            box: dict = {}
+            loader = threading.Thread(target=lambda: box.update(run_load(
+                url, np.zeros(0, np.int64), model.user_index, STG_CLIENTS, TOP_K, stop=stop, seed=61)), daemon=True)
+            loader.start()
+            time.sleep(1.0)
+            t_down = time.perf_counter()
+            stop_server("storage server", srv, signal.SIGKILL)
+            unready_s = None
+            while time.perf_counter() - t_down < STG_OUTAGE_S + 10:
+                if http_status(url + "/readyz")[0] == 503:
+                    unready_s = time.perf_counter() - t_down
+                    break
+                time.sleep(0.05)
+            reload_status, reload_body = http_status(url + "/reload", {})
+            time.sleep(max(0.0, STG_OUTAGE_S - (time.perf_counter() - t_down)))
+            srv, _ = start_storage_server(srv_base, srv_port)
+            t_up = time.perf_counter()
+            recovered_s = None
+            while time.perf_counter() - t_up < STG_RECOVER_TIMEOUT_S:
+                if http_status(url + "/readyz")[0] == 200:
+                    recovered_s = time.perf_counter() - t_up
+                    break
+                time.sleep(0.05)
+            time.sleep(0.5)
+            stop.set()
+            loader.join(timeout=120)
+            load = box
+            answers = ok_answers("storage outage", load)
+            check_answers("storage outage", answers, U64, V64, model.item_index, TOP_K)
+            inside = sum(1 for _, _, _, start, _ in load["records"] if t_down <= start < t_up)
+            _, root = _http_json(url + "/")
+            if (unready_s is None or recovered_s is None or reload_status != 503
+                    or reload_body.get("degraded") is not True or root.get("engineInstanceId") != trained["instance"].id):
+                raise RuntimeError(f"storage: outage drill: /readyz 503 after {unready_s} s, 200 again after "
+                                   f"{recovered_s} s; /reload {reload_status} {reload_body}; GET / {root}")
+            stop_server("storage remote deploy", dep_proc)
+            dep_proc = None
+            log(f"[storage] remote: pio deploy started in {start_s:.3f} s, {QUERIES} answers float64 numpy's "
+                f"top-{TOP_K}; outage {t_up - t_down:.3f} s: /readyz 503 after {unready_s:.3f} s, 200 again "
+                f"{recovered_s:.3f} s after the restart; /reload inside it 503 degraded; {load['queries']} queries "
+                f"from {STG_CLIENTS} clients all 200 and float64 numpy's top-{TOP_K}, {inside} inside the outage "
+                f"({inside / (t_up - t_down):.1f} queries/s) on {smi}")
+            return {"events": int(users.size), "import_s": import_s, "read_s": trained["read_s"],
+                    "pages": train_pages, "train_als_s": trained["train_als_s"],
+                    "gj_solve_launches": trained["launches"], "plan": trained["plan"],
+                    "train_rmse": trained["train_rmse"], "deploy_start_s": start_s, "unready_s": unready_s,
+                    "recovered_s": recovered_s, "outage_s": t_up - t_down, "queries": load["queries"],
+                    "goodput_in_outage_qps": inside / (t_up - t_down), "reload_status": reload_status,
+                    "phase_s": time.perf_counter() - t_part}
+    finally:
+        if dep_proc is not None:
+            dep_proc.kill()
+            dep_proc.wait(timeout=30)
+        stop_server("storage server", srv)
+        shutil.rmtree(srv_base, ignore_errors=True)
+
+
+def storage_sharedfs(device, smi: str) -> dict:
+    """(3) ``MODELDATA`` on a ``TYPE=sharedfs`` path: ``pio train`` in one
+    process, ``pio deploy`` in another with its own registry onto the
+    path, answering float64 numpy's top-10 of the blob a fresh driver
+    reads there."""
+    from predictionio_tpu_torch.data.storage.base import StorageClientConfig
+    from predictionio_tpu_torch.data.storage.sharedfs import StorageClient as SharedFsClient
+
+    t_part = time.perf_counter()
+    dev_args = [] if device.type == "cuda" else ["--device", device.type]
+    names = ("PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE", "PIO_STORAGE_SOURCES_SHARED_TYPE",
+             "PIO_STORAGE_SOURCES_SHARED_PATH")
+    with temporary_store("pio-stg-shared-", "columnar") as base, saved_env(*names):
+        shared = base / "shared-models"
+        os.environ.update(dict(zip(names, ("SHARED", "sharedfs", str(shared)))))
+        Storage.configure(None)
+        console_ok("storage sharedfs", ["app", "new", STG_SHARED_APP])
+        app = Storage.get_meta_data_apps().get_by_name(STG_SHARED_APP)
+        users, items, ratings, _ = synthesize_ml100k(42)
+        uv, uc = np.unique(users, return_inverse=True)
+        iv, ic = np.unique(items, return_inverse=True)
+        Storage.get_p_events().write_columns(
+            app.id, event="rate", entity_type="user", entity_codes=uc, entity_vocab=uv.astype(str),
+            target_entity_type="item", target_codes=ic, target_vocab=iv.astype(str),
+            event_time_us=np.full(users.size, 1_600_000_000_000_000, np.int64),
+            props={"rating": ratings.astype(np.float64)})
+        engine_json = storage_engine_json(base, STG_SHARED_APP, QS_RANK, QS_SWEEPS, 0.01, 3)
+        root = str(Path(__file__).resolve().parent)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "predictionio_tpu_torch.tools.console", "train", "--engine-json",
+                               str(engine_json), *dev_args], cwd=root, env=env, capture_output=True, text=True,
+                              timeout=QS_DEPLOY_TIMEOUT_S)
+        train_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"storage sharedfs: pio train exited {proc.returncode}: {proc.stderr[-2000:]}")
+        instance = max(Storage.get_meta_data_engine_instances().get_all(), key=lambda i: i.start_time)
+        fresh = SharedFsClient(StorageClientConfig("S2", "sharedfs", {"path": str(shared)}))
+        (kind, model), = loads_model(fresh.get_models().get(instance.id).models)
+        blobs = sorted(p.name for p in shared.iterdir())
+        U64, V64 = np.asarray(model.user_factors, np.float64), np.asarray(model.item_factors, np.float64)
+        served = deploy_and_query("storage sharedfs", base, engine_json, dev_args, instance.id,
+                                  (model.user_index, model.item_index), U64, V64, None, QUERIES, TOP_K, 17, device)
+        log(f"[storage] sharedfs: pio train in its own process {train_s:.3f} s, the blob {blobs} read by a fresh "
+            f"sharedfs driver; pio deploy in another started in {served['deploy_start_s']:.3f} s, {QUERIES} answers "
+            f"float64 numpy's top-{TOP_K}, p50 {served['p50_ms']:.3f} ms on {smi}")
+        return {"train_s": train_s, "deploy_start_s": served["deploy_start_s"], "p50_ms": served["p50_ms"],
+                "blobs": len(blobs), "phase_s": time.perf_counter() - t_part}
+
+
+def phase_storage(device, smi: str) -> dict:
+    """The distributed storage drivers: the partitioned, quorum-replicated
+    columnar store, one online follower a partition, ``TYPE=remote`` on
+    ``pio storageserver`` and a ``TYPE=sharedfs`` model mount
+    (:func:`storage_replicated`, :func:`storage_followers`,
+    :func:`storage_remote`, :func:`storage_sharedfs`)."""
+    t_phase = time.perf_counter()
+    out = {"replicated": storage_replicated(device, smi), "followers": storage_followers(device, smi),
+           "remote": storage_remote(device, smi), "sharedfs": storage_sharedfs(device, smi)}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[storage] {json.dumps(out)}")
+    log(f"[timing] storage {out['phase_s']:.1f} s in a child process beside the workflow's phases")
+    return out
+
+
 CHILD_PHASES = """\
 import json, sys, torch, chip_smoke as c
 name, device, smi, path = sys.argv[1], torch.device(sys.argv[2]), sys.argv[3], sys.argv[4]
@@ -7159,6 +7765,7 @@ def main() -> int:
     children = [start_child("phase_quickstart_group", device, info["smi"]),
                 start_child("phase_tt_group", device, info["smi"]),
                 start_child("phase_templates", device, info["smi"], TPL_NNZ, TPL_CLS_USERS, TPL_TEXT_DOCS, QUERIES)]
+    storage_child = start_child("phase_storage", device, info["smi"])
     joined: list = []
 
     # the serving tier, online learning, retrieval, the fleet and the
@@ -7175,7 +7782,8 @@ def main() -> int:
         shd = phase_sharded_service(device, ctx, info["smi"])
         mark("sharded")
         joined.extend(join_child(*child, CHILD_TIMEOUT_S) for child in children)
-        mark("waiting for the quickstart's, the Two-Tower's and the templates' child processes")
+        joined.append(join_child(*storage_child, STG_CHILD_TIMEOUT_S))
+        mark("waiting for the quickstart's, the Two-Tower's, the templates' and the storage child processes")
         flt = phase_fleet(device, ctx, srv["per_request"], info["smi"])
         mark("fleet")
         exp = phase_explore_deploy(device, ctx, info["smi"])
@@ -7196,7 +7804,7 @@ def main() -> int:
         raise RuntimeError(f"online: the fold launched kernels {online_launches}; its path has none")
     log(f"[ann] launches on the deploys' and in-process path: {json.dumps(ann['launches'])}; [sharded] on the "
         f"services' path: {json.dumps(shd['launches'])}")
-    quickstart, ttq, tpl, sweeps = joined
+    quickstart, ttq, tpl, stg, sweeps = joined
     qs, loop = quickstart["qs"], quickstart["loop"]
     grid, fleet_ab = qs["then"]
     tt_srv, tt_onl, tt_ann, tt_shd, tt_aot = ttq["serving"]
@@ -7356,6 +7964,19 @@ def main() -> int:
             "fallback_tiers": {kind: aot["fallback"][kind]["tier"] for kind in ("foreign", "corrupt")},
             "reload_memory": [aot["reloads"]["memory_allocated_first"], aot["reloads"]["memory_allocated_last"]],
             "phase_s": aot["phase_s"] + tt_aot["phase_s"],
+        },
+        "storage": {
+            "replicated": {key: stg["replicated"][key] for key in (
+                "events", "write_s", "cold_read_s", "train_als_s", "train_wall_s", "gj_solve_launches", "plan",
+                "bulk_events_per_s", "resend_s", "duplicates", "replay_s", "catchup_s", "held", "phase_s")},
+            "followers": {key: stg["followers"][key] for key in (
+                "gj_solve_launches", "plan", "deploy_start_s", "queries_per_s", "p50_ms", "p99_ms", "freshness",
+                "fold_ms", "events_seen", "accepted", "phase_s")},
+            "workflow_cold_read_s": wf["cold_read_s"],
+            "remote": {key: stg["remote"][key] for key in (
+                "import_s", "read_s", "pages", "gj_solve_launches", "plan", "unready_s", "recovered_s",
+                "outage_s", "goodput_in_outage_qps", "phase_s")},
+            "sharedfs": stg["sharedfs"], "phase_s": stg["phase_s"],
         },
         "multihost": {
             "mesh": {key: mh_mesh[key] for key in (

@@ -11,8 +11,8 @@ The storage check is a cheap metadata point-read under a short
 a dead storage server costs at most ``timeout_s`` — and, once the remote
 driver's circuit breaker is open, microseconds.
 
-Counterpart of ``predictionio_tpu/api/health.py`` without its
-``replication_check``: the port has no replicated event store yet.
+Counterpart of ``predictionio_tpu/api/health.py``, the same code with the
+port's imports.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from typing import Any, Mapping
 __all__ = [
     "events_check",
     "readiness_report",
+    "replication_check",
     "storage_check",
 ]
 
@@ -57,6 +58,37 @@ def events_check(timeout_s: float = 2.0) -> dict:
         return {"ok": True}
     except Exception as e:
         return {"ok": False, "error": str(e)[:200]}
+
+
+def replication_check() -> dict | None:
+    """Quorum health of a partitioned+replicated event store; ``None``
+    when the store has no replication (the check is then omitted from
+    the report — a plain server's /readyz payload is unchanged). Any
+    partition below its ack quorum makes the server NOT ready: appends
+    routed there are failing loudly, and load balancers should stop
+    sending bulk streams here until the fleet heals."""
+    from predictionio_tpu_torch.data.storage import Storage
+
+    health = getattr(Storage.get_l_events(), "replication_health", None)
+    if not callable(health):
+        return None
+    try:
+        per_partition = health()
+    except Exception as e:
+        return {"ok": False, "error": str(e)[:200]}
+    if per_partition is None:
+        return None
+    degraded = [
+        p["partition"] for p in per_partition if not p.get("quorumOk")
+    ]
+    out: dict = {"ok": not degraded}
+    if degraded:
+        out["error"] = (
+            f"quorum lost on partition(s) {degraded}: appends there fail "
+            "until replicas heal"
+        )
+        out["degradedPartitions"] = degraded
+    return out
 
 
 def readiness_report(**checks: Mapping[str, Any]) -> dict:

@@ -17,10 +17,9 @@ an access key may whitelist event names; ``channel`` routes to a channel
 stream. Responses use the reference's JSON shapes so existing client SDKs
 keep working.
 
-Counterpart of ``predictionio_tpu/api/service.py`` without the
-partitioned and replicated event stores' sections of ``/stats.json`` and
-``/readyz``: the port's columnar driver refuses those layouts (they wait
-with the storage drivers of the multi-host work).
+Counterpart of ``predictionio_tpu/api/service.py``, the same code with the
+port's imports, the partitioned and replicated stores' ``/stats.json``
+sections and ``/readyz`` check included.
 """
 
 from __future__ import annotations
@@ -641,6 +640,29 @@ class EventService:
         payload["bulk"] = self.bulk_stats()
         if self.compaction_scheduler is not None:
             payload["compaction"] = self.compaction_scheduler.to_json()
+        le = Storage.get_l_events()
+        part_count = int(getattr(le, "partition_count", 1) or 1)
+        if part_count > 1:
+            # partitioned store: per-partition stream stats so a wedged
+            # or lagging partition is visible, not averaged away
+            section: dict = {"count": part_count}
+            per_part = getattr(le, "stream_stats_partitioned", None)
+            if callable(per_part):
+                try:
+                    section["streams"] = per_part()
+                except Exception as e:
+                    section["error"] = str(e)[:200]
+            payload["partitions"] = section
+        health = getattr(le, "replication_health", None)
+        if callable(health):
+            try:
+                rep = health()
+            except Exception as e:
+                rep = [{"error": str(e)[:200]}]
+            if rep is not None:
+                # per-partition replication lag + quorum — the loud
+                # degraded-mode surface the durability story promises
+                payload["replication"] = rep
         return Response(200, payload)
 
     def webhook(
@@ -683,10 +705,17 @@ class EventService:
         from predictionio_tpu_torch.api.health import (
             events_check,
             readiness_report,
+            replication_check,
             storage_check,
         )
 
         checks = {"storage": storage_check(), "events": events_check()}
+        rep = replication_check()
+        if rep is not None:
+            # replicated stores degrade /readyz on quorum loss — a 503
+            # here is the signal that acked-append guarantees cannot
+            # currently be met on some partition
+            checks["replication"] = rep
         return readiness_report(**checks)
 
     # ------------------------------------------------------------ dispatch

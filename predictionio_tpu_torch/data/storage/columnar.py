@@ -34,8 +34,8 @@ Layout: ``<path>/<prefix>_app_<appId>/<default|ch<N>>/``.
 
 Counterpart of ``predictionio_tpu/data/storage/columnar.py``: the same
 code and the same on-disk format byte for byte, so a store written by
-either package is read by the other. The partitioned and replicated
-layouts (``PARTITIONS``/``REPLICATION``) wait; the client refuses them.
+either package is read by the other, partitioned and replicated layouts
+included.
 """
 
 from __future__ import annotations
@@ -1200,7 +1200,7 @@ class _ColumnarEvents(LEvents):
         from_start: bool = False,
     ) -> tuple[list[Event], dict]:
         """Exactly-once delta read for the online-learning follower
-        (the JAX package's online follower): return every event
+        (:mod:`predictionio_tpu_torch.online.follower`): return every event
         appended since ``cursor`` and the advanced cursor.
 
         The cursor records ``(stream_id, compactions, consumed segment
@@ -2092,16 +2092,18 @@ class StorageClient(BaseStorageClient):
         PIO_STORAGE_SOURCES_<ID>_FSYNC=false                 # optional
         PIO_STORAGE_SOURCES_<ID>_DEDUP_WINDOW=100000         # optional
         PIO_STORAGE_SOURCES_<ID>_DEDUP_WARM_BYTES=67108864   # optional
-        PIO_STORAGE_SOURCES_<ID>_PARTITIONS=1                # 1 only
+        PIO_STORAGE_SOURCES_<ID>_PARTITIONS=4                # optional
+        PIO_STORAGE_SOURCES_<ID>_REPLICATION=2               # optional
+        PIO_STORAGE_SOURCES_<ID>_ACK_QUORUM=2                # optional
 
     On open, the driver runs a startup recovery sweep (quarantines orphan
     temp/staging files, replays committed compactions, trims torn tail
     lines) and reports it via :meth:`recovery_report`.
 
-    ``PARTITIONS > 1`` (or ``REPLICATION >= 2``) selects the JAX
-    package's entity-hash partitioned layout, which the port does not
-    have yet: the client raises :class:`StorageError` for it, and for a
-    store directory that already holds one.
+    ``PARTITIONS > 1`` (or ``REPLICATION >= 2``) switches the layout to
+    entity-hash partitioned per-partition stores (see
+    ``data/storage/partitioned.py``); the default path stays byte-for-byte
+    the single-stream layout and never imports the partitioned modules.
     """
 
     def __init__(self, config: StorageClientConfig):
@@ -2119,6 +2121,7 @@ class StorageClient(BaseStorageClient):
         dedup_warm_bytes = config.properties.get("dedup_warm_bytes")
         partitions = int(config.properties.get("partitions", "1") or "1")
         replication = int(config.properties.get("replication", "0") or "0")
+        ack_quorum = int(config.properties.get("ack_quorum", "0") or "0")
         base = os.path.join(os.path.expanduser(path), f"{prefix}_events")
         os.makedirs(base, exist_ok=True)
         store_kw = dict(
@@ -2133,23 +2136,33 @@ class StorageClient(BaseStorageClient):
             ),
         )
         if partitions > 1 or replication:
-            raise StorageError(
-                "the partitioned and replicated columnar layouts "
-                "(PARTITIONS > 1, REPLICATION) are not ported yet; they "
-                "wait for ROADMAP queue 1 item 15 (so does pio deploy "
-                "--online over them)"
+            from predictionio_tpu_torch.data.storage.partitioned import (
+                PartitionedPEvents,
+                open_partitioned,
             )
-        # refuse to open a partitioned layout as a single stream:
-        # routing/dedup state lives per partition, and flattening it
-        # silently would double-store retransmitted events
-        if os.path.exists(os.path.join(base, "partitions.json")):
-            raise StorageError(
-                f"store at {base} is partitioned (partitions.json "
-                "present); open it with the same PARTITIONS setting or "
-                "migrate via pio export/import"
+
+            self._events = open_partitioned(
+                base,
+                partitions=partitions,
+                replication=replication,
+                ack_quorum=ack_quorum,
+                segment_rows=segment_rows,
+                fsync=fsync,
+                **store_kw,
             )
-        self._events = _ColumnarEvents(base, segment_rows, fsync, **store_kw)
-        self._pevents = _ColumnarPEvents(self._events)
+            self._pevents = PartitionedPEvents(self._events)
+        else:
+            # refuse to open a partitioned layout as a single stream:
+            # routing/dedup state lives per partition, and flattening it
+            # silently would double-store retransmitted events
+            if os.path.exists(os.path.join(base, "partitions.json")):
+                raise StorageError(
+                    f"store at {base} is partitioned (partitions.json "
+                    "present); open it with the same PARTITIONS setting or "
+                    "migrate via pio export/import"
+                )
+            self._events = _ColumnarEvents(base, segment_rows, fsync, **store_kw)
+            self._pevents = _ColumnarPEvents(self._events)
         # startup recovery: a kill -9 can leave orphan temp files, a torn
         # commit marker, or a torn tail line — sweep BEFORE any read or
         # write touches the store, quarantining rather than deleting

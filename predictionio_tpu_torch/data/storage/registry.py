@@ -44,6 +44,8 @@ _BUILTIN_DRIVERS = {
     "sqlite": "predictionio_tpu_torch.data.storage.sqlite",
     "memory": "predictionio_tpu_torch.data.storage.memory",
     "localfs": "predictionio_tpu_torch.data.storage.localfs",
+    "remote": "predictionio_tpu_torch.data.storage.remote",
+    "sharedfs": "predictionio_tpu_torch.data.storage.sharedfs",
     "columnar": "predictionio_tpu_torch.data.storage.columnar",
 }
 

@@ -124,10 +124,24 @@ class _PEventStore:
 class _LEventStore:
     """Low-latency reads at serving time (parity: ``LEventStore.scala``).
 
-    The JAX package's ``timeout`` argument (an ambient deadline that its
-    remote storage driver honours) waits with that driver: every driver
-    ported so far is local.
+    The reference enforces a blocking timeout around its async storage
+    futures. Here ``timeout`` becomes an ambient resilience deadline
+    around the driver scan: local drivers (sqlite/memory/columnar) answer
+    in microseconds and never notice it, but the *remote* storage driver
+    consults :func:`predictionio_tpu_torch.resilience.current_deadline` per RPC
+    attempt — a serving-time read against a slow storage server is cut
+    off at the caller's budget instead of silently ignoring it (piolint
+    PIO208 guards this propagation tree-wide).
     """
+
+    @staticmethod
+    def _scan(timeout: float | None, thunk):
+        if timeout is None:
+            return list(thunk())
+        from predictionio_tpu_torch import resilience
+
+        with resilience.deadline_scope(timeout):
+            return list(thunk())
 
     def find_by_entity(
         self,
@@ -142,10 +156,12 @@ class _LEventStore:
         until_time: _dt.datetime | None = None,
         limit: int | None = None,
         latest: bool = True,
+        timeout: float | None = None,
     ) -> list[Event]:
         app_id, channel_id = resolve_app(app_name, channel_name)
-        return list(
-            Storage.get_l_events().find(
+        return self._scan(
+            timeout,
+            lambda: Storage.get_l_events().find(
                 app_id, channel_id,
                 start_time=start_time, until_time=until_time,
                 entity_type=entity_type, entity_id=entity_id,
@@ -153,17 +169,21 @@ class _LEventStore:
                 target_entity_type=target_entity_type,
                 target_entity_id=target_entity_id,
                 limit=limit, reversed=latest,
-            )
+            ),
         )
 
     def find(
         self,
         app_name: str,
         channel_name: str | None = None,
+        timeout: float | None = None,
         **filters,
     ) -> list[Event]:
         app_id, channel_id = resolve_app(app_name, channel_name)
-        return list(Storage.get_l_events().find(app_id, channel_id, **filters))
+        return self._scan(
+            timeout,
+            lambda: Storage.get_l_events().find(app_id, channel_id, **filters),
+        )
 
     def aggregate_properties_of_entity(
         self,
@@ -171,10 +191,12 @@ class _LEventStore:
         entity_type: str,
         entity_id: str,
         channel_name: str | None = None,
+        timeout: float | None = None,
     ) -> PropertyMap | None:
         events = self.find_by_entity(
             app_name, entity_type, entity_id, channel_name,
             event_names=["$set", "$unset", "$delete"], latest=False,
+            timeout=timeout,
         )
         return aggregate_properties_single(events)
 

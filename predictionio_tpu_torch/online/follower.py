@@ -15,9 +15,8 @@ columnar driver (:meth:`predictionio_tpu_torch.data.storage.columnar
 Across a clean stop/start the persisted cursor resumes exactly once,
 including across segment roll and compaction. The cursor file's name and
 JSON are the JAX package's, so a deploy of either package resumes the
-other's watermark. The port has one stream per app and channel: its
-columnar driver refuses the partitioned layout, which waits with its
-per-partition followers (ROADMAP queue 1 item 15).
+other's watermark. A partitioned store gets one follower per partition
+(``partition=``), each with its own cursor file.
 """
 
 from __future__ import annotations
@@ -42,14 +41,22 @@ class FollowerUnsupportedError(RuntimeError):
     columnar driver streams deltas)."""
 
 
-def _state_path(state_dir: str, app_name: str, channel: str | None) -> str:
+def _state_path(
+    state_dir: str, app_name: str, channel: str | None,
+    partition: int | None = None,
+) -> str:
     if not state_dir:
         from predictionio_tpu_torch.data.storage import Storage
 
         state_dir = os.path.join(Storage.base_dir(), "online")
-    # readable prefix + crc so distinct app names never share a cursor
+    # readable prefix + crc so distinct app names never share a cursor;
+    # a partitioned store gets one cursor file a partition follower
+    # (partition=None keeps the single-stream name)
     name = f"{app_name}\x00{channel or ''}"
     safe = re.sub(r"[^A-Za-z0-9_-]", "_", app_name)
+    if partition is not None:
+        name += f"\x00p{partition}"
+        safe += f"-p{partition}"
     return os.path.join(state_dir, f"{safe}-{zlib.crc32(name.encode()):08x}.cursor.json")
 
 
@@ -62,11 +69,13 @@ class TailFollower:
         channel: str | None = None,
         state_dir: str = "",
         from_start: bool = False,
+        partition: int | None = None,
     ):
         from predictionio_tpu_torch.data.storage import Storage
         from predictionio_tpu_torch.data.store import resolve_app
 
         self.app_name = app_name
+        self.partition = partition
         self._app_id, self._channel_id = resolve_app(app_name, channel)
         self._pe = Storage.get_p_events()
         if not hasattr(self._pe, "tail_follow"):
@@ -76,7 +85,7 @@ class TailFollower:
                 "driver; docs/operations.md)"
             )
         self._from_start = from_start
-        self._path = _state_path(state_dir, app_name, channel)
+        self._path = _state_path(state_dir, app_name, channel, partition)
         self._lock = threading.Lock()
         self._cursor: dict | None = self._load()
         self._pending: dict | None = None  # advanced but uncommitted
@@ -89,8 +98,11 @@ class TailFollower:
             self.commit()
 
     def _follow(self, cursor: dict | None):
+        # the partition is routed only when set: plain stores never see
+        # the kwarg
+        kw = {} if self.partition is None else {"partition": self.partition}
         return self._pe.tail_follow(
-            self._app_id, self._channel_id, cursor=cursor, from_start=self._from_start
+            self._app_id, self._channel_id, cursor=cursor, from_start=self._from_start, **kw
         )
 
     # ------------------------------------------------------------ persistence
@@ -157,8 +169,9 @@ class TailFollower:
         against the store's current state."""
         with self._lock:
             cursor = dict(self._cursor or {})
-        state = self._pe.scan_state(self._app_id, self._channel_id) if hasattr(self._pe, "scan_state") else {}
-        return {
+        kw = {} if self.partition is None else {"partition": self.partition}
+        state = self._pe.scan_state(self._app_id, self._channel_id, **kw) if hasattr(self._pe, "scan_state") else {}
+        out = {
             "tailLinesConsumed": int(cursor.get("tail_lines", 0)),
             "tailLinesStore": int(state.get("tail_lines", 0)),
             "segmentsConsumed": len(cursor.get("segments", ())),
@@ -169,6 +182,9 @@ class TailFollower:
             # the line-count fallback scan
             "tailBytesConsumed": cursor.get("tail_bytes"),
         }
+        if self.partition is not None:
+            out["partition"] = self.partition
+        return out
 
 
 def to_deltas(events, rating_prop: str = "rating") -> list[EventDelta]:

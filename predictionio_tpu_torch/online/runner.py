@@ -21,14 +21,20 @@ generation bump, rebinds to the fresh pairs, and drops in-flight updates
 computed against the old generation; a superseded or failed batch rolls
 the watermark back, so its events fold against the new generation.
 
+A partitioned event store gets one follower per partition: their polls
+run concurrently, each partition's deltas fold in a worker of its own,
+and a partition whose fold fails or is superseded rolls back its own
+poll advance while the others commit.
+
 The host work of a cycle (polling, the deltas, the hooks' histories and
-systems) runs on this thread; every torch call goes through the query
-server's ``run_on_device``, which is the one thread that serves queries
-(``workflow/serving.py``), so queries queue behind a fold's chunk there.
+systems) runs on the follower and fold-worker threads; every torch call
+goes through the query server's ``run_on_device``, which is the one
+thread that serves queries (``workflow/serving.py``), so queries queue
+behind a fold's chunk there. Difference from the JAX package: the
+partitions' hook calls take turns (``_hook_lock``), since the hooks'
+online histories are plain dicts that every partition's items share.
 With ``--explore``, the same polled batch feeds the explorer's posterior
 (:meth:`~predictionio_tpu_torch.experiments.explore.Explorer.note_reward_events`).
-Differences from the JAX package: one follower (the partitioned store
-waits, ROADMAP queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -47,6 +53,24 @@ logger = logging.getLogger(__name__)
 
 #: fold-latency / freshness sample ring size for /stats.json percentiles
 _SAMPLES = 256
+
+
+def _each(items: list, fn, name: str) -> list:
+    """``[fn(x) for x in items]``, one thread an item when there are
+    several (a partition's poll or fold each)."""
+    if len(items) == 1:
+        return [fn(items[0])]
+    out: list = [None] * len(items)
+
+    def _one(i: int) -> None:
+        out[i] = fn(items[i])
+
+    threads = [threading.Thread(target=_one, args=(i,), name=f"{name}-p{i}", daemon=True) for i in range(len(items))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
 
 
 def _percentile(samples: list[float], q: float) -> float | None:
@@ -79,16 +103,28 @@ class OnlineRunner:
             raise ValueError(
                 "--online requires the engine's datasource params to name an appName (the stream to follow)"
             )
-        # one follower: the port's columnar driver refuses the partitioned
-        # layout (ROADMAP queue 1 item 15), whose JAX runner folds one
-        # follower per partition
-        self.follower = TailFollower(
-            app_name,
-            channel=ds_params.get("channelName"),
-            state_dir=config.state_dir,
-            from_start=config.from_start,
-        )
+        # one follower per event-store partition, each with its own
+        # durable cursor; a plain store gets the single partition=None
+        # follower with the single-stream cursor file name
+        from predictionio_tpu_torch.data.storage import Storage
+
+        pe = Storage.get_p_events()
+        part_count = int(getattr(getattr(pe, "_e", None), "partition_count", 0) or getattr(pe, "partition_count", 0) or 1)
+        self.followers: list[TailFollower] = [
+            TailFollower(
+                app_name,
+                channel=ds_params.get("channelName"),
+                state_dir=config.state_dir,
+                from_start=config.from_start,
+                partition=p,
+            )
+            for p in ([None] if part_count <= 1 else range(part_count))
+        ]
+        self.follower: TailFollower = self.followers[0]
         self._lock = threading.Lock()
+        #: one partition's hook call at a time (the online histories are
+        #: shared dicts); their torch calls queue on the device thread
+        self._hook_lock = threading.Lock()
         #: serializes whole fold cycles: the daemon cadence and a manual
         #: POST /online/fold.json must not interleave poll/apply/commit
         self._cycle_lock = threading.Lock()
@@ -210,14 +246,18 @@ class OnlineRunner:
                 return self._cycle_locked(deadline)
             except Exception:
                 # the watermark must never advance past a batch that
-                # failed mid-fold: drop the pending cursor so the next
+                # failed mid-fold: drop the pending cursors so the next
                 # cycle re-delivers the whole batch
-                self.follower.rollback()
+                for f in self.followers:
+                    f.rollback()
                 raise
 
     def _fold_batches(self, pairs, generation: int, deltas, deadline: float | None) -> tuple[bool, int, str | None]:
-        """Fold the polled deltas in config-sized batches. Returns
-        ``(applied_any, folded, aborted_reason)``."""
+        """Fold one follower's polled deltas in config-sized batches.
+        Returns ``(applied_any, folded, aborted_reason)``. Runs
+        concurrently for different partitions: ``apply_online_update``
+        checks the generation on the device thread, and the hook calls
+        take turns."""
         svc = self.service
         applied_any = False
         folded = 0
@@ -245,7 +285,8 @@ class OnlineRunner:
                 hook = getattr(algo, "online_foldin", None)
                 if hook is None:
                     continue
-                upd = hook(model, chunk, self.ds_params, self.config, run=svc.run_on_device)
+                with self._hook_lock:
+                    upd = hook(model, chunk, self.ds_params, self.config, run=svc.run_on_device)
                 if upd is not None and not upd.empty:
                     updates.append((pi, upd))
             if updates:
@@ -263,41 +304,86 @@ class OnlineRunner:
         return applied_any, folded, aborted
 
     def _cycle_locked(self, deadline: float | None = None) -> dict:
-        pairs, generation = self.service.snapshot_pairs()
+        svc = self.service
+        pairs, generation = svc.snapshot_pairs()
         self._rebind(pairs, generation)
-        events = self.follower.poll()
-        if not events:
+        followers = self.followers
+        # concurrent polls: each partition's delta read is independent I/O
+        polled = _each(followers, lambda f: f.poll(), "pio-online-poll")
+        # a poll that raised in its thread delivers nothing this cycle
+        polled = [p if p is not None else [] for p in polled]
+        total = sum(len(ev) for ev in polled)
+        if not total:
             return {"events": 0, "applied": False}
         # exploration reward fold-back: reward events are telemetry for
         # the bandit, not ratings, so they ride beside the fold pipeline
         # (which ignores non-rating events) rather than in it
-        explorer = getattr(self.service, "explorer", None)
+        explorer = getattr(svc, "explorer", None)
         if explorer is not None:
             try:
-                explorer.note_reward_events(events)
+                for ev in polled:
+                    if ev:
+                        explorer.note_reward_events(ev)
             except Exception:
                 logger.exception("explorer reward fold-back failed")
-        deltas = to_deltas(events)
-        newest_us = max((d.t_us for d in deltas), default=0)
-        applied, folded, aborted = self._fold_batches(pairs, generation, deltas, deadline)
-        if aborted is not None:
-            # the watermark must never advance past events that were not
-            # applied: the next cycle re-delivers the batch (fold-in
-            # re-solves idempotently; the trainer's drop-oldest queue
-            # absorbs a repeated chunk)
-            self.follower.rollback()
-            return {"events": len(events), "applied": applied, "requeued": True, "reason": aborted}
-        self.follower.commit()
-        with self._lock:
-            self.folds += 1
-            self.events_seen += len(events)
-            self.events_folded += folded
-            self.last_error = None
-        if applied:
+        all_deltas = [to_deltas(ev) for ev in polled]
+        newest_us = max((d.t_us for ds in all_deltas for d in ds), default=0)
+        failures: list[BaseException] = []
+
+        def _fold(deltas) -> tuple[bool, int, str | None]:
+            if not deltas:
+                return False, 0, None
+            try:
+                return self._fold_batches(pairs, generation, deltas, deadline)
+            except BaseException as e:
+                # a partition whose fold died rolls back below and the
+                # exception re-raises after the healthy partitions have
+                # committed
+                logger.exception("fold failed; requeueing partition batch")
+                failures.append(e)
+                return False, 0, f"error: {str(e)[:200]}"
+
+        # one fold worker per partition follower
+        outcomes = _each(all_deltas, _fold, "pio-online-fold")
+        applied_any = False
+        folded = 0
+        committed_events = 0
+        requeued = 0
+        reason: str | None = None
+        for f, ev, (applied, n, aborted) in zip(followers, polled, outcomes):
+            applied_any = applied_any or applied
+            folded += n
+            if aborted is not None:
+                # the watermark must never advance past events that were
+                # not applied: drop THIS partition's poll advance so its
+                # next cycle re-delivers the batch (fold-in re-solves
+                # idempotently; the trainer's drop-oldest queue absorbs a
+                # repeated chunk). Other partitions commit normally.
+                f.rollback()
+                requeued += 1
+                reason = reason or aborted
+            else:
+                f.commit()
+                committed_events += len(ev)
+        if committed_events or not requeued:
+            with self._lock:
+                self.folds += 1
+                self.events_seen += committed_events
+                self.events_folded += folded
+                self.last_error = None
+        if applied_any and not requeued:
             # wall-clock event->serving-visible latency: the batch's
             # newest event was just swapped into the live model
             self._record_visible(newest_us)
-        return {"events": len(events), "applied": applied}
+        if failures:
+            # the failed partitions were rolled back above and the healthy
+            # ones committed, so re-delivery is scoped to what failed
+            raise failures[0]
+        out = {"events": total, "applied": applied_any}
+        if requeued:
+            out["requeued"] = True
+            out["reason"] = reason
+        return out
 
     # ---------------------------------------------------------------- stats
     def stats_json(self) -> dict:
@@ -325,6 +411,8 @@ class OnlineRunner:
             "last": visible[-1] if visible else None,
         }
         out["watermark"] = self.follower.lag()
+        if len(self.followers) > 1:
+            out["watermarks"] = [f.lag() for f in self.followers]
         if trainers:
             out["trainers"] = trainers
         return out

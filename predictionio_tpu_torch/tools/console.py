@@ -15,6 +15,8 @@ Counterpart of ``predictionio_tpu/tools/console.py`` (parity:
                [--compact-interval-s S] [--compact-tail-mb MB]
                [--compact-dead-tombstones N] [--compact-min-interval-s S]
                [--cert PEM --key PEM] [--drain-deadline-s S]
+    pio storageserver [--ip IP] [--port N] [--secret S]
+               [--cert PEM --key PEM] [--drain-deadline-s S]
     pio train  --engine-json FILE [--batch B] [--skip-sanity-check]
                [--stop-after-read] [--stop-after-prepare] [--warm-start]
                [--device D] [--mesh auto|none|data=N,model=M] [--aot]
@@ -39,9 +41,9 @@ Counterpart of ``predictionio_tpu/tools/console.py`` (parity:
 
 ``train``, ``deploy``, ``batchpredict`` and ``eval`` take ``--device``
 as well: ``cuda`` (the default, the card; it fails where there is none)
-or ``cpu``. ``deploy --port 0``
-and ``eventserver --port 0`` bind a free port and print ``Bound port
-N``; SIGTERM or SIGINT stops either (after a drain when given
+or ``cpu``. ``deploy --port 0``, ``eventserver --port 0`` and
+``storageserver --port 0`` bind a free port and print ``Bound port
+N``; SIGTERM or SIGINT stops each (after a drain when given
 ``--drain-deadline-s``), and so does ``pio undeploy`` for a deploy, with
 the stop token the deploy wrote under the base directory. ``deploy``
 takes the JAX console's flags: those of the serving tiers the port has
@@ -62,7 +64,7 @@ deploy) puts Inductor's and Triton's caches under ``DIR`` (then
 turns them off). A fleet's router process imports no
 torch; each replica is ``python -m predictionio_tpu_torch.tools.console
 deploy`` with the fleet's other flags, ``--device`` among them. The data
-verbs and ``eventserver`` import no torch. ``eval`` takes import paths
+verbs, ``eventserver`` and ``storageserver`` import no torch. ``eval`` takes import paths
 (``module:attr``) of an ``Evaluation`` and, optionally, an
 ``EngineParamsGenerator`` (else the evaluation's own
 ``engine_params_list``), prints the leaderboard and writes the result's
@@ -458,16 +460,37 @@ def build_parser() -> argparse.ArgumentParser:
         help="rate limit: never compact the same stream twice within S "
         "seconds (default 30)",
     )
-    es.add_argument("--cert", default=None, help="PEM certificate for https (default: $PIO_SSL_CERT)")
-    es.add_argument("--key", default=None, help="PEM private key for https (default: $PIO_SSL_KEY)")
-    es.add_argument(
+    _add_ssl_and_lifecycle_flags(es)
+
+    ss = sub.add_parser(
+        "storageserver",
+        help="expose this host's storage backend over the network "
+        "(server side of the TYPE=remote driver)",
+    )
+    ss.add_argument(
+        "--ip", default="127.0.0.1",
+        help="bind address; binding beyond loopback requires --secret "
+        "(the server grants read/write on apps, keys, events and models)",
+    )
+    ss.add_argument("--port", type=int, default=7072)
+    ss.add_argument(
+        "--secret", default=None,
+        help="shared secret clients must present (default: $PIO_STORAGE_SERVER_SECRET)",
+    )
+    _add_ssl_and_lifecycle_flags(ss)
+    return p
+
+
+def _add_ssl_and_lifecycle_flags(sp: argparse.ArgumentParser) -> None:
+    sp.add_argument("--cert", default=None, help="PEM certificate for https (default: $PIO_SSL_CERT)")
+    sp.add_argument("--key", default=None, help="PEM private key for https (default: $PIO_SSL_KEY)")
+    sp.add_argument(
         "--drain-deadline-s", type=float, default=0.0, metavar="S",
         help="graceful drain on SIGTERM/SIGINT: stop accepting (503 + "
         "Retry-After, /readyz flips unready), finish in-flight requests "
         "within S seconds, flush storage, exit 0; a second signal "
         "force-quits. 0 (default) keeps immediate exit",
     )
-    return p
 
 
 def _refuse_waiting_flags(args: argparse.Namespace) -> None:
@@ -1127,6 +1150,33 @@ def _eventserver(args: argparse.Namespace) -> None:
     )
 
 
+def _storageserver(args: argparse.Namespace) -> None:
+    from predictionio_tpu_torch.api.http import serve
+    from predictionio_tpu_torch.data.storage.remote import StorageRpcService
+
+    secret = args.secret or os.environ.get("PIO_STORAGE_SERVER_SECRET")
+    loopback = args.ip.startswith("127.") or args.ip in ("localhost", "::1")
+    if not loopback and not secret:
+        raise SystemExit(
+            "storageserver grants unauthenticated read/write of apps, "
+            "access keys, events and model blobs; refusing to bind "
+            f"non-loopback address {args.ip!r} without --secret / "
+            "$PIO_STORAGE_SERVER_SECRET"
+        )
+
+    def ready(server) -> None:
+        if args.port == 0:
+            print(f"Bound port {server.server_address[1]}", flush=True)
+
+    print(f"Storage server is listening on {args.ip}:{args.port}", flush=True)
+    serve(
+        StorageRpcService(secret=secret).dispatch, args.ip, args.port,
+        ssl_context=_ssl_from_args(args),
+        ready_callback=ready,
+        lifecycle=_lifecycle_from_args(args),
+    )
+
+
 def _eval(args: argparse.Namespace) -> None:
     from predictionio_tpu_torch.controller.context import local_context
     from predictionio_tpu_torch.controller.evaluation import EngineParamsGenerator
@@ -1205,6 +1255,8 @@ def main(argv: list[str] | None = None) -> int:
             )
         elif cmd == "eventserver":
             _eventserver(args)
+        elif cmd == "storageserver":
+            _storageserver(args)
         elif cmd == "train":
             _train(args)
         elif cmd == "deploy":

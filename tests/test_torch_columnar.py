@@ -263,12 +263,17 @@ def test_compaction_sweep_compacts_the_same_streams(tmp_path, monkeypatch):
 
 
 def test_partitioned_layouts_are_refused(tmp_path):
-    with pytest.raises(StorageError, match="not ported"):
-        port_columnar.StorageClient(PortConfig("C", "columnar", {"path": str(tmp_path), "partitions": "4"}))
-    (tmp_path / "pio_events").mkdir(exist_ok=True)
-    (tmp_path / "pio_events" / "partitions.json").write_text("{}")
+    """The partitioned layout opens (it was refused until it was ported;
+    the name is kept), and what the JAX package refuses the port refuses:
+    a partitioned store opened as a single stream, or with another
+    partition count."""
+    client = port_columnar.StorageClient(PortConfig("C", "columnar", {"path": str(tmp_path), "partitions": "4"}))
+    assert client.get_l_events().partition_count == 4
+    client.close()
     with pytest.raises(StorageError, match="partitioned"):
         port_columnar.StorageClient(PortConfig("C", "columnar", {"path": str(tmp_path)}))
+    with pytest.raises(StorageError, match="partition count mismatch"):
+        port_columnar.StorageClient(PortConfig("C", "columnar", {"path": str(tmp_path), "partitions": "3"}))
 
 
 # ------------------------------------------------------------ the contract

@@ -400,7 +400,7 @@ def test_jax_two_tower_factory_path_resolves_to_the_port():
 
 
 @pytest.mark.parametrize("path", [
-    "predictionio_tpu.data.storage.remote:engine_factory",  # no such port module yet (item 15)
+    "predictionio_tpu.data.storage.remote:engine_factory",  # the port's module lacks the name
     "predictionio_tpu.templates.classification:no_such_factory",  # the port's module lacks the name
 ])
 def test_factory_without_a_port_counterpart_fails_clearly(path):
