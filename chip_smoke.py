@@ -91,10 +91,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    card; times by CUDA events, and the host's time to issue a call. A
    solve row adds the launch plan (kernel, shared bytes per block, warps
    per SM, grid) and the achieved GB/s, then the K <= 64 kernel is timed
-   per system at each of ``SOLVE_WIDTHS``. The fused-CE forward is one
-   call (both sums), the backward one call of two launches (``d_ue``,
-   then ``d_ie`` with the towers swapped); each row adds the achieved
-   tensor-core FLOP/s and exponentials/s.
+   per system at each of ``SOLVE_WIDTHS`` (K = 8 is the [chaos] drills').
+   The fused-CE forward is one call (both sums), the backward one call of
+   two launches (``d_ue``, then ``d_ie`` with the towers swapped); each
+   row adds the achieved tensor-core FLOP/s and exponentials/s. Two of
+   ``FUSED_CE_SHAPES`` are wider than the kernels' full-width path
+   (D = 512 and 264), which take the chunked wide kernels.
 4. ALS    — in a temporary ``PIO_FS_BASEDIR``: the launch counts are set to
    0, ``run_train`` trains on the card, a ``QueryService`` of the stored
    instance answers 64 queries over HTTP, and the counts are read and
@@ -170,7 +172,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    float64 numpy from towers trained here on each of the port's folds
    with the same params, and printed beside the recall of a random and of
    a popularity ranking; one ``[tt-quickstart]`` line. The events live in
-   the columnar store.
+   the columnar store. Then (``phase_tt_wide``) one epoch of phase 5's
+   pairs and batch at D = 512, past the fused-CE kernels' full-width
+   path: the fused-CE launches = the step plan, every logged loss within
+   ``TT_WIDE_LOSS_RTOL`` of the same epoch with ``fused_ce="off"``; one
+   ``[tt-wide]`` line.
 8. workflow — in a temporary ``PIO_FS_BASEDIR`` with the columnar event
    store: ``app new``; ``ml20m_shaped(20_000_000, seed=5)`` written through
    ``PEvents.write_columns`` (timed); ``pio train`` cold, its ``gj_solve``
@@ -192,7 +198,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``pio deploy`` and a ``--batching --max-batch-size 32
    --max-batch-delay-ms 2 --pin-model --result-cache --coalesce
    --feedback`` one (warmed on every bucket; feedback into a ``pio
-   eventserver`` on the same store) under the same 32 x 50 uniform load,
+   eventserver`` on the same store) under the same 32 x 25 uniform load,
    then a Zipf(1.2) load: queries/s, p50, p99, the batch histogram,
    ``bucketMisses`` 0, the cache hit ratio, ``bytesPinned`` equal to the
    tables' bytes and the share of batched answers bit-equal to the
@@ -241,7 +247,7 @@ Phases, in order; any failure exits non-zero and prints no result:
 11. ann — approximate and int8 retrieval. On the workflow's store and
    warm instance (``phase_ann``): ``pio deploy --ann --ann-nprobe 8``,
    ``--quantize int8`` and ``--ann --quantize int8 --batching
-   --pin-model``, each under the serving phase's 32 x 50 uniform top-10
+   --pin-model``, each under the serving phase's 32 x 25 uniform top-10
    load (all 200; queries/s, p50/p99, recall@10 against float64 numpy,
    the ``/stats.json`` ``ann`` and ``quant`` sections; int8
    ``bytesPinned`` must be (users + items) x (rank + 4)); in process, a
@@ -285,11 +291,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    product; a slice's ``score_rows`` bit-equal to the whole table's at 1
    to 512 queries. On the
    workflow's store and warm instance (``phase_sharded_service``, after
-   ``[ann]``): first the serving phase's 32 x 50 load on a plain pinned
+   ``[ann]``): first the serving phase's 32 x 25 load on a plain pinned
    service with ``score_rows`` and with one product (legs A B B A); an
    in-process ``QueryService`` with
    ``CacheConfig(shard_factors=True, pin_model=True)`` behind
-   ``QueryServer`` under the serving phase's 32 x 50 load, each answer
+   ``QueryServer`` under the serving phase's 32 x 25 load, each answer
    float64 numpy's top-10 (near-tie rule) and a plain pinned service's
    ids; ``factorShards`` 8, ``bytesPinned`` the padded tables; the load's
    peak ``max_memory_allocated`` under the shards plus a replicated copy;
@@ -314,7 +320,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    serving, online, ann and sharded phases), through
    the console verbs in one temporary
    columnar store, each engine.json the one ``pio template get`` writes.
-   SimilarProduct and ECommerce on one app: ``ml20m_shaped(5_000_000,
+   SimilarProduct and ECommerce on one app: ``ml20m_shaped(2_500_000,
    seed=5)``'s pairs as ``view`` events and every 20th again as a ``buy``
    (``write_columns``), a ``$set`` of one of 20 categories per item and a
    ``constraint``/``unavailableItems`` of 100 popular items (``pio
@@ -343,7 +349,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    launch on these paths. ``[templates]`` lines.
 13. fleet — ``pio deploy --replicas N`` (``phase_fleet``) of the
    workflow's warm instance at N = 1, 2 and 4 under the [serving] phase's
-   32 x 50 uniform load: queries/s, p50 and p99 beside the single-process
+   32 x 25 uniform load: queries/s, p50 and p99 beside the single-process
    deploy's, the router's ``/stats.json``, the card memory by process;
    each fleet's ring must hold N healthy replicas before the load, and
    ``pio undeploy`` of the router must stop every replica. On the
@@ -384,7 +390,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    saying ``present``; a ``pio deploy --aot`` subprocess beside a plain
    ``--pin-model`` one (start seconds of both; ``/stats.json`` ``aot``
    tier 1 with every program loaded) under the bench's serving traffic,
-   32 clients x 100 uniform top-10, legs A B B A: every answer byte-equal to
+   32 clients x 25 uniform top-10 (the bench's 100), legs A B B A: every answer byte-equal to
    the plain deploy's and float64 numpy's top-10, ``hits`` > 0,
    ``serveTimeCompiles`` 0; in process, the programs against the eager
    pinned path to the bit at 1, 3, 8, 13, 32 and 512 queries and for 64
@@ -424,7 +430,31 @@ Phases, in order; any failure exits non-zero and prints no result:
    the outage 503 ``degraded``. (c) ``MODELDATA`` on a ``TYPE=sharedfs``
    path: ``pio train`` in one process, ``pio deploy`` in another, 64
    answers float64 numpy's top-10. ``[storage]`` lines.
-17. every process the phases left running stopped (the script is the
+17. chaos — in two child processes (``phase_chaos``), joined before the
+   fleets: ``chaos-serve --aot`` from the end of phase 4, the others
+   beside the workflow's phases. The operator's drills
+   through the port's console (``CHAOS_DRILLS``), every process each
+   starts marked in its environment: ``chaos-ingest`` on sqlite (3
+   SIGKILL cycles under retrying writers, the bulk stream, the drain);
+   the kill-one-partition and kill-a-replica drill (``--partitions 4
+   --replication 2 --ack-quorum 2``); ``chaos-serve --sharded-point``
+   and ``chaos-serve --aot --reloads 1 --seconds 3`` (16 clients, a
+   replica SIGKILLed, a rolling ``/reload``, the aggregate queries/s at 1
+   and 2 replicas; on one card the sharded point's replicas fall back to
+   ``--pin-model``, ``factorShards`` 0); ``chaos-fleet`` (a host's fleet
+   SIGKILLed behind an HA router pair, the autoscaler, stale-while-down);
+   the serving drills train and deploy on the card. A report not ``ok``,
+   a failed query in a kill, rolling or host-kill window, a
+   cross-generation answer, a serve-time compile in the AOT rotation, a
+   partition or replica not caught up, or a marked process alive after
+   its drill fails the run; a serving drill's ``ok`` is read term by term
+   (its report's ``verdicts``), and the reference's scaling gate (≥ 1.5×
+   the queries/s at 2 replicas), which the drill's own clients and router
+   cannot show on a multi-core host in either package, is printed, not
+   failed (ROADMAP.md queue 3). Then the drills' ``pio train`` in process on
+   the kept store of ``chaos-serve --sharded-point``: every solve at K =
+   8, ``gj_solve`` launches = the plan. ``[chaos]`` lines.
+18. every process the phases left running stopped (the script is the
    reaper of its descendants' orphans from its start), listed on a
    ``[cleanup]`` line; a ``[summary]`` line, the ``{"kernels": [...]}`` line, the card's
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
@@ -585,12 +615,12 @@ WF_SERVER_TIMEOUT_S = 120
 #: the serving phase, on the workflow's store and warm instance: the JAX
 #: bench's serving traffic (bench.py:740, :4155-4172: 32 keep-alive
 #: clients x 100 requests, max batch 32, 2 ms delay, Zipf(1.2) users), at
-#: 50 requests a client in every phase but [aot] (cut to hold the
-#: script's length); a 3-sweep warm start; 100,000 batchpredict queries,
+#: 25 requests a client in every phase (cut from 50, and [aot]'s from
+#: 100, to hold the script's length); a 3-sweep warm start; 100,000 batchpredict queries,
 #: 1,000 of them checked; 3 in-process reloads; the Two-Tower deploy at
 #: 8 x 50
 SRV_CLIENTS = 32
-SRV_REQUESTS = 50
+SRV_REQUESTS = 25
 SRV_MAX_BATCH = 32
 SRV_MAX_DELAY_MS = 2
 SRV_ZIPF_A = 1.2
@@ -713,7 +743,8 @@ SCORE_COST_CHECK_M = (1, 3, 8, 13, 32, 100, 512)
 #: TPL_TEXT_DOCS documents in TPL_TEXT_CLASSES classes (a class's own
 #: Zipf vocabulary, a shared one) at 4,096 hashed features
 TPL_APP = "tpl"
-TPL_NNZ = 5_000_000
+#: cut from 5M to hold the script's length
+TPL_NNZ = 2_500_000
 TPL_BUY_EVERY = 20
 TPL_CATEGORIES = 20
 TPL_UNAVAILABLE = 100
@@ -755,8 +786,9 @@ MAX_RESIDUAL = 1e-4
 #: chunk of the ML-20M run, a hot group, and the K=128 / K=256 regimes
 SOLVE_SHAPES = ((32768, 64), (21840, 64), (2049, 64), (4096, 128), (64, 256))
 
-#: widths of the one-warp-per-system kernel timed at the ALS chunk cap
-SOLVE_WIDTHS = (16, 32, 48, 64)
+#: widths of the one-warp-per-system kernel timed at the ALS chunk cap;
+#: 8 is the [chaos] drills' rank
+SOLVE_WIDTHS = (8, 16, 32, 48, 64)
 
 #: the Two-Tower path: the JAX package bench's configuration
 #: (bench.py::_bench_twotower at its accelerator scale)
@@ -768,8 +800,18 @@ TT_INV_TEMP = 10.0  # temperature 0.1
 TT_RECALL_PROBE = 2048
 
 #: [B, D] fused-CE shapes: the main path, the JAX package's on-TPU test
-#: (tests/test_pallas_tpu.py), and twice the main path's batch
-FUSED_CE_SHAPES = ((8192, 64), (1024, 32), (16384, 64))
+#: (tests/test_pallas_tpu.py), twice the main path's batch, and two
+#: widths past the kernels' full-width path (NARROW_KERNEL_D = 256): the
+#: wide Two-Tower epoch's, and a D that is not a multiple of 16
+FUSED_CE_SHAPES = ((8192, 64), (1024, 32), (16384, 64), (8192, 512), (4096, 264))
+
+#: the wide Two-Tower epoch in the Two-Tower group's child: the path's
+#: pairs and batch at this width, fused_ce="auto" against "off" from the
+#: same draw, each logged loss within the fused loss's on-TPU bar
+#: (tests/test_pallas_tpu.py, as phase_fused_kernel holds it)
+TT_WIDE_DIM = 512
+TT_WIDE_EPOCHS = 1
+TT_WIDE_LOSS_RTOL = 5e-3
 
 #: fused CE kernel vs plain: row sums relative (largest and mean), gradient
 #: passes against max|plain|. The kernel and cuBLAS sum a logit's dot
@@ -852,6 +894,43 @@ STG_CLIENTS = 8
 STG_RECOVER_TIMEOUT_S = 60.0
 STG_CHILD_TIMEOUT_S = 600
 STG_CATCH_UP_TIMEOUT_S = 300.0
+
+#: [chaos]: the operator's drills through the port's console, in two
+#: child processes, joined before the fleets: serve-aot from the end of
+#: the ALS phase, the others beside the workflow's phases (in the order
+#: ingest, ingest-partitioned, fleet, serve-sharded); each at its
+#: defaults but where it says: chaos-ingest on sqlite (3 kill cycles); the kill-one-partition
+#: and kill-a-replica drill on a columnar store of 4 partitions x 2
+#: replicas, ack quorum 2; chaos-serve with its sharded point (on one card
+#: each replica falls back to --pin-model: factorShards 0); chaos-serve
+#: AOT-on, its kill phase cut from 6 s to 3 s; chaos-fleet. The serving
+#: drills train and deploy on the phase's device (``--device`` is added)
+CHAOS_DRILLS = (
+    ("ingest", ["chaos-ingest", "--backend", "sqlite", "--cycles", "3"]),
+    ("ingest-partitioned", ["chaos-ingest", "--backend", "columnar", "--partitions", "4", "--replication", "2",
+                            "--ack-quorum", "2"]),
+    ("serve-sharded", ["chaos-serve", "--sharded-point", "--keep"]),
+    ("serve-aot", ["chaos-serve", "--aot", "--reloads", "1", "--seconds", "3"]),
+    ("fleet", ["chaos-fleet"]),
+)
+#: the drills' ALS (resilience/chaos.py: ServeChaosConfig.rank, .iterations)
+CHAOS_RANK = 8
+CHAOS_ITERATIONS = 2
+CHAOS_APP = "chaosapp"
+#: one drill's time limit, and the child's
+CHAOS_DRILL_TIMEOUT_S = 600
+CHAOS_CHILD_TIMEOUT_S = 900
+#: the environment variable that marks every process a drill starts
+CHAOS_MARK = "PIO_CHAOS_DRILL"
+#: niceness added to the background groups that run in child processes
+#: beside the workflow's phases (and to every process they start): they
+#: finished 150-200 s before their join, while the script's own phases,
+#: which they slow, are its length. The [chaos] drills take CHAOS_NICE:
+#: their verdicts are timed (a drain's deadline, a degraded /readyz seen
+#: while a replica is down). Children that a phase of the script joins
+#: at once (the multihost ranks, the sweeps) keep 0
+CHILD_NICE = 10
+CHAOS_NICE = 5
 
 #: the kernels of both paths: wrapper, plain version, library call
 KERNELS = {
@@ -1252,7 +1331,7 @@ def phase_kernel(device) -> list:
 def phase_solve_widths(device) -> list:
     """The K <= 64 kernel at B = 32768 for each of ``SOLVE_WIDTHS``: time
     per system and FMA instructions a warp issues per ns, beside the plain
-    mirror's agreement. The register kernel's code grows as K², so a time
+    mirror's agreement and time, the bound and the library Cholesky's time. The register kernel's code grows as K², so a time
     per system that rises faster than its instructions from K = 32 to K = 64
     points at instruction fetch."""
     rows = []
@@ -1264,8 +1343,11 @@ def phase_solve_widths(device) -> list:
         # a lane holds ceil(K/32) rows: each pivot p is that many FMA
         # instructions per column to its right (and b)
         fma_instr = -(-k // 32) * k * (k + 1) // 2 * batch
+        bound_ms, bound_by = solve_bound(batch, k)
         row = {"shape": [batch, k, k], "rel_err_plain": err, "ms": ms, "ns_per_system": ms * 1e6 / batch,
-               "fma_instr_per_ns": fma_instr / (ms * 1e6), "bound_ms": solve_bound(batch, k)[0]}
+               "fma_instr_per_ns": fma_instr / (ms * 1e6), "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": time_ms(lambda: cholesky_solve(A, b), 10),
+               "plain_ms": time_ms(lambda: gj_solve_reference(A, b), 3)}
         log(f"[kernel] gj_solve width {json.dumps(row)}")
         if not err < MAX_REL_ERR:
             raise RuntimeError(f"gj_solve disagrees at [{batch},{k},{k}]: rel err vs plain {err:.3g}")
@@ -3611,7 +3693,7 @@ def recall_vs_float64(answers: list, U64: np.ndarray, V64: np.ndarray, item_inde
 
 def phase_ann(device, ctx: dict, smi: str) -> dict:
     """``pio deploy --ann`` and ``--quantize int8`` on the workflow's warm
-    instance (``phase_serving``'s 32 x 50 uniform top-10 load on each of
+    instance (``phase_serving``'s 32 x 25 uniform top-10 load on each of
     ``--ann --ann-nprobe 8``, ``--quantize int8`` and ``--ann --quantize
     int8 --batching --pin-model``; every answer 200; int8 ``bytesPinned``
     must be the codes and scales), then in process: a full-probe
@@ -5413,10 +5495,208 @@ def phase_storage(device, smi: str) -> dict:
     return out
 
 
+def marked_alive(value: str) -> list:
+    """Live (not zombie) processes whose environment holds
+    ``CHAOS_MARK=value``, as command lines."""
+    mark = f"{CHAOS_MARK}={value}".encode()
+    found = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as fh:
+                state = fh.read().rsplit(")", 1)[1].split()[0]
+        except OSError:
+            continue
+        if state != "Z" and _marked(int(entry), mark):
+            found.append(f"{entry} {_cmdline(int(entry))}")
+    return found
+
+
+def run_drill(label: str, argv: list) -> dict:
+    """One drill through the port's console (``python -m
+    predictionio_tpu_torch.tools.console <argv>``), every process it
+    starts marked with a fresh ``CHAOS_MARK``: its JSON report, its
+    seconds, and the marked processes still alive once it has returned
+    (the drills end every process they start)."""
+    root = str(Path(__file__).resolve().parent)
+    value = f"{label}-{os.getpid()}-{time.time_ns()}"
+    env = dict(os.environ, **{CHAOS_MARK: value},
+               PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "predictionio_tpu_torch.tools.console", *argv], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=CHAOS_DRILL_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    alive = marked_alive(value)
+    try:
+        report = json.loads(proc.stdout[proc.stdout.index("{"):])
+    except ValueError:
+        raise RuntimeError(f"chaos {label}: rc {proc.returncode}, no report; stderr: {proc.stderr[-3000:]}") from None
+    return {"report": report, "rc": proc.returncode, "seconds": seconds, "alive": alive}
+
+
+def _p99s(report: dict) -> list:
+    kill = report.get("kill") or {}
+    return [(kill.get("baselineWindow") or {}).get("p99Ms"), (kill.get("recoveredWindow") or {}).get("p99Ms")]
+
+
+def chaos_faults(label: str, run: dict) -> list:
+    """What fails the run in one drill's report: ``ok`` false, a failed
+    query in a kill or rolling window, a cross-generation answer, a
+    serve-time compile in the AOT rotation, a partition not caught up, a
+    process left alive. A serving drill's ``ok`` is read term by term
+    (``verdicts``): every term but ``throughputScales`` fails the run.
+    That one (the reference's ≥ 1.5× queries/s at 2 replicas on a
+    multi-core host) is printed instead: the drill's 16 in-process
+    clients and its one router process cap both fleet sizes near one
+    rate in both packages (ROADMAP.md queue 3, "The serving drill's
+    scaling gate")."""
+    r = run["report"]
+    if r.get("ok") is not True:
+        log(f"[chaos] {label} report: {json.dumps(r)}")
+    verdicts = r.get("verdicts")
+    if verdicts is not None and "error" not in r:
+        failed = [name for name, held in verdicts.items() if not held and name != "throughputScales"]
+        faults = [f"verdicts not held: {failed}"] if failed else []
+        if not verdicts.get("throughputScales"):
+            log(f"[chaos] {label}: the reference's scaling gate not met, a property of the reference and not a "
+                f"failure of this run: {json.dumps((r.get('throughput') or {}).get('points'))}, "
+                f"scaling {r['throughput'].get('scaling')}")
+        elif run["rc"] != 0:
+            faults.append(f"rc {run['rc']} with every verdict held")
+    else:
+        faults = [] if r.get("ok") is True and run["rc"] == 0 else [f"ok {r.get('ok')}, rc {run['rc']}: {r.get('error')}"]
+    for phase in ("kill", "rolling"):
+        if phase in r and r[phase].get("failedQueries") != 0:
+            faults.append(f"{r[phase].get('failedQueries')} failed queries in the {phase} window")
+    if "rolling" in r and r["rolling"].get("crossGenerationViolations") != 0:
+        faults.append(f"{r['rolling'].get('crossGenerationViolations')} cross-generation answers")
+    if r.get("aot") and (r.get("rolling", {}).get("aot") or {}).get("serveTimeCompiles") != 0:
+        faults.append(f"the AOT rotation compiled at serve time: {r.get('rolling', {}).get('aot')}")
+    for phase in ("hostKill", "autoscale"):
+        if phase in r and r[phase].get("failedQueries") != 0:
+            faults.append(f"{r[phase].get('failedQueries')} failed queries in {phase}")
+    part = r.get("partitioned")
+    if label == "ingest-partitioned" and not (part and part.get("killedPartitionCaughtUp")
+                                              and part.get("replicaCatchUp") and part.get("ackedLost") == 0
+                                              and part.get("duplicates") == 0):
+        faults.append(f"the killed partition or replica did not catch up clean: {part}")
+    if run["alive"]:
+        faults.append(f"processes alive after the drill: {run['alive']}")
+    return faults
+
+
+def chaos_headline(label: str, run: dict) -> dict:
+    """The numbers a ``[chaos]`` line prints for one drill."""
+    r = run["report"]
+    out = {"drill": label, "ok": r.get("ok"), "seconds": run["seconds"], "alive": len(run["alive"])}
+    if label.startswith("ingest"):
+        out.update(acked=r.get("ackedTotal"), acked_lost=r.get("ackedLost"), duplicates=r.get("duplicates"),
+                   recovery_s=r.get("recoverySeconds"), drain_exit=(r.get("drain") or {}).get("exitCode"))
+        if "partitioned" in r:
+            part = r["partitioned"]
+            out.update({key: part.get(key) for key in (
+                "ackedLost", "duplicates", "killedPartitionPresent", "killedPartitionExpected",
+                "killedPartitionCaughtUp", "replicaCatchUp", "recoverySeconds")})
+    elif label.startswith("serve"):
+        kill, rolling = r.get("kill") or {}, r.get("rolling") or {}
+        out.update(
+            failed_queries={"kill": kill.get("failedQueries"), "rolling": rolling.get("failedQueries")},
+            respawn_s=[k.get("respawnSeconds") for k in kill.get("kills", [])],
+            p99_ms_before_after=_p99s(r), cross_generation=rolling.get("crossGenerationViolations"),
+            qps_by_replicas={p["replicas"]: p["qps"] for p in (r.get("throughput") or {}).get("points", [])},
+            scaling=(r.get("throughput") or {}).get("scaling"), setup_s=r.get("setupSeconds"))
+        if r.get("aot"):
+            out["aot_serve_time_compiles"] = (rolling.get("aot") or {}).get("serveTimeCompiles")
+        if "shardedReplica" in r:
+            out["sharded"] = {k: r["shardedReplica"].get(k) for k in ("qps", "failed", "factorShards", "note")}
+    else:
+        host = r.get("hostKill") or {}
+        out.update(
+            failed_queries={"hostKill": host.get("failedQueries"),
+                            "autoscale": (r.get("autoscale") or {}).get("failedQueries")},
+            absorb_s=host.get("absorbSeconds"), evict_s=host.get("evictSeconds"), rejoin_s=host.get("rejoinSeconds"),
+            router_failovers=host.get("routerFailovers"), p99_ms=(host.get("overall") or {}).get("p99Ms"),
+            qps=(host.get("overall") or {}).get("qps"),
+            scale_up_s=(r.get("autoscale") or {}).get("scaleUpSeconds"),
+            scale_down_s=(r.get("autoscale") or {}).get("scaleDownSeconds"),
+            stale_ok=(r.get("staleWhileDown") or {}).get("ok"), setup_s=r.get("setupSeconds"))
+    return out
+
+
+def chaos_train(device, base: str) -> dict:
+    """The drills' ``pio train`` in this process on the kept store of
+    ``serve-sharded`` (its engine.json and events): the solves all at
+    K = ``CHAOS_RANK``, ``gj_solve`` launched = the plan of the
+    TrainingData the drill's DataSource reads. The drills' own trains run
+    the same engine.json on the same events in a subprocess, where this
+    script cannot count."""
+    from predictionio_tpu_torch.resilience import chaos
+    from predictionio_tpu_torch.templates.recommendation.engine import DataSourceParams, RecommendationDataSource
+
+    env = {k: v for k, v in chaos._storage_env(base, "sqlite").items() if k.startswith("PIO_")}
+    Storage.configure(env)
+    try:
+        td = RecommendationDataSource(DataSourceParams(app_name=CHAOS_APP)).read_training(local_context(device))
+        cfg = ALSConfig(rank=CHAOS_RANK)
+        plan = CHAOS_ITERATIONS * (planned_solves(td.rows, len(td.user_index), cfg)
+                                   + planned_solves(td.cols, len(td.item_index), cfg))
+        shapes: list = []
+        with recorded_solves(shapes):
+            reset_launch_counts()
+            train_s = console_ok("chaos train", ["train", "--engine-json", os.path.join(base, "engine.json"),
+                                                 "--mesh", "none", "--device", device.type])
+            launches = read_launch_counts()
+    finally:
+        Storage.configure(None)
+    widths = sorted({k for _, k in shapes})
+    if widths != [CHAOS_RANK] or len(shapes) != plan:
+        raise RuntimeError(f"chaos train: {len(shapes)} solves at K {widths}, the plan says {plan} at K {CHAOS_RANK}")
+    if device.type == "cuda":
+        check_launches("chaos-train", launches, {"gj_solve": plan})
+    return {"ratings": int(td.rows.size), "solves": len(shapes), "k": CHAOS_RANK, "launches": launches["gj_solve"],
+            "plan": plan, "batch_max": max(b for b, _ in shapes), "train_s": train_s}
+
+
+def phase_chaos(device, smi: str, *drills: int) -> dict:
+    """The operator's drills ``CHAOS_DRILLS[i]`` for each ``i`` of
+    ``drills``, in that order, through the port's console, each report
+    held to its verdicts (:func:`chaos_faults`); after ``serve-sharded``
+    the drills' train in this process (:func:`chaos_train`). ``[chaos]``
+    lines."""
+    t_phase = time.perf_counter()
+    out: dict = {"drills": {}}
+    faults = []
+    kept = None
+    try:
+        for label, argv in (CHAOS_DRILLS[i] for i in drills):
+            if not label.startswith("ingest"):
+                argv = [*argv, "--device", device.type]
+            run = run_drill(label, argv)
+            if "--keep" in argv:
+                kept = run["report"].get("storageDir")
+            head = chaos_headline(label, run)
+            log(f"[chaos] {json.dumps(head)} on {smi}")
+            out["drills"][label] = head
+            faults += [f"{label}: {f}" for f in chaos_faults(label, run)]
+        if faults:
+            raise RuntimeError(f"chaos: {faults}")
+        if kept:
+            out["train"] = chaos_train(device, kept)
+            log(f"[chaos] train in process on the drills' store: {json.dumps(out['train'])}")
+    finally:
+        if kept:
+            shutil.rmtree(kept, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[timing] chaos {', '.join(out['drills'])} {out['phase_s']:.1f} s in a child process")
+    return out
+
+
 CHILD_PHASES = """\
-import json, sys, torch, chip_smoke as c
+import json, os, sys, torch, chip_smoke as c
 name, device, smi, path = sys.argv[1], torch.device(sys.argv[2]), sys.argv[3], sys.argv[4]
-out = getattr(c, name)(device, smi, *(int(a) for a in sys.argv[5:]))
+os.nice(int(sys.argv[5]))
+out = getattr(c, name)(device, smi, *(int(a) for a in sys.argv[6:]))
 with open(path, "w") as fh:
     json.dump(out, fh, default=lambda o: o.tolist() if hasattr(o, "tolist") else str(o))
 """
@@ -5438,7 +5718,47 @@ def phase_tt_group(device, smi: str) -> dict:
                 phase_tt_online(device, ctx, smi), phase_tt_ann(device, ctx, smi),
                 phase_tt_sharded(device, ctx, smi), phase_tt_aot(device, ctx, smi))
 
-    return phase_tt_quickstart(device, TTQ_NNZ, TT_DIM, TT_BATCH, TT_EPOCHS, QUERIES, TOP_K, smi, then=on_store)
+    out = phase_tt_quickstart(device, TTQ_NNZ, TT_DIM, TT_BATCH, TT_EPOCHS, QUERIES, TOP_K, smi, then=on_store)
+    out["wide"] = phase_tt_wide(device, smi)
+    return out
+
+
+def phase_tt_wide(device, smi: str) -> dict:
+    """``TT_WIDE_EPOCHS`` Two-Tower epoch at ``TT_WIDE_DIM``, past the
+    fused-CE kernels' full-width path, on the path's pairs and batch:
+    ``fused_ce="auto"`` launches the kernels as planned (one forward, two
+    backward a step), and every logged loss is within ``TT_WIDE_LOSS_RTOL``
+    of the same epoch with ``fused_ce="off"`` from the same draw."""
+    t_phase = time.perf_counter()
+    td, _, _, num_items = tt_training_data(TT_NNZ)
+    num_users = len(td.user_index)
+    cfg = TwoTowerConfig(dim=TT_WIDE_DIM, batch_size=TT_BATCH, epochs=TT_WIDE_EPOCHS, learning_rate=0.05,
+                         temperature=1.0 / TT_INV_TEMP, seed=2, fused_ce="auto")
+    steps = TT_WIDE_EPOCHS * -(-td.rows.size // TT_BATCH)
+    runs = {}
+    for mode in ("auto", "off"):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        model = train_two_tower(td.rows, td.cols, num_users, num_items, dataclasses.replace(cfg, fused_ce=mode),
+                                device=device)
+        runs[mode] = (model, time.perf_counter() - t0, read_launch_counts())
+    fused, off = runs["auto"][0], runs["off"][0]
+    check_launches("tt-wide", runs["auto"][2], {"fused_ce_fwd": steps, "fused_ce_bwd": 2 * steps})
+    if any(runs["off"][2].values()):
+        raise RuntimeError(f"tt-wide: fused_ce=\"off\" launched kernels {runs['off'][2]}")
+    if [s for s, _ in fused.loss_history] != [s for s, _ in off.loss_history]:
+        raise RuntimeError("tt-wide: the logged steps differ")
+    loss_rel = max(abs(a - b) / max(1.0, abs(b)) for (_, a), (_, b) in zip(fused.loss_history, off.loss_history))
+    if not (np.isfinite(fused.user_vecs).all() and np.isfinite(fused.item_vecs).all()):
+        raise RuntimeError("tt-wide: non-finite towers")
+    out = {"dim": TT_WIDE_DIM, "batch": TT_BATCH, "pairs": int(td.rows.size), "steps": steps,
+           "launches": {k: v for k, v in runs["auto"][2].items() if v}, "loss_first": fused.loss_history[0][1],
+           "loss_last": fused.loss_history[-1][1], "loss_rel_vs_off": loss_rel, "train_s": runs["auto"][1],
+           "off_train_s": runs["off"][1], "phase_s": time.perf_counter() - t_phase, "card": smi}
+    log(f"[tt-wide] {json.dumps(out)}")
+    if not loss_rel <= TT_WIDE_LOSS_RTOL:
+        raise RuntimeError(f"tt-wide: losses {fused.loss_history} against the unfused {off.loss_history}")
+    return out
 
 
 def phase_sweeps(device, smi: str) -> dict:
@@ -5457,11 +5777,12 @@ def phase_sweeps(device, smi: str) -> dict:
     return out
 
 
-def start_child(name: str, device, smi: str, *args: int, env: dict | None = None) -> tuple:
+def start_child(name: str, device, smi: str, *args: int, env: dict | None = None, nice: int = 0) -> tuple:
     """Start the phase function ``name`` in a child process, so that it
     runs beside the phases that follow: its own stores, CUDA context and
     launch counts (its launch checks run there), with ``env`` added to its
-    environment. Its lines go to a file that :func:`join_child` prints.
+    environment and ``nice`` to its niceness (and so to every process it
+    starts). Its lines go to a file that :func:`join_child` prints.
     Returns the name, the process and its directory."""
     root = str(Path(__file__).resolve().parent)
     workdir = Path(tempfile.mkdtemp(prefix=f"pio-{name}-"))
@@ -5469,7 +5790,7 @@ def start_child(name: str, device, smi: str, *args: int, env: dict | None = None
                PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p))
     with open(workdir / "out.log", "w") as out, open(workdir / "err.log", "w") as err:
         proc = subprocess.Popen(
-            [sys.executable, "-c", CHILD_PHASES, name, str(device), smi, str(workdir / "result.json"),
+            [sys.executable, "-c", CHILD_PHASES, name, str(device), smi, str(workdir / "result.json"), str(nice),
              *(str(a) for a in args)],
             cwd=root, env=env, stdout=out, stderr=err,
         )
@@ -6278,7 +6599,7 @@ class DrillClients:
 
 def phase_fleet(device, ctx: dict, plain: dict, smi: str) -> dict:
     """``pio deploy --replicas N`` of the workflow's warm instance at each
-    ``FLT_REPLICAS`` under the [serving] phase's 32 x 50 uniform load,
+    ``FLT_REPLICAS`` under the [serving] phase's 32 x 25 uniform load,
     beside its single-process deploy (``plain``); on the 2-replica fleet
     the SIGKILL drill and a rolling ``POST /reload`` under 16 clients.
     Every answer through a router is held to float64 numpy; the fleet
@@ -6834,7 +7155,7 @@ AOT_BATCH_USERS = 1000
 #: single queries timed through each in-process service (legs A B B A)
 AOT_HANDLE_QUERIES = 400
 #: requests a client of the [aot] load (the bench's 100)
-AOT_REQUESTS = 50
+AOT_REQUESTS = 25
 AOT_RELOADS = 3
 AOT_RELOAD_SLACK = 1 << 20
 AOT_FALLBACK_USERS = 64
@@ -7121,7 +7442,7 @@ def phase_aot(device, ctx: dict, smi: str, after_export=None) -> dict:
     """AOT serving of the workflow's warm instance (ML-20M shape, rank 64):
     ``pio train --aot`` (``gj_solve`` launches = the plan of a full read),
     ``pio status`` saying ``present``; a ``--aot`` deploy beside a plain
-    ``--pin-model`` one under the bench's serving load (32 x 100 uniform
+    ``--pin-model`` one under the bench's serving load (32 x AOT_REQUESTS uniform
     top-10, legs A B B A), every answer byte-equal to the plain deploy's
     and float64 numpy's top-10 under the near-tie rule, tier 1, hits, no
     serve-time compile; in process, the programs against the eager pinned
@@ -7734,6 +8055,9 @@ def main() -> int:
     profile = phase_profile(*phase_half_sweep(trained, device, RANK, info["smi"]), device)
     phase_knobs(device, info["smi"])
     mark("als")
+    # [chaos]: the AOT serving drill (its export takes the most) in a
+    # child from here, the other four with the other children below
+    chaos_children = [start_child("phase_chaos", device, info["smi"], 3, nice=CHAOS_NICE)]
 
     # the training mesh and the multi-process tier: (b) the two ranks and
     # the NCCL group, and (c) the CLI's processes, as child processes
@@ -7762,10 +8086,12 @@ def main() -> int:
     # and the four other templates run in child processes beside the
     # workflow's phases (their own stores and launch counts); joined
     # before the fleets count the console processes on the host
-    children = [start_child("phase_quickstart_group", device, info["smi"]),
-                start_child("phase_tt_group", device, info["smi"]),
-                start_child("phase_templates", device, info["smi"], TPL_NNZ, TPL_CLS_USERS, TPL_TEXT_DOCS, QUERIES)]
-    storage_child = start_child("phase_storage", device, info["smi"])
+    children = [start_child("phase_quickstart_group", device, info["smi"], nice=CHILD_NICE),
+                start_child("phase_tt_group", device, info["smi"], nice=CHILD_NICE),
+                start_child("phase_templates", device, info["smi"], TPL_NNZ, TPL_CLS_USERS, TPL_TEXT_DOCS, QUERIES,
+                            nice=CHILD_NICE)]
+    storage_child = start_child("phase_storage", device, info["smi"], nice=CHILD_NICE)
+    chaos_children.append(start_child("phase_chaos", device, info["smi"], 0, 1, 4, 2, nice=CHAOS_NICE))
     joined: list = []
 
     # the serving tier, online learning, retrieval, the fleet and the
@@ -7784,6 +8110,11 @@ def main() -> int:
         joined.extend(join_child(*child, CHILD_TIMEOUT_S) for child in children)
         joined.append(join_child(*storage_child, STG_CHILD_TIMEOUT_S))
         mark("waiting for the quickstart's, the Two-Tower's, the templates' and the storage child processes")
+        chaos_joined = [join_child(*child, CHAOS_CHILD_TIMEOUT_S) for child in chaos_children]
+        joined.append({"drills": {k: v for c in chaos_joined for k, v in c["drills"].items()},
+                       "train": next(c["train"] for c in chaos_joined if "train" in c),
+                       "phase_s": [c["phase_s"] for c in chaos_joined]})
+        mark("waiting for the chaos child processes")
         flt = phase_fleet(device, ctx, srv["per_request"], info["smi"])
         mark("fleet")
         exp = phase_explore_deploy(device, ctx, info["smi"])
@@ -7804,7 +8135,7 @@ def main() -> int:
         raise RuntimeError(f"online: the fold launched kernels {online_launches}; its path has none")
     log(f"[ann] launches on the deploys' and in-process path: {json.dumps(ann['launches'])}; [sharded] on the "
         f"services' path: {json.dumps(shd['launches'])}")
-    quickstart, ttq, tpl, stg, sweeps = joined
+    quickstart, ttq, tpl, stg, chaos_out, sweeps = joined
     qs, loop = quickstart["qs"], quickstart["loop"]
     grid, fleet_ab = qs["then"]
     tt_srv, tt_onl, tt_ann, tt_shd, tt_aot = ttq["serving"]
@@ -7978,6 +8309,9 @@ def main() -> int:
                 "outage_s", "goodput_in_outage_qps", "phase_s")},
             "sharedfs": stg["sharedfs"], "phase_s": stg["phase_s"],
         },
+        "chaos": {**chaos_out["drills"], "train": chaos_out["train"], "phase_s": chaos_out["phase_s"]},
+        "tt_wide": {key: ttq["wide"][key] for key in (
+            "dim", "steps", "launches", "loss_last", "loss_rel_vs_off", "train_s", "off_train_s")},
         "multihost": {
             "mesh": {key: mh_mesh[key] for key in (
                 "mesh", "train_s", "gj_solve_launches", "plan", "position_bytes", "replicated_bytes", "rmse",

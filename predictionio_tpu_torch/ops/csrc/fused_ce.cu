@@ -60,6 +60,19 @@
 // * When B / 128 row blocks cannot fill the card, the column tiles are
 //   split over gridDim.y blocks per row block; partial sums go to slabs
 //   that a second kernel adds in split order.
+// * Above D = 256 (the wide kernels, fwd_wide_kernel and bwd_wide_kernel)
+//   the full-width tiles would not fit: 128 rows of a and a ring of b
+//   tiles at D = 512 take some 330 KB of shared memory, and a warp's
+//   [16, D] gradient rows D / 2 registers a thread. So the logit
+//   product walks D in chunks of 128 columns: each (column tile, chunk)
+//   step copies that chunk of the block's 128 rows of a and of the tile's
+//   rows of b through a two-stage cp.async ring, and the mma accumulates
+//   the chunks in order into the same f32 fragments; the two roundings
+//   and the exponential come after the last chunk, on the whole dot
+//   product. The backward grid gains a dimension over D-slices of at
+//   most 256 columns: every block recomputes the logits over the full D
+//   and writes only its slice of out (or of the split partials), from a
+//   double-buffered copy of its slice of the tile's b rows.
 //
 // What it promises: no atomics and a fixed order of every sum, so two
 // calls on the same input give bit-identical outputs. What it no longer
@@ -89,8 +102,13 @@ constexpr int kRows = 16 * kWarps;  // rows of a a block owns, 16 per warp
 constexpr int kThreads = 32 * kWarps;
 constexpr int kCols = 64;           // rows of b per forward column tile
 constexpr int kStages = 3;          // column tiles in flight in the cp.async ring
-constexpr int kMaxD = 256;
 constexpr int kPad = 8;             // bf16 padding per shared row
+constexpr int kNarrowD = 256;       // widest D of the full-width kernels
+constexpr int kChunk = 128;         // D columns a wide kernel stages per step
+constexpr int kChunkLd = kChunk + kPad;
+constexpr int kWideN = 32;          // rows of b per wide backward column tile
+constexpr int kSliceD = 256;        // widest D-slice of a wide backward block
+constexpr int kSliceLd = kSliceD + kPad;
 
 __host__ __device__ constexpr int padded_d(int D) { return (D + 15) / 16 * 16; }
 
@@ -402,6 +420,228 @@ bwd_kernel(const bf16* __restrict__ a16, const bf16* __restrict__ b16, const flo
   }
 }
 
+// D-slices of the wide backward at width D, and the columns of each (a
+// multiple of 16; the last slice may be narrower).
+__host__ __device__ constexpr int d_slices(int D) { return (padded_d(D) + kSliceD - 1) / kSliceD; }
+__host__ __device__ constexpr int slice_width(int D) {
+  return (padded_d(D) / d_slices(D) + 15) / 16 * 16;
+}
+
+// One step of a wide kernel's walk: chunk c of rows [row0, row0 + kRows)
+// of a16 into a_s and of rows [col0, col0 + n) of b16 into b_s (row stride
+// kChunkLd in both).
+__device__ __forceinline__ void load_chunk(bf16* a_s, bf16* b_s, const bf16* __restrict__ a16,
+                                           const bf16* __restrict__ b16, long long row0, long long col0,
+                                           int n, int Dp, int c) {
+  const int d0 = c * kChunk;
+  const int pieces = min(kChunk, Dp - d0) / 8;
+  for (int v = threadIdx.x; v < (kRows + n) * pieces; v += kThreads) {
+    const int i = v / pieces;
+    const int k = v - i * pieces;
+    if (i < kRows)
+      cp_async16(a_s + i * kChunkLd + 8 * k, a16 + (row0 + i) * Dp + d0 + 8 * k);
+    else
+      cp_async16(b_s + (i - kRows) * kChunkLd + 8 * k, b16 + (col0 + i - kRows) * Dp + d0 + 8 * k);
+  }
+}
+
+// acc (the warp's [16, 8 kNT] logit fragments) += chunk c's part of the
+// dot products, from the staged a_s, b_s of load_chunk.
+template <int kNT>
+__device__ __forceinline__ void chunk_mma(float (*acc)[4], const bf16* a_s, const bf16* b_s, int Dp, int c,
+                                          int warp, int lane) {
+  const bf16* a_row = a_s + (16 * warp + (lane & 15)) * kChunkLd + (lane >> 4) * 8;
+  const bf16* bt = b_s + ((lane & 7) + ((lane >> 4) << 3)) * kChunkLd + ((lane >> 3) & 1) * 8;
+  const int ks_n = min(kChunk, Dp - c * kChunk) / 16;
+#pragma unroll
+  for (int ks = 0; ks < kChunk / 16; ++ks) {
+    if (ks < ks_n) {
+      uint32_t af[4];
+      ldmatrix_x4(af, a_row + 16 * ks);
+#pragma unroll
+      for (int p = 0; p < kNT / 2; ++p) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, bt + 16 * p * kChunkLd + 16 * ks);
+        mma_bf16(acc[2 * p], af, bf[0], bf[1]);
+        mma_bf16(acc[2 * p + 1], af, bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+// The forward above D = 256: fwd_kernel's sums, the logits accumulated
+// over D in chunks (a two-stage ring of (column tile, chunk) steps).
+__global__ void __launch_bounds__(kThreads)
+fwd_wide_kernel(const bf16* __restrict__ a16, const bf16* __restrict__ b16, float* __restrict__ row_part,
+                float* __restrict__ col_part, int B, int D, float inv_temp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kStage = (kRows + kCols) * kChunkLd;
+  const int Dp = padded_d(D), nc = (Dp + kChunk - 1) / kChunk;
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  float* col_s = reinterpret_cast<float*>(ring + 2 * kStage);  // [kWarps][kCols]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
+  int t0, t1;
+  split_range(B / kCols, &t0, &t1);
+  const int steps = (t1 - t0) * nc;
+  auto load_step = [&](int s) {
+    bf16* a_s = ring + (s & 1) * kStage;
+    load_chunk(a_s, a_s + kRows * kChunkLd, a16, b16, row0, static_cast<long long>(t0 + s / nc) * kCols, kCols,
+               Dp, s % nc);
+  };
+  if (steps > 0) load_step(0);
+  cp_async_commit();
+
+  float acc[8][4];
+  float rsum0 = 0.0f, rsum1 = 0.0f;  // rows g and g + 8 of this warp
+  for (int s = 0; s < steps; ++s) {
+    const int t = t0 + s / nc, c = s % nc;
+    cp_async_wait<0>();  // step s has landed
+    __syncthreads();     // and every warp is done with step s - 1
+    if (s + 1 < steps) load_step(s + 1);
+    cp_async_commit();
+    if (c == 0) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+    }
+    const bf16* a_s = ring + (s & 1) * kStage;
+    chunk_mma<8>(acc, a_s, a_s + kRows * kChunkLd, Dp, c, warp, lane);
+    if (c != nc - 1) continue;
+    float cl[16];  // as in fwd_kernel
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 e0 = exp_logits(acc[n][0], acc[n][1], inv_temp);
+      const float2 e1 = exp_logits(acc[n][2], acc[n][3], inv_temp);
+      rsum0 += e0.x;
+      rsum0 += e0.y;
+      rsum1 += e1.x;
+      rsum1 += e1.y;
+      cl[2 * n] = e0.x + e1.x;
+      cl[2 * n + 1] = e0.y + e1.y;
+    }
+    scatter_step<8>(cl, lane);
+    scatter_step<4>(cl, lane);
+    scatter_step<2>(cl, lane);
+    *reinterpret_cast<float2*>(col_s + warp * kCols + 8 * g + 2 * q) = make_float2(cl[0], cl[1]);
+    __syncthreads();  // col_s is whole
+    if (threadIdx.x < kCols) {
+      float v = col_s[threadIdx.x];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) v += col_s[w * kCols + threadIdx.x];
+      col_part[static_cast<long long>(blockIdx.x) * B + static_cast<long long>(t) * kCols + threadIdx.x] = v;
+    }
+  }
+  rsum0 += __shfl_xor_sync(0xffffffffu, rsum0, 1);
+  rsum0 += __shfl_xor_sync(0xffffffffu, rsum0, 2);
+  rsum1 += __shfl_xor_sync(0xffffffffu, rsum1, 1);
+  rsum1 += __shfl_xor_sync(0xffffffffu, rsum1, 2);
+  if (q == 0) {
+    float* dst = row_part + static_cast<long long>(blockIdx.y) * B + row0 + 16 * warp + g;
+    dst[0] = rsum0;
+    dst[8] = rsum1;
+  }
+}
+
+// The backward above D = 256: blockIdx.z picks the D-slice [s0, s0 +
+// slice_width) of out that the block writes; the logits of each column
+// tile are accumulated over the full D in chunks, as in fwd_wide_kernel,
+// and dL times the tile's slice of b (a double-buffered copy, loaded with
+// the tile's first chunk) goes into the warp's [16, slice] rows of out.
+__global__ void __launch_bounds__(kThreads)
+bwd_wide_kernel(const bf16* __restrict__ a16, const bf16* __restrict__ b16, const float* __restrict__ qr,
+                const float* __restrict__ qs, float* __restrict__ out, int B, int D, float inv_temp) {
+  constexpr int kNT = kWideN / 8;  // n8 tiles of the logit tile
+  constexpr int kStage = (kRows + kWideN) * kChunkLd;
+  constexpr int kMaxSK = kSliceD / 16;  // k16 steps of the widest slice
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Dp = padded_d(D), nc = (Dp + kChunk - 1) / kChunk;
+  const int sw = slice_width(D), s0 = static_cast<int>(blockIdx.z) * sw;
+  const int s_ks = min(sw, Dp - s0) / 16;
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  bf16* sl_s = ring + 2 * kStage;                                        // 2 x [kWideN][kSliceLd]
+  float* q_s = reinterpret_cast<float*>(sl_s + 2 * kWideN * kSliceLd);  // 2 x [kWideN]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
+  int t0, t1;
+  split_range(B / kWideN, &t0, &t1);
+  const int steps = (t1 - t0) * nc;
+  auto load_step = [&](int s) {
+    const int tt = s / nc, c = s % nc;
+    const long long col0 = static_cast<long long>(t0 + tt) * kWideN;
+    bf16* a_s = ring + (s & 1) * kStage;
+    load_chunk(a_s, a_s + kRows * kChunkLd, a16, b16, row0, col0, kWideN, Dp, c);
+    if (c == 0) {  // the tile's slice of b and its quotients
+      bf16* sl = sl_s + (tt & 1) * kWideN * kSliceLd;
+      const int pieces = s_ks * 2;
+      for (int v = threadIdx.x; v < kWideN * pieces; v += kThreads) {
+        const int j = v / pieces;
+        const int k = v - j * pieces;
+        cp_async16(sl + j * kSliceLd + 8 * k, b16 + (col0 + j) * Dp + s0 + 8 * k);
+      }
+      if (threadIdx.x < kWideN / 4)
+        cp_async16(q_s + (tt & 1) * kWideN + 4 * threadIdx.x, qs + col0 + 4 * threadIdx.x);
+    }
+  };
+  if (steps > 0) load_step(0);
+  cp_async_commit();
+
+  const int bt_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * kSliceLd + (lane >> 4) * 8;  // .trans
+  const float qr0 = qr[row0 + 16 * warp + g], qr1 = qr[row0 + 16 * warp + g + 8];
+  float acc[kNT][4];
+  float o[2 * kMaxSK][4];
+#pragma unroll
+  for (int n = 0; n < 2 * kMaxSK; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+
+  for (int s = 0; s < steps; ++s) {
+    const int tt = s / nc, c = s % nc;
+    cp_async_wait<0>();
+    __syncthreads();
+    if (s + 1 < steps) load_step(s + 1);
+    cp_async_commit();
+    if (c == 0) {
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+    }
+    const bf16* a_s = ring + (s & 1) * kStage;
+    chunk_mma<kNT>(acc, a_s, a_s + kRows * kChunkLd, Dp, c, warp, lane);
+    if (c != nc - 1) continue;
+    const bf16* sl = sl_s + (tt & 1) * kWideN * kSliceLd + bt_off;
+    const float* qt = q_s + (tt & 1) * kWideN;
+#pragma unroll
+    for (int kk = 0; kk < kNT / 2; ++kk) {
+      uint32_t dl[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = 2 * kk + h;
+        const float2 e0 = exp_logits(acc[n][0], acc[n][1], inv_temp);  // row g
+        const float2 e1 = exp_logits(acc[n][2], acc[n][3], inv_temp);  // row g + 8
+        const float2 qc = *reinterpret_cast<const float2*>(qt + 8 * n + 2 * q);
+        dl[2 * h] = pack_bf16(__fadd_rn(__fmul_rn(e0.x, qr0), __fmul_rn(e0.x, qc.x)),
+                              __fadd_rn(__fmul_rn(e0.y, qr0), __fmul_rn(e0.y, qc.y)));
+        dl[2 * h + 1] = pack_bf16(__fadd_rn(__fmul_rn(e1.x, qr1), __fmul_rn(e1.x, qc.x)),
+                                  __fadd_rn(__fmul_rn(e1.y, qr1), __fmul_rn(e1.y, qc.y)));
+      }
+#pragma unroll
+      for (int dp = 0; dp < kMaxSK; ++dp) {
+        if (dp < s_ks) {
+          uint32_t bf[4];
+          ldmatrix_x4_trans(bf, sl + 16 * kk * kSliceLd + 16 * dp);
+          mma_bf16(o[2 * dp], dl, bf[0], bf[1]);
+          mma_bf16(o[2 * dp + 1], dl, bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  float* dst = out + static_cast<long long>(blockIdx.y) * B * D + (row0 + 16 * warp + g) * D + s0 + 2 * q;
+#pragma unroll
+  for (int n = 0; n < 2 * kMaxSK; ++n) {
+    if (8 * n < 16 * s_ks && s0 + 8 * n < D) {
+      *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(o[n][0], o[n][1]);
+      *reinterpret_cast<float2*>(dst + 8 * D + 8 * n) = make_float2(o[n][2], o[n][3]);
+    }
+  }
+}
+
 // out[i] = sum over s of part[s * n + i], in split order.
 __global__ void sum_splits_kernel(const float* __restrict__ part, float* __restrict__ out, long long n,
                                   int splits) {
@@ -426,6 +666,14 @@ size_t fwd_smem(int D) {
 
 size_t bwd_smem(int D, int n) {
   return sizeof(bf16) * (kRows + kStages * n) * (padded_d(D) + kPad) + sizeof(float) * kStages * n;
+}
+
+size_t fwd_wide_smem() {
+  return sizeof(bf16) * 2 * (kRows + kCols) * kChunkLd + sizeof(float) * kWarps * kCols;
+}
+
+size_t bwd_wide_smem() {
+  return sizeof(bf16) * 2 * ((kRows + kWideN) * kChunkLd + kWideN * kSliceLd) + sizeof(float) * 2 * kWideN;
 }
 
 size_t align256(size_t bytes) { return (bytes + 255) / 256 * 256; }
@@ -474,7 +722,7 @@ int capacity_of(Kernel kernel, size_t bytes) {
 }
 
 bool bad_shape(int B, int D, int splits) {
-  return B < kRows || B % kRows || D < 8 || D % 8 || D > kMaxD || splits < 1 || splits > B / kCols;
+  return B < kRows || B % kRows || D < 8 || D % 8 || splits < 1 || splits > B / kCols;
 }
 
 cudaError_t stage(const float* a, const float* b, const float* r, const float* s, const Workspace& w,
@@ -496,6 +744,26 @@ cudaError_t launch_fwd(const Workspace& w, int B, int D, int splits, float inv_t
   return cudaGetLastError();
 }
 
+cudaError_t launch_fwd_wide(const Workspace& w, int B, int D, int splits, float inv_temp, cudaStream_t st) {
+  const size_t bytes = fwd_wide_smem();
+  cudaError_t e = allow_smem(fwd_wide_kernel, bytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(static_cast<unsigned>(B / kRows), static_cast<unsigned>(splits));
+  fwd_wide_kernel<<<grid, kThreads, bytes, st>>>(w.a16, w.b16, w.p0, w.p1, B, D, inv_temp);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bwd_wide(const bf16* a16, const bf16* b16, const float* qr, const float* qs, float* out,
+                            int B, int D, int splits, float inv_temp, cudaStream_t st) {
+  const size_t bytes = bwd_wide_smem();
+  cudaError_t e = allow_smem(bwd_wide_kernel, bytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(static_cast<unsigned>(B / kRows), static_cast<unsigned>(splits),
+                  static_cast<unsigned>(d_slices(D)));
+  bwd_wide_kernel<<<grid, kThreads, bytes, st>>>(a16, b16, qr, qs, out, B, D, inv_temp);
+  return cudaGetLastError();
+}
+
 template <int kMaxK, int kN>
 cudaError_t launch_bwd(const bf16* a16, const bf16* b16, const float* qr, const float* qs, float* out,
                        int B, int D, int splits, float inv_temp, cudaStream_t st) {
@@ -513,7 +781,9 @@ cudaError_t backward_pass(const bf16* a16, const bf16* b16, const float* qr, con
                           float* out, int B, int D, int splits, float inv_temp, cudaStream_t st) {
   float* dst = splits > 1 ? part : out;
   cudaError_t e;
-  switch (max_k(D)) {
+  if (D > kNarrowD) {
+    e = launch_bwd_wide(a16, b16, qr, qs, dst, B, D, splits, inv_temp, st);
+  } else switch (max_k(D)) {
     case 4: e = launch_bwd<4, 64>(a16, b16, qr, qs, dst, B, D, splits, inv_temp, st); break;
     case 8: e = launch_bwd<8, 64>(a16, b16, qr, qs, dst, B, D, splits, inv_temp, st); break;
     default: e = launch_bwd<16, 32>(a16, b16, qr, qs, dst, B, D, splits, inv_temp, st); break;
@@ -539,7 +809,9 @@ size_t fused_ce_workspace(int B, int D, int splits, int backward) {
 // per SM times SMs) for the forward (backward == 0) or backward kernel at
 // width D; minus a cudaError_t on failure.
 int fused_ce_capacity(int D, int backward) {
-  if (D < 8 || D % 8 || D > kMaxD) return -static_cast<int>(cudaErrorInvalidValue);
+  if (D < 8 || D % 8) return -static_cast<int>(cudaErrorInvalidValue);
+  if (D > kNarrowD)
+    return backward ? capacity_of(bwd_wide_kernel, bwd_wide_smem()) : capacity_of(fwd_wide_kernel, fwd_wide_smem());
   switch (max_k(D) + (backward ? 100 : 0)) {
     case 4: return capacity_of(fwd_kernel<4>, fwd_smem(D));
     case 8: return capacity_of(fwd_kernel<8>, fwd_smem(D));
@@ -563,7 +835,9 @@ int fused_ce_fwd(const float* a, const float* b, float* sums, void* work, int B,
   workspace_bytes(B, D, splits, false, &w, static_cast<char*>(work));
   cudaError_t e = stage(a, b, nullptr, nullptr, w, B, D, 0.0f, st);
   if (e != cudaSuccess) return e;
-  switch (max_k(D)) {
+  if (D > kNarrowD) {
+    e = launch_fwd_wide(w, B, D, splits, inv_temp, st);
+  } else switch (max_k(D)) {
     case 4: e = launch_fwd<4>(w, B, D, splits, inv_temp, st); break;
     case 8: e = launch_fwd<8>(w, B, D, splits, inv_temp, st); break;
     default: e = launch_fwd<16>(w, B, D, splits, inv_temp, st); break;

@@ -18,6 +18,9 @@ bf16, no running max (the towers are L2-normalised, so a logit is at most
   wrappers. On a CUDA tensor each launches ``ops/csrc/fused_ce.cu`` and
   counts the kernel's launches in its ``.launches`` (one forward, two
   backward); on a CPU tensor it takes the plain version. A failed launch raises: nothing falls back.
+  They take every shape :func:`fused_ce_supported` accepts: above
+  ``NARROW_KERNEL_D`` the kernels walk D in chunks and the backward splits
+  it into slices (:func:`kernel_d_slices`).
 * :func:`fused_inbatch_ce` — the loss as a ``torch.autograd.Function``.
 
 The forward is one pass, as the TPU kernel is: it returns both the row
@@ -38,7 +41,9 @@ import torch
 __all__ = [
     "MAX_INV_TEMP",
     "ROW_BLOCK",
-    "MAX_KERNEL_D",
+    "NARROW_KERNEL_D",
+    "kernel_d_slices",
+    "kernel_shape_error",
     "FUSED_CE_MODES",
     "fused_ce_supported",
     "fused_ce_fwd_reference",
@@ -58,9 +63,12 @@ ROW_BLOCK = 128
 #: ``MAX_INV_TEMP``)
 MAX_INV_TEMP = 60.0
 
-#: widest tower the CUDA kernels take: the backward keeps a warp's
-#: ``[16, D]`` gradient rows in registers, 128 per thread at D=256
-MAX_KERNEL_D = 256
+#: widest tower of the CUDA kernels' full-width path (``kNarrowD`` in
+#: ops/csrc/fused_ce.cu). Above it the logit product walks D in chunks of
+#: 128 columns, and the backward grid splits D into slices of at most this
+#: many columns: a warp keeps its ``[16, slice]`` gradient rows in
+#: registers, 128 per thread at 256
+NARROW_KERNEL_D = 256
 
 #: rows of ``b`` per forward column tile (``kCols`` in
 #: ops/csrc/fused_ce.cu; a CUDA block owns ``ROW_BLOCK`` rows of ``a``,
@@ -134,6 +142,26 @@ def fused_ce_bwd_reference(
 # ---------------------------------------------------------------------------
 
 
+def kernel_d_slices(D: int) -> int:
+    """D-slices of one backward launch at width D (its grid's third
+    dimension; ``d_slices`` in ops/csrc/fused_ce.cu)."""
+    if D <= NARROW_KERNEL_D:
+        return 1
+    return -(-(-(-D // 16) * 16) // NARROW_KERNEL_D)
+
+
+def kernel_shape_error(B: int, D: int, inv_temp: float, splits: int = 1) -> str | None:
+    """Why the CUDA kernels refuse ``[B, D]`` at ``inv_temp`` with
+    ``splits`` column splits, or None: the C entries' ``bad_shape`` and
+    the temperature bound, a function of the shape alone."""
+    if not fused_ce_supported(B, D, inv_temp):
+        return (f"takes B a multiple of {ROW_BLOCK}, D a multiple of 8 and 0 < inv_temp <= {MAX_INV_TEMP}, "
+                f"got B={B}, D={D}, inv_temp={inv_temp}")
+    if not 1 <= splits <= B // _KERNEL_COLS:
+        return f"takes 1 to {B // _KERNEL_COLS} column splits at B={B}, got {splits}"
+    return None
+
+
 def _check_kernel_args(name: str, tensors: tuple, inv_temp: float) -> tuple[int, int]:
     a = tensors[0]
     if a.device.type != "cuda" or any(t.device != a.device for t in tensors):
@@ -145,11 +173,9 @@ def _check_kernel_args(name: str, tensors: tuple, inv_temp: float) -> tuple[int,
     B, D = a.shape
     if any(t.shape != (B,) for t in tensors[2:]):
         raise ValueError(f"{name} takes row sums of shape [{B}], got {[tuple(t.shape) for t in tensors[2:]]}")
-    if not fused_ce_supported(B, D, inv_temp) or D > MAX_KERNEL_D:
-        raise ValueError(
-            f"{name} takes B a multiple of {ROW_BLOCK}, D a multiple of 8 up to {MAX_KERNEL_D} "
-            f"and 0 < inv_temp <= {MAX_INV_TEMP}, got B={B}, D={D}, inv_temp={inv_temp}"
-        )
+    refused = kernel_shape_error(B, D, inv_temp)
+    if refused:
+        raise ValueError(f"{name} {refused}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} needs contiguous tensors")
     if any(t.data_ptr() % 16 for t in tensors[:2]):
@@ -205,7 +231,9 @@ def _splits_and_workspace(
         if cap <= 0:
             raise RuntimeError(f"fused_ce occupancy query failed: cudaError {-cap} at D={D}")
         _capacity[key] = cap
-    splits = choose_splits(B // ROW_BLOCK, B // _KERNEL_COLS, cap)
+    # a wide backward launch has a block per row block, split and D-slice
+    row_blocks = B // ROW_BLOCK * (kernel_d_slices(D) if backward else 1)
+    splits = choose_splits(row_blocks, B // _KERNEL_COLS, cap)
     nbytes = int(lib.fused_ce_workspace(B, D, splits, int(backward)))
     return splits, torch.empty(nbytes, dtype=torch.uint8, device=device)
 

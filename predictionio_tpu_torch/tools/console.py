@@ -38,6 +38,18 @@ Counterpart of ``predictionio_tpu/tools/console.py`` (parity:
     pio eval   EVALUATION [PARAMS_GENERATOR] [--batch B]
                [--output-path FILE] [--device D] [--grid] [--promote-to URL]
     pio template list | get NAME DIRECTORY [--appname APP]
+    pio dashboard [--ip IP] [--port N]  |  pio adminserver [--ip IP] [--port N]
+               [--cert PEM --key PEM] [--drain-deadline-s S]
+    pio chaos-ingest [--cycles N] [--writers N] [--events N]
+               [--backend sqlite|columnar] [--bulk-events N] [--partitions P
+                [--replication R] [--ack-quorum Q]] [--seed S] [--keep]
+    pio chaos-serve [--replicas N] [--clients N] [--kills N] [--seconds S]
+               [--reloads N] [--events N] [--aot] [--sharded-point]
+               [--device D] [--seed S] [--keep]
+    pio chaos-fleet [--replicas-per-host N] [--clients N] [--seconds S]
+               [--events N] [--lease-ttl-s S] [--skip-autoscale]
+               [--device D] [--seed S] [--keep]
+    pio build | run CMD [ARG ...] | upgrade
 
 ``train``, ``deploy``, ``batchpredict`` and ``eval`` take ``--device``
 as well: ``cuda`` (the default, the card; it fails where there is none)
@@ -83,7 +95,16 @@ command on its shard of the events, the data axis spans the processes,
 and process 0 writes the instance and the blob. ``export --sharded N``
 writes N round-robin shard files (``parallel/reader.py``).
 
-Waiting: the verbs of item 19.
+``dashboard`` (port 9000) lists the completed evaluations, ``adminserver``
+(port 7071) is the REST mirror of the app verbs; both take ``--port 0``
+as the servers above do and import no torch. ``chaos-ingest``,
+``chaos-serve`` and ``chaos-fleet`` are the operator's drills
+(``resilience/chaos.py``): each starts real port processes, SIGKILLs them
+under load, prints a JSON report and exits 1 unless its ``ok`` is true.
+The serving drills train and deploy on ``--device``. ``run`` executes a
+command with ``PIO_FS_BASEDIR`` resolved and the repository root on
+``PYTHONPATH``; ``build`` and ``upgrade`` only print, as the JAX
+console's do.
 """
 
 from __future__ import annotations
@@ -478,7 +499,134 @@ def build_parser() -> argparse.ArgumentParser:
         help="shared secret clients must present (default: $PIO_STORAGE_SERVER_SECRET)",
     )
     _add_ssl_and_lifecycle_flags(ss)
+
+    db = sub.add_parser("dashboard", help="start the evaluation dashboard")
+    db.add_argument("--ip", default="127.0.0.1")
+    db.add_argument("--port", type=int, default=9000)
+    _add_ssl_and_lifecycle_flags(db)
+    adm = sub.add_parser("adminserver", help="start the admin REST server")
+    adm.add_argument("--ip", default="127.0.0.1")
+    adm.add_argument("--port", type=int, default=7071)
+    _add_ssl_and_lifecycle_flags(adm)
+
+    _add_chaos_parsers(sub)
+
+    sub.add_parser("build", help="no-op (Python engines need no compilation; kept for parity)")
+    # the subprocess inherits the resolved PIO_* environment, so an ad-hoc
+    # script sees the storage the CLI does (Console.scala's `pio run`)
+    run_p = sub.add_parser("run", help="run a command with the framework environment injected")
+    run_p.add_argument(
+        "run_args", nargs=argparse.REMAINDER,
+        help="command and arguments (e.g. `pio run python myscript.py`)",
+    )
+    sub.add_parser("upgrade", help="print upgrade guidance (pip-managed; no in-place upgrader)")
     return p
+
+
+def _add_chaos_parsers(sub) -> None:
+    """``chaos-ingest``, ``chaos-serve`` and ``chaos-fleet``: the JAX
+    console's flags and defaults; the serving drills add ``--device``."""
+    ch = sub.add_parser(
+        "chaos-ingest",
+        help="crash-safety drill: SIGKILL a real event-server subprocess "
+        "under concurrent retrying writers and verify exactly-once "
+        "ingestion, clean recovery, and graceful drain",
+    )
+    ch.add_argument("--cycles", type=int, default=3, help="SIGKILL/restart cycles")
+    ch.add_argument("--writers", type=int, default=4, help="concurrent writer threads")
+    ch.add_argument("--events", type=int, default=120, help="events per writer across the whole run")
+    ch.add_argument(
+        "--backend", choices=("sqlite", "columnar"), default="sqlite",
+        help="EVENTDATA backend under test (columnar runs with FSYNC=true)",
+    )
+    ch.add_argument("--seed", type=int, default=0, help="kill-schedule RNG seed")
+    ch.add_argument(
+        "--bulk-events", type=int, default=1000,
+        help="events streamed through POST /events/bulk.json in the "
+        "bulk-writer phase (SIGKILL lands mid-stream; 0 disables)",
+    )
+    ch.add_argument(
+        "--drain-deadline-s", type=float, default=5.0,
+        help="drain deadline for the final SIGTERM-under-load phase",
+    )
+    ch.add_argument(
+        "--partitions", type=_int_at_least(1), default=1,
+        help=">1 adds the kill-one-partition drill: a columnar store "
+        "with PARTITIONS=P, one partition's appender chaos-killed "
+        "mid-bulk-stream plus a whole-server SIGKILL mid-retry — zero "
+        "acked loss, zero duplicates, surviving partitions never stall, "
+        "the killed partition catches up",
+    )
+    ch.add_argument(
+        "--replication", type=int, default=0,
+        help="with --partitions: replicas per partition (0 off, else "
+        ">= 2); the drill also kills one non-leader replica and asserts "
+        "loud quorum-loss degradation plus replica catch-up",
+    )
+    ch.add_argument(
+        "--ack-quorum", type=int, default=0,
+        help="fsync-durable copies required per ack (default: majority of --replication)",
+    )
+    ch.add_argument("--keep", action="store_true", help="keep the scratch storage directory for inspection")
+
+    cs = sub.add_parser(
+        "chaos-serve",
+        help="serving-fleet drill: train a tiny model, deploy "
+        "`--replicas N` behind the router, SIGKILL replicas under >= 16 "
+        "concurrent query clients and rolling-/reload the fleet — "
+        "verifying ZERO failed queries, zero cross-generation results, "
+        "and p99 recovery within one breaker reset",
+    )
+    cs.add_argument("--replicas", type=_int_at_least(1), default=2,
+                    help="fleet size for the kill/rolling phases (default 2)")
+    cs.add_argument("--clients", type=_int_at_least(1), default=16, help="concurrent query clients (default 16)")
+    cs.add_argument("--kills", type=_int_at_least(1), default=1,
+                    help="replica SIGKILLs during the kill phase (default 1)")
+    cs.add_argument("--seconds", type=float, default=6.0, help="kill-phase duration in seconds (default 6)")
+    cs.add_argument("--reloads", type=_int_at_least(0), default=1,
+                    help="rolling /reload rotations under load (default 1)")
+    cs.add_argument("--events", type=int, default=400, help="synthetic training events (default 400)")
+    cs.add_argument("--seed", type=int, default=0, help="workload RNG seed")
+    cs.add_argument(
+        "--aot", action="store_true",
+        help="run the drill AOT-on: `pio train --aot` exports the "
+        "generation's programs, replicas deploy with --aot, and the "
+        "rolling-reload phase additionally asserts ZERO serve-time "
+        "compiles across the full rotation",
+    )
+    cs.add_argument(
+        "--sharded-point", action="store_true",
+        help="also measure one fleet whose replicas serve with "
+        "--shard-factors over this machine's cards (on one card each "
+        "replica falls back to --pin-model replication)",
+    )
+    cs.add_argument("--device", default="cuda", help="'cuda' (the card) or 'cpu', for the drill's train and deploys")
+    cs.add_argument("--keep", action="store_true", help="keep the scratch storage directory for inspection")
+
+    cf = sub.add_parser(
+        "chaos-fleet",
+        help="cross-host elastic-fleet drill: two 'hosts' (separate "
+        "basedirs) share one endpoint registry behind an HA router "
+        "pair; SIGKILL an entire host's fleet under concurrent "
+        "never-retrying clients (zero failed queries, the survivor "
+        "absorbs, the dead host rejoins via the registry), drive the "
+        "autoscaler through a watermark scale-up and a drain-aware "
+        "scale-down (zero in-flight loss), and prove the "
+        "stale-while-down cache serves marked answers only when every "
+        "replica is dead",
+    )
+    cf.add_argument("--replicas-per-host", type=_int_at_least(1), default=1,
+                    help="replica fleet size on each 'host' (default 1)")
+    cf.add_argument("--clients", type=_int_at_least(1), default=16, help="concurrent query clients (default 16)")
+    cf.add_argument("--seconds", type=float, default=6.0, help="host-kill phase duration in seconds (default 6)")
+    cf.add_argument("--events", type=int, default=400, help="synthetic training events (default 400)")
+    cf.add_argument("--lease-ttl-s", type=float, default=1.0,
+                    help="endpoint-registry lease TTL under test (default 1.0)")
+    cf.add_argument("--seed", type=int, default=0, help="workload RNG seed")
+    cf.add_argument("--skip-autoscale", action="store_true",
+                    help="skip the autoscaler phase (host-kill + stale only)")
+    cf.add_argument("--device", default="cuda", help="'cuda' (the card) or 'cpu', for the drill's train and deploys")
+    cf.add_argument("--keep", action="store_true", help="keep the scratch storage directories for inspection")
 
 
 def _add_ssl_and_lifecycle_flags(sp: argparse.ArgumentParser) -> None:
@@ -1177,6 +1325,72 @@ def _storageserver(args: argparse.Namespace) -> None:
     )
 
 
+def _serve_admin(args: argparse.Namespace, name: str, service) -> None:
+    """``dashboard`` and ``adminserver``: ``service`` over HTTP on
+    ``--ip``/``--port`` (``--port 0`` prints ``Bound port N``)."""
+    from predictionio_tpu_torch.api.http import serve
+
+    def ready(server) -> None:
+        if args.port == 0:
+            print(f"Bound port {server.server_address[1]}", flush=True)
+
+    print(f"{name} is listening on {args.ip}:{args.port}", flush=True)
+    serve(
+        service.dispatch, args.ip, args.port,
+        ssl_context=_ssl_from_args(args),
+        ready_callback=ready,
+        lifecycle=_lifecycle_from_args(args),
+    )
+
+
+def _run(args: argparse.Namespace) -> int:
+    """``pio run CMD ...``: CMD with ``PIO_FS_BASEDIR`` resolved and the
+    repository root on ``PYTHONPATH``."""
+    import subprocess
+
+    from predictionio_tpu_torch.data.storage import Storage
+
+    cmdline = list(args.run_args)
+    if cmdline and cmdline[0] == "--":
+        cmdline = cmdline[1:]
+    if not cmdline:
+        print("ERROR: pio run needs a command to execute", file=sys.stderr)
+        return 1
+    env = dict(os.environ)
+    env.setdefault("PIO_FS_BASEDIR", Storage.base_dir())
+    repo_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env["PYTHONPATH"] = (repo_root + os.pathsep + env.get("PYTHONPATH", "")).rstrip(os.pathsep)
+    return subprocess.run(cmdline, env=env).returncode
+
+
+def _chaos(args: argparse.Namespace) -> int:
+    """The three drills (``resilience/chaos.py``): print the report,
+    exit 1 unless it is ``ok``."""
+    from predictionio_tpu_torch.resilience import chaos
+
+    if args.command == "chaos-ingest":
+        report = chaos.run_chaos_ingest(chaos.ChaosConfig(
+            cycles=args.cycles, writers=args.writers, events_per_writer=args.events, backend=args.backend,
+            seed=args.seed, bulk_events=args.bulk_events, drain_deadline_s=args.drain_deadline_s,
+            partitions=args.partitions, replication=args.replication, ack_quorum=args.ack_quorum,
+            keep_dir=args.keep,
+        ))
+    elif args.command == "chaos-serve":
+        report = chaos.run_chaos_serve(chaos.ServeChaosConfig(
+            replicas=args.replicas, clients=args.clients, kills=args.kills, phase_seconds=args.seconds,
+            reloads=args.reloads, train_events=args.events, seed=args.seed, sharded_point=args.sharded_point,
+            aot=args.aot, device=args.device, keep_dir=args.keep,
+        ))
+    else:
+        report = chaos.run_chaos_fleet(chaos.FleetChaosConfig(
+            replicas_per_host=args.replicas_per_host, clients=args.clients, phase_seconds=args.seconds,
+            train_events=args.events, lease_ttl_s=args.lease_ttl_s, seed=args.seed,
+            autoscale_phase=not args.skip_autoscale, device=args.device, keep_dir=args.keep,
+        ))
+    print(json.dumps(report, indent=2), flush=True)
+    return 0 if report["ok"] else 1
+
+
 def _eval(args: argparse.Namespace) -> None:
     from predictionio_tpu_torch.controller.context import local_context
     from predictionio_tpu_torch.controller.evaluation import EngineParamsGenerator
@@ -1277,6 +1491,25 @@ def main(argv: list[str] | None = None) -> int:
                 commands.template_list()
             elif args.template_command == "get":
                 commands.template_get(args.name, args.directory, args.appname)
+        elif cmd == "dashboard":
+            from predictionio_tpu_torch.tools.dashboard import DashboardService
+
+            _serve_admin(args, "Dashboard", DashboardService())
+        elif cmd == "adminserver":
+            from predictionio_tpu_torch.tools.adminserver import AdminService
+
+            _serve_admin(args, "Admin server", AdminService())
+        elif cmd in ("chaos-ingest", "chaos-serve", "chaos-fleet"):
+            return _chaos(args)
+        elif cmd == "build":
+            print("Nothing to build: Python engines are imported directly. "
+                  "(kept for command-line parity with the reference)")
+        elif cmd == "run":
+            return _run(args)
+        elif cmd == "upgrade":
+            print("predictionio_tpu_torch is a Python package: upgrade with your package manager "
+                  "(e.g. `pip install -U predictionio_tpu_torch`). Storage formats are forward-compatible "
+                  "within a major version; no in-place upgrader is needed.")
         return 0
     except Exception as e:
         print(f"ERROR: {e}", file=sys.stderr)

@@ -1,13 +1,13 @@
-"""The JAX package's e2 and self-cleaning cases (``tests/test_e2_and_aux.py``,
-all but ``TestAdminServer``, whose admin server waits for ROADMAP queue 1
-item 19) on both packages' classes.
+"""The JAX package's e2, self-cleaning and admin-server cases
+(``tests/test_e2_and_aux.py``, all of them) on both packages' classes.
 
 Every case runs twice, ``[jax]`` and ``[torch]``
 (``tests/torch_package_swap.py``): under ``[torch]`` the test module's
 e2 learners and ``k_fold_split`` are the port's copies, and the modules
 the cases import in their bodies — ``predictionio_tpu.e2``,
 ``predictionio_tpu.controller.cleaning``, the event, storage and
-aggregator modules — are the port's, on its memory driver.
+aggregator modules and ``predictionio_tpu.tools.adminserver`` — are the
+port's, on its memory driver.
 """
 
 import pytest
@@ -18,6 +18,7 @@ import predictionio_tpu_torch.data.event as port_event
 import predictionio_tpu_torch.data.storage as port_storage
 import predictionio_tpu_torch.data.storage.base as port_storage_base
 import predictionio_tpu_torch.e2 as port_e2
+import predictionio_tpu_torch.tools.adminserver as port_adminserver
 import test_e2_and_aux as jax_cases
 from torch_package_swap import PACKAGES, memory_storage, use_port
 
@@ -38,6 +39,7 @@ def package(request, monkeypatch):
                 "predictionio_tpu.data.event": port_event,
                 "predictionio_tpu.data.storage": port_storage,
                 "predictionio_tpu.data.storage.base": port_storage_base,
+                "predictionio_tpu.tools.adminserver": port_adminserver,
             },
         )
     return request.param
@@ -68,10 +70,16 @@ class TestSelfCleaning(jax_cases.TestSelfCleaning):
     pass
 
 
+class TestAdminServer(jax_cases.TestAdminServer):
+    pass
+
+
 def test_cases_run_on_the_ports_classes(package):
     from predictionio_tpu.controller.cleaning import SelfCleaningDataSource
     from predictionio_tpu.e2 import stratified_k_fold_split
+    from predictionio_tpu.tools.adminserver import AdminService
 
     prefix = "predictionio_tpu." if package == "jax" else "predictionio_tpu_torch."
-    for obj in (SelfCleaningDataSource, stratified_k_fold_split, *(getattr(jax_cases, n) for n in E2_NAMES)):
+    for obj in (SelfCleaningDataSource, stratified_k_fold_split, AdminService,
+                *(getattr(jax_cases, n) for n in E2_NAMES)):
         assert obj.__module__.startswith(prefix), obj

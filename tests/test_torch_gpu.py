@@ -23,7 +23,8 @@ cores, cuBLAS in f32 in another order; a logit that lies on a bf16 rounding boun
 then rounds to the other neighbour, which moves its exponential by up to
 exp(2^-4) - 1 = 6.5 % where |logit| < 16, and at D <= 32 one exponential can
 carry a good part of its row's sum (found: 1.1e-3 at [256,16], 2.3e-7 at
-[8192,64]); the loss and
+[8192,64]); the wide kernels (D > 256: chunks of D, D-slices of the
+backward) at the same bar; the loss and
 gradients of ``fused_inbatch_ce`` against the plain versions at the JAX
 package's on-TPU bar (loss 5e-3·max(1,|ref|), gradients rtol 5e-2, atol
 5e-3·max|ref|, tests/test_pallas_tpu.py). An online fold on pinned tables
@@ -454,7 +455,8 @@ def _unit_towers(B: int, D: int, seed: int, device) -> tuple[torch.Tensor, torch
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,D", [(1024, 32), (256, 16), (384, 200), (128, 8), (256, 24)])
+@pytest.mark.parametrize("B,D", [(1024, 32), (256, 16), (384, 200), (128, 8), (256, 24), (256, 512), (128, 264),
+                                 (384, 392), (256, 1032)])
 def test_fused_ce_kernels_match_plain_on_card(cuda_device, B, D):
     ue, ie = _unit_towers(B, D, seed=B + D, device=cuda_device)
     f0, b0 = torch_fused_ce.fused_ce_fwd_cuda.launches, torch_fused_ce.fused_ce_bwd_cuda.launches
@@ -471,7 +473,7 @@ def test_fused_ce_kernels_match_plain_on_card(cuda_device, B, D):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,D", [(1024, 32), (384, 200), (8192, 64)])
+@pytest.mark.parametrize("B,D", [(1024, 32), (384, 200), (8192, 64), (1024, 520)])
 def test_fused_ce_kernels_are_deterministic_on_card(cuda_device, B, D):
     """No atomics and a fixed order of every sum: two calls of each kernel
     on the same input agree to the bit (the column-slab sums included)."""
@@ -512,9 +514,6 @@ def test_fused_ce_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         torch_fused_ce.fused_ce_fwd_cuda(ue[:200].contiguous(), ie[:200].contiguous(), 10.0)
     with pytest.raises(ValueError, match="multiple of 8"):
         torch_fused_ce.fused_ce_fwd_cuda(ue[:, :12].contiguous(), ie[:, :12].contiguous(), 10.0)
-    with pytest.raises(ValueError, match="up to 256"):
-        wide = torch.zeros((128, 264), device=cuda_device)
-        torch_fused_ce.fused_ce_fwd_cuda(wide, wide, 10.0)
     with pytest.raises(ValueError, match="inv_temp"):
         torch_fused_ce.fused_ce_fwd_cuda(ue, ie, 100.0)
     with pytest.raises(TypeError):
