@@ -8,7 +8,9 @@ workflow (``run_train`` of an engine whose DataSource hands over the
 ratings made in memory) and the hand-written CUDA Gauss-Jordan solve
 kernel (one warp per system at rank 64); a ``QueryService`` serves the
 stored instance, and 64 ``POST /queries.json`` requests are checked
-against a float64 numpy top-10 of the same factors.
+against a float64 numpy top-10 of the same factors. The same ratings
+train again at rank 128 (``[als-wide]``), where every solve takes the
+blocked kernel (A in the registers of one thread block a system).
 
 The Two-Tower path: the towers train the same way on the JAX package
 bench's planted-preference pairs (1M pairs over 20,000 users x 10,000
@@ -89,9 +91,14 @@ Phases, in order; any failure exits non-zero and prints no result:
 3. kernel — each kernel held against its plain PyTorch version and the
    library call at the shapes its path gives it, on inputs made on the
    card; times by CUDA events, and the host's time to issue a call. A
-   solve row adds the launch plan (kernel, shared bytes per block, warps
-   per SM, grid) and the achieved GB/s, then the K <= 64 kernel is timed
-   per system at each of ``SOLVE_WIDTHS`` (K = 8 is the [chaos] drills').
+   solve row adds the launch plan (kernel, shared bytes per block,
+   threads, cluster, warps per SM, grid, registers) and the achieved
+   GB/s; above K = 64 (``SOLVE_SHAPES``: ``[4096,128,128]`` and
+   ``[64,256,256]``, where the first port's kernel was measured, the
+   chunk cap at K = 128, the JAX package's on-chip acceptance shape
+   ``[8000,128,128]`` and a rank-256 chunk) the plain version is
+   ``gj_solve_wide_reference``. Then the K <= 64 kernel is timed per
+   system at each of ``SOLVE_WIDTHS`` (K = 8 is the [chaos] drills').
    The fused-CE forward is one call (both sums), the backward one call of
    two launches (``d_ue``, then ``d_ie`` with the towers swapped); each
    row adds the achieved tensor-core FLOP/s and exponentials/s. Two of
@@ -112,7 +119,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``solver="cholesky"`` (0 launches, the cross-solver band of "auto"),
    ``rank_pad_multiple=8`` at rank 10 (K 16, launches = plan) and
    ``precision="high"`` (train RMSE within 1e-3 of "highest"), the matmul
-   settings as they were after each.
+   settings as they were after each. ``[als-wide]`` (``phase_als_wide``):
+   the counts set to 0, ``run_train`` of the same ratings at rank
+   ``WIDE_RANK`` (128) for ``WIDE_SWEEPS`` (3) with every solve's shape
+   recorded, 64 queries over HTTP, the counts read: launches = the plan,
+   every solve at K = 128, the RMSE falling, the top-10s float64
+   numpy's; one steady sweep under torch.profiler; the kernel timed at
+   the largest and smallest batch the train gave it; and the same train
+   with ``solver="cholesky"`` (0 launches), its sweep times printed and
+   its factors within ``KNOB_RTOL``/``KNOB_ATOL`` of the kernel's.
 4b. multihost — after phase 4, beside it the child processes of (b) and
    (c), joined after phase 5. (a) ``train_als(mesh=)`` of phase 4's
    ratings on ``MH_MESH`` over ``(cuda:0,)*8``: train RMSE within
@@ -210,7 +225,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``/reload`` must answer 503 ``degraded`` while queries go on; one
    ``predict`` event in the store for each computed answer; ``pio
    undeploy`` (exit 0 within 10 s); ``pio batchpredict`` of 100,000
-   queries (1,000 lines checked); five reloads of an in-process
+   queries (1,000 lines checked); ``SRV_RELOADS`` reloads of an in-process
    ``QueryService`` with ``torch.cuda.memory_allocated`` flat within 1 MiB
    and TF32 off on its serving thread. In the Two-Tower quickstart's
    store, a ``--batching --pin-model`` deploy under 8 x 50 queries held
@@ -252,7 +267,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    the ``/stats.json`` ``ann`` and ``quant`` sections; int8
    ``bytesPinned`` must be (users + items) x (rank + 4)); in process, a
    full-probe ``QueryService`` (``nprobe >= nlist``) must answer 1,000
-   users' ``handle_batch`` equal to the exact one's to the bit, three
+   users' ``handle_batch`` equal to the exact one's to the bit, ``ANN_RELOADS``
    ``/reload``s with ``--ann`` must leave ``memory_allocated`` flat within
    1 MiB, the online phase's events fold into an ``--ann --quantize
    int8`` service (the touched int8 rows ``quantize_table_host`` of the
@@ -299,7 +314,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    float64 numpy's top-10 (near-tie rule) and a plain pinned service's
    ids; ``factorShards`` 8, ``bytesPinned`` the padded tables; the load's
    peak ``max_memory_allocated`` under the shards plus a replicated copy;
-   three reloads (each superseded generation's sharded tables collected,
+   ``SHD_RELOADS`` reloads (each superseded generation's sharded tables collected,
    ``memory_allocated`` flat within 1 MiB); ``--quantize int8`` and
    ``--ann`` with shards under the same clients (25 and 10 queries a
    client, ``SHD_INT8_REQUESTS`` and ``SHD_ANN_REQUESTS``; the unsharded tier's ids;
@@ -397,7 +412,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    single queries, one ``handle_batch`` of 1,000 users byte-equal,
    ``handle_query`` p50 of both (A B B A); a foreign-fingerprint and a
    corrupted copy of the set booting on the fallback tier with the
-   warning and the eager bytes; 3 reloads on tier 1 with
+   warning and the eager bytes; ``AOT_RELOADS`` reloads on tier 1 with
    ``memory_allocated`` within 1 MiB and no extracted package left
    behind; no kernel launch on the serving path. The same on the
    Two-Tower quickstart's store (``phase_tt_aot``: fused-CE launches =
@@ -517,6 +532,7 @@ from predictionio_tpu_torch.ops.solve import (
     cholesky_solve,
     cholesky_solve_ex,
     gj_solve_cuda,
+    gj_solve_plain,
     gj_solve_plan,
     gj_solve_reference,
 )
@@ -566,6 +582,11 @@ TOP_K = 10
 #: JAX package's cross-solver test (tests/test_als.py), and its band
 KNOB_SWEEPS = 3
 KNOB_RTOL, KNOB_ATOL = 5e-3, 5e-4
+#: [als-wide]: the ALS path's ratings at rank 128, where every solve
+#: takes the blocked kernel; 3 sweeps, then the same train with
+#: solver="cholesky" held to it at the [als-config] band
+WIDE_RANK = 128
+WIDE_SWEEPS = 3
 
 #: the quickstart path: the ML-100K replica (synthesize_ml100k(42), the
 #: data of tests/test_ml100k_parity.py) imported into the event store,
@@ -617,7 +638,8 @@ WF_SERVER_TIMEOUT_S = 120
 #: clients x 100 requests, max batch 32, 2 ms delay, Zipf(1.2) users), at
 #: 25 requests a client in every phase (cut from 50, and [aot]'s from
 #: 100, to hold the script's length); a 3-sweep warm start; 100,000 batchpredict queries,
-#: 1,000 of them checked; 3 in-process reloads; the Two-Tower deploy at
+#: 1,000 of them checked; 2 in-process reloads (as in [ann], [sharded] and
+#: [aot]: cut from 3 to hold the script's length beside [als-wide]); the Two-Tower deploy at
 #: 8 x 50
 SRV_CLIENTS = 32
 SRV_REQUESTS = 25
@@ -628,7 +650,7 @@ SRV_WARM_SWEEPS = 3
 SRV_RELOAD_LEAD_S = 1.5
 SRV_BATCHPREDICT = 100_000
 SRV_BATCHPREDICT_SAMPLE = 1_000
-SRV_RELOADS = 3
+SRV_RELOADS = 2
 SRV_TT_CLIENTS = 8
 SRV_TT_REQUESTS = 50
 #: the app the batched deploy's feedback posts its ``predict`` events to,
@@ -686,7 +708,7 @@ QZ_BYTES_RATIO = 3.5
 ANN_INC_RECALL_DELTA = 0.02
 ANN_FULL_PROBE_USERS = 1000
 ANN_FOLD_CHECK_USERS = 64
-ANN_RELOADS = 3
+ANN_RELOADS = 2
 
 #: sharded factor serving (``[sharded]``): the JAX bench's sweep
 #: (``bench.py::_bench_scale_sharded``, ``bench.py:3351-3530``): items
@@ -710,7 +732,7 @@ SHD_SCORE_RTOL = 1e-6
 SHD_IVF_ITERS = 4
 SHD_OOM_ROWS = 64_761_856
 SHD_OOM_HBM = 17 * 2**30
-SHD_RELOADS = 3
+SHD_RELOADS = 2
 SHD_FOLD_EVENTS = 2
 #: queries a client of the ``--shard-factors --quantize int8`` and
 #: ``--ann`` loads (the [serving] traffic's 32 clients at a quarter and a
@@ -783,8 +805,12 @@ MAX_REL_ERR = 1e-4
 MAX_RESIDUAL = 1e-4
 
 #: [B, K] solve shapes: the ALS chunk cap (chunk_rows), a width-192 user
-#: chunk of the ML-20M run, a hot group, and the K=128 / K=256 regimes
-SOLVE_SHAPES = ((32768, 64), (21840, 64), (2049, 64), (4096, 128), (64, 256))
+#: chunk of the ML-20M run, a hot group; above K = 64 the blocked kernel:
+#: [4096,128,128] and [64,256,256] (where the first port's kernel was
+#: measured), the chunk cap at K = 128, the JAX package's on-chip
+#: acceptance shape (tests/test_pallas_tpu.py) and a rank-256 chunk
+SOLVE_SHAPES = ((32768, 64), (21840, 64), (2049, 64), (4096, 128), (64, 256), (32768, 128), (8000, 128),
+                (32768, 256))
 
 #: widths of the one-warp-per-system kernel timed at the ALS chunk cap;
 #: 8 is the [chaos] drills' rank
@@ -935,6 +961,14 @@ CHAOS_NICE = 5
 #: the kernels of both paths: wrapper, plain version, library call
 KERNELS = {
     "gj_solve": {
+        "route": "cuda",
+        "source": "predictionio_tpu_torch/ops/csrc/gj_solve.cu",
+        "replaces": "predictionio_tpu/ops/solve.py:95",
+        "wrapper": gj_solve_cuda,
+    },
+    # the same wrapper and count above K = 64 (gj_solve_tile_kernel), on
+    # the [als-wide] path
+    "gj_solve_wide": {
         "route": "cuda",
         "source": "predictionio_tpu_torch/ops/csrc/gj_solve.cu",
         "replaces": "predictionio_tpu/ops/solve.py:95",
@@ -1283,13 +1317,14 @@ def solve_bound(batch: int, k: int) -> tuple[float, str]:
 
 def solve_row(batch: int, k: int, seed: int, device) -> dict:
     """The solve kernel at ``[batch,k,k]`` on ALS-shaped SPD systems made on
-    the card: held against its plain mirror and the library Cholesky
+    the card: held against its plain version (``gj_solve_plain``) and the
+    library Cholesky
     (relative error and residual), timed beside both, with its launch
     plan, bound and achieved rate. Raises on a disagreement."""
     A, b = spd_batch(batch, k, seed=seed, device=device)
     x = gj_solve_cuda(A, b)
     torch.cuda.synchronize()
-    x_plain = gj_solve_reference(A, b)
+    x_plain = gj_solve_plain(A, b)
     x_chol = cholesky_solve(A, b)
     torch.cuda.synchronize()
     if not bool(torch.isfinite(x).all()):
@@ -1302,7 +1337,7 @@ def solve_row(batch: int, k: int, seed: int, device) -> dict:
     reps = 20 if batch * k * k <= (1 << 28) else 10
     ms = time_ms(lambda: gj_solve_cuda(A, b), reps)
     issue_ms = host_ms(lambda: gj_solve_cuda(A, b), reps)
-    plain_ms = time_ms(lambda: gj_solve_reference(A, b), 3)
+    plain_ms = time_ms(lambda: gj_solve_plain(A, b), 3)
     library_ms = time_ms(lambda: cholesky_solve(A, b), 5)
     bound_ms, bound_by = solve_bound(batch, k)
     row = {
@@ -1545,17 +1580,18 @@ class Transfers(TorchDispatchMode):
         return out
 
 
-def phase_train(device, nnz: int, sweeps: int, rank: int) -> dict:
+def phase_train(device, nnz: int, sweeps: int, rank: int, label: str = "train", data: tuple | None = None) -> dict:
     """``run_train`` of the ALS arrays engine on the card into the current
-    store, with the train RMSE after every sweep."""
+    store, with the train RMSE after every sweep (``[label]`` lines), on
+    ``data`` (rows, cols, vals, users, items) or ``ml20m_shaped(nnz)``."""
     t0 = time.perf_counter()
-    rows, cols, vals, num_users, num_items = ml20m_shaped(nnz, seed=5)
+    rows, cols, vals, num_users, num_items = ml20m_shaped(nnz, seed=5) if data is None else data
     td = TrainingData(
         rows=rows, cols=cols, vals=vals,
         user_index=BiMap.string_index(str(i) for i in range(num_users)),
         item_index=BiMap.string_index(str(i) for i in range(num_items)),
     )
-    log(f"[train] data: {num_users} users x {num_items} items, {rows.size} ratings "
+    log(f"[{label}] data: {num_users} users x {num_items} items, {rows.size} ratings "
         f"({time.perf_counter() - t0:.3f} s)")
     cfg = ALSConfig(rank=rank)
     expected = sweeps * (
@@ -1575,7 +1611,7 @@ def phase_train(device, nnz: int, sweeps: int, rank: int) -> dict:
         # sweep 1 from the end of the bucketing
         sweep_s = t_end - (spans[-1][1] if clock["t"] is None else clock["t"])
         marks.append({"sweep": step + 1, "seconds": sweep_s, "rmse": rmse})
-        log(f"[train] sweep {step + 1}: rmse {rmse:.6f}, {sweep_s:.4f} s")
+        log(f"[{label}] sweep {step + 1}: rmse {rmse:.6f}, {sweep_s:.4f} s")
         clock["t"] = time.perf_counter()
 
     class SweepLoggedALS(ALSAlgorithm):
@@ -1591,21 +1627,21 @@ def phase_train(device, nnz: int, sweeps: int, rank: int) -> dict:
         instance = run_train(variant, local_context(device))
     wall_s = time.perf_counter() - t1
     if len(spans) != 2:
-        raise RuntimeError(f"train: bucketing='auto' bucketed {len(spans)} sides on the card, not 2")
+        raise RuntimeError(f"{label}: bucketing='auto' bucketed {len(spans)} sides on the card, not 2")
     peak = torch.cuda.max_memory_allocated(device)
     timings = json.loads(instance.env["phase_timings"])
     model = stored_model(instance.id)
     U, V = model.user_factors, model.item_factors
     if not (np.isfinite(U).all() and np.isfinite(V).all()):
-        raise RuntimeError("train: non-finite factors")
+        raise RuntimeError(f"{label}: non-finite factors")
     if U.shape != (num_users, rank) or V.shape != (num_items, rank):
-        raise RuntimeError(f"train: factor shapes {U.shape}, {V.shape}")
+        raise RuntimeError(f"{label}: factor shapes {U.shape}, {V.shape}")
     if not marks[-1]["rmse"] < marks[0]["rmse"]:
-        raise RuntimeError(f"train: rmse did not fall ({marks[0]['rmse']} -> {marks[-1]['rmse']})")
+        raise RuntimeError(f"{label}: rmse did not fall ({marks[0]['rmse']} -> {marks[-1]['rmse']})")
     steady = [m["seconds"] for m in marks[1:]]
     train_s = timings["train:"]
     bucketing_s = [t for t, _ in spans]
-    log(f"[train] {sweeps} sweeps at rank {rank} in {train_s:.3f} s: bucketing on the card (build_buckets_device, "
+    log(f"[{label}] {sweeps} sweeps at rank {rank} in {train_s:.3f} s: bucketing on the card (build_buckets_device, "
         f"synchronised) users {bucketing_s[0]:.4f} s, items {bucketing_s[1]:.4f} s; sweep 1 after it "
         f"{marks[0]['seconds']:.4f} s; later sweeps {steady}; run_train {wall_s:.3f} s with the blob stored; "
         f"peak device memory {peak / 2**30:.3f} GiB")
@@ -1845,6 +1881,91 @@ def phase_profile(uf, vf, ub, ib, device) -> dict:
         torch.cuda.synchronize(device)
 
     return profile_once(sweep, "one steady ALS sweep")
+
+
+def phase_als_wide(device, trained: dict, info: dict) -> tuple:
+    """The Recommendation path at rank ``WIDE_RANK`` on the ALS phase's
+    ratings, where every solve is at K = 128 and takes the blocked kernel:
+    ``run_train`` of ``WIDE_SWEEPS`` sweeps with its solves recorded and
+    the counts read against the plan, 64 queries held to float64 numpy,
+    one steady sweep under torch.profiler, the solve kernel at the chunk
+    cap and the hot groups' batch the train gave it, and the same train
+    with ``solver="cholesky"`` (0 launches; its factors within
+    ``KNOB_RTOL``/``KNOB_ATOL`` of the kernel's). Returns the phase's
+    numbers and the launch counts of its train and serve."""
+    td = trained["td"]
+    data = (td.rows, td.cols, td.vals, len(td.user_index), len(td.item_index))
+    shapes: list = []
+    with temporary_store("pio-als-wide-"):
+        reset_launch_counts()
+        with recorded_solves(shapes):
+            wide = phase_train(device, NNZ, WIDE_SWEEPS, WIDE_RANK, label="als-wide", data=data)
+        served = phase_als_serve(wide, device, QUERIES, TOP_K, info["kind"])
+        launches = read_launch_counts()
+    check_launches("als-wide", launches, {"gj_solve": wide["expected_launches"]})
+    batches: dict = {}
+    for batch, k in shapes:
+        batches.setdefault(k, {}).setdefault(batch, 0)
+        batches[k][batch] += 1
+    log(f"[als-wide] solves the train gave spd_solve, K -> {{B: calls}}: {json.dumps(batches)}")
+    if set(batches) != {WIDE_RANK} or len(shapes) != launches["gj_solve"]:
+        raise RuntimeError(f"als-wide: solves at K {sorted(batches)}, {len(shapes)} calls, "
+                           f"{launches['gj_solve']} launches: not every launch at K = {WIDE_RANK}")
+
+    # one steady sweep under the profiler, from the trained factors
+    cfg = ALSConfig(rank=WIDE_RANK)
+    kw = dict(widths=cfg.bucket_widths, chunk_entries=cfg.chunk_entries, hot_group_slots=cfg.hot_group_slots)
+    ub, _ = build_buckets_device(*data, **kw, device=device)
+    ib, _ = build_buckets_device(data[1], data[0], data[2], data[4], data[3], **kw, device=device)
+    zero = torch.zeros((1, WIDE_RANK), device=device)
+    uf = torch.cat([torch.as_tensor(wide["model"].user_factors, device=device), zero])
+    vf = torch.cat([torch.as_tensor(wide["model"].item_factors, device=device), zero])
+    profile = phase_profile(uf, vf, ub, ib, device)
+    del ub, ib, uf, vf
+
+    # the kernel at the batches of this path not in SOLVE_SHAPES: the
+    # largest (the chunk cap) and the smallest (a hot group)
+    rows = [solve_row(batch, WIDE_RANK, 200 + i, device)
+            for i, batch in enumerate(sorted({min(batches[WIDE_RANK]), max(batches[WIDE_RANK])}))
+            if (batch, WIDE_RANK) not in SOLVE_SHAPES]
+
+    # the same train with the library Cholesky, from the same seeded start
+    marks: list = []
+    clock = [time.perf_counter()]
+
+    def on_sweep(step: int, U: torch.Tensor, V: torch.Tensor) -> None:
+        torch.cuda.synchronize(device)
+        marks.append(time.perf_counter() - clock[0])
+        clock[0] = time.perf_counter()
+
+    reset_launch_counts()
+    chol_cfg = ALSConfig(rank=WIDE_RANK, iterations=WIDE_SWEEPS, reg=0.01, seed=3, solver="cholesky")
+    clock[0] = time.perf_counter()
+    chol = train_als(*data, chol_cfg, device=device, on_sweep=on_sweep)
+    torch.cuda.synchronize(device)
+    chol_launches = read_launch_counts()["gj_solve"]
+    U = torch.as_tensor(wide["model"].user_factors, device=device)
+    V = torch.as_tensor(wide["model"].item_factors, device=device)
+    diff = max(float((chol.user - U).abs().max()), float((chol.item - V).abs().max()))
+    in_band = bool(torch.allclose(chol.user, U, rtol=KNOB_RTOL, atol=KNOB_ATOL)
+                   and torch.allclose(chol.item, V, rtol=KNOB_RTOL, atol=KNOB_ATOL))
+    steady = [m["seconds"] for m in wide["sweeps"][1:]]
+    out = {
+        "card": info["smi"], "rank": WIDE_RANK, "sweeps": WIDE_SWEEPS, "launches": launches["gj_solve"],
+        "plan": wide["expected_launches"], "solve_batches": batches[WIDE_RANK],
+        "rmse_first": wide["sweeps"][0]["rmse"], "rmse_last": wide["sweeps"][-1]["rmse"],
+        "train_s": wide["train_s"], "bucketing_s": wide["bucketing_s"], "sweep_s": [m["seconds"] for m in wide["sweeps"]],
+        "steady_sweep_s": min(steady), "cholesky_sweep_s": marks, "cholesky_steady_sweep_s": min(marks[1:]),
+        "cholesky_launches": chol_launches, "cholesky_max_abs_diff": diff, "cholesky_in_band": in_band,
+        "ratings_per_s": wide["ratings_per_s"], "peak_gib": wide["peak_bytes"] / 2**30,
+        "p50_ms": served["p50_ms"], "p99_ms": served["p99_ms"], "sweep_busy_share": profile["busy_share"],
+        "kernel_rows": [{k: r[k] for k in ("shape", "ms", "library_ms", "bound_ms")} for r in rows],
+    }
+    log(f"[als-wide] {json.dumps(out)}")
+    if chol_launches or not in_band:
+        raise RuntimeError(f"als-wide: solver='cholesky' launched the kernel {chol_launches} times or left the "
+                           f"band of the kernel's train (largest difference {diff})")
+    return out, launches
 
 
 # ------------------------------------------------------------ 5. Two-Tower
@@ -2787,7 +2908,7 @@ def phase_serving(device, ctx: dict, clients: int, per_client: int, k: int, batc
     same uniform load, then a Zipf load; ``pio train --warm-start``
     (``SRV_WARM_SWEEPS`` sweeps, launches held to the plan) and ``POST
     /reload`` under load; a degraded ``/reload``; ``pio undeploy``; ``pio
-    batchpredict``; five reloads of an in-process ``QueryService`` with
+    batchpredict``; ``SRV_RELOADS`` reloads of an in-process ``QueryService`` with
     the card's allocated memory flat. Every answer checked is held to
     float64 numpy under the near-tie rule."""
     from predictionio_tpu_torch.templates.recommendation import engine as rec_engine
@@ -3050,7 +3171,7 @@ def phase_serving(device, ctx: dict, clients: int, per_client: int, k: int, batc
     log(f"[serving] pio batchpredict: {batchpredict_n} queries in {bp_s:.3f} s ({batchpredict_n / bp_s:.1f} "
         f"queries/s, the load included); {sample.size} sampled lines equal float64 numpy on {smi}")
 
-    # 7. in process: five reloads, the card's allocated memory flat
+    # 7. in process: ``SRV_RELOADS`` reloads, the card's allocated memory flat
     service = QueryService(load_engine_variant(str(warm_json)), local_context(device), instance_id=second.id)
     try:
         if device.type == "cuda":
@@ -3780,7 +3901,7 @@ def phase_ann(device, ctx: dict, smi: str) -> dict:
             raise RuntimeError(f"ann: the full-probe service differs from the exact one on {differ} of "
                                f"{len(bodies)} answers")
         full_nlist = full.stats_json()["ann"]["nlist"]
-        # three /reloads with --ann: the card's allocated memory stays flat
+        # ANN_RELOADS /reloads with --ann: the card's allocated memory stays flat
         on_card = device.type == "cuda"
         if on_card:
             torch.cuda.synchronize(device)
@@ -7156,7 +7277,7 @@ AOT_BATCH_USERS = 1000
 AOT_HANDLE_QUERIES = 400
 #: requests a client of the [aot] load (the bench's 100)
 AOT_REQUESTS = 25
-AOT_RELOADS = 3
+AOT_RELOADS = 2
 AOT_RELOAD_SLACK = 1 << 20
 AOT_FALLBACK_USERS = 64
 
@@ -7447,7 +7568,7 @@ def phase_aot(device, ctx: dict, smi: str, after_export=None) -> dict:
     and float64 numpy's top-10 under the near-tie rule, tier 1, hits, no
     serve-time compile; in process, the programs against the eager pinned
     path to the bit, one ``handle_batch`` of 1,000 users, ``handle_query``
-    p50 of both; the fallback drills; three reloads with memory flat. No
+    p50 of both; the fallback drills; AOT_RELOADS reloads with memory flat. No
     kernel launches on the in-process serving path. ``after_export()``,
     when given, runs once the export is done, before the deploys."""
     from predictionio_tpu_torch.serving import CacheConfig
@@ -8055,6 +8176,8 @@ def main() -> int:
     profile = phase_profile(*phase_half_sweep(trained, device, RANK, info["smi"]), device)
     phase_knobs(device, info["smi"])
     mark("als")
+    als_wide, wide_launches = phase_als_wide(device, trained, info)
+    mark("als-wide")
     # [chaos]: the AOT serving drill (its export takes the most) in a
     # child from here, the other four with the other children below
     chaos_children = [start_child("phase_chaos", device, info["smi"], 3, nice=CHAOS_NICE)]
@@ -8142,8 +8265,10 @@ def main() -> int:
     ann_sweep, shd_sweep, score_cost = sweeps["ann_sweep"], sweeps["shd_sweep"], sweeps["score_cost"]
 
     main_fused = fused_rows[0]  # [8192, 64], the Two-Tower path's shape
+    wide_row = next(r for r in solve_rows if r["shape"] == [32768, WIDE_RANK, WIDE_RANK])
     kernels = [
         kernel_row("gj_solve", als_launches["gj_solve"], solve_rows[0]),
+        kernel_row("gj_solve_wide", wide_launches["gj_solve"], wide_row),
         kernel_row("fused_ce_fwd", tt_launches["fused_ce_fwd"], main_fused["fwd"]),
         kernel_row("fused_ce_bwd", tt_launches["fused_ce_bwd"], main_fused["bwd"]),
     ]
@@ -8157,6 +8282,7 @@ def main() -> int:
         "p50_ms": served["p50_ms"], "p99_ms": served["p99_ms"],
         "predict_p50_ms": served["predict_p50_ms"], "predict_p99_ms": served["predict_p99_ms"],
         "sweep_busy_share": profile["busy_share"],
+        "als_wide": als_wide,
         "tt": {
             "pairs": tt_trained["pairs"], "dim": TT_DIM, "batch": TT_BATCH, "epochs": TT_EPOCHS,
             "steps": tt_trained["steps"], "train_s": tt_trained["train_s"],

@@ -24,8 +24,9 @@ a card.
     python3 gj_solve_split.py --against OTHER/gj_solve.cu
 
 also builds another version of the source (the parent commit's, say) and,
-at each of ``chip_smoke.SOLVE_SHAPES`` on chip_smoke's inputs, times it and
-the kernel in turns in this one process (other, kernel, kernel, other) and
+at each of ``chip_smoke.SOLVE_SHAPES`` and at ``[32768, K, K]`` for each of
+``chip_smoke.SOLVE_WIDTHS``, on chip_smoke's inputs, times it and the
+kernel in turns in this one process (other, kernel, kernel, other) and
 says whether their ``x`` are bit-equal.
 """
 
@@ -99,21 +100,30 @@ def warp_registers(ptxas: str) -> dict:
 
 
 def solver(path: str):
+    """A solve through the library at ``path``: this source's C interface,
+    or that of an earlier source, whose ``gj_solve_f32`` took a
+    device scratch buffer for K > 128."""
     lib = ctypes.CDLL(path)
     lib.gj_solve_f32.restype = ctypes.c_int
-    lib.gj_solve_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-
-    lib.gj_solve_scratch_floats.argtypes = [ctypes.c_longlong, ctypes.c_int]
-    lib.gj_solve_scratch_floats.restype = ctypes.c_longlong
+    with_scratch = hasattr(lib, "gj_solve_scratch_floats")
+    if with_scratch:
+        lib.gj_solve_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        lib.gj_solve_scratch_floats.argtypes = [ctypes.c_longlong, ctypes.c_int]
+        lib.gj_solve_scratch_floats.restype = ctypes.c_longlong
+    else:
+        lib.gj_solve_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 
     def solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         B, K = b.shape
         x = torch.empty_like(b)
-        n_scratch = int(lib.gj_solve_scratch_floats(B, K))
-        scratch = torch.empty(n_scratch, device=b.device) if n_scratch else None
-        err = lib.gj_solve_f32(A.data_ptr(), b.data_ptr(), x.data_ptr(),
-                               None if scratch is None else scratch.data_ptr(), B, K,
-                               torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if with_scratch:
+            n_scratch = int(lib.gj_solve_scratch_floats(B, K))
+            scratch = torch.empty(n_scratch, device=b.device) if n_scratch else None
+            err = lib.gj_solve_f32(A.data_ptr(), b.data_ptr(), x.data_ptr(),
+                                   None if scratch is None else scratch.data_ptr(), B, K, stream)
+        else:
+            err = lib.gj_solve_f32(A.data_ptr(), b.data_ptr(), x.data_ptr(), B, K, stream)
         if err != 0:
             raise RuntimeError(f"launch failed: cudaError {err}")
         return x
@@ -123,12 +133,15 @@ def solver(path: str):
 
 def against(ours, theirs) -> None:
     """The kernel and another version of it at chip_smoke's solve shapes
-    and inputs, timed in turns: theirs, ours, ours, theirs."""
-    for i, (batch, k) in enumerate(chip_smoke.SOLVE_SHAPES):
-        A, b = chip_smoke.spd_batch(batch, k, seed=100 + i, device="cuda")
+    and inputs and at ``[32768, K, K]`` for each of its ``SOLVE_WIDTHS``,
+    timed in turns: theirs, ours, ours, theirs."""
+    shapes = [(batch, k, 100 + i) for i, (batch, k) in enumerate(chip_smoke.SOLVE_SHAPES)]
+    shapes += [(BATCH, k, 300 + k) for k in chip_smoke.SOLVE_WIDTHS]
+    for batch, k, seed in shapes:
+        A, b = chip_smoke.spd_batch(batch, k, seed=seed, device="cuda")
         x_ours, x_theirs = ours(A, b), theirs(A, b)
         torch.cuda.synchronize()
-        reps = 20 if batch * k * k <= (1 << 28) else 10
+        reps = 20 if batch * k * k <= (1 << 28) else 10 if batch * k * k <= (1 << 30) else 3
         t = [chip_smoke.time_ms(lambda f=f: f(A, b), reps) for f in (theirs, ours, ours, theirs)]
         row = {"shape": [batch, k, k], "bit_equal": bool(torch.equal(x_ours, x_theirs)),
                "kernel_ms": t[1:3], "against_ms": [t[0], t[3]]}

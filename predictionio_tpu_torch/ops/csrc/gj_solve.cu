@@ -6,17 +6,13 @@
 // training path. Every ALS normal matrix carries the ALS-WR ridge
 // lambda*max(n,1)*I, so the diagonal pivots stay bounded away from zero
 // and no pivoting is needed (the same argument the TPU kernel rests on).
-// The TPU kernel's P=8 pivot blocks, rank-P MXU updates, VMEM block
-// sizing and identity-system padding were TPU choices and are not carried
-// over.
 //
-// The elimination (both kernels below): the pivot row is never
-// normalised. At pivot p every row i != p takes
+// K <= 64 (gj_solve_warp_kernel<K>): point Gauss-Jordan. The pivot row is
+// never normalised. At pivot p every row i != p takes
 //   f = M[i][p] * (1 / M[p][p]),  M[i][j] = fmaf(-f, M[p][j], M[i][j])
 // for j = p+1..K (column K holds b), which reads only column p and row p,
 // neither of which is written in that step. After K pivots the matrix is
-// diagonal and x[i] = M[i][K] / M[i][i]. Both kernels do exactly this
-// arithmetic in this order, so they give the same bits.
+// diagonal and x[i] = M[i][K] / M[i][i].
 //
 // What bounds it on the H100: the least work is reading A and b once and
 // writing x once. At the ALS chunk shape [32768, 64, 64] that is ~0.55
@@ -54,30 +50,78 @@
 //   it at 168, spills and runs slower), at most ceil(B / 4) blocks; warp w
 //   walks systems w, w + W, ...
 // * Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W): 0.54 ms at
-//   [32768, 64, 64], against 5.9 ms for the one-block kernel below and the
-//   0.165 ms byte bound. What bounds it now is shared memory's data path
-//   (128 bytes a clock a SM): every lane reads all K - p + 1 values of
-//   pivot row p, 2,144 values a system at K = 64, each delivered to 32
-//   lanes (~2.1k clocks a system a SM as 544 LDS.128 and 64 LDS.32), and
-//   the owner's 608 stores take ~0.6k more: ~0.36 ms at [32768, 64, 64]
-//   at 1.98 GHz, before any latency. The elimination without the loads
-//   takes most of the kernel's time (gj_solve_split.py, PERF.md "PR 4").
+//   [32768, 64, 64], against 5.9 ms for the first port's one-block kernel
+//   and the 0.165 ms byte bound. What bounds it now is shared memory's
+//   data path (128 bytes a clock a SM): every lane reads all K - p + 1
+//   values of pivot row p, 2,144 values a system at K = 64, each delivered
+//   to 32 lanes (~2.1k clocks a system a SM as 544 LDS.128 and 64 LDS.32),
+//   and the owner's 608 stores take ~0.6k more: ~0.36 ms at
+//   [32768, 64, 64] at 1.98 GHz, before any latency. The elimination
+//   without the loads takes most of the kernel's time (gj_solve_split.py,
+//   PERF.md section 6).
 //
-// 64 < K <= 256: one thread block of 8 warps per system
-// (gj_solve_kernel), unchanged from the first port. [A | b] as K rows of
-// stride K+1 floats (odd for K % 8 == 0, so a warp reading down column p
-// touches 32 different banks) in shared memory up to K = 128 (66,048
-// bytes at K = 128, above the 48 KB default, hence cudaFuncSetAttribute);
-// 128 < K <= 256 (up to 263 KB per system, more than the 227 KB a block
-// may use) runs the same code on a device-memory scratch copy that the
-// caller allocates. Each multiply-add there reads and writes shared
-// memory and each pivot takes a block barrier, so shared-memory bandwidth
-// and barrier latency bound it, not device memory. gj_solve_f32 picks the
-// kernel by K alone.
+// 64 < K <= 256 (gj_solve_tile_kernel<K>): blocked Gauss-Jordan with the
+// TPU kernel's pivot blocks, whose plain version is
+// gj_solve_wide_reference. Per block of P = 8 pivots at columns s..s+7:
+// D = the pivot rows' diagonal block, Di = D^-1 by an 8-step Gauss-Jordan
+// with normalised pivot rows (the TPU kernel's), F = C Di for C = columns
+// s..s+7 of every row; every other row takes [A | b] -= F R for R = the
+// pivot rows as they were, and the pivot rows become Di R. After K / 8
+// blocks A is the identity and column K holds x. The TPU kernel instead
+// takes the pivot rows to R - (D Di - Di) R, which cancels: where the
+// pivots are large, R and (D Di - Di) R agree in their leading digits.
+// On the item Gramians of one ALS sweep of ml20m_shaped(200000) at rank
+// 32 (the most-rated item has 15,381 ratings, condition numbers near 50)
+// that form is up to 1e-2 off a float64 solve (relative), the library
+// Cholesky 2e-6 and this kernel's form 4e-6.
+// Columns left of s + 8 are dead after block s (nothing reads them
+// again), so the update covers columns s + 8..K only: K^3/2 FMAs a
+// system, as in point GJ.
+// * What bounds it: at [4096, 128, 128] the bytes take 0.081 ms and GJ's
+//   K^3/2 FMAs 0.128 ms at 67 TFLOP/s f32 (Cholesky's K^3/6, the row's
+//   bound, 0.045 ms); at [64, 256, 256] the FMAs lead (8.4M a system:
+//   0.016 ms on all 132 SMs, Cholesky's 0.005 ms), few systems have to
+//   fill the card, and [A | b] (263 KB) fits no single SM's shared
+//   memory (227 KB).
+//   The first port's kernel did a shared- (K <= 128) or device-memory
+//   (K > 128) read-modify-write for every FMA, a block barrier for every
+//   pivot, and left 68 of 132 SMs idle at B = 64.
+// * A lives in registers for the whole solve. A thread holds 8 rows (one
+//   row tile) by Q columns spread cyclically (columns g, g + NG, g + 2 NG,
+//   ... of column group g of NG = 16, 32 in a cluster), so as the live
+//   columns move right every thread keeps about as many of them as any
+//   other: no thread idles as the elimination narrows. Q = ceil(K / NG):
+//   64 floats a thread at K = 128 and at K = 256. b lives in shared
+//   memory, thread i of a block updating row i's (a b column in registers
+//   would take a ninth slot at K = 128 and K = 256, and ptxas spills at
+//   K = 256).
+// * Per block, a thread reads its 8 rows of G and its Q columns of R from
+//   shared memory (broadcasts and 32 consecutive words, no bank
+//   conflict) and does 8 x 8 x Q register FMAs: about 4 FMAs a float
+//   read at K = 128 rather than the first port's read-modify-write a FMA,
+//   so shared memory's data path (32 floats a clock a SM) and the FMA
+//   pipes (128 a clock) are about even. Three barriers a block of 8 pivots,
+//   not one a pivot: the column block and Di (one warp, shuffles) are
+//   written, then G, then the next pivot rows are published.
+// * K <= 128: one block of 2K threads a system (16 column groups, K/8
+//   row tiles), ~17 KB of shared memory at K = 128, and __launch_bounds__
+//   keeping registers to 128 a thread so that two blocks share a SM: one
+//   loads its system while the other eliminates.
+// * 128 < K <= 256: a cluster of two blocks a system (four above K =
+//   224), each holding its share of the row tiles in its registers (32
+//   column groups; 448 threads at K = 224, 256 at K = 256). The pivot
+//   rows go from their owner's registers into every block's shared
+//   memory (distributed shared memory, 32-bit shared::cluster stores),
+//   and one cluster barrier a block of 8 pivots orders it. Four SMs'
+//   registers hold the 263 KB system of K = 256.
+// * Measured: see PERF.md section 6 (chip_smoke.py's [kernel] gj_solve
+//   rows, NVIDIA H100 80GB HBM3, 700 W); the first port's kernel took 5.14 ms at
+//   [4096, 128, 128] and 3.78 ms at [64, 256, 256].
 //
 // The kernels launch on the caller's stream, do not synchronise and
 // allocate nothing; gj_solve_f32 returns cudaGetLastError() of the launch.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -221,65 +265,290 @@ gj_solve_warp_kernel(const float* __restrict__ A, const float* __restrict__ b,
 }
 
 // ------------------------------------------------------- 64 < K <= 256
-constexpr int kThreadsX = 32;  // one warp across the columns of a row
-constexpr int kThreadsY = 8;   // eight warps, rows strided by 8
-constexpr int kMaxSharedK = 128;
-constexpr int kMaxK = 256;     // x is written by one thread per row
+constexpr int kTileMaxK = 256;
+constexpr int kPivots = 8;  // the pivot block: the TPU kernel's _PIVOT_BLOCK
 
-template <bool kShared>
-__global__ void __launch_bounds__(kThreadsX * kThreadsY)
-gj_solve_kernel(const float* __restrict__ A, const float* __restrict__ b,
-                float* __restrict__ x, float* scratch, int K) {
-  extern __shared__ float smem[];
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int ld = K + 1;
-  const long long sys = blockIdx.x;
-  float* M = kShared ? smem : scratch + sys * static_cast<long long>(K) * ld;
-  const float* As = A + sys * static_cast<long long>(K) * K;
-  const float* bs = b + sys * K;
+// The launch shape of gj_solve_tile_kernel<K>.
+template <int K>
+struct TileShape {
+  // blocks a system: above K = 224 two blocks would take 464..512
+  // threads, whose 128 registers ptxas overfills (spills)
+  static constexpr int kCluster = K <= 128 ? 1 : K <= 224 ? 2 : 4;
+  static constexpr int kGroups = K <= 128 ? 16 : 32;          // column groups (threads across a row tile)
+  static constexpr int kTiles = K / kPivots;                   // 8-row tiles of the system
+  static constexpr int kTiles0 = (kTiles + kCluster - 1) / kCluster;  // tiles of block 0, the most a block holds
+  static constexpr int kRows = kTiles0 * kPivots;
+  static constexpr int kThreads = kTiles0 * kGroups;
+  static constexpr int kQ = (K + kGroups - 1) / kGroups;      // columns of A a thread holds of each of its rows
+  static constexpr int kLd = K + 4;                           // stride of a pivot-row buffer's rows
+  // at least 128 registers a thread; in a cluster of four as many as the
+  // block needs (a cluster's blocks gain little from sharing a SM)
+  static constexpr int kMinBlocks =
+      kCluster < 4 && 65536 / (kThreads * 128) > 0 ? 65536 / (kThreads * 128) : 1;
+};
 
-  for (int i = ty; i < K; i += kThreadsY) {
-    for (int j = tx; j < K; j += kThreadsX) {
-      M[i * ld + j] = As[i * K + j];
+// Di = D^-1 for the 8 x 8 block D (row stride ld) by the TPU kernel's
+// 8-step Gauss-Jordan with normalised pivot rows, on one warp: lane l
+// holds row l % 8 of [D | I]; lanes 0..7 write Di row-major into out.
+// Each element of the pivot row is fetched (shuffle) just before the
+// lane's own element of that column is updated, so no copy of the pivot
+// row is held.
+__device__ __forceinline__ void invert_pivot_block(const float* D, int ld, float* out, int lane) {
+  const int l = lane & 7;
+  float m[kPivots], di[kPivots];
+#pragma unroll
+  for (int k = 0; k < kPivots; ++k) {
+    m[k] = D[l * ld + k];
+    di[k] = k == l ? 1.0f : 0.0f;
+  }
+#pragma unroll
+  for (int j = 0; j < kPivots; ++j) {
+    const float inv = 1.0f / __shfl_sync(0xffffffffu, m[j], j);
+    const float f = l == j ? 0.0f : m[j];
+#pragma unroll
+    for (int k = 0; k < kPivots; ++k) {
+      const float pk = __shfl_sync(0xffffffffu, m[k], j) * inv;
+      const float ik = __shfl_sync(0xffffffffu, di[k], j) * inv;
+      m[k] = l == j ? pk : fmaf(-f, pk, m[k]);
+      di[k] = l == j ? ik : fmaf(-f, ik, di[k]);
     }
   }
-  const int t = ty * kThreadsX + tx;
-  if (t < K) M[t * ld + K] = bs[t];
-  __syncthreads();
+  if (lane < kPivots) {
+#pragma unroll
+    for (int k = 0; k < kPivots; ++k) out[lane * kPivots + k] = di[k];
+  }
+}
 
-  for (int p = 0; p < K; ++p) {
-    const float inv = 1.0f / M[p * ld + p];
-    const float* prow = M + p * ld;
-    for (int i = ty; i < K; i += kThreadsY) {
-      if (i == p) continue;
-      float* row = M + i * ld;
-      const float f = row[p] * inv;
-      for (int j = p + 1 + tx; j <= K; j += kThreadsX) {
-        row[j] = fmaf(-f, prow[j], row[j]);
+// 32-bit shared::cluster address of `p` (this block's shared memory) in
+// the block of rank `rank` of the cluster
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out) : "r"(mma_sm90::smem_addr(p)), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v) : "memory");
+}
+
+// Stores v at word `offset` of pivot-row buffer `dst` in every block of
+// the cluster (32-bit shared::cluster stores: generic pointers would hold
+// 64-bit addresses in registers).
+template <int K>
+__device__ __forceinline__ void store_all(float* dst, int offset, float v) {
+  if constexpr (TileShape<K>::kCluster > 1) {
+#pragma unroll
+    for (int d = 0; d < TileShape<K>::kCluster; ++d) {
+      st_cluster(cluster_addr(dst, static_cast<uint32_t>(d)) + 4u * static_cast<uint32_t>(offset), v);
+    }
+  } else {
+    dst[offset] = v;
+  }
+}
+
+// The pivot rows of block `blk` (columns blk * 8..K-1), from the registers
+// of the row tile that holds them into pivot-row buffer `dst` of every
+// block of the cluster. Called by every thread; only that tile's write.
+// (Column K, b, is published by the thread that holds it.)
+template <int K>
+__device__ __forceinline__ void publish_pivot_rows(const float (&M)[kPivots][TileShape<K>::kQ], float* dst,
+                                                   int blk, int rank, int tile, int group) {
+  using S = TileShape<K>;
+  if (rank != blk / S::kTiles0 || tile != blk % S::kTiles0) return;
+#pragma unroll
+  for (int q = 0; q < S::kQ; ++q) {
+    const int c = group + S::kGroups * q;
+    if (c >= blk * kPivots && c < K) {
+#pragma unroll
+      for (int r = 0; r < kPivots; ++r) store_all<K>(dst, r * S::kLd + c, M[r][q]);
+    }
+  }
+}
+
+// One pivot's part of the update: a thread's rows less G[row][p] times
+// R[p] on the live columns s + 8..K-1 (g: G[row0..row0+7][p], r: R[p]).
+// Where the column groups divide K, every load is issued before the
+// first FMA (loads inside the branches wait on one another: 11 % slower
+// at K = 128 and 15 % at K = 256). Where they do not, the last slot's
+// test of column K stays and the loads stay in the branches: hoisted,
+// ptxas spills at K = 120.
+template <int K>
+__device__ __forceinline__ void update_tile(float (&M)[kPivots][TileShape<K>::kQ], const float* g, const float* r,
+                                            int s, int group) {
+  using S = TileShape<K>;
+  const float4 g_lo = *reinterpret_cast<const float4*>(g);
+  const float4 g_hi = *reinterpret_cast<const float4*>(g + 4);
+  const float gp[kPivots] = {g_lo.x, g_lo.y, g_lo.z, g_lo.w, g_hi.x, g_hi.y, g_hi.z, g_hi.w};
+  if constexpr (K % S::kGroups == 0) {
+    float rv[S::kQ];
+#pragma unroll
+    for (int q = 0; q < S::kQ; ++q) rv[q] = r[group + S::kGroups * q];
+#pragma unroll
+    for (int q = 0; q < S::kQ; ++q) {
+      if (group + S::kGroups * q >= s + kPivots) {
+#pragma unroll
+        for (int i = 0; i < kPivots; ++i) M[i][q] = fmaf(-gp[i], rv[q], M[i][q]);
       }
     }
+  } else {
+#pragma unroll
+    for (int q = 0; q < S::kQ; ++q) {
+      const int c = group + S::kGroups * q;
+      if (c >= s + kPivots && c < K) {
+        const float rv = r[c];
+#pragma unroll
+        for (int i = 0; i < kPivots; ++i) M[i][q] = fmaf(-gp[i], rv, M[i][q]);
+      }
+    }
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void sync_system() {
+  if constexpr (TileShape<K>::kCluster > 1) {
+    cooperative_groups::this_cluster().sync();
+  } else {
     __syncthreads();
   }
+}
 
-  if (t < K) x[sys * K + t] = M[t * ld + K] / M[t * ld + t];
+template <int K>
+__global__ void __launch_bounds__(TileShape<K>::kThreads, TileShape<K>::kMinBlocks)
+gj_solve_tile_kernel(const float* __restrict__ A, const float* __restrict__ b, float* __restrict__ x) {
+  using S = TileShape<K>;
+  constexpr int kG = S::kGroups;
+  constexpr int kQ = S::kQ;
+  constexpr int kLd = S::kLd;
+  constexpr int kRows = S::kRows;
+  __shared__ __align__(16) float pivot_rows[2][kPivots * kLd];  // R of even and odd blocks, b in column K
+  __shared__ __align__(16) float col_block[kPivots * kRows];    // C, [p][row] of this block's rows
+  __shared__ __align__(16) float gain[kPivots * kRows];         // G, [p][row]
+  __shared__ __align__(16) float dinv[kPivots * kPivots];       // Di, row-major
+  __shared__ float rhs[kRows];                                  // b of this block's rows
+
+  int rank = 0;
+  if constexpr (S::kCluster > 1) rank = static_cast<int>(cooperative_groups::this_cluster().block_rank());
+  const long long sys = blockIdx.x / S::kCluster;
+  const int tile0 = rank * S::kTiles0;                      // this block's first row tile
+  const int ntiles = min(S::kTiles0, S::kTiles - tile0);    // and how many it holds
+  const int nrows = ntiles * kPivots;
+  const int t = threadIdx.x;
+  const int tile = t / kG;                                  // my row tile, in this block
+  const int group = t % kG;                                 // my column group
+  const bool holds = tile < ntiles;
+  const int row0 = (tile0 + tile) * kPivots;                // the system's index of my first row
+
+  // rows row0..row0+7 of A, columns group + kG q; thread t < nrows holds
+  // b of this block's row t in rhs
+  float M[kPivots][kQ];
+  if (holds) {
+    const float* As = A + sys * K * K;
+#pragma unroll
+    for (int r = 0; r < kPivots; ++r) {
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const int c = group + kG * q;
+        M[r][q] = c < K ? As[(row0 + r) * K + c] : 0.0f;
+      }
+    }
+  }
+  if (t < nrows) rhs[t] = b[sys * K + tile0 * kPivots + t];
+  if constexpr (S::kCluster > 1) sync_system<K>();  // every block of the cluster runs before any remote store
+  publish_pivot_rows<K>(M, pivot_rows[0], 0, rank, tile, group);
+  if (rank == 0 && t < kPivots) store_all<K>(pivot_rows[0], t * kLd + K, rhs[t]);
+  sync_system<K>();
+
+  for (int blk = 0; blk < S::kTiles; ++blk) {
+    const int s = blk * kPivots;
+    const float* R = pivot_rows[blk & 1];
+    // the column block: columns s..s+7 are slot s / kG of groups s % kG + 0..7
+    const int cq = s / kG;
+    const int cc = group - s % kG;
+    if (holds && cc >= 0 && cc < kPivots) {
+#pragma unroll
+      for (int r = 0; r < kPivots; ++r) {
+        float v = M[r][0];
+#pragma unroll
+        for (int q = 1; q < kQ; ++q) v = q == cq ? M[r][q] : v;
+        col_block[cc * kRows + tile * kPivots + r] = v;
+      }
+    }
+    if (t < 32) invert_pivot_block(R + s, kLd, dinv, t);
+    __syncthreads();
+
+    // G = C Di; on the pivot rows -Di, whose rows start from 0 below
+    const int pivot_tile = blk - tile0;  // the pivot rows' tile in this block, if it holds them
+    for (int e = t; e < nrows * kPivots; e += S::kThreads) {
+      const int i = e / kPivots;
+      const int j = e % kPivots;
+      float g = 0.0f;
+      if (i / kPivots == pivot_tile) {
+        g = -dinv[(i % kPivots) * kPivots + j];
+      } else {
+#pragma unroll
+        for (int p = 0; p < kPivots; ++p) g = fmaf(col_block[p * kRows + i], dinv[p * kPivots + j], g);
+      }
+      gain[j * kRows + i] = g;
+    }
+    __syncthreads();
+
+    // [A | b] -= G R on the live columns s + 8..K; the pivot rows become
+    // Di R
+    if (holds) {
+      if (tile == pivot_tile) {
+#pragma unroll
+        for (int q = 0; q < kQ; ++q) {
+#pragma unroll
+          for (int r = 0; r < kPivots; ++r) M[r][q] = 0.0f;
+        }
+      }
+      if constexpr (S::kCluster > 1) {
+        // a rolled loop: unrolled, the next pivots' loads would hold
+        // registers the floats of A need (ptxas spills)
+#pragma unroll 1
+        for (int p = 0; p < kPivots; ++p) update_tile<K>(M, gain + p * kRows + tile * kPivots, R + p * kLd, s, group);
+      } else if constexpr (K % kG == 0) {
+        // two pivots at a time: fully unrolled, their hoisted loads spill
+#pragma unroll 2
+        for (int p = 0; p < kPivots; ++p) update_tile<K>(M, gain + p * kRows + tile * kPivots, R + p * kLd, s, group);
+      } else {
+#pragma unroll
+        for (int p = 0; p < kPivots; ++p) update_tile<K>(M, gain + p * kRows + tile * kPivots, R + p * kLd, s, group);
+      }
+    }
+    if (t < nrows) {
+      float v = t / kPivots == pivot_tile ? 0.0f : rhs[t];
+#pragma unroll
+      for (int p = 0; p < kPivots; ++p) v = fmaf(-gain[p * kRows + t], R[p * kLd + K], v);
+      rhs[t] = v;
+      if (t / kPivots == blk + 1 - tile0) store_all<K>(pivot_rows[(blk + 1) & 1], (t % kPivots) * kLd + K, v);
+    }
+    if (blk + 1 < S::kTiles) publish_pivot_rows<K>(M, pivot_rows[(blk + 1) & 1], blk + 1, rank, tile, group);
+    sync_system<K>();
+  }
+
+  // A is the identity: b holds x
+  if (t < nrows) x[sys * K + tile0 * kPivots + t] = rhs[t];
 }
 
 // ------------------------------------------------------------- launching
 // What a launch at (B, K) runs with: shared bytes and threads per block,
-// resident blocks per SM (the occupancy query), and the grid.
+// resident blocks per SM (the occupancy query), the grid, the blocks of a
+// cluster (one system's) and the registers of a thread.
 struct Plan {
   int smem_bytes;
   int threads;
   int blocks_per_sm;
   int grid;
+  int cluster;
+  int registers;
 };
 
 struct Args {
   const float* A;
   const float* b;
   float* x;
-  float* scratch;
   cudaStream_t stream;
 };
 
@@ -296,11 +565,15 @@ cudaError_t warp_path(long long B, Plan* plan, const Args* args) {
   const auto kernel = gj_solve_warp_kernel<K>;
   plan->smem_bytes = static_cast<int>(sizeof(float)) * kWarpsPerBlock * warp_floats(K);
   plan->threads = kWarpThreads;
+  plan->cluster = 1;
+  cudaFuncAttributes attr{};
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan->smem_bytes);
   if (e == cudaSuccess) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   }
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  plan->registers = attr.numRegs;
   if (e == cudaSuccess) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&plan->blocks_per_sm, kernel, kWarpThreads, plan->smem_bytes);
   }
@@ -316,7 +589,42 @@ cudaError_t warp_path(long long B, Plan* plan, const Args* args) {
   return cudaGetLastError();
 }
 
-cudaError_t warp_dispatch(int K, long long B, Plan* plan, const Args* args) {
+// The tile kernel at width K: fills *plan and, when args is given, launches.
+template <int K>
+cudaError_t tile_path(long long B, Plan* plan, const Args* args) {
+  using S = TileShape<K>;
+  const auto kernel = gj_solve_tile_kernel<K>;
+  cudaFuncAttributes attr{};
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return e;
+  plan->smem_bytes = static_cast<int>(attr.sharedSizeBytes);
+  plan->threads = S::kThreads;
+  plan->cluster = S::kCluster;
+  plan->registers = attr.numRegs;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&plan->blocks_per_sm, kernel, S::kThreads, 0);
+  if (e != cudaSuccess) return e;
+  if (plan->blocks_per_sm < 1) return cudaErrorInvalidConfiguration;
+  if (B * S::kCluster > 0x7fffffffLL) return cudaErrorInvalidValue;
+  plan->grid = static_cast<int>(B * S::kCluster);  // one system a cluster
+  if (args == nullptr || B <= 0) return cudaSuccess;
+  cudaLaunchConfig_t config{};
+  config.gridDim = dim3(plan->grid);
+  config.blockDim = dim3(S::kThreads);
+  config.dynamicSmemBytes = 0;
+  config.stream = args->stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = S::kCluster;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  config.attrs = cluster;
+  config.numAttrs = 1;
+  e = cudaLaunchKernelEx(&config, kernel, args->A, args->b, args->x);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(int K, long long B, Plan* plan, const Args* args) {
   switch (K) {
     case 8: return warp_path<8>(B, plan, args);
     case 16: return warp_path<16>(B, plan, args);
@@ -326,53 +634,31 @@ cudaError_t warp_dispatch(int K, long long B, Plan* plan, const Args* args) {
     case 48: return warp_path<48>(B, plan, args);
     case 56: return warp_path<56>(B, plan, args);
     case 64: return warp_path<64>(B, plan, args);
+#define GJ_TILE_CASE(k) \
+  case k: return tile_path<k>(B, plan, args);
+    GJ_TILE_CASE(72) GJ_TILE_CASE(80) GJ_TILE_CASE(88) GJ_TILE_CASE(96)
+    GJ_TILE_CASE(104) GJ_TILE_CASE(112) GJ_TILE_CASE(120) GJ_TILE_CASE(128)
+    GJ_TILE_CASE(136) GJ_TILE_CASE(144) GJ_TILE_CASE(152) GJ_TILE_CASE(160)
+    GJ_TILE_CASE(168) GJ_TILE_CASE(176) GJ_TILE_CASE(184) GJ_TILE_CASE(192)
+    GJ_TILE_CASE(200) GJ_TILE_CASE(208) GJ_TILE_CASE(216) GJ_TILE_CASE(224)
+    GJ_TILE_CASE(232) GJ_TILE_CASE(240) GJ_TILE_CASE(248) GJ_TILE_CASE(256)
+#undef GJ_TILE_CASE
     default: return cudaErrorInvalidValue;
   }
 }
 
-// The block kernel at width K (64 < K <= 256): fills *plan and, when args
-// is given, launches.
-cudaError_t block_path(int K, long long B, Plan* plan, const Args* args) {
-  const bool shared = K <= kMaxSharedK;
-  const auto kernel = shared ? gj_solve_kernel<true> : gj_solve_kernel<false>;
-  plan->smem_bytes = shared ? static_cast<int>(sizeof(float)) * K * (K + 1) : 0;
-  plan->threads = kThreadsX * kThreadsY;
-  plan->grid = static_cast<int>(B);
-  cudaError_t e = cudaSuccess;
-  if (plan->smem_bytes > 48 * 1024) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan->smem_bytes);
-  }
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&plan->blocks_per_sm, kernel, plan->threads, plan->smem_bytes);
-  }
-  if (e != cudaSuccess || args == nullptr || B <= 0) return e;
-  if (!shared && args->scratch == nullptr) return cudaErrorInvalidValue;
-  const dim3 block(kThreadsX, kThreadsY);
-  kernel<<<plan->grid, block, plan->smem_bytes, args->stream>>>(args->A, args->b, args->x, args->scratch, K);
-  return cudaGetLastError();
-}
-
-cudaError_t dispatch(int K, long long B, Plan* plan, const Args* args) {
-  return K <= kWarpMaxK ? warp_dispatch(K, B, plan, args) : block_path(K, B, plan, args);
-}
-
 bool bad_shape(long long B, int K) {
-  return B < 0 || B > 0x7fffffffLL || K <= 0 || K % 8 || K > kMaxK;
+  return B < 0 || B > 0x7fffffffLL || K <= 0 || K % kPivots || K > kTileMaxK;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of device scratch the caller must pass for a [B, K, K] batch:
-// 0 where the system fits in shared memory or registers.
-long long gj_solve_scratch_floats(long long B, int K) {
-  return K <= kMaxSharedK ? 0 : B * static_cast<long long>(K) * (K + 1);
-}
-
 // The launch gj_solve_f32 makes at (B, K) on the current device, in
-// plan[0..3]: shared bytes per block, threads per block, resident blocks
-// per SM, grid blocks. Returns a cudaError_t.
+// plan[0..5]: shared bytes per block, threads per block, resident blocks
+// per SM, grid blocks, blocks a cluster, registers a thread. Returns a
+// cudaError_t.
 int gj_solve_plan(long long B, int K, int* plan) {
   if (bad_shape(B, K) || plan == nullptr) return cudaErrorInvalidValue;
   Plan p{};
@@ -381,14 +667,15 @@ int gj_solve_plan(long long B, int K, int* plan) {
   plan[1] = p.threads;
   plan[2] = p.blocks_per_sm;
   plan[3] = p.grid;
+  plan[4] = p.cluster;
+  plan[5] = p.registers;
   return e;
 }
 
 // A [B, K, K], b [B, K], x [B, K]: contiguous float32 on the current
 // device; for K <= 64, A and b 16-byte aligned (the kernel copies them
 // with 16-byte cp.async). Returns a cudaError_t (0 on a clean launch).
-int gj_solve_f32(const float* A, const float* b, float* x, float* scratch,
-                 long long B, int K, void* stream) {
+int gj_solve_f32(const float* A, const float* b, float* x, long long B, int K, void* stream) {
   if (B == 0) return cudaSuccess;
   if (bad_shape(B, K)) return cudaErrorInvalidValue;
   if (K <= kWarpMaxK && ((reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(b)) & 15)) {
@@ -396,7 +683,7 @@ int gj_solve_f32(const float* A, const float* b, float* x, float* scratch,
   }
   cudaGetLastError();  // launch errors below are this launch's own
   Plan plan{};
-  const Args args{A, b, x, scratch, static_cast<cudaStream_t>(stream)};
+  const Args args{A, b, x, static_cast<cudaStream_t>(stream)};
   return dispatch(K, B, &plan, &args);
 }
 

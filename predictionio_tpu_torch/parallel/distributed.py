@@ -33,6 +33,7 @@ initialization fails raises: nothing carries on as a single process.
 
 from __future__ import annotations
 
+import atexit
 import datetime as _dt
 import json
 import logging
@@ -213,6 +214,9 @@ def initialize_from_env(device: str | torch.device | None = None, timeout_s: flo
         ) from exc
     _STATE["backend"] = chosen
     _STATE["device"] = dev
+    # a group still alive when the interpreter ends aborts the process
+    # ("terminate called without an active exception") after its work
+    atexit.register(shutdown)
     return True
 
 

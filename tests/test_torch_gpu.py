@@ -8,8 +8,9 @@ Whether there is a card is decided inside the ``cuda_device`` fixture,
 never at import, so every test is collected the same way everywhere; on
 a machine without CUDA the card tests skip.
 
-Tolerances: the CUDA kernels (one warp per system for K <= 64, one block
-per system above) against the plain Gauss-Jordan mirror at
+Tolerances: the CUDA kernels (one warp per system for K <= 64, the
+blocked kernel with one block a system to K = 128 and a cluster of two
+above) against the plain Gauss-Jordan mirror at
 rtol 5e-4, atol 5e-5 (the JAX package's interpret-vs-Cholesky band,
 tests/test_als.py); ALS on the card against ALS on the CPU at rtol 5e-3,
 atol 5e-4 (its cross-solver ALS band), since the kernel and the mirror
@@ -122,9 +123,12 @@ def test_asking_for_cuda_without_a_card_raises():
         # block's 4 warps, and B = 2049, a ragged last round of the grid
         (5, 8), (257, 16), (100, 24), (1, 32), (3, 40), (50, 48), (40, 56),
         (1000, 64), (1, 64), (3, 64), (2049, 64),
-        # the one-block-per-system kernel: its first width, shared memory
-        # to K = 128, device scratch above
+        # the blocked kernel: its first width, one block a system to
+        # K = 128, a cluster of two to K = 224 and of four above; B = 1,
+        # and B odd where a cluster holds a system (the grid is 2B or 4B
+        # blocks)
         (130, 72), (300, 128), (33, 136), (20, 256),
+        (1, 72), (1, 128), (1, 136), (1, 256), (7, 200), (3, 256), (67, 248), (5, 232), (9, 224),
     ],
 )
 def test_kernel_matches_plain_on_card(cuda_device, B, K):
@@ -134,12 +138,33 @@ def test_kernel_matches_plain_on_card(cuda_device, B, K):
     x = torch_solve.gj_solve_cuda(At, bt)
     torch.cuda.synchronize()
     assert torch_solve.gj_solve_cuda.launches == before + 1
-    torch.testing.assert_close(x, torch_solve.gj_solve_reference(At, bt), rtol=SOLVE_RTOL, atol=SOLVE_ATOL)
+    torch.testing.assert_close(x, torch_solve.gj_solve_plain(At, bt), rtol=SOLVE_RTOL, atol=SOLVE_ATOL)
     torch.testing.assert_close(x, torch_solve.cholesky_solve(At, bt), rtol=SOLVE_RTOL, atol=SOLVE_ATOL)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("K", [64, 128])
+@pytest.mark.parametrize("K", [64, 72, 128, 136, 256])
+def test_kernel_keeps_its_digits_where_pivots_are_large(cuda_device, K):
+    """ALS-WR normal equations of much-rated items (pivots in the
+    thousands): the kernel within 1e-4 (relative) of a float64 solve, as
+    the library Cholesky is."""
+    rng = np.random.default_rng(K)
+    counts = [20000, 9000, 300, 40, 3]
+    A, b = np.empty((len(counts), K, K)), np.empty((len(counts), K))
+    for i, n in enumerate(counts):
+        U = rng.normal(size=(n, K)) / np.sqrt(K) + 0.2
+        A[i] = U.T @ U + 0.01 * n * np.eye(K)
+        b[i] = U.T @ (rng.integers(1, 11, n) / 2.0)
+    x64 = np.linalg.solve(A, b[..., None])[..., 0]
+    At = torch.from_numpy(A.astype(np.float32)).to(cuda_device)
+    bt = torch.from_numpy(b.astype(np.float32)).to(cuda_device)
+    x = torch_solve.gj_solve_cuda(At, bt).double().cpu().numpy()
+    err = np.abs(x - x64).max(axis=1) / np.abs(x64).max(axis=1)
+    assert err.max() < 1e-4, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [64, 128, 136, 256])
 def test_kernel_is_deterministic_on_card(cuda_device, K):
     A, b = _spd(2049, K, seed=3 * K)
     At, bt = torch.from_numpy(A).to(cuda_device), torch.from_numpy(b).to(cuda_device)
@@ -165,10 +190,12 @@ def test_kernel_runs_on_the_current_stream(cuda_device, K):
 
 
 @pytest.mark.gpu
-def test_kernel_takes_views_at_any_offset(cuda_device):
-    """The warp kernel copies 16-byte chunks; views that start 4 bytes
-    into their storage give the same bits as aligned tensors."""
-    B, K = 37, 64
+@pytest.mark.parametrize("K", [64, 128, 256])
+def test_kernel_takes_views_at_any_offset(cuda_device, K):
+    """The warp kernel copies 16-byte chunks, the blocked kernel reads
+    floats; views that start 4 bytes into their storage give the same
+    bits as aligned tensors."""
+    B = 37
     A, b = _spd(B, K, seed=11)
     At, bt = torch.from_numpy(A).to(cuda_device), torch.from_numpy(b).to(cuda_device)
     A_off = torch.empty(B * K * K + 1, device=cuda_device)[1:].view(B, K, K).copy_(At)
@@ -182,16 +209,25 @@ def test_kernel_takes_views_at_any_offset(cuda_device):
 @pytest.mark.gpu
 def test_kernel_plan_on_card(cuda_device):
     warp = torch_solve.gj_solve_plan(32768, 64, cuda_device)
-    assert warp["kernel"] == "warp" and warp["threads_per_block"] == 128
+    assert warp["kernel"] == "gj_solve_warp_kernel" and warp["threads_per_block"] == 128
+    assert warp["cluster"] == 1 and 0 < warp["registers"] <= 255
     assert warp["smem_per_block"] == 4 * 4 * (64 * 68 + 64 + 2 * 68)
     assert warp["blocks_per_sm"] >= 1 and warp["warps_per_sm"] == 4 * warp["blocks_per_sm"]
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     assert warp["grid"] == min(warp["blocks_per_sm"] * sms, 32768 // 4)
     assert torch_solve.gj_solve_plan(3, 64, cuda_device)["grid"] == 1
-    block = torch_solve.gj_solve_plan(50, 72, cuda_device)
-    assert block["kernel"] == "block" and block["threads_per_block"] == 256 and block["grid"] == 50
-    assert block["smem_per_block"] == 4 * 72 * 73
-    assert torch_solve.gj_solve_plan(50, 256, cuda_device)["smem_per_block"] == 0
+    # the blocked kernel: 16 column groups by K/8 row tiles, one block a
+    # system to K = 128; then 32 column groups by the row tiles of one
+    # block of a cluster of two (four above K = 224), one cluster a system
+    for K, threads, cluster in ((72, 144, 1), (128, 256, 1), (136, 288, 2), (224, 448, 2), (232, 256, 4),
+                                (256, 256, 4)):
+        tile = torch_solve.gj_solve_plan(50, K, cuda_device)
+        assert tile["kernel"] == "gj_solve_tile_kernel", K
+        assert (tile["threads_per_block"], tile["cluster"], tile["grid"]) == (threads, cluster, 50 * cluster), K
+        assert 0 < tile["smem_per_block"] <= 48 * 1024 and tile["blocks_per_sm"] >= 1, tile
+        assert tile["warps_per_sm"] == tile["blocks_per_sm"] * -(-threads // 32), tile
+        assert 0 < tile["registers"] <= 65536 // threads, tile
+    assert torch_solve.gj_solve_plan(1, 256, cuda_device)["grid"] == 4
 
 
 @pytest.mark.gpu
@@ -216,7 +252,7 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
 
 @pytest.mark.gpu
 def test_spd_solve_dispatch_on_card(cuda_device):
-    for K, launches in ((64, 1), (10, 0), (264, 0)):
+    for K, launches in ((64, 1), (72, 1), (256, 1), (10, 0), (130, 0), (264, 0)):
         A, b = _spd(6, K, seed=K)
         At, bt = torch.from_numpy(A).to(cuda_device), torch.from_numpy(b).to(cuda_device)
         before = torch_solve.gj_solve_cuda.launches
