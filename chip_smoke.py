@@ -2955,7 +2955,7 @@ def phase_serving(device, ctx: dict, clients: int, per_client: int, k: int, batc
              "--max-batch-size", str(SRV_MAX_BATCH), "--max-batch-delay-ms", str(SRV_MAX_DELAY_MS),
              "--batch-warmup-query", warm_query, "--pin-model", "--result-cache", "--coalesce",
              "--feedback", "--event-server-ip", "127.0.0.1", "--event-server-port", str(es_port),
-             "--accesskey", fb_key.key],
+             f"--accesskey={fb_key.key}"],  # one word: a key may begin with "-"
             base / "deploy-srv.stderr", QS_DEPLOY_TIMEOUT_S)
         out["deploy_start_s"] = time.perf_counter() - t0
         url = f"http://127.0.0.1:{port}"
@@ -5898,6 +5898,219 @@ def phase_sweeps(device, smi: str) -> dict:
     return out
 
 
+#: [tooling]: the analysis package over the quickstart's data at rank 64
+#: (its store, QS_SWEEPS sweeps) and a batchpredict of TOOL_QUERIES of its
+#: users; the child's time limit
+TOOL_QUERIES = 2_000
+TOOL_CHILD_TIMEOUT_S = 600
+
+
+def _console_quiet(argv: list) -> tuple:
+    """``console.main(argv)`` with its standard output kept; returns the
+    exit code, the seconds and the output."""
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = console.main(argv)
+    return rc, time.perf_counter() - t0, buf.getvalue()
+
+
+def _lint_json(label: str, argv: list) -> tuple:
+    """``pio lint --format json ARGV``: its JSON document and seconds;
+    raises unless it exits 0 with a clean tree."""
+    rc, seconds, out = _console_quiet(["lint", "--format", "json", *argv])
+    doc = json.loads(out)
+    if rc != 0 or not doc["ok"] or doc["newFindings"]:
+        raise RuntimeError(f"{label}: pio lint exited {rc}: {json.dumps(doc)[:3000]}")
+    return doc, seconds
+
+
+def phase_tooling(device, smi: str) -> dict:
+    """[tooling]: the port's ``pio lint``, ``pio jitwitness`` and ``pio
+    tsan`` (``predictionio_tpu_torch/analysis``) over the quickstart's data
+    in a store of their own: a rank-64 ``pio train`` and a ``pio
+    batchpredict``, each once plain and once witnessed, on ``device``.
+    Fails unless the lint is clean, the witnessed train launches the solve
+    its plan's number of times, the witnessed commands compile what the
+    plain ones do and batchpredict writes the same bytes, no compile budget
+    is exceeded, nothing constructs a compiled program per call, no lock
+    order inverts, and every witnessed lock order is a static edge with
+    no unwaived static cycle."""
+    from predictionio_tpu_torch.analysis.jit_witness import compile_counts
+    from predictionio_tpu_torch.templates.recommendation.engine import (
+        DataSourceParams,
+        RecommendationDataSource,
+    )
+
+    t_phase = time.perf_counter()
+    dev_args = [] if device.type == "cuda" else ["--device", device.type]
+    out: dict = {"card": smi}
+    with temporary_store("pio-tooling-") as base:
+        console_ok("tooling", ["app", "new", QS_APP])
+        users, items, ratings, stamps = synthesize_ml100k(42)
+        events = base / "events.json"
+        write_ndjson(events, (
+            {"event": "rate", "entityType": "user", "entityId": str(u), "targetEntityType": "item",
+             "targetEntityId": str(i), "properties": {"rating": float(r)},
+             "eventTime": format_event_time(dt.datetime.fromtimestamp(t, dt.timezone.utc))}
+            for u, i, r, t in zip(users.tolist(), items.tolist(), ratings.tolist(), stamps.tolist())
+        ))
+        console_ok("tooling", ["import", "--appname", QS_APP, "--input", str(events)])
+        engine_json = base / "engine.json"
+        engine_json.write_text(json.dumps({
+            "id": QS_APP, "version": "1", "engineFactory": QS_FACTORY,
+            "datasource": {"params": {"appName": QS_APP}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": QS_RANK, "numIterations": QS_SWEEPS, "lambda": 0.01, "seed": 3}}],
+        }))
+        td = RecommendationDataSource(DataSourceParams(app_name=QS_APP)).read_training(local_context(device))
+        cfg = ALSConfig(rank=QS_RANK)
+        plan = QS_SWEEPS * (planned_solves(td.rows, len(td.user_index), cfg)
+                            + planned_solves(td.cols, len(td.item_index), cfg))
+        train_argv = ["train", "--engine-json", str(engine_json), *dev_args]
+
+        def run(argv: list) -> dict:
+            """One console command: its exit code, seconds, solve launches,
+            the process's compiles by kind over it, and the newest instance."""
+            before = compile_counts()
+            reset_launch_counts()
+            rc, seconds, _ = _console_quiet(argv)
+            launches = read_launch_counts()
+            after = compile_counts()
+            if rc != 0:
+                raise RuntimeError(f"tooling: {' '.join(argv[:3])} exited {rc}")
+            instances = sorted(Storage.get_meta_data_engine_instances().get_all(), key=lambda i: i.start_time)
+            return {"s": seconds, "launches": launches["gj_solve"], "instance": instances[-1],
+                    "compiles": {k: after[k] - before[k] for k in after}}
+
+        def timings(instance) -> dict:
+            t = json.loads(instance.env["phase_timings"])
+            return {"read_s": t["read"], "train_als_s": t["train:als"]}
+
+        # 1. pio train: plain (the process's first, cold), then legs
+        # under pio jitwitness and plain in turns (W P P W)
+        first = run(train_argv)
+        legs = []
+        for n, witness in enumerate((True, False, False, True)):
+            path = base / f"jw-train-{n}.json"
+            got = run(["jitwitness", "--report", str(path), "--", *train_argv] if witness else train_argv)
+            got["report"] = json.loads(path.read_text()) if witness else None
+            legs.append(got)
+        witnessed, plain = legs[0], legs[1]
+        jw = witnessed["report"]
+        for n, got in enumerate([first, *legs]):
+            if device.type == "cuda":
+                check_launches(f"tooling train {n}", {"gj_solve": got["launches"]}, {"gj_solve": plan})
+            if got["compiles"] != first["compiles"]:
+                raise RuntimeError(f"tooling: train {n} compiled {got['compiles']}, the first {first['compiles']}")
+            rep = got.get("report")
+            if rep is not None and (rep["exitCode"] != 0 or not rep["ok"] or rep["budget"]["violations"]
+                                    or rep["witness"]["totalConstructions"]):
+                raise RuntimeError(f"tooling: pio jitwitness -- train: {json.dumps(rep['budget'])}, "
+                                   f"constructions {rep['witness']['jitConstructions']}")
+        wrep = jw["witness"]
+        fm, pm, wm = (stored_model(r["instance"].id) for r in (first, plain, witnessed))
+
+        def factor_diff(a, b) -> float:
+            return max(float(np.abs(np.asarray(a.user_factors) - np.asarray(b.user_factors)).max()),
+                       float(np.abs(np.asarray(a.item_factors) - np.asarray(b.item_factors)).max()))
+
+        def side(witness: bool, key: str) -> list:
+            return [timings(g["instance"])[key] for g in legs if (g["report"] is not None) == witness]
+
+        out["train"] = {
+            "plan": plan, "launches_plain": plain["launches"], "launches_witnessed": witnessed["launches"],
+            "compiles_plain": plain["compiles"], "compiles_witnessed": witnessed["compiles"],
+            "compiles_by_site": {k: {"count": v["count"], "kinds": v["kinds"], "ms": v["totalCompileMs"]}
+                                 for k, v in wrep["compiles"].items()},
+            "transfers_by_site": {k: {"count": v["count"], "bytes": v["bytes"], "kinds": v["kinds"]}
+                                  for k, v in wrep["transfers"].items()},
+            "transfers": wrep["totalTransfers"], "transfer_bytes": wrep["totalTransferBytes"],
+            "constructions": wrep["totalConstructions"], "unbudgeted": jw["budget"]["unbudgeted"],
+            "static_findings": len(jw["staticCompileFindings"]),
+            "first": timings(first["instance"]),
+            # the legs in turns, W P P W: the engine's train:als seconds,
+            # and the command's (witnessed: the nested command alone)
+            "train_als_s_plain": side(False, "train_als_s"), "train_als_s_witnessed": side(True, "train_als_s"),
+            "command_s_plain": [g["s"] for g in legs if g["report"] is None],
+            "command_s_witnessed": [g["report"]["commandSeconds"] for g in legs if g["report"] is not None],
+            # ALS on the card is not bitwise repeatable (index_add_'s
+            # atomics): the witnessed train's distance to a plain one
+            # beside two plain trains' own
+            "factor_max_abs_diff_plain_plain": factor_diff(fm, pm),
+            "factor_max_abs_diff_plain_witnessed": factor_diff(pm, wm),
+        }
+
+        # 2. pio batchpredict of the witnessed train's instance, plain and witnessed
+        picks = load_picks(TOOL_QUERIES, len(td.user_index), seed=37)
+        queries = base / "tool-queries.json"
+        write_ndjson(queries, ({"user": td.user_index.inverse(u), "num": TOP_K} for u in picks.tolist()))
+        instance_id = witnessed["instance"].id
+
+        def bp_argv(name: str) -> list:
+            return ["batchpredict", "--engine-json", str(engine_json), "--input", str(queries),
+                    "--output", str(base / name), "--engine-instance-id", instance_id, *dev_args]
+
+        bp_plain = run(bp_argv("bp-plain.json"))
+        jwb_path = base / "jw-batchpredict.json"
+        bp_wit = run(["jitwitness", "--report", str(jwb_path), "--", *bp_argv("bp-witnessed.json")])
+        jwb = json.loads(jwb_path.read_text())
+        plain_bytes, wit_bytes = (base / "bp-plain.json").read_bytes(), (base / "bp-witnessed.json").read_bytes()
+        if plain_bytes != wit_bytes or plain_bytes.count(b"\n") != TOOL_QUERIES:
+            raise RuntimeError(f"tooling: batchpredict under the witness wrote other bytes "
+                               f"({len(wit_bytes)} against {len(plain_bytes)})")
+        if bp_wit["compiles"] != bp_plain["compiles"]:
+            raise RuntimeError(f"tooling: the witnessed batchpredict compiled {bp_wit['compiles']}, "
+                               f"the plain one {bp_plain['compiles']}")
+        brep = jwb["witness"]
+        if jwb["exitCode"] != 0 or not jwb["ok"] or jwb["budget"]["violations"] or brep["totalConstructions"]:
+            raise RuntimeError(f"tooling: pio jitwitness -- batchpredict: {json.dumps(jwb['budget'])}, "
+                               f"constructions {brep['jitConstructions']}")
+        out["batchpredict"] = {
+            "queries": TOOL_QUERIES, "byte_equal": True, "bytes": len(plain_bytes),
+            "compiles_plain": bp_plain["compiles"], "compiles_witnessed": bp_wit["compiles"],
+            "transfers_by_site": {k: {"count": v["count"], "bytes": v["bytes"], "kinds": v["kinds"]}
+                                  for k, v in brep["transfers"].items()},
+            "transfers": brep["totalTransfers"], "transfer_bytes": brep["totalTransferBytes"],
+            "constructions": brep["totalConstructions"], "violations": len(jwb["budget"]["violations"]),
+            "wall_s_plain": bp_plain["s"], "wall_s_witnessed": bp_wit["s"], "command_s_witnessed": jwb["commandSeconds"],
+        }
+
+        # 3. pio tsan over both, then pio lint --witness of each report
+        tsan = {}
+        for label, argv in (("batchpredict", bp_argv("bp-tsan.json")), ("train", train_argv)):
+            path = base / f"tsan-{label}.json"
+            got = run(["tsan", "--report", str(path), "--", *argv])
+            rep = json.loads(path.read_text())
+            if label == "train" and device.type == "cuda":
+                check_launches("tooling tsan train", {"gj_solve": got["launches"]}, {"gj_solve": plan})
+            if rep["exitCode"] != 0 or not rep["ok"] or rep["witness"]["inversions"]:
+                raise RuntimeError(f"tooling: pio tsan -- {label}: inversions {rep['witness']['inversions']}")
+            lint, lint_s = _lint_json(f"tooling lint --witness {label}", ["--witness", str(path)])
+            cc = lint["witnessCrosscheck"]
+            if cc["gaps"] or cc["unwaivedStaticCycles"]:
+                raise RuntimeError(f"tooling: lint --witness {label}: {json.dumps(cc)[:3000]}")
+            tsan[label] = {
+                "wall_s": got["s"], "command_s": rep["commandSeconds"], "locks": len(rep["witness"]["locks"]),
+                "edges": len(rep["witness"]["edges"]), "inversions": 0,
+                "long_holds": sum(v["longHolds"] for v in rep["witness"]["locks"].values()),
+                "sleeps_under_lock": len(rep["witness"]["sleepsUnderLock"]),
+                "renames": len(rep["witness"]["fsync"]["renames"]),
+                "static_cycles": len(rep["staticLockCycles"]),
+                "gaps": 0, "unmapped_edges": len(cc["unmappedEdges"]), "unwaived_cycles": 0,
+                "static_edges": cc["staticEdges"],
+                "lint": {"ok": lint["ok"], "files": lint["filesScanned"], "findings": len(lint["newFindings"]),
+                         "seconds": lint_s},
+            }
+        out["tsan"] = tsan
+        out["lint"] = tsan["batchpredict"]["lint"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[tooling] {json.dumps(out)}")
+    return out
+
+
 def start_child(name: str, device, smi: str, *args: int, env: dict | None = None, nice: int = 0) -> tuple:
     """Start the phase function ``name`` in a child process, so that it
     runs beside the phases that follow: its own stores, CUDA context and
@@ -8214,6 +8427,7 @@ def main() -> int:
                 start_child("phase_templates", device, info["smi"], TPL_NNZ, TPL_CLS_USERS, TPL_TEXT_DOCS, QUERIES,
                             nice=CHILD_NICE)]
     storage_child = start_child("phase_storage", device, info["smi"], nice=CHILD_NICE)
+    tooling_child = start_child("phase_tooling", device, info["smi"], nice=CHILD_NICE)
     chaos_children.append(start_child("phase_chaos", device, info["smi"], 0, 1, 4, 2, nice=CHAOS_NICE))
     joined: list = []
 
@@ -8232,7 +8446,9 @@ def main() -> int:
         mark("sharded")
         joined.extend(join_child(*child, CHILD_TIMEOUT_S) for child in children)
         joined.append(join_child(*storage_child, STG_CHILD_TIMEOUT_S))
-        mark("waiting for the quickstart's, the Two-Tower's, the templates' and the storage child processes")
+        joined.append(join_child(*tooling_child, TOOL_CHILD_TIMEOUT_S))
+        mark("waiting for the quickstart's, the Two-Tower's, the templates', the storage and the tooling child "
+             "processes")
         chaos_joined = [join_child(*child, CHAOS_CHILD_TIMEOUT_S) for child in chaos_children]
         joined.append({"drills": {k: v for c in chaos_joined for k, v in c["drills"].items()},
                        "train": next(c["train"] for c in chaos_joined if "train" in c),
@@ -8258,7 +8474,7 @@ def main() -> int:
         raise RuntimeError(f"online: the fold launched kernels {online_launches}; its path has none")
     log(f"[ann] launches on the deploys' and in-process path: {json.dumps(ann['launches'])}; [sharded] on the "
         f"services' path: {json.dumps(shd['launches'])}")
-    quickstart, ttq, tpl, stg, chaos_out, sweeps = joined
+    quickstart, ttq, tpl, stg, tooling, chaos_out, sweeps = joined
     qs, loop = quickstart["qs"], quickstart["loop"]
     grid, fleet_ab = qs["then"]
     tt_srv, tt_onl, tt_ann, tt_shd, tt_aot = ttq["serving"]
@@ -8436,6 +8652,17 @@ def main() -> int:
             "sharedfs": stg["sharedfs"], "phase_s": stg["phase_s"],
         },
         "chaos": {**chaos_out["drills"], "train": chaos_out["train"], "phase_s": chaos_out["phase_s"]},
+        "tooling": {
+            "lint": tooling["lint"],
+            "train": {key: tooling["train"][key] for key in (
+                "plan", "launches_witnessed", "compiles_witnessed", "transfers", "transfer_bytes", "constructions",
+                "train_als_s_plain", "train_als_s_witnessed")},
+            "batchpredict": {key: tooling["batchpredict"][key] for key in (
+                "byte_equal", "transfers", "transfer_bytes", "violations", "wall_s_plain", "command_s_witnessed")},
+            "tsan": {label: {key: run[key] for key in ("edges", "inversions", "gaps", "unwaived_cycles", "wall_s")}
+                     for label, run in tooling["tsan"].items()},
+            "phase_s": tooling["phase_s"],
+        },
         "tt_wide": {key: ttq["wide"][key] for key in (
             "dim", "steps", "launches", "loss_last", "loss_rel_vs_off", "train_s", "off_train_s")},
         "multihost": {

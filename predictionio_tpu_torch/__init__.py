@@ -11,6 +11,6 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (see :func:`predictionio_tpu_torch.device.resolve_device`).
 """
 
-__version__ = "0.1.0"
+from predictionio_tpu_torch.version import __version__
 
 __all__ = ["__version__"]

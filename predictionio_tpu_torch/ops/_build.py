@@ -22,7 +22,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-from predictionio_tpu_torch.analysis.jit_witness import note_compile
+from predictionio_tpu_torch.analysis.jit_witness import compiling
 
 __all__ = ["SOURCES", "BUILD_DIR", "build", "load", "lib_path", "cuda_tool"]
 
@@ -75,11 +75,11 @@ def build(name: str) -> str:
     # concurrent builds are safe: each writes its own temporary file,
     # renamed atomically
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    note_compile("nvcc")
-    proc = subprocess.run(
-        [cuda_tool("nvcc"), *_NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
+    with compiling("nvcc"):
+        proc = subprocess.run(
+            [cuda_tool("nvcc"), *_NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name} (rc={proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, out)

@@ -22,7 +22,7 @@ Query ``{"attr0": 2, "attr1": 0, "attr2": 0}`` -> ``{"label": "...",
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, Sequence
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -35,15 +35,14 @@ from predictionio_tpu_torch.controller import (
     IdentityPreparator,
     Params,
     SanityCheck,
-    TorchAlgorithm,
     WorkflowContext,
 )
 from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.data.store import PEventStore
+from predictionio_tpu_torch.templates.classifier_util import ClassifierBase, features_on
 from predictionio_tpu_torch.ops.classify import (
     logreg_predict_proba,
     nb_predict_log_proba,
-    to_device,
     to_numpy,
     train_logreg,
     train_naive_bayes,
@@ -139,57 +138,6 @@ class ClassificationDataSource(DataSource):
             qa = [(dict(zip(self.params.attributes, feats)), label) for feats, label in held]
             folds.append((td, {"fold": fold}, qa))
         return folds
-
-
-class ClassifierBase(TorchAlgorithm):
-    """Shared plumbing: query dict -> feature vector -> label, the model's
-    NB or LR tensors on :attr:`device` for serving."""
-
-    #: the model key of the classifier's NamedTuple ("nb" or "lr")
-    kind = ""
-
-    def _features(self, model, query: Mapping[str, Any]) -> np.ndarray:
-        attrs = model["attributes"]
-        missing = [a for a in attrs if a not in query]
-        if missing:
-            raise ValueError(f"Query is missing attribute(s) {missing}")
-        return np.asarray([[float(query[a]) for a in attrs]], dtype=np.float32)
-
-    def prepare_model_for_serving(self, model: dict) -> dict:
-        model = dict(model)
-        model[self.kind] = to_device(model[self.kind], self.device)
-        self.warm_up(model)
-        return model
-
-    def _placed(self, model):
-        """The model's NB or LR NamedTuple as tensors: as placed by
-        :meth:`prepare_model_for_serving`, else moved to :attr:`device`."""
-        part = model[self.kind]
-        return part if isinstance(part[0], torch.Tensor) else to_device(part, self.device)
-
-    def _proba(self, model, x: np.ndarray) -> np.ndarray:
-        """Host ``[B, F]`` features -> host ``[B, C]`` log-posteriors (NB) or
-        probabilities (LR), computed on the model's device."""
-        raise NotImplementedError
-
-    def _result(self, model, row: np.ndarray) -> PredictedResult:
-        raise NotImplementedError
-
-    def predict(self, model, query: Mapping[str, Any]) -> PredictedResult:
-        return self._result(model, self._proba(model, self._features(model, query))[0])
-
-    def batch_predict(self, model, queries: Sequence[tuple[int, Any]]) -> list[tuple[int, PredictedResult]]:
-        """Every query's features through one product on the model's device."""
-        if not queries:
-            return []
-        x = np.concatenate([self._features(model, q) for _, q in queries])
-        out = self._proba(model, x)
-        return [(idx, self._result(model, row)) for (idx, _), row in zip(queries, out)]
-
-
-def features_on(part, x: np.ndarray) -> torch.Tensor:
-    """``x`` as a float32 tensor on the device of a model's tensors."""
-    return torch.as_tensor(x, dtype=torch.float32, device=part[0].device)
 
 
 @dataclasses.dataclass(frozen=True)

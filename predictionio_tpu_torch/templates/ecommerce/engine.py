@@ -53,7 +53,7 @@ from predictionio_tpu_torch.data.store import LEventStore, PEventStore
 from predictionio_tpu_torch.templates.columnar_util import aggregate_pairs, densify_pairs, event_name_mask
 from predictionio_tpu_torch.templates.results import PredictedResult
 from predictionio_tpu_torch.templates.serving_util import allowed_items, masked_topk, pin_tables, release_tables
-from predictionio_tpu_torch.templates.similarproduct.engine import (
+from predictionio_tpu_torch.templates.als_util import (
     implicit_als,
     keyed_coo,
     read_categories,

@@ -45,7 +45,7 @@ from predictionio_tpu_torch.ops.classify import (
     train_naive_bayes,
 )
 from predictionio_tpu_torch.ops.text import HashingTfIdf, fit_tfidf
-from predictionio_tpu_torch.templates.classification.engine import ClassifierBase, features_on
+from predictionio_tpu_torch.templates.classifier_util import ClassifierBase, features_on
 
 __all__ = [
     "DataSourceParams",

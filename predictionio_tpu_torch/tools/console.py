@@ -105,6 +105,15 @@ The serving drills train and deploy on ``--device``. ``run`` executes a
 command with ``PIO_FS_BASEDIR`` resolved and the repository root on
 ``PYTHONPATH``; ``build`` and ``upgrade`` only print, as the JAX
 console's do.
+
+``lint`` runs the port's piolint over the repository (both packages;
+``--format text|json|sarif``, the baseline flags, ``--witness REPORT``
+to cross-check a ``tsan`` report against the port's static lock graph);
+``tsan -- CMD`` and ``jitwitness -- CMD`` run CMD in this process under
+the lock witness or the compile and transfer witness
+(``predictionio_tpu_torch/analysis``) and print its JSON report. Exit
+codes as the JAX console's: 0 clean, 1 findings or a failed check or
+command, 2 an internal error of the linter.
 """
 
 from __future__ import annotations
@@ -115,6 +124,7 @@ import os
 import signal
 import sys
 import threading
+import time
 
 from predictionio_tpu_torch import __version__
 from predictionio_tpu_torch.tools import commands
@@ -519,8 +529,64 @@ def build_parser() -> argparse.ArgumentParser:
         "run_args", nargs=argparse.REMAINDER,
         help="command and arguments (e.g. `pio run python myscript.py`)",
     )
+    _add_analysis_parsers(sub)
     sub.add_parser("upgrade", help="print upgrade guidance (pip-managed; no in-place upgrader)")
     return p
+
+
+def _add_analysis_parsers(sub) -> None:
+    """``lint``, ``tsan`` and ``jitwitness``, with the JAX console's flags
+    (``predictionio_tpu_torch/analysis``)."""
+    lint = sub.add_parser(
+        "lint",
+        help="run piolint — AST layering/concurrency/compile-hygiene analysis "
+        "over the source tree (exits 1 on any non-baselined finding)",
+    )
+    lint.add_argument("--root", default=None, help="tree to lint (default: this checkout's repo root)")
+    lint.add_argument(
+        "--format", choices=("text", "json", "sarif"), default="text",
+        help="text = file:line diagnostics; json = machine-readable summary + findings; "
+        "sarif = SARIF 2.1.0 (new findings level=error, baselined level=note)",
+    )
+    lint.add_argument("--baseline", default=None, metavar="FILE",
+                      help="baseline file (default: <root>/piolint-baseline.json)")
+    lint.add_argument("--update-baseline", action="store_true",
+                      help="rewrite the baseline to the current findings (keeps existing justifications)")
+    lint.add_argument(
+        "--prune-baseline", action="store_true",
+        help="drop baseline entries no current finding matches AND entries of the port's "
+        "compile-budget-torch.json whose entrypoint no longer exists, accepting nothing new",
+    )
+    lint.add_argument(
+        "--witness", default=None, metavar="REPORT",
+        help="cross-check a recorded lock-witness report (pio tsan JSON output) against the "
+        "port's static lock graph, both directions: a witnessed acquisition order missing "
+        "from the static digraph (analyzer gap) or a static cycle that neither manifested nor "
+        "carries a lock-witness-waivers.json entry fails the lint",
+    )
+    tsan = sub.add_parser(
+        "tsan",
+        help="run a pio command under the lock-witness sanitizer: the lock acquisition-order "
+        "digraph, hold times, sleeps under a lock, fsync and rename order; witnessed "
+        "inversions fail the run, and every static PIO207 cycle is CONFIRMED or PLAUSIBLE",
+    )
+    tsan.add_argument("--report", default=None, metavar="FILE", help="also write the JSON report to FILE")
+    tsan.add_argument("--long-hold-ms", type=float, default=50.0,
+                      help="hold time above which an acquisition counts as a long hold (default 50)")
+    tsan.add_argument("tsan_args", nargs=argparse.REMAINDER,
+                      help="command to run under the witness, e.g. `pio tsan -- train ...`")
+    jitw = sub.add_parser(
+        "jitwitness",
+        help="run a pio command under the jit-witness sanitizer: compiles per call site "
+        "(nvcc, AOTInductor loads, Inductor, Dynamo) with seconds, device-to-host copies "
+        "with bytes, per-call torch.compile/aoti_load_package constructions; classifies "
+        "every static PIO306-308 finding and checks compile-budget-torch.json",
+    )
+    jitw.add_argument("--report", default=None, metavar="FILE", help="also write the JSON report to FILE")
+    jitw.add_argument("--ledger", default=None, metavar="FILE",
+                      help="compile-budget ledger (default: <repo>/compile-budget-torch.json)")
+    jitw.add_argument("jitwitness_args", nargs=argparse.REMAINDER,
+                      help="command to run under the witness, e.g. `pio jitwitness -- batchpredict ...`")
 
 
 def _add_chaos_parsers(sub) -> None:
@@ -1363,6 +1429,145 @@ def _run(args: argparse.Namespace) -> int:
     return subprocess.run(cmdline, env=env).returncode
 
 
+def _lint(args: argparse.Namespace) -> int:
+    """``pio lint``. Exit code contract (the JAX console's): 0 clean, 1
+    findings (or a failed witness crosscheck), 2 internal error."""
+    try:
+        from predictionio_tpu_torch.analysis import jit_witness, lock_witness, run_lint
+
+        res = run_lint(
+            root=args.root,
+            baseline_path=args.baseline,
+            update_baseline=args.update_baseline,
+            prune_stale=args.prune_baseline,
+        )
+        pruned_ledger = 0
+        if args.prune_baseline:
+            pruned_ledger = jit_witness.prune_ledger(jit_witness.default_ledger_path(res.root), res.root)
+        xcheck = None
+        if args.witness:
+            with open(args.witness, encoding="utf-8") as fh:
+                doc = json.load(fh)
+            # a pio tsan payload ({"witness": {...}}) or a raw witness report
+            wrep = doc.get("witness", doc) if isinstance(doc, dict) else {}
+            xcheck = lock_witness.crosscheck(wrep, root=res.root)
+        ok = res.ok and (xcheck is None or xcheck["ok"])
+        if args.format == "json":
+            payload = res.to_json()
+            payload["prunedCompileBudgetEntries"] = pruned_ledger
+            if xcheck is not None:
+                payload["witnessCrosscheck"] = xcheck
+                payload["ok"] = ok
+            print(json.dumps(payload, indent=2))
+        elif args.format == "sarif":
+            print(json.dumps(res.to_sarif(), indent=2))
+        else:
+            for f in res.new_findings:
+                print(f.render())
+            summary = (
+                f"piolint: {res.files_scanned} files, {len(res.new_findings)} new finding(s), "
+                f"{len(res.baselined)} baselined, {res.suppressed_count} suppressed"
+            )
+            if res.pruned_baseline:
+                summary += f", {res.pruned_baseline} stale baseline entr{'y' if res.pruned_baseline == 1 else 'ies'} pruned"
+            if pruned_ledger:
+                summary += f", {pruned_ledger} stale compile-budget entr{'y' if pruned_ledger == 1 else 'ies'} pruned"
+            if res.stale_baseline:
+                summary += (
+                    f", {res.stale_baseline} stale baseline entr{'y' if res.stale_baseline == 1 else 'ies'} "
+                    "(fixed findings — prune with --prune-baseline)"
+                )
+            print(summary)
+            if xcheck is not None:
+                print(
+                    f"lock-witness crosscheck: {xcheck['dynamicEdges']} dynamic edge(s) vs "
+                    f"{xcheck['staticEdges']} static, {len(xcheck['gaps'])} analyzer gap(s), "
+                    f"{len(xcheck['unwaivedStaticCycles'])} unwaived static cycle(s), "
+                    f"{len(xcheck['staleWaivers'])} stale waiver(s)"
+                )
+                for g in xcheck["gaps"]:
+                    print(f"  GAP: witnessed {g['from']} -> {g['to']} (x{g['count']}) has no static "
+                          f"edge {g['staticFrom']} -> {g['staticTo']}")
+                for c in xcheck["unwaivedStaticCycles"]:
+                    print("  UNWAIVED CYCLE: " + " -> ".join(c["cycle"])
+                          + f" ({c['witnessedEdges']}/{c['totalEdges']} edges witnessed; add a "
+                          "lock-witness-waivers.json entry or exercise it)")
+        return 0 if ok else 1
+    except Exception as e:  # noqa: BLE001 — exit-code contract
+        print(f"piolint: internal error: {e}", file=sys.stderr)
+        return 2
+
+
+def _nested(argv: list, verb: str) -> list | None:
+    """The command a witness verb runs: its arguments after ``--`` (and a
+    leading ``pio``), or None (with a message) when there is none."""
+    cmdline = list(argv)
+    if cmdline and cmdline[0] == "--":
+        cmdline = cmdline[1:]
+    if cmdline and cmdline[0] == "pio":
+        cmdline = cmdline[1:]
+    if not cmdline:
+        print(f"ERROR: pio {verb} needs a command to execute, e.g. `pio {verb} -- train ...`", file=sys.stderr)
+        return None
+    return cmdline
+
+
+def _run_nested(cmdline: list, timing: dict) -> int:
+    """``main(cmdline)`` in this process, its seconds into
+    ``timing["commandSeconds"]``; a nested command that leaves by
+    ``SystemExit`` (argparse errors, server refusals) is folded into its
+    exit code, so the witness report survives."""
+    t0 = time.perf_counter()
+    try:
+        return main(cmdline)
+    except SystemExit as e:
+        if e.code is None:
+            return 0
+        return e.code if isinstance(e.code, int) else 1
+    finally:
+        timing["commandSeconds"] = time.perf_counter() - t0
+
+
+def _tsan(args: argparse.Namespace) -> int:
+    """``pio tsan -- CMD``: CMD in this process under the lock and fsync
+    witness; a witnessed inversion or a failed CMD exits 1."""
+    from predictionio_tpu_torch.analysis import lock_witness, witness
+
+    cmdline = _nested(args.tsan_args, "tsan")
+    if cmdline is None:
+        return 1
+    timing: dict = {}
+    child_rc, payload = lock_witness.run_with_lock_witness(
+        lambda: _run_nested(cmdline, timing), long_hold_ms=args.long_hold_ms, waivers=lock_witness.load_waivers()
+    )
+    payload.update(command=cmdline, exitCode=child_rc, **timing)
+    if args.report:
+        witness.write_report(args.report, payload)
+    print(json.dumps(payload, indent=2, sort_keys=True))
+    return 0 if (payload["ok"] and not child_rc) else 1
+
+
+def _jitwitness(args: argparse.Namespace) -> int:
+    """``pio jitwitness -- CMD``: CMD in this process under the jit
+    witness; a compile-budget violation or a failed CMD exits 1
+    (unbudgeted compiles are reported, not fatal)."""
+    import torch  # noqa: F401 — the witness wraps the torch this process loaded
+
+    from predictionio_tpu_torch.analysis import jit_witness
+
+    cmdline = _nested(args.jitwitness_args, "jitwitness")
+    if cmdline is None:
+        return 1
+    timing: dict = {}
+    child_rc, rep = jit_witness.run_with_jit_witness(lambda: _run_nested(cmdline, timing))
+    payload = jit_witness.jitwitness_report(rep, ledger_path=args.ledger)
+    payload.update(command=cmdline, exitCode=child_rc, **timing)
+    if args.report:
+        jit_witness.write_report(args.report, payload)
+    print(json.dumps(payload, indent=2, sort_keys=True))
+    return 0 if (payload["ok"] and not child_rc) else 1
+
+
 def _chaos(args: argparse.Namespace) -> int:
     """The three drills (``resilience/chaos.py``): print the report,
     exit 1 unless it is ``ok``."""
@@ -1506,6 +1711,12 @@ def main(argv: list[str] | None = None) -> int:
                   "(kept for command-line parity with the reference)")
         elif cmd == "run":
             return _run(args)
+        elif cmd == "lint":
+            return _lint(args)
+        elif cmd == "tsan":
+            return _tsan(args)
+        elif cmd == "jitwitness":
+            return _jitwitness(args)
         elif cmd == "upgrade":
             print("predictionio_tpu_torch is a Python package: upgrade with your package manager "
                   "(e.g. `pip install -U predictionio_tpu_torch`). Storage formats are forward-compatible "

@@ -273,6 +273,8 @@ def _compile(program: ServingProgram, path: str, cxx: str | None = None) -> None
     from torch._inductor import aoti_compile_and_package
     from torch._inductor import config as inductor_config
 
+    from predictionio_tpu_torch.analysis.jit_witness import compile_region
+
     dynamic_shapes = None
     if program.dynamic:
         dynamic_shapes = []
@@ -285,11 +287,12 @@ def _compile(program: ServingProgram, path: str, cxx: str | None = None) -> None
             n = torch.export.Dim(f"n{pos}", min=1, max=max(1, most // multiple))
             dynamic_shapes.append({dim: multiple * n})
         dynamic_shapes = tuple(dynamic_shapes)
-    exported = torch.export.export(program.module, tuple(program.args), dynamic_shapes=dynamic_shapes)
     configs = {k: v for k, v in _INDUCTOR_CONFIGS.items() if _has_setting(inductor_config, k)}
     if cxx is not None:
         configs["cpp.cxx"] = (None, cxx)
-    aoti_compile_and_package(exported, package_path=path, inductor_configs=configs)
+    with compile_region():
+        exported = torch.export.export(program.module, tuple(program.args), dynamic_shapes=dynamic_shapes)
+        aoti_compile_and_package(exported, package_path=path, inductor_configs=configs)
 
 
 def _has_setting(config, dotted: str) -> bool:
@@ -612,7 +615,7 @@ def load_runtime(
     from torch._inductor import aoti_load_package
     from torch._inductor import config as inductor_config
 
-    from predictionio_tpu_torch.analysis.jit_witness import note_compile
+    from predictionio_tpu_torch.analysis.jit_witness import compiling
 
     # a load compares the package's recorded CPU vector ISA with the
     # host's; the export recorded none (_INDUCTOR_CONFIGS), and probing the
@@ -622,8 +625,7 @@ def load_runtime(
     for entry in manifest.get("entries", []):
         path = os.path.join(instance_dir, entry["file"])
         try:
-            note_compile("aoti_load_package")
-            with inductor_config.patch(no_isa_probe):
+            with compiling("aoti_load_package"), inductor_config.patch(no_isa_probe):
                 fn = aoti_load_package(path, device_index=dev.index if dev.type == "cuda" and dev.index is not None else -1)
         except Exception as e:
             report["problems"].append(f"load failed for {entry.get('key')}: {type(e).__name__}: {e}")

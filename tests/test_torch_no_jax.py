@@ -448,3 +448,20 @@ def test_a_deploy_without_aot_imports_nothing_of_it(tmp_path):
         [sys.executable, "-c", probe], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
     )
     assert run.returncode == 0, run.stdout + run.stderr
+
+
+def test_importing_the_analysis_package_loads_neither_torch_nor_jax():
+    """``predictionio_tpu_torch.analysis`` and its witnesses, imported and
+    a jit witness installed in a fresh interpreter: neither torch nor
+    jax (nor numpy, nor the JAX package) is loaded; the witness wraps
+    the torch its process loaded, and here there is none."""
+    probe = ("import sys\nimport predictionio_tpu_torch.analysis\n"
+             "from predictionio_tpu_torch.analysis import jit_witness, lock_witness, witness\n"
+             "w = jit_witness.JitWitness(); w.install(); w.uninstall()\n"
+             "assert w.report()['torchPatched'] is False\n"
+             "bad = [m for m in ('torch', 'jax', 'jaxlib', 'numpy', 'predictionio_tpu') if m in sys.modules]\n"
+             "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    run = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert run.returncode == 0, run.stdout + run.stderr
