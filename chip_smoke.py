@@ -34,15 +34,16 @@ fused-CE kernels run in ``pio train`` and in ``pio eval``
 (``RecallAtK(10)``).
 
 The workflow path (the JAX package's ``bench.py::_bench_workflow`` at the
-ML-20M shape): 20,000,000 ``rate`` events written into a columnar store,
+ML-20M shape, cut to half its ratings to hold the script's length):
+10,000,000 ``rate`` events written into a columnar store,
 ``pio train`` of the Recommendation engine (rank 64, 10 sweeps), 200,000
 new events through ``pio eventserver``'s bulk route, a second ``pio
 train`` that reads only the new segments and tail lines through the
 incremental training cache, ``pio deploy`` and ``pio app compact``.
 
-The serving path, on the workflow's store and its warm instance (138,931
-users x 27,077 items, rank 64): ``pio deploy`` per request against ``pio
-deploy --batching --pin-model --result-cache --coalesce --feedback`` under
+The serving path, on the workflow's store and its warm instance (69,965
+users x 13,563 items from its 10M ratings, rank 64): ``pio deploy`` per
+request against ``pio deploy --batching --pin-model --result-cache --coalesce --feedback`` under
 32 keep-alive clients, ``pio train --warm-start``, ``POST /reload`` under
 load and a degraded one, ``pio undeploy``, ``pio batchpredict``, reloads
 of an in-process ``QueryService``; and a ``--batching --pin-model``
@@ -128,8 +129,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    the largest and smallest batch the train gave it; and the same train
    with ``solver="cholesky"`` (0 launches), its sweep times printed and
    its factors within ``KNOB_RTOL``/``KNOB_ATOL`` of the kernel's.
-4b. multihost — after phase 4, beside it the child processes of (b) and
-   (c), joined after phase 5. (a) ``train_als(mesh=)`` of phase 4's
+4b. multihost — (a) with (d) (``phase_mh_group``), (b) and (c) in child
+   processes started with phase 6's once phase 8's cold train is in, and
+   joined with them before the fleets. (a) ``train_als(mesh=)`` of phase 4's
    ratings on ``MH_MESH`` over ``(cuda:0,)*8``: train RMSE within
    ``MH_RMSE_RTOL`` (relative) of phase 4's stored factors, the top-10 of
    64 users under the near-tie rule at ``MH_TIE_RTOL`` (the two sum in
@@ -163,8 +165,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    of such pairs and the recall of the others are printed beside it);
    64 queries; one steady training step runs under torch.profiler.
 6. quickstart — in a child process (``phase_quickstart_group``, with the grid,
-   the A/B fleet and the bandit loop of phase 14) started after phase 5
-   beside phase 7's and phase 12's children and joined before the fleets
+   the A/B fleet and the bandit loop of phase 14) started once phase 8's
+   cold train is in, beside phase 7's and phase 12's children and joined before the fleets
    of phase 13, so it runs beside the workflow's phases; in a temporary ``PIO_FS_BASEDIR``: ``console.main(["app",
    "new", ...])``; ``console.main(["import", ...])`` of the events' NDJSON
    file, timed; the counts set to 0, ``console.main(["train", ...])`` on
@@ -193,7 +195,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``TT_WIDE_LOSS_RTOL`` of the same epoch with ``fused_ce="off"``; one
    ``[tt-wide]`` line.
 8. workflow — in a temporary ``PIO_FS_BASEDIR`` with the columnar event
-   store: ``app new``; ``ml20m_shaped(20_000_000, seed=5)`` written through
+   store: ``app new``; ``ml20m_shaped(10_000_000, seed=5)`` written through
    ``PEvents.write_columns`` (timed); ``pio train`` cold, its ``gj_solve``
    launches held to the plan of a full read (``incremental=False``), the
    train RMSE below the mean rating's; ``pio eventserver --port 0`` as a
@@ -446,8 +448,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    path: ``pio train`` in one process, ``pio deploy`` in another, 64
    answers float64 numpy's top-10. ``[storage]`` lines.
 17. chaos — in two child processes (``phase_chaos``), joined before the
-   fleets: ``chaos-serve --aot`` from the end of phase 4, the others
-   beside the workflow's phases. The operator's drills
+   fleets: ``chaos-serve --aot`` from the end of phase 3, the others
+   with phase 6's children, beside the workflow's phases. The operator's drills
    through the port's console (``CHAOS_DRILLS``), every process each
    starts marked in its environment: ``chaos-ingest`` on sqlite (3
    SIGKILL cycles under retrying writers, the bulk stream, the drain);
@@ -613,12 +615,13 @@ TTQ_APP = "ttquickstart"
 TTQ_NNZ = 100_000
 TTQ_FACTORY = "predictionio_tpu.templates.twotower:engine_factory"
 
-#: the workflow path (bench.py::_bench_workflow at the ML-20M shape): the
+#: the workflow path (bench.py::_bench_workflow at the ML-20M shape, cut
+#: from 20M ratings to 10M to hold the script's length): the
 #: ratings written into a columnar store, ``pio train`` cold, new events
 #: through ``pio eventserver``'s bulk route, ``pio train`` warm (the
 #: incremental re-index), ``pio deploy`` and ``pio app compact``
 WF_APP = "wf"
-WF_NNZ = 20_000_000
+WF_NNZ = 10_000_000
 WF_RANK = 64
 WF_SWEEPS = 10
 WF_LAMBDA = 0.05
@@ -655,7 +658,7 @@ SRV_TT_CLIENTS = 8
 SRV_TT_REQUESTS = 50
 #: the app the batched deploy's feedback posts its ``predict`` events to,
 #: in the workflow's store: a fresh stream. In the workflow app's stream
-#: (20M events, client ids over many segments) a single insert with a
+#: (10M events, client ids over many segments) a single insert with a
 #: client id takes the exact id lookup, about 50 ms an event on the chip
 #: host (PR 8 run 1: 1,704 events in about 90 s)
 SRV_FEEDBACK_APP = "wf-feedback"
@@ -923,7 +926,7 @@ STG_CATCH_UP_TIMEOUT_S = 300.0
 
 #: [chaos]: the operator's drills through the port's console, in two
 #: child processes, joined before the fleets: serve-aot from the end of
-#: the ALS phase, the others beside the workflow's phases (in the order
+#: the kernels phase, the others beside the workflow's phases (in the order
 #: ingest, ingest-partitioned, fleet, serve-sharded); each at its
 #: defaults but where it says: chaos-ingest on sqlite (3 kill cycles); the kill-one-partition
 #: and kill-a-replica drill on a columnar store of 4 partitions x 2
@@ -1580,17 +1583,23 @@ class Transfers(TorchDispatchMode):
         return out
 
 
+def ratings_training_data(rows, cols, vals, num_users: int, num_items: int) -> TrainingData:
+    """The Recommendation template's training data for COO ratings whose
+    users and items are named by their indices."""
+    return TrainingData(
+        rows=rows, cols=cols, vals=vals,
+        user_index=BiMap.string_index(str(i) for i in range(num_users)),
+        item_index=BiMap.string_index(str(i) for i in range(num_items)),
+    )
+
+
 def phase_train(device, nnz: int, sweeps: int, rank: int, label: str = "train", data: tuple | None = None) -> dict:
     """``run_train`` of the ALS arrays engine on the card into the current
     store, with the train RMSE after every sweep (``[label]`` lines), on
     ``data`` (rows, cols, vals, users, items) or ``ml20m_shaped(nnz)``."""
     t0 = time.perf_counter()
     rows, cols, vals, num_users, num_items = ml20m_shaped(nnz, seed=5) if data is None else data
-    td = TrainingData(
-        rows=rows, cols=cols, vals=vals,
-        user_index=BiMap.string_index(str(i) for i in range(num_users)),
-        item_index=BiMap.string_index(str(i) for i in range(num_items)),
-    )
+    td = ratings_training_data(rows, cols, vals, num_users, num_items)
     log(f"[{label}] data: {num_users} users x {num_items} items, {rows.size} ratings "
         f"({time.perf_counter() - t0:.3f} s)")
     cfg = ALSConfig(rank=rank)
@@ -2143,6 +2152,12 @@ def start_console_server(label: str, base: Path, argv: list, err_path: Path, tim
     127.0.0.1 --port 0`` as a subprocess (``PYTHONPATH`` the repo root,
     the store of ``os.environ`` at ``base``, stderr to ``err_path``);
     returns the process and the port it printed as ``Bound port N``."""
+    return bound_console_server(*spawn_console_server(label, base, argv, err_path), timeout_s)
+
+
+def spawn_console_server(label: str, base: Path, argv: list, err_path: Path) -> tuple:
+    """:func:`start_console_server` up to the spawn, so that several servers
+    start at once; :func:`bound_console_server` waits for one's port."""
     root = str(Path(__file__).resolve().parent)
     env = dict(os.environ, PIO_FS_BASEDIR=str(base),
                PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p))
@@ -2159,6 +2174,12 @@ def start_console_server(label: str, base: Path, argv: list, err_path: Path, tim
         lines.put(None)
 
     threading.Thread(target=pump, daemon=True).start()
+    return label, argv, err_path, proc, lines
+
+
+def bound_console_server(label: str, argv: list, err_path: Path, proc, lines: "queue.Queue",
+                         timeout_s: float) -> tuple:
+    """The process of :func:`spawn_console_server` and the port it bound."""
     try:
         bound = _await_line(lines, "Bound port", timeout_s)
     except RuntimeError as e:
@@ -2569,7 +2590,8 @@ class RecordHandler(logging.Handler):
         self.messages.append(record.getMessage())
 
 
-def phase_workflow(device, nnz: int, bulk: dict, n_queries: int, k: int, smi: str, then=None) -> dict:
+def phase_workflow(device, nnz: int, bulk: dict, n_queries: int, k: int, smi: str, then=None,
+                   after_cold=None) -> dict:
     """``bench.py::_bench_workflow`` through the port's verbs, in a
     temporary columnar store: ``app new``; ``nnz`` ML-20M-shaped ``rate``
     events through ``PEvents.write_columns``; ``pio train`` cold; ``pio
@@ -2580,7 +2602,8 @@ def phase_workflow(device, nnz: int, bulk: dict, n_queries: int, k: int, smi: st
     ``pio deploy`` of the warm instance with queries of stored and of new
     users held to float64 numpy; ``pio app compact``, after which a full
     read is unchanged. Each train's ``gj_solve`` launches must equal the
-    plan of the TrainingData a full read gives. ``then(ctx)``, when
+    plan of the TrainingData a full read gives. ``after_cold()``, when
+    given, runs once the cold train is checked; ``then(ctx)``, when
     given, runs last in the store (the serving phase); its result is the
     output's ``"serving"``."""
     from predictionio_tpu_torch.templates.recommendation.engine import (
@@ -2672,6 +2695,8 @@ def phase_workflow(device, nnz: int, bulk: dict, n_queries: int, k: int, smi: st
         log(f"[workflow] cold train: read {cold['read_s']:.3f} s, train:als {cold['train_als_s']:.3f} s, "
             f"wall {cold['wall_s']:.3f} s, {cold['launches']} gj_solve launches (plan {cold_plan}), "
             f"rmse {rmse:.6f} (mean rating's {mean_rmse:.6f})")
+        if after_cold is not None:
+            after_cold()
 
         # 3. pio eventserver: the bulk delta, a retransmit, single events
         delta = bulk_delta(rows, cols, num_users, num_items, bulk, seed=21)
@@ -6106,21 +6131,176 @@ def phase_tooling(device, smi: str) -> dict:
             }
         out["tsan"] = tsan
         out["lint"] = tsan["batchpredict"]["lint"]
+    out["entry"] = tooling_entry(device, smi)
+    out["dryrun"] = tooling_dryrun(device, smi)
+    out["launchers"] = tooling_launchers(device, smi)
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[tooling] {json.dumps(out)}")
     return out
 
 
-def start_child(name: str, device, smi: str, *args: int, env: dict | None = None, nice: int = 0) -> tuple:
+#: [entry]: the forward's calls timed after a warm-up; [dryrun]: the mesh's
+#: positions (every one the card)
+ENTRY_CALLS = 20
+DRYRUN_POSITIONS = 8
+
+
+def tooling_entry(device, smi: str) -> dict:
+    """[entry]: ``__graft_entry_torch__.entry()`` on ``device`` (the card by
+    default): its outputs' device, its top-10 ids against a float64 numpy
+    top-10 of the same arrays (near-tie rule, relative 1e-5), and the
+    forward's p50 over ``ENTRY_CALLS`` calls after a warm-up (CUDA events
+    a call; the host's clock on the CPU)."""
+    import __graft_entry_torch__ as graft
+
+    forward, args = graft.entry() if device.type == "cuda" else graft.entry(device)
+    ids, values = forward(*args)
+    if ids.device.type != device.type or values.device.type != device.type:
+        raise RuntimeError(f"entry: outputs on {ids.device} / {values.device}, not {device.type}")
+    U64, V64 = (a.double().cpu().numpy() for a in args[:2])
+    users = args[2].cpu().numpy()
+    got = ids.cpu().numpy()
+    bad = [n for n, u in enumerate(users.tolist())
+           if not check_ranking(got[n].tolist(), *reference_top(U64, V64, u, got.shape[1]))]
+    if bad or not np.isfinite(values.cpu().numpy()).all():
+        raise RuntimeError(f"entry: rows {bad} are not float64's top-{got.shape[1]}")
+    times = []
+    for n in range(ENTRY_CALLS + 1):
+        if device.type == "cuda":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            forward(*args)
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+        else:
+            t0 = time.perf_counter()
+            forward(*args)
+            ms = (time.perf_counter() - t0) * 1e3
+        if n:  # the first call is the warm-up
+            times.append(ms)
+    out = {"device": str(ids.device), "ids": list(got.shape), "rows_checked": len(users),
+           "p50_ms": float(np.percentile(times, 50)), "calls": ENTRY_CALLS, "card": smi}
+    log(f"[entry] {json.dumps(out)}")
+    return out
+
+
+def tooling_dryrun(device, smi: str) -> dict:
+    """[dryrun]: ``__graft_entry_torch__.dryrun_multichip(DRYRUN_POSITIONS)``
+    on that many positions of ``device``, a ``(4, 2)`` mesh: its shape and
+    finiteness checks, the ``gj_solve`` launches against the mesh plan of
+    both objectives' sweep with every solve at K = 16, no fused-CE launch
+    (the mesh's Two-Tower epoch takes the unfused loss), its seconds."""
+    import __graft_entry_torch__ as graft
+
+    rows, cols, _, num_users, num_items = graft.dryrun_ratings()
+    cfg = ALSConfig(**graft.DRYRUN_ALS)
+    data = DRYRUN_POSITIONS // 2
+    plan = 2 * cfg.iterations * (planned_solves(rows, num_users, cfg, data=data)
+                                 + planned_solves(cols, num_items, cfg, data=data))
+    shapes: list = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with recorded_solves(shapes):
+        got = graft.dryrun_multichip(DRYRUN_POSITIONS) if device.type == "cuda" else \
+            graft.dryrun_multichip(DRYRUN_POSITIONS, device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    launches = read_launch_counts()
+    widths = sorted({k for _, k in shapes})
+    if got["mesh"] != {"data": data, "model": 2} or widths != [cfg.rank] or len(shapes) != plan:
+        raise RuntimeError(f"dryrun: mesh {got['mesh']}, {len(shapes)} solves at widths {widths}, plan {plan}")
+    if device.type == "cuda":
+        check_launches("dryrun", {"gj_solve": launches["gj_solve"]}, {"gj_solve": plan})
+        if launches["fused_ce_fwd"] or launches["fused_ce_bwd"]:
+            raise RuntimeError(f"dryrun: the mesh's Two-Tower epoch launched fused CE {launches}")
+    out = {"mesh": got["mesh"], "positions": DRYRUN_POSITIONS, "plan": plan, "solves": len(shapes),
+           "gj_solve_launches": launches["gj_solve"], "solve_widths": widths,
+           "fused_ce_launches": launches["fused_ce_fwd"] + launches["fused_ce_bwd"], "seconds": seconds,
+           "card": smi}
+    log(f"[dryrun] {json.dumps(out)}")
+    return out
+
+
+def process_gone(pid: int) -> bool:
+    """The process has exited (a zombie not yet reaped counts as exited)."""
+    try:
+        return Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()[0] == "Z"
+    except (FileNotFoundError, ProcessLookupError, IndexError):
+        return True
+
+
+def tooling_launchers(device, smi: str) -> dict:
+    """[launchers]: ``bin/pio-torch version`` is the port's version;
+    ``bin/pio-torch-daemon`` starts the port's event server on a free port
+    in a temporary store, one event is POSTed and read back, and
+    ``bin/pio-stop-all`` stops it, leaving no process behind."""
+    from predictionio_tpu_torch import __version__
+
+    root = Path(__file__).resolve().parent
+    t_phase = time.perf_counter()
+    with temporary_store("pio-launchers-") as base:
+        env = dict(os.environ, PIO_FS_BASEDIR=str(base), PIO_RUN_DIR=str(base / "run"))
+
+        def bin_run(*argv: str) -> str:
+            proc = subprocess.run([str(root / "bin" / argv[0]), *argv[1:]], env=env, capture_output=True,
+                                  text=True, timeout=120, cwd=root)
+            if proc.returncode != 0:
+                raise RuntimeError(f"launchers: bin/{' '.join(argv)} exited {proc.returncode}: {proc.stderr[-2000:]}")
+            return proc.stdout
+
+        version = bin_run("pio-torch", "version").strip()
+        if version != __version__:
+            raise RuntimeError(f"launchers: bin/pio-torch version printed {version!r}, the port's is {__version__}")
+        key = re.search(r"Access Key: (\S+)", bin_run("pio-torch", "app", "new", "launchers")).group(1)
+        pidfile = base / "run" / "eventserver.pid"
+        t0 = time.perf_counter()
+        bin_run("pio-torch-daemon", str(pidfile), "eventserver", "--ip", "127.0.0.1", "--port", "0",
+                "--drain-deadline-s", "5")
+        pid = int(pidfile.read_text())
+        log_path, found = base / "logs" / "pio-eventserver.log", None
+        while found is None and time.perf_counter() - t0 < 120:
+            time.sleep(0.1)
+            found = re.search(r"Bound port (\d+)", log_path.read_text() if log_path.exists() else "")
+        if found is None:
+            raise RuntimeError(f"launchers: the daemon's event server printed no port: {log_path.read_text()[-2000:]}")
+        start_s = time.perf_counter() - t0
+        url = f"http://127.0.0.1:{found.group(1)}"
+        event = {"event": "rate", "entityType": "user", "entityId": "u1", "targetEntityType": "item",
+                 "targetEntityId": "i1", "properties": {"rating": 4.5},
+                 "eventTime": "2024-01-02T03:04:05.000+00:00"}
+        status, created = _http_json(f"{url}/events.json?accessKey={key}", event)
+        _, found = _http_json(f"{url}/events.json?accessKey={key}&entityType=user&entityId=u1")
+        if status != 201 or [e["eventId"] for e in found] != [created["eventId"]] or \
+                {k: found[0][k] for k in event} != event:
+            raise RuntimeError(f"launchers: POST {status} {created}, read back {found}")
+        t0 = time.perf_counter()
+        stopped = bin_run("pio-stop-all")
+        while not process_gone(pid) and time.perf_counter() - t0 < 30:
+            time.sleep(0.1)
+        stop_s = time.perf_counter() - t0
+        if f"Stopped eventserver (pid {pid})" not in stopped or not process_gone(pid) or pidfile.exists():
+            raise RuntimeError(f"launchers: bin/pio-stop-all left pid {pid}: {stopped}")
+    out = {"version": version, "daemon_start_s": start_s, "event_round_trip": True, "stop_s": stop_s,
+           "left_running": 0, "phase_s": time.perf_counter() - t_phase, "card": smi}
+    log(f"[launchers] {json.dumps(out)}")
+    return out
+
+
+def start_child(name: str, device, smi: str, *args: int, env: dict | None = None, nice: int = 0,
+                environ: dict | None = None) -> tuple:
     """Start the phase function ``name`` in a child process, so that it
     runs beside the phases that follow: its own stores, CUDA context and
     launch counts (its launch checks run there), with ``env`` added to its
     environment and ``nice`` to its niceness (and so to every process it
     starts). Its lines go to a file that :func:`join_child` prints.
-    Returns the name, the process and its directory."""
+    ``environ`` replaces ``os.environ`` as the environment ``env`` is
+    added to (a child started inside a ``temporary_store`` block must not
+    inherit that store). Returns the name, the process and its directory."""
     root = str(Path(__file__).resolve().parent)
     workdir = Path(tempfile.mkdtemp(prefix=f"pio-{name}-"))
-    env = dict(os.environ, **(env or {}),
+    env = dict(os.environ if environ is None else environ, **(env or {}),
                PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p))
     with open(workdir / "out.log", "w") as out, open(workdir / "err.log", "w") as err:
         proc = subprocess.Popen(
@@ -7564,12 +7744,16 @@ def aot_deploys_ab(label: str, ctx: dict, user_index, picks: np.ndarray, clients
     base, engine_json, dev_args = ctx["base"], ctx["engine_json"], ctx["dev_args"]
     procs: dict = {}
     try:
-        starts, urls = {}, {}
+        # both start at once: they serve side by side anyway
+        starts, urls, spawned = {}, {}, {}
+        t0 = time.perf_counter()
         for name, extra in (("plain", ["--pin-model"]), ("aot", ["--aot"])):
-            t0 = time.perf_counter()
-            procs[name], port = start_console_server(
-                label, base, ["deploy", "--engine-json", str(engine_json), *dev_args, *extra],
-                base / f"deploy-{label}-{name}.stderr", QS_DEPLOY_TIMEOUT_S)
+            spawned[name] = spawn_console_server(label, base, ["deploy", "--engine-json", str(engine_json),
+                                                               *dev_args, *extra],
+                                                 base / f"deploy-{label}-{name}.stderr")
+            procs[name] = spawned[name][3]
+        for name, started in spawned.items():
+            _, port = bound_console_server(*started, QS_DEPLOY_TIMEOUT_S)
             starts[name] = time.perf_counter() - t0
             urls[name] = f"http://127.0.0.1:{port}"
         _, booted = _http_json(urls["aot"] + "/stats.json")
@@ -8028,7 +8212,8 @@ def phase_mh_mesh(device, trained: dict, smi: str) -> dict:
     reset_launch_counts()
     t0 = time.perf_counter()
     factors = train_als(rows, cols, vals, num_users, num_items, cfg, mesh=mesh, on_sweep=on_sweep)
-    torch.cuda.synchronize(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
     mesh_s = time.perf_counter() - t0
     launches = read_launch_counts()
     if device.type == "cuda":
@@ -8304,17 +8489,45 @@ def phase_mh_cli(device, smi: str) -> dict:
         return out
 
 
-def start_multihost(device, trained: dict, smi: str, workdir: Path) -> list:
-    """Start (b)'s two ranks and its one-rank NCCL group (on a card), and
-    (c), as child processes; returns them for :func:`join_multihost`."""
+def phase_mh_group(device, smi: str, nnz: int, sweeps: int, rank: int) -> dict:
+    """(a) and the Two-Tower mesh (:func:`phase_mh_mesh`, :func:`phase_mh_tt`)
+    in a child process beside the workflow's phases: the ALS phase's ratings made again from their
+    seed at the parent's ``NNZ``, ``SWEEPS`` and ``RANK`` (given, as a
+    child starts from this module's defaults), its single-device factors
+    and seconds read from ``$PIO_MH_SINGLE`` (the parent writes them)."""
+    from types import SimpleNamespace
+
+    global NNZ, SWEEPS, RANK
+    NNZ, SWEEPS, RANK = nnz, sweeps, rank
+    rows, cols, vals, num_users, num_items = ml20m_shaped(NNZ, seed=5)
+    with np.load(os.environ["PIO_MH_SINGLE"]) as z:
+        trained = {"td": ratings_training_data(rows, cols, vals, num_users, num_items),
+                   "model": SimpleNamespace(user_factors=z["user"], item_factors=z["item"]),
+                   "train_s": float(z["train_s"])}
+    return {"mesh": phase_mh_mesh(device, trained, smi), "tt": phase_mh_tt(device, smi)}
+
+
+def start_multihost(device, trained: dict, smi: str, workdir: Path, environ: dict | None = None) -> list:
+    """Start (b)'s two ranks and its one-rank NCCL group (on a card), (c),
+    and (a) with the Two-Tower mesh (:func:`phase_mh_group`) as child
+    processes at ``CHILD_NICE`` (joined with the other children before
+    the fleets), in ``environ`` (:func:`start_child`); returns them for
+    :func:`join_multihost`."""
     port = free_port()
     factors = workdir / "rank0.npz"
+    single = workdir / "single.npz"
+    np.savez(single, user=trained["model"].user_factors, item=trained["model"].item_factors,
+             train_s=trained["train_s"])
     children = [start_child("phase_mh_rank", device, smi, NNZ, SWEEPS, RANK,
-                            env=triplet_env(port, MH_RANKS, r, PIO_MH_FACTORS=str(factors)))
+                            env=triplet_env(port, MH_RANKS, r, PIO_MH_FACTORS=str(factors)), nice=CHILD_NICE,
+                            environ=environ)
                 for r in range(MH_RANKS)]
-    children.append(start_child("phase_mh_cli", device, smi))
+    children.append(start_child("phase_mh_cli", device, smi, nice=CHILD_NICE, environ=environ))
     if device.type == "cuda":
-        children.append(start_child("phase_mh_nccl", device, smi, env=triplet_env(free_port(), 1, 0)))
+        children.append(start_child("phase_mh_nccl", device, smi, env=triplet_env(free_port(), 1, 0),
+                                    nice=CHILD_NICE, environ=environ))
+    children.append(start_child("phase_mh_group", device, smi, NNZ, SWEEPS, RANK, env={"PIO_MH_SINGLE": str(single)},
+                                nice=CHILD_NICE, environ=environ))
     return children
 
 
@@ -8324,8 +8537,8 @@ def join_multihost(children: list, trained: dict, device, workdir: Path) -> dict
     from predictionio_tpu_torch.parallel import distributed
 
     results = [join_child(*child, MH_CHILD_TIMEOUT_S) for child in children]
-    ranks, cli = results[:MH_RANKS], results[MH_RANKS]
-    nccl = results[MH_RANKS + 1] if len(results) > MH_RANKS + 1 else {"backend": "not run on the CPU"}
+    ranks, cli, group = results[:MH_RANKS], results[MH_RANKS], results[-1]
+    nccl = results[MH_RANKS + 1] if len(results) > MH_RANKS + 2 else {"backend": "not run on the CPU"}
     if any(r["backend"] != "gloo" for r in ranks):
         raise RuntimeError(f"multihost: two ranks on one card ran {[r['backend'] for r in ranks]}, not gloo")
     with np.load(workdir / "rank0.npz") as z:
@@ -8338,7 +8551,8 @@ def join_multihost(children: list, trained: dict, device, workdir: Path) -> dict
         refused = str(exc)
     else:
         raise RuntimeError("multihost: an NCCL request on a shared card was not refused")
-    out = {"ranks": ranks, "rank0": held, "nccl": nccl, "nccl_on_shared_card": refused, "cli": cli}
+    out = {"ranks": ranks, "rank0": held, "nccl": nccl, "nccl_on_shared_card": refused, "cli": cli,
+           "mesh": group["mesh"], "tt": group["tt"]}
     log(f"[multihost] ranks {json.dumps({'rank0': held, 'backend': [r['backend'] for r in ranks], 'traffic': [r['traffic'] for r in ranks], 'received_over_owned': [r['received_over_owned'] for r in ranks], 'nccl_on_shared_card': refused})}")
     return out
 
@@ -8378,6 +8592,12 @@ def main() -> int:
     phase_solve_widths(device)
     fused_rows = phase_fused_kernel(device, info["exp_per_s"])
     mark("kernels")
+    # [chaos]: the AOT serving drill in a child from here, once the kernels
+    # are built and timed: its chaos-serve --aot has 360 s for its pio train
+    # --aot, whose export spawns a compile process a core but one, and it
+    # exports beside the main path alone until the other children start
+    # (below). The other four drills start with those children
+    chaos_children = [start_child("phase_chaos", device, info["smi"], 3, nice=CHAOS_NICE)]
 
     # the Recommendation path
     with temporary_store("pio-als-"):
@@ -8391,18 +8611,7 @@ def main() -> int:
     mark("als")
     als_wide, wide_launches = phase_als_wide(device, trained, info)
     mark("als-wide")
-    # [chaos]: the AOT serving drill (its export takes the most) in a
-    # child from here, the other four with the other children below
-    chaos_children = [start_child("phase_chaos", device, info["smi"], 3, nice=CHAOS_NICE)]
-
-    # the training mesh and the multi-process tier: (b) the two ranks and
-    # the NCCL group, and (c) the CLI's processes, as child processes
-    # beside (a), (d) and the Two-Tower path; joined after it
     mh_dir = Path(tempfile.mkdtemp(prefix="pio-mh-"))
-    mh_children = start_multihost(device, trained, info["smi"], mh_dir)
-    mh_mesh = phase_mh_mesh(device, trained, info["smi"])
-    mh_tt = phase_mh_tt(device, info["smi"])
-    mark("multihost in process")
 
     # the Two-Tower path
     with temporary_store("pio-tt-"):
@@ -8413,22 +8622,32 @@ def main() -> int:
         tt_served = phase_tt_serve(tt_trained, device, QUERIES, TOP_K, info["kind"])
     tt_profile = phase_tt_profile(tt_trained, device)
     mark("two-tower")
-    mh_procs = join_multihost(mh_children, trained, device, mh_dir)
-    shutil.rmtree(mh_dir, ignore_errors=True)
-    mark("waiting for the multihost child processes")
 
     # the quickstart paths with the grid, the A/B fleet and the bandit
     # loop, the Two-Tower quickstart with its serving tiers and AOT serving,
-    # and the four other templates run in child processes beside the
-    # workflow's phases (their own stores and launch counts); joined
-    # before the fleets count the console processes on the host
-    children = [start_child("phase_quickstart_group", device, info["smi"], nice=CHILD_NICE),
-                start_child("phase_tt_group", device, info["smi"], nice=CHILD_NICE),
-                start_child("phase_templates", device, info["smi"], TPL_NNZ, TPL_CLS_USERS, TPL_TEXT_DOCS, QUERIES,
-                            nice=CHILD_NICE)]
-    storage_child = start_child("phase_storage", device, info["smi"], nice=CHILD_NICE)
-    tooling_child = start_child("phase_tooling", device, info["smi"], nice=CHILD_NICE)
-    chaos_children.append(start_child("phase_chaos", device, info["smi"], 0, 1, 4, 2, nice=CHAOS_NICE))
+    # the four other templates, [storage], [tooling], the training mesh and
+    # the multi-process tier ((a) the mesh with the Two-Tower mesh, (b) the
+    # two ranks and the NCCL group, (c) the CLI's processes) and the other
+    # four drills run in child processes beside the workflow's phases (their
+    # own stores and launch counts), started once its cold train is in: till
+    # then [chaos]'s AOT drill exports beside the main path alone. Started
+    # inside the workflow's store, they get the environment from before it.
+    # Joined before the fleets count the console processes on the host
+    started: dict = {}
+    outside = dict(os.environ)
+
+    def start_children() -> None:
+        started["groups"] = [
+            start_child("phase_quickstart_group", device, info["smi"], nice=CHILD_NICE, environ=outside),
+            start_child("phase_tt_group", device, info["smi"], nice=CHILD_NICE, environ=outside),
+            start_child("phase_templates", device, info["smi"], TPL_NNZ, TPL_CLS_USERS, TPL_TEXT_DOCS, QUERIES,
+                        nice=CHILD_NICE, environ=outside)]
+        started["storage"] = start_child("phase_storage", device, info["smi"], nice=CHILD_NICE, environ=outside)
+        started["tooling"] = start_child("phase_tooling", device, info["smi"], nice=CHILD_NICE, environ=outside)
+        chaos_children.append(start_child("phase_chaos", device, info["smi"], 0, 1, 4, 2, nice=CHAOS_NICE,
+                                          environ=outside))
+        started["multihost"] = start_multihost(device, trained, info["smi"], mh_dir, environ=outside)
+
     joined: list = []
 
     # the serving tier, online learning, retrieval, the fleet and the
@@ -8444,11 +8663,13 @@ def main() -> int:
         mark("ann")
         shd = phase_sharded_service(device, ctx, info["smi"])
         mark("sharded")
-        joined.extend(join_child(*child, CHILD_TIMEOUT_S) for child in children)
-        joined.append(join_child(*storage_child, STG_CHILD_TIMEOUT_S))
-        joined.append(join_child(*tooling_child, TOOL_CHILD_TIMEOUT_S))
-        mark("waiting for the quickstart's, the Two-Tower's, the templates', the storage and the tooling child "
-             "processes")
+        joined.extend(join_child(*child, CHILD_TIMEOUT_S) for child in started["groups"])
+        joined.append(join_child(*started["storage"], STG_CHILD_TIMEOUT_S))
+        joined.append(join_child(*started["tooling"], TOOL_CHILD_TIMEOUT_S))
+        joined.append(join_multihost(started["multihost"], trained, device, mh_dir))
+        shutil.rmtree(mh_dir, ignore_errors=True)
+        mark("waiting for the quickstart's, the Two-Tower's, the templates', the storage, the tooling and the "
+             "multihost child processes")
         chaos_joined = [join_child(*child, CHAOS_CHILD_TIMEOUT_S) for child in chaos_children]
         joined.append({"drills": {k: v for c in chaos_joined for k, v in c["drills"].items()},
                        "train": next(c["train"] for c in chaos_joined if "train" in c),
@@ -8467,14 +8688,16 @@ def main() -> int:
         mark("aot, the sweeps beside its export")
         return srv, onl, ann, shd, flt, exp, aot
 
-    wf = phase_workflow(device, WF_NNZ, WF_BULK, QUERIES, TOP_K, info["smi"], then=on_workflow)
+    wf = phase_workflow(device, WF_NNZ, WF_BULK, QUERIES, TOP_K, info["smi"], then=on_workflow,
+                        after_cold=start_children)
     srv, onl, ann, shd, flt, exp, aot = wf["serving"]
     online_launches = onl["in_process"]["launches"]
     if any(online_launches.values()):
         raise RuntimeError(f"online: the fold launched kernels {online_launches}; its path has none")
     log(f"[ann] launches on the deploys' and in-process path: {json.dumps(ann['launches'])}; [sharded] on the "
         f"services' path: {json.dumps(shd['launches'])}")
-    quickstart, ttq, tpl, stg, tooling, chaos_out, sweeps = joined
+    quickstart, ttq, tpl, stg, tooling, mh_procs, chaos_out, sweeps = joined
+    mh_mesh, mh_tt = mh_procs["mesh"], mh_procs["tt"]
     qs, loop = quickstart["qs"], quickstart["loop"]
     grid, fleet_ab = qs["then"]
     tt_srv, tt_onl, tt_ann, tt_shd, tt_aot = ttq["serving"]
@@ -8661,6 +8884,10 @@ def main() -> int:
                 "byte_equal", "transfers", "transfer_bytes", "violations", "wall_s_plain", "command_s_witnessed")},
             "tsan": {label: {key: run[key] for key in ("edges", "inversions", "gaps", "unwaived_cycles", "wall_s")}
                      for label, run in tooling["tsan"].items()},
+            "entry": {key: tooling["entry"][key] for key in ("device", "p50_ms")},
+            "dryrun": {key: tooling["dryrun"][key] for key in (
+                "mesh", "plan", "gj_solve_launches", "solve_widths", "fused_ce_launches", "seconds")},
+            "launchers": {key: tooling["launchers"][key] for key in ("daemon_start_s", "stop_s", "phase_s")},
             "phase_s": tooling["phase_s"],
         },
         "tt_wide": {key: ttq["wide"][key] for key in (

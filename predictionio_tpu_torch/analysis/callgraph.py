@@ -67,6 +67,10 @@ _UBIQUITOUS_METHODS = frozenset(
     }
 )
 
+#: the port's package: the only code whose ``getattr``-named classes the
+#: graph resolves (:meth:`_Resolver._local_types`)
+_PORT_PACKAGE = "predictionio_tpu_torch."
+
 #: may-call alternatives a duck-typed dispatch fans out to before the
 #: resolver gives up as too ambiguous. Sized to the deepest real
 #: wrapper stack: five storage classes define ``tail_follow`` (columnar
@@ -522,16 +526,23 @@ class _Resolver:
 
     def _local_types(
         self, ctx: FileContext, fi: FunctionInfo
-    ) -> tuple[dict[str, str], dict[str, str]]:
-        """-> (name -> class qname, name -> aliased self attr) for one
-        function body: annotated params and constructor assignments in
-        the first map; bare ``svc = self.service`` aliases in the second
-        — so a method call through the alias resolves exactly like the
-        ``self.service.method()`` spelling (the alias idiom otherwise
-        hid whole call chains, and with them their lock edges, from the
-        static graph)."""
+    ) -> tuple[dict[str, str], dict[str, str], dict[str, tuple[str, ...]]]:
+        """-> (name -> class qname, name -> aliased self attr, name ->
+        class qnames) for one function body: annotated params and
+        constructor assignments in the first map; bare ``svc =
+        self.service`` aliases in the second — so a method call through
+        the alias resolves exactly like the ``self.service.method()``
+        spelling (the alias idiom otherwise hid whole call chains, and
+        with them their lock edges, from the static graph). The third,
+        under ``predictionio_tpu_torch/`` only (elsewhere the graph is the
+        reference's): ``cls = getattr(module, "StorageClient", None)``, a
+        class looked up by a constant name, which may be any of the port's
+        classes of that name — the storage registry builds its drivers
+        so, under its lock, and the lock witness saw that order."""
         out: dict[str, str] = {}
         aliases: dict[str, str] = {}
+        classes: dict[str, tuple[str, ...]] = {}
+        in_port = fi.module.startswith(_PORT_PACKAGE)
         node = fi.node
         assert isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef))
         for a in (*node.args.posonlyargs, *node.args.args, *node.args.kwonlyargs):
@@ -542,6 +553,13 @@ class _Resolver:
                 out[a.arg] = tq
         for sub in ast.walk(node):
             if not isinstance(sub, ast.Assign):
+                continue
+            named = _getattr_constant(sub.value) if in_port else None
+            if named is not None:
+                port = tuple(cq for cq in self.graph.class_short.get(named, ()) if cq.startswith(_PORT_PACKAGE))
+                for t in sub.targets:
+                    if port and isinstance(t, ast.Name):
+                        classes.setdefault(t.id, port)
                 continue
             if isinstance(sub.value, ast.Call):
                 tq = self._class_qname_for(ctx, _dotted(sub.value.func))
@@ -555,7 +573,7 @@ class _Resolver:
                 for t in sub.targets:
                     if isinstance(t, ast.Name):
                         aliases.setdefault(t.id, battr)
-        return out, aliases
+        return out, aliases, classes
 
     def _resolve_call(
         self,
@@ -564,10 +582,16 @@ class _Resolver:
         call: ast.Call,
         local_types: dict[str, str],
         local_aliases: dict[str, str] | None = None,
+        local_classes: dict[str, tuple[str, ...]] | None = None,
     ) -> tuple[tuple[str, ...], str | None]:
         """-> (internal callee qnames, external dotted name)."""
         local_aliases = local_aliases or {}
         func = call.func
+        if isinstance(func, ast.Name) and local_classes and func.id in local_classes:
+            # cls(config) after cls = getattr(module, "Name"): the
+            # constructor of each of the port's classes of that name
+            inits = (self.graph.resolve_method(cq, "__init__") for cq in local_classes[func.id])
+            return tuple(i for i in inits if i), None
         # self.method()
         attr = _self_attr(func)
         if attr is not None and fi.cls is not None:
@@ -673,7 +697,7 @@ class _Resolver:
         return (), None
 
     def _resolve_function(self, ctx: FileContext, fi: FunctionInfo) -> None:
-        local_types, local_aliases = self._local_types(ctx, fi)
+        local_types, local_aliases, local_classes = self._local_types(ctx, fi)
 
         def walk(node: ast.AST, held: tuple[str, ...], anon: int) -> None:
             #: locks taken by an explicit `X.acquire()` STATEMENT among
@@ -763,7 +787,7 @@ class _Resolver:
                         child_anon = anon + anon_acquired
                 if isinstance(child, ast.Call):
                     callees, external = self._resolve_call(
-                        ctx, fi, child, local_types, local_aliases
+                        ctx, fi, child, local_types, local_aliases, local_classes
                     )
                     if callees or external:
                         fi.calls.append(
@@ -781,6 +805,20 @@ class _Resolver:
                 walk(child, child_held, child_anon)
 
         walk(fi.node, (), 0)
+
+
+def _getattr_constant(node: ast.AST) -> str | None:
+    """``"Name"`` of a ``getattr(obj, "Name"[, default])`` call, else None."""
+    if (
+        isinstance(node, ast.Call)
+        and isinstance(node.func, ast.Name)
+        and node.func.id == "getattr"
+        and len(node.args) >= 2
+        and isinstance(node.args[1], ast.Constant)
+        and isinstance(node.args[1].value, str)
+    ):
+        return node.args[1].value
+    return None
 
 
 def _looks_like_lock(item: ast.withitem) -> bool:

@@ -24,7 +24,10 @@ Three pieces:
 * :class:`ChunkResult` — the per-chunk status record (stored/duplicate/
   invalid counts, capped per-line error and duplicate offsets).
 
-Used by ``pio import`` (``tools/commands.py``). Layering: data-layer
+Used by ``pio import`` (``tools/commands.py``) and by the event
+server's bulk route, ``POST /events/bulk.json``
+(``api/service.py``: ``EventService._bulk_lines`` streams the request
+body through an :class:`IngestPipeline`). Layering: data-layer
 only — this module imports nothing of tools or serving.
 """
 

@@ -162,6 +162,7 @@ class _Registry:
                     raise StorageError(
                         f"Driver module '{module_name}' defines no StorageClient"
                     )
+                # piolint: waive=PIO211 -- one build a source, under the registry lock: two threads building one store would sweep its directory twice at once; the fsyncs are that recovery sweep's, once a process
                 client = cls(config)
                 self._clients[cache_key] = client
             return client

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: no module of ``predictionio_tpu_torch/``
-and neither ``chip_smoke.py``, ``gj_solve_split.py`` nor the arrays engine
-they share with the tests (``tests/torch_arrays_engine.py``) imports ``jax`` or anything of the JAX package
+and neither ``chip_smoke.py``, ``gj_solve_split.py``, the graft entry
+points (``__graft_entry_torch__.py``), the port's pytest witness plugin
+(``tests/torch_witness_plugin.py``) nor the arrays engine they share
+with the tests (``tests/torch_arrays_engine.py``) imports ``jax`` or anything of the JAX package
 ``predictionio_tpu``, and importing every module of the port leaves
 ``jax`` out of ``sys.modules``. The event data plane (the columnar store,
 the event server, the data verbs) starts without torch as well, and the
@@ -34,7 +36,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "predictionio_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "gj_solve_split.py", ROOT / "tests" / "torch_arrays_engine.py"
+    ROOT / "chip_smoke.py", ROOT / "gj_solve_split.py", ROOT / "tests" / "torch_arrays_engine.py",
+    ROOT / "__graft_entry_torch__.py", ROOT / "tests" / "torch_witness_plugin.py",
 ]
 
 
@@ -83,7 +86,7 @@ def test_importing_the_port_loads_no_jax():
     probe = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, __graft_entry_torch__\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'predictionio_tpu'))\n"
         "print(len(sys.modules)); assert not bad, bad\n"
     )
